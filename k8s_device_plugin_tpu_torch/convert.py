@@ -1,4 +1,4 @@
-"""Flax parameter tree -> the port's state dict.
+"""Flax parameter tree <-> the port's state dict.
 
 The port keeps flax's path names and layouts (``layer_0/attn/query/kernel``
 becomes ``layer_0.attn.query.kernel``, still [hidden, heads, head_dim];
@@ -31,4 +31,19 @@ def flax_to_state_dict(params: Mapping) -> dict:
 
     walk(params, "")
     return out
+
+
+def state_dict_to_flax(state: Mapping) -> dict:
+    """The inverse of :func:`flax_to_state_dict`: nest
+    ``{"layer_0.attn.query.kernel": tensor}`` back into flax's tree, with
+    float32 numpy leaves (so a trained port model compares with a JAX
+    train state by flax path)."""
+    tree: dict = {}
+    for name, value in state.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = value.detach().to("cpu", torch.float32).numpy()
+    return tree
 

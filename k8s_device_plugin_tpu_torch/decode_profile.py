@@ -40,10 +40,16 @@ def _is_device(evt) -> bool:
     return getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
 
 
-def _trace_stats(prof, top: int = 12) -> dict:
+def trace_stats(prof, top: int = 12) -> dict:
     """Device time, busy share and top kernels of one profiled window."""
     events = list(prof.events())
-    kernels = [e for e in events if _is_device(e) and e.time_range.end > e.time_range.start]
+    # Device events other than kernels: user annotations (e.g. the
+    # optimizer's step range) also land on the device timeline.
+    kernels = [
+        e for e in events
+        if _is_device(e) and not getattr(e, "is_user_annotation", False)
+        and e.time_range.end > e.time_range.start
+    ]
     if not kernels:
         return {"device_us": None, "busy_share": None, "top": [], "note": "no device events traced"}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -98,7 +104,7 @@ def profile_decode(steps: int) -> dict:
     launches = pa.paged_attention.launches
     while not all(r.done for r in reqs):
         eng.step()
-    stats = _trace_stats(prof)
+    stats = trace_stats(prof)
     stats.update(
         steps=steps,
         step_ms=wall / steps * 1e3,
@@ -137,7 +143,7 @@ def sweep_splits(max_splits: int = 16, iters: int = 200) -> list[dict]:
             for _ in range(20):
                 call()
             torch.cuda.synchronize()
-        stats = _trace_stats(prof)
+        stats = trace_stats(prof)
         rows.append({
             "splits": splits,
             "event_ms_per_call": start.elapsed_time(end) / iters,

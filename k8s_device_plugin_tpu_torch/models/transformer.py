@@ -21,6 +21,12 @@ takes an explicit cache object:
   append writes at the carried ``seq_lens``; single-token steps read the
   pool through the paged-attention kernel, or through a gathered view when
   ``PagedConfig.use_kernel`` is False.
+
+``TransformerLM(config, train=True)`` is the training model: parameters in
+float32, cast to ``cfg.dtype`` at every dense site and at the embedding as
+flax casts its float32 params, with gradients on, and each block
+recomputed in the backward when ``cfg.remat`` is set.  The serving model
+(the default) stores its weights in ``cfg.dtype`` and tracks no gradients.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
@@ -68,9 +75,9 @@ class PagedConfig:
 
 @dataclass(frozen=True)
 class GPTConfig:
-    """Field for field the reference's ``GPTConfig``.  This slice serves
-    float weights and float KV pools: ``remat``, ``quant``, ``quant_kv``,
-    ``lora_rank`` and ``lora_serve`` must keep their defaults."""
+    """Field for field the reference's ``GPTConfig``.  The port runs float
+    weights and float KV pools: ``quant``, ``quant_kv``, ``lora_rank`` and
+    ``lora_serve`` must keep their defaults."""
 
     vocab_size: int = 32000
     hidden_size: int = 2048
@@ -114,7 +121,6 @@ class GPTConfig:
 
 def _check_supported(cfg: GPTConfig) -> None:
     later = {
-        "remat": cfg.remat,
         "quant": cfg.quant is not None,
         "quant_kv": cfg.quant_kv,
         "lora_rank": cfg.lora_rank is not None,
@@ -193,8 +199,9 @@ class RMSNorm(nn.Module):
 class DenseGeneral(nn.Module):
     """flax ``DenseGeneral`` without bias: ``kernel`` [*in_shape,
     *features] contracts the input's trailing ``len(in_shape)`` axes.  The
-    product runs in ``dtype``; the kernel is stored in ``dtype`` too (flax
-    casts its float32 param at every call, which gives the same values)."""
+    product runs in ``dtype``; the kernel is stored in ``dtype`` (the
+    training model converts it to float32) and cast to ``dtype`` at every
+    call, as flax casts its float32 param."""
 
     def __init__(self, in_shape: tuple, features: tuple, dtype, device=None):
         super().__init__()
@@ -206,17 +213,22 @@ class DenseGeneral(nn.Module):
     def forward(self, x):
         lead = x.shape[: x.dim() - len(self.in_shape)]
         n_in, n_out = math.prod(self.in_shape), math.prod(self.features)
-        y = x.reshape(*lead, n_in).to(self.dtype) @ self.kernel.reshape(n_in, n_out)
+        y = x.reshape(*lead, n_in).to(self.dtype) @ self.kernel.reshape(n_in, n_out).to(self.dtype)
         return y.reshape(*lead, *self.features)
 
 
 class Embed(nn.Module):
+    """Token embedding stored in ``dtype`` (float32 in the training model);
+    the looked-up rows are cast to ``dtype`` (flax casts the table, which
+    gives the same values)."""
+
     def __init__(self, vocab: int, hidden: int, dtype, device=None):
         super().__init__()
+        self.dtype = dtype
         self.embedding = nn.Parameter(torch.empty(vocab, hidden, dtype=dtype, device=device))
 
     def forward(self, ids):
-        return torch.nn.functional.embedding(ids, self.embedding)
+        return torch.nn.functional.embedding(ids, self.embedding).to(self.dtype)
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
@@ -371,13 +383,15 @@ class TransformerLM(nn.Module):
     ``forward(input_ids, positions=None, cache=None, append_mode="auto",
     output="logits")``; parameters come from :func:`init_params` or
     ``convert.flax_to_state_dict`` through ``load_state_dict``.  Runs on
-    ``cuda`` unless ``device="cpu"`` is asked for."""
+    ``cuda`` unless ``device="cpu"`` is asked for.  ``train=True`` keeps
+    float32 parameters with gradients (see the module docstring)."""
 
-    def __init__(self, config: GPTConfig, device=None):
+    def __init__(self, config: GPTConfig, device=None, *, train: bool = False):
         super().__init__()
         _check_supported(config)
         self.config = config
         self.device = resolve_device(device)
+        self.train_mode = train
         dev = self.device
         self.embed = Embed(config.vocab_size, config.hidden_size, config.dtype, dev)
         for i in range(config.num_layers):
@@ -386,7 +400,9 @@ class TransformerLM(nn.Module):
         self.lm_head = DenseGeneral(
             (config.hidden_size,), (config.vocab_size,), torch.float32, dev
         )
-        self.requires_grad_(False)  # serving: no autograd state
+        if train:
+            self.to(torch.float32)  # float32 master weights, as flax keeps them
+        self.requires_grad_(train)  # serving: no autograd state
 
     def forward(self, input_ids, positions=None, cache=None, append_mode="auto", output="logits"):
         if append_mode not in ("auto", "cached"):
@@ -397,8 +413,15 @@ class TransformerLM(nn.Module):
         if positions is None:
             positions = torch.arange(seq_len, device=input_ids.device).expand(input_ids.shape)
         hidden = self.embed(input_ids)
+        # remat (the reference's nn.remat(DecoderBlock)): keep only each
+        # block's input and recompute the block in the backward.
+        remat = self.train_mode and self.config.remat and cache is None and torch.is_grad_enabled()
         for i in range(self.config.num_layers):
-            hidden = getattr(self, f"layer_{i}")(hidden, positions, cache, i, append_mode)
+            block = getattr(self, f"layer_{i}")
+            if remat:
+                hidden = checkpoint(block, hidden, positions, use_reentrant=False)
+            else:
+                hidden = block(hidden, positions, cache, i, append_mode)
         if isinstance(cache, DenseCache):
             cache.index += seq_len
         elif isinstance(cache, PagedCache):

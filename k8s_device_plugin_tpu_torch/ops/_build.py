@@ -28,7 +28,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("paged_attention", "flash_attention")
+SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd")
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}

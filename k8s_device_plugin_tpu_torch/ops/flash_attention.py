@@ -1,15 +1,17 @@
-"""Flash-attention forward: the CUDA kernel's wrapper, its plain PyTorch
-version, the ``mha_reference`` oracle and the block rule.
+"""Flash attention: the forward and backward CUDA kernels' wrappers, their
+plain PyTorch versions, the ``mha_reference`` oracle and the block rule.
 
-Counterpart of ``k8s_device_plugin_tpu/ops/flash_attention.py`` (forward
-only; the backward kernels come with the training slice).  Layout
+Counterpart of ``k8s_device_plugin_tpu/ops/flash_attention.py``.  Layout
 [batch, heads, seq, head_dim]; k/v may carry ``kv_heads`` dividing q's
-heads (GQA).  ``csrc/flash_attention.cu`` holds the kernel with its bound
-on the card and what its design does about it.
+heads (GQA).  ``csrc/flash_attention.cu`` holds the forward kernel and
+``csrc/flash_attention_bwd.cu`` the dQ and dK/dV kernels, each with its
+bound on the card and what its design does about it.
 
-:func:`flash_forward` launches the kernel for CUDA tensors and takes
-:func:`flash_attention_reference` (an online-softmax loop over kv tiles)
-for CPU tensors, with no fallback between them.
+:func:`flash_forward` and :func:`flash_backward` launch the kernels for
+CUDA tensors and take :func:`flash_attention_reference` (an online-softmax
+loop over kv tiles) and :func:`flash_attention_backward_reference` (the
+chunked backward) for CPU tensors, with no fallback between them.
+:func:`flash_attention` joins the two in one ``torch.autograd.Function``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ NEG_INF = float("-inf")
 CUDA_TILE = (64, 64)
 _PLAIN_TILE = (128, 128)
 _C_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_C_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
 
 
 def resolve_blocks(seq_q, seq_kv, *, on_cuda=False):
@@ -110,18 +113,93 @@ def flash_attention_reference(q, k, v, *, causal, sm_scale, window, block_kv):
     return out, lse
 
 
-def _launch(q, k, v, *, causal, sm_scale, window):
+def flash_attention_backward_reference(q, k, v, out, lse, dout, *, causal, sm_scale, window,
+                                       block_kv):
+    """The plain backward (the reference's ``_mha_bwd_chunked``): P is
+    recomputed one kv block of ``block_kv`` at a time from the saved lse
+    (the last block ragged when ``block_kv`` does not divide s_kv), so no
+    [s_q, s_kv] matrix exists.  GQA runs in a grouped [b, hk, group, s, d]
+    layout, so K/V are never expanded and dK/dV sum their group in one
+    product; D = rowsum(dO o O) is computed once per row; with a window only
+    the query band that can see a kv block is sliced.  P and dS are rounded
+    to the input type before their products, as the kernels do (a no-op in
+    float32).  Returns (dq, dk, dv) in q's, k's and v's types."""
     batch, heads, seq_q, head_dim = q.shape
     kv_heads, seq_kv = k.shape[1], k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device or t.dtype != q.dtype:
+    group = heads // kv_heads
+    g5 = (batch, kv_heads, group, seq_q, head_dim)
+    qf, dof = q.float().reshape(g5), dout.float().reshape(g5)
+    kf, vf = k.float(), v.float()
+    d_row = (dof * out.float().reshape(g5)).sum(dim=-1)  # [b, hk, g, s_q]
+    lse = lse.reshape(g5[:4])
+    # Rows that attended to nothing carry lse = -inf: their P is forced to 0
+    # (exp(s - -inf) would be +inf).
+    finite = lse > NEG_INF
+    lse_safe = torch.where(finite, lse, 0.0)
+    banded = (
+        causal and window is not None and seq_q == seq_kv and block_kv + window - 1 < seq_q
+    )
+    q_rows = min(seq_q, block_kv + window - 1) if banded else seq_q
+    dq = torch.zeros_like(qf)
+    dk = torch.empty((batch, kv_heads, seq_kv, head_dim), device=q.device)
+    dv = torch.empty_like(dk)
+    for start in range(0, seq_kv, block_kv):
+        kb, vb = kf[:, :, start : start + block_kv], vf[:, :, start : start + block_kv]
+        # The band [row0, row0 + q_rows) holds every row that sees this
+        # block (clamped at the end of the sequence).
+        row0 = min(start, seq_q - q_rows) if banded else 0
+        rows = slice(row0, row0 + q_rows)
+        q_b, do_b = qf[:, :, :, rows], dof[:, :, :, rows]
+        s = torch.einsum("bhgqd,bhkd->bhgqk", q_b, kb) * sm_scale
+        p = torch.where(finite[..., rows, None], torch.exp(s - lse_safe[..., rows, None]), 0.0)
+        if causal:
+            r = row0 + torch.arange(q_rows, device=q.device)[:, None]
+            c = start + torch.arange(kb.shape[2], device=q.device)[None, :]
+            mask = r >= c
+            if window is not None:
+                mask = mask & (r - c < window)
+            p = torch.where(mask, p, 0.0)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", do_b, vb)
+        ds = (p * (dp - d_row[..., rows, None]) * sm_scale).to(q.dtype).float()
+        dq[:, :, :, rows] += torch.einsum("bhgqk,bhkd->bhgqd", ds, kb)
+        dk[:, :, start : start + block_kv] = torch.einsum("bhgqk,bhgqd->bhkd", ds, q_b)
+        dv[:, :, start : start + block_kv] = torch.einsum(
+            "bhgqk,bhgqd->bhkd", p.to(dout.dtype).float(), do_b
+        )
+    return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_kernel_inputs(**tensors):
+    """The CUDA kernels take contiguous float32|bfloat16 tensors of one
+    type on one device, head_dim 64, rows aligned for 16-byte loads."""
+    ref = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if t.device != ref.device or t.dtype != ref.dtype:
             raise ValueError(f"{name} must match q's device and type")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"the CUDA kernel takes float32|bfloat16, got {q.dtype}")
-    if head_dim != 64:
-        raise ValueError(f"the CUDA kernel takes head_dim 64, got {head_dim}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    if ref.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"the CUDA kernel takes float32|bfloat16, got {ref.dtype}")
+    if ref.shape[-1] != 64:
+        raise ValueError(f"the CUDA kernel takes head_dim 64, got {ref.shape[-1]}")
+
+
+def _check_row_stats(q, **tensors):
+    """lse and delta, which the backward kernels read per q row: contiguous
+    float32 [batch, heads, seq_q] on q's device."""
+    for name, t in tensors.items():
+        if (t.dtype != torch.float32 or t.shape != q.shape[:3] or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError(f"{name} must be a contiguous float32 [batch, heads, seq_q] "
+                             "tensor on q's device")
+
+
+def _launch(q, k, v, *, causal, sm_scale, window):
+    batch, heads, seq_q, head_dim = q.shape
+    kv_heads, seq_kv = k.shape[1], k.shape[2]
+    _check_kernel_inputs(q=q, k=k, v=v)
     out = torch.empty_like(q)
     lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q.device)
     fn = _build.entry("flash_attention", "flash_attention_fwd", _C_ARGS)
@@ -137,30 +215,120 @@ def _launch(q, k, v, *, causal, sm_scale, window):
     return out, lse
 
 
+def _bwd_shape(q, k, causal, sm_scale, window):
+    batch, heads, seq_q, head_dim = q.shape
+    return (batch, heads, k.shape[1], seq_q, k.shape[2], head_dim, int(causal),
+            0 if window is None else int(window), float(sm_scale),
+            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def launch_dq(q, k, v, out, lse, dout, *, causal, sm_scale, window):
+    """Kernel 3 on CUDA tensors: returns (dq, delta), where delta [b, h, s_q]
+    float32 is D = rowsum(dO o O), which kernel 4 reads."""
+    _check_kernel_inputs(q=q, k=k, v=v, out=out, dout=dout)
+    _check_row_stats(q, lse=lse)
+    dq = torch.empty_like(q)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dq", _C_BWD_ARGS)
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+                lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
+                *_bwd_shape(q, k, causal, sm_scale, window))
+    _build.check(status, "flash_attention_bwd_dq")
+    flash_backward.dq_launches += 1
+    return dq, delta
+
+
+def launch_dkv(q, k, v, lse, delta, dout, *, causal, sm_scale, window):
+    """Kernel 4 on CUDA tensors (after :func:`launch_dq` on the same
+    stream, whose ``delta`` it reads): returns (dk, dv)."""
+    _check_kernel_inputs(q=q, k=k, v=v, dout=dout)
+    _check_row_stats(q, lse=lse, delta=delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dkv", _C_BWD_ARGS)
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                *_bwd_shape(q, k, causal, sm_scale, window))
+    _build.check(status, "flash_attention_bwd_dkv")
+    flash_backward.dkv_launches += 1
+    return dk, dv
+
+
+def _check_args(q, k, causal, window):
+    _check_window(causal, window)
+    if q.shape[1] % k.shape[1]:
+        raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads {k.shape[1]}")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
+
+
 def flash_forward(q, k, v, *, causal=False, sm_scale=None, window=None):
     """The forward with its log-sum-exp (the reference's ``_flash_impl``):
     returns (out [b, h, s_q, d], lse [b, h, s_q] float32)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
-    _check_window(causal, window)
-    if q.shape[1] % k.shape[1]:
-        raise ValueError(f"q heads {q.shape[1]} not a multiple of kv heads {k.shape[1]}")
+    _check_args(q, k, causal, window)
     if q.device.type == "cuda":
         return _launch(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
-    if q.device.type != "cpu":
-        raise ValueError(f"flash_attention runs on cuda or cpu, got {q.device}")
     _, block_kv = resolve_blocks(q.shape[2], k.shape[2])
     return flash_attention_reference(
         q, k, v, causal=causal, sm_scale=sm_scale, window=window, block_kv=block_kv
     )
 
 
+def flash_backward(q, k, v, out, lse, dout, *, causal=False, sm_scale=None, window=None):
+    """dq, dk, dv from the forward's residuals and the output's gradient
+    (the reference's ``_flash_bwd``): kernels 3 and 4 on the card, the
+    chunked plain backward on the CPU."""
+    if sm_scale is None:
+        sm_scale = q.shape[-1] ** -0.5
+    _check_args(q, k, causal, window)
+    if q.device.type == "cuda":
+        opts = dict(causal=causal, sm_scale=sm_scale, window=window)
+        dq, delta = launch_dq(q, k, v, out, lse, dout, **opts)
+        return (dq, *launch_dkv(q, k, v, lse, delta, dout, **opts))
+    _, block_kv = resolve_blocks(q.shape[2], k.shape[2])
+    return flash_attention_backward_reference(
+        q, k, v, out, lse, dout, causal=causal, sm_scale=sm_scale, window=window,
+        block_kv=block_kv,
+    )
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel 2 forward, kernels 3 and 4 backward (the reference's
+    ``custom_vjp``).  Saves q, k, v, out and lse [b, h, s_q] float32."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, window):
+        out, lse = flash_forward(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.options = (causal, sm_scale, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, sm_scale, window = ctx.options
+        dq, dk, dv = flash_backward(
+            q, k, v, out, lse, dout.to(q.dtype).contiguous(),
+            causal=causal, sm_scale=sm_scale, window=window,
+        )
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal=False, sm_scale=None, window=None):
-    """Fused attention forward over [batch, heads, seq, head_dim], any
-    sequence length; GQA is native.  ``window`` (requires ``causal``): each
-    query sees its ``window`` most recent positions, itself included."""
+    """Fused attention over [batch, heads, seq, head_dim], any sequence
+    length; GQA is native; differentiable in q, k and v.  ``window``
+    (requires ``causal``): each query sees its ``window`` most recent
+    positions, itself included."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if sm_scale is None:
+            sm_scale = q.shape[-1] ** -0.5
+        return _FlashAttention.apply(q, k, v, causal, sm_scale, window)
     return flash_forward(q, k, v, causal=causal, sm_scale=sm_scale, window=window)[0]
 
 
-# Kernel launches since the last reset (the plain version never counts).
+# Kernel launches since the last reset (the plain versions never count):
+# the forward's, and the backward's dQ and dK/dV kernels'.
 flash_attention.launches = 0
+flash_backward.dq_launches = 0
+flash_backward.dkv_launches = 0

@@ -63,7 +63,9 @@ def test_every_port_module_imports_with_jax_blocked():
     """A fresh interpreter where importing jax, flax or the JAX package
     fails; every port module must still import."""
     mods = _port_modules()
-    assert len(mods) >= 14
+    assert len(mods) >= 18
+    for name in ("ops.fused_xent", "models.data", "models.train", "models.benchmark"):
+        assert f"k8s_device_plugin_tpu_torch.{name}" in mods
     code = (
         "import sys\n"
         f"for name in {BANNED!r}:\n"

@@ -211,7 +211,7 @@ def test_paged_kernel_path_equals_gather_and_dense(weights, window):
 
 def test_unported_options_raise():
     _, tcfg = _cfgs()
-    for field, value in (("quant", "w8"), ("quant_kv", True), ("lora_rank", 4), ("remat", True)):
+    for field, value in (("quant", "w8"), ("quant_kv", True), ("lora_rank", 4)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             ttf.TransformerLM(dataclasses.replace(tcfg, **{field: value}), device="cpu")
 
