@@ -10,8 +10,10 @@ Phases, in order (any failure exits non-zero):
    parallel);
 3. hold each kernel against its plain PyTorch version on the card at the
    serving slice's shapes (the flash forward at s 1024 too, the training
-   shape), and time the kernel, the plain version and,
-   where one PyTorch call computes the same function, that call;
+   shape; the paged kernel in each pool format: bf16/f32, int8 and int4
+   codes with float32 scale pools, and the int4 unpack on every byte
+   value), and time the kernel, the plain version and, where one PyTorch
+   call computes the same function, that call;
 3b. hold the flash-backward kernels (dQ; dK/dV) against the plain backward
    over bf16 and f32, s 128, 200 (ragged) and 1024, window none and 100,
    causal and non-causal, kv group 4 and 1; at the training shape (b8 h16
@@ -23,12 +25,21 @@ Phases, in order (any failure exits non-zero):
    32000, hidden 1024, 8 layers, 16 heads / 4 kv heads, page 16, 512 pages,
    32 pages per sequence, 8 slots; 32 requests, prompt 128, 128 new
    tokens, greedy), with the launch counters set to 0 just before and read
-   just after: the paged-decode kernel must have launched;
+   just after: the paged-decode kernel must have launched (float pools);
+4b. the same engine run with the deployed pod's ``--quant=w8``, then with
+   ``--quant=w8 --quant-kv``, then with ``--quant=w8a8 --quant-kv``: each
+   must return 32 x 128 in-vocab tokens, and the ``--quant-kv`` runs must
+   have launched the paged kernel's int8 branch on every decode step;
+4c. ``decode_profile.sweep_formats``, the kernel benchmark (the reference
+   reaches int4 pools only from its kernel benchmark): each pool format
+   at the decode shape, launches counted by format;
 5. run greedy_generate at full width (batch 8, prompt 128, 32 new tokens)
    the same way: the flash-forward kernel must have launched;
 6. at 2 layers in float32, the engine's greedy tokens on the kernel path
    must equal those on the gathered-page path wherever the reference's
    top-2 logit margin clears the tolerance;
+6b. the same with ``quant="w8"`` and ``quant_kv`` (int8 pools: the kernel
+   scales scores and probabilities, the gather path dequantizes first);
 7. train the decoder LM through ``models/benchmark.py`` at the reference's
    single-chip configuration (vocab 32000, hidden 1024, 8 layers, 16 heads
    / 4 kv heads, intermediate 2816, bf16 compute, float32 parameters,
@@ -43,7 +54,8 @@ Phases, in order (any failure exits non-zero):
    every updated parameter within 1e-5.
 
 Then it prints one ``kernels`` JSON line, one ``slice`` JSON line, one
-``train`` JSON line, and last the line ``{"ok": true, "device": {...}}``.
+``quant`` JSON line, one ``train`` JSON line, and last the line
+``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
 """
 
@@ -115,75 +127,143 @@ def bound(bytes_moved: float, flops: float, peak_flops: float) -> tuple[float, s
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_paged(torch, pa, tuning):
-    """Kernel 1 against its plain version; returns its kernel-line entry."""
+def quantized_pools(quant, kv_format, k, v, dtype) -> dict:
+    """Pool keyword arguments for the paged kernel in ``kv_format`` from
+    float pools ``k``/``v``: ``dtype`` pools, or int8/int4 codes with
+    float32 scale pools."""
+    if kv_format == "f":
+        return {"pool_k": k.to(dtype), "pool_v": v.to(dtype)}
+    quantize = quant.quantize_kv if kv_format == "int8" else quant.quantize_kv4
+    (pk, sk), (pv, sv) = quantize(k), quantize(v)
+    return {"pool_k": pk, "pool_v": pv, "scale_k": sk, "scale_v": sv}
+
+
+def hold_paged(torch, pa, q, pools, table, lens, *, window, splits, kv_format) -> float:
+    """max |kernel - plain| of one paged call."""
+    batch, heads, head_dim = q.shape
+    kv_heads = pools["pool_k"].shape[2]
+    out = pa.paged_attention(q, page_table=table, lens=lens, window=window, num_splits=splits,
+                             **pools)
+    ref = pa.paged_attention_reference(
+        q.reshape(batch, kv_heads, heads // kv_heads, head_dim), pools["pool_k"],
+        pools["pool_v"], table, lens, sm_scale=head_dim ** -0.5, window=window,
+        num_splits=splits, scale_k=pools.get("scale_k"), scale_v=pools.get("scale_v"),
+        kv_format=kv_format,
+    ).reshape(out.shape)
+    torch.cuda.synchronize()
+    return (out.float() - ref.float()).abs().max().item()
+
+
+def check_int4_bytes(torch, pa, quant) -> None:
+    """The kernel's nibble unpack on all 256 byte values: with one live
+    token, unit scales and float32 the output is V's row unpacked, exactly;
+    with every byte value in K and V over the decode shape's pool the
+    kernel agrees with the plain version."""
+    dev = torch.device(DEVICE)
+    every = (torch.arange(256, device=dev) - 128).to(torch.int8)
+    pv = torch.zeros((5, 16, 2, 32), dtype=torch.int8, device=dev)
+    pv[1:5, 0] = every.reshape(4, 2, 32)  # position 0 of pages 1..4
+    ones = torch.ones((5, 16, 2), device=dev)
+    out = pa.paged_attention(
+        torch.zeros((4, 8, 64), device=dev), torch.zeros_like(pv), pv,
+        torch.arange(1, 5, dtype=torch.int32, device=dev)[:, None],
+        torch.ones(4, dtype=torch.int32, device=dev), scale_k=ones, scale_v=ones, num_splits=1,
+    )
+    want = quant.unpack_int4(pv[1:5, 0], torch.float32)[:, :, None].expand(4, 2, 4, 64)
+    if not torch.equal(out.reshape(4, 2, 4, 64), want):
+        fail("the int4 unpack on the card differs from unpack_int4 on some byte value")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    B, H, HK, D, PS, MPP, P = 8, 16, 4, 64, 16, 32, 512
+    codes = every[torch.randint(0, 256, (2, P, PS, HK, D // 2), generator=gen, device=dev)]
+    scales = torch.rand((2, P, PS, HK), generator=gen, device=dev) * 0.2 + 0.01
+    pools = {"pool_k": codes[0], "pool_v": codes[1], "scale_k": scales[0], "scale_v": scales[1]}
+    q = torch.randn((B, H, D), generator=gen, device=dev)
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: B * MPP] + 1)
+    lens = torch.tensor([1, 17, 100, 255, 256, 333, 480, 512], dtype=torch.int32, device=dev)
+    err = hold_paged(torch, pa, q, pools, table.reshape(B, MPP).to(torch.int32), lens,
+                     window=None, splits=8, kv_format="int4")
+    log(f"int4 unpack: exact on all 256 bytes; every-byte pools f32 max_abs_err {err:.3e}")
+    if not err <= TOL_F32:
+        fail(f"paged_attention int4 over every byte value: {err} > {TOL_F32}")
+
+
+def check_paged(torch, pa, quant, tuning, dp):
+    """Kernel 1 against its plain version in each pool format; returns its
+    kernel-line entries (float, int8, int4)."""
     dev = torch.device(DEVICE)
     B, H, HK, D, PS, MPP, P = 8, 16, 4, 64, 16, 32, 512
-    G = H // HK
     gen = torch.Generator(device=dev).manual_seed(0)
     tuned = tuning.pick_num_splits(MPP, tuning.device_generation(dev))
     table = (torch.randperm(P - 1, generator=gen, device=dev)[: B * MPP] + 1)
     table = table.reshape(B, MPP).to(torch.int32)
     ragged = torch.tensor([1, 17, 100, 255, 256, 333, 480, 512], dtype=torch.int32, device=dev)
-    worst = 0.0
-    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
-        q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
-        pk = torch.randn((P, PS, HK, D), generator=gen, device=dev).to(dtype)
-        pv = torch.randn((P, PS, HK, D), generator=gen, device=dev).to(dtype)
-        for splits in sorted({1, tuned}):
-            for window in (None, 100):
-                out = pa.paged_attention(q, pk, pv, table, ragged, window=window, num_splits=splits)
-                ref = pa.paged_attention_reference(
-                    q.reshape(B, HK, G, D), pk, pv, table, ragged,
-                    sm_scale=D ** -0.5, window=window, num_splits=splits,
-                ).reshape(B, H, D)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                log(f"paged {dtype} splits={splits} window={window}: max_abs_err {err:.3e} (tol {tol})")
-                if not err <= tol:
-                    fail(f"paged_attention {dtype} splits={splits} window={window}: {err} > {tol}")
-                if dtype == torch.bfloat16:
-                    worst = max(worst, err)
-    # Timing at the main path's shapes: bf16 pools as the engine sizes them,
-    # the tuned split count, lens spread over the decode phase (prompt 128
-    # plus up to 128 new tokens).  L2 is warm between launches.
-    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
-    pk = torch.randn((P, PS, HK, D), generator=gen, device=dev).to(torch.bfloat16)
-    pv = torch.randn((P, PS, HK, D), generator=gen, device=dev).to(torch.bfloat16)
-    lens = torch.tensor([129 + 16 * i for i in range(B)], dtype=torch.int32, device=dev)
-    ms, eager_ms = time_ms(lambda: pa.paged_attention(q, pk, pv, table, lens, num_splits=tuned))
-    plain_ms, _ = time_ms(
-        lambda: pa.paged_attention_reference(
-            q.reshape(B, HK, G, D), pk, pv, table, lens,
-            sm_scale=D ** -0.5, window=None, num_splits=tuned,
-        ),
-        iters=20,
-    )
-    live = lens.long().tolist()
-    pages_read = sum(-(-n // PS) for n in live)
-    nbytes = (
-        2 * B * H * D * 2  # q in, out
-        + sum(live) * HK * D * 2 * 2  # live K and V rows
-        + pages_read * 4 + B * 4  # table entries and lens
-    )
-    flops = sum(4 * H * n * D for n in live)
-    b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-    return {
-        "name": "paged_attention",
-        "route": "cuda",
-        "source": "k8s_device_plugin_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "k8s_device_plugin_tpu/ops/paged_attention.py:197",
-        "launches": None,
-        "max_abs_err": worst,
-        "tolerance": TOL_BF16,
-        "ms": ms,
-        "eager_ms": eager_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": None,
-        "shape": f"B{B} H{H} Hk{HK} D{D} page{PS} mpp{MPP} splits{tuned} lens{live[0]}..{live[-1]} bf16",
-    }
+    worst = dict.fromkeys(pa.FORMATS, 0.0)
+    for kv_format in pa.FORMATS:
+        for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+            q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn((P, PS, HK, D), generator=gen, device=dev) for _ in range(2))
+            pools = quantized_pools(quant, kv_format, k, v, dtype)
+            for splits in sorted({1, tuned}):
+                for window in (None, 100):
+                    err = hold_paged(torch, pa, q, pools, table, ragged, window=window,
+                                     splits=splits, kv_format=kv_format)
+                    log(f"paged {kv_format} {dtype} splits={splits} window={window}: "
+                        f"max_abs_err {err:.3e} (tol {tol})")
+                    if not err <= tol:
+                        fail(f"paged_attention {kv_format} {dtype} splits={splits} "
+                             f"window={window}: {err} > {tol}")
+                    if dtype == torch.bfloat16:
+                        worst[kv_format] = max(worst[kv_format], err)
+    check_int4_bytes(torch, pa, quant)
+    # Timing at the main path's shapes: bf16 queries, pools as the engine
+    # sizes them in each format, the tuned split count, lens spread over
+    # the decode phase (prompt 128 plus up to 128 new tokens).  L2 is warm
+    # between launches.
+    rows = []
+    for kv_format in pa.FORMATS:
+        inputs = dp.decode_inputs(kv_format)
+        q, table_t, lens = inputs["q"], inputs["page_table"], inputs["lens"]
+        ms, eager_ms = time_ms(lambda: pa.paged_attention(**inputs, num_splits=tuned))
+        plain_ms, _ = time_ms(
+            lambda: pa.paged_attention_reference(
+                q.reshape(B, HK, H // HK, D), inputs["pool_k"], inputs["pool_v"], table_t, lens,
+                sm_scale=D ** -0.5, window=None, num_splits=tuned,
+                scale_k=inputs.get("scale_k"), scale_v=inputs.get("scale_v"),
+                kv_format=kv_format,
+            ),
+            iters=20,
+        )
+        live = lens.long().tolist()
+        pages_read = sum(-(-n // PS) for n in live)
+        code_bytes = {"f": 2, "int8": 1, "int4": 0.5}[kv_format]  # per K or V element
+        scale_bytes = 0 if kv_format == "f" else 4  # per (position, kv head) and pool
+        nbytes = (
+            2 * B * H * D * 2  # q in, out
+            + sum(live) * HK * 2 * (D * code_bytes + scale_bytes)  # live K and V rows
+            + pages_read * 4 + B * 4  # table entries and lens
+        )
+        flops = sum(4 * H * n * D for n in live)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        rows.append({
+            "name": "paged_attention" if kv_format == "f" else f"paged_attention_{kv_format}",
+            "route": "cuda",
+            "source": "k8s_device_plugin_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "k8s_device_plugin_tpu/ops/paged_attention.py:197",
+            "kv_format": kv_format,
+            "launches": None,
+            "max_abs_err": worst[kv_format],
+            "tolerance": TOL_BF16,
+            "ms": ms,
+            "eager_ms": eager_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": b_ms,
+            "bound_by": b_by,
+            "bytes": nbytes,
+            "library_ms": None,
+            "shape": f"B{B} H{H} Hk{HK} D{D} page{PS} mpp{MPP} splits{tuned} "
+                     f"lens{live[0]}..{live[-1]} bf16 q, {kv_format} pools",
+        })
+    return rows
 
 
 def check_flash(torch, fa):
@@ -244,21 +324,25 @@ def check_flash(torch, fa):
     }
 
 
-def run_engine(torch, engine, pa, fa):
-    """Phase 4: the batch engine at full width; returns (summary, launches)."""
+def run_engine(torch, engine, pa, fa, flags=()):
+    """Phases 4 and 4b: the batch engine at full width with the extra
+    ``flags``; returns (summary, paged launches by pool format)."""
     args = engine.parse_args([
         "--hidden=1024", "--layers=8", "--heads=16", "--kv-heads=4", "--vocab=32000",
         "--page-size=16", "--num-pages=512", "--max-pages-per-seq=32", "--slots=8",
-        "--requests=32", "--prompt-len=128", "--max-new=128", f"--device={DEVICE}",
+        "--requests=32", "--prompt-len=128", "--max-new=128", f"--device={DEVICE}", *flags,
     ])
-    pa.paged_attention.launches = 0
+    pa.reset_launches()
     fa.flash_attention.launches = 0
     summary, done = engine.benchmark(args)
     torch.cuda.synchronize()
-    launches = pa.paged_attention.launches
-    log(f"engine: {summary}; paged launches {launches}, flash launches {fa.flash_attention.launches}")
-    if launches <= 0:
-        fail("the engine's decode never launched the paged-attention kernel")
+    launches = dict(pa.paged_attention.launches_by_format)
+    log(f"engine {list(flags)}: {summary}; paged launches {launches}, "
+        f"flash launches {fa.flash_attention.launches}")
+    want, other = ("int8", "f") if "--quant-kv" in flags else ("f", "int8")
+    if launches[want] <= 0 or launches[other] or launches["int4"]:
+        fail(f"the engine's decode {list(flags)} launched the paged kernel as {launches}, "
+             f"not in its {want} branch alone")
     if len(done) != 32 or any(len(r.tokens) != 128 for r in done):
         fail("the engine did not return 32 requests of 128 tokens")
     if any(not 0 <= t < 32000 for r in done for t in r.tokens):
@@ -269,6 +353,7 @@ def run_engine(torch, engine, pa, fa):
     itl = [(r.finished_at - r.first_token_at) / (len(r.tokens) - 1) for r in done]
     summary["ttft_exact_ms"] = {"p50": quantile(ttft, 0.5) * 1e3, "p99": quantile(ttft, 0.99) * 1e3}
     summary["itl_request_mean_ms"] = {"p50": quantile(itl, 0.5) * 1e3, "p99": quantile(itl, 0.99) * 1e3}
+    summary["flags"] = list(flags)
     return summary, launches
 
 
@@ -289,7 +374,7 @@ def run_generate(torch, tf, pa, fa):
     )
     params = tf.init_params(cfg, seed=0)
     prompt = torch.randint(0, 32000, (8, 128), generator=torch.Generator().manual_seed(2))
-    pa.paged_attention.launches = 0
+    pa.reset_launches()
     fa.flash_attention.launches = 0
     t0 = time.perf_counter()
     out = tf.greedy_generate(cfg, params, prompt, 32, device=DEVICE)
@@ -306,12 +391,13 @@ def run_generate(torch, tf, pa, fa):
     return launches
 
 
-def check_paths_agree(torch, tf, engine):
-    """Phase 6: fp32, 2 layers, full width: kernel path == gather path
-    wherever the reference's top-2 margin clears TOL_MARGIN."""
+def check_paths_agree(torch, tf, engine, **quant_kw):
+    """Phases 6 and 6b: fp32, 2 layers, full width (``quant_kw`` sets the
+    weight and KV formats): kernel path == gather path wherever the top-2
+    margin of the reference decode clears TOL_MARGIN."""
     cfg = tf.GPTConfig(
         vocab_size=32000, hidden_size=1024, num_layers=2, num_heads=16,
-        intermediate_size=3072, max_seq=512, num_kv_heads=4, dtype=torch.float32,
+        intermediate_size=3072, max_seq=512, num_kv_heads=4, dtype=torch.float32, **quant_kw,
     )
     params = tf.init_params(cfg, seed=3)
     jobs = engine.synthetic_jobs(8, 64, 16, cfg.vocab_size)
@@ -328,14 +414,18 @@ def check_paths_agree(torch, tf, engine):
             if x == y:
                 continue
             with torch.no_grad():
+                # The cached append over the whole sequence: each position
+                # attends over the (dequantized) cache as a decode step does.
                 ids = torch.tensor([prompt + a[:j]], device=DEVICE)
-                top2 = model(ids)[0, -1].topk(2).values
+                cache = tf.DenseCache.zeros(cfg, 1, DEVICE, max_seq=ids.shape[1])
+                top2 = model(ids, cache=cache, append_mode="cached")[0, -1].topk(2).values
             margin = float(top2[0] - top2[1])
             if margin >= TOL_MARGIN:
                 fail(f"kernel and gather paths disagree at token {j} with margin {margin}")
             ties += 1
             break  # past a near-tie the two streams legitimately differ
-    log(f"fp32 paths agree on {checked} tokens ({ties} near-ties)")
+    log(f"fp32 {quant_kw or 'float'} paths agree on {checked} tokens ({ties} near-ties)")
+    return {"checked": checked, "near_ties": ties}
 
 
 def rel_err(got, want) -> float:
@@ -600,8 +690,9 @@ def main() -> None:
         fail("no CUDA device")
     from k8s_device_plugin_tpu_torch.models import benchmark as bench
     from k8s_device_plugin_tpu_torch.models import data, engine, train
+    from k8s_device_plugin_tpu_torch import decode_profile as dp
     from k8s_device_plugin_tpu_torch.models import transformer as tf
-    from k8s_device_plugin_tpu_torch.ops import _build, tuning
+    from k8s_device_plugin_tpu_torch.ops import _build, quant, tuning
     from k8s_device_plugin_tpu_torch.ops import flash_attention as fa
     from k8s_device_plugin_tpu_torch.ops import paged_attention as pa
     from k8s_device_plugin_tpu_torch.utils.device import fp32_reference_precision
@@ -617,19 +708,39 @@ def main() -> None:
     _build.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f}s")
 
-    kernels = [check_paged(torch, pa, tuning), check_flash(torch, fa)]
-    kernels += check_flash_bwd(torch, fa, kernels[1])
-    summary, kernels[0]["launches"] = run_engine(torch, engine, pa, fa)
-    kernels[1]["launches"] = run_generate(torch, tf, pa, fa)
+    paged = {row["kv_format"]: row for row in check_paged(torch, pa, quant, tuning, dp)}
+    flash = check_flash(torch, fa)
+    dq, dkv = check_flash_bwd(torch, fa, flash)
+    summary, launches = run_engine(torch, engine, pa, fa)
+    paged["f"]["launches"] = launches["f"]
+    quant_runs = []
+    for flags in (["--quant=w8"], ["--quant=w8", "--quant-kv"], ["--quant=w8a8", "--quant-kv"]):
+        q_summary, launches = run_engine(torch, engine, pa, fa, flags)
+        q_summary["paged_launches"] = launches
+        quant_runs.append(q_summary)
+    paged["int8"]["launches"] = quant_runs[1]["paged_launches"]["int8"]
+    paged["int8"]["w8a8_launches"] = quant_runs[2]["paged_launches"]["int8"]
+    sweep = dp.sweep_formats(iters=100)
+    log(f"format sweep (kernel benchmark): {sweep}")
+    for row in sweep["rows"]:
+        paged[row["format"]]["profiled_ms"] = row["device_us_per_call"] / 1e3
+    paged["int4"]["launches"] = sweep["launches"]["int4"]
+    if paged["int4"]["launches"] <= 0:
+        fail("the kernel benchmark never launched the paged kernel's int4 branch")
+    flash["launches"] = run_generate(torch, tf, pa, fa)
     check_paths_agree(torch, tf, engine)
+    agree_quant = check_paths_agree(torch, tf, engine, quant="w8", quant_kv=True)
     trained, launches = run_training(torch, fa, bench, smi)
-    kernels[1]["train_launches"] = launches["flash_attention"]
-    kernels[2]["launches"] = launches["flash_attention_bwd_dq"]
-    kernels[3]["launches"] = launches["flash_attention_bwd_dkv"]
+    flash["train_launches"] = launches["flash_attention"]
+    dq["launches"] = launches["flash_attention_bwd_dq"]
+    dkv["launches"] = launches["flash_attention_bwd_dkv"]
     trained["card_vs_cpu"] = check_train_parity(torch, tf, train, data)
 
+    kernels = [paged["f"], paged["int8"], paged["int4"], flash, dq, dkv]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"slice": summary, "card": smi}), flush=True)
+    print(json.dumps({"quant": quant_runs, "format_sweep": sweep, "paths_agree_w8_int8kv": agree_quant,
+                      "card": smi}), flush=True)
     print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({
         "ok": True,

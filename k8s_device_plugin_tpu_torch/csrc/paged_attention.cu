@@ -32,9 +32,27 @@
 // TPU layout that does not apply here: the group padding to 8 sublanes and
 // the 128-lane replicated m/l scratch.
 //
-// Types: float32 and bfloat16 pools (query in the same type).  Scores,
-// softmax state and accumulators are float32; probabilities are rounded to
-// the pool's type before p.v, as the reference casts them to v's dtype.
+// Pool formats (the template parameter FMT), as the TPU kernel's branches:
+//   - float: float32 or bfloat16 pools in the query's type;
+//   - int8: int8 codes plus float32 scale pools [pages, page_size,
+//     kv_heads], one scale per (position, kv head);
+//   - int4: two signed 4-bit codes per byte along head_dim (element 2i in
+//     the low nibble, ops/quant.py pack_int4) plus the same scale pools.
+// Rows load as 16-byte vectors (8 bf16, 4 f32, 16 int8 or 32 int4 values)
+// and convert exactly into the float shared-memory tile; the nibbles
+// sign-extend with shifts on int32, (x << 28) >> 28 for the low one.  No
+// dequantized page is formed: the scale of K multiplies the score after
+// sm_scale, and the scale of V multiplies the probability after the
+// denominator l has summed it unscaled, then rounds to the query's type
+// before p.v, in the reference's order.  The scales are read in the
+// engine's [pages, page_size, kv_heads] layout; the TPU's swap to put
+// page_size on the lane axis has no counterpart here.  Quantized pools
+// move 1/2 (int8) or 1/4 (int4) of the bf16 bytes, which the kernel's
+// serial page loop does not turn into time at the serving shape (PERF.md).
+//
+// Types: scores, softmax state and accumulators are float32; probabilities
+// are rounded to the query's type before p.v, as the reference casts them
+// to v's dtype.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -42,6 +60,8 @@
 #include <stdint.h>
 
 namespace {
+
+constexpr int FMT_FLOAT = 0, FMT_INT8 = 1, FMT_INT4 = 2;
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -57,26 +77,59 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 constexpr unsigned FULL = 0xffffffffu;
 
-template <typename T, int D, int PS>
+// One pool row (one position, one kv head) of D values in format FMT.
+template <typename T, int FMT, int D>
+struct Row {
+  static constexpr int ELEMS = FMT == FMT_FLOAT ? 16 / (int)sizeof(T) : (FMT == FMT_INT8 ? 16 : 32);
+  static constexpr int BYTES = FMT == FMT_FLOAT ? D * (int)sizeof(T) : (FMT == FMT_INT8 ? D : D / 2);
+  static constexpr int VECS = D / ELEMS;  // 16-byte loads per row
+};
+
+// Exact conversion of one 16-byte load into Row::ELEMS floats.
+template <typename T, int FMT>
+__device__ __forceinline__ void decode16(const uint4& raw, float* dst) {
+  if constexpr (FMT == FMT_FLOAT) {
+    const T* x = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16 / (int)sizeof(T); ++i) dst[i] = to_f(x[i]);
+  } else if constexpr (FMT == FMT_INT8) {
+    const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dst[i] = (float)x[i];
+  } else {
+    const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const unsigned b = (unsigned)(int)x[i];  // the byte, sign-extended
+      dst[2 * i] = (float)((int)(b << 28) >> 28);      // low nibble: element 2i
+      dst[2 * i + 1] = (float)((int)(b << 24) >> 28);  // high nibble: element 2i+1
+    }
+  }
+}
+
+template <typename T, int FMT, int D, int PS>
 __global__ void __launch_bounds__(1024) paged_decode_kernel(
-    const T* __restrict__ q,         // [B, H, D]
-    const T* __restrict__ pool_k,    // [P, PS, Hk, D]
-    const T* __restrict__ pool_v,    // [P, PS, Hk, D]
-    const int* __restrict__ table,   // [B, mpp]
-    const int* __restrict__ lens,    // [B]
-    T* __restrict__ out,             // [B, H, D]         (one split)
-    float* __restrict__ o_part,      // [B, S, Hk, G, D]  (several splits)
-    float* __restrict__ m_part,      // [B, S, Hk, G]
-    float* __restrict__ l_part,      // [B, S, Hk, G]
+    const T* __restrict__ q,          // [B, H, D]
+    const char* __restrict__ pool_k,  // [P, PS, Hk, Row::BYTES]
+    const char* __restrict__ pool_v,  // [P, PS, Hk, Row::BYTES]
+    const float* __restrict__ scale_k,  // [P, PS, Hk]  (quantized formats)
+    const float* __restrict__ scale_v,  // [P, PS, Hk]
+    const int* __restrict__ table,    // [B, mpp]
+    const int* __restrict__ lens,     // [B]
+    T* __restrict__ out,              // [B, H, D]         (one split)
+    float* __restrict__ o_part,       // [B, S, Hk, G, D]  (several splits)
+    float* __restrict__ m_part,       // [B, S, Hk, G]
+    float* __restrict__ l_part,       // [B, S, Hk, G]
     int H, int Hk, int mpp, int pps, int window, float sm_scale) {
+  using R = Row<T, FMT, D>;
+  constexpr bool QUANT = FMT != FMT_FLOAT;
   constexpr int PARTS = 32 / PS;      // lanes sharing one token's dot
   constexpr int DP = D / PARTS;       // dims of the dot each of them takes
   constexpr int DL = D / 32;          // output dims each lane accumulates
-  constexpr int VEC = 16 / sizeof(T); // elements per 16-byte load
-  constexpr int ROW_VECS = D / VEC;
 
   __shared__ float ks[PS][D + 1];  // +1: lanes of different tokens hit different banks
   __shared__ float vs[PS][D];
+  __shared__ float sks[PS], svs[PS];  // the page's scales (quantized formats)
 
   const int b = blockIdx.x, hk = blockIdx.y, s = blockIdx.z, S = gridDim.z;
   const int G = blockDim.x >> 5;
@@ -104,17 +157,17 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(
   for (int p = p_begin; p < p_end; ++p) {
     const int page = table[b * mpp + p];
     __syncthreads();  // every warp is done with the previous page's tiles
-    for (int idx = threadIdx.x; idx < PS * ROW_VECS; idx += blockDim.x) {
-      const int row = idx / ROW_VECS, c = (idx % ROW_VECS) * VEC;
-      const size_t off = (((size_t)page * PS + row) * Hk + hk) * D + c;
-      const uint4 kraw = *reinterpret_cast<const uint4*>(pool_k + off);
-      const uint4 vraw = *reinterpret_cast<const uint4*>(pool_v + off);
-      const T* kv = reinterpret_cast<const T*>(&kraw);
-      const T* vv = reinterpret_cast<const T*>(&vraw);
-#pragma unroll
-      for (int i = 0; i < VEC; ++i) {
-        ks[row][c + i] = to_f(kv[i]);
-        vs[row][c + i] = to_f(vv[i]);
+    for (int idx = threadIdx.x; idx < PS * R::VECS; idx += blockDim.x) {
+      const int row = idx / R::VECS, vec = idx % R::VECS;
+      const size_t off = (((size_t)page * PS + row) * Hk + hk) * R::BYTES + vec * 16;
+      decode16<T, FMT>(*reinterpret_cast<const uint4*>(pool_k + off), &ks[row][vec * R::ELEMS]);
+      decode16<T, FMT>(*reinterpret_cast<const uint4*>(pool_v + off), &vs[row][vec * R::ELEMS]);
+    }
+    if constexpr (QUANT) {
+      if (threadIdx.x < PS) {  // blockDim >= 32 >= PS
+        const size_t so = ((size_t)page * PS + threadIdx.x) * Hk + hk;
+        sks[threadIdx.x] = scale_k[so];
+        svs[threadIdx.x] = scale_v[so];
       }
     }
     __syncthreads();
@@ -125,6 +178,7 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(
 #pragma unroll
     for (int off = PS; off < 32; off <<= 1) sc += __shfl_xor_sync(FULL, sc, off);
     sc *= sm_scale;
+    if constexpr (QUANT) sc *= sks[t];
     const int col = p * PS + t;
     const bool valid = col < len && (window <= 0 || col >= lo);
     sc = valid ? sc : -INFINITY;
@@ -139,8 +193,10 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(
     float psum = prob;
 #pragma unroll
     for (int off = 1; off < PS; off <<= 1) psum += __shfl_xor_sync(FULL, psum, off);
-    l_run = alpha * l_run + psum;
-    const float pr = to_f(from_f<T>(prob));
+    l_run = alpha * l_run + psum;  // l sums the probabilities before V's scale
+    float pv = prob;
+    if constexpr (QUANT) pv *= svs[t];
+    const float pr = to_f(from_f<T>(pv));
 #pragma unroll
     for (int i = 0; i < DL; ++i) acc[i] *= alpha;
 #pragma unroll
@@ -195,33 +251,45 @@ __global__ void combine_splits_kernel(const float* __restrict__ o_part,
   for (int i = 0; i < DL; ++i) orow[lane * DL + i] = from_f<T>(o[i] / denom);
 }
 
-template <typename T, int D, int PS>
-void launch(const void* q, const void* pool_k, const void* pool_v, const int* table,
-            const int* lens, void* out, float* o_part, float* m_part, float* l_part,
-            int batch, int heads, int kv_heads, int mpp, int splits, int window,
-            float sm_scale, cudaStream_t stream) {
-  const int group = heads / kv_heads;
-  const int pps = (mpp + splits - 1) / splits;
-  paged_decode_kernel<T, D, PS><<<dim3(batch, kv_heads, splits), 32 * group, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pool_k), static_cast<const T*>(pool_v),
-      table, lens, static_cast<T*>(out), o_part, m_part, l_part, heads, kv_heads, mpp, pps,
-      window, sm_scale);
-  if (splits > 1) {
-    combine_splits_kernel<T, D><<<dim3(batch, heads), 32, 0, stream>>>(
-        o_part, m_part, l_part, static_cast<T*>(out), splits);
+struct Args {
+  const void* q;
+  const void* pool_k;
+  const void* pool_v;
+  const float* scale_k;
+  const float* scale_v;
+  const int* table;
+  const int* lens;
+  void* out;
+  float* o_part;
+  float* m_part;
+  float* l_part;
+  int batch, heads, kv_heads, mpp, splits, window;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int FMT, int D, int PS>
+void launch(const Args& a) {
+  const int group = a.heads / a.kv_heads;
+  const int pps = (a.mpp + a.splits - 1) / a.splits;
+  paged_decode_kernel<T, FMT, D, PS>
+      <<<dim3(a.batch, a.kv_heads, a.splits), 32 * group, 0, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const char*>(a.pool_k),
+          static_cast<const char*>(a.pool_v), a.scale_k, a.scale_v, a.table, a.lens,
+          static_cast<T*>(a.out), a.o_part, a.m_part, a.l_part, a.heads, a.kv_heads, a.mpp, pps,
+          a.window, a.sm_scale);
+  if (a.splits > 1) {
+    combine_splits_kernel<T, D><<<dim3(a.batch, a.heads), 32, 0, a.stream>>>(
+        a.o_part, a.m_part, a.l_part, static_cast<T*>(a.out), a.splits);
   }
 }
 
-template <typename T>
-int dispatch(int head_dim, int page_size, const void* q, const void* pool_k,
-             const void* pool_v, const int* table, const int* lens, void* out, float* o_part,
-             float* m_part, float* l_part, int batch, int heads, int kv_heads, int mpp,
-             int splits, int window, float sm_scale, cudaStream_t stream) {
-#define PAGED_CASE(D_, PS_)                                                               \
-  if (head_dim == D_ && page_size == PS_) {                                              \
-    launch<T, D_, PS_>(q, pool_k, pool_v, table, lens, out, o_part, m_part, l_part, batch, \
-                       heads, kv_heads, mpp, splits, window, sm_scale, stream);          \
-    return (int)cudaGetLastError();                                                      \
+template <typename T, int FMT>
+int dispatch(int head_dim, int page_size, const Args& a) {
+#define PAGED_CASE(D_, PS_)                      \
+  if (head_dim == D_ && page_size == PS_) {      \
+    launch<T, FMT, D_, PS_>(a);                  \
+    return (int)cudaGetLastError();              \
   }
   PAGED_CASE(64, 16)
   PAGED_CASE(64, 32)
@@ -231,28 +299,38 @@ int dispatch(int head_dim, int page_size, const void* q, const void* pool_k,
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename T>
+int dispatch_format(int kv_format, int head_dim, int page_size, const Args& a) {
+  switch (kv_format) {
+    case FMT_FLOAT: return dispatch<T, FMT_FLOAT>(head_dim, page_size, a);
+    case FMT_INT8: return dispatch<T, FMT_INT8>(head_dim, page_size, a);
+    case FMT_INT4: return dispatch<T, FMT_INT4>(head_dim, page_size, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
+// kv_format: 0 float pools (in the query's type), 1 int8, 2 int4-packed;
+// the quantized formats need both scale pools, the float one takes none.
 extern "C" int paged_attention_fwd(const void* q, const void* pool_k, const void* pool_v,
+                                   const void* scale_k, const void* scale_v,
                                    const void* table, const void* lens, void* out,
                                    void* o_part, void* m_part, void* l_part, int batch,
                                    int heads, int kv_heads, int head_dim, int page_size,
                                    int mpp, int splits, int window, float sm_scale,
-                                   int is_bf16, void* stream) {
+                                   int kv_format, int is_bf16, void* stream) {
   if (heads % kv_heads != 0 || heads / kv_heads > 32 || splits < 1) {
     return (int)cudaErrorInvalidValue;
   }
-  auto st = static_cast<cudaStream_t>(stream);
-  auto tab = static_cast<const int*>(table);
-  auto ln = static_cast<const int*>(lens);
-  auto op = static_cast<float*>(o_part);
-  auto mp = static_cast<float*>(m_part);
-  auto lp = static_cast<float*>(l_part);
-  if (is_bf16) {
-    return dispatch<__nv_bfloat16>(head_dim, page_size, q, pool_k, pool_v, tab, ln, out, op,
-                                   mp, lp, batch, heads, kv_heads, mpp, splits, window,
-                                   sm_scale, st);
+  if ((kv_format != FMT_FLOAT) != (scale_k != nullptr && scale_v != nullptr)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return dispatch<float>(head_dim, page_size, q, pool_k, pool_v, tab, ln, out, op, mp, lp,
-                         batch, heads, kv_heads, mpp, splits, window, sm_scale, st);
+  const Args a{q, pool_k, pool_v, static_cast<const float*>(scale_k),
+               static_cast<const float*>(scale_v), static_cast<const int*>(table),
+               static_cast<const int*>(lens), out, static_cast<float*>(o_part),
+               static_cast<float*>(m_part), static_cast<float*>(l_part), batch, heads,
+               kv_heads, mpp, splits, window, sm_scale, static_cast<cudaStream_t>(stream)};
+  if (is_bf16) return dispatch_format<__nv_bfloat16>(kv_format, head_dim, page_size, a);
+  return dispatch_format<float>(kv_format, head_dim, page_size, a);
 }

@@ -14,6 +14,14 @@ Prefill bridges through the dense cache: an admitted prompt runs the
 bucketed cached-append prefill and its K/V rows are grafted into the
 allocated pages; decode then proceeds fully paged.
 
+The batch CLI takes the reference CLI's flags, ``--quant w8|w8a8`` and
+``--quant-kv`` included, plus ``--dtype``, ``--seed`` and ``--device``; on
+the CPU, at tiny widths in float32::
+
+    python -m k8s_device_plugin_tpu_torch.models.engine --device cpu \\
+        --dtype float32 --hidden 64 --layers 2 --heads 4 --kv-heads 2 \\
+        --vocab 512 --page-size 4 --num-pages 64 --quant w8 --quant-kv
+
 Module layout (this module is the import surface):
 
 - engine_types.py      — ``Request``, ``EngineMetrics``
@@ -243,6 +251,10 @@ def parse_args(argv: Optional[list[str]] = None):
     p.add_argument("--heads", type=positive, default=8)
     p.add_argument("--kv-heads", type=positive, default=4)
     p.add_argument("--vocab", type=positive, default=32000)
+    p.add_argument("--quant", choices=["w8", "w8a8"], default=None,
+                   help="int8 weights at every dense site (w8a8: int8 activations too)")
+    p.add_argument("--quant-kv", action="store_true",
+                   help="int8 KV pools with float32 scales (the paged kernel's int8 format)")
     p.add_argument("--page-size", type=positive, default=16)
     p.add_argument("--num-pages", type=positive, default=128)
     p.add_argument("--max-pages-per-seq", type=positive, default=16)
@@ -271,7 +283,8 @@ def parse_args(argv: Optional[list[str]] = None):
 
 def build_engine(args) -> "ServingEngine":
     """The engine the batch CLI's flags describe, with random weights from
-    ``--seed`` and a fresh metrics registry."""
+    ``--seed`` (quantized by ``init_params`` under ``--quant``, as the
+    reference CLI quantizes its init) and a fresh metrics registry."""
     device = resolve_device(args.device)
     fp32_reference_precision()
     cfg = GPTConfig(
@@ -283,6 +296,8 @@ def build_engine(args) -> "ServingEngine":
         max_seq=args.page_size * args.max_pages_per_seq,
         num_kv_heads=args.kv_heads,
         dtype=getattr(torch, args.dtype),
+        quant=args.quant,
+        quant_kv=args.quant_kv,
     )
     paged = PagedConfig(
         args.page_size, args.num_pages, args.max_pages_per_seq,
@@ -326,7 +341,7 @@ def benchmark(args) -> tuple[dict, list[Request]]:
         "requests": len(done),
         "slots": args.slots,
         "tp": 1,
-        "quant": None,
+        "quant": args.quant,
         "kernel": eng.kernel_on,
         "sampler": "greedy"
         if args.temperature <= 0

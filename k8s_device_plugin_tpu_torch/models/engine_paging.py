@@ -26,7 +26,9 @@ class PagingMixin:
 
         Shared prefix pages are never rewritten: another request is reading
         them.  Private pages are written whole; slots past plen carry
-        zeros, which later appends overwrite before any read can see them."""
+        zeros, which later appends overwrite before any read can see them.
+        Under ``quant_kv`` the scale rows go with the codes: the prefill
+        quantized them once, and nothing later re-derives a scale."""
         ps = self.paged.page_size
         n_cover = math.ceil(plen / ps)
         full = torch.zeros((self.paged.max_pages_per_seq,), dtype=torch.int32)
@@ -40,13 +42,12 @@ class PagingMixin:
         cover = torch.tensor(pages[n_shared:n_cover], dtype=torch.long, device=self.device)
         pad = n_cover * ps - plen
         for layer in range(self.cfg.num_layers):
-            for pool, slab in (
-                (self.cache.pool_k[layer], dense.keys[layer]),
-                (self.cache.pool_v[layer], dense.values[layer]),
-            ):
+            for pool, slab in zip(self.cache.layer(layer), dense.layer(layer)):
+                if pool is None:  # float pools carry no scales
+                    continue
                 rows = slab[row_idx, lo_tok:plen]
-                if pad:
-                    rows = torch.nn.functional.pad(rows, (0, 0, 0, 0, 0, pad))
+                if pad:  # zero rows after plen, along the token axis
+                    rows = torch.nn.functional.pad(rows, (0, 0) * (rows.dim() - 1) + (0, pad))
                 pool[cover] = rows.reshape(n_priv, ps, *rows.shape[1:])
 
     def _clear_slot(self, slot: int):

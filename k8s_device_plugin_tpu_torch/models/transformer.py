@@ -22,6 +22,15 @@ takes an explicit cache object:
   pool through the paged-attention kernel, or through a gathered view when
   ``PagedConfig.use_kernel`` is False.
 
+Quantized serving, as the reference's: ``quant="w8"|"w8a8"`` builds every
+dense site, the float32 ``lm_head`` included, as an ``Int8DenseGeneral``
+(``ops/quant.py``; parameters ``kernel_q``/``kernel_scale`` from
+``quantize_lm_params``), and ``quant_kv`` keeps both caches as int8 codes
+plus float32 scale slabs.  Each append quantizes its K/V pair once; the
+paged kernel reads the codes and scales as they are, the gathered view and
+the dense cached path dequantize to ``cfg.dtype``, and the dense bulk
+prefill attends over the unquantized K/V while it writes the codes.
+
 ``TransformerLM(config, train=True)`` is the training model: parameters in
 float32, cast to ``cfg.dtype`` at every dense site and at the embedding as
 flax casts its float32 params, with gradients on, and each block
@@ -31,6 +40,7 @@ recomputed in the backward when ``cfg.remat`` is set.  The serving model
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -41,6 +51,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
+from ..ops.quant import (
+    Int8DenseGeneral,
+    contract_ndim,
+    dequantize_kv,
+    quantize_kv_pair,
+    quantize_lm_params,
+)
 from ..utils.device import resolve_device
 
 # Finite large-negative logit for masks and top-k filtering: softmax stays
@@ -75,8 +92,8 @@ class PagedConfig:
 
 @dataclass(frozen=True)
 class GPTConfig:
-    """Field for field the reference's ``GPTConfig``.  The port runs float
-    weights and float KV pools: ``quant``, ``quant_kv``, ``lora_rank`` and
+    """Field for field the reference's ``GPTConfig``.  ``quant`` (None,
+    "w8", "w8a8") and ``quant_kv`` are ported; ``lora_rank`` and
     ``lora_serve`` must keep their defaults."""
 
     vocab_size: int = 32000
@@ -120,12 +137,14 @@ class GPTConfig:
 
 
 def _check_supported(cfg: GPTConfig) -> None:
-    later = {
-        "quant": cfg.quant is not None,
-        "quant_kv": cfg.quant_kv,
-        "lora_rank": cfg.lora_rank is not None,
-        "lora_serve": bool(cfg.lora_serve),
-    }
+    if cfg.quant is not None and cfg.lora_rank is not None:
+        raise ValueError(
+            "quant and lora_rank are mutually exclusive: train the adapters, "
+            "merge_lora_params, then quantize the merged tree"
+        )
+    if cfg.quant not in (None, "w8", "w8a8"):
+        raise ValueError(f"quant must be None, w8 or w8a8, got {cfg.quant!r}")
+    later = {"lora_rank": cfg.lora_rank is not None, "lora_serve": bool(cfg.lora_serve)}
     on = [name for name, set_ in later.items() if set_]
     if on:
         raise NotImplementedError(f"{on}: not ported yet (see ROADMAP.md)")
@@ -138,21 +157,45 @@ def _check_supported(cfg: GPTConfig) -> None:
 # ------------------------------------------------------------------ caches
 
 
+def _kv_slabs(cfg: GPTConfig, shape: tuple, device):
+    """Per-layer ``(k, v, k_scales, v_scales)`` lists of zero slabs of
+    ``shape``: in ``cfg.dtype`` with no scales, or under ``quant_kv`` int8
+    codes plus float32 scale slabs of ``shape[:-1]`` (one scale per
+    position and kv head; zero scales dequantize unwritten slots to 0)."""
+    def new(s, dtype):
+        return [torch.zeros(s, dtype=dtype, device=device) for _ in range(cfg.num_layers)]
+
+    if not cfg.quant_kv:
+        return new(shape, cfg.dtype), new(shape, cfg.dtype), None, None
+    return (new(shape, torch.int8), new(shape, torch.int8),
+            new(shape[:-1], torch.float32), new(shape[:-1], torch.float32))
+
+
 @dataclass
 class DenseCache:
     """Fixed-shape decode cache: per layer K and V [batch, max_seq,
     kv_heads, head_dim] and one write index shared by the batch (the
-    reference's cached_key/cached_value/cache_index)."""
+    reference's cached_key/cached_value/cache_index).  Under ``quant_kv``
+    K and V are int8 codes and ``key_scales``/``value_scales`` hold float32
+    [batch, max_seq, kv_heads] per layer (cached_key_scale/...)."""
 
     keys: list
     values: list
     index: int = 0
+    key_scales: Optional[list] = None
+    value_scales: Optional[list] = None
 
     @classmethod
     def zeros(cls, cfg: GPTConfig, batch: int, device, max_seq: Optional[int] = None):
         shape = (batch, cfg.max_seq if max_seq is None else max_seq, cfg.kv_heads, cfg.head_dim)
-        new = lambda: torch.zeros(shape, dtype=cfg.dtype, device=device)  # noqa: E731
-        return cls([new() for _ in range(cfg.num_layers)], [new() for _ in range(cfg.num_layers)])
+        k, v, ks, vs = _kv_slabs(cfg, shape, device)
+        return cls(k, v, key_scales=ks, value_scales=vs)
+
+    def layer(self, i: int) -> tuple:
+        """Layer ``i``'s (k, v, k_scales, v_scales); scales None if float."""
+        if self.key_scales is None:
+            return self.keys[i], self.values[i], None, None
+        return self.keys[i], self.values[i], self.key_scales[i], self.value_scales[i]
 
 
 @dataclass
@@ -160,23 +203,52 @@ class PagedCache:
     """The serving engine's paged cache: per layer K and V pools
     [num_pages, page_size, kv_heads, head_dim]; one page table [batch,
     max_pages_per_seq] int32 and one carried ``seq_lens`` [batch] int32
-    (first written position per row), shared by every layer."""
+    (first written position per row), shared by every layer.  Under
+    ``quant_kv`` the pools hold int8 codes and ``scale_k``/``scale_v``
+    float32 [num_pages, page_size, kv_heads] per layer."""
 
     pool_k: list
     pool_v: list
     page_table: Optional[torch.Tensor]
     seq_lens: torch.Tensor
+    scale_k: Optional[list] = None
+    scale_v: Optional[list] = None
 
     @classmethod
     def zeros(cls, cfg: GPTConfig, paged: PagedConfig, batch: int, device):
         shape = (paged.num_pages, paged.page_size, cfg.kv_heads, cfg.head_dim)
-        new = lambda: torch.zeros(shape, dtype=cfg.dtype, device=device)  # noqa: E731
+        k, v, ks, vs = _kv_slabs(cfg, shape, device)
         return cls(
-            [new() for _ in range(cfg.num_layers)],
-            [new() for _ in range(cfg.num_layers)],
+            k, v,
             torch.zeros((batch, paged.max_pages_per_seq), dtype=torch.int32, device=device),
             torch.zeros((batch,), dtype=torch.int32, device=device),
+            scale_k=ks, scale_v=vs,
         )
+
+    def layer(self, i: int) -> tuple:
+        """Layer ``i``'s (k, v, k_scales, v_scales); scales None if float."""
+        if self.scale_k is None:
+            return self.pool_k[i], self.pool_v[i], None, None
+        return self.pool_k[i], self.pool_v[i], self.scale_k[i], self.scale_v[i]
+
+
+def _append_kv(slabs: tuple, index, k, v) -> None:
+    """Write this call's K/V at ``index`` of a layer's (k, v, k_scales,
+    v_scales): as they are, or, with scale slabs, quantized once as a pair
+    (``quantize_kv_pair``) with the scale rows written beside the codes."""
+    ck, cv, cks, cvs = slabs
+    if cks is not None:
+        k, v, ks, vs = quantize_kv_pair(k, v)
+        cks[index] = ks
+        cvs[index] = vs
+    ck[index] = k
+    cv[index] = v
+
+
+def _dequant(codes, scales, dtype):
+    """A cache view in ``dtype``: float slabs as they are, int8 codes
+    dequantized with their scales (the reference's dequantize_kv)."""
+    return codes if scales is None else dequantize_kv(codes, scales, dtype)
 
 
 # ----------------------------------------------------------------- pieces
@@ -229,6 +301,17 @@ class Embed(nn.Module):
 
     def forward(self, ids):
         return torch.nn.functional.embedding(ids, self.embedding).to(self.dtype)
+
+
+def dense_site(cfg: GPTConfig, in_shape: tuple, features: tuple, device, dtype=None):
+    """One constructor for every projection (the reference's dense_site):
+    ``DenseGeneral`` when ``cfg.quant`` is None, else ``Int8DenseGeneral``
+    in that mode, with the same names (``kernel`` -> ``kernel_q`` /
+    ``kernel_scale``).  ``dtype`` defaults to ``cfg.dtype``."""
+    dtype = cfg.dtype if dtype is None else dtype
+    if cfg.quant is None:
+        return DenseGeneral(in_shape, features, dtype, device)
+    return Int8DenseGeneral(in_shape, features, cfg.quant, dtype, device)
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
@@ -287,10 +370,10 @@ class CausalSelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         d, hd = cfg.hidden_size, cfg.head_dim
-        self.query = DenseGeneral((d,), (cfg.num_heads, hd), cfg.dtype, device)
-        self.key = DenseGeneral((d,), (cfg.kv_heads, hd), cfg.dtype, device)
-        self.value = DenseGeneral((d,), (cfg.kv_heads, hd), cfg.dtype, device)
-        self.out = DenseGeneral((cfg.num_heads, hd), (d,), cfg.dtype, device)
+        self.query = dense_site(cfg, (d,), (cfg.num_heads, hd), device)
+        self.key = dense_site(cfg, (d,), (cfg.kv_heads, hd), device)
+        self.value = dense_site(cfg, (d,), (cfg.kv_heads, hd), device)
+        self.out = dense_site(cfg, (cfg.num_heads, hd), (d,), device)
 
     def forward(self, hidden, positions, cache=None, layer: int = 0, append_mode: str = "auto"):
         cfg = self.cfg
@@ -302,20 +385,21 @@ class CausalSelfAttention(nn.Module):
         if isinstance(cache, PagedCache):
             attn = self._paged(q, k, v, positions, cache, layer)
         elif isinstance(cache, DenseCache):
-            ck, cv = cache.keys[layer], cache.values[layer]
+            ck, cv, cks, cvs = slabs = cache.layer(layer)
             cur = cache.index
             if cur + q_len > ck.shape[1]:
                 raise ValueError(f"cache write [{cur}, {cur + q_len}) exceeds {ck.shape[1]} slots")
-            ck[:, cur : cur + q_len] = k
-            cv[:, cur : cur + q_len] = v
+            _append_kv(slabs, (slice(None), slice(cur, cur + q_len)), k, v)
             if q_len > 1 and append_mode == "auto":
                 # Bulk prefill into an empty cache: causal within the given
-                # tokens through the flash kernel; K/V still land above.
+                # tokens through the flash kernel, over the unquantized K/V
+                # (as the reference); the codes still land above.
                 qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
                 attn = tiled_causal_attention(qh, kh, vh, cfg.attention_window).transpose(1, 2)
             else:
                 attn = cached_group_attention(
-                    q, ck, cv, positions, cfg.attention_window, cfg.num_heads
+                    q, _dequant(ck, cks, cfg.dtype), _dequant(cv, cvs, cfg.dtype),
+                    positions, cfg.attention_window, cfg.num_heads,
                 )
         else:
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -326,26 +410,32 @@ class CausalSelfAttention(nn.Module):
         cfg = self.cfg
         pg = cfg.paged
         batch, q_len = q.shape[:2]
-        pool_k, pool_v, table = cache.pool_k[layer], cache.pool_v[layer], cache.page_table
+        pool_k, pool_v, scale_k, scale_v = slabs = cache.layer(layer)
+        table = cache.page_table
         # Writes go to the CARRIED seq_lens; idle rows have all-zero table
         # rows and land in scratch page 0.  The page index is clamped like
         # the reference's gather (an idle row's lens keeps growing).
         offs = cache.seq_lens.long()[:, None] + torch.arange(q_len, device=q.device)[None, :]
         rows = torch.arange(batch, device=q.device)[:, None]
         page = table[rows, (offs // pg.page_size).clamp(max=pg.max_pages_per_seq - 1)].long()
-        pool_k[page, offs % pg.page_size] = k
-        pool_v[page, offs % pg.page_size] = v
+        _append_kv(slabs, (page, offs % pg.page_size), k, v)
         if pg.kernel_enabled() and q_len == 1:
             # Valid slots per row = position + 1: this token's K/V are in.
+            # int8 pools go to the kernel as codes with their scale pools.
             lens = (positions[:, 0] + 1).to(torch.int32)
             return paged_attention(
-                q[:, 0], pool_k, pool_v, table, lens,
+                q[:, 0], pool_k, pool_v, table, lens, scale_k=scale_k, scale_v=scale_v,
                 window=cfg.attention_window, num_splits=pg.kernel_num_splits,
             )[:, None]
         shape = (batch, pg.max_len, cfg.kv_heads, cfg.head_dim)
         idx = table.long()
+
+        def view(codes, scales):  # gathered [max_len] view, dequantized
+            return _dequant(codes[idx].reshape(shape),
+                            None if scales is None else scales[idx].reshape(shape[:-1]), cfg.dtype)
+
         return cached_group_attention(
-            q, pool_k[idx].reshape(shape), pool_v[idx].reshape(shape),
+            q, view(pool_k, scale_k), view(pool_v, scale_v),
             positions, cfg.attention_window, cfg.num_heads,
         )
 
@@ -356,9 +446,9 @@ class SwiGluMlp(nn.Module):
     def __init__(self, cfg: GPTConfig, device=None):
         super().__init__()
         d, f = cfg.hidden_size, cfg.intermediate_size
-        self.gate = DenseGeneral((d,), (f,), cfg.dtype, device)
-        self.up = DenseGeneral((d,), (f,), cfg.dtype, device)
-        self.down = DenseGeneral((f,), (d,), cfg.dtype, device)
+        self.gate = dense_site(cfg, (d,), (f,), device)
+        self.up = dense_site(cfg, (d,), (f,), device)
+        self.down = dense_site(cfg, (f,), (d,), device)
 
     def forward(self, x):
         return self.down(torch.nn.functional.silu(self.gate(x)) * self.up(x))
@@ -397,8 +487,8 @@ class TransformerLM(nn.Module):
         for i in range(config.num_layers):
             self.add_module(f"layer_{i}", DecoderBlock(config, dev))
         self.final_norm = RMSNorm(config.hidden_size, config.dtype, device=dev)
-        self.lm_head = DenseGeneral(
-            (config.hidden_size,), (config.vocab_size,), torch.float32, dev
+        self.lm_head = dense_site(
+            config, (config.hidden_size,), (config.vocab_size,), dev, torch.float32
         )
         if train:
             self.to(torch.float32)  # float32 master weights, as flax keeps them
@@ -435,7 +525,10 @@ class TransformerLM(nn.Module):
 
 
 def param_shapes(config: GPTConfig) -> dict:
-    """Every parameter's name and shape, in the flax names and layouts."""
+    """Every parameter's name and shape, in the flax names and layouts (a
+    quantized config: each ``kernel`` as ``kernel_q`` of the same shape and
+    ``kernel_scale`` over its output features, as quantize_lm_params
+    gives them)."""
     d, hd, f = config.hidden_size, config.head_dim, config.intermediate_size
     h, hk = config.num_heads, config.kv_heads
     shapes = {"embed.embedding": (config.vocab_size, d)}
@@ -454,18 +547,30 @@ def param_shapes(config: GPTConfig) -> dict:
         })
     shapes["final_norm.scale"] = (d,)
     shapes["lm_head.kernel"] = (d, config.vocab_size)
-    return shapes
+    if config.quant is None:
+        return shapes
+    quantized = {}
+    for name, shape in shapes.items():
+        if name.endswith(".kernel"):
+            site = name.split(".")[-2]
+            quantized[name + "_q"] = shape
+            quantized[name + "_scale"] = shape[contract_ndim(site, len(shape)):]
+        else:
+            quantized[name] = shape
+    return quantized
 
 
 def init_params(config: GPTConfig, seed: int = 0) -> dict:
     """Random float32 parameters from ``seed`` (a stand-in for a
     checkpoint): norm scales 1, every kernel normal with variance 1/fan_in
     like flax's lecun-normal dense sites, the embedding 1/hidden.  The
-    values are not flax's; the tests convert flax's own init instead."""
+    values are not flax's; the tests convert flax's own init instead.  A
+    quantized config gets this float init through ``quantize_lm_params``,
+    as the reference's engine CLI quantizes its init."""
     _check_supported(config)
     gen = torch.Generator().manual_seed(seed)
     params = {}
-    for name, shape in param_shapes(config).items():
+    for name, shape in param_shapes(dataclasses.replace(config, quant=None)).items():
         if name.endswith(".scale"):
             params[name] = torch.ones(shape)
             continue
@@ -476,7 +581,7 @@ def init_params(config: GPTConfig, seed: int = 0) -> dict:
         else:
             fan_in = shape[0]
         params[name] = torch.randn(shape, generator=gen) * fan_in ** -0.5
-    return params
+    return params if config.quant is None else quantize_lm_params(params)
 
 
 def _check_decode_fits(config: GPTConfig, prompt_len: int, max_new_tokens: int):

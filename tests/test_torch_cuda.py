@@ -6,10 +6,11 @@ file imports no JAX, so it runs on a GPU machine without it:
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider
 
 Tolerances: forward outputs within 2e-2 in bf16 (bf16 output rounding plus
-float32 sum order) and lse within 1e-3; backward gradients within 2e-2 of
-max |plain| in bf16 (bf16 rounding of dS, P and the gradients) and 1e-4 in
-float32 (sum order).  ``chip_smoke.py`` runs the same comparisons at full
-width.
+float32 sum order) and 2e-5 in float32 (sum order), lse within 1e-3;
+backward gradients within 2e-2 of max |plain| in bf16 (bf16 rounding of dS,
+P and the gradients) and 1e-4 in float32 (sum order).  The int4 unpack and
+the int8 x int8 -> int32 products are exact.  ``chip_smoke.py`` runs the
+same comparisons at full width.
 """
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 
 from k8s_device_plugin_tpu_torch.ops import flash_attention as fa
 from k8s_device_plugin_tpu_torch.ops import paged_attention as pa
+from k8s_device_plugin_tpu_torch.ops import quant
 
 
 @pytest.fixture
@@ -107,3 +109,82 @@ def test_cuda_autograd_runs_the_kernels(dev):
     for t, leaf in zip((q, k, v), leaves):
         err = (t.grad.cpu() - leaf.grad).abs().max() / leaf.grad.abs().max()
         assert err.item() <= 1e-4
+
+
+def _quantized(fmt, *pools):
+    """Codes and scale pools of float pools in ``fmt`` (int8 or int4)."""
+    quantize = quant.quantize_kv if fmt == "int8" else quant.quantize_kv4
+    (pk, sk), (pv, sv) = (quantize(p) for p in pools)
+    return dict(pool_k=pk, pool_v=pv, scale_k=sk, scale_v=sv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)],
+                         ids=["bf16", "f32"])
+def test_cuda_quantized_pools_match_plain(dev, fmt, dtype, tol):
+    """Kernel 1's int8 and int4 branches against the plain version, with
+    one launch counted under the format per call."""
+    q, pk, pv, table, lens = _paged_inputs(16, kv_heads=2, ps=16, n_pool=64, mpp=4)
+    pools = {k: v.to(dev) for k, v in _quantized(fmt, torch.from_numpy(pk),
+                                                 torch.from_numpy(pv)).items()}
+    tq = torch.from_numpy(q).to(dev, dtype)
+    tt, tl = (torch.from_numpy(a).to(dev) for a in (table, lens))
+    for splits, window in ((1, None), (3, None), (2, 20)):
+        pa.reset_launches()
+        got = pa.paged_attention(tq, page_table=tt, lens=tl, window=window, num_splits=splits,
+                                 **pools)
+        assert pa.paged_attention.launches_by_format == {"f": 0, fmt: 1, **{
+            f: 0 for f in ("int8", "int4") if f != fmt}}
+        want = pa.paged_attention_reference(
+            tq.reshape(3, 2, 4, 64), pools["pool_k"], pools["pool_v"], tt, tl, sm_scale=0.125,
+            window=window, num_splits=splits, scale_k=pools["scale_k"],
+            scale_v=pools["scale_v"], kv_format=fmt,
+        ).reshape(got.shape)
+        assert (got.float() - want.float()).abs().max().item() <= tol, (splits, window)
+
+
+@pytest.mark.cuda
+def test_cuda_int4_unpack_is_exact_on_every_byte(dev):
+    """Every byte value in both nibbles: with one live token, unit scales
+    and float32, the output is V's row unpacked, exactly; with the bytes in
+    K and V over many tokens the kernel agrees with the plain version."""
+    n_pool, ps, hk, d = 5, 16, 2, 64
+    every = (torch.arange(256) - 128).to(torch.int8)  # all 256 byte values
+    pv = torch.zeros((n_pool, ps, hk, d // 2), dtype=torch.int8)
+    pv[1:5, 0] = every.reshape(4, hk, d // 2)  # position 0 of pages 1..4
+    ones = torch.ones((n_pool, ps, hk))
+    q = torch.zeros((4, hk * 4, d))
+    table = torch.arange(1, 5, dtype=torch.int32)[:, None]  # row r reads page r + 1
+    lens = torch.ones(4, dtype=torch.int32)
+    args = [t.to(dev) for t in (q, torch.zeros_like(pv), pv, table, lens)]
+    got = pa.paged_attention(*args, scale_k=ones.to(dev), scale_v=ones.to(dev), num_splits=1)
+    want = quant.unpack_int4(pv[1:5, 0], torch.float32)  # [row, kv head, d]
+    assert torch.equal(got.cpu().reshape(4, hk, 4, d), want[:, :, None].expand(4, hk, 4, d))
+    rs = np.random.RandomState(17)
+    codes = every[torch.from_numpy(rs.randint(0, 256, size=(2, 8, ps, hk, d // 2)))]
+    scales = torch.from_numpy(rs.uniform(0.01, 0.2, size=(2, 8, ps, hk)).astype(np.float32))
+    q = torch.from_numpy(rs.randn(2, hk * 4, d).astype(np.float32))
+    table = torch.from_numpy(rs.permutation(8)[:6].reshape(2, 3).astype(np.int32))
+    lens = torch.tensor([40, 17], dtype=torch.int32)
+    args = [t.to(dev) for t in (q, codes[0], codes[1], table, lens)]
+    got = pa.paged_attention(*args, scale_k=scales[0].to(dev), scale_v=scales[1].to(dev),
+                             num_splits=2)
+    want = pa.paged_attention(q, codes[0], codes[1], table, lens, scale_k=scales[0],
+                              scale_v=scales[1], num_splits=2)
+    assert (got.cpu() - want).abs().max().item() <= 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [8, 40], ids=["decode-rows", "prefill-rows"])
+def test_cuda_w8a8_products_match_cpu(dev, rows):
+    """int8_dot_general in w8a8 on the card (torch._int_mm, rows padded to
+    its minimum) equals the CPU's exact int32 product, at the width of the
+    down projection (k = 3072, where a float32 sum would not be exact)."""
+    rs = np.random.RandomState(18)
+    x = torch.from_numpy(rs.randn(rows, 3072).astype(np.float32))
+    w_q, w_scale = quant.quantize_int8(torch.from_numpy(rs.randn(3072, 1024).astype(np.float32)), 1)
+    want = quant.int8_dot_general(x, w_q, w_scale, mode="w8a8", dtype=torch.float32)
+    got = quant.int8_dot_general(x.to(dev), w_q.to(dev), w_scale.to(dev), mode="w8a8",
+                                 dtype=torch.float32)
+    assert torch.equal(got.cpu(), want)

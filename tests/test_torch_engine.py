@@ -10,7 +10,10 @@ the prefix trie, the graft, page release and slot reuse.
 Tolerances: none — greedy token ids are compared exactly.  The config is
 float32 and small, so the logits of the two frameworks differ by float
 sum order only (~1e-6); ``test_top2_margins_clear_sum_order`` checks that
-no emitted token is a near-tie, so exact equality cannot flake.
+no emitted token is a near-tie, so exact equality cannot flake.  The
+quantized engine (``w8`` weights from the JAX package's quantize_lm_params,
+int8 KV pools) is held the same way, its margins taken on the port's own
+int8-cache decode.
 """
 
 import dataclasses
@@ -26,6 +29,7 @@ from k8s_device_plugin_tpu.models.engine import ServingEngine as JaxEngine
 from k8s_device_plugin_tpu.models.transformer import GPTConfig as JaxGPTConfig
 from k8s_device_plugin_tpu.models.transformer import PagedConfig as JaxPagedConfig
 from k8s_device_plugin_tpu.models.transformer import TransformerLM as JaxLM
+from k8s_device_plugin_tpu.ops.quant import quantize_lm_params as jax_quantize_lm_params
 from k8s_device_plugin_tpu_torch import convert
 from k8s_device_plugin_tpu_torch.models import engine as torch_engine
 from k8s_device_plugin_tpu_torch.models.engine import ServingEngine
@@ -33,7 +37,12 @@ from k8s_device_plugin_tpu_torch.models.engine_sampling import (
     _derived_tables,
     filter_top_k_top_p,
 )
-from k8s_device_plugin_tpu_torch.models.transformer import GPTConfig, PagedConfig
+from k8s_device_plugin_tpu_torch.models.transformer import (
+    DenseCache,
+    GPTConfig,
+    PagedConfig,
+    TransformerLM,
+)
 from k8s_device_plugin_tpu_torch.ops import paged_attention as pa
 
 MARGIN = 1e-4  # top-2 logit margin that f32 sum-order differences (~1e-6) cannot cross
@@ -148,7 +157,7 @@ def test_top2_margins_clear_sum_order(weights):
 
 def test_decode_runs_the_paged_kernel_wrapper(weights, monkeypatch):
     """The engine's decode goes through ops.paged_attention (on the CPU its
-    plain version, so the launch counter stays 0)."""
+    plain version, so the launch counters stay 0)."""
     _, state = weights
     _, tcfg = _configs()
     calls = []
@@ -161,11 +170,11 @@ def test_decode_runs_the_paged_kernel_wrapper(weights, monkeypatch):
     import k8s_device_plugin_tpu_torch.models.transformer as tf
 
     monkeypatch.setattr(tf, "paged_attention", spy)
-    pa.paged_attention.launches = 0
+    pa.reset_launches()
     eng = ServingEngine(tcfg, state, PagedConfig(4, 40, 12), max_slots=2, device="cpu")
     eng.run([([5, 6, 7], 4)])
     assert calls and all(shape == (2, tcfg.num_heads, tcfg.head_dim) for shape in calls)
-    assert pa.paged_attention.launches == 0
+    assert sum(pa.paged_attention.launches_by_format.values()) == 0
 
 
 def test_sampled_streams_deterministic_under_seed(weights):
@@ -293,3 +302,84 @@ def test_batch_cli_prints_one_json_line(capsys):
     assert summary["kernel"] is True and summary["device"] == "cpu"
     for key in ("ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms", "itl_p99_ms"):
         assert summary[key] is not None and summary[key] >= 0
+
+
+QUANT = {"quant": "w8", "quant_kv": True}  # the deployed pod's weights, int8 KV
+
+
+@pytest.fixture(scope="module")
+def qweights(weights):
+    params, _ = weights
+    qparams = jax.tree_util.tree_map(np.array, jax_quantize_lm_params(params))
+    return qparams, convert.flax_to_state_dict(qparams)
+
+
+def _decode_margins(model, prompt, tokens):
+    """The port's int8-cache greedy decode of ``prompt`` feeding ``tokens``
+    (the cached-append prefill the engine runs, then single steps): the
+    argmax of every step and its top-2 margin."""
+    cache = DenseCache.zeros(model.config, 1, "cpu", max_seq=len(prompt) + len(tokens))
+    logits = [model(torch.tensor([prompt]), cache=cache, append_mode="cached")[0, -1]]
+    for i, tok in enumerate(tokens[:-1]):
+        pos = torch.tensor([[len(prompt) + i]])
+        logits.append(model(torch.tensor([[tok]]), pos, cache=cache)[0, -1])
+    top2 = torch.stack(logits).topk(2, dim=-1).values
+    return torch.stack(logits).argmax(-1).tolist(), float((top2[:, 0] - top2[:, 1]).min())
+
+
+@pytest.mark.parametrize("prefill_chunk", [None, 4], ids=["bucket-prefill", "chunk4"])
+@pytest.mark.parametrize("use_kernel", [True, False], ids=["kernel", "gather"])
+def test_quantized_streams_equal_jax_engine(qweights, use_kernel, prefill_chunk):
+    """w8 weights and int8 KV pools: the port's engine on its kernel path
+    (int8 codes and scale pools into the paged kernel's plain version) and
+    on its gathered path against the JAX engine on the same path."""
+    jparams, state = qweights
+    jcfg, tcfg = _configs(**QUANT)
+    geo = dict(page_size=4, num_pages=40, max_pages_per_seq=12)
+    jobs = _jobs(5, seed=7)
+    jeng = JaxEngine(jcfg, jparams, JaxPagedConfig(**geo, use_kernel=use_kernel), max_slots=3,
+                     prefill_chunk=prefill_chunk)
+    teng = ServingEngine(tcfg, state, PagedConfig(**geo, use_kernel=None if use_kernel else False),
+                         max_slots=3, prefill_chunk=prefill_chunk, device="cpu")
+    assert teng.cache.pool_k[0].dtype == torch.int8 and teng.cache.scale_k[0].shape == (40, 4, 2)
+    want = [r.tokens for r in jeng.run(jobs)]
+    got = [r.tokens for r in teng.run(jobs)]
+    assert got == want
+    assert len(teng.free_pages) == teng.paged.num_pages - 1
+    for (prompt, _), tokens in zip(jobs, got):
+        argmax, margin = _decode_margins(teng.model, prompt, tokens)
+        assert argmax == tokens and margin > MARGIN
+
+
+def test_quantized_decode_passes_scale_pools_to_the_kernel_wrapper(qweights, monkeypatch):
+    """Under quant_kv the decode step hands the paged kernel int8 pools and
+    their float32 scale pools."""
+    _, state = qweights
+    _, tcfg = _configs(**QUANT)
+    seen = []
+    real = pa.paged_attention
+
+    def spy(q, pool_k, pool_v, *a, **kw):
+        seen.append((pool_k.dtype, kw["scale_k"].dtype, kw["scale_v"].shape))
+        return real(q, pool_k, pool_v, *a, **kw)
+
+    import k8s_device_plugin_tpu_torch.models.transformer as tf
+
+    monkeypatch.setattr(tf, "paged_attention", spy)
+    ServingEngine(tcfg, state, PagedConfig(4, 40, 12), max_slots=2, device="cpu").run(
+        [([5, 6, 7], 4)])
+    assert seen and set(seen) == {(torch.int8, torch.float32, (40, 4, 2))}
+
+
+@pytest.mark.parametrize("quant", ["w8", "w8a8"])
+def test_batch_cli_runs_quantized(capsys, quant):
+    torch_engine.main([
+        "--hidden=32", "--layers=1", "--heads=4", "--kv-heads=2", "--vocab=128",
+        "--page-size=4", "--num-pages=32", "--max-pages-per-seq=8", "--slots=2",
+        "--requests=3", "--prompt-len=6", "--max-new=4", "--device=cpu", "--dtype=float32",
+        f"--quant={quant}", "--quant-kv",
+    ])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["quant"] == quant and summary["tokens"] == 12 and summary["kernel"] is True
+    args = torch_engine.parse_args(["--quant=w8", "--quant-kv", "--device=cpu"])
+    assert args.quant == "w8" and args.quant_kv

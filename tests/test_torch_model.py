@@ -210,10 +210,19 @@ def test_paged_kernel_path_equals_gather_and_dense(weights, window):
 
 
 def test_unported_options_raise():
+    """LoRA is not ported; the quantized formats now build (the reference
+    refuses quant with lora_rank, and so does the port)."""
     _, tcfg = _cfgs()
-    for field, value in (("quant", "w8"), ("quant_kv", True), ("lora_rank", 4)):
+    for field, value in (("lora_rank", 4), ("lora_serve", 2)):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             ttf.TransformerLM(dataclasses.replace(tcfg, **{field: value}), device="cpu")
+    for kw in ({"quant": "w8"}, {"quant": "w8a8"}, {"quant_kv": True},
+               {"quant": "w8", "quant_kv": True}):
+        ttf.TransformerLM(dataclasses.replace(tcfg, **kw), device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ttf.TransformerLM(dataclasses.replace(tcfg, quant="w8", lora_rank=4), device="cpu")
+    with pytest.raises(ValueError, match="quant must be"):
+        ttf.TransformerLM(dataclasses.replace(tcfg, quant="w4"), device="cpu")
 
 
 def test_model_without_device_raises_when_cuda_absent():
@@ -232,3 +241,104 @@ def test_init_params_is_seeded_and_loadable():
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["embed.embedding"], ttf.init_params(tcfg, seed=4)["embed.embedding"])
     _torch_model(tcfg, a)
+
+
+# ------------------------------------------------------- quantized serving
+#
+# Weights: the JAX package's quantize_lm_params of the flax init, carried
+# across by convert.py.  w8 logits differ by float sum order only (2e-4 as
+# above).  KV and w8a8 activation codes are computed from activations that
+# differ by ~1e-7 between the frameworks, so a code a hair from a rounding
+# boundary may land one step apart; the same 2e-4 holds on these seeds.
+
+
+@pytest.fixture(scope="module")
+def qweights(weights):
+    from k8s_device_plugin_tpu.ops.quant import quantize_lm_params
+
+    params, _ = weights
+    qparams = jax.tree_util.tree_map(np.array, quantize_lm_params(params))
+    return qparams, convert.flax_to_state_dict(qparams)
+
+
+@pytest.mark.parametrize("quant", ["w8", "w8a8"])
+@pytest.mark.parametrize("seq", [24, 128], ids=["s24", "s128-flash"])
+def test_quantized_full_forward_logits_match(qweights, quant, seq):
+    params, state = qweights
+    jcfg, tcfg = _cfgs(quant=quant)
+    assert {k: tuple(v.shape) for k, v in state.items()} == ttf.param_shapes(tcfg)
+    assert state["lm_head.kernel_q"].dtype == torch.int8
+    ids = _ids(2, seq, seed=10)
+    want = np.asarray(jtf.TransformerLM(jcfg).apply({"params": params}, jnp.asarray(ids)))
+    got = _torch_model(tcfg, state)(torch.from_numpy(ids).long())
+    assert got.dtype == torch.float32 and got.shape == (2, seq, 512)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=LOGIT_TOL)
+
+
+@pytest.mark.parametrize("append_mode", ["auto", "cached"])
+@pytest.mark.parametrize("quant", [None, "w8"])
+def test_quant_kv_dense_decode_logits_match(weights, qweights, quant, append_mode):
+    """int8 dense cache: the bulk prefill ("auto") attends over the
+    unquantized K/V, the cached append and each decode step over the
+    dequantized cache, and the codes and scales equal the reference's."""
+    params, state = qweights if quant else weights
+    jcfg, tcfg = _cfgs(quant=quant, quant_kv=True)
+    ids = _ids(2, 14, seed=11)
+    want = _jax_decode(jcfg, params, ids, 4, append_mode)
+    model = _torch_model(tcfg, state)
+    cache = ttf.DenseCache.zeros(tcfg, 2, "cpu")
+    assert cache.keys[0].dtype == torch.int8 and cache.key_scales[0].shape == (2, 160, 2)
+    t_ids = torch.from_numpy(ids).long()
+    got = [model(t_ids[:, :10], cache=cache, append_mode=append_mode)[:, -1]]
+    for t in range(10, 14):
+        got.append(model(t_ids[:, t : t + 1], torch.full((2, 1), t), cache=cache)[:, -1])
+    np.testing.assert_allclose(torch.stack(got, 1).numpy(), want, rtol=0, atol=LOGIT_TOL)
+
+
+def _jax_paged_decode(jcfg, params, ids, table):
+    """Per-step logits of single-token paged decode steps in the JAX model,
+    every layer's page table set to ``table``."""
+    model = jtf.TransformerLM(jcfg, decode=True)
+    spec = jtf.decode_cache_spec(model, ids.shape[0])
+    cache = jax.tree_util.tree_map(lambda s: jnp.zeros(s.shape, s.dtype), spec)
+    cache = {name: {"attn": {**layer["attn"], "page_table": jnp.asarray(table)}}
+             for name, layer in cache.items()}
+    logits = []
+    for t in range(ids.shape[1]):
+        out, mut = model.apply({"params": params, "cache": cache}, jnp.asarray(ids[:, t : t + 1]),
+                               jnp.full((ids.shape[0], 1), t), mutable=["cache"])
+        cache = mut["cache"]
+        logits.append(np.asarray(out[:, -1]))
+    return np.stack(logits, 1), cache
+
+
+@pytest.mark.parametrize("use_kernel", [True, False], ids=["kernel", "gather"])
+def test_quant_kv_paged_decode_logits_match(qweights, use_kernel):
+    """int8 page pools with w8 weights: the kernel path (int8 codes and
+    scale pools into the paged kernel's plain version, the reference's XLA
+    lane on its side) and the gathered dequantized view, against the JAX
+    model; the pools' codes and scales equal the reference's."""
+    params, state = qweights
+    geo = dict(page_size=4, num_pages=8, max_pages_per_seq=3, kernel_num_splits=2)
+    jcfg, tcfg = _cfgs(quant="w8", quant_kv=True)
+    jcfg = dataclasses.replace(jcfg, paged=jtf.PagedConfig(**geo, use_kernel=use_kernel))
+    tcfg = dataclasses.replace(tcfg, paged=ttf.PagedConfig(**geo, use_kernel=use_kernel))
+    ids = _ids(2, 9, seed=12)
+    table = np.array([[1, 2, 3], [5, 4, 6]], np.int32)
+    want, jcache = _jax_paged_decode(jcfg, params, ids, table)
+    model = _torch_model(tcfg, state)
+    cache = ttf.PagedCache.zeros(tcfg, tcfg.paged, 2, "cpu")
+    cache.page_table = torch.from_numpy(table)
+    got = torch.stack([model(torch.from_numpy(ids[:, t : t + 1]).long(), torch.full((2, 1), t),
+                             cache=cache)[:, -1] for t in range(9)], 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=LOGIT_TOL)
+    attn = jcache["layer_1"]["attn"]
+    for name, mine in (("pool_key", cache.pool_k[1]), ("pool_value", cache.pool_v[1])):
+        theirs = np.asarray(attn[name])
+        assert mine.numpy().dtype == theirs.dtype == np.int8
+        # A code may sit one step apart where a value lies a hair from a
+        # rounding boundary; nearly all are equal.
+        assert np.mean(mine.numpy() == theirs) > 0.99
+    # Scales are amax / 127 of activations that differ by ~1e-7 relative.
+    for name, mine in (("pool_key_scale", cache.scale_k[1]), ("pool_value_scale", cache.scale_v[1])):
+        np.testing.assert_allclose(mine.numpy(), np.asarray(attn[name]), rtol=1e-5, atol=0)

@@ -5,7 +5,7 @@ version is held against the real Pallas kernel run through the Pallas
 interpreter (``interpret=True``, as the JAX package's own parity tests run
 it).  Inputs come from numpy with a fixed seed and go to both sides.
 
-Tolerances (float32 throughout): 2e-5 absolute/relative.  Both sides
+Tolerances (float32 unless a test says otherwise): 2e-5 absolute/relative.  Both sides
 compute the same split-K / online-softmax math in float32; they differ
 only in summation order over at most a few hundred terms of magnitude
 ~1, which moves results by ~1e-6.  The flash backward is held to the
@@ -29,6 +29,7 @@ import torch
 from k8s_device_plugin_tpu.ops.flash_attention import _flash_impl
 from k8s_device_plugin_tpu.ops.flash_attention import flash_attention as jax_flash
 from k8s_device_plugin_tpu.ops.flash_attention import mha_reference as jax_mha
+from k8s_device_plugin_tpu.ops import quant as jax_quant
 from k8s_device_plugin_tpu.ops.paged_attention import paged_attention as jax_paged
 from k8s_device_plugin_tpu_torch.ops import _build, tuning
 from k8s_device_plugin_tpu_torch.ops import flash_attention as fa
@@ -64,10 +65,10 @@ def test_paged_plain_matches_interpreted_pallas(window, splits, kv_heads):
     want = np.asarray(
         jax_paged(*map(jnp.asarray, inputs), window=window, num_splits=splits, interpret=True)
     )
-    pa.paged_attention.launches = 0
+    pa.reset_launches()
     got = pa.paged_attention(*_torch(*inputs), window=window, num_splits=splits)
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
-    assert pa.paged_attention.launches == 0  # CPU tensors: the plain version
+    assert pa.paged_attention.launches_by_format["f"] == 0  # CPU tensors: the plain version
 
 
 @pytest.mark.parametrize("window", [None, 5, 20])
@@ -124,11 +125,97 @@ def test_paged_rejects_unsupported_inputs(bad, match):
                            window=window, num_splits=1)
 
 
-def test_paged_int8_pools_wait_for_the_quant_slice():
-    q, pk, pv, table, lens = _torch(*_paged_inputs(5))
-    k8 = pk.to(torch.int8)
-    with pytest.raises(NotImplementedError, match="int8/int4"):
-        pa.paged_attention(q, k8, k8.clone(), table, lens)
+def _quantized_inputs(seed, fmt, **kw):
+    """Float inputs with the pools quantized by the JAX package (codes and
+    scale pools as numpy): ``(q, pool_k, pool_v, table, lens, scale_k,
+    scale_v)``."""
+    q, pk, pv, table, lens = _paged_inputs(seed, **kw)
+    quantize = jax_quant.quantize_kv if fmt == "int8" else jax_quant.quantize_kv4
+    (ck, sk), (cv, sv) = (map(np.array, quantize(jnp.asarray(p))) for p in (pk, pv))
+    return q, ck, cv, table, lens, sk, sv
+
+
+def _paged_both(inputs, **kw):
+    """(JAX, port) on the same quantized inputs; ``kw`` goes to both, with
+    JAX-only keys (``interpret``, ``use_pallas``) kept from the port."""
+    q, ck, cv, table, lens, sk, sv = inputs
+    want = jax_paged(*map(jnp.asarray, (q, ck, cv, table, lens)), scale_k=jnp.asarray(sk),
+                     scale_v=jnp.asarray(sv), **kw)
+    port_kw = {k: v for k, v in kw.items() if k not in ("interpret", "use_pallas")}
+    got = pa.paged_attention(*_torch(q, ck, cv, table, lens), scale_k=torch.from_numpy(sk),
+                             scale_v=torch.from_numpy(sv), **port_kw)
+    return np.asarray(want), got
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize(
+    "window, splits, kv_heads",
+    [(None, 1, 2), (9, 3, 4), (None, 3, 2)],
+    ids=["gqa4-split1", "window9-gqa2-split3", "gqa4-split3"],
+)
+def test_paged_quantized_plain_matches_interpreted_pallas(fmt, window, splits, kv_heads):
+    """The int8 and int4 branches of the plain version against the
+    reference's kernel branches run in the Pallas interpreter."""
+    inputs = _quantized_inputs(20, fmt, kv_heads=kv_heads)
+    pa.reset_launches()
+    want, got = _paged_both(inputs, window=window, num_splits=splits, interpret=True)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    assert pa.paged_attention.launches_by_format[fmt] == 0  # CPU tensors: the plain version
+
+
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+@pytest.mark.parametrize("window", [None, 5, 20])
+def test_paged_quantized_plain_matches_jax_xla_lane(fmt, window):
+    """Every split count, against the reference's XLA lane (_decode_xla);
+    the format is inferred from the pools on both sides."""
+    inputs = _quantized_inputs(21, fmt)
+    for splits in (1, 3):
+        want, got = _paged_both(inputs, window=window, num_splits=splits, use_pallas=False)
+        np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL, err_msg=f"S={splits}")
+
+
+def test_paged_quantized_bf16_query_matches_jax():
+    """A bf16 query over int8 pools: the probabilities take V's scale and
+    round to bf16 before p.v on both sides; one bf16 ulp at |x| < 1."""
+    q, ck, cv, table, lens, sk, sv = _quantized_inputs(22, "int8")
+    want = jax_paged(jnp.asarray(q, jnp.bfloat16), *map(jnp.asarray, (ck, cv, table, lens)),
+                     scale_k=jnp.asarray(sk), scale_v=jnp.asarray(sv), num_splits=2)
+    got = pa.paged_attention(torch.from_numpy(q).to(torch.bfloat16),
+                             *_torch(ck, cv, table, lens), scale_k=torch.from_numpy(sk),
+                             scale_v=torch.from_numpy(sv), num_splits=2)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want).astype(np.float32),
+                               rtol=0, atol=2 ** -8)
+
+
+def test_paged_scale_pool_errors_mirror_the_reference():
+    """Format inference and the scale-pool checks raise as the reference's
+    wrapper does, message for message."""
+    q, ck, cv, table, lens, sk, sv = _quantized_inputs(23, "int8")
+    q4, ck4, cv4, *_ = _quantized_inputs(23, "int4")
+    cases = [
+        ((q, ck, cv), {}, "int8 pools require scale_k and scale_v"),
+        ((q, ck4, cv4), {"scale_k": sk}, "int4 pools require scale_k and scale_v"),
+        ((q, ck.astype(np.float32), cv.astype(np.float32)), {"scale_k": sk, "scale_v": sv},
+         "scale pools passed with"),
+        ((q, ck.astype(np.float32), cv.astype(np.float32)), {"kv_format": "int8"},
+         "int8 pools must be int8 storage"),
+        ((q, ck, cv), {"scale_k": sk, "scale_v": sv, "kv_format": "int4"},
+         "pool head_dim 64 != expected 32"),
+        ((q, ck, cv), {"scale_k": sk, "scale_v": sv, "kv_format": "fp8"}, "kv_format must be"),
+    ]
+    for (qq, kk, vv), extra, match in cases:
+        jkw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v for k, v in extra.items()}
+        tkw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+               for k, v in extra.items()}
+        with pytest.raises(ValueError, match=match):
+            jax_paged(*map(jnp.asarray, (qq, kk, vv, table, lens)), **jkw)
+        with pytest.raises(ValueError, match=match):
+            pa.paged_attention(*_torch(qq, kk, vv, table, lens), **tkw)
+    # The port also checks the scale pools' type and shape before a launch.
+    with pytest.raises(ValueError, match="scale_v must be float32"):
+        pa.paged_attention(*_torch(q, ck, cv, table, lens), scale_k=torch.from_numpy(sk),
+                           scale_v=torch.from_numpy(sv)[:, :4])
 
 
 def _flash_inputs(seed, b=1, h=4, hk=2, s=128, d=64):
