@@ -7,20 +7,25 @@ Phases, in order (any failure exits non-zero):
 
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from csrc/ (one nvcc each, in
-   parallel);
+   parallel), and read each flash kernel's registers and spills (ptxas)
+   and HGMMA count (cuobjdump): the tensor-core (wgmma) variants must show
+   HGMMA and no spill, the FMA variants no HGMMA;
 3. hold each kernel against its plain PyTorch version on the card at the
-   serving slice's shapes (the flash forward at s 1024 too, the training
-   shape; the paged kernel in each pool format: bf16/f32, int8 and int4
-   codes with float32 scale pools, and the int4 unpack on every byte
-   value), and time the kernel, the plain version and, where one PyTorch
-   call computes the same function, that call;
-3b. hold the flash-backward kernels (dQ; dK/dV) against the plain backward
-   over bf16 and f32, s 128, 200 (ragged) and 1024, window none and 100,
-   causal and non-causal, kv group 4 and 1; at the training shape (b8 h16
-   hk4 s1024 d64, causal, bf16) hold the forward and both backward kernels
-   against their plain versions once more, then time them, the plain
-   backward, and SDPA's backward (by profiler device time, with the two
-   kernels timed the same way beside it);
+   serving slice's shapes (the paged kernel in each pool format: bf16/f32,
+   int8 and int4 codes with float32 scale pools, and the int4 unpack on
+   every byte value; the flash forward in both variants, bf16 on the
+   tensor cores and float32 on the FMA kernel, over s 128, 200 (ragged),
+   512 and 1024, window none and 100, causal and non-causal, kv group 4
+   and 1, each case checking which variant launched), and time the
+   kernel, the plain version and, where one PyTorch call computes the same
+   function, that call (the forward at s 128, greedy_generate's prefill,
+   and s 1024, the training shape);
+3b. hold the flash-backward kernels (dQ; dK/dV in both variants) against
+   the plain backward over the same matrix at batch 2; at the training
+   shape (b8 h16 hk4 s1024 d64, causal; bf16, and float32 for the FMA
+   dK/dV) hold them once more, then time them, the plain backward, and
+   SDPA's backward (by profiler device time, with the kernels timed the
+   same way beside it);
 4. run the batch serving engine at the deployed model's full width (vocab
    32000, hidden 1024, 8 layers, 16 heads / 4 kv heads, page 16, 512 pages,
    32 pages per sequence, 8 slots; 32 requests, prompt 128, 128 new
@@ -34,7 +39,8 @@ Phases, in order (any failure exits non-zero):
    reaches int4 pools only from its kernel benchmark): each pool format
    at the decode shape, launches counted by format;
 5. run greedy_generate at full width (batch 8, prompt 128, 32 new tokens)
-   the same way: the flash-forward kernel must have launched;
+   the same way: the flash-forward kernel must have launched, as its
+   tensor-core variant only;
 6. at 2 layers in float32, the engine's greedy tokens on the kernel path
    must equal those on the gathered-page path wherever the reference's
    top-2 logit margin clears the tolerance;
@@ -46,14 +52,19 @@ Phases, in order (any failure exits non-zero):
    batch 8, seq 1024; 2 warmup and 5 timed steps on one synthetic batch),
    with the launch counters set to 0 just before and read just after: the
    forward, dQ and dK/dV kernels must each have launched 8 layers x the
-   steps run, and every step's loss must be finite; then profile one more
-   step under ``torch.profiler``;
+   steps run, the forward and dK/dV as their tensor-core variants only,
+   and every step's loss must be finite; then profile one more step under
+   ``torch.profiler``;
 8. at 2 layers in float32 (full width, batch 2, seq 256, TF32 off), one
-   train step on the card (the kernels) and the same step on the CPU (the
-   plain versions) from the same weights: losses within 1e-5 relative and
-   every updated parameter within 1e-5.
+   train step on the card (the kernels, the forward and dK/dV as their FMA
+   variants only) and the same step on the CPU (the plain versions) from
+   the same weights: losses within 1e-5 relative and every updated
+   parameter within 1e-5.
 
-Then it prints one ``kernels`` JSON line, one ``slice`` JSON line, one
+Then it prints one ``kernels`` JSON line (a row per kernel variant, each
+with its design, HGMMA count, registers and spill bytes; every number in
+it measured in this run, the bounds computed from its inputs), one
+``slice`` JSON line, one
 ``quant`` JSON line, one ``train`` JSON line, and last the line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
@@ -63,6 +74,7 @@ from __future__ import annotations
 
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -79,6 +91,7 @@ TOL_BWD_F32 = 1e-4
 TOL_TRAIN = 1e-5  # fp32 train step, card vs CPU: loss (relative) and params (absolute)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores (the FMA kernels' type)
 DEVICE = "cuda"
 
 
@@ -266,62 +279,145 @@ def check_paged(torch, pa, quant, tuning, dp):
     return rows
 
 
-def check_flash(torch, fa):
-    """Kernel 2 against its plain version; returns its kernel-line entry."""
+def sass_hgmma(lib) -> dict[str, int]:
+    """HGMMA (wgmma) instructions per kernel in a built library's SASS."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            kernel = line.split("Function : ", 1)[1].strip()
+            counts[kernel] = 0
+        elif kernel is not None and "HGMMA" in line:
+            counts[kernel] += 1
+    return counts
+
+
+# The flash kernels' rows in the kernel line, by (kernel, input type): (row
+# name, the kernel's name as it appears in its mangled symbol).  Which
+# source and design each runs is ops/flash_attention.py's VARIANTS.
+FLASH_ROWS = {
+    ("forward", "bfloat16"): ("flash_attention", "flash_fwd_wgmma_kernel"),
+    ("forward", "float32"): ("flash_attention_fma", "flash_fwd_kernel"),
+    # dQ compiles once per type; the bf16 one is the main path's.
+    ("dq", "bfloat16"): ("flash_attention_bwd_dq", "flash_bwd_dq_kernelI13__nv_bfloat16"),
+    ("dkv", "bfloat16"): ("flash_attention_bwd_dkv", "flash_bwd_dkv_wgmma_kernel"),
+    ("dkv", "float32"): ("flash_attention_bwd_dkv_fma", "flash_bwd_dkv_kernel"),
+}
+
+
+def build_facts(torch, fa, _build) -> dict:
+    """Per flash kernel row, keyed as FLASH_ROWS: its name, source, design,
+    registers, spill bytes (ptxas) and HGMMA count (cuobjdump).  Fails if a
+    wgmma kernel spills or has no HGMMA, or an FMA kernel has any."""
+    facts = {}
+    for (kernel, dtype), (name, function) in FLASH_ROWS.items():
+        var = fa.variant(kernel, getattr(torch, dtype))
+        hgmma = sass_hgmma(_build.library_path(var.source))
+        ptxas = _build.ptxas_report(var.source)
+        pick = [sym for sym in ptxas if function in sym]
+        if len(pick) != 1:
+            fail(f"ptxas reports {sorted(ptxas)} for csrc/{var.source}.cu, not one {function}")
+        regs = ptxas[pick[0]]
+        fact = facts[(kernel, dtype)] = {
+            "name": name,
+            "route": "cuda",
+            "source": f"k8s_device_plugin_tpu_torch/csrc/{var.source}.cu",
+            "design": var.design,
+            "hgmma": sum(n for sym, n in hgmma.items() if function in sym),
+            "registers": regs["registers"],
+            "spill_bytes": regs["spill_stores"] + regs["spill_loads"],
+        }
+        log(f"{var.source} {function}: {fact}")
+        if var.design == "wgmma" and (fact["hgmma"] == 0 or fact["spill_bytes"]):
+            fail(f"{function}: {fact['hgmma']} HGMMA, {fact['spill_bytes']} spill bytes")
+        if var.design == "fma" and fact["hgmma"]:
+            fail(f"{function} is the FMA variant but has {fact['hgmma']} HGMMA")
+    return facts
+
+
+def expect_designs(counts: dict, design: str, n: int, what: str) -> None:
+    """Fail unless ``counts`` (launches by design) ran ``design`` n times
+    and no other."""
+    want = {d: (n if d == design else 0) for d in counts}
+    if counts != want:
+        fail(f"{what} launched {counts}, not {want}")
+
+
+def check_flash(torch, fa, facts):
+    """Kernel 2 against its plain version, both variants (bf16 wgmma, f32
+    FMA); returns their kernel-line entries."""
     dev = torch.device(DEVICE)
-    B, H, HK, D = 8, 16, 4, 64
+    B, H, D = 8, 16, 64
     gen = torch.Generator(device=dev).manual_seed(1)
-    worst = 0.0
-    for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+    types = (("bfloat16", TOL_BF16, BF16_FLOPS), ("float32", TOL_F32, FP32_FLOPS))
+    worst = {"bfloat16": 0.0, "float32": 0.0}
+    for dtype_name, tol, _ in types:
+        dtype, design = getattr(torch, dtype_name), facts[("forward", dtype_name)]["design"]
         for s in (128, 200, 512, 1024):  # 200: ragged last q and kv tiles; 1024: training
+            for group in (4, 1):
+                hk = H // group
+                q = torch.randn((B, H, s, D), generator=gen, device=dev).to(dtype)
+                k = torch.randn((B, hk, s, D), generator=gen, device=dev).to(dtype)
+                v = torch.randn((B, hk, s, D), generator=gen, device=dev).to(dtype)
+                for causal, window in ((True, None), (True, 100), (False, None)):
+                    fa.reset_launches()
+                    out, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+                    expect_designs(fa.flash_attention.launches_by_design, design, 1,
+                                   f"flash_forward {dtype}")
+                    ref, ref_lse = fa.flash_attention_reference(
+                        q, k, v, causal=causal, sm_scale=D ** -0.5, window=window, block_kv=128
+                    )
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref.float()).abs().max().item()
+                    lerr = (lse - ref_lse).abs().max().item()
+                    label = f"{dtype} s={s} group={group} causal={causal} window={window}"
+                    log(f"flash {design} {label}: max_abs_err {err:.3e} (tol {tol}), "
+                        f"lse {lerr:.3e}")
+                    if not (err <= tol and lerr <= TOL_LSE):
+                        fail(f"flash_attention {label}: out {err}, lse {lerr}")
+                    worst[dtype_name] = max(worst[dtype_name], err)
+    rows = []
+    for dtype_name, tol, peak in types:
+        dtype = getattr(torch, dtype_name)
+        row = {
+            **facts[("forward", dtype_name)],
+            "replaces": "k8s_device_plugin_tpu/ops/flash_attention.py:218",
+            "launches": None,
+            "max_abs_err": worst[dtype_name],
+            "tolerance": tol,
+        }
+        # Timing at the main path's shapes: greedy_generate's bulk prefill
+        # (s 128, the row's own keys) and the training step (s 1024).
+        for s in (128, 1024):
             q = torch.randn((B, H, s, D), generator=gen, device=dev).to(dtype)
-            k = torch.randn((B, HK, s, D), generator=gen, device=dev).to(dtype)
-            v = torch.randn((B, HK, s, D), generator=gen, device=dev).to(dtype)
-            for window in (None, 100):
-                out, lse = fa.flash_forward(q, k, v, causal=True, window=window)
-                ref, ref_lse = fa.flash_attention_reference(
-                    q, k, v, causal=True, sm_scale=D ** -0.5, window=window, block_kv=128
-                )
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                lerr = (lse - ref_lse).abs().max().item()
-                log(f"flash {dtype} s={s} window={window}: max_abs_err {err:.3e} (tol {tol}), lse {lerr:.3e}")
-                if not (err <= tol and lerr <= TOL_LSE):
-                    fail(f"flash_attention {dtype} s={s} window={window}: out {err}, lse {lerr}")
-                if dtype == torch.bfloat16:
-                    worst = max(worst, err)
-    # Timing at the main path's shape: greedy_generate's bulk prefill.
-    s = 128
-    q = torch.randn((B, H, s, D), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((B, HK, s, D), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((B, HK, s, D), generator=gen, device=dev).to(torch.bfloat16)
-    ms, eager_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-    plain_ms, _ = time_ms(
-        lambda: fa.flash_attention_reference(
-            q, k, v, causal=True, sm_scale=D ** -0.5, window=None, block_kv=128
-        ),
-        iters=20,
-    )
-    library_ms, _ = time_ms(sdpa_forward(torch, q, k, v))
-    pairs = B * H * s * (s + 1) // 2  # causal (row, col) pairs
-    nbytes = (B * H * s * D * 2) * 2 + (B * HK * s * D * 2) * 2 + B * H * s * 4
-    b_ms, b_by = bound(nbytes, 4 * D * pairs, BF16_FLOPS)
-    return {
-        "name": "flash_attention",
-        "route": "cuda",
-        "source": "k8s_device_plugin_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "k8s_device_plugin_tpu/ops/flash_attention.py:218",
-        "launches": None,
-        "max_abs_err": worst,
-        "tolerance": TOL_BF16,
-        "ms": ms,
-        "eager_ms": eager_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by,
-        "library_ms": library_ms,
-        "shape": f"b{B} h{H} hk{HK} s{s} d{D} causal bf16",
-    }
+            k = torch.randn((B, 4, s, D), generator=gen, device=dev).to(dtype)
+            v = torch.randn((B, 4, s, D), generator=gen, device=dev).to(dtype)
+            ms, eager_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                                   iters=50 if s == 128 else 20)
+            plain_ms, _ = time_ms(
+                lambda: fa.flash_attention_reference(
+                    q, k, v, causal=True, sm_scale=D ** -0.5, window=None, block_kv=128
+                ),
+                iters=20 if s == 128 else 5, warmup=2,
+            )
+            library_ms, _ = time_ms(sdpa_forward(torch, q, k, v), iters=20)
+            pairs = B * H * s * (s + 1) // 2  # causal (row, col) pairs
+            size = q.element_size()
+            nbytes = (B * H * s * D * size) * 2 + (B * 4 * s * D * size) * 2 + B * H * s * 4
+            b_ms, b_by = bound(nbytes, 4 * D * pairs, peak)
+            timed = {"ms": ms, "eager_ms": eager_ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": library_ms}
+            shape = f"b{B} h{H} hk4 s{s} d{D} causal {dtype_name}"
+            if s == 128:
+                row.update(timed, shape=shape)
+            else:
+                row.update({f"train_{key}": val for key, val in timed.items()}, train_shape=shape)
+            log(f"flash {row['design']} at {shape}: {ms:.4f} ms (bound {b_ms:.4f}, "
+                f"SDPA {library_ms:.4f}, plain {plain_ms:.4f})")
+        rows.append(row)
+    return rows
 
 
 def run_engine(torch, engine, pa, fa, flags=()):
@@ -333,7 +429,7 @@ def run_engine(torch, engine, pa, fa, flags=()):
         "--requests=32", "--prompt-len=128", "--max-new=128", f"--device={DEVICE}", *flags,
     ])
     pa.reset_launches()
-    fa.flash_attention.launches = 0
+    fa.reset_launches()
     summary, done = engine.benchmark(args)
     torch.cuda.synchronize()
     launches = dict(pa.paged_attention.launches_by_format)
@@ -375,15 +471,18 @@ def run_generate(torch, tf, pa, fa):
     params = tf.init_params(cfg, seed=0)
     prompt = torch.randint(0, 32000, (8, 128), generator=torch.Generator().manual_seed(2))
     pa.reset_launches()
-    fa.flash_attention.launches = 0
+    fa.reset_launches()
     t0 = time.perf_counter()
     out = tf.greedy_generate(cfg, params, prompt, 32, device=DEVICE)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = fa.flash_attention.launches
-    log(f"greedy_generate: {tuple(out.shape)} in {dt:.3f}s; flash launches {launches}")
+    log(f"greedy_generate: {tuple(out.shape)} in {dt:.3f}s; flash launches "
+        f"{fa.flash_attention.launches_by_design}")
     if launches <= 0:
         fail("greedy_generate's bulk prefill never launched the flash kernel")
+    expect_designs(fa.flash_attention.launches_by_design, "wgmma", launches,
+                   "greedy_generate's bf16 prefill")
     if tuple(out.shape) != (8, 160) or not torch.equal(out[:, :128].cpu(), prompt):
         fail(f"greedy_generate returned {tuple(out.shape)} or altered the prompt")
     if int(out.min()) < 0 or int(out.max()) >= 32000:
@@ -447,25 +546,19 @@ def sdpa_forward(torch, q, k, v):
 
 
 def profiled_ms(torch, fn, what: str, iters: int = 10, warmup: int = 3) -> float:
-    """Device time per call of ``fn``: the kernels' time summed under
-    torch.profiler.  SDPA's backward is timed this way because a CUDA graph
-    cannot capture its ``autograd.grad`` here; the backward kernels are
-    timed the same way beside it, so the two compare by one method."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from k8s_device_plugin_tpu_torch.decode_profile import trace_stats
+    """Device time per call of ``fn`` (``decode_profile.profiled_device_us``).
+    SDPA's backward is timed this way because a CUDA graph cannot capture
+    its ``autograd.grad`` here; the backward kernels are timed the same way
+    beside it, so the two compare by one method."""
+    from k8s_device_plugin_tpu_torch.decode_profile import profiled_device_us
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    device_us = trace_stats(prof)["device_us"]
-    if device_us is None:
-        fail(f"the profiler traced no device time for {what}")
-    return device_us / iters / 1e3
+    try:
+        return profiled_device_us(fn, iters) / 1e3
+    except RuntimeError as err:
+        fail(f"{what}: {err}")
 
 
 def sdpa_backward(torch, q, k, v, dout):
@@ -476,31 +569,34 @@ def sdpa_backward(torch, q, k, v, dout):
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
-def hold_backward(got, want, tol: float, label: str, worst: dict | None) -> None:
+def hold_backward(got, want, tol: float, label: str, worst: dict, dtype_name: str) -> None:
     """Fail unless each of (dq, dk, dv) is within ``tol`` of the plain
     backward's, as max |got - want| / max |want|; fold the errors into
-    ``worst`` (bf16 cases)."""
+    ``worst``, keyed as FLASH_ROWS: dq's under ("dq", dtype_name) where that
+    row exists (bf16, the main path's), dk and dv's under ("dkv", dtype_name)."""
     rels = [rel_err(g, w) for g, w in zip(got, want)]
     log(f"flash bwd {label}: rel dq {rels[0]:.2e} dk {rels[1]:.2e} dv {rels[2]:.2e} (tol {tol})")
     if not max(rels) <= tol:
         fail(f"flash backward {label}: {rels} > {tol}")
-    if worst is not None:
-        abss = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
-        for key, idx in (("dq", (0,)), ("dkv", (1, 2))):
+    abss = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+    for key, idx in ((("dq", dtype_name), (0,)), (("dkv", dtype_name), (1, 2))):
+        if key in worst:
             worst[key][0] = max(worst[key][0], *(abss[i] for i in idx))
             worst[key][1] = max(worst[key][1], *(rels[i] for i in idx))
 
 
-def check_flash_bwd(torch, fa, flash_row):
-    """Phase 3b: kernels 3 and 4 against the plain backward; times them at
-    the training shape, adds the forward's training-shape time to
-    ``flash_row``, and returns the two kernel-line entries."""
+def check_flash_bwd(torch, fa, facts):
+    """Phase 3b: kernels 3 and 4 (both dK/dV variants) against the plain
+    backward; times them at the training shape and returns the kernel-line
+    entries of dQ, dK/dV (wgmma, bf16) and dK/dV (FMA, float32)."""
     dev = torch.device(DEVICE)
     B, H, D = 2, 16, 64
     gen = torch.Generator(device=dev).manual_seed(4)
-    worst = {"dq": [0.0, 0.0], "dkv": [0.0, 0.0]}  # bf16 (abs, rel)
-    for dtype, tol in ((torch.bfloat16, TOL_BWD_BF16), (torch.float32, TOL_BWD_F32)):
-        for s in (128, 200, 1024):  # 200: ragged last q and kv tiles
+    types = (("bfloat16", TOL_BWD_BF16, BF16_FLOPS), ("float32", TOL_BWD_F32, FP32_FLOPS))
+    worst = {key: [0.0, 0.0] for key in FLASH_ROWS if key[0] != "forward"}  # (abs, rel)
+    for dtype_name, tol, _ in types:
+        dtype, design = getattr(torch, dtype_name), facts[("dkv", dtype_name)]["design"]
+        for s in (128, 200, 512, 1024):  # 200: ragged last q and kv tiles
             for group in (4, 1):
                 hk = H // group
                 q = torch.randn((B, H, s, D), generator=gen, device=dev).to(dtype)
@@ -509,84 +605,84 @@ def check_flash_bwd(torch, fa, flash_row):
                 dout = torch.randn((B, H, s, D), generator=gen, device=dev).to(dtype)
                 for causal, window in ((True, None), (True, 100), (False, None)):
                     out, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+                    fa.reset_launches()
                     got = fa.flash_backward(q, k, v, out, lse, dout, causal=causal, window=window)
+                    expect_designs(fa.flash_backward.dkv_launches_by_design, design, 1,
+                                   f"flash_backward {dtype}")
                     want = fa.flash_attention_backward_reference(
                         q, k, v, out, lse, dout, causal=causal, sm_scale=D ** -0.5,
                         window=window, block_kv=128,
                     )
                     hold_backward(got, want, tol,
                                   f"{dtype} s={s} group={group} causal={causal} window={window}",
-                                  worst if dtype == torch.bfloat16 else None)
-    # The training shape: the two kernels exactly as the training step
-    # launches them, held against the plain backward, then timed (L2 warm
-    # between launches).  check_flash holds the forward at this shape.
+                                  worst, dtype_name)
+    # The training shape: the kernels exactly as the training step launches
+    # them (bf16; float32 for the FMA dK/dV variant), held against the plain
+    # backward, then timed (L2 warm between launches).
     B, H, HK, S = 8, 16, 4, 1024
-    q = torch.randn((B, H, S, D), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((B, HK, S, D), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((B, HK, S, D), generator=gen, device=dev).to(torch.bfloat16)
-    dout = torch.randn((B, H, S, D), generator=gen, device=dev).to(torch.bfloat16)
-    shape = f"b{B} h{H} hk{HK} s{S} d{D} causal bf16"
     opts = dict(causal=True, sm_scale=D ** -0.5, window=None)
-    out, lse = fa.flash_forward(q, k, v, causal=True)
-    dq, delta = fa.launch_dq(q, k, v, out, lse, dout, **opts)
-    got = (dq, *fa.launch_dkv(q, k, v, lse, delta, dout, **opts))
-    want = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, block_kv=128, **opts)
-    hold_backward(got, want, TOL_BWD_BF16, f"at {shape}", worst)
-    dq_ms, dq_eager = time_ms(lambda: fa.launch_dq(q, k, v, out, lse, dout, **opts), iters=20)
-    dkv_ms, dkv_eager = time_ms(lambda: fa.launch_dkv(q, k, v, lse, delta, dout, **opts), iters=20)
-    plain_ms, _ = time_ms(
-        lambda: fa.flash_attention_backward_reference(q, k, v, out, lse, dout, block_kv=128,
-                                                      **opts),
-        iters=5, warmup=2,
-    )
-    library_ms = profiled_ms(torch, sdpa_backward(torch, q, k, v, dout), "SDPA's backward")
-    dq_prof = profiled_ms(torch, lambda: fa.launch_dq(q, k, v, out, lse, dout, **opts), "dQ")
-    dkv_prof = profiled_ms(torch, lambda: fa.launch_dkv(q, k, v, lse, delta, dout, **opts),
-                           "dK/dV")
-    fwd_ms, _ = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), iters=20)
     pairs = B * H * S * (S + 1) // 2  # causal (row, col) pairs
-    row_q, row_kv, vec = B * H * S * D * 2, B * HK * S * D * 2, B * H * S * 4
-    fwd_bound = bound(2 * row_q + 2 * row_kv + vec, 4 * D * pairs, BF16_FLOPS)
-    flash_row.update(
-        train_shape=shape, train_ms=fwd_ms,
-        train_bound_ms=fwd_bound[0], train_bound_by=fwd_bound[1],
-        train_library_ms=time_ms(sdpa_forward(torch, q, k, v), iters=20)[0],
-    )
-    rows = []
-    for name, ms, eager, prof_ms, nbytes, flops, key, line in (
-        # kernel 3 reads q, dO, O, lse, k, v and writes dq: 6 d flops a pair
-        ("flash_attention_bwd_dq", dq_ms, dq_eager, dq_prof, 4 * row_q + vec + 2 * row_kv,
-         6 * D * pairs, "dq", 433),
-        # kernel 4 reads q, dO, lse, D, k, v and writes dk, dv: 8 d flops a pair
-        ("flash_attention_bwd_dkv", dkv_ms, dkv_eager, dkv_prof, 2 * row_q + 2 * vec + 4 * row_kv,
-         8 * D * pairs, "dkv", 500),
-    ):
-        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
-        rows.append({
-            "name": name,
-            "route": "cuda",
-            "source": "k8s_device_plugin_tpu_torch/csrc/flash_attention_bwd.cu",
-            "replaces": f"k8s_device_plugin_tpu/ops/flash_attention.py:{line}",
-            "launches": None,
-            "max_abs_err": worst[key][0],
-            "max_rel_err": worst[key][1],
-            "tolerance": TOL_BWD_BF16,
-            "ms": ms,
-            "eager_ms": eager,
-            "profiled_ms": prof_ms,
-            "plain_ms": plain_ms,
-            "plain_note": "the plain backward computes dq, dk and dv together",
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": library_ms,
-            "library_note": "SDPA backward (profiler device time, compare with the sum of "
-                            "both rows' profiled_ms), one call yields dq, dk and dv",
-            "shape": shape,
-        })
-    log(f"flash bwd at {shape}: profiler device time dq {dq_prof:.3f} + dkv {dkv_prof:.3f} ms "
-        f"vs SDPA backward {library_ms:.3f} ms; graph replay dq {dq_ms:.3f} + dkv {dkv_ms:.3f} ms; "
-        f"plain {plain_ms:.3f} ms; forward {fwd_ms:.3f} ms")
-    return rows
+    rows = {}
+    for dtype_name, tol, peak in types:
+        dtype = getattr(torch, dtype_name)
+        q = torch.randn((B, H, S, D), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, HK, S, D), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, HK, S, D), generator=gen, device=dev).to(dtype)
+        dout = torch.randn((B, H, S, D), generator=gen, device=dev).to(dtype)
+        shape = f"b{B} h{H} hk{HK} s{S} d{D} causal {dtype_name}"
+        out, lse = fa.flash_forward(q, k, v, causal=True)
+        dq, delta = fa.launch_dq(q, k, v, out, lse, dout, **opts)
+        got = (dq, *fa.launch_dkv(q, k, v, lse, delta, dout, **opts))
+        want = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, block_kv=128,
+                                                     **opts)
+        hold_backward(got, want, tol, f"at {shape}", worst, dtype_name)
+        calls = {"dkv": lambda: fa.launch_dkv(q, k, v, lse, delta, dout, **opts)}
+        if ("dq", dtype_name) in FLASH_ROWS:
+            calls["dq"] = lambda: fa.launch_dq(q, k, v, out, lse, dout, **opts)
+        plain_ms, _ = time_ms(
+            lambda: fa.flash_attention_backward_reference(q, k, v, out, lse, dout, block_kv=128,
+                                                          **opts),
+            iters=5, warmup=2,
+        )
+        library_ms = profiled_ms(torch, sdpa_backward(torch, q, k, v, dout),
+                                 f"SDPA's backward ({shape})")
+        size = q.element_size()
+        row_q, row_kv, vec = B * H * S * D * size, B * HK * S * D * size, B * H * S * 4
+        for kernel, call in calls.items():
+            key = (kernel, dtype_name)
+            ms, eager = time_ms(call, iters=20)
+            prof = profiled_ms(torch, call, f"{facts[key]['name']} ({shape})")
+            if kernel == "dq":
+                # kernel 3 reads q, dO, O, lse, k, v and writes dq, D: 6 d flops a pair
+                nbytes, flops, line = 4 * row_q + 2 * vec + 2 * row_kv, 6 * D * pairs, 433
+            else:
+                # kernel 4 reads q, dO, lse, D, k, v and writes dk, dv: 8 d flops a pair
+                nbytes, flops, line = 2 * row_q + 2 * vec + 4 * row_kv, 8 * D * pairs, 500
+            b_ms, b_by = bound(nbytes, flops, peak)
+            rows[key] = {
+                **facts[key],
+                "replaces": f"k8s_device_plugin_tpu/ops/flash_attention.py:{line}",
+                "launches": None,
+                "max_abs_err": worst[key][0],
+                "max_rel_err": worst[key][1],
+                "tolerance": tol,
+                "ms": ms,
+                "eager_ms": eager,
+                "profiled_ms": prof,
+                "plain_ms": plain_ms,
+                "plain_note": "the plain backward computes dq, dk and dv together",
+                "bound_ms": b_ms,
+                "bound_by": b_by,
+                "library_ms": library_ms,
+                "library_note": "SDPA backward (profiler device time, compare with the sum of "
+                                "the dq and dk/dv rows' profiled_ms), one call yields dq, dk "
+                                "and dv",
+                "shape": shape,
+            }
+            log(f"flash bwd {facts[key]['name']} at {shape}: graph {ms:.4f} ms, profiler "
+                f"{prof:.4f} ms (bound {b_ms:.4f}); SDPA backward {library_ms:.4f} ms; "
+                f"plain {plain_ms:.3f} ms")
+    return rows[("dq", "bfloat16")], rows[("dkv", "bfloat16")], rows[("dkv", "float32")]
 
 
 def model_flops_per_step(cfg, batch: int, seq: int) -> float:
@@ -614,8 +710,7 @@ def run_training(torch, fa, bench, smi):
         "--dtype=bfloat16", f"--device={DEVICE}",
     ])
     cfg, state, step, batch = bench.build(args)
-    fa.flash_attention.launches = 0
-    fa.flash_backward.dq_launches = fa.flash_backward.dkv_launches = 0
+    fa.reset_launches()
     state, losses, dt = bench.timed_steps(step, state, batch, args.warmup, args.steps)
     torch.cuda.synchronize()
     launches = {
@@ -623,11 +718,18 @@ def run_training(torch, fa, bench, smi):
         "flash_attention_bwd_dq": fa.flash_backward.dq_launches,
         "flash_attention_bwd_dkv": fa.flash_backward.dkv_launches,
     }
+    by_design = {"forward": dict(fa.flash_attention.launches_by_design),
+                 "dkv": dict(fa.flash_backward.dkv_launches_by_design)}
     record = bench.make_record(args, state, losses, dt)
-    log(f"training: {record}; launches {launches} over {state.step} steps")
-    for name, n in launches.items():
-        if n != cfg.num_layers * state.step:
-            fail(f"training launched {name} {n} times, not {cfg.num_layers} x {state.step} steps")
+    log(f"training: {record}; launches {launches}, by design {by_design} over {state.step} steps")
+    n = cfg.num_layers * state.step
+    for name, count in launches.items():
+        if count != n:
+            fail(f"training launched {name} {count} times, not {cfg.num_layers} x "
+                 f"{state.step} steps")
+    # bf16 runs the tensor-core kernels 2 and 4, never their FMA variants.
+    for kernel, counts in by_design.items():
+        expect_designs(counts, "wgmma", n, f"the bf16 training run's {kernel} kernel")
     bad = [i for i, loss in enumerate(losses) if not torch.isfinite(loss).item()]
     if bad:
         fail(f"training loss not finite at steps {bad}")
@@ -638,7 +740,7 @@ def run_training(torch, fa, bench, smi):
         state, loss = step(state, batch)
         loss.item()
         wall = time.perf_counter() - t0
-    stats = trace_stats(prof, top=10)
+    stats = trace_stats(prof, top=16)  # deep enough to list kernels 2 and 4
     summary = {
         "config": "vocab 32000, hidden 1024, 8 layers, 16/4 heads, intermediate 2816, "
                   "bf16 compute, float32 params, batch 8, seq 1024",
@@ -652,13 +754,14 @@ def run_training(torch, fa, bench, smi):
                        "flops) / step time / 989e12",
         "profiled_step": {"wall_ms": wall * 1e3, **stats},
         "launches": launches,
+        "launches_by_design": by_design,
         "record": record,
         "card": smi,
     }
     return summary, launches
 
 
-def check_train_parity(torch, tf, train, data):
+def check_train_parity(torch, fa, tf, train, data):
     """Phase 8: one fp32 train step on the card (kernels) and on the CPU
     (plain versions) from the same weights and batch."""
     cfg = tf.GPTConfig(
@@ -671,16 +774,24 @@ def check_train_parity(torch, tf, train, data):
     result = {}
     for device in (DEVICE, "cpu"):
         state = train.create_train_state(cfg, params, 0.1, 0.9, device=device)
+        fa.reset_launches()
         state, loss = train.make_train_step()(state, {k: v.to(device) for k, v in batch.items()})
         result[device] = loss.item(), {k: v.cpu() for k, v in state.model.state_dict().items()}
+        if device == DEVICE:
+            # float32 runs the FMA kernels 2 and 4, never the tensor-core ones.
+            launches = {"forward": dict(fa.flash_attention.launches_by_design),
+                        "dkv": dict(fa.flash_backward.dkv_launches_by_design)}
+            for kernel, counts in launches.items():
+                expect_designs(counts, "fma", cfg.num_layers, f"the float32 step's {kernel} kernel")
     (card_loss, card_params), (cpu_loss, cpu_params) = result[DEVICE], result["cpu"]
     loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
     param_err = max((card_params[k] - cpu_params[k]).abs().max().item() for k in cpu_params)
     log(f"fp32 train step card vs CPU: loss {card_loss:.6f} vs {cpu_loss:.6f} (rel {loss_rel:.2e}), "
-        f"max param diff {param_err:.2e} (tol {TOL_TRAIN})")
+        f"max param diff {param_err:.2e} (tol {TOL_TRAIN}); kernel launches {launches}")
     if not (loss_rel <= TOL_TRAIN and param_err <= TOL_TRAIN):
         fail(f"train step card vs CPU: loss rel {loss_rel}, params {param_err}")
-    return {"loss_rel_err": loss_rel, "param_max_abs_err": param_err}
+    return {"loss_rel_err": loss_rel, "param_max_abs_err": param_err,
+            "launches_by_design": launches}
 
 
 def main() -> None:
@@ -707,10 +818,14 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f}s")
+    facts = build_facts(torch, fa, _build)
 
     paged = {row["kv_format"]: row for row in check_paged(torch, pa, quant, tuning, dp)}
-    flash = check_flash(torch, fa)
-    dq, dkv = check_flash_bwd(torch, fa, flash)
+    paged_hgmma = sum(sass_hgmma(_build.library_path("paged_attention")).values())
+    for row in paged.values():
+        row.update(design="fma", hgmma=paged_hgmma)
+    flash, flash_fma = check_flash(torch, fa, facts)
+    dq, dkv, dkv_fma = check_flash_bwd(torch, fa, facts)
     summary, launches = run_engine(torch, engine, pa, fa)
     paged["f"]["launches"] = launches["f"]
     quant_runs = []
@@ -734,9 +849,15 @@ def main() -> None:
     flash["train_launches"] = launches["flash_attention"]
     dq["launches"] = launches["flash_attention_bwd_dq"]
     dkv["launches"] = launches["flash_attention_bwd_dkv"]
-    trained["card_vs_cpu"] = check_train_parity(torch, tf, train, data)
+    trained["card_vs_cpu"] = check_train_parity(torch, fa, tf, train, data)
+    # The FMA variants run on float32 inputs only: their launches are phase
+    # 8's, the float32 train step's.
+    fma_launches = trained["card_vs_cpu"]["launches_by_design"]
+    for row, kernel in ((flash_fma, "forward"), (dkv_fma, "dkv")):
+        row["launches"] = fma_launches[kernel]["fma"]
+        row["launches_from"] = "phase 8, the float32 train step (2 layers, 1 step)"
 
-    kernels = [paged["f"], paged["int8"], paged["int4"], flash, dq, dkv]
+    kernels = [paged["f"], paged["int8"], paged["int4"], flash, flash_fma, dq, dkv, dkv_fma]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"slice": summary, "card": smi}), flush=True)
     print(json.dumps({"quant": quant_runs, "format_sweep": sweep, "paths_agree_w8_int8kv": agree_quant,

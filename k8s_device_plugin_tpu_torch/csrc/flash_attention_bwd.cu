@@ -1,8 +1,11 @@
-// Flash-attention backward for Hopper (sm_90a): the dQ kernel and the dK/dV
-// kernel, plain C interface.
+// Flash-attention backward for Hopper (sm_90a) on the CUDA cores: the dQ
+// kernel (bf16 and float32) and the float32 dK/dV kernel, plain C interface.
 //
 // Replaces the TPU kernels k8s_device_plugin_tpu/ops/flash_attention.py
-// _dq_kernel and _dkv_kernel (both launched by _flash_bwd_pallas).  Inputs
+// _dq_kernel and _dkv_kernel (both launched by _flash_bwd_pallas).  bf16
+// dK/dV runs the tensor-core kernel of csrc/flash_attention_bwd_wgmma.cu;
+// float32 keeps the FMA kernel here by design, since wgmma has no float32
+// operands and TF32 would miss the float32 tolerances.  Inputs
 // are the forward's residuals: q, out, dout [b, h, s_q, d]; k, v [b, hk,
 // s_kv, d] with hk dividing h (GQA: q head i reads kv head i / (h / hk));
 // lse [b, h, s_q] float32 from csrc/flash_attention.cu.  Outputs dq in q's
@@ -257,11 +260,12 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 
 // ------------------------------------------------------------------ dK/dV
 
-// One q tile of one q head into this kv row's dK and dV.  RAGGED: the last q
-// tile of a sequence that TILE does not divide (rows past seq_q load as
-// zeros with lse = -inf, so their P is 0).
-template <typename T, bool RAGGED>
-__device__ __forceinline__ void dkv_tile(const T* __restrict__ qbase, const T* __restrict__ dobase,
+// One q tile of one q head into this kv row's dK and dV, float32.  RAGGED:
+// the last q tile of a sequence that TILE does not divide (rows past seq_q
+// load as zeros with lse = -inf, so their P is 0).
+template <bool RAGGED>
+__device__ __forceinline__ void dkv_tile(const float* __restrict__ qbase,
+                                         const float* __restrict__ dobase,
                                          const float* __restrict__ lsebase,
                                          const float* __restrict__ deltabase, int qi, int seq_q,
                                          int col, int part, int causal, int window,
@@ -300,22 +304,20 @@ __device__ __forceinline__ void dkv_tile(const T* __restrict__ qbase, const T* _
     const float l = ls[i];
     const bool ok = l > -INFINITY && in_band(row, col, causal, window);
     const float p = ok ? expf(s * sm_scale - l) : 0.f;
-    const float ds = round_to<T>(p * (dp - dls[i]) * sm_scale);
-    const float pr = round_to<T>(p);
+    const float ds = p * (dp - dls[i]) * sm_scale;
 #pragma unroll
     for (int e = 0; e < PER; ++e) {
       dk[e] = fmaf(ds, qv[e], dk[e]);
-      dv[e] = fmaf(pr, dov[e], dv[e]);
+      dv[e] = fmaf(p, dov[e], dv[e]);
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int heads, int kv_heads, int seq_q, int seq_kv,
-    int causal, int window, float sm_scale) {
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int heads,
+    int kv_heads, int seq_q, int seq_kv, int causal, int window, float sm_scale) {
   __shared__ __align__(16) float qs[TILE][D];
   __shared__ __align__(16) float dos[TILE][D];
   __shared__ float ls[TILE];
@@ -345,17 +347,17 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
   }
   for (int g = 0; g < group; ++g) {
     const int h = (b2 / kv_heads) * heads + (b2 % kv_heads) * group + g;
-    const T* qbase = q + (size_t)h * seq_q * D;
-    const T* dobase = dout + (size_t)h * seq_q * D;
+    const float* qbase = q + (size_t)h * seq_q * D;
+    const float* dobase = dout + (size_t)h * seq_q * D;
     const float* lbase = lse + (size_t)h * seq_q;
     const float* dbase = delta + (size_t)h * seq_q;
     for (int qi = q_lo; qi < min(q_hi, n_full); ++qi) {
-      dkv_tile<T, false>(qbase, dobase, lbase, dbase, qi, seq_q, col, part, causal, window,
-                         sm_scale, kr, vr, dk_acc, dv_acc, qs, dos, ls, dls);
+      dkv_tile<false>(qbase, dobase, lbase, dbase, qi, seq_q, col, part, causal, window,
+                      sm_scale, kr, vr, dk_acc, dv_acc, qs, dos, ls, dls);
     }
     if (q_lo <= n_full && n_full < q_hi) {  // the ragged last tile is live
-      dkv_tile<T, true>(qbase, dobase, lbase, dbase, n_full, seq_q, col, part, causal, window,
-                        sm_scale, kr, vr, dk_acc, dv_acc, qs, dos, ls, dls);
+      dkv_tile<true>(qbase, dobase, lbase, dbase, n_full, seq_q, col, part, causal, window,
+                     sm_scale, kr, vr, dk_acc, dv_acc, qs, dos, ls, dls);
     }
   }
   if (col < seq_kv) {
@@ -372,7 +374,8 @@ bool bad_shape(int batch, int heads, int kv_heads, int seq_q, int seq_kv, int he
 }  // namespace
 
 // dQ and the per-row D = rowsum(dO o O) (written to `delta`, [b, h, s_q]
-// float32, for flash_attention_bwd_dkv).
+// float32, for the dK/dV kernels: flash_attention_bwd_dkv_fma here,
+// flash_attention_bwd_dkv_wgmma in csrc/flash_attention_bwd_wgmma.cu).
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                       const void* out, const void* dout, const void* lse,
                                       void* dq, void* delta, int batch, int heads, int kv_heads,
@@ -401,31 +404,22 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k, const void* 
   return (int)cudaGetLastError();
 }
 
-// dK and dV, reading the `delta` that flash_attention_bwd_dq wrote.
-extern "C" int flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
-                                       const void* dout, const void* lse, const void* delta,
-                                       void* dk, void* dv, int batch, int heads, int kv_heads,
-                                       int seq_q, int seq_kv, int head_dim, int causal,
-                                       int window, float sm_scale, int is_bf16, void* stream) {
+// dK and dV of float32 inputs, reading the `delta` that
+// flash_attention_bwd_dq wrote.
+extern "C" int flash_attention_bwd_dkv_fma(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse, const void* delta,
+                                           void* dk, void* dv, int batch, int heads,
+                                           int kv_heads, int seq_q, int seq_kv, int head_dim,
+                                           int causal, int window, float sm_scale,
+                                           void* stream) {
   if (bad_shape(batch, heads, kv_heads, seq_q, seq_kv, head_dim)) {
     return (int)cudaErrorInvalidValue;
   }
   const dim3 grid(batch * kv_heads, (seq_kv + TILE - 1) / TILE);
-  auto st = static_cast<cudaStream_t>(stream);
-  auto l = static_cast<const float*>(lse);
-  auto dl = static_cast<const float*>(delta);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    flash_bwd_dkv_kernel<T><<<grid, THREADS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), l, dl, static_cast<T*>(dk), static_cast<T*>(dv), heads,
-        kv_heads, seq_q, seq_kv, causal, window, sm_scale);
-  } else {
-    using T = float;
-    flash_bwd_dkv_kernel<T><<<grid, THREADS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), l, dl, static_cast<T*>(dk), static_cast<T*>(dv), heads,
-        kv_heads, seq_q, seq_kv, causal, window, sm_scale);
-  }
+  flash_bwd_dkv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), heads,
+      kv_heads, seq_q, seq_kv, causal, window, sm_scale);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,247 @@
+// Flash-attention dK/dV on Hopper's tensor cores (sm_90a, bf16), plain C
+// interface.
+//
+// Replaces the TPU kernel k8s_device_plugin_tpu/ops/flash_attention.py
+// _dkv_kernel (launched by _flash_bwd_pallas) for bf16 inputs; float32
+// inputs run the FMA kernel of csrc/flash_attention_bwd.cu, since wgmma has
+// no float32 operands.  Inputs: q, dout [b, h, s_q, 64]; k, v [b, hk, s_kv,
+// 64] bf16 with hk dividing h (GQA: q head i reads kv head i / (h / hk));
+// lse [b, h, s_q] float32 from the forward and D = rowsum(dO o O) [b, h,
+// s_q] float32 from the dQ kernel (csrc/flash_attention_bwd.cu), which runs
+// before this one on the same stream.  Outputs dk, dv bf16.  Per kv tile,
+// written transposed (kv rows, q columns):
+//   S^T  = K Q^T                 P^T = exp(S^T scale - lse)  (0 where masked
+//   dP^T = V dO^T                                           or lse = -inf)
+//   dS^T = P^T o (dP^T - D) scale
+//   dV  += P^T dO,  dK += dS^T Q  (P^T and dS^T rounded to bf16)
+// with every product accumulated in float32.
+//
+// Bound on the card: operations, 8 x d flops per causal (row, col) pair.
+// The design (hopper_wgmma.cuh has the building blocks):
+//   - grid (b*hk, kv tile), one warpgroup (128 threads) per 64-row kv tile
+//     of one kv head; the block loops over every q head of the kv head's
+//     group and over the live q tiles, so the group's gradient is summed in
+//     registers, deterministically and without atomics;
+//   - K and V are loaded once into 128-byte-swizzled shared tiles and are
+//     the A operands (K-major) of S^T and dP^T; Q and dO are their B
+//     operands (K-major), then the B operands (MN-major, transpose bit) of
+//     dK and dV, whose A operands are dS^T and P^T from registers: the
+//     transposed accumulator layout is already the A fragment, so neither
+//     P nor dS ever goes to shared memory;
+//   - dK and dV stay float32 in registers across the whole loop (32 each
+//     per thread at m64n64);
+//   - Q, dO and the tile's lse and D slices stream through a two-stage
+//     ring filled by cp.async: step i + 1 is in flight while step i
+//     multiplies;
+//   - the loop visits live q tiles only (the diagonal to the window's last
+//     q tile); only the diagonal tile, the window's edge tile and a ragged
+//     last q tile take a mask;
+//   - any length: q rows past s_q and kv rows past s_kv load as zeros, the
+//     former masked, and kv rows past s_kv write nothing.
+// Exponentials are exp2 of scores pre-scaled by sm_scale * log2(e).
+// Built for sm_90a, ptxas reports (`-Xptxas=-v`, kept in the build log)
+// 162 registers a thread and no spill; `cuobjdump -sass` shows 16 HGMMA,
+// 4 each for S^T, dP^T, dV and dK.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "hopper_wgmma.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
+constexpr int D = 64;         // head_dim
+constexpr int BKV = 64;       // kv rows per block (one warpgroup)
+constexpr int BQ = 64;        // q rows per streamed tile
+constexpr int THREADS = 128;  // one warpgroup
+constexpr int STAGES = 2;     // Q/dO/lse/D ring depth
+// A ring stage: the Q tile, the dO tile, then BQ floats each of lse and D,
+// padded to a swizzle atom so the next stage's tiles stay aligned.
+constexpr int ROWSTAT_BYTES = BQ * 4;
+constexpr int STAGE_BYTES =
+    (2 * TILE64_BYTES + 2 * ROWSTAT_BYTES + SWIZZLE_ATOM_BYTES - 1) / SWIZZLE_ATOM_BYTES *
+    SWIZZLE_ATOM_BYTES;
+constexpr int SMEM_BYTES = 2 * TILE64_BYTES + STAGES * STAGE_BYTES + SWIZZLE_ATOM_BYTES;
+static_assert(BKV == 64 && BQ == 64 && D == 64, "one m64n64 tile per product");
+
+__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, int heads,
+    int kv_heads, int seq_q, int seq_kv, int causal, int window, float sm_scale,
+    float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s_k = aligned_smem_base(smem_raw);
+  const uint32_t s_v = s_k + TILE64_BYTES;
+  const auto s_q = [&](int st) { return s_k + 2 * TILE64_BYTES + STAGE_BYTES * st; };
+  const auto s_do = [&](int st) { return s_q(st) + TILE64_BYTES; };
+  const auto s_lse = [&](int st) { return s_q(st) + 2 * TILE64_BYTES; };
+  const auto s_delta = [&](int st) { return s_lse(st) + ROWSTAT_BYTES; };
+  // Generic pointers to the row statistics, for plain loads.
+  const uint8_t* smem_gen = smem_raw + (s_k - smem_u32(smem_raw));
+
+  const int tid = threadIdx.x;
+  const int b2 = blockIdx.x, ki = blockIdx.y;
+  const int group = heads / kv_heads;
+  const int kv0 = ki * BKV;
+
+  const int n_q = (seq_q + BQ - 1) / BQ;
+  int q_lo = 0, q_hi = n_q;
+  if (causal) {
+    q_lo = min(kv0 / BQ, n_q);  // the first q tile whose last row reaches kv0
+    if (window > 0) q_hi = min(n_q, (kv0 + BKV - 1 + window - 1) / BQ + 1);
+  }
+  const int per_head = max(q_hi - q_lo, 0);
+  const int n = group * per_head;  // (q head, q tile) steps
+
+  const auto load_step = [&](int t, int st) {
+    const int h = (b2 / kv_heads) * heads + (b2 % kv_heads) * group + t / per_head;
+    const int q0 = (q_lo + t % per_head) * BQ;
+    const size_t row = (size_t)h * seq_q + q0;
+    load_tile_sw128<BQ, THREADS>(s_q(st), q + row * D, seq_q - q0, tid);
+    load_tile_sw128<BQ, THREADS>(s_do(st), dout + row * D, seq_q - q0, tid);
+    // lse on threads 0..63, D on 64..127, 4 bytes each.
+    const int r = tid % BQ;
+    const bool ok = q0 + r < seq_q;
+    const float* src = (tid < BQ ? lse : delta) + row + (ok ? r : 0);
+    cp_async4((tid < BQ ? s_lse(st) : s_delta(st)) + 4 * r, src, ok);
+  };
+  const size_t kv_row = (size_t)b2 * seq_kv + kv0;
+  load_tile_sw128<BKV, THREADS>(s_k, k + kv_row * D, seq_kv - kv0, tid);
+  load_tile_sw128<BKV, THREADS>(s_v, v + kv_row * D, seq_kv - kv0, tid);
+  if (n > 0) load_step(0, 0);
+  cp_async_commit();
+
+  float dk_acc[32], dv_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const float log2e = 1.4426950408889634f;
+
+  for (int t = 0; t < n; ++t) {
+    const int st = t % STAGES;
+    const int q0 = (q_lo + t % per_head) * BQ;
+    if (t + 1 < n) load_step(t + 1, (t + 1) % STAGES);
+    cp_async_commit();  // an empty group on the last step keeps the count
+    cp_async_wait<1>();  // everything but the newest group has landed
+    fence_async_proxy();
+    __syncthreads();
+
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(s, desc_k_major(s_k, kk), desc_k_major(s_q(st), kk), kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(dp, desc_k_major(s_v, kk), desc_k_major(s_do(st), kk), kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // Masks: the tile crosses the diagonal, reaches past the window, or
+    // holds rows past s_q (zero-filled: their lse and D read 0).
+    const bool masked = q0 + BQ > seq_q ||
+                        (causal && (q0 < kv0 + BKV - 1 ||
+                                    (window > 0 && q0 + BQ - 1 - kv0 >= window)));
+    const float* lse_s = reinterpret_cast<const float*>(smem_gen + (s_lse(st) - s_k));
+    const float* delta_s = reinterpret_cast<const float*>(smem_gen + (s_delta(st) - s_k));
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      // This thread's two q columns of 8-column block j.
+      const int c = acc_col(tid, 4 * j);
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(delta_s + c);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        const float l = (e & 1) ? l2.y : l2.x;
+        const float dl = (e & 1) ? d2.y : d2.x;
+        bool ok = l > -INFINITY;  // a row that saw nothing has P = 0
+        if (masked) {
+          const int row = q0 + c + (e & 1), col = kv0 + acc_row(tid, i);
+          ok = ok && row < seq_q &&
+               (!causal || (row >= col && (window <= 0 || row - col < window)));
+        }
+        const float p = ok ? exp2f(s[i] * scale_log2 - l * log2e) : 0.f;
+        s[i] = p;
+        dp[i] = p * (dp[i] - dl) * sm_scale;
+      }
+    }
+
+    uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      a_frag(s, kk, pa[kk]);
+      a_frag(dp, kk, da[kk]);
+    }
+    wgmma_fence();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_rs(dv_acc, pa[kk], desc_mn_major(s_do(st), kk), 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) {
+      wgmma_rs(dk_acc, da[kk], desc_mn_major(s_q(st), kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    __syncthreads();  // the stage is free for the copy two steps on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = kv0 + acc_row(tid, 2 * r);
+    if (row >= seq_kv) continue;
+    const size_t off = ((size_t)b2 * seq_kv + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * r;
+      const int col = acc_col(tid, i);
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
+          __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
+          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+}  // namespace
+
+// dK and dV, reading the `delta` that flash_attention_bwd_dq wrote.
+extern "C" int flash_attention_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
+                                             const void* dout, const void* lse,
+                                             const void* delta, void* dk, void* dv, int batch,
+                                             int heads, int kv_heads, int seq_q, int seq_kv,
+                                             int head_dim, int causal, int window,
+                                             float sm_scale, void* stream) {
+  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0 ||
+      head_dim != D) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // Above 48 KB a block's shared memory must be asked for, on the current
+  // device: set on every launch (cheap next to the kernel), so a launch on
+  // another device, or after a failed attempt, asks again.
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(batch * kv_heads, (seq_kv + BKV - 1) / BKV);
+  flash_bwd_dkv_wgmma_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), heads,
+      kv_heads, seq_q, seq_kv, causal, window, sm_scale, sm_scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,212 @@
+// Causal (or full) flash-attention forward on Hopper's tensor cores
+// (sm_90a, bf16), plain C interface.
+//
+// Replaces the TPU kernel k8s_device_plugin_tpu/ops/flash_attention.py
+// _flash_kernel (launched by _flash_impl) for bf16 inputs; float32 inputs
+// run the FMA kernel of csrc/flash_attention.cu, since wgmma has no float32
+// operands.  q [b, h, s_q, 64], k/v [b, hk, s_kv, 64] bf16 with hk dividing
+// h (GQA: q head i reads kv head i / (h / hk)) -> out [b, h, s_q, 64] bf16
+// and the per-row log-sum-exp [b, h, s_q] float32 (-inf, with out 0, for a
+// row that sees no column).
+//
+// Bound on the card: operations.  Causal attention does 4 x d flops per
+// (row, col) pair over bytes that grow only with s, past Hopper's ~295
+// flop/byte from a few hundred tokens on, so the products belong on the
+// tensor cores.  The design (hopper_wgmma.cuh has the building blocks):
+//   - grid (b*h, q tile), one warpgroup (128 threads) per 64-row q tile;
+//     the q tiles are handed out last first, so the long causal rows start
+//     early and the short ones fill the tail;
+//   - S = Q.K^T is four m64n64k16 wgmma with Q and K K-major in shared
+//     memory; O += P.V is four more with P from registers and V MN-major
+//     (transpose bit), all bf16 operands and float32 accumulators;
+//   - the online softmax runs in the accumulator's registers: a thread owns
+//     two rows of the tile, and a row's max finishes with two shuffles over
+//     its quad; the row sums stay per thread until the end.  P is rounded
+//     to bf16 only as the A fragment of P.V (the reference's cast of p to
+//     v's type), and the sum takes P before rounding, as the reference;
+//   - K/V tiles of 64 columns stream through a two-stage ring of 128-byte-
+//     swizzled shared tiles filled by cp.async: tile i + 1 is in flight
+//     while tile i multiplies;
+//   - the kv loop runs from the sliding window's first live tile to the
+//     causal diagonal, so dead tiles cost nothing; only tiles that cross
+//     the diagonal, the window's edge or the end of s_kv take a mask;
+//   - any length: q rows past s_q and kv rows past s_kv load as zeros (no
+//     NaN can enter a product), the latter masked to -inf, and rows past
+//     s_q write nothing.
+// Exponentials are exp2 of scores pre-scaled by sm_scale * log2(e).
+// Built for sm_90a, ptxas reports (`-Xptxas=-v`, kept in the build log)
+// 128 registers a thread and no spill; `cuobjdump -sass` shows 8 HGMMA, 4
+// for S and 4 for P.V.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include "hopper_wgmma.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+using namespace hopper;
+
+constexpr int D = 64;         // head_dim
+constexpr int BQ = 64;        // q rows per block (one warpgroup)
+constexpr int BK = 64;        // kv columns per streamed tile
+constexpr int THREADS = 128;  // one warpgroup
+constexpr int STAGES = 2;     // K/V ring depth
+// Shared memory: the Q tile, then STAGES x (K tile, V tile), plus slack to
+// align the base to a swizzle atom.
+constexpr int SMEM_BYTES = TILE64_BYTES * (1 + 2 * STAGES) + SWIZZLE_ATOM_BYTES;
+static_assert(BQ == 64 && BK == 64 && D == 64, "one m64n64 tile per product");
+
+__device__ __forceinline__ bool live(int row, int col, int seq_kv, int causal, int window) {
+  return col < seq_kv && (!causal || (row >= col && (window <= 0 || row - col < window)));
+}
+
+__global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ out, float* __restrict__ lse, int heads, int kv_heads, int seq_q,
+    int seq_kv, int causal, int window, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t s_q = aligned_smem_base(smem_raw);
+  const auto s_k = [&](int st) { return s_q + TILE64_BYTES * (1 + 2 * st); };
+  const auto s_v = [&](int st) { return s_q + TILE64_BYTES * (2 + 2 * st); };
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, qi = gridDim.y - 1 - blockIdx.y;
+  const int group = heads / kv_heads;
+  const int kvh = (bh / heads) * kv_heads + (bh % heads) / group;
+  const int q0 = qi * BQ;
+  const bf16* kbase = k + (size_t)kvh * seq_kv * D;
+  const bf16* vbase = v + (size_t)kvh * seq_kv * D;
+
+  const int n_kv = (seq_kv + BK - 1) / BK;
+  int kv_lo = 0, kv_hi = n_kv;
+  if (causal) {
+    kv_hi = min(n_kv, (q0 + BQ - 1) / BK + 1);
+    if (window > 0) kv_lo = max(q0 - (window - 1), 0) / BK;
+  }
+  const int n = kv_hi - kv_lo;  // live kv tiles (none: every row is masked)
+
+  const auto load_kv = [&](int ki, int st) {
+    load_tile_sw128<BK, THREADS>(s_k(st), kbase + (size_t)ki * BK * D, seq_kv - ki * BK, tid);
+    load_tile_sw128<BK, THREADS>(s_v(st), vbase + (size_t)ki * BK * D, seq_kv - ki * BK, tid);
+  };
+  load_tile_sw128<BQ, THREADS>(s_q, q + ((size_t)bh * seq_q + q0) * D, seq_q - q0, tid);
+  if (n > 0) load_kv(kv_lo, 0);
+  cp_async_commit();
+
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  // Running max (log2 domain) of this thread's two rows, and their partial
+  // sums over this thread's columns.
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n; ++t) {
+    const int ki = kv_lo + t, st = t % STAGES;
+    if (t + 1 < n) load_kv(ki + 1, (t + 1) % STAGES);
+    cp_async_commit();  // an empty group on the last tile keeps the count
+    cp_async_wait<1>();  // everything but the newest group has landed
+    fence_async_proxy();
+    __syncthreads();
+
+    float s[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      wgmma_ss(s, desc_k_major(s_q, kk), desc_k_major(s_k(st), kk), kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    const int col0 = ki * BK;
+    const bool masked = col0 + BK > seq_kv ||
+                        (causal && (col0 + BK - 1 > q0 ||
+                                    (window > 0 && q0 + BQ - 1 - col0 >= window)));
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * scale_log2;
+      if (masked && !live(q0 + acc_row(tid, i), col0 + acc_col(tid, i), seq_kv, causal, window)) {
+        x = -INFINITY;
+      }
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float alpha[2], m_use[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+      // A row that has seen nothing keeps m = -inf; its p and alpha are 0
+      // (exp2(-inf - -inf) would be NaN).
+      const bool seen = m_new > -INFINITY;
+      alpha[r] = seen ? exp2f(m_run[r] - m_new) : 0.f;
+      m_use[r] = seen ? m_new : 0.f;
+      m_run[r] = m_new;
+    }
+    float psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      const float p = exp2f(s[i] - m_use[r]);  // exp2(-inf) = 0 for masked columns
+      s[i] = p;
+      psum[r] += p;
+      o[i] *= alpha[r];
+    }
+    l_run[0] = alpha[0] * l_run[0] + psum[0];
+    l_run[1] = alpha[1] * l_run[1] + psum[1];
+
+    uint32_t a[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) a_frag(s, kk, a[kk]);
+    wgmma_fence();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(o, a[kk], desc_mn_major(s_v(st), kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    __syncthreads();  // the stage is free for the copy two tiles on
+  }
+  cp_async_wait<0>();
+
+  const float ln2 = 0.6931471805599453f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + acc_row(tid, 2 * r);
+    const float l = quad_sum(l_run[r]);
+    if (row >= seq_q) continue;
+    const float inv = l > 0.f ? 1.f / l : 0.f;  // a fully masked row writes 0
+    bf16* orow = out + ((size_t)bh * seq_q + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * r;
+      *reinterpret_cast<__nv_bfloat162*>(orow + acc_col(tid, i)) =
+          __floats2bfloat162_rn(o[i] * inv, o[i + 1] * inv);
+    }
+    if ((tid & 3) == 0) {
+      lse[(size_t)bh * seq_q + row] = l > 0.f ? m_run[r] * ln2 + logf(l) : -INFINITY;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
+                                         void* lse, int batch, int heads, int kv_heads,
+                                         int seq_q, int seq_kv, int head_dim, int causal,
+                                         int window, float sm_scale, void* stream) {
+  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0 ||
+      head_dim != D) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const dim3 grid(batch * heads, (seq_q + BQ - 1) / BQ);
+  flash_fwd_wgmma_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), static_cast<float*>(lse), heads, kv_heads, seq_q, seq_kv, causal,
+      window, sm_scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}

@@ -150,11 +150,32 @@ def decode_inputs(kv_format: str = "f", dtype=torch.bfloat16, seed: int = 0, dev
     return dict(inputs, pool_k=pk, pool_v=pv, scale_k=sk, scale_v=sv)
 
 
+# Profiler windows tried before profiled_device_us gives up on a call.
+PROFILE_WINDOWS = 3
+
+
+def profiled_device_us(call, iters: int) -> float:
+    """Device time per call of ``call`` (already warm): its kernels' time
+    summed under torch.profiler over ``iters`` calls.  A window in which
+    the profiler traced no device event at all (it happens now and then on
+    a sandboxed card) is profiled again, up to :data:`PROFILE_WINDOWS`
+    times; then it raises RuntimeError."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        device_us = trace_stats(prof)["device_us"]
+        if device_us is not None:
+            return device_us / iters
+    raise RuntimeError(f"the profiler traced no device time in {PROFILE_WINDOWS} windows")
+
+
 def _time_call(call, iters: int) -> dict:
     """CUDA-event time per call over a loop of ``iters`` launches (host
     launch cost included) and the profiler's device time per call."""
-    from torch.profiler import ProfilerActivity, profile
-
     for _ in range(10):
         call()
     torch.cuda.synchronize()
@@ -164,14 +185,9 @@ def _time_call(call, iters: int) -> dict:
         call()
     end.record()
     end.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            call()
-        torch.cuda.synchronize()
-    stats = trace_stats(prof)
     return {
         "event_ms_per_call": start.elapsed_time(end) / iters,
-        "device_us_per_call": None if stats["device_us"] is None else stats["device_us"] / 20,
+        "device_us_per_call": profiled_device_us(call, 20),
     }
 
 

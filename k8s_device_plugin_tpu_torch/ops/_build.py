@@ -4,8 +4,11 @@ Each ``csrc/<name>.cu`` exposes a plain C interface (pointers and the stream
 as ``void*``, sizes as ``int``; every entry returns ``cudaGetLastError()``),
 so it compiles in seconds without PyTorch's headers.  The shared library
 goes to ``build/torch_kernels/<hash>/lib<name>.so`` under the repository
-root, where the hash covers the source and the flags: a changed source
-builds anew, an unchanged one loads what is there.
+root, where the hash covers the source, every shared header
+(``csrc/*.cuh``) and the flags: a changed source or header builds anew, an
+unchanged one loads what is there.  Beside it, ``lib<name>.log`` keeps
+nvcc's output, ptxas's registers and spills per kernel included
+(:func:`ptxas_report` reads it).
 
 Nothing here runs at import.  A wrapper calls :func:`load` at its first
 launch; ``chip_smoke.py`` calls :func:`build_all` first so that every
@@ -17,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,9 +30,12 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
-SOURCES = ("paged_attention", "flash_attention", "flash_attention_bwd")
+SOURCES = (
+    "paged_attention", "flash_attention", "flash_attention_bwd",
+    "flash_attention_wgmma", "flash_attention_bwd_wgmma",
+)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -50,9 +57,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_ROOT / digest / f"lib{name}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 
 
 def _start(name: str):
@@ -77,6 +86,7 @@ def _finish(name: str, started) -> None:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise KernelError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
@@ -89,6 +99,30 @@ def build_all(names=SOURCES) -> None:
     finally:
         for name, s in started.items():
             _finish(name, s)
+
+
+def ptxas_report(name: str) -> dict[str, dict]:
+    """Registers, spill bytes and shared memory per kernel of the built
+    ``csrc/<name>.cu``, from ptxas's lines in the build log: {mangled
+    kernel name: {"registers", "spill_stores", "spill_loads", "smem"}}."""
+    report, kernel = {}, None
+    for line in library_path(name).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = m.group(1)
+            report[kernel] = {"registers": None, "spill_stores": 0, "spill_loads": 0, "smem": 0}
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            report[kernel]["spill_stores"], report[kernel]["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report[kernel]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            report[kernel]["smem"] = int(m.group(1)) if m else 0
+    return report
 
 
 def load(name: str) -> ctypes.CDLL:

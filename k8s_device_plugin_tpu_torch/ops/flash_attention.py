@@ -3,9 +3,21 @@ plain PyTorch versions, the ``mha_reference`` oracle and the block rule.
 
 Counterpart of ``k8s_device_plugin_tpu/ops/flash_attention.py``.  Layout
 [batch, heads, seq, head_dim]; k/v may carry ``kv_heads`` dividing q's
-heads (GQA).  ``csrc/flash_attention.cu`` holds the forward kernel and
-``csrc/flash_attention_bwd.cu`` the dQ and dK/dV kernels, each with its
-bound on the card and what its design does about it.
+heads (GQA).  The kernels, each source with its bound on the card and what
+its design does about it:
+
+- the forward (kernel 2): ``csrc/flash_attention_wgmma.cu`` for bf16, on
+  the tensor cores; ``csrc/flash_attention.cu`` for float32, FMA on the
+  CUDA cores;
+- dQ (kernel 3, which also writes D = rowsum(dO o O)):
+  ``csrc/flash_attention_bwd.cu`` for both types, FMA;
+- dK/dV (kernel 4): ``csrc/flash_attention_bwd_wgmma.cu`` for bf16,
+  ``csrc/flash_attention_bwd.cu`` for float32.
+
+The variant is chosen by the input type (:data:`VARIANTS`), never by a
+failure: ``wgmma`` has no float32 operands and TF32 would miss the float32
+tolerances, so float32 keeps the FMA kernels by design, and each type has
+exactly one kernel.
 
 :func:`flash_forward` and :func:`flash_backward` launch the kernels for
 CUDA tensors and take :func:`flash_attention_reference` (an online-softmax
@@ -17,6 +29,7 @@ chunked backward) for CPU tensors, with no fallback between them.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,15 +37,65 @@ from . import _build
 
 NEG_INF = float("-inf")
 
-# The CUDA kernel's (q rows, kv columns) tile, fixed in csrc/flash_attention.cu
-# (BQ, BK): one thread per q row keeps the row and its accumulator in
-# registers, which 64 rows and head_dim 64 fit.  It replaces the TPU's
-# per-generation block table.  The plain version tiles kv by 128.  Both
-# take any sequence length: the last tile of either is ragged.
+# The CUDA forward's (q rows, kv columns) tile, the same in both variants
+# (BQ, BK in csrc/flash_attention_wgmma.cu: one warpgroup's m64n64 wgmma
+# tiles over a 64-row q tile and 64-column K/V ring stages; in
+# csrc/flash_attention.cu: one thread per q row).  It replaces the TPU's
+# per-generation block table.  The plain version tiles kv by 128.  All take
+# any sequence length: the last tile of either is ragged.
 CUDA_TILE = (64, 64)
 _PLAIN_TILE = (128, 128)
-_C_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_C_BWD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_FWD_ARGS = (_P,) * 5 + (_I,) * 8 + (_F, _P)
+_DQ_ARGS = (_P,) * 8 + (_I,) * 8 + (_F, _I, _P)  # ... sm_scale, is_bf16, stream
+_DKV_ARGS = (_P,) * 8 + (_I,) * 8 + (_F, _P)
+
+
+class Variant(NamedTuple):
+    """One CUDA kernel variant: its design ("wgmma": tensor cores, "fma":
+    CUDA cores) and its C entry ``symbol`` in ``csrc/<source>.cu``."""
+
+    design: str
+    source: str
+    symbol: str
+    argtypes: tuple
+
+
+# The variant each input type launches, per kernel (see the module note).
+VARIANTS = {
+    "forward": {
+        torch.bfloat16: Variant("wgmma", "flash_attention_wgmma", "flash_attention_fwd_wgmma",
+                                _FWD_ARGS),
+        torch.float32: Variant("fma", "flash_attention", "flash_attention_fwd_fma", _FWD_ARGS),
+    },
+    "dq": dict.fromkeys(
+        (torch.bfloat16, torch.float32),
+        Variant("fma", "flash_attention_bwd", "flash_attention_bwd_dq", _DQ_ARGS),
+    ),
+    "dkv": {
+        torch.bfloat16: Variant("wgmma", "flash_attention_bwd_wgmma",
+                                "flash_attention_bwd_dkv_wgmma", _DKV_ARGS),
+        torch.float32: Variant("fma", "flash_attention_bwd", "flash_attention_bwd_dkv_fma",
+                               _DKV_ARGS),
+    },
+}
+DESIGNS = ("wgmma", "fma")
+
+
+def variant(kernel: str, dtype: torch.dtype) -> Variant:
+    """The variant of ``kernel`` ("forward", "dq" or "dkv") that CUDA
+    tensors of ``dtype`` launch; raises for a type no kernel takes."""
+    try:
+        return VARIANTS[kernel][dtype]
+    except KeyError:
+        raise ValueError(f"the CUDA {kernel} kernel takes float32|bfloat16, got {dtype}") from None
+
+
+def _call(var: Variant, *args) -> None:
+    """Launch ``var``'s C entry (building it at first use); raise
+    KernelError on a failed build or a non-zero launch status."""
+    _build.check(_build.entry(var.source, var.symbol, list(var.argtypes))(*args), var.symbol)
 
 
 def resolve_blocks(seq_q, seq_kv, *, on_cuda=False):
@@ -169,9 +232,11 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout, *, causal, sm_sc
     return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_kernel_inputs(**tensors):
-    """The CUDA kernels take contiguous float32|bfloat16 tensors of one
-    type on one device, head_dim 64, rows aligned for 16-byte loads."""
+def _check_kernel_inputs(kernel, **tensors) -> Variant:
+    """The CUDA kernels take contiguous tensors of one type on one device,
+    head_dim 64, rows aligned for 16-byte loads; returns the variant of
+    ``kernel`` that their type launches (:func:`variant`, which raises for
+    a type no kernel takes)."""
     ref = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device != ref.device or t.dtype != ref.dtype:
@@ -180,10 +245,10 @@ def _check_kernel_inputs(**tensors):
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    if ref.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"the CUDA kernel takes float32|bfloat16, got {ref.dtype}")
+    var = variant(kernel, ref.dtype)
     if ref.shape[-1] != 64:
         raise ValueError(f"the CUDA kernel takes head_dim 64, got {ref.shape[-1]}")
+    return var
 
 
 def _check_row_stats(q, **tensors):
@@ -196,44 +261,40 @@ def _check_row_stats(q, **tensors):
                              "tensor on q's device")
 
 
-def _launch(q, k, v, *, causal, sm_scale, window):
-    batch, heads, seq_q, head_dim = q.shape
-    kv_heads, seq_kv = k.shape[1], k.shape[2]
-    _check_kernel_inputs(q=q, k=k, v=v)
-    out = torch.empty_like(q)
-    lse = torch.empty((batch, heads, seq_q), dtype=torch.float32, device=q.device)
-    fn = _build.entry("flash_attention", "flash_attention_fwd", _C_ARGS)
-    status = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        batch, heads, kv_heads, seq_q, seq_kv, head_dim, int(causal),
-        0 if window is None else int(window), float(sm_scale),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(status, "flash_attention_fwd")
-    flash_attention.launches += 1
-    return out, lse
-
-
-def _bwd_shape(q, k, causal, sm_scale, window):
+def _shape_args(q, k, causal, sm_scale, window):
+    """The C entries' shape and option arguments, batch through sm_scale."""
     batch, heads, seq_q, head_dim = q.shape
     return (batch, heads, k.shape[1], seq_q, k.shape[2], head_dim, int(causal),
-            0 if window is None else int(window), float(sm_scale),
-            int(q.dtype == torch.bfloat16), torch.cuda.current_stream(q.device).cuda_stream)
+            0 if window is None else int(window), float(sm_scale))
+
+
+def _stream(q) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def _launch(q, k, v, *, causal, sm_scale, window):
+    """Kernel 2 on CUDA tensors: returns (out, lse)."""
+    var = _check_kernel_inputs("forward", q=q, k=k, v=v)
+    out = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _call(var, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+          *_shape_args(q, k, causal, sm_scale, window), _stream(q))
+    flash_attention.launches += 1
+    flash_attention.launches_by_design[var.design] += 1
+    return out, lse
 
 
 def launch_dq(q, k, v, out, lse, dout, *, causal, sm_scale, window):
     """Kernel 3 on CUDA tensors: returns (dq, delta), where delta [b, h, s_q]
     float32 is D = rowsum(dO o O), which kernel 4 reads."""
-    _check_kernel_inputs(q=q, k=k, v=v, out=out, dout=dout)
+    var = _check_kernel_inputs("dq", q=q, k=k, v=v, out=out, dout=dout)
     _check_row_stats(q, lse=lse)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dq", _C_BWD_ARGS)
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-                lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-                *_bwd_shape(q, k, causal, sm_scale, window))
-    _build.check(status, "flash_attention_bwd_dq")
+    _call(var, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+          lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
+          *_shape_args(q, k, causal, sm_scale, window), int(q.dtype == torch.bfloat16),
+          _stream(q))
     flash_backward.dq_launches += 1
     return dq, delta
 
@@ -241,15 +302,14 @@ def launch_dq(q, k, v, out, lse, dout, *, causal, sm_scale, window):
 def launch_dkv(q, k, v, lse, delta, dout, *, causal, sm_scale, window):
     """Kernel 4 on CUDA tensors (after :func:`launch_dq` on the same
     stream, whose ``delta`` it reads): returns (dk, dv)."""
-    _check_kernel_inputs(q=q, k=k, v=v, dout=dout)
+    var = _check_kernel_inputs("dkv", q=q, k=k, v=v, dout=dout)
     _check_row_stats(q, lse=lse, delta=delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _build.entry("flash_attention_bwd", "flash_attention_bwd_dkv", _C_BWD_ARGS)
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-                delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                *_bwd_shape(q, k, causal, sm_scale, window))
-    _build.check(status, "flash_attention_bwd_dkv")
+    _call(var, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+          delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+          *_shape_args(q, k, causal, sm_scale, window), _stream(q))
     flash_backward.dkv_launches += 1
+    flash_backward.dkv_launches_by_design[var.design] += 1
     return dk, dv
 
 
@@ -327,8 +387,16 @@ def flash_attention(q, k, v, *, causal=False, sm_scale=None, window=None):
     return flash_forward(q, k, v, causal=causal, sm_scale=sm_scale, window=window)[0]
 
 
+def reset_launches() -> None:
+    """Set every launch count of this module to 0."""
+    flash_attention.launches = 0
+    flash_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)
+    flash_backward.dq_launches = 0
+    flash_backward.dkv_launches = 0
+    flash_backward.dkv_launches_by_design = dict.fromkeys(DESIGNS, 0)
+
+
 # Kernel launches since the last reset (the plain versions never count):
-# the forward's, and the backward's dQ and dK/dV kernels'.
-flash_attention.launches = 0
-flash_backward.dq_launches = 0
-flash_backward.dkv_launches = 0
+# the forward's, in total and by variant design, and the backward's dQ and
+# dK/dV kernels' (dK/dV by design too).
+reset_launches()

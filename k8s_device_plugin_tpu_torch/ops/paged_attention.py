@@ -36,6 +36,8 @@ _C_ARGS = (
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )
+# The kernel's C entry: (csrc source, symbol, argument types).
+C_ENTRY = ("paged_attention", "paged_attention_fwd", _C_ARGS)
 
 
 def _combine_splits(o_part, m_part, l_part, out_dtype):
@@ -136,7 +138,7 @@ def _launch(q, pool_k, pool_v, table, lens, scale_k, scale_v, *, sm_scale, windo
     else:
         parts = (None, None, None)
     ptrs = (None, None) if kv_format == "f" else (scale_k.data_ptr(), scale_v.data_ptr())
-    fn = _build.entry("paged_attention", "paged_attention_fwd", _C_ARGS)
+    fn = _build.entry(*C_ENTRY)
     status = fn(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *ptrs, table.data_ptr(),
         lens.data_ptr(), out.data_ptr(), *parts,

@@ -5,6 +5,9 @@ file imports no JAX, so it runs on a GPU machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider
 
+bf16 runs the tensor-core (wgmma) variants of kernels 2 and 4 and float32
+their FMA variants; each test checks which one launched.
+
 Tolerances: forward outputs within 2e-2 in bf16 (bf16 output rounding plus
 float32 sum order) and 2e-5 in float32 (sum order), lse within 1e-3;
 backward gradients within 2e-2 of max |plain| in bf16 (bf16 rounding of dS,
@@ -83,9 +86,10 @@ def test_cuda_backward_kernels_match_plain(dev, dtype, tol):
                    for a in _flash_inputs(14, h=4, hk=kv_heads, s=seq))
         out, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
         dout = torch.randn(out.shape, device=dev).to(dtype)
-        fa.flash_backward.dq_launches = fa.flash_backward.dkv_launches = 0
+        fa.reset_launches()
         got = fa.flash_backward(q, k, v, out, lse, dout, causal=causal, window=window)
         assert fa.flash_backward.dq_launches == fa.flash_backward.dkv_launches == 1
+        assert fa.flash_backward.dkv_launches_by_design[_DESIGN[dtype]] == 1
         want = fa.flash_attention_backward_reference(
             q, k, v, out, lse, dout, causal=causal, sm_scale=0.125, window=window, block_kv=128,
         )
@@ -99,16 +103,98 @@ def test_cuda_autograd_runs_the_kernels(dev):
     """Autograd through flash_attention on the card launches kernels 2, 3
     and 4 once each and agrees with the plain versions' gradients."""
     q, k, v = (torch.from_numpy(a).to(dev).requires_grad_() for a in _flash_inputs(15, s=200))
-    fa.flash_attention.launches = 0
-    fa.flash_backward.dq_launches = fa.flash_backward.dkv_launches = 0
+    fa.reset_launches()
     (fa.flash_attention(q, k, v, causal=True) ** 2).sum().backward()
     assert fa.flash_attention.launches == 1
     assert fa.flash_backward.dq_launches == fa.flash_backward.dkv_launches == 1
+    # float32 leaves: the FMA variants of kernels 2 and 4.
+    assert fa.flash_attention.launches_by_design == {"wgmma": 0, "fma": 1}
+    assert fa.flash_backward.dkv_launches_by_design == {"wgmma": 0, "fma": 1}
     leaves = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
     (fa.flash_attention(*leaves, causal=True) ** 2).sum().backward()
     for t, leaf in zip((q, k, v), leaves):
         err = (t.grad.cpu() - leaf.grad).abs().max() / leaf.grad.abs().max()
         assert err.item() <= 1e-4
+
+
+_DESIGN = {torch.bfloat16: "wgmma", torch.float32: "fma"}
+_BF16 = dict(atol=2e-2, lse=1e-3, rel=2e-2)
+
+
+def _case(dev, seed, *, s, group, dtype, s_kv=None, heads=4, batch=2):
+    """q, k, v, dout on the card for one case, made with numpy."""
+    rs = np.random.RandomState(seed)
+    s_kv = s if s_kv is None else s_kv
+    shapes = ((batch, heads, s, 64), (batch, heads // group, s_kv, 64),
+              (batch, heads // group, s_kv, 64), (batch, heads, s, 64))
+    return [torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev, dtype)
+            for shape in shapes]
+
+
+_MASKS = [(True, None), (True, 40), (False, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("seq", [64, 128, 200, 1024])
+def test_cuda_tensor_core_forward_matches_plain(dev, seq, group):
+    """Kernel 2's wgmma variant (bf16) against the plain forward: one tile,
+    several, a ragged last tile and the training length; kv group 1, 2, 4;
+    causal, window 40 and non-causal."""
+    q, k, v, _ = _case(dev, 20 + seq + group, s=seq, group=group, dtype=torch.bfloat16)
+    for causal, window in _MASKS:
+        fa.reset_launches()
+        out, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+        assert fa.flash_attention.launches_by_design == {"wgmma": 1, "fma": 0}
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal, sm_scale=0.125,
+                                                    window=window, block_kv=128)
+        assert (out.float() - ref.float()).abs().max().item() <= _BF16["atol"], (causal, window)
+        assert (lse - ref_lse).abs().max().item() <= _BF16["lse"], (causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("seq", [64, 128, 200, 1024])
+def test_cuda_tensor_core_backward_matches_plain(dev, seq, group):
+    """Kernel 4's wgmma variant (bf16, after kernel 3) against the plain
+    backward, over the same cases as the forward (the non-causal backward
+    included): max |kernel - plain| / max |plain| per gradient."""
+    q, k, v, dout = _case(dev, 40 + seq + group, s=seq, group=group, dtype=torch.bfloat16)
+    for causal, window in _MASKS:
+        out, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+        fa.reset_launches()
+        got = fa.flash_backward(q, k, v, out, lse, dout, causal=causal, window=window)
+        assert fa.flash_backward.dkv_launches_by_design == {"wgmma": 1, "fma": 0}
+        want = fa.flash_attention_backward_reference(
+            q, k, v, out, lse, dout, causal=causal, sm_scale=0.125, window=window, block_kv=128,
+        )
+        for g, w in zip(got, want):
+            err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+            assert err.item() <= _BF16["rel"], (causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16-wgmma", "f32-fma"])
+def test_cuda_fully_masked_rows_give_zero(dev, dtype):
+    """Rows that see no column (s_q 200 over s_kv 64 with window 40: rows
+    from 103 on) get lse = -inf and output 0, and the backward stays finite
+    and equal to the plain one, in both variants."""
+    q, k, v, dout = _case(dev, 60, s=200, s_kv=64, group=2, dtype=dtype)
+    fa.reset_launches()
+    out, lse = fa.flash_forward(q, k, v, causal=True, window=40)
+    dq, dk, dv = fa.flash_backward(q, k, v, out, lse, dout, causal=True, window=40)
+    assert fa.flash_attention.launches_by_design[_DESIGN[dtype]] == 1
+    assert fa.flash_backward.dkv_launches_by_design[_DESIGN[dtype]] == 1
+    assert torch.isinf(lse[:, :, 103:]).all() and (lse[:, :, 103:] < 0).all()
+    assert torch.isfinite(lse[:, :, :103]).all()
+    assert (out[:, :, 103:] == 0).all() and (dq[:, :, 103:] == 0).all()
+    for t in (out, dq, dk, dv):
+        assert torch.isfinite(t.float()).all()
+    want = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, causal=True,
+                                                 sm_scale=0.125, window=40, block_kv=128)
+    tol = _BF16["rel"] if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip((dq, dk, dv), want):
+        assert ((g.float() - w.float()).abs().max() / w.float().abs().max()).item() <= tol
 
 
 def _quantized(fmt, *pools):

@@ -20,6 +20,9 @@ on the card's machine too (``chip_smoke.py`` runs the same comparisons at
 full width).
 """
 
+import ctypes
+import shutil
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -366,7 +369,7 @@ def test_flash_attention_is_differentiable_only_when_asked():
 def test_kernel_inputs_are_checked_before_a_launch():
     """What the CUDA kernels refuse is refused in Python, before a launch."""
     q = torch.zeros(1, 2, 8, 64)
-    fa._check_kernel_inputs(q=q, k=q)
+    assert fa._check_kernel_inputs("dkv", q=q, k=q) == fa.variant("dkv", torch.float32)
     bad = [
         ({"k": q.double()}, "match q"),
         ({"k": q[:, :, ::2]}, "contiguous"),
@@ -374,11 +377,15 @@ def test_kernel_inputs_are_checked_before_a_launch():
     ]
     for extra, match in bad:
         with pytest.raises(ValueError, match=match):
-            fa._check_kernel_inputs(q=q, **extra)
-    with pytest.raises(ValueError, match="float32"):
-        fa._check_kernel_inputs(q=q.half())
+            fa._check_kernel_inputs("forward", q=q, **extra)
+    for kernel in fa.VARIANTS:
+        with pytest.raises(ValueError, match="float32"):
+            fa._check_kernel_inputs(kernel, q=q.half())
     with pytest.raises(ValueError, match="head_dim 64"):
-        fa._check_kernel_inputs(q=torch.zeros(1, 2, 8, 32))
+        fa._check_kernel_inputs("forward", q=torch.zeros(1, 2, 8, 32))
+    # A wrapper refuses a type no kernel takes before it builds anything.
+    with pytest.raises(ValueError, match="float32"):
+        fa._launch(q.half(), q.half(), q.half(), causal=True, sm_scale=0.125, window=None)
     rows = torch.zeros(1, 2, 8)
     fa._check_row_stats(q, lse=rows, delta=rows)
     for bad_rows in (rows.double(), torch.zeros(1, 2, 7), torch.zeros(1, 2, 16)[..., ::2]):
@@ -416,7 +423,7 @@ def test_build_raises_without_nvcc(monkeypatch):
         _build._nvcc()
 
 
-def test_build_path_is_keyed_on_source_and_flags():
+def test_build_path_is_keyed_on_source_and_flags(tmp_path, monkeypatch):
     a = _build.library_path("paged_attention")
     b = _build.library_path("flash_attention")
     assert a.parent != b.parent and a.name == "libpaged_attention.so"
@@ -425,6 +432,87 @@ def test_build_path_is_keyed_on_source_and_flags():
     assert a == _build.library_path("paged_attention")
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").exists()
+    # A shared header is part of every source's key: editing it (in a copy
+    # of csrc/) builds anew instead of loading a stale library.
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    assert list(csrc.glob("*.cuh"))
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {name: _build.library_path(name) for name in _build.SOURCES}
+    assert before["flash_attention_wgmma"] == _build.library_path("flash_attention_wgmma")
+    header = next(csrc.glob("*.cuh"))
+    header.write_text(header.read_text() + "\n// edited\n")
+    for name in _build.SOURCES:
+        assert _build.library_path(name) != before[name]
+
+
+def _c_declaration(source: str, symbol: str) -> str:
+    """The parameter list of ``extern "C" int symbol(...)`` in csrc/<source>.cu."""
+    text = (_build.CSRC / f"{source}.cu").read_text()
+    head = f'extern "C" int {symbol}('
+    assert text.count(head) == 1, f"{symbol} is not declared once in csrc/{source}.cu"
+    start = text.index(head) + len(head)
+    return text[start:text.index(")", start)]
+
+
+def _wrapper_entries():
+    """Every (source, symbol, argtypes) that the wrappers bind."""
+    entries = {v[1:] for table in fa.VARIANTS.values() for v in table.values()}
+    source, symbol, argtypes = pa.C_ENTRY
+    return sorted(entries | {(source, symbol, tuple(argtypes))}, key=lambda e: e[1])
+
+
+@pytest.mark.parametrize("entry", _wrapper_entries(), ids=lambda e: e[1])
+def test_c_entries_match_their_declarations(entry):
+    """Each C entry a wrapper binds is declared in its source with as many
+    parameters as the wrapper passes, pointers where it passes pointers."""
+    source, symbol, argtypes = entry
+    assert source in _build.SOURCES
+    params = [p.strip() for p in _c_declaration(source, symbol).split(",")]
+    assert len(params) == len(argtypes)
+    for param, argtype in zip(params, argtypes):
+        assert ("*" in param) == (argtype is ctypes.c_void_p), (symbol, param, argtype)
+        if argtype is ctypes.c_float:
+            assert param.startswith("float ")
+
+
+def test_kernel_variant_follows_the_dtype():
+    """bf16 runs the tensor-core (wgmma) kernels 2 and 4, float32 the FMA
+    ones; kernel 3 has one entry for both; any other type raises."""
+    for kernel in ("forward", "dkv"):
+        bf16, f32 = fa.variant(kernel, torch.bfloat16), fa.variant(kernel, torch.float32)
+        assert bf16.design == "wgmma" and bf16.source.endswith("_wgmma")
+        assert bf16.symbol.endswith("_wgmma") and f32.symbol.endswith("_fma")
+        assert f32.design == "fma" and bf16.source != f32.source
+    assert fa.variant("dq", torch.bfloat16) == fa.variant("dq", torch.float32)
+    for dtype in (torch.float16, torch.float64, torch.int8):
+        with pytest.raises(ValueError, match="float32|bfloat16"):
+            fa.variant("forward", dtype)
+    fa.flash_attention.launches_by_design["wgmma"] = 3
+    fa.reset_launches()
+    assert fa.flash_attention.launches_by_design == {"wgmma": 0, "fma": 0}
+    assert fa.flash_backward.dkv_launches_by_design == {"wgmma": 0, "fma": 0}
+
+
+def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path)
+    log = _build.library_path("flash_attention_wgmma").with_suffix(".log")
+    log.parent.mkdir(parents=True)
+    log.write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z3fwdv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fwdv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, 384 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z3dkvv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3dkvv\n"
+        "    8 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 255 registers, 33280 bytes smem, 384 bytes cmem[0]\n"
+    )
+    assert _build.ptxas_report("flash_attention_wgmma") == {
+        "_Z3fwdv": {"registers": 128, "spill_stores": 0, "spill_loads": 0, "smem": 0},
+        "_Z3dkvv": {"registers": 255, "spill_stores": 8, "spill_loads": 4, "smem": 33280},
+    }
 
 
 def test_nonzero_launch_status_raises():
