@@ -8,24 +8,27 @@ Phases, in order (any failure exits non-zero):
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from csrc/ (one nvcc each, in
    parallel), and read each flash kernel's registers and spills (ptxas)
-   and HGMMA count (cuobjdump): the tensor-core (wgmma) variants must show
-   HGMMA and no spill, the FMA variants no HGMMA;
+   and HGMMA count (cuobjdump): the tensor-core (wgmma) variants (forward,
+   dQ, dK/dV) must show HGMMA and no spill, the FMA variants no HGMMA;
 3. hold each kernel against its plain PyTorch version on the card at the
    serving slice's shapes (the paged kernel in each pool format: bf16/f32,
    int8 and int4 codes with float32 scale pools, and the int4 unpack on
-   every byte value; the flash forward in both variants, bf16 on the
+   every byte value; under the profiler, one call of the paged kernel must
+   be one device kernel, its splits merged inside the launch, in every
+   format at 1 and 8 splits, and an empty kernel of the same launch shape
+   is timed as its latency floor; the flash forward in both variants, bf16 on the
    tensor cores and float32 on the FMA kernel, over s 128, 200 (ragged),
    512 and 1024, window none and 100, causal and non-causal, kv group 4
    and 1, each case checking which variant launched), and time the
    kernel, the plain version and, where one PyTorch call computes the same
    function, that call (the forward at s 128, greedy_generate's prefill,
    and s 1024, the training shape);
-3b. hold the flash-backward kernels (dQ; dK/dV in both variants) against
-   the plain backward over the same matrix at batch 2; at the training
-   shape (b8 h16 hk4 s1024 d64, causal; bf16, and float32 for the FMA
-   dK/dV) hold them once more, then time them, the plain backward, and
-   SDPA's backward (by profiler device time, with the kernels timed the
-   same way beside it);
+3b. hold the flash-backward kernels (dQ and dK/dV, each in both
+   variants) against the plain backward over the same matrix at batch 2,
+   each case checking which variants launched; at the training shape (b8
+   h16 hk4 s1024 d64, causal; bf16 and float32) hold them once more, then
+   time them, the plain backward, and SDPA's backward (by profiler device
+   time, with the kernels timed the same way beside it);
 4. run the batch serving engine at the deployed model's full width (vocab
    32000, hidden 1024, 8 layers, 16 heads / 4 kv heads, page 16, 512 pages,
    32 pages per sequence, 8 slots; 32 requests, prompt 128, 128 new
@@ -52,12 +55,12 @@ Phases, in order (any failure exits non-zero):
    batch 8, seq 1024; 2 warmup and 5 timed steps on one synthetic batch),
    with the launch counters set to 0 just before and read just after: the
    forward, dQ and dK/dV kernels must each have launched 8 layers x the
-   steps run, the forward and dK/dV as their tensor-core variants only,
-   and every step's loss must be finite; then profile one more step under
+   steps run, all three as their tensor-core variants only, and every
+   step's loss must be finite; then profile one more step under
    ``torch.profiler``;
 8. at 2 layers in float32 (full width, batch 2, seq 256, TF32 off), one
-   train step on the card (the kernels, the forward and dK/dV as their FMA
-   variants only) and the same step on the CPU (the plain versions) from
+   train step on the card (the kernels, the forward, dQ and dK/dV as their
+   FMA variants only) and the same step on the CPU (the plain versions) from
    the same weights: losses within 1e-5 relative and every updated
    parameter within 1e-5.
 
@@ -200,9 +203,26 @@ def check_int4_bytes(torch, pa, quant) -> None:
         fail(f"paged_attention int4 over every byte value: {err} > {TOL_F32}")
 
 
+def kernels_per_call(torch, dp, call, what: str) -> list[tuple[str, int]]:
+    """(name, launches) of each device kernel that one ``call`` (already
+    warm) runs, under torch.profiler; a window that traced nothing is
+    profiled again, up to ``decode_profile.PROFILE_WINDOWS`` times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(dp.PROFILE_WINDOWS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        top = dp.trace_stats(prof)["top"]
+        if top:
+            return [(row["kernel"], row["calls"]) for row in top]
+    fail(f"{what}: the profiler traced no device kernel in {dp.PROFILE_WINDOWS} windows")
+
+
 def check_paged(torch, pa, quant, tuning, dp):
-    """Kernel 1 against its plain version in each pool format; returns its
-    kernel-line entries (float, int8, int4)."""
+    """Kernel 1 against its plain version in each pool format, and one
+    device kernel per call; returns its kernel-line entries (float, int8,
+    int4)."""
     dev = torch.device(DEVICE)
     B, H, HK, D, PS, MPP, P = 8, 16, 4, 64, 16, 32, 512
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -227,11 +247,23 @@ def check_paged(torch, pa, quant, tuning, dp):
                              f"window={window}: {err} > {tol}")
                     if dtype == torch.bfloat16:
                         worst[kv_format] = max(worst[kv_format], err)
+            # One call is one kernel: the splits merge inside the launch.
+            for splits in (1, tuning.MAX_SPLITS):
+                ran = kernels_per_call(
+                    torch, dp, lambda: pa.paged_attention(q, page_table=table, lens=ragged,
+                                                          num_splits=splits, **pools),
+                    f"paged {kv_format} {dtype} splits={splits}")
+                log(f"paged {kv_format} {dtype} splits={splits}: one call ran {ran}")
+                if len(ran) != 1 or ran[0][1] != 1 or "paged_decode_kernel" not in ran[0][0]:
+                    fail(f"one paged_attention call ({kv_format}, {dtype}, {splits} splits) "
+                         f"ran {ran}, not one paged_decode_kernel")
     check_int4_bytes(torch, pa, quant)
     # Timing at the main path's shapes: bf16 queries, pools as the engine
     # sizes them in each format, the tuned split count, lens spread over
     # the decode phase (prompt 128 plus up to 128 new tokens).  L2 is warm
-    # between launches.
+    # between launches.  The latency floor: an empty kernel launched with
+    # the same grid, block and cluster shape, timed the same way.
+    floor_ms, _ = time_ms(lambda: pa.launch_empty(B, H, HK, tuned, dev))
     rows = []
     for kv_format in pa.FORMATS:
         inputs = dp.decode_inputs(kv_format)
@@ -257,6 +289,9 @@ def check_paged(torch, pa, quant, tuning, dp):
         )
         flops = sum(4 * H * n * D for n in live)
         b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        log(f"paged {kv_format} at the decode shape: {ms * 1e3:.3f} us (bound "
+            f"{b_ms * 1e3:.3f} us by {b_by}, empty-launch floor {floor_ms * 1e3:.3f} us, "
+            f"plain {plain_ms * 1e3:.1f} us)")
         rows.append({
             "name": "paged_attention" if kv_format == "f" else f"paged_attention_{kv_format}",
             "route": "cuda",
@@ -272,6 +307,9 @@ def check_paged(torch, pa, quant, tuning, dp):
             "bound_ms": b_ms,
             "bound_by": b_by,
             "bytes": nbytes,
+            "floor_ms": floor_ms,
+            "floor_note": "an empty kernel with the same grid, block and cluster shape, "
+                          "timed by the same graph replay",
             "library_ms": None,
             "shape": f"B{B} H{H} Hk{HK} D{D} page{PS} mpp{MPP} splits{tuned} "
                      f"lens{live[0]}..{live[-1]} bf16 q, {kv_format} pools",
@@ -300,8 +338,8 @@ def sass_hgmma(lib) -> dict[str, int]:
 FLASH_ROWS = {
     ("forward", "bfloat16"): ("flash_attention", "flash_fwd_wgmma_kernel"),
     ("forward", "float32"): ("flash_attention_fma", "flash_fwd_kernel"),
-    # dQ compiles once per type; the bf16 one is the main path's.
-    ("dq", "bfloat16"): ("flash_attention_bwd_dq", "flash_bwd_dq_kernelI13__nv_bfloat16"),
+    ("dq", "bfloat16"): ("flash_attention_bwd_dq", "flash_bwd_dq_wgmma_kernel"),
+    ("dq", "float32"): ("flash_attention_bwd_dq_fma", "flash_bwd_dq_kernel"),
     ("dkv", "bfloat16"): ("flash_attention_bwd_dkv", "flash_bwd_dkv_wgmma_kernel"),
     ("dkv", "float32"): ("flash_attention_bwd_dkv_fma", "flash_bwd_dkv_kernel"),
 }
@@ -572,30 +610,29 @@ def sdpa_backward(torch, q, k, v, dout):
 def hold_backward(got, want, tol: float, label: str, worst: dict, dtype_name: str) -> None:
     """Fail unless each of (dq, dk, dv) is within ``tol`` of the plain
     backward's, as max |got - want| / max |want|; fold the errors into
-    ``worst``, keyed as FLASH_ROWS: dq's under ("dq", dtype_name) where that
-    row exists (bf16, the main path's), dk and dv's under ("dkv", dtype_name)."""
+    ``worst``, keyed as FLASH_ROWS: dq's under ("dq", dtype_name), dk and
+    dv's under ("dkv", dtype_name)."""
     rels = [rel_err(g, w) for g, w in zip(got, want)]
     log(f"flash bwd {label}: rel dq {rels[0]:.2e} dk {rels[1]:.2e} dv {rels[2]:.2e} (tol {tol})")
     if not max(rels) <= tol:
         fail(f"flash backward {label}: {rels} > {tol}")
     abss = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
     for key, idx in ((("dq", dtype_name), (0,)), (("dkv", dtype_name), (1, 2))):
-        if key in worst:
-            worst[key][0] = max(worst[key][0], *(abss[i] for i in idx))
-            worst[key][1] = max(worst[key][1], *(rels[i] for i in idx))
+        worst[key][0] = max(worst[key][0], *(abss[i] for i in idx))
+        worst[key][1] = max(worst[key][1], *(rels[i] for i in idx))
 
 
 def check_flash_bwd(torch, fa, facts):
-    """Phase 3b: kernels 3 and 4 (both dK/dV variants) against the plain
-    backward; times them at the training shape and returns the kernel-line
-    entries of dQ, dK/dV (wgmma, bf16) and dK/dV (FMA, float32)."""
+    """Phase 3b: kernels 3 and 4 (both variants of each) against the plain
+    backward; times them at the training shape and returns their
+    kernel-line entries, keyed as FLASH_ROWS."""
     dev = torch.device(DEVICE)
     B, H, D = 2, 16, 64
     gen = torch.Generator(device=dev).manual_seed(4)
     types = (("bfloat16", TOL_BWD_BF16, BF16_FLOPS), ("float32", TOL_BWD_F32, FP32_FLOPS))
     worst = {key: [0.0, 0.0] for key in FLASH_ROWS if key[0] != "forward"}  # (abs, rel)
     for dtype_name, tol, _ in types:
-        dtype, design = getattr(torch, dtype_name), facts[("dkv", dtype_name)]["design"]
+        dtype = getattr(torch, dtype_name)
         for s in (128, 200, 512, 1024):  # 200: ragged last q and kv tiles
             for group in (4, 1):
                 hk = H // group
@@ -607,8 +644,10 @@ def check_flash_bwd(torch, fa, facts):
                     out, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
                     fa.reset_launches()
                     got = fa.flash_backward(q, k, v, out, lse, dout, causal=causal, window=window)
-                    expect_designs(fa.flash_backward.dkv_launches_by_design, design, 1,
-                                   f"flash_backward {dtype}")
+                    for kernel in ("dq", "dkv"):
+                        expect_designs(getattr(fa.flash_backward, f"{kernel}_launches_by_design"),
+                                       facts[(kernel, dtype_name)]["design"], 1,
+                                       f"flash_backward {dtype}'s {kernel} kernel")
                     want = fa.flash_attention_backward_reference(
                         q, k, v, out, lse, dout, causal=causal, sm_scale=D ** -0.5,
                         window=window, block_kv=128,
@@ -617,7 +656,7 @@ def check_flash_bwd(torch, fa, facts):
                                   f"{dtype} s={s} group={group} causal={causal} window={window}",
                                   worst, dtype_name)
     # The training shape: the kernels exactly as the training step launches
-    # them (bf16; float32 for the FMA dK/dV variant), held against the plain
+    # them (bf16; float32 for the FMA variants), held against the plain
     # backward, then timed (L2 warm between launches).
     B, H, HK, S = 8, 16, 4, 1024
     opts = dict(causal=True, sm_scale=D ** -0.5, window=None)
@@ -636,9 +675,8 @@ def check_flash_bwd(torch, fa, facts):
         want = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, block_kv=128,
                                                      **opts)
         hold_backward(got, want, tol, f"at {shape}", worst, dtype_name)
-        calls = {"dkv": lambda: fa.launch_dkv(q, k, v, lse, delta, dout, **opts)}
-        if ("dq", dtype_name) in FLASH_ROWS:
-            calls["dq"] = lambda: fa.launch_dq(q, k, v, out, lse, dout, **opts)
+        calls = {"dq": lambda: fa.launch_dq(q, k, v, out, lse, dout, **opts),
+                 "dkv": lambda: fa.launch_dkv(q, k, v, lse, delta, dout, **opts)}
         plain_ms, _ = time_ms(
             lambda: fa.flash_attention_backward_reference(q, k, v, out, lse, dout, block_kv=128,
                                                           **opts),
@@ -682,7 +720,7 @@ def check_flash_bwd(torch, fa, facts):
             log(f"flash bwd {facts[key]['name']} at {shape}: graph {ms:.4f} ms, profiler "
                 f"{prof:.4f} ms (bound {b_ms:.4f}); SDPA backward {library_ms:.4f} ms; "
                 f"plain {plain_ms:.3f} ms")
-    return rows[("dq", "bfloat16")], rows[("dkv", "bfloat16")], rows[("dkv", "float32")]
+    return rows
 
 
 def model_flops_per_step(cfg, batch: int, seq: int) -> float:
@@ -719,6 +757,7 @@ def run_training(torch, fa, bench, smi):
         "flash_attention_bwd_dkv": fa.flash_backward.dkv_launches,
     }
     by_design = {"forward": dict(fa.flash_attention.launches_by_design),
+                 "dq": dict(fa.flash_backward.dq_launches_by_design),
                  "dkv": dict(fa.flash_backward.dkv_launches_by_design)}
     record = bench.make_record(args, state, losses, dt)
     log(f"training: {record}; launches {launches}, by design {by_design} over {state.step} steps")
@@ -727,7 +766,7 @@ def run_training(torch, fa, bench, smi):
         if count != n:
             fail(f"training launched {name} {count} times, not {cfg.num_layers} x "
                  f"{state.step} steps")
-    # bf16 runs the tensor-core kernels 2 and 4, never their FMA variants.
+    # bf16 runs the tensor-core kernels 2, 3 and 4, never their FMA variants.
     for kernel, counts in by_design.items():
         expect_designs(counts, "wgmma", n, f"the bf16 training run's {kernel} kernel")
     bad = [i for i, loss in enumerate(losses) if not torch.isfinite(loss).item()]
@@ -778,8 +817,9 @@ def check_train_parity(torch, fa, tf, train, data):
         state, loss = train.make_train_step()(state, {k: v.to(device) for k, v in batch.items()})
         result[device] = loss.item(), {k: v.cpu() for k, v in state.model.state_dict().items()}
         if device == DEVICE:
-            # float32 runs the FMA kernels 2 and 4, never the tensor-core ones.
+            # float32 runs the FMA kernels 2, 3 and 4, never the tensor-core ones.
             launches = {"forward": dict(fa.flash_attention.launches_by_design),
+                        "dq": dict(fa.flash_backward.dq_launches_by_design),
                         "dkv": dict(fa.flash_backward.dkv_launches_by_design)}
             for kernel, counts in launches.items():
                 expect_designs(counts, "fma", cfg.num_layers, f"the float32 step's {kernel} kernel")
@@ -825,7 +865,9 @@ def main() -> None:
     for row in paged.values():
         row.update(design="fma", hgmma=paged_hgmma)
     flash, flash_fma = check_flash(torch, fa, facts)
-    dq, dkv, dkv_fma = check_flash_bwd(torch, fa, facts)
+    bwd = check_flash_bwd(torch, fa, facts)
+    dq, dq_fma = bwd[("dq", "bfloat16")], bwd[("dq", "float32")]
+    dkv, dkv_fma = bwd[("dkv", "bfloat16")], bwd[("dkv", "float32")]
     summary, launches = run_engine(torch, engine, pa, fa)
     paged["f"]["launches"] = launches["f"]
     quant_runs = []
@@ -853,11 +895,12 @@ def main() -> None:
     # The FMA variants run on float32 inputs only: their launches are phase
     # 8's, the float32 train step's.
     fma_launches = trained["card_vs_cpu"]["launches_by_design"]
-    for row, kernel in ((flash_fma, "forward"), (dkv_fma, "dkv")):
+    for row, kernel in ((flash_fma, "forward"), (dq_fma, "dq"), (dkv_fma, "dkv")):
         row["launches"] = fma_launches[kernel]["fma"]
         row["launches_from"] = "phase 8, the float32 train step (2 layers, 1 step)"
 
-    kernels = [paged["f"], paged["int8"], paged["int4"], flash, flash_fma, dq, dkv, dkv_fma]
+    kernels = [paged["f"], paged["int8"], paged["int4"], flash, flash_fma, dq, dq_fma, dkv,
+               dkv_fma]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"slice": summary, "card": smi}), flush=True)
     print(json.dumps({"quant": quant_runs, "format_sweep": sweep, "paths_agree_w8_int8kv": agree_quant,

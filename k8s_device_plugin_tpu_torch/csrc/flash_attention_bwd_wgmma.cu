@@ -7,9 +7,10 @@
 // no float32 operands.  Inputs: q, dout [b, h, s_q, 64]; k, v [b, hk, s_kv,
 // 64] bf16 with hk dividing h (GQA: q head i reads kv head i / (h / hk));
 // lse [b, h, s_q] float32 from the forward and D = rowsum(dO o O) [b, h,
-// s_q] float32 from the dQ kernel (csrc/flash_attention_bwd.cu), which runs
-// before this one on the same stream.  Outputs dk, dv bf16.  Per kv tile,
-// written transposed (kv rows, q columns):
+// s_q] float32 from the bf16 dQ kernel
+// (csrc/flash_attention_bwd_dq_wgmma.cu), which runs before this one on the
+// same stream.  Outputs dk, dv bf16.  Per kv tile, written transposed (kv
+// rows, q columns):
 //   S^T  = K Q^T                 P^T = exp(S^T scale - lse)  (0 where masked
 //   dP^T = V dO^T                                           or lse = -inf)
 //   dS^T = P^T o (dP^T - D) scale
@@ -220,7 +221,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dkv_wgmma_kernel(
 
 }  // namespace
 
-// dK and dV, reading the `delta` that flash_attention_bwd_dq wrote.
+// dK and dV, reading the `delta` that flash_attention_bwd_dq_wgmma wrote.
 extern "C" int flash_attention_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
                                              const void* dout, const void* lse,
                                              const void* delta, void* dk, void* dv, int batch,

@@ -7,28 +7,50 @@
 // through a page table [batch, pages_per_seq], with the frontier mask
 // (col < len) and the sliding-window mask (col >= len - window).
 //
-// Bound on the card: bytes.  Each live token's K and V row is read once
-// (2 x kv_heads x head_dim x 2 bytes in bf16) for about 4 x group x
-// head_dim flops, far below the ~295 flop/byte at which Hopper's tensor
-// cores would become the limit, so the kernel is built to read only live
-// pages and to spread a small batch over many SMs:
-//   - grid (row, kv head, split): a decode batch of 8 rows x 4 kv heads is
-//     32 blocks; the split axis multiplies that so the 132 SMs have work
-//     (ops/tuning.py picks the split count);
-//   - each block loads its own table entries and lens[row] and loops only
-//     over pages below ceil(len / page_size) (and at or past the window's
-//     first page): no dead page is read.  The TPU needed a rectangular grid,
-//     a pl.when predicate and table padding aliased to page 0 for the same
-//     effect;
-//   - the group's G query heads share each K/V page tile in shared memory
-//     (one warp per query head), so a page is read once per kv head;
-//   - per page, lane t of a warp scores token t (lanes past page_size
-//     split the head_dim dot), then the warp keeps the online-softmax
-//     state (m, l) and each lane accumulates head_dim / 32 output dims.
-// One split normalises in the kernel; several write f32 partials that a
-// second small kernel merges exactly: m* = max m_s, out = sum(e^(m_s-m*)
-// acc_s) / sum(e^(m_s-m*) l_s), with empty splits (m = -inf) contributing
-// nothing and an all-masked row giving 0.
+// Bound on the card: bytes, in principle.  Each live token's K and V row is
+// read once (2 x kv_heads x head_dim x 2 bytes in bf16) for about 4 x group
+// x head_dim flops, far below the ~295 flop/byte at which Hopper's tensor
+// cores would become the limit.  At the serving shape (8 rows, a few
+// hundred tokens each) those bytes take well under a microsecond, so what
+// bounds the kernel in practice is latency: one launch and the chain of
+// dependent memory round trips a block waits on.  The design keeps that
+// chain short:
+//   - grid (row, kv head, split), one warp per query head of the kv head's
+//     group: the group's heads share each K/V page, read once.  The split
+//     axis spreads a row's pages over blocks so that the 132 SMs have work
+//     (ops/tuning.py picks the split count); split s takes table entries
+//     [s * pps, (s + 1) * pps), the reference's partition, and only the live
+//     ones (below ceil(len / page_size), at or past the window's first
+//     page), so no dead page is read.  Spreading a row's live pages evenly
+//     over the splits would halve the busiest block's pages at the serving
+//     shape, but the plain version would then round probabilities against
+//     other maxima than the reference and miss its bf16 test by one ulp;
+//     so the splits past a short row's pages stay idle;
+//   - every memory read of a block is in flight at once, in two waves:
+//     lens, the split's table entries and the query rows together; then
+//     cp.async copies of the raw bytes of all the split's pages (up to the
+//     ring's NSLOT pages; more stream through it) into shared memory;
+//   - rows are converted from the raw shared bytes at use, by every lane:
+//     lane t of a warp scores token t of each page in the ring (lanes past
+//     page_size split the head_dim dot), the ring's pages take one
+//     online-softmax update (m, l), and each lane accumulates head_dim / 32
+//     output dims of p.v, reading the probabilities from shared memory as
+//     broadcasts.  16-byte chunks are XOR-swizzled by row in shared memory,
+//     so the lanes that read one chunk of eight rows hit eight different
+//     bank groups.  The loops are unrolled over the ring's slots without a
+//     branch per slot (an empty slot's score is dropped by a select), so
+//     their shared-memory loads overlap;
+//   - the splits merge inside the same launch: the splits of a (row, kv
+//     head) form one thread-block cluster (cluster dims (1, 1, splits), at
+//     most 8, the portable size).  Each block stores its (m, l, acc) into
+//     the shared memory of the block of rank 0 with st.async, which counts
+//     the bytes on an mbarrier there; rank 0 waits for them all and merges
+//     in split order, exactly as _combine_splits: m* = max m_s, out =
+//     sum(e^(m_s-m*) acc_s) / sum(e^(m_s-m*) l_s), with empty splits
+//     (m = -inf) contributing nothing and an all-masked row giving 0.  (A
+//     release barrier instead costs a GPU-wide memory fence, about 1300
+//     cycles.)  One split needs no cluster.  So a call is one kernel and
+//     allocates nothing.
 // TPU layout that does not apply here: the group padding to 8 sublanes and
 // the 128-lane replicated m/l scratch.
 //
@@ -38,17 +60,14 @@
 //     kv_heads], one scale per (position, kv head);
 //   - int4: two signed 4-bit codes per byte along head_dim (element 2i in
 //     the low nibble, ops/quant.py pack_int4) plus the same scale pools.
-// Rows load as 16-byte vectors (8 bf16, 4 f32, 16 int8 or 32 int4 values)
-// and convert exactly into the float shared-memory tile; the nibbles
-// sign-extend with shifts on int32, (x << 28) >> 28 for the low one.  No
-// dequantized page is formed: the scale of K multiplies the score after
-// sm_scale, and the scale of V multiplies the probability after the
-// denominator l has summed it unscaled, then rounds to the query's type
-// before p.v, in the reference's order.  The scales are read in the
-// engine's [pages, page_size, kv_heads] layout; the TPU's swap to put
-// page_size on the lane axis has no counterpart here.  Quantized pools
-// move 1/2 (int8) or 1/4 (int4) of the bf16 bytes, which the kernel's
-// serial page loop does not turn into time at the serving shape (PERF.md).
+// Codes convert exactly, at use, through the mantissa of 2^23 rather than
+// I2F (i8_to_f, i4_to_f).  No dequantized page is formed: the
+// scale of K multiplies the score after sm_scale, and the scale of V
+// multiplies the probability after the denominator l has summed it
+// unscaled, then rounds to the query's type before p.v, in the reference's
+// order.  The scales are read in the engine's [pages, page_size, kv_heads]
+// layout; the TPU's swap to put page_size on the lane axis has no
+// counterpart here.
 //
 // Types: scores, softmax state and accumulators are float32; probabilities
 // are rounded to the query's type before p.v, as the reference casts them
@@ -59,9 +78,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper_wgmma.cuh"  // the cp.async helpers
+
 namespace {
 
+using hopper::cp_async16;
+using hopper::cp_async4;
+using hopper::cp_async_commit;
+using hopper::cp_async_wait;
+using hopper::smem_u32;
+
 constexpr int FMT_FLOAT = 0, FMT_INT8 = 1, FMT_INT4 = 2;
+constexpr int MAX_SPLITS = 8;  // the portable cluster size
+constexpr int RING_BUDGET = 32 * 1024;  // shared bytes for pages in flight
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -77,179 +106,408 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 constexpr unsigned FULL = 0xffffffffu;
 
-// One pool row (one position, one kv head) of D values in format FMT.
-template <typename T, int FMT, int D>
-struct Row {
-  static constexpr int ELEMS = FMT == FMT_FLOAT ? 16 / (int)sizeof(T) : (FMT == FMT_INT8 ? 16 : 32);
-  static constexpr int BYTES = FMT == FMT_FLOAT ? D * (int)sizeof(T) : (FMT == FMT_INT8 ? D : D / 2);
-  static constexpr int VECS = D / ELEMS;  // 16-byte loads per row
+// The kernel's compile-time geometry for query type T, pool format FMT,
+// head_dim D and page size PS.
+template <typename T, int FMT, int D, int PS>
+struct Geo {
+  // Values per 16-byte chunk of a pool row, and a row's bytes.
+  static constexpr int ELEMS =
+      FMT == FMT_FLOAT ? 16 / (int)sizeof(T) : (FMT == FMT_INT8 ? 16 : 32);
+  static constexpr int VECS = D / ELEMS;           // 16-byte chunks per row
+  static constexpr int ROW = VECS * 16;
+  static constexpr int SWZ = VECS < 8 ? VECS : 8;  // rows a swizzle pattern spans
+  static constexpr int PAGE = PS * ROW;            // one page of K (or V) of one kv head
+  static constexpr int SLOT = 2 * PAGE + (FMT == FMT_FLOAT ? 0 : 2 * PS * 4);  // K, V, scales
+  // Slots in the ring: as many as RING_BUDGET holds, 2 to 4 (the code is
+  // unrolled over them, and a longer kernel costs instruction fetches).
+  static constexpr int NSLOT = RING_BUDGET / SLOT < 2   ? 2
+                               : RING_BUDGET / SLOT > 4 ? 4
+                                                        : RING_BUDGET / SLOT;
+  static constexpr int PARTS = 32 / PS;    // lanes sharing one token's dot
+  static constexpr int DP = D / PARTS;     // dims of the dot each of them takes
+  static constexpr int DL = D / 32;        // output dims each lane accumulates
+  static_assert(DP % ELEMS == 0 && SLOT % 16 == 0, "whole chunks per lane and slot");
 };
 
-// Exact conversion of one 16-byte load into Row::ELEMS floats.
-template <typename T, int FMT>
-__device__ __forceinline__ void decode16(const uint4& raw, float* dst) {
+// Byte offset of 16-byte chunk c of row r within a page: chunks are
+// XOR-swizzled by the row.
+template <int VECS, int SWZ>
+__device__ __forceinline__ int chunk_off(int r, int c) {
+  return r * VECS * 16 + ((c ^ (r & (SWZ - 1))) << 4);
+}
+
+// A signed code as float32, exactly, without I2F (which runs at a quarter
+// of the FADD rate): the code plus its bias is written into the low
+// mantissa bits of 2^23, and 2^23 plus the bias is subtracted.  For an
+// int8 byte r, r ^ 0x80 = code + 128; for an int4 nibble r, r ^ 8 = code + 8.
+__device__ __forceinline__ float i8_to_f(uint32_t byte) {
+  return __uint_as_float((byte & 0xFFu) ^ 0x4B000080u) - 8388736.f;
+}
+__device__ __forceinline__ float i4_to_f(uint32_t nibble) {
+  return __uint_as_float((nibble & 0xFu) ^ 0x4B000008u) - 8388616.f;
+}
+
+// Exact conversion of N consecutive values (N even) starting at byte p of
+// a row (shared memory, or a chunk held in registers).
+template <typename T, int FMT, int N>
+__device__ __forceinline__ void decode_n(const uint8_t* p, float* dst) {
   if constexpr (FMT == FMT_FLOAT) {
-    const T* x = reinterpret_cast<const T*>(&raw);
+    const T* x = reinterpret_cast<const T*>(p);
 #pragma unroll
-    for (int i = 0; i < 16 / (int)sizeof(T); ++i) dst[i] = to_f(x[i]);
+    for (int i = 0; i < N; ++i) dst[i] = to_f(x[i]);
   } else if constexpr (FMT == FMT_INT8) {
-    const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-    for (int i = 0; i < 16; ++i) dst[i] = (float)x[i];
+    for (int i = 0; i < N; ++i) dst[i] = i8_to_f(p[i]);
   } else {
-    const int8_t* x = reinterpret_cast<const int8_t*>(&raw);
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const unsigned b = (unsigned)(int)x[i];  // the byte, sign-extended
-      dst[2 * i] = (float)((int)(b << 28) >> 28);      // low nibble: element 2i
-      dst[2 * i + 1] = (float)((int)(b << 24) >> 28);  // high nibble: element 2i+1
+    for (int i = 0; i < N / 2; ++i) {
+      dst[2 * i] = i4_to_f(p[i]);           // low nibble: element 2i
+      dst[2 * i + 1] = i4_to_f(p[i] >> 4);  // high nibble: element 2i+1
     }
   }
+}
+
+// Exact conversion of N consecutive values starting at byte p of a row in
+// shared memory, read as one aligned load of their bytes.
+template <int NB> struct Bytes;
+template <> struct Bytes<1> { using type = uint8_t; };
+template <> struct Bytes<2> { using type = uint16_t; };
+template <> struct Bytes<4> { using type = uint32_t; };
+template <> struct Bytes<8> { using type = uint2; };
+template <> struct Bytes<16> { using type = uint4; };
+
+template <typename T, int FMT, int N>
+__device__ __forceinline__ void load_n(const uint8_t* p, float* dst) {
+  constexpr int NB = FMT == FMT_FLOAT ? N * (int)sizeof(T) : (FMT == FMT_INT8 ? N : N / 2);
+  const typename Bytes<NB>::type raw = *reinterpret_cast<const typename Bytes<NB>::type*>(p);
+  decode_n<T, FMT, N>(reinterpret_cast<const uint8_t*>(&raw), dst);
+}
+
+// The byte where value e of a row starts (for int4, the byte holding the
+// pair 2i, 2i + 1 with e = 2i).
+template <typename T, int FMT>
+__device__ __forceinline__ constexpr int value_byte(int e) {
+  return FMT == FMT_FLOAT ? e * (int)sizeof(T) : (FMT == FMT_INT8 ? e : e / 2);
+}
+
+// Thread-block-cluster primitives (PTX): the cluster barrier's relaxed
+// arrive and its wait (acquire); mapa, the address of the same shared
+// variable in the block of another rank; mbarrier init, expect-tx and a
+// bounded wait; st.async, a store into another block's shared memory that
+// counts its bytes on an mbarrier there.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void mbar_init_expect(uint32_t mbar, uint32_t bytes) {
+  asm volatile(
+      "{\n.reg .b64 st;\nmbarrier.init.shared::cta.b64 [%0], 1;\n"
+      "fence.mbarrier_init.release.cluster;\n"
+      "mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::"r"(mbar),
+      "r"(bytes)
+      : "memory");
+}
+// Wait for phase 0 of the mbarrier; gives up after `tries` polls (a wrong
+// byte count then shows as a wrong result, not as a hung card).
+__device__ __forceinline__ void mbar_wait0(uint32_t mbar, int tries) {
+  for (int i = 0; i < tries; ++i) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(mbar)
+        : "memory");
+    if (done) return;
+  }
+}
+__device__ __forceinline__ void st_async(uint32_t addr, float a, float b, uint32_t mbar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n" ::
+          "r"(addr),
+      "f"(a), "f"(b), "r"(mbar)
+      : "memory");
+}
+template <int N> __device__ __forceinline__ void st_async_n(uint32_t addr, const float (&x)[N],
+                                                           uint32_t mbar) {
+#pragma unroll
+  for (int k = 0; k < N; k += 2) st_async(addr + 4 * k, x[k], x[k + 1], mbar);
+}
+
+// Dynamic shared memory: the page ring (NSLOT slots of K page, V page and,
+// for the quantized formats, their PS scales each), then the query rows as
+// float32 [G][D], then each warp's probabilities [G][NSLOT][PS], then the
+// splits' states [S][G][acc[D], m, l, pad] (the block of rank 0 receives
+// every split's), then the mbarrier that counts them, then the split's table
+// entries.
+template <typename T, int FMT, int D, int PS>
+__host__ __device__ constexpr int ring_bytes() {
+  return Geo<T, FMT, D, PS>::NSLOT * Geo<T, FMT, D, PS>::SLOT;
+}
+
+template <typename T, int FMT, int D, int PS>
+__host__ __device__ constexpr size_t smem_bytes(int group, int splits, int pps) {
+  return ring_bytes<T, FMT, D, PS>() + (size_t)group * D * 4 +
+         (size_t)group * Geo<T, FMT, D, PS>::NSLOT * PS * 4 +
+         (size_t)splits * group * (D + 4) * 4 + 8 + (size_t)pps * 4;
 }
 
 template <typename T, int FMT, int D, int PS>
 __global__ void __launch_bounds__(1024) paged_decode_kernel(
-    const T* __restrict__ q,          // [B, H, D]
-    const char* __restrict__ pool_k,  // [P, PS, Hk, Row::BYTES]
-    const char* __restrict__ pool_v,  // [P, PS, Hk, Row::BYTES]
-    const float* __restrict__ scale_k,  // [P, PS, Hk]  (quantized formats)
-    const float* __restrict__ scale_v,  // [P, PS, Hk]
-    const int* __restrict__ table,    // [B, mpp]
-    const int* __restrict__ lens,     // [B]
-    T* __restrict__ out,              // [B, H, D]         (one split)
-    float* __restrict__ o_part,       // [B, S, Hk, G, D]  (several splits)
-    float* __restrict__ m_part,       // [B, S, Hk, G]
-    float* __restrict__ l_part,       // [B, S, Hk, G]
+    const T* __restrict__ q,             // [B, H, D]
+    const uint8_t* __restrict__ pool_k,  // [P, PS, Hk, ROW]
+    const uint8_t* __restrict__ pool_v,  // [P, PS, Hk, ROW]
+    const float* __restrict__ scale_k,   // [P, PS, Hk]  (quantized formats)
+    const float* __restrict__ scale_v,   // [P, PS, Hk]
+    const int* __restrict__ table,       // [B, mpp]
+    const int* __restrict__ lens,        // [B]
+    T* __restrict__ out,                 // [B, H, D]
     int H, int Hk, int mpp, int pps, int window, float sm_scale) {
-  using R = Row<T, FMT, D>;
+  using G_ = Geo<T, FMT, D, PS>;
   constexpr bool QUANT = FMT != FMT_FLOAT;
-  constexpr int PARTS = 32 / PS;      // lanes sharing one token's dot
-  constexpr int DP = D / PARTS;       // dims of the dot each of them takes
-  constexpr int DL = D / 32;          // output dims each lane accumulates
+  constexpr int NSLOT = G_::NSLOT, DP = G_::DP, DL = G_::DL, ELEMS = G_::ELEMS;
+  constexpr int STATE = D + 4;  // floats per head: acc, m, l, pad (16-byte slots)
 
-  __shared__ float ks[PS][D + 1];  // +1: lanes of different tokens hit different banks
-  __shared__ float vs[PS][D];
-  __shared__ float sks[PS], svs[PS];  // the page's scales (quantized formats)
-
-  const int b = blockIdx.x, hk = blockIdx.y, s = blockIdx.z, S = gridDim.z;
+  extern __shared__ __align__(16) uint8_t smem[];
   const int G = blockDim.x >> 5;
+  const int b = blockIdx.x, hk = blockIdx.y, s = blockIdx.z, S = gridDim.z;
+  float* s_q = reinterpret_cast<float*>(smem + ring_bytes<T, FMT, D, PS>());  // [G][D]
+  float* s_prob = s_q + G * D;                                              // [G][NSLOT][PS]
+  float* s_state = s_prob + G * NSLOT * PS;                                 // [S][G][STATE]
+  uint64_t* s_mbar = reinterpret_cast<uint64_t*>(s_state + S * G * STATE);
+  int* s_tab = reinterpret_cast<int*>(s_mbar + 1);                          // [pps]
   const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = hk * G + g;
   const int t = lane % PS, part = lane / PS;
 
+  // Rank 0's mbarrier expects every split's state (acc, m and l of each
+  // head).  Phase 0 of the cluster barrier then says this block has started
+  // (and rank 0's mbarrier is initialised); it is waited on only before the
+  // merge writes into rank 0's shared memory, long after.
+  if (S > 1) {
+    if (s == 0 && threadIdx.x == 0) mbar_init_expect(smem_u32(s_mbar), S * G * (D + 2) * 4);
+    cluster_arrive_relaxed();
+  }
+
+  // Wave 1: lens, the query rows and the split's table entries, every
+  // load issued before any is used.
+  const int first = s * pps;
   const int len = max(lens[b], 0);
+  float qx[DL];
+#pragma unroll
+  for (int k = 0; k < DL; ++k) qx[k] = to_f(q[((size_t)b * H + h) * D + lane * DL + k]);
+  for (int i = threadIdx.x; i < pps; i += blockDim.x) {
+    s_tab[i] = first + i < mpp ? table[b * mpp + first + i] : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < DL; ++k) s_q[g * D + lane * DL + k] = qx[k];
   const int n_live = min((len + PS - 1) / PS, mpp);
   const int lo = window > 0 ? len - window : 0;
-  int p_begin = s * pps;
-  const int p_end = min(p_begin + pps, n_live);
+  int p_begin = first;
+  const int p_end = min(first + pps, n_live);
   if (window > 0 && lo > 0) p_begin = max(p_begin, lo / PS);
+  const int np = max(p_end - p_begin, 0);
+  __syncthreads();  // s_tab and s_q are in place
 
-  float qreg[DP];
-  const T* qrow = q + ((size_t)b * H + h) * D + part * DP;
-#pragma unroll
-  for (int i = 0; i < DP; ++i) qreg[i] = to_f(qrow[i]);
+  // Wave 2: the raw bytes of the split's pages into the ring, as many as
+  // it holds (more come a ring at a time).
+  const auto issue = [&](int i, int slot) {
+    const int page = s_tab[p_begin + i - first];
+    uint8_t* base = smem + slot * G_::SLOT;
+    const size_t row0 = (size_t)page * PS * Hk + hk;  // (page, position 0, hk)
+    for (int idx = threadIdx.x; idx < PS * G_::VECS; idx += blockDim.x) {
+      const int r = idx / G_::VECS, c = idx % G_::VECS;
+      const size_t off = (row0 + (size_t)r * Hk) * G_::ROW + c * 16;
+      const int dst = chunk_off<G_::VECS, G_::SWZ>(r, c);
+      cp_async16(smem_u32(base + dst), pool_k + off, true);
+      cp_async16(smem_u32(base + G_::PAGE + dst), pool_v + off, true);
+    }
+    if constexpr (QUANT) {
+      float* sc = reinterpret_cast<float*>(base + 2 * G_::PAGE);  // [2][PS]: K's, V's
+      for (int idx = threadIdx.x; idx < 2 * PS; idx += blockDim.x) {
+        const int r = idx % PS;
+        const float* src = (idx < PS ? scale_k : scale_v) + row0 + (size_t)r * Hk;
+        cp_async4(smem_u32(sc + idx), src, true);
+      }
+    }
+  };
+  for (int i = 0; i < min(np, NSLOT); ++i) issue(i, i);
+  cp_async_commit();
 
+  // The ring's pages are scored together and take one online-softmax
+  // update: one max and one sum over the warp per ring, not per page.
   float m_run = -INFINITY, l_run = 0.f;
   float acc[DL];
 #pragma unroll
-  for (int i = 0; i < DL; ++i) acc[i] = 0.f;
+  for (int k = 0; k < DL; ++k) acc[k] = 0.f;
+  constexpr int KC = DP / ELEMS;  // 16-byte K chunks of a token's dot per lane
+  const float* qv = s_q + g * D + part * DP;  // this lane's DP query values
+  float* probs = s_prob + g * NSLOT * PS;     // this warp's [NSLOT][PS]
+  const int vb = value_byte<T, FMT>(lane * DL);  // where its DL output dims sit in a V row
 
-  for (int p = p_begin; p < p_end; ++p) {
-    const int page = table[b * mpp + p];
-    __syncthreads();  // every warp is done with the previous page's tiles
-    for (int idx = threadIdx.x; idx < PS * R::VECS; idx += blockDim.x) {
-      const int row = idx / R::VECS, vec = idx % R::VECS;
-      const size_t off = (((size_t)page * PS + row) * Hk + hk) * R::BYTES + vec * 16;
-      decode16<T, FMT>(*reinterpret_cast<const uint4*>(pool_k + off), &ks[row][vec * R::ELEMS]);
-      decode16<T, FMT>(*reinterpret_cast<const uint4*>(pool_v + off), &vs[row][vec * R::ELEMS]);
-    }
-    if constexpr (QUANT) {
-      if (threadIdx.x < PS) {  // blockDim >= 32 >= PS
-        const size_t so = ((size_t)page * PS + threadIdx.x) * Hk + hk;
-        sks[threadIdx.x] = scale_k[so];
-        svs[threadIdx.x] = scale_v[so];
+  for (int c0 = 0; c0 < np; c0 += NSLOT) {
+    const int nc = min(NSLOT, np - c0);  // pages in the ring, uniform over the block
+    cp_async_wait<0>();
+    __syncthreads();  // every thread's copies have landed
+
+    // Token t of each page: lanes of one token split the head_dim dot.
+    // Each 16-byte chunk of the query is read once for all the pages.
+    float sc[NSLOT];
+#pragma unroll
+    for (int j = 0; j < NSLOT; ++j) sc[j] = 0.f;
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      float qc[ELEMS];
+#pragma unroll
+      for (int e = 0; e < ELEMS; e += 4) {
+        const float4 q4 = *reinterpret_cast<const float4*>(qv + c * ELEMS + e);
+        qc[e] = q4.x, qc[e + 1] = q4.y, qc[e + 2] = q4.z, qc[e + 3] = q4.w;
+      }
+      // Every slot is read, filled or not (a branch per slot would keep
+      // the loads from overlapping); an empty slot's score is dropped below.
+#pragma unroll
+      for (int j = 0; j < NSLOT; ++j) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            smem + j * G_::SLOT + chunk_off<G_::VECS, G_::SWZ>(t, part * KC + c));
+        float x[ELEMS];
+        decode_n<T, FMT, ELEMS>(reinterpret_cast<const uint8_t*>(&raw), x);
+#pragma unroll
+        for (int e = 0; e < ELEMS; ++e) sc[j] = fmaf(qc[e], x[e], sc[j]);
       }
     }
-    __syncthreads();
-
-    float sc = 0.f;
+    float mx = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < DP; ++i) sc = fmaf(qreg[i], ks[t][part * DP + i], sc);
+    for (int j = 0; j < NSLOT; ++j) {
 #pragma unroll
-    for (int off = PS; off < 32; off <<= 1) sc += __shfl_xor_sync(FULL, sc, off);
-    sc *= sm_scale;
-    if constexpr (QUANT) sc *= sks[t];
-    const int col = p * PS + t;
-    const bool valid = col < len && (window <= 0 || col >= lo);
-    sc = valid ? sc : -INFINITY;
-
-    float mx = sc;
+      for (int off = PS; off < 32; off <<= 1) sc[j] += __shfl_xor_sync(FULL, sc[j], off);
+      float v = sc[j] * sm_scale;
+      if constexpr (QUANT) {
+        v *= reinterpret_cast<const float*>(smem + j * G_::SLOT + 2 * G_::PAGE)[t];
+      }
+      const int col = (p_begin + c0 + j) * PS + t;
+      sc[j] = j < nc && col < len && (window <= 0 || col >= lo) ? v : -INFINITY;
+      mx = fmaxf(mx, sc[j]);
+    }
 #pragma unroll
     for (int off = 1; off < PS; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
     const float m_new = fmaxf(m_run, mx);
-    const bool seen = m_new > -INFINITY;  // nothing seen yet: keep -inf, no NaN
-    const float prob = seen ? expf(sc - m_new) : 0.f;
-    const float alpha = seen ? expf(m_run - m_new) : 0.f;
-    float psum = prob;
+    // Nothing seen yet: m stays -inf, and exponentials against 0 give 0
+    // (exp(-inf - -inf) would be NaN).
+    const float m_use = m_new > -INFINITY ? m_new : 0.f;
+    const float alpha = expf(m_run - m_use);
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < NSLOT; ++j) {
+      const float p = expf(sc[j] - m_use);  // 0 for masked tokens and j >= nc
+      psum += p;
+      if (j < nc && part == 0) {
+        float pv = p;
+        if constexpr (QUANT) {
+          pv *= reinterpret_cast<const float*>(smem + j * G_::SLOT + 2 * G_::PAGE)[PS + t];
+        }
+        probs[j * PS + t] = to_f(from_f<T>(pv));  // V's scale after l, then q's type
+      }
+    }
 #pragma unroll
     for (int off = 1; off < PS; off <<= 1) psum += __shfl_xor_sync(FULL, psum, off);
     l_run = alpha * l_run + psum;  // l sums the probabilities before V's scale
-    float pv = prob;
-    if constexpr (QUANT) pv *= svs[t];
-    const float pr = to_f(from_f<T>(pv));
-#pragma unroll
-    for (int i = 0; i < DL; ++i) acc[i] *= alpha;
-#pragma unroll
-    for (int tt = 0; tt < PS; ++tt) {
-      const float pt = __shfl_sync(FULL, pr, tt);
-#pragma unroll
-      for (int i = 0; i < DL; ++i) acc[i] = fmaf(pt, vs[tt][lane * DL + i], acc[i]);
-    }
     m_run = m_new;
-  }
+    __syncwarp();  // the warp's probabilities are in place
 
-  if (S == 1) {
-    const float l_safe = l_run == 0.f ? 1.f : l_run;
-    T* orow = out + ((size_t)b * H + h) * D;
+    // p.v: each lane reads its DL dims of every V row and the
+    // probabilities as broadcasts, four tokens at a time.
 #pragma unroll
-    for (int i = 0; i < DL; ++i) orow[lane * DL + i] = from_f<T>(acc[i] / l_safe);
-  } else {
-    const size_t row = (((size_t)b * S + s) * Hk + hk) * G + g;
+    for (int k = 0; k < DL; ++k) acc[k] *= alpha;
 #pragma unroll
-    for (int i = 0; i < DL; ++i) o_part[row * D + lane * DL + i] = acc[i];
-    if (lane == 0) {
-      m_part[row] = m_run;
-      l_part[row] = l_run;
+    for (int j = 0; j < NSLOT; ++j) {
+      if (j < nc) {
+        const uint8_t* vpage = smem + j * G_::SLOT + G_::PAGE;
+#pragma unroll
+        for (int tt = 0; tt < PS; tt += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(probs + j * PS + tt);
+          const float pt[4] = {p4.x, p4.y, p4.z, p4.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            float x[DL];
+            load_n<T, FMT, DL>(vpage + chunk_off<G_::VECS, G_::SWZ>(tt + u, vb >> 4) + (vb & 15),
+                               x);
+#pragma unroll
+            for (int k = 0; k < DL; ++k) acc[k] = fmaf(pt[u], x[k], acc[k]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // done with the probabilities
+    if (c0 + NSLOT < np) {  // more pages than the ring holds: refill it
+      __syncthreads();      // every warp is done with it
+      for (int i = c0 + NSLOT; i < min(np, c0 + 2 * NSLOT); ++i) issue(i, i - c0 - NSLOT);
+      cp_async_commit();
     }
   }
-}
 
-// Exact merge of the split partials: grid (B, H), one warp per (row, head).
-template <typename T, int D>
-__global__ void combine_splits_kernel(const float* __restrict__ o_part,
-                                      const float* __restrict__ m_part,
-                                      const float* __restrict__ l_part,
-                                      T* __restrict__ out, int S) {
-  constexpr int DL = D / 32;
-  const int b = blockIdx.x, r = blockIdx.y, H = gridDim.y, lane = threadIdx.x;
+  // Merge: every split stores its (acc, m, l) into slot s of rank 0's
+  // state array with st.async, which counts the bytes on rank 0's mbarrier
+  // (once every block of the cluster has started); rank 0 waits for all of
+  // them and merges the slots in split order s = 0..S-1, as
+  // _combine_splits.  No block reads another's shared memory, and rank 0
+  // exits only after every store into its own has landed.
+  float* slot = s_state + (s * G + g) * STATE;
+  if (S > 1) {
+    cluster_wait();  // phase 0: every block has started
+    const uint32_t mbar = mapa(smem_u32(s_mbar), 0);
+    const uint32_t dst = mapa(smem_u32(slot), 0);
+    st_async_n<DL>(dst + 4 * lane * DL, acc, mbar);
+    if (lane == 0) st_async(dst + 4 * D, m_run, l_run, mbar);
+    if (s != 0) return;
+    mbar_wait0(smem_u32(s_mbar), 1 << 20);
+  } else {
+#pragma unroll
+    for (int k = 0; k < DL; ++k) slot[lane * DL + k] = acc[k];
+    if (lane == 0) {
+      slot[D] = m_run;
+      slot[D + 1] = l_run;
+    }
+    __syncwarp();
+  }
+  float m_r[MAX_SPLITS], l_r[MAX_SPLITS], a_r[MAX_SPLITS][DL];
   float m_star = -INFINITY;
-  for (int s = 0; s < S; ++s) m_star = fmaxf(m_star, m_part[((size_t)b * S + s) * H + r]);
+#pragma unroll
+  for (int r = 0; r < MAX_SPLITS; ++r) {
+    const float* st = s_state + (min(r, S - 1) * G + g) * STATE;  // read in bounds
+    m_r[r] = r < S ? st[D] : -INFINITY;
+    l_r[r] = r < S ? st[D + 1] : 0.f;
+#pragma unroll
+    for (int k = 0; k < DL; ++k) a_r[r][k] = r < S ? st[lane * DL + k] : 0.f;
+    m_star = fmaxf(m_star, m_r[r]);
+  }
+  const float m_use = m_star > -INFINITY ? m_star : 0.f;  // no split saw anything: all 0
   float denom = 0.f, o[DL];
 #pragma unroll
-  for (int i = 0; i < DL; ++i) o[i] = 0.f;
-  for (int s = 0; s < S; ++s) {
-    const size_t row = ((size_t)b * S + s) * H + r;
-    const float m = m_part[row];
-    const float alpha = m > -INFINITY ? expf(m - m_star) : 0.f;  // empty split: 0
-    denom += alpha * l_part[row];
+  for (int k = 0; k < DL; ++k) o[k] = 0.f;
 #pragma unroll
-    for (int i = 0; i < DL; ++i) o[i] = fmaf(alpha, o_part[row * D + lane * DL + i], o[i]);
+  for (int r = 0; r < MAX_SPLITS; ++r) {
+    const float alpha = expf(m_r[r] - m_use);  // an empty split (m = -inf) adds nothing
+    denom += alpha * l_r[r];
+#pragma unroll
+    for (int k = 0; k < DL; ++k) o[k] = fmaf(alpha, a_r[r][k], o[k]);
   }
   if (denom == 0.f) denom = 1.f;  // all-masked row -> 0, not NaN
-  T* orow = out + ((size_t)b * H + r) * D;
+  T* orow = out + ((size_t)b * H + h) * D;
 #pragma unroll
-  for (int i = 0; i < DL; ++i) orow[lane * DL + i] = from_f<T>(o[i] / denom);
+  for (int k = 0; k < DL; ++k) orow[lane * DL + k] = from_f<T>(o[k] / denom);
 }
+
+// A kernel that does nothing, launched like the paged kernel: the cost of
+// one launch of that shape with no work (a latency floor).  The argument
+// only keeps cudaLaunchKernelEx's argument array non-empty.
+__global__ void empty_kernel(int) {}
 
 struct Args {
   const void* q;
@@ -260,36 +518,55 @@ struct Args {
   const int* table;
   const int* lens;
   void* out;
-  float* o_part;
-  float* m_part;
-  float* l_part;
   int batch, heads, kv_heads, mpp, splits, window;
   float sm_scale;
   cudaStream_t stream;
 };
 
+// Grid (row, kv head, split), a warp per query head, the splits of a row
+// and kv head as one cluster (none for one split).
+cudaLaunchConfig_t launch_config(int batch, int kv_heads, int group, int splits, size_t smem,
+                                 cudaStream_t stream, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch, kv_heads, splits);
+  cfg.blockDim = dim3(32 * group);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = 1;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = splits;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  return cfg;
+}
+
 template <typename T, int FMT, int D, int PS>
-void launch(const Args& a) {
+int launch(const Args& a) {
   const int group = a.heads / a.kv_heads;
   const int pps = (a.mpp + a.splits - 1) / a.splits;
-  paged_decode_kernel<T, FMT, D, PS>
-      <<<dim3(a.batch, a.kv_heads, a.splits), 32 * group, 0, a.stream>>>(
-          static_cast<const T*>(a.q), static_cast<const char*>(a.pool_k),
-          static_cast<const char*>(a.pool_v), a.scale_k, a.scale_v, a.table, a.lens,
-          static_cast<T*>(a.out), a.o_part, a.m_part, a.l_part, a.heads, a.kv_heads, a.mpp, pps,
-          a.window, a.sm_scale);
-  if (a.splits > 1) {
-    combine_splits_kernel<T, D><<<dim3(a.batch, a.heads), 32, 0, a.stream>>>(
-        a.o_part, a.m_part, a.l_part, static_cast<T*>(a.out), a.splits);
+  const size_t smem = smem_bytes<T, FMT, D, PS>(group, a.splits, pps);
+  const auto kernel = paged_decode_kernel<T, FMT, D, PS>;
+  if (smem > 48 * 1024) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return (int)attr;
   }
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg =
+      launch_config(a.batch, a.kv_heads, group, a.splits, smem, a.stream, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(a.q), static_cast<const uint8_t*>(a.pool_k),
+      static_cast<const uint8_t*>(a.pool_v), a.scale_k, a.scale_v, a.table, a.lens,
+      static_cast<T*>(a.out), a.heads, a.kv_heads, a.mpp, pps, a.window, a.sm_scale);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
 template <typename T, int FMT>
 int dispatch(int head_dim, int page_size, const Args& a) {
-#define PAGED_CASE(D_, PS_)                      \
-  if (head_dim == D_ && page_size == PS_) {      \
-    launch<T, FMT, D_, PS_>(a);                  \
-    return (int)cudaGetLastError();              \
+#define PAGED_CASE(D_, PS_)                  \
+  if (head_dim == D_ && page_size == PS_) {  \
+    return launch<T, FMT, D_, PS_>(a);       \
   }
   PAGED_CASE(64, 16)
   PAGED_CASE(64, 32)
@@ -309,28 +586,42 @@ int dispatch_format(int kv_format, int head_dim, int page_size, const Args& a) {
   }
 }
 
+bool bad_split(int heads, int kv_heads, int splits) {
+  return kv_heads <= 0 || heads % kv_heads != 0 || heads / kv_heads > 32 || splits < 1 ||
+         splits > MAX_SPLITS;
+}
+
 }  // namespace
 
 // kv_format: 0 float pools (in the query's type), 1 int8, 2 int4-packed;
 // the quantized formats need both scale pools, the float one takes none.
+// splits: 1..8 (one cluster of that many blocks per row and kv head).
 extern "C" int paged_attention_fwd(const void* q, const void* pool_k, const void* pool_v,
                                    const void* scale_k, const void* scale_v,
-                                   const void* table, const void* lens, void* out,
-                                   void* o_part, void* m_part, void* l_part, int batch,
+                                   const void* table, const void* lens, void* out, int batch,
                                    int heads, int kv_heads, int head_dim, int page_size,
                                    int mpp, int splits, int window, float sm_scale,
                                    int kv_format, int is_bf16, void* stream) {
-  if (heads % kv_heads != 0 || heads / kv_heads > 32 || splits < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (bad_split(heads, kv_heads, splits)) return (int)cudaErrorInvalidValue;
   if ((kv_format != FMT_FLOAT) != (scale_k != nullptr && scale_v != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{q, pool_k, pool_v, static_cast<const float*>(scale_k),
                static_cast<const float*>(scale_v), static_cast<const int*>(table),
-               static_cast<const int*>(lens), out, static_cast<float*>(o_part),
-               static_cast<float*>(m_part), static_cast<float*>(l_part), batch, heads,
-               kv_heads, mpp, splits, window, sm_scale, static_cast<cudaStream_t>(stream)};
+               static_cast<const int*>(lens), out, batch, heads, kv_heads, mpp, splits, window,
+               sm_scale, static_cast<cudaStream_t>(stream)};
   if (is_bf16) return dispatch_format<__nv_bfloat16>(kv_format, head_dim, page_size, a);
   return dispatch_format<float>(kv_format, head_dim, page_size, a);
+}
+
+// The empty kernel with the paged kernel's grid, block and cluster shape
+// for this batch, head layout and split count.
+extern "C" int paged_attention_empty(int batch, int heads, int kv_heads, int splits,
+                                     void* stream) {
+  if (bad_split(heads, kv_heads, splits)) return (int)cudaErrorInvalidValue;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = launch_config(batch, kv_heads, heads / kv_heads, splits, 0,
+                                               static_cast<cudaStream_t>(stream), &attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, empty_kernel, 0);
+  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }

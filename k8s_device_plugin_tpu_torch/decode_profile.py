@@ -14,9 +14,9 @@ width (vocab 32000, hidden 1024, 8 layers, 16 heads / 4 kv heads, page 16,
    kernels, the device's busy share (the union of kernel intervals over
    the span of the trace), and the kernels that take the most device time.
 2. ``splits``: the paged-attention kernel alone at the decode shape (lens
-   129..241, bf16 pools), for split counts 1..16: CUDA-event time per call
-   over a loop of launches (host launch cost included) and the profiler's
-   device time of the kernel and its combine (host excluded).
+   129..241, bf16 pools), for split counts 1..8 (the cluster's limit):
+   CUDA-event time per call over a loop of launches (host launch cost
+   included) and the profiler's device time of the kernel (host excluded).
 3. ``formats``: the same two times at the tuned split count for each pool
    format (bf16, int8, int4), with the kernel's launches by format.
 
@@ -191,7 +191,7 @@ def _time_call(call, iters: int) -> dict:
     }
 
 
-def sweep_splits(max_splits: int = 16, iters: int = 200) -> list[dict]:
+def sweep_splits(max_splits: int = tuning.MAX_SPLITS, iters: int = 200) -> list[dict]:
     inputs = decode_inputs("f")
     rows = []
     splits = 1

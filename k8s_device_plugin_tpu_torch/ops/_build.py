@@ -34,7 +34,7 @@ NVCC_FLAGS = (
 )
 SOURCES = (
     "paged_attention", "flash_attention", "flash_attention_bwd",
-    "flash_attention_wgmma", "flash_attention_bwd_wgmma",
+    "flash_attention_wgmma", "flash_attention_bwd_wgmma", "flash_attention_bwd_dq_wgmma",
 )
 
 _lock = threading.Lock()

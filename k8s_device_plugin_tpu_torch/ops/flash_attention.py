@@ -9,8 +9,9 @@ its design does about it:
 - the forward (kernel 2): ``csrc/flash_attention_wgmma.cu`` for bf16, on
   the tensor cores; ``csrc/flash_attention.cu`` for float32, FMA on the
   CUDA cores;
-- dQ (kernel 3, which also writes D = rowsum(dO o O)):
-  ``csrc/flash_attention_bwd.cu`` for both types, FMA;
+- dQ (kernel 3, which also writes D = rowsum(dO o O) for kernel 4):
+  ``csrc/flash_attention_bwd_dq_wgmma.cu`` for bf16, on the tensor cores;
+  ``csrc/flash_attention_bwd.cu`` for float32, FMA;
 - dK/dV (kernel 4): ``csrc/flash_attention_bwd_wgmma.cu`` for bf16,
   ``csrc/flash_attention_bwd.cu`` for float32.
 
@@ -48,8 +49,7 @@ _PLAIN_TILE = (128, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FWD_ARGS = (_P,) * 5 + (_I,) * 8 + (_F, _P)
-_DQ_ARGS = (_P,) * 8 + (_I,) * 8 + (_F, _I, _P)  # ... sm_scale, is_bf16, stream
-_DKV_ARGS = (_P,) * 8 + (_I,) * 8 + (_F, _P)
+_BWD_ARGS = (_P,) * 8 + (_I,) * 8 + (_F, _P)  # kernels 3 and 4
 
 
 class Variant(NamedTuple):
@@ -69,15 +69,17 @@ VARIANTS = {
                                 _FWD_ARGS),
         torch.float32: Variant("fma", "flash_attention", "flash_attention_fwd_fma", _FWD_ARGS),
     },
-    "dq": dict.fromkeys(
-        (torch.bfloat16, torch.float32),
-        Variant("fma", "flash_attention_bwd", "flash_attention_bwd_dq", _DQ_ARGS),
-    ),
+    "dq": {
+        torch.bfloat16: Variant("wgmma", "flash_attention_bwd_dq_wgmma",
+                                "flash_attention_bwd_dq_wgmma", _BWD_ARGS),
+        torch.float32: Variant("fma", "flash_attention_bwd", "flash_attention_bwd_dq_fma",
+                               _BWD_ARGS),
+    },
     "dkv": {
         torch.bfloat16: Variant("wgmma", "flash_attention_bwd_wgmma",
-                                "flash_attention_bwd_dkv_wgmma", _DKV_ARGS),
+                                "flash_attention_bwd_dkv_wgmma", _BWD_ARGS),
         torch.float32: Variant("fma", "flash_attention_bwd", "flash_attention_bwd_dkv_fma",
-                               _DKV_ARGS),
+                               _BWD_ARGS),
     },
 }
 DESIGNS = ("wgmma", "fma")
@@ -293,9 +295,9 @@ def launch_dq(q, k, v, out, lse, dout, *, causal, sm_scale, window):
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _call(var, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
           lse.data_ptr(), dq.data_ptr(), delta.data_ptr(),
-          *_shape_args(q, k, causal, sm_scale, window), int(q.dtype == torch.bfloat16),
-          _stream(q))
+          *_shape_args(q, k, causal, sm_scale, window), _stream(q))
     flash_backward.dq_launches += 1
+    flash_backward.dq_launches_by_design[var.design] += 1
     return dq, delta
 
 
@@ -392,11 +394,12 @@ def reset_launches() -> None:
     flash_attention.launches = 0
     flash_attention.launches_by_design = dict.fromkeys(DESIGNS, 0)
     flash_backward.dq_launches = 0
+    flash_backward.dq_launches_by_design = dict.fromkeys(DESIGNS, 0)
     flash_backward.dkv_launches = 0
     flash_backward.dkv_launches_by_design = dict.fromkeys(DESIGNS, 0)
 
 
 # Kernel launches since the last reset (the plain versions never count):
-# the forward's, in total and by variant design, and the backward's dQ and
-# dK/dV kernels' (dK/dV by design too).
+# the forward's, and the backward's dQ and dK/dV kernels', each in total
+# and by variant design.
 reset_launches()

@@ -5,8 +5,10 @@ Counterpart of ``k8s_device_plugin_tpu/ops/paged_attention.py``.  One query
 token per row attends over the row's pages of a shared KV pool through a
 page table; each row's page list is partitioned across ``num_splits``
 blocks that keep an online-softmax triple (m, l, acc) each, and an exact
-combine merges them (see ``csrc/paged_attention.cu`` for the kernel, its
-bound on the card, and what its design does about it).
+combine merges them.  On the card that is one launch: the splits of a row
+and kv head form one thread-block cluster that merges in place, so at
+most ``tuning.MAX_SPLITS`` (8) splits (see ``csrc/paged_attention.cu`` for
+the kernel, its bound on the card, and what its design does about it).
 
 Pool formats, as the reference's: float pools (float32, bfloat16, in q's
 type); int8 codes with float32 scale pools ``[pages, page_size,
@@ -33,11 +35,15 @@ from .quant import unpack_int4
 NEG_INF = float("-inf")
 FORMATS = ("f", "int8", "int4")  # the kernel's kv_format codes 0, 1, 2
 _C_ARGS = (
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 )
 # The kernel's C entry: (csrc source, symbol, argument types).
 C_ENTRY = ("paged_attention", "paged_attention_fwd", _C_ARGS)
+# An empty kernel launched with the paged kernel's grid, block and cluster
+# shape (batch, heads, kv_heads, splits, stream): one launch's cost with no
+# work, the latency floor that chip_smoke.py prints beside the byte bound.
+EMPTY_ENTRY = ("paged_attention", "paged_attention_empty", [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _combine_splits(o_part, m_part, l_part, out_dtype):
@@ -104,6 +110,17 @@ def paged_attention_reference(q4, pool_k, pool_v, table, lens, *, sm_scale, wind
     return _combine_splits(acc, m[..., 0], l, q4.dtype)
 
 
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def launch_empty(batch: int, heads: int, kv_heads: int, num_splits: int, device) -> None:
+    """Launch :data:`EMPTY_ENTRY`'s empty kernel in the paged kernel's shape
+    for these sizes (never counted as a launch of the paged kernel)."""
+    _build.check(_build.entry(*EMPTY_ENTRY)(batch, heads, kv_heads, num_splits, _stream(device)),
+                 EMPTY_ENTRY[1])
+
+
 def _launch(q, pool_k, pool_v, table, lens, scale_k, scale_v, *, sm_scale, window, num_splits,
             kv_format):
     batch, heads, head_dim = q.shape
@@ -129,25 +146,15 @@ def _launch(q, pool_k, pool_v, table, lens, scale_k, scale_v, *, sm_scale, windo
     if heads // kv_heads > 32:
         raise ValueError(f"group {heads // kv_heads} exceeds 32 warps per block")
     out = torch.empty_like(q)
-    if num_splits > 1:
-        part = torch.empty(
-            (batch, num_splits, heads, head_dim), dtype=torch.float32, device=q.device
-        )
-        ml = torch.empty((2, batch, num_splits, heads), dtype=torch.float32, device=q.device)
-        parts = (part.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr())
-    else:
-        parts = (None, None, None)
     ptrs = (None, None) if kv_format == "f" else (scale_k.data_ptr(), scale_v.data_ptr())
-    fn = _build.entry(*C_ENTRY)
-    status = fn(
+    status = _build.entry(*C_ENTRY)(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), *ptrs, table.data_ptr(),
-        lens.data_ptr(), out.data_ptr(), *parts,
+        lens.data_ptr(), out.data_ptr(),
         batch, heads, kv_heads, head_dim, page_size, mpp, num_splits,
         0 if window is None else int(window), float(sm_scale),
-        FORMATS.index(kv_format), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        FORMATS.index(kv_format), int(q.dtype == torch.bfloat16), _stream(q.device),
     )
-    _build.check(status, "paged_attention_fwd")
+    _build.check(status, C_ENTRY[1])
     paged_attention.launches_by_format[kv_format] += 1
     return out
 
@@ -223,7 +230,8 @@ def paged_attention(
     "int8" or "int4" from the pools (see :func:`_resolve_kv_format`).
     ``window``: the query sees only its last ``window`` positions.
     ``num_splits``: blocks per row's page list (None = ops/tuning.py for
-    the tensor's device); every split count computes the same attention.
+    the tensor's device; at most ``tuning.MAX_SPLITS`` and the table's
+    width); every split count computes the same attention.
     """
     batch, num_heads, head_dim = q.shape
     kv_heads = pool_k.shape[2]
@@ -243,7 +251,7 @@ def paged_attention(
         num_splits = tuning.pick_num_splits(
             pages_per_seq, tuning.device_generation(q.device)
         )
-    num_splits = max(1, min(int(num_splits), pages_per_seq))
+    num_splits = max(1, min(int(num_splits), pages_per_seq, tuning.MAX_SPLITS))
     if q.device.type == "cuda":
         return _launch(
             q, pool_k, pool_v, page_table, lens, scale_k, scale_v,

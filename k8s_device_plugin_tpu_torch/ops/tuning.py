@@ -4,7 +4,8 @@ The kernel (ops/paged_attention.py, csrc/paged_attention.cu) has one free
 parameter: how many blocks share one sequence's page list.  On Hopper the
 blocks run in parallel on 132 SMs, so splitting is how a small decode batch
 (batch x kv_heads blocks) fills the card; each split costs one partial
-triple and a term of the combine.
+triple and a term of the combine.  The splits of a row and kv head merge
+inside one thread-block cluster, so there are at most :data:`MAX_SPLITS`.
 
 Rows are keyed by a prefix of ``torch.cuda.get_device_name()``.  No TPU row
 is carried over: the TPU's split counts answered a question about
@@ -17,6 +18,11 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+
+# The portable thread-block-cluster size on Hopper: the paged kernel's
+# splits of one row and kv head are one cluster.
+MAX_SPLITS = 8
 
 
 @dataclass(frozen=True)

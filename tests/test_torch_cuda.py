@@ -5,8 +5,10 @@ file imports no JAX, so it runs on a GPU machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q -p no:cacheprovider
 
-bf16 runs the tensor-core (wgmma) variants of kernels 2 and 4 and float32
-their FMA variants; each test checks which one launched.
+bf16 runs the tensor-core (wgmma) variants of kernels 2, 3 and 4 and
+float32 their FMA variants; each test checks which one launched.  Kernel 1
+is one launch per call in every pool format and split count (its splits
+merge inside a thread-block cluster).
 
 Tolerances: forward outputs within 2e-2 in bf16 (bf16 output rounding plus
 float32 sum order) and 2e-5 in float32 (sum order), lse within 1e-3;
@@ -89,6 +91,7 @@ def test_cuda_backward_kernels_match_plain(dev, dtype, tol):
         fa.reset_launches()
         got = fa.flash_backward(q, k, v, out, lse, dout, causal=causal, window=window)
         assert fa.flash_backward.dq_launches == fa.flash_backward.dkv_launches == 1
+        assert fa.flash_backward.dq_launches_by_design[_DESIGN[dtype]] == 1
         assert fa.flash_backward.dkv_launches_by_design[_DESIGN[dtype]] == 1
         want = fa.flash_attention_backward_reference(
             q, k, v, out, lse, dout, causal=causal, sm_scale=0.125, window=window, block_kv=128,
@@ -107,8 +110,9 @@ def test_cuda_autograd_runs_the_kernels(dev):
     (fa.flash_attention(q, k, v, causal=True) ** 2).sum().backward()
     assert fa.flash_attention.launches == 1
     assert fa.flash_backward.dq_launches == fa.flash_backward.dkv_launches == 1
-    # float32 leaves: the FMA variants of kernels 2 and 4.
+    # float32 leaves: the FMA variants of kernels 2, 3 and 4.
     assert fa.flash_attention.launches_by_design == {"wgmma": 0, "fma": 1}
+    assert fa.flash_backward.dq_launches_by_design == {"wgmma": 0, "fma": 1}
     assert fa.flash_backward.dkv_launches_by_design == {"wgmma": 0, "fma": 1}
     leaves = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
     (fa.flash_attention(*leaves, causal=True) ** 2).sum().backward()
@@ -156,14 +160,15 @@ def test_cuda_tensor_core_forward_matches_plain(dev, seq, group):
 @pytest.mark.parametrize("group", [1, 2, 4])
 @pytest.mark.parametrize("seq", [64, 128, 200, 1024])
 def test_cuda_tensor_core_backward_matches_plain(dev, seq, group):
-    """Kernel 4's wgmma variant (bf16, after kernel 3) against the plain
-    backward, over the same cases as the forward (the non-causal backward
-    included): max |kernel - plain| / max |plain| per gradient."""
+    """Kernels 3 and 4's wgmma variants (bf16) against the plain backward,
+    over the same cases as the forward (the non-causal backward included):
+    max |kernel - plain| / max |plain| per gradient."""
     q, k, v, dout = _case(dev, 40 + seq + group, s=seq, group=group, dtype=torch.bfloat16)
     for causal, window in _MASKS:
         out, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
         fa.reset_launches()
         got = fa.flash_backward(q, k, v, out, lse, dout, causal=causal, window=window)
+        assert fa.flash_backward.dq_launches_by_design == {"wgmma": 1, "fma": 0}
         assert fa.flash_backward.dkv_launches_by_design == {"wgmma": 1, "fma": 0}
         want = fa.flash_attention_backward_reference(
             q, k, v, out, lse, dout, causal=causal, sm_scale=0.125, window=window, block_kv=128,
@@ -184,6 +189,7 @@ def test_cuda_fully_masked_rows_give_zero(dev, dtype):
     out, lse = fa.flash_forward(q, k, v, causal=True, window=40)
     dq, dk, dv = fa.flash_backward(q, k, v, out, lse, dout, causal=True, window=40)
     assert fa.flash_attention.launches_by_design[_DESIGN[dtype]] == 1
+    assert fa.flash_backward.dq_launches_by_design[_DESIGN[dtype]] == 1
     assert fa.flash_backward.dkv_launches_by_design[_DESIGN[dtype]] == 1
     assert torch.isinf(lse[:, :, 103:]).all() and (lse[:, :, 103:] < 0).all()
     assert torch.isfinite(lse[:, :, :103]).all()
@@ -195,6 +201,18 @@ def test_cuda_fully_masked_rows_give_zero(dev, dtype):
     tol = _BF16["rel"] if dtype == torch.bfloat16 else 1e-4
     for g, w in zip((dq, dk, dv), want):
         assert ((g.float() - w.float()).abs().max() / w.float().abs().max()).item() <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16-wgmma", "f32-fma"])
+def test_cuda_dq_kernel_writes_delta(dev, dtype):
+    """Kernel 3 writes D = rowsum(dO o O) for kernel 4, for every real row
+    of a ragged last tile, in both variants."""
+    q, k, v, dout = _case(dev, 61, s=200, group=2, dtype=dtype)
+    out, lse = fa.flash_forward(q, k, v, causal=True)
+    _, delta = fa.launch_dq(q, k, v, out, lse, dout, causal=True, sm_scale=0.125, window=None)
+    want = (dout.float() * out.float()).sum(dim=-1)
+    assert (delta - want).abs().max().item() <= 1e-4 * max(1.0, want.abs().max().item())
 
 
 def _quantized(fmt, *pools):
@@ -228,6 +246,69 @@ def test_cuda_quantized_pools_match_plain(dev, fmt, dtype, tol):
             scale_v=pools["scale_v"], kv_format=fmt,
         ).reshape(got.shape)
         assert (got.float() - want.float()).abs().max().item() <= tol, (splits, window)
+
+
+def _pools(fmt, dtype, dev, rs, shape):
+    """Pool keyword arguments in ``fmt`` from seeded float pools."""
+    k, v = (torch.from_numpy(rs.randn(*shape).astype(np.float32)) for _ in range(2))
+    if fmt == "f":
+        return {"pool_k": k.to(dev, dtype), "pool_v": v.to(dev, dtype)}
+    return {name: t.to(dev) for name, t in _quantized(fmt, k, v).items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["f", "int8", "int4"])
+@pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)],
+                         ids=["bf16", "f32"])
+def test_cuda_paged_kernel_over_splits_lens_and_windows(dev, fmt, dtype, tol):
+    """Kernel 1 against its plain version over 1, 2 and 8 splits (8: one
+    full cluster), lens 0, 1, page edges (15, 16, 17, 32, 33) and a full
+    table, windows none, 1, 20 and 100, group 4; one launch counted per
+    call, rows with len 0 give 0."""
+    rs = np.random.RandomState(19)
+    batch, heads, kv_heads, d, ps, mpp, n_pool = 8, 16, 4, 64, 16, 8, 80
+    pools = _pools(fmt, dtype, dev, rs, (n_pool, ps, kv_heads, d))
+    q = torch.from_numpy(rs.randn(batch, heads, d).astype(np.float32)).to(dev, dtype)
+    table = torch.from_numpy(rs.permutation(n_pool)[: batch * mpp].reshape(batch, mpp)
+                             .astype(np.int32)).to(dev)
+    lens = torch.tensor([0, 1, 15, 16, 17, 32, 33, ps * mpp], dtype=torch.int32, device=dev)
+    for splits in (1, 2, 8):
+        for window in (None, 1, 20, 100):
+            pa.reset_launches()
+            got = pa.paged_attention(q, page_table=table, lens=lens, window=window,
+                                     num_splits=splits, **pools)
+            assert pa.paged_attention.launches_by_format == {
+                f: int(f == fmt) for f in pa.FORMATS}
+            want = pa.paged_attention_reference(
+                q.reshape(batch, kv_heads, heads // kv_heads, d), pools["pool_k"],
+                pools["pool_v"], table, lens, sm_scale=d ** -0.5, window=window,
+                num_splits=splits, scale_k=pools.get("scale_k"), scale_v=pools.get("scale_v"),
+                kv_format=fmt,
+            ).reshape(got.shape)
+            assert (got[0] == 0).all(), (splits, window)
+            assert (got.float() - want.float()).abs().max().item() <= tol, (splits, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 8])
+def test_cuda_paged_kernel_replays_in_a_graph(dev, splits):
+    """The one-launch kernel (a cluster launch at 8 splits) is captured in
+    a CUDA graph, and its replay gives the eager call's output."""
+    rs = np.random.RandomState(23)
+    pools = _pools("f", torch.bfloat16, dev, rs, (64, 16, 4, 64))
+    q = torch.from_numpy(rs.randn(4, 16, 64).astype(np.float32)).to(dev, torch.bfloat16)
+    table = torch.from_numpy(rs.permutation(64)[:32].reshape(4, 8).astype(np.int32)).to(dev)
+    lens = torch.tensor([5, 40, 100, 128], dtype=torch.int32, device=dev)
+    call = lambda: pa.paged_attention(q, page_table=table, lens=lens,  # noqa: E731
+                                      num_splits=splits, **pools)
+    eager = call()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 @pytest.mark.cuda

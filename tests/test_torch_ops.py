@@ -458,8 +458,9 @@ def _c_declaration(source: str, symbol: str) -> str:
 def _wrapper_entries():
     """Every (source, symbol, argtypes) that the wrappers bind."""
     entries = {v[1:] for table in fa.VARIANTS.values() for v in table.values()}
-    source, symbol, argtypes = pa.C_ENTRY
-    return sorted(entries | {(source, symbol, tuple(argtypes))}, key=lambda e: e[1])
+    paged = {(source, symbol, tuple(argtypes)) for source, symbol, argtypes in
+             (pa.C_ENTRY, pa.EMPTY_ENTRY)}
+    return sorted(entries | paged, key=lambda e: e[1])
 
 
 @pytest.mark.parametrize("entry", _wrapper_entries(), ids=lambda e: e[1])
@@ -477,21 +478,76 @@ def test_c_entries_match_their_declarations(entry):
 
 
 def test_kernel_variant_follows_the_dtype():
-    """bf16 runs the tensor-core (wgmma) kernels 2 and 4, float32 the FMA
-    ones; kernel 3 has one entry for both; any other type raises."""
-    for kernel in ("forward", "dkv"):
+    """bf16 runs the tensor-core (wgmma) kernels 2, 3 and 4, float32 the FMA
+    ones, each from its own source; any other type raises."""
+    for kernel in ("forward", "dq", "dkv"):
         bf16, f32 = fa.variant(kernel, torch.bfloat16), fa.variant(kernel, torch.float32)
         assert bf16.design == "wgmma" and bf16.source.endswith("_wgmma")
         assert bf16.symbol.endswith("_wgmma") and f32.symbol.endswith("_fma")
         assert f32.design == "fma" and bf16.source != f32.source
-    assert fa.variant("dq", torch.bfloat16) == fa.variant("dq", torch.float32)
+    assert fa.variant("dq", torch.bfloat16).source == "flash_attention_bwd_dq_wgmma"
     for dtype in (torch.float16, torch.float64, torch.int8):
         with pytest.raises(ValueError, match="float32|bfloat16"):
             fa.variant("forward", dtype)
     fa.flash_attention.launches_by_design["wgmma"] = 3
+    fa.flash_backward.dq_launches_by_design["fma"] = 2
     fa.reset_launches()
     assert fa.flash_attention.launches_by_design == {"wgmma": 0, "fma": 0}
+    assert fa.flash_backward.dq_launches_by_design == {"wgmma": 0, "fma": 0}
     assert fa.flash_backward.dkv_launches_by_design == {"wgmma": 0, "fma": 0}
+
+
+@pytest.mark.parametrize("fmt", pa.FORMATS)
+@pytest.mark.parametrize("splits", [1, 8])
+def test_paged_launch_passes_what_the_c_entry_declares(monkeypatch, fmt, splits):
+    """The paged wrapper hands its C entry exactly the arguments declared
+    in csrc/paged_attention.cu (no partial buffers: the splits merge inside
+    the launch), pointers where it takes pointers, and counts one launch."""
+    calls = []
+
+    def fake_entry(source, symbol, argtypes):
+        def fn(*args):
+            calls.append((source, symbol, argtypes, args))
+            return 0
+        return fn
+
+    monkeypatch.setattr(pa._build, "entry", fake_entry)
+    monkeypatch.setattr(pa, "_stream", lambda device: 12345)
+    geo = dict(kv_heads=2, ps=16, n_pool=64, mpp=8)
+    if fmt == "f":
+        q, pk, pv, table, lens = _torch(*_paged_inputs(21, **geo))
+        sk = sv = None
+    else:
+        q, pk, pv, table, lens, sk, sv = _torch(*_quantized_inputs(21, fmt, **geo))
+    pa.reset_launches()
+    out = pa._launch(q, pk, pv, table, lens, sk, sv, sm_scale=0.125, window=None,
+                     num_splits=splits, kv_format=fmt)
+    assert out.shape == q.shape and pa.paged_attention.launches_by_format[fmt] == 1
+    ((source, symbol, argtypes, args),) = calls
+    assert (source, symbol, argtypes) == pa.C_ENTRY
+    params = [p.strip() for p in _c_declaration(source, symbol).split(",")]
+    assert len(args) == len(argtypes) == len(params) == 20
+    for arg, argtype, param in zip(args, argtypes, params):
+        if argtype is ctypes.c_void_p:
+            assert "*" in param and (arg is None or isinstance(arg, int)), param
+        else:
+            assert isinstance(arg, float if argtype is ctypes.c_float else int), param
+    named = dict(zip([p.split()[-1].lstrip("*") for p in params], args))
+    assert named["splits"] == splits and named["mpp"] == 8 and named["stream"] == 12345
+    assert named["kv_format"] == pa.FORMATS.index(fmt)
+    assert (named["scale_k"] is None) == (fmt == "f")
+    assert named["out"] == out.data_ptr()
+
+
+def test_paged_splits_are_capped_at_the_cluster_size():
+    """More splits than a cluster holds (or than the table has entries)
+    compute what the cap computes; every tuning row stays within it."""
+    inputs = _torch(*_paged_inputs(22, ps=16, n_pool=64, mpp=16))
+    capped = pa.paged_attention(*inputs, num_splits=tuning.MAX_SPLITS)
+    assert torch.equal(pa.paged_attention(*inputs, num_splits=16), capped)
+    assert torch.equal(pa.paged_attention(*inputs, num_splits=64), capped)
+    assert all(row.max_splits <= tuning.MAX_SPLITS
+               for row in (*tuning.DECODE_ROWS, tuning.CPU_ROW, tuning.FALLBACK_ROW))
 
 
 def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
