@@ -8,8 +8,10 @@ Phases, in order (any failure exits non-zero):
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from csrc/ (one nvcc each, in
    parallel), and read each flash kernel's registers and spills (ptxas)
-   and HGMMA count (cuobjdump): the tensor-core (wgmma) variants (forward,
-   dQ, dK/dV) must show HGMMA and no spill, the FMA variants no HGMMA;
+   and HGMMA count (cuobjdump) at every head_dim it is built for: the
+   tensor-core (wgmma) variants (forward, dQ, dK/dV; built 64 and 128
+   wide) must show HGMMA and no spill, the FMA variants (built at 16, 32,
+   64 and 128) no HGMMA;
 3. hold each kernel against its plain PyTorch version on the card at the
    serving slice's shapes (the paged kernel in each pool format: bf16/f32,
    int8 and int4 codes with float32 scale pools, and the int4 unpack on
@@ -29,15 +31,30 @@ Phases, in order (any failure exits non-zero):
    h16 hk4 s1024 d64, causal; bf16 and float32) hold them once more, then
    time them, the plain backward, and SDPA's backward (by profiler device
    time, with the kernels timed the same way beside it);
+3c. kernel 1 at every head_dim (16, 32, 64, 128) and page size (2 to 64)
+   in every pool format, and kernels 2-4 at head_dim 16, 32 and 128 in both
+   variants, against their plain versions; then kernels 1-4 timed at
+   head_dim 128 in bf16 (the kernel line's ``head_dim_128``);
 4. run the batch serving engine at the deployed model's full width (vocab
    32000, hidden 1024, 8 layers, 16 heads / 4 kv heads, page 16, 512 pages,
    32 pages per sequence, 8 slots; 32 requests, prompt 128, 128 new
-   tokens, greedy), with the launch counters set to 0 just before and read
-   just after: the paged-decode kernel must have launched (float pools);
+   tokens, greedy), decode block 1, synchronous and eager (``--overlap-steps
+   0 --cuda-graphs 0``), with the launch counters set to 0 just before and
+   read just after: the paged-decode kernel must have launched (float
+   pools) once per layer on every dispatched step;
 4b. the same engine run with the deployed pod's ``--quant=w8``, then with
    ``--quant=w8 --quant-kv``, then with ``--quant=w8a8 --quant-kv``: each
    must return 32 x 128 in-vocab tokens, and the ``--quant-kv`` runs must
    have launched the paged kernel's int8 branch on every decode step;
+4d. the same engine at ``--decode-block 16 --overlap-steps 1`` with its
+   dispatches replayed as CUDA graphs: the greedy tokens must equal phase
+   4's exactly, the paged kernel counted once per layer on every
+   dispatched step (a replay counts what its capture launched), with
+   overlapped rounds discarded at the finishes and graphs replayed; sampled
+   (temperature 0.8, top-k 50) the run must repeat itself under one rng
+   with graphs on and off; then ``decode_profile.profile_decode``'s step
+   wall against device time per token at block 1 (synchronous and eager,
+   and overlapped with graphs) and at block 16;
 4c. ``decode_profile.sweep_formats``, the kernel benchmark (the reference
    reaches int4 pools only from its kernel benchmark): each pool format
    at the decode shape, launches counted by format;
@@ -46,7 +63,8 @@ Phases, in order (any failure exits non-zero):
    tensor-core variant only;
 6. at 2 layers in float32, the engine's greedy tokens on the kernel path
    must equal those on the gathered-page path wherever the reference's
-   top-2 logit margin clears the tolerance;
+   top-2 logit margin clears the tolerance, at full width and page 16 and
+   at GPTConfig.tiny() (head_dim 16) and page 4;
 6b. the same with ``quant="w8"`` and ``quant_kv`` (int8 pools: the kernel
    scales scores and probabilities, the gather path dequantizes first);
 7. train the decoder LM through ``models/benchmark.py`` at the reference's
@@ -67,7 +85,8 @@ Phases, in order (any failure exits non-zero):
 Then it prints one ``kernels`` JSON line (a row per kernel variant, each
 with its design, HGMMA count, registers and spill bytes; every number in
 it measured in this run, the bounds computed from its inputs), one
-``slice`` JSON line, one
+``slice`` JSON line, one ``blocks`` JSON line (phase 4d, 3c's worst
+errors and the tiny phase 6), one
 ``quant`` JSON line, one ``train`` JSON line, and last the line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
@@ -77,6 +96,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -347,31 +367,46 @@ FLASH_ROWS = {
 
 def build_facts(torch, fa, _build) -> dict:
     """Per flash kernel row, keyed as FLASH_ROWS: its name, source, design,
-    registers, spill bytes (ptxas) and HGMMA count (cuobjdump).  Fails if a
-    wgmma kernel spills or has no HGMMA, or an FMA kernel has any."""
+    and per build (``widths``: the wgmma kernels at 64, 128 and the 64-wide
+    build that zero-pads head_dim 16 and 32, "16/32"; the FMA kernels at
+    16, 32, 64 and 128) its registers, spill bytes (ptxas) and HGMMA count
+    (cuobjdump); the row's own registers, spills and HGMMA are the head_dim
+    64 build's, the main paths'.  Fails if a wgmma build spills or has no
+    HGMMA, or an FMA build has any."""
     facts = {}
     for (kernel, dtype), (name, function) in FLASH_ROWS.items():
         var = fa.variant(kernel, getattr(torch, dtype))
         hgmma = sass_hgmma(_build.library_path(var.source))
-        ptxas = _build.ptxas_report(var.source)
-        pick = [sym for sym in ptxas if function in sym]
-        if len(pick) != 1:
-            fail(f"ptxas reports {sorted(ptxas)} for csrc/{var.source}.cu, not one {function}")
-        regs = ptxas[pick[0]]
+        widths = {}
+        for sym, regs in _build.ptxas_report(var.source).items():
+            # <function><D> or <function><D, PAD> in the mangled name.
+            m = re.search(function + r"ILi(\d+)E(?:Lb([01])E)?", sym)
+            if m:
+                widths["16/32" if m.group(2) == "1" else m.group(1)] = {
+                    "registers": regs["registers"],
+                    "spill_bytes": regs["spill_stores"] + regs["spill_loads"],
+                    "hgmma": hgmma.get(sym, 0),
+                }
+        built = {"64", "128", "16/32"} if var.design == "wgmma" else {"16", "32", "64", "128"}
+        if set(widths) != built:
+            fail(f"csrc/{var.source}.cu builds {function} at head_dim {sorted(widths)}, "
+                 f"not {sorted(built)}")
         fact = facts[(kernel, dtype)] = {
             "name": name,
             "route": "cuda",
             "source": f"k8s_device_plugin_tpu_torch/csrc/{var.source}.cu",
             "design": var.design,
-            "hgmma": sum(n for sym, n in hgmma.items() if function in sym),
-            "registers": regs["registers"],
-            "spill_bytes": regs["spill_stores"] + regs["spill_loads"],
+            **widths["64"],
+            "widths": widths,
         }
         log(f"{var.source} {function}: {fact}")
-        if var.design == "wgmma" and (fact["hgmma"] == 0 or fact["spill_bytes"]):
-            fail(f"{function}: {fact['hgmma']} HGMMA, {fact['spill_bytes']} spill bytes")
-        if var.design == "fma" and fact["hgmma"]:
-            fail(f"{function} is the FMA variant but has {fact['hgmma']} HGMMA")
+        for width, w in widths.items():
+            if var.design == "wgmma" and (w["hgmma"] == 0 or w["spill_bytes"]):
+                fail(f"{function} at head_dim {width}: {w['hgmma']} HGMMA, "
+                     f"{w['spill_bytes']} spill bytes")
+            if var.design == "fma" and w["hgmma"]:
+                fail(f"{function} at head_dim {width} is the FMA variant but has "
+                     f"{w['hgmma']} HGMMA")
     return facts
 
 
@@ -458,6 +493,136 @@ def check_flash(torch, fa, facts):
     return rows
 
 
+def check_widths(torch, pa, fa, quant, tuning) -> dict:
+    """Phase 3c: kernel 1 at every head_dim and page size the reference's
+    configs use, in every pool format (bf16 queries), and kernels 2-4 at
+    head_dim 16, 32 and 128 in both variants, against their plain
+    versions, each call checking the launch it counted.  Returns the worst
+    errors by kernel."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    B, H, HK, SPAN = 8, 16, 4, 256  # SPAN: the positions a row's table covers
+    lens = torch.tensor([1, 17, 100, 129, 200, 241, 255, 256], dtype=torch.int32, device=dev)
+    worst = {}
+    for d in pa.HEAD_DIMS:
+        for ps in pa.PAGE_SIZES:
+            mpp, n_pool = SPAN // ps, B * SPAN // ps + 1
+            table = torch.randperm(n_pool - 1, generator=gen, device=dev)[: B * mpp] + 1
+            table = table.reshape(B, mpp).to(torch.int32)
+            q = torch.randn((B, H, d), generator=gen, device=dev).to(torch.bfloat16)
+            k, v = (torch.randn((n_pool, ps, HK, d), generator=gen, device=dev) for _ in range(2))
+            tuned = tuning.pick_num_splits(mpp, tuning.device_generation(dev))
+            for kv_format in pa.FORMATS:
+                pools = quantized_pools(quant, kv_format, k, v, torch.bfloat16)
+                for splits in sorted({1, tuned}):
+                    for window in (None, 100):
+                        pa.reset_launches()
+                        err = hold_paged(torch, pa, q, pools, table, lens, window=window,
+                                         splits=splits, kv_format=kv_format)
+                        label = f"paged {kv_format} d={d} page={ps} splits={splits} window={window}"
+                        if pa.paged_attention.launches_by_format[kv_format] != 1:
+                            fail(f"{label}: launched {pa.paged_attention.launches_by_format}")
+                        if not err <= TOL_BF16:
+                            fail(f"{label}: max_abs_err {err} > {TOL_BF16}")
+                        key = f"paged_{kv_format}"
+                        worst[key] = max(worst.get(key, 0.0), err)
+    log(f"paged kernel at head_dim {pa.HEAD_DIMS} x page {pa.PAGE_SIZES} x {pa.FORMATS}: "
+        f"worst {worst}")
+    B = 2
+    for d in (16, 32, 128):
+        for dtype_name, tol, tol_bwd in (("bfloat16", TOL_BF16, TOL_BWD_BF16),
+                                         ("float32", TOL_F32, TOL_BWD_F32)):
+            dtype = getattr(torch, dtype_name)
+            design = fa.variant("forward", dtype).design
+            for s in (128, 200):
+                q, dout = (torch.randn((B, H, s, d), generator=gen, device=dev).to(dtype)
+                           for _ in range(2))
+                k, v = (torch.randn((B, HK, s, d), generator=gen, device=dev).to(dtype)
+                        for _ in range(2))
+                for causal, window in ((True, None), (True, 100), (False, None)):
+                    label = f"flash {dtype_name} d={d} s={s} causal={causal} window={window}"
+                    fa.reset_launches()
+                    out, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+                    got = fa.flash_backward(q, k, v, out, lse, dout, causal=causal, window=window)
+                    expect_designs(fa.flash_attention.launches_by_design, design, 1, label)
+                    expect_designs(fa.flash_backward.dq_launches_by_design, design, 1, label)
+                    expect_designs(fa.flash_backward.dkv_launches_by_design, design, 1, label)
+                    opts = dict(causal=causal, sm_scale=d ** -0.5, window=window, block_kv=128)
+                    ref, ref_lse = fa.flash_attention_reference(q, k, v, **opts)
+                    want = fa.flash_attention_backward_reference(q, k, v, out, lse, dout, **opts)
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref.float()).abs().max().item()
+                    lerr = (lse - ref_lse).abs().max().item()
+                    rels = [rel_err(g, w) for g, w in zip(got, want)]
+                    if not (err <= tol and lerr <= TOL_LSE and max(rels) <= tol_bwd):
+                        fail(f"{label}: out {err}, lse {lerr}, dq/dk/dv rel {rels}")
+                    for key, e in ((f"forward_{dtype_name}", err),
+                                   (f"backward_rel_{dtype_name}", max(rels))):
+                        worst[key] = max(worst.get(key, 0.0), e)
+    log(f"kernels 1-4 at every head_dim: worst {worst}")
+    return worst
+
+
+def time_head_dim_128(torch, pa, fa, dp, tuning) -> dict:
+    """Kernels 1-4 at head_dim 128 in bf16, timed as the head_dim 64 rows
+    are (kernel 1 at the decode shape, kernels 2-4 at b8 h16 hk4 s1024
+    causal), beside their bounds, plain versions and library calls; keyed
+    by kernel row name."""
+    D, B, H, HK = 128, 8, 16, 4
+    out = {}
+    inputs = dp.decode_inputs("f", head_dim=D)
+    tuned = tuning.pick_num_splits(inputs["page_table"].shape[1], tuning.device_generation(DEVICE))
+    q, table, lens = inputs["q"], inputs["page_table"], inputs["lens"]
+    ms, _ = time_ms(lambda: pa.paged_attention(**inputs, num_splits=tuned))
+    plain_ms, _ = time_ms(lambda: pa.paged_attention_reference(
+        q.reshape(B, HK, H // HK, D), inputs["pool_k"], inputs["pool_v"], table, lens,
+        sm_scale=D ** -0.5, window=None, num_splits=tuned), iters=20)
+    live = lens.long().tolist()
+    ps = inputs["pool_k"].shape[1]
+    nbytes = 2 * B * H * D * 2 + sum(live) * HK * 2 * D * 2 + sum(-(-n // ps) for n in live) * 4
+    b_ms, b_by = bound(nbytes, sum(4 * H * n * D for n in live), BF16_FLOPS)
+    out["paged_attention"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "library_ms": None,
+                              "shape": f"B{B} H{H} Hk{HK} D{D} page{ps} splits{tuned} "
+                                       f"lens{live[0]}..{live[-1]} bf16"}
+    S = 1024
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    q, dout = (torch.randn((B, H, S, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+               for _ in range(2))
+    k, v = (torch.randn((B, HK, S, D), generator=gen, device=DEVICE).to(torch.bfloat16)
+            for _ in range(2))
+    opts = dict(causal=True, sm_scale=D ** -0.5, window=None)
+    o, lse = fa.flash_forward(q, k, v, causal=True)
+    _, delta = fa.launch_dq(q, k, v, o, lse, dout, **opts)
+    pairs = B * H * S * (S + 1) // 2
+    row_q, row_kv, vec = B * H * S * D * 2, B * HK * S * D * 2, B * H * S * 4
+    plain_bwd, _ = time_ms(lambda: fa.flash_attention_backward_reference(
+        q, k, v, o, lse, dout, block_kv=128, **opts), iters=3, warmup=1)
+    sdpa_bwd = profiled_ms(torch, sdpa_backward(torch, q, k, v, dout), "SDPA's backward (d128)")
+    shape = f"b{B} h{H} hk{HK} s{S} d{D} causal bfloat16"
+    cases = {
+        "flash_attention": (lambda: fa.flash_forward(q, k, v, causal=True),
+                            2 * row_q + 2 * row_kv + vec, 4 * D * pairs),
+        "flash_attention_bwd_dq": (lambda: fa.launch_dq(q, k, v, o, lse, dout, **opts),
+                                   4 * row_q + 2 * vec + 2 * row_kv, 6 * D * pairs),
+        "flash_attention_bwd_dkv": (lambda: fa.launch_dkv(q, k, v, lse, delta, dout, **opts),
+                                    2 * row_q + 2 * vec + 4 * row_kv, 8 * D * pairs),
+    }
+    for name, (call, nbytes, flops) in cases.items():
+        ms, _ = time_ms(call, iters=20)
+        b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+        if name == "flash_attention":
+            plain_ms, _ = time_ms(lambda: fa.flash_attention_reference(
+                q, k, v, block_kv=128, **opts), iters=3, warmup=1)
+            library_ms, _ = time_ms(sdpa_forward(torch, q, k, v), iters=20)
+        else:
+            plain_ms, library_ms = plain_bwd, sdpa_bwd
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": library_ms, "shape": shape}
+    log(f"kernels 1-4 at head_dim 128: {out}")
+    return out
+
+
 def run_engine(torch, engine, pa, fa, flags=()):
     """Phases 4 and 4b: the batch engine at full width with the extra
     ``flags``; returns (summary, paged launches by pool format)."""
@@ -477,6 +642,11 @@ def run_engine(torch, engine, pa, fa, flags=()):
     if launches[want] <= 0 or launches[other] or launches["int4"]:
         fail(f"the engine's decode {list(flags)} launched the paged kernel as {launches}, "
              f"not in its {want} branch alone")
+    # Once per layer on every single-token step dispatched, eager or
+    # replayed in a graph (a replay counts what its capture launched).
+    if launches[want] != args.layers * summary["device_steps"]:
+        fail(f"the engine {list(flags)} counted {launches[want]} paged launches over "
+             f"{summary['device_steps']} dispatched steps of {args.layers} layers")
     if len(done) != 32 or any(len(r.tokens) != 128 for r in done):
         fail("the engine did not return 32 requests of 128 tokens")
     if any(not 0 <= t < 32000 for r in done for t in r.tokens):
@@ -488,7 +658,62 @@ def run_engine(torch, engine, pa, fa, flags=()):
     summary["ttft_exact_ms"] = {"p50": quantile(ttft, 0.5) * 1e3, "p99": quantile(ttft, 0.99) * 1e3}
     summary["itl_request_mean_ms"] = {"p50": quantile(itl, 0.5) * 1e3, "p99": quantile(itl, 0.99) * 1e3}
     summary["flags"] = list(flags)
-    return summary, launches
+    return summary, launches, [r.tokens for r in done]
+
+
+SYNC_EAGER = ("--decode-block=1", "--overlap-steps=0", "--cuda-graphs=0")
+BLOCKS = ("--decode-block=16", "--overlap-steps=1")  # CUDA graphs: the card's default
+SAMPLED = ("--temperature=0.8", "--top-k=50")
+
+
+def first_difference(a, b) -> str:
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            j = next(j for j, (u, w) in enumerate(zip(x, y)) if u != w)
+            return f"request {i} token {j}: {x[j]} vs {y[j]}"
+    return "the request counts differ"
+
+
+def run_blocks(torch, engine, pa, fa, dp, sync_tokens) -> dict:
+    """Phase 4d: the full-width engine at decode block 16 with the overlap
+    round and CUDA graphs must return phase 4's greedy tokens exactly,
+    discard overlapped rounds at the finishes and replay graphs; sampled
+    (temperature 0.8, top-k 50) it must repeat itself under one rng with
+    graphs on and off.  Then decode_profile's step wall against device
+    time per token at block 1 (synchronous and eager, then overlapped and
+    graphed) and at block 16."""
+    greedy, launches, tokens = run_engine(torch, engine, pa, fa, BLOCKS)
+    if tokens != sync_tokens:
+        fail(f"block 16 with overlap and graphs differs from phase 4's greedy tokens at "
+             f"{first_difference(tokens, sync_tokens)}")
+    if greedy["overlap_discards"] <= 0 or greedy["graph_replays"] <= 0:
+        fail(f"block 16 run: {greedy['overlap_discards']} discards, "
+             f"{greedy['graph_replays']} graph replays")
+    sampled = {}
+    for graphs in (1, 0):
+        summary, _, stream = run_engine(torch, engine, pa, fa,
+                                        BLOCKS + SAMPLED + (f"--cuda-graphs={graphs}",))
+        sampled[graphs] = (summary, stream)
+    if sampled[1][1] != sampled[0][1]:
+        fail(f"sampled block 16 streams differ with graphs on and off at "
+             f"{first_difference(sampled[1][1], sampled[0][1])}")
+    if sampled[1][1] == tokens:
+        fail("the sampled run returned the greedy tokens")
+    profiles = {}
+    for name, flags, steps in (
+        ("block1_sync_eager", SYNC_EAGER, 16),
+        ("block1_overlap_graphs", ("--decode-block=1", "--overlap-steps=1"), 16),
+        ("block16_overlap_graphs", BLOCKS, 8),  # 8 blocks: 128 tokens a row, twice
+    ):
+        prof = dp.profile_decode(steps, flags)
+        profiles[name] = {key: prof[key] for key in (
+            "flags", "steps", "tokens", "step_ms", "wall_ms_per_token", "device_ms_per_step",
+            "device_ms_per_token", "busy_share", "unprofiled_step_ms",
+            "unprofiled_wall_ms_per_token", "paged_launches", "top")}
+        log(f"decode profile {name}: {profiles[name]}")
+    return {"greedy": greedy, "paged_launches": launches["f"],
+            "sampled_graphs": sampled[1][0], "sampled_eager": sampled[0][0],
+            "decode_profile": profiles}
 
 
 def quantile(values, q: float) -> float:
@@ -528,19 +753,23 @@ def run_generate(torch, tf, pa, fa):
     return launches
 
 
-def check_paths_agree(torch, tf, engine, **quant_kw):
+def check_paths_agree(torch, tf, engine, cfg=None, page=(16, 512, 32), prompt_len=64,
+                      **quant_kw):
     """Phases 6 and 6b: fp32, 2 layers, full width (``quant_kw`` sets the
-    weight and KV formats): kernel path == gather path wherever the top-2
-    margin of the reference decode clears TOL_MARGIN."""
-    cfg = tf.GPTConfig(
-        vocab_size=32000, hidden_size=1024, num_layers=2, num_heads=16,
-        intermediate_size=3072, max_seq=512, num_kv_heads=4, dtype=torch.float32, **quant_kw,
-    )
+    weight and KV formats), or ``cfg`` at the paged geometry ``page`` (6:
+    GPTConfig.tiny(), head_dim 16, at page 4): kernel path == gather path
+    wherever the top-2 margin of the reference decode clears TOL_MARGIN."""
+    if cfg is None:
+        cfg = tf.GPTConfig(
+            vocab_size=32000, hidden_size=1024, num_layers=2, num_heads=16,
+            intermediate_size=3072, max_seq=512, num_kv_heads=4, dtype=torch.float32,
+            **quant_kw,
+        )
     params = tf.init_params(cfg, seed=3)
-    jobs = engine.synthetic_jobs(8, 64, 16, cfg.vocab_size)
+    jobs = engine.synthetic_jobs(8, prompt_len, 16, cfg.vocab_size)
     streams = {}
     for use_kernel in (None, False):
-        paged = tf.PagedConfig(16, 512, 32, use_kernel=use_kernel)
+        paged = tf.PagedConfig(*page, use_kernel=use_kernel)
         eng = engine.ServingEngine(cfg, params, paged, max_slots=8, device=DEVICE)
         streams[use_kernel] = [r.tokens for r in eng.run(jobs)]
     model = eng.model
@@ -561,7 +790,8 @@ def check_paths_agree(torch, tf, engine, **quant_kw):
                 fail(f"kernel and gather paths disagree at token {j} with margin {margin}")
             ties += 1
             break  # past a near-tie the two streams legitimately differ
-    log(f"fp32 {quant_kw or 'float'} paths agree on {checked} tokens ({ties} near-ties)")
+    log(f"fp32 {quant_kw or 'float'} head_dim {cfg.head_dim} page {page[0]}: paths agree on "
+        f"{checked} tokens ({ties} near-ties)")
     return {"checked": checked, "near_ties": ties}
 
 
@@ -866,15 +1096,19 @@ def main() -> None:
         row.update(design="fma", hgmma=paged_hgmma)
     flash, flash_fma = check_flash(torch, fa, facts)
     bwd = check_flash_bwd(torch, fa, facts)
+    widths = check_widths(torch, pa, fa, quant, tuning)
+    d128 = time_head_dim_128(torch, pa, fa, dp, tuning)
     dq, dq_fma = bwd[("dq", "bfloat16")], bwd[("dq", "float32")]
     dkv, dkv_fma = bwd[("dkv", "bfloat16")], bwd[("dkv", "float32")]
-    summary, launches = run_engine(torch, engine, pa, fa)
+    summary, launches, sync_tokens = run_engine(torch, engine, pa, fa, SYNC_EAGER)
     paged["f"]["launches"] = launches["f"]
     quant_runs = []
     for flags in (["--quant=w8"], ["--quant=w8", "--quant-kv"], ["--quant=w8a8", "--quant-kv"]):
-        q_summary, launches = run_engine(torch, engine, pa, fa, flags)
+        q_summary, launches, _ = run_engine(torch, engine, pa, fa, (*SYNC_EAGER, *flags))
         q_summary["paged_launches"] = launches
         quant_runs.append(q_summary)
+    blocks = run_blocks(torch, engine, pa, fa, dp, sync_tokens)
+    paged["f"]["block16_launches"] = blocks["paged_launches"]
     paged["int8"]["launches"] = quant_runs[1]["paged_launches"]["int8"]
     paged["int8"]["w8a8_launches"] = quant_runs[2]["paged_launches"]["int8"]
     sweep = dp.sweep_formats(iters=100)
@@ -886,6 +1120,8 @@ def main() -> None:
         fail("the kernel benchmark never launched the paged kernel's int4 branch")
     flash["launches"] = run_generate(torch, tf, pa, fa)
     check_paths_agree(torch, tf, engine)
+    agree_tiny = check_paths_agree(torch, tf, engine, cfg=tf.GPTConfig.tiny(), page=(4, 64, 16),
+                                   prompt_len=16)
     agree_quant = check_paths_agree(torch, tf, engine, quant="w8", quant_kv=True)
     trained, launches = run_training(torch, fa, bench, smi)
     flash["train_launches"] = launches["flash_attention"]
@@ -899,10 +1135,15 @@ def main() -> None:
         row["launches"] = fma_launches[kernel]["fma"]
         row["launches_from"] = "phase 8, the float32 train step (2 layers, 1 step)"
 
+    for row, name in ((paged["f"], "paged_attention"), (flash, "flash_attention"),
+                      (dq, "flash_attention_bwd_dq"), (dkv, "flash_attention_bwd_dkv")):
+        row["head_dim_128"] = d128[name]
     kernels = [paged["f"], paged["int8"], paged["int4"], flash, flash_fma, dq, dq_fma, dkv,
                dkv_fma]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"slice": summary, "card": smi}), flush=True)
+    print(json.dumps({"blocks": blocks, "widths_worst_err": widths,
+                      "paths_agree_tiny_page4": agree_tiny, "card": smi}), flush=True)
     print(json.dumps({"quant": quant_runs, "format_sweep": sweep, "paths_agree_w8_int8kv": agree_quant,
                       "card": smi}), flush=True)
     print(json.dumps({"train": trained}), flush=True)

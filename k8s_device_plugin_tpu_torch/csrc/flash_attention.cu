@@ -24,7 +24,12 @@
 //     columns past s_kv load as zeros and score -inf (a separate
 //     instantiation, so full tiles carry no guards), so no length falls
 //     back to a plain path;
-//   - a loop over 64-column kv tiles takes the place of the TPU's
+//   - head_dim d is a template parameter (16, 32, 64 or 128), so q and the
+//     accumulator stay in registers at every width; at 128 the kv tile is
+//     32 columns, so that K and V stay within 48 KB of static shared
+//     memory (the registers of q and acc then spill to local memory: ptxas
+//     reports it in the build log);
+//   - a loop over kv tiles (64 columns, 32 at d 128) takes the place of the TPU's
 //     sequential kv grid axis: it starts at the sliding window's first live
 //     tile and stops at the causal diagonal (_tile_live's band), so dead
 //     tiles cost nothing at all instead of one predicate each;
@@ -40,15 +45,18 @@
 
 namespace {
 
-// The Python wrapper's CUDA_TILE names the same two sizes.
+// The Python wrapper's CUDA_TILE names the q tile and the kv tile below
+// head_dim 128.
 constexpr int BQ = 64;     // q rows per block (= threads per block)
-constexpr int BK = 64;     // kv columns per tile
 constexpr int CHUNK = 16;  // columns per online-softmax update
+
+// kv columns per tile: K and V tiles fit 48 KB of static shared memory.
+template <int D> __host__ __device__ constexpr int kv_tile_cols() { return D > 64 ? 32 : 64; }
 
 // One kv tile into the row's online-softmax state.  RAGGED is the last tile
 // of a sequence that BK does not divide: its rows past seq_kv load as zeros
 // and score -inf.  Full tiles compile without those guards.
-template <int D, bool RAGGED>
+template <int D, bool RAGGED, int BK = kv_tile_cols<D>()>
 __device__ __forceinline__ void kv_tile(const float* __restrict__ kbase,
                                         const float* __restrict__ vbase, int ki, int seq_kv,
                                         int row, int causal, int window, float sm_scale,
@@ -124,6 +132,7 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ out, float* __restrict__ lse, int heads, int kv_heads, int seq_q,
     int seq_kv, int causal, int window, float sm_scale) {
+  constexpr int BK = kv_tile_cols<D>();
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
 
@@ -175,20 +184,40 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
   lse[(size_t)bh * seq_q + row] = l_run > 0.f ? m_run + logf(l_safe) : -INFINITY;
 }
 
-}  // namespace
-
-extern "C" int flash_attention_fwd_fma(const void* q, const void* k, const void* v, void* out,
-                                       void* lse, int batch, int heads, int kv_heads, int seq_q,
-                                       int seq_kv, int head_dim, int causal, int window,
-                                       float sm_scale, void* stream) {
-  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0 ||
-      head_dim != 64) {
-    return (int)cudaErrorInvalidValue;
-  }
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
+           int heads, int kv_heads, int seq_q, int seq_kv, int causal, int window,
+           float sm_scale, cudaStream_t stream) {
   const dim3 grid(batch * heads, (seq_q + BQ - 1) / BQ);
-  flash_fwd_kernel<64><<<grid, BQ, 0, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd_kernel<D><<<grid, BQ, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), static_cast<float*>(lse), heads, kv_heads, seq_q, seq_kv, causal,
       window, sm_scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// head_dim 16, 32, 64 or 128, one instantiation each.
+extern "C" int flash_attention_fwd_fma(const void* q, const void* k, const void* v, void* out,
+                                       void* lse, int batch, int heads, int kv_heads, int seq_q,
+                                       int seq_kv, int head_dim, int causal, int window,
+                                       float sm_scale, void* stream) {
+  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+#define FMA_FWD_CASE(D_)                                                                    \
+  case D_:                                                                                  \
+    return launch<D_>(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, causal,     \
+                      window, sm_scale, s);
+  switch (head_dim) {
+    FMA_FWD_CASE(16)
+    FMA_FWD_CASE(32)
+    FMA_FWD_CASE(64)
+    FMA_FWD_CASE(128)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef FMA_FWD_CASE
 }

@@ -32,9 +32,13 @@
 //   - both loops visit live tiles only: dQ from the sliding window's first
 //     kv tile to the causal diagonal (as the forward), dK/dV from the
 //     diagonal to the window's last q tile;
+//   - head_dim d is a template parameter (16, 32, 64 or 128); at 128 a
+//     block takes 32 rows and streams 32-row tiles, so both staged tiles
+//     stay within 48 KB of static shared memory;
 //   - register pressure: a row's head_dim is split over PARTS = 4 threads,
-//     each holding 16 elements of its operands and its float32
-//     accumulators (dQ: q, dO, dq = 48 floats; dK/dV: k, v, dk, dv = 64);
+//     each holding d / 4 elements of its operands and its float32
+//     accumulators (at d 64, dQ: q, dO, dq = 48 floats; dK/dV: k, v, dk,
+//     dv = 64);
 //     row dot products finish with two warp shuffles.  The four threads of
 //     a row take interleaved float4 chunks, so their reads of a
 //     shared-memory row hit four different bank groups;
@@ -56,35 +60,39 @@
 
 namespace {
 
-constexpr int D = 64;                  // head_dim (the wrapper raises on others)
-constexpr int TILE = 64;               // rows per block and rows per streamed tile
-constexpr int PARTS = 4;               // threads per row
-constexpr int THREADS = TILE * PARTS;  // 256
-constexpr int PER = D / PARTS;         // elements of a row per thread
-constexpr int CH = PER / 4;            // float4 chunks per thread
+constexpr int PARTS = 4;  // threads per row
+
+// Rows per block and per streamed tile, and threads per block, at head_dim
+// D: two tiles of rows stay within 48 KB of static shared memory.
+template <int D> __host__ __device__ constexpr int tile_rows() { return D > 64 ? 32 : 64; }
+template <int D> __host__ __device__ constexpr int threads() { return tile_rows<D>() * PARTS; }
 
 // Thread `part` of a row owns float4 chunks part, part + PARTS, ...: element
 // offset of its chunk c.
 __device__ __forceinline__ int chunk_at(int part, int c) { return (part + PARTS * c) * 4; }
 
-// This thread's PER elements of a row (global or shared memory).
+// This thread's PER = d / PARTS elements of a row (global or shared
+// memory).
+template <int PER>
 __device__ __forceinline__ void read_part(const float* __restrict__ row, int part,
                                           float (&r)[PER]) {
 #pragma unroll
-  for (int c = 0; c < CH; ++c) {
+  for (int c = 0; c < PER / 4; ++c) {
     const float4 x = *reinterpret_cast<const float4*>(row + chunk_at(part, c));
     r[4 * c] = x.x, r[4 * c + 1] = x.y, r[4 * c + 2] = x.z, r[4 * c + 3] = x.w;
   }
 }
 
+template <int PER>
 __device__ __forceinline__ void write_part(float* row, int part, const float (&r)[PER]) {
 #pragma unroll
-  for (int c = 0; c < CH; ++c) {
+  for (int c = 0; c < PER / 4; ++c) {
     *reinterpret_cast<float4*>(row + chunk_at(part, c)) =
         make_float4(r[4 * c], r[4 * c + 1], r[4 * c + 2], r[4 * c + 3]);
   }
 }
 
+template <int PER>
 __device__ __forceinline__ float dot_part(const float (&a)[PER], const float (&b)[PER]) {
   float s = 0.f;
 #pragma unroll
@@ -107,7 +115,7 @@ __device__ __forceinline__ bool in_band(int row, int col, int causal, int window
 
 // One kv tile into this row's dQ.  RAGGED: the last kv tile of a sequence
 // that TILE does not divide (its rows past seq_kv load as zeros and mask).
-template <bool RAGGED>
+template <int D, bool RAGGED, int TILE = tile_rows<D>(), int PER = D / PARTS>
 __device__ __forceinline__ void dq_tile(const float* __restrict__ kbase,
                                         const float* __restrict__ vbase,
                                         int ki, int seq_kv, int row, int part, int causal,
@@ -147,11 +155,13 @@ __device__ __forceinline__ void dq_tile(const float* __restrict__ kbase,
   }
 }
 
-__global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
+template <int D>
+__global__ void __launch_bounds__((D > 64 ? 32 : 64) * PARTS) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ out, const float* __restrict__ dout, const float* __restrict__ lse,
     float* __restrict__ dq, float* __restrict__ delta_out, int heads, int kv_heads, int seq_q,
     int seq_kv, int causal, int window, float sm_scale) {
+  constexpr int TILE = tile_rows<D>(), PER = D / PARTS;
   __shared__ __align__(16) float ks[TILE][D];
   __shared__ __align__(16) float vs[TILE][D];
 
@@ -190,11 +200,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
   const float* kbase = k + (size_t)kvh * seq_kv * D;
   const float* vbase = v + (size_t)kvh * seq_kv * D;
   for (int ki = kv_lo; ki < min(kv_hi, n_full); ++ki) {
-    dq_tile<false>(kbase, vbase, ki, seq_kv, row, part, causal, window, sm_scale, l, delta, qr,
+    dq_tile<D, false>(kbase, vbase, ki, seq_kv, row, part, causal, window, sm_scale, l, delta, qr,
                    dor, acc, ks, vs);
   }
   if (kv_lo <= n_full && n_full < kv_hi) {  // the ragged last tile is live
-    dq_tile<true>(kbase, vbase, n_full, seq_kv, row, part, causal, window, sm_scale, l, delta,
+    dq_tile<D, true>(kbase, vbase, n_full, seq_kv, row, part, causal, window, sm_scale, l, delta,
                   qr, dor, acc, ks, vs);
   }
   if (row < seq_q) write_part(dq + rix * D, part, acc);
@@ -205,7 +215,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_kernel(
 // One q tile of one q head into this kv row's dK and dV, float32.  RAGGED:
 // the last q tile of a sequence that TILE does not divide (rows past seq_q
 // load as zeros with lse = -inf, so their P is 0).
-template <bool RAGGED>
+template <int D, bool RAGGED, int TILE = tile_rows<D>(), int PER = D / PARTS>
 __device__ __forceinline__ void dkv_tile(const float* __restrict__ qbase,
                                          const float* __restrict__ dobase,
                                          const float* __restrict__ lsebase,
@@ -255,11 +265,13 @@ __device__ __forceinline__ void dkv_tile(const float* __restrict__ qbase,
   }
 }
 
-__global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
+template <int D>
+__global__ void __launch_bounds__((D > 64 ? 32 : 64) * PARTS) flash_bwd_dkv_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int heads,
     int kv_heads, int seq_q, int seq_kv, int causal, int window, float sm_scale) {
+  constexpr int TILE = tile_rows<D>(), PER = D / PARTS;
   __shared__ __align__(16) float qs[TILE][D];
   __shared__ __align__(16) float dos[TILE][D];
   __shared__ float ls[TILE];
@@ -294,11 +306,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
     const float* lbase = lse + (size_t)h * seq_q;
     const float* dbase = delta + (size_t)h * seq_q;
     for (int qi = q_lo; qi < min(q_hi, n_full); ++qi) {
-      dkv_tile<false>(qbase, dobase, lbase, dbase, qi, seq_q, col, part, causal, window,
+      dkv_tile<D, false>(qbase, dobase, lbase, dbase, qi, seq_q, col, part, causal, window,
                       sm_scale, kr, vr, dk_acc, dv_acc, qs, dos, ls, dls);
     }
     if (q_lo <= n_full && n_full < q_hi) {  // the ragged last tile is live
-      dkv_tile<true>(qbase, dobase, lbase, dbase, n_full, seq_q, col, part, causal, window,
+      dkv_tile<D, true>(qbase, dobase, lbase, dbase, n_full, seq_q, col, part, causal, window,
                      sm_scale, kr, vr, dk_acc, dv_acc, qs, dos, ls, dls);
     }
   }
@@ -308,25 +320,18 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkv_kernel(
   }
 }
 
-bool bad_shape(int batch, int heads, int kv_heads, int seq_q, int seq_kv, int head_dim) {
-  return batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0 ||
-         head_dim != D;
+bool bad_shape(int batch, int heads, int kv_heads, int seq_q, int seq_kv) {
+  return batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0;
 }
 
-}  // namespace
-
-// dQ of float32 inputs and the per-row D = rowsum(dO o O) (written to
-// `delta`, [b, h, s_q] float32, for flash_attention_bwd_dkv_fma).
-extern "C" int flash_attention_bwd_dq_fma(const void* q, const void* k, const void* v,
-                                          const void* out, const void* dout, const void* lse,
-                                          void* dq, void* delta, int batch, int heads,
-                                          int kv_heads, int seq_q, int seq_kv, int head_dim,
-                                          int causal, int window, float sm_scale, void* stream) {
-  if (bad_shape(batch, heads, kv_heads, seq_q, seq_kv, head_dim)) {
-    return (int)cudaErrorInvalidValue;
-  }
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* out, const void* dout,
+              const void* lse, void* dq, void* delta, int batch, int heads, int kv_heads,
+              int seq_q, int seq_kv, int causal, int window, float sm_scale,
+              cudaStream_t stream) {
+  constexpr int TILE = tile_rows<D>();
   const dim3 grid(batch * heads, (seq_q + TILE - 1) / TILE);
-  flash_bwd_dq_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_dq_kernel<D><<<grid, threads<D>(), 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(out), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<float*>(dq), static_cast<float*>(delta), heads,
@@ -334,22 +339,57 @@ extern "C" int flash_attention_bwd_dq_fma(const void* q, const void* k, const vo
   return (int)cudaGetLastError();
 }
 
-// dK and dV of float32 inputs, reading the `delta` that
-// flash_attention_bwd_dq_fma wrote.
-extern "C" int flash_attention_bwd_dkv_fma(const void* q, const void* k, const void* v,
-                                           const void* dout, const void* lse, const void* delta,
-                                           void* dk, void* dv, int batch, int heads,
-                                           int kv_heads, int seq_q, int seq_kv, int head_dim,
-                                           int causal, int window, float sm_scale,
-                                           void* stream) {
-  if (bad_shape(batch, heads, kv_heads, seq_q, seq_kv, head_dim)) {
-    return (int)cudaErrorInvalidValue;
-  }
+template <int D>
+int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, int batch, int heads, int kv_heads,
+               int seq_q, int seq_kv, int causal, int window, float sm_scale,
+               cudaStream_t stream) {
+  constexpr int TILE = tile_rows<D>();
   const dim3 grid(batch * kv_heads, (seq_kv + TILE - 1) / TILE);
-  flash_bwd_dkv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  flash_bwd_dkv_kernel<D><<<grid, threads<D>(), 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), heads,
       kv_heads, seq_q, seq_kv, causal, window, sm_scale);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
+
+// Both entries take head_dim 16, 32, 64 or 128, one instantiation each.
+#define FMA_BWD_SWITCH(CALL)                    \
+  switch (head_dim) {                           \
+    case 16: return CALL<16>(FMA_BWD_ARGS);     \
+    case 32: return CALL<32>(FMA_BWD_ARGS);     \
+    case 64: return CALL<64>(FMA_BWD_ARGS);     \
+    case 128: return CALL<128>(FMA_BWD_ARGS);   \
+    default: return (int)cudaErrorInvalidValue; \
+  }
+
+extern "C" int flash_attention_bwd_dq_fma(const void* q, const void* k, const void* v,
+                                          const void* out, const void* dout, const void* lse,
+                                          void* dq, void* delta, int batch, int heads,
+                                          int kv_heads, int seq_q, int seq_kv, int head_dim,
+                                          int causal, int window, float sm_scale, void* stream) {
+  if (bad_shape(batch, heads, kv_heads, seq_q, seq_kv)) return (int)cudaErrorInvalidValue;
+#define FMA_BWD_ARGS                                                                        \
+  q, k, v, out, dout, lse, dq, delta, batch, heads, kv_heads, seq_q, seq_kv, causal, window, \
+      sm_scale, static_cast<cudaStream_t>(stream)
+  FMA_BWD_SWITCH(launch_dq)
+#undef FMA_BWD_ARGS
+}
+
+extern "C" int flash_attention_bwd_dkv_fma(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* lse, const void* delta,
+                                           void* dk, void* dv, int batch, int heads,
+                                           int kv_heads, int seq_q, int seq_kv, int head_dim,
+                                           int causal, int window, float sm_scale,
+                                           void* stream) {
+  if (bad_shape(batch, heads, kv_heads, seq_q, seq_kv)) return (int)cudaErrorInvalidValue;
+#define FMA_BWD_ARGS                                                                         \
+  q, k, v, dout, lse, delta, dk, dv, batch, heads, kv_heads, seq_q, seq_kv, causal, window, \
+      sm_scale, static_cast<cudaStream_t>(stream)
+  FMA_BWD_SWITCH(launch_dkv)
+#undef FMA_BWD_ARGS
+}
+#undef FMA_BWD_SWITCH

@@ -4,9 +4,10 @@
 // Replaces the TPU kernel k8s_device_plugin_tpu/ops/flash_attention.py
 // _dq_kernel (launched by _flash_bwd_pallas) for bf16 inputs; float32
 // inputs run the FMA kernel of csrc/flash_attention_bwd.cu, since wgmma has
-// no float32 operands.  Inputs: q, out, dout [b, h, s_q, 64]; k, v [b, hk,
-// s_kv, 64] bf16 with hk dividing h (GQA: q head i reads kv head i / (h /
-// hk)); lse [b, h, s_q] float32 from the forward.  Outputs dq bf16 and
+// no float32 operands.  Inputs: q, out, dout [b, h, s_q, d]; k, v [b, hk,
+// s_kv, d] bf16 with hk dividing h (GQA: q head i reads kv head i / (h /
+// hk)); lse [b, h, s_q] float32 from the forward.  d is 16, 32, 64 or 128,
+// in kernels built 64 and 128 wide (D) as the forward's.  Outputs dq bf16 and
 // D = rowsum(dO o O) [b, h, s_q] float32, which the dK/dV kernel
 // (csrc/flash_attention_bwd_wgmma.cu) reads after this one on the same
 // stream.  Per q tile:
@@ -21,9 +22,11 @@
 // Bound on the card: operations, 6 x d flops per causal (row, col) pair.
 // The design mirrors the dK/dV kernel, untransposed (hopper_wgmma.cuh has
 // the building blocks):
-//   - grid (b*h, q tile), one warpgroup (128 threads) per 64-row q tile,
-//     the tiles handed out last first: the longest causal rows start first
-//     and the diagonal's short ones fill the tail;
+//   - grid (b*h, q tile), D / 64 warpgroups (128 threads each) per 64-row
+//     q tile, the tiles handed out last first: the longest causal rows
+//     start first and the diagonal's short ones fill the tail.  Every
+//     warpgroup computes S and dP whole and owns 64 columns of dQ (one
+//     slab of K), so a thread keeps the same registers at either width;
 //   - Q and dO are loaded once into 128-byte-swizzled shared tiles, the A
 //     operands (K-major) of S and dP; K and V are their B operands
 //     (K-major);
@@ -44,12 +47,14 @@
 //     ragged last kv tile take a mask;
 //   - any length: q rows past s_q and kv rows past s_kv load as zeros; the
 //     former count as lse = -inf (P = 0) and write neither dq nor D.
-// Shared memory: Q + dO + 2 x (K + V) = 48 KB plus the alignment slack, so
-// the launch asks for it with cudaFuncSetAttribute.
+// Shared memory: Q + dO + 2 x (K + V) = 48 KB at D = 64 (96 KB at 128)
+// plus the alignment slack, so the launch asks for it with
+// cudaFuncSetAttribute.
 // Exponentials are exp2 of scores pre-scaled by sm_scale * log2(e), against
 // lse * log2(e).
-// Built for sm_90a, cuobjdump -sass shows 12 HGMMA (4 k16 steps each for S,
-// dP and dQ); registers and spills are in the build log (-Xptxas=-v).
+// Built for sm_90a, cuobjdump -sass shows 12 HGMMA at D = 64 (4 k16 steps
+// each for S, dP and dQ); registers and spills are in the build log
+// (-Xptxas=-v).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -63,15 +68,17 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace hopper;
 
-constexpr int D = 64;         // head_dim
-constexpr int BQ = 64;        // q rows per block (one warpgroup)
-constexpr int BKV = 64;       // kv rows per streamed tile
-constexpr int THREADS = 128;  // one warpgroup
-constexpr int STAGES = 2;     // K/V ring depth
-// Shared memory: the Q and dO tiles, then STAGES x (K tile, V tile), plus
-// slack to align the base to a swizzle atom.
-constexpr int SMEM_BYTES = TILE64_BYTES * (2 + 2 * STAGES) + SWIZZLE_ATOM_BYTES;
-static_assert(BQ == 64 && BKV == 64 && D == 64, "one m64n64 tile per product");
+constexpr int BQ = 64;     // q rows per block (one m64 tile)
+constexpr int BKV = 64;    // kv rows per streamed tile
+constexpr int STAGES = 2;  // K/V ring depth
+
+// Threads a block (a warpgroup per 64 columns of head_dim) and shared
+// bytes: the Q and dO tiles, then STAGES x (K tile, V tile), each D / 64
+// slabs, plus slack to align the base to a swizzle atom.
+template <int D> __host__ __device__ constexpr int threads() { return 128 * (D / 64); }
+template <int D> __host__ __device__ constexpr int smem_bytes() {
+  return TILE64_BYTES * (D / 64) * (2 + 2 * STAGES) + SWIZZLE_ATOM_BYTES;
+}
 
 // Dot product of two 16-byte vectors of 8 bf16 values, in float32.
 __device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
@@ -87,25 +94,34 @@ __device__ __forceinline__ float dot8(const uint4& a, const uint4& b) {
   return s;
 }
 
-__global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma_kernel(
+template <int D, bool PAD>
+__global__ void __launch_bounds__(128 * (D / 64), 1) flash_bwd_dq_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const bf16* __restrict__ out, const bf16* __restrict__ dout, const float* __restrict__ lse,
     bf16* __restrict__ dq, float* __restrict__ delta, int heads, int kv_heads, int seq_q,
-    int seq_kv, int causal, int window, float sm_scale, float scale_log2) {
+    int seq_kv, int d_arg, int causal, int window, float sm_scale, float scale_log2) {
+  constexpr int SLABS = D / 64, THREADS = threads<D>();
+  constexpr int TILE = TILE64_BYTES * SLABS;  // one 64-row tile, every slab
+  static_assert(BQ == 64 && BKV == 64, "one m64n64 tile per product and slab");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t s_q = aligned_smem_base(smem_raw);
-  const uint32_t s_do = s_q + TILE64_BYTES;
-  const auto s_k = [&](int st) { return s_q + TILE64_BYTES * (2 + 2 * st); };
-  const auto s_v = [&](int st) { return s_q + TILE64_BYTES * (3 + 2 * st); };
+  const uint32_t s_do = s_q + TILE;
+  const auto s_k = [&](int st) { return s_q + TILE * (2 + 2 * st); };
+  const auto s_v = [&](int st) { return s_q + TILE * (3 + 2 * st); };
 
+  // The real head_dim: a constant of the build unless it pads (16 and 32
+  // in the 64-wide kernel), so the full-width paths carry no column checks.
+  const int d = PAD ? d_arg : D;
   const int tid = threadIdx.x;
+  // Thread in its warpgroup, and the warpgroup (always 0 at D = 64).
+  const int wt = SLABS == 1 ? tid : tid & 127, wg = SLABS == 1 ? 0 : tid >> 7;
   const int bh = blockIdx.x, qi = gridDim.y - 1 - blockIdx.y;
   const int group = heads / kv_heads;
   const int kvh = (bh / heads) * kv_heads + (bh % heads) / group;
   const int q0 = qi * BQ;
   const size_t row0 = (size_t)bh * seq_q + q0;
-  const bf16* kbase = k + (size_t)kvh * seq_kv * D;
-  const bf16* vbase = v + (size_t)kvh * seq_kv * D;
+  const bf16* kbase = k + (size_t)kvh * seq_kv * d;
+  const bf16* vbase = v + (size_t)kvh * seq_kv * d;
 
   const int n_kv = (seq_kv + BKV - 1) / BKV;
   int kv_lo = 0, kv_hi = n_kv;
@@ -116,42 +132,47 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma_kernel(
   const int n = max(kv_hi - kv_lo, 0);  // live kv tiles (none: every row is masked)
 
   const auto load_kv = [&](int ki, int st) {
-    load_tile_sw128<BKV, THREADS>(s_k(st), kbase + (size_t)ki * BKV * D, seq_kv - ki * BKV, tid);
-    load_tile_sw128<BKV, THREADS>(s_v(st), vbase + (size_t)ki * BKV * D, seq_kv - ki * BKV, tid);
+    load_tile_sw128<BKV, D, THREADS>(s_k(st), kbase + (size_t)ki * BKV * d, seq_kv - ki * BKV,
+                                     d, tid);
+    load_tile_sw128<BKV, D, THREADS>(s_v(st), vbase + (size_t)ki * BKV * d, seq_kv - ki * BKV,
+                                     d, tid);
   };
-  load_tile_sw128<BQ, THREADS>(s_q, q + row0 * D, seq_q - q0, tid);
-  load_tile_sw128<BQ, THREADS>(s_do, dout + row0 * D, seq_q - q0, tid);
+  load_tile_sw128<BQ, D, THREADS>(s_q, q + row0 * d, seq_q - q0, d, tid);
+  load_tile_sw128<BQ, D, THREADS>(s_do, dout + row0 * d, seq_q - q0, d, tid);
   if (n > 0) load_kv(kv_lo, 0);
   cp_async_commit();
 
   // D and lse (times log2(e)) of this thread's two accumulator rows, while
-  // the copies fly.  Lane c of a quad reads 16-byte chunks c and c + 4 of
-  // each row.  A row past s_q has D = 0 and no P.
+  // the copies fly.  Lane c of a quad reads 16-byte chunks c, c + 4, ...
+  // of each row, up to the real head_dim.  A row past s_q has D = 0 and no
+  // P.
   const float log2e = 1.4426950408889634f;
   float d_row[2], lse2[2];
   bool seen[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + acc_row(tid, 2 * r);
+    const int row = q0 + acc_row(wt, 2 * r);
     const bool ok = row < seq_q;
-    const size_t off = ((size_t)bh * seq_q + row) * D;
+    const size_t off = ((size_t)bh * seq_q + row) * d;
     float part = 0.f;
     if (ok) {
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int c = ((tid & 3) + 4 * h) * 8;
-        part += dot8(*reinterpret_cast<const uint4*>(dout + off + c),
-                     *reinterpret_cast<const uint4*>(out + off + c));
+      for (int h = 0; h < D / 32; ++h) {
+        const int c = ((wt & 3) + 4 * h) * 8;
+        if (c < d) {
+          part += dot8(*reinterpret_cast<const uint4*>(dout + off + c),
+                       *reinterpret_cast<const uint4*>(out + off + c));
+        }
       }
     }
     d_row[r] = quad_sum(part);
     const float l = ok ? lse[(size_t)bh * seq_q + row] : -INFINITY;
     seen[r] = l > -INFINITY;  // a row that saw nothing has P = 0
     lse2[r] = seen[r] ? l * log2e : 0.f;
-    if (ok && (tid & 3) == 0) delta[(size_t)bh * seq_q + row] = d_row[r];
+    if (ok && wg == 0 && (wt & 3) == 0) delta[(size_t)bh * seq_q + row] = d_row[r];
   }
 
-  float dq_acc[32];
+  float dq_acc[32];  // this warpgroup's 64 columns of dQ
 #pragma unroll
   for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
 
@@ -166,12 +187,20 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma_kernel(
     float s[32], dp[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss(s, desc_k_major(s_q, kk), desc_k_major(s_k(st), kk), kk);
+    for (int sl = 0; sl < SLABS; ++sl) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss(s, desc_k_major(s_q + sl * TILE64_BYTES, kk),
+                 desc_k_major(s_k(st) + sl * TILE64_BYTES, kk), sl + kk);
+      }
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss(dp, desc_k_major(s_do, kk), desc_k_major(s_v(st), kk), kk);
+    for (int sl = 0; sl < SLABS; ++sl) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss(dp, desc_k_major(s_do + sl * TILE64_BYTES, kk),
+                 desc_k_major(s_v(st) + sl * TILE64_BYTES, kk), sl + kk);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -189,7 +218,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma_kernel(
       const int r = (i >> 1) & 1;
       bool ok = seen[r];
       if (masked) {
-        const int row = q0 + acc_row(tid, i), col = col0 + acc_col(tid, i);
+        const int row = q0 + acc_row(wt, i), col = col0 + acc_col(wt, i);
         ok = ok && col < seq_kv &&
              (!causal || (row >= col && (window <= 0 || row - col < window)));
       }
@@ -204,7 +233,7 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma_kernel(
     fence_regs(dq_acc);
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) {
-      wgmma_rs(dq_acc, da[kk], desc_mn_major(s_k(st), kk), 1);
+      wgmma_rs(dq_acc, da[kk], desc_mn_major(s_k(st) + wg * TILE64_BYTES, kk), 1);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -215,43 +244,68 @@ __global__ void __launch_bounds__(THREADS, 1) flash_bwd_dq_wgmma_kernel(
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + acc_row(tid, 2 * r);
+    const int row = q0 + acc_row(wt, 2 * r);
     if (row >= seq_q) continue;
-    bf16* dqrow = dq + ((size_t)bh * seq_q + row) * D;
+    bf16* dqrow = dq + ((size_t)bh * seq_q + row) * d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
       const int i = 4 * j + 2 * r;
-      *reinterpret_cast<__nv_bfloat162*>(dqrow + acc_col(tid, i)) =
-          __floats2bfloat162_rn(dq_acc[i], dq_acc[i + 1]);
+      const int col = wg * 64 + acc_col(wt, i);  // even; d is a multiple of 8
+      if (col < d) {
+        *reinterpret_cast<__nv_bfloat162*>(dqrow + col) =
+            __floats2bfloat162_rn(dq_acc[i], dq_acc[i + 1]);
+      }
     }
   }
+}
+
+template <int D, bool PAD>
+int launch(const void* q, const void* k, const void* v, const void* out, const void* dout,
+           const void* lse, void* dq, void* delta, int batch, int heads, int kv_heads,
+           int seq_q, int seq_kv, int d, int causal, int window, float sm_scale,
+           cudaStream_t stream) {
+  const auto kernel = flash_bwd_dq_wgmma_kernel<D, PAD>;
+  // Above 48 KB a block's shared memory must be asked for, on the current
+  // device: set on every launch, as the dK/dV kernel does.
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(batch * heads, (seq_q + BQ - 1) / BQ);
+  kernel<<<grid, threads<D>(), smem_bytes<D>(), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
+      static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta),
+      heads, kv_heads, seq_q, seq_kv, d, causal, window, sm_scale,
+      sm_scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dQ and the per-row D = rowsum(dO o O) (written to `delta`, [b, h, s_q]
-// float32, for flash_attention_bwd_dkv_wgmma).
+// float32, for flash_attention_bwd_dkv_wgmma); head_dim 16, 32, 64 or 128.
 extern "C" int flash_attention_bwd_dq_wgmma(const void* q, const void* k, const void* v,
                                             const void* out, const void* dout, const void* lse,
                                             void* dq, void* delta, int batch, int heads,
                                             int kv_heads, int seq_q, int seq_kv, int head_dim,
                                             int causal, int window, float sm_scale,
                                             void* stream) {
-  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0 ||
-      head_dim != D) {
+  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  // Above 48 KB a block's shared memory must be asked for, on the current
-  // device: set on every launch, as the dK/dV kernel does.
-  const cudaError_t attr = cudaFuncSetAttribute(
-      flash_bwd_dq_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
-  if (attr != cudaSuccess) return (int)attr;
-  const dim3 grid(batch * heads, (seq_q + BQ - 1) / BQ);
-  flash_bwd_dq_wgmma_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(out), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta),
-      heads, kv_heads, seq_q, seq_kv, causal, window, sm_scale,
-      sm_scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+    case 32:
+      return launch<64, true>(q, k, v, out, dout, lse, dq, delta, batch, heads, kv_heads, seq_q,
+                        seq_kv, head_dim, causal, window, sm_scale, s);
+    case 64:
+      return launch<64, false>(q, k, v, out, dout, lse, dq, delta, batch, heads, kv_heads, seq_q,
+                        seq_kv, head_dim, causal, window, sm_scale, s);
+    case 128:
+      return launch<128, false>(q, k, v, out, dout, lse, dq, delta, batch, heads, kv_heads, seq_q,
+                         seq_kv, head_dim, causal, window, sm_scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -4,21 +4,27 @@
 // Replaces the TPU kernel k8s_device_plugin_tpu/ops/flash_attention.py
 // _flash_kernel (launched by _flash_impl) for bf16 inputs; float32 inputs
 // run the FMA kernel of csrc/flash_attention.cu, since wgmma has no float32
-// operands.  q [b, h, s_q, 64], k/v [b, hk, s_kv, 64] bf16 with hk dividing
-// h (GQA: q head i reads kv head i / (h / hk)) -> out [b, h, s_q, 64] bf16
+// operands.  q [b, h, s_q, d], k/v [b, hk, s_kv, d] bf16 with hk dividing
+// h (GQA: q head i reads kv head i / (h / hk)) -> out [b, h, s_q, d] bf16
 // and the per-row log-sum-exp [b, h, s_q] float32 (-inf, with out 0, for a
-// row that sees no column).
+// row that sees no column).  d is 16, 32, 64 or 128: the kernel is built
+// 64 and 128 wide (D), and 16 and 32 run in a 64-wide build that zero-fills
+// the columns past d (hopper_wgmma.cuh); the full-width builds carry d as
+// a constant.
 //
 // Bound on the card: operations.  Causal attention does 4 x d flops per
 // (row, col) pair over bytes that grow only with s, past Hopper's ~295
 // flop/byte from a few hundred tokens on, so the products belong on the
 // tensor cores.  The design (hopper_wgmma.cuh has the building blocks):
-//   - grid (b*h, q tile), one warpgroup (128 threads) per 64-row q tile;
-//     the q tiles are handed out last first, so the long causal rows start
-//     early and the short ones fill the tail;
-//   - S = Q.K^T is four m64n64k16 wgmma with Q and K K-major in shared
-//     memory; O += P.V is four more with P from registers and V MN-major
-//     (transpose bit), all bf16 operands and float32 accumulators;
+//   - grid (b*h, q tile), D / 64 warpgroups (128 threads each) per 64-row
+//     q tile; the q tiles are handed out last first, so the long causal
+//     rows start early and the short ones fill the tail;
+//   - S = Q.K^T is D / 16 m64n64k16 wgmma with Q and K K-major in shared
+//     memory, computed whole by every warpgroup; O += P.V is four more per
+//     warpgroup with P from registers and V MN-major (transpose bit), each
+//     warpgroup owning 64 columns of O (one slab of V), so a thread keeps
+//     32 accumulators at either width; all bf16 operands and float32
+//     accumulators;
 //   - the online softmax runs in the accumulator's registers: a thread owns
 //     two rows of the tile, and a row's max finishes with two shuffles over
 //     its quad; the row sums stay per thread until the end.  P is rounded
@@ -34,9 +40,9 @@
 //     NaN can enter a product), the latter masked to -inf, and rows past
 //     s_q write nothing.
 // Exponentials are exp2 of scores pre-scaled by sm_scale * log2(e).
-// Built for sm_90a, ptxas reports (`-Xptxas=-v`, kept in the build log)
-// 128 registers a thread and no spill; `cuobjdump -sass` shows 8 HGMMA, 4
-// for S and 4 for P.V.
+// Built for sm_90a, ptxas reports registers and spills per build in the
+// build log (`-Xptxas=-v`; chip_smoke.py phase 2 checks there is no
+// spill); at D = 64 `cuobjdump -sass` shows 8 HGMMA, 4 for S and 4 for P.V.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,36 +56,51 @@ namespace {
 using bf16 = __nv_bfloat16;
 using namespace hopper;
 
-constexpr int D = 64;         // head_dim
-constexpr int BQ = 64;        // q rows per block (one warpgroup)
-constexpr int BK = 64;        // kv columns per streamed tile
-constexpr int THREADS = 128;  // one warpgroup
-constexpr int STAGES = 2;     // K/V ring depth
-// Shared memory: the Q tile, then STAGES x (K tile, V tile), plus slack to
-// align the base to a swizzle atom.
-constexpr int SMEM_BYTES = TILE64_BYTES * (1 + 2 * STAGES) + SWIZZLE_ATOM_BYTES;
-static_assert(BQ == 64 && BK == 64 && D == 64, "one m64n64 tile per product");
+constexpr int BQ = 64;     // q rows per block (one m64 tile)
+constexpr int BK = 64;     // kv columns per streamed tile
+constexpr int STAGES = 2;  // K/V ring depth
+
+// Threads a block (a warpgroup per 64 columns of head_dim) and shared
+// bytes: the Q tile, then STAGES x (K tile, V tile), each D / 64 slabs,
+// plus slack to align the base to a swizzle atom.
+template <int D> __host__ __device__ constexpr int threads() { return 128 * (D / 64); }
+template <int D> __host__ __device__ constexpr int smem_bytes() {
+  return TILE64_BYTES * (D / 64) * (1 + 2 * STAGES) + SWIZZLE_ATOM_BYTES;
+}
 
 __device__ __forceinline__ bool live(int row, int col, int seq_kv, int causal, int window) {
   return col < seq_kv && (!causal || (row >= col && (window <= 0 || row - col < window)));
 }
 
-__global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(
+// Registers cap the blocks an SM holds: the full-width builds are held to
+// 128 a thread (no spill), four blocks of 128 threads at D = 64 and two of
+// 256 at D = 128; the padded build would spill under that cap.
+template <int D, bool PAD>
+__global__ void __launch_bounds__(128 * (D / 64), PAD ? 1 : 256 / D)
+    flash_fwd_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, float* __restrict__ lse, int heads, int kv_heads, int seq_q,
-    int seq_kv, int causal, int window, float scale_log2) {
+    int seq_kv, int d_arg, int causal, int window, float scale_log2) {
+  constexpr int SLABS = D / 64, THREADS = threads<D>();
+  constexpr int TILE = TILE64_BYTES * SLABS;  // one 64-row tile, every slab
+  static_assert(BQ == 64 && BK == 64, "one m64n64 tile per product and slab");
   extern __shared__ uint8_t smem_raw[];
   const uint32_t s_q = aligned_smem_base(smem_raw);
-  const auto s_k = [&](int st) { return s_q + TILE64_BYTES * (1 + 2 * st); };
-  const auto s_v = [&](int st) { return s_q + TILE64_BYTES * (2 + 2 * st); };
+  const auto s_k = [&](int st) { return s_q + TILE * (1 + 2 * st); };
+  const auto s_v = [&](int st) { return s_q + TILE * (2 + 2 * st); };
 
+  // The real head_dim: a constant of the build unless it pads (16 and 32
+  // in the 64-wide kernel), so the full-width paths carry no column checks.
+  const int d = PAD ? d_arg : D;
   const int tid = threadIdx.x;
+  // Thread in its warpgroup, and the warpgroup (always 0 at D = 64).
+  const int wt = SLABS == 1 ? tid : tid & 127, wg = SLABS == 1 ? 0 : tid >> 7;
   const int bh = blockIdx.x, qi = gridDim.y - 1 - blockIdx.y;
   const int group = heads / kv_heads;
   const int kvh = (bh / heads) * kv_heads + (bh % heads) / group;
   const int q0 = qi * BQ;
-  const bf16* kbase = k + (size_t)kvh * seq_kv * D;
-  const bf16* vbase = v + (size_t)kvh * seq_kv * D;
+  const bf16* kbase = k + (size_t)kvh * seq_kv * d;
+  const bf16* vbase = v + (size_t)kvh * seq_kv * d;
 
   const int n_kv = (seq_kv + BK - 1) / BK;
   int kv_lo = 0, kv_hi = n_kv;
@@ -90,14 +111,16 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(
   const int n = kv_hi - kv_lo;  // live kv tiles (none: every row is masked)
 
   const auto load_kv = [&](int ki, int st) {
-    load_tile_sw128<BK, THREADS>(s_k(st), kbase + (size_t)ki * BK * D, seq_kv - ki * BK, tid);
-    load_tile_sw128<BK, THREADS>(s_v(st), vbase + (size_t)ki * BK * D, seq_kv - ki * BK, tid);
+    load_tile_sw128<BK, D, THREADS>(s_k(st), kbase + (size_t)ki * BK * d, seq_kv - ki * BK, d,
+                                    tid);
+    load_tile_sw128<BK, D, THREADS>(s_v(st), vbase + (size_t)ki * BK * d, seq_kv - ki * BK, d,
+                                    tid);
   };
-  load_tile_sw128<BQ, THREADS>(s_q, q + ((size_t)bh * seq_q + q0) * D, seq_q - q0, tid);
+  load_tile_sw128<BQ, D, THREADS>(s_q, q + ((size_t)bh * seq_q + q0) * d, seq_q - q0, d, tid);
   if (n > 0) load_kv(kv_lo, 0);
   cp_async_commit();
 
-  float o[32];
+  float o[32];  // this warpgroup's 64 columns of O
 #pragma unroll
   for (int i = 0; i < 32; ++i) o[i] = 0.f;
   // Running max (log2 domain) of this thread's two rows, and their partial
@@ -115,8 +138,12 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(
     float s[32];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      wgmma_ss(s, desc_k_major(s_q, kk), desc_k_major(s_k(st), kk), kk);
+    for (int sl = 0; sl < SLABS; ++sl) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss(s, desc_k_major(s_q + sl * TILE64_BYTES, kk),
+                 desc_k_major(s_k(st) + sl * TILE64_BYTES, kk), sl + kk);
+      }
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -130,7 +157,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       float x = s[i] * scale_log2;
-      if (masked && !live(q0 + acc_row(tid, i), col0 + acc_col(tid, i), seq_kv, causal, window)) {
+      if (masked && !live(q0 + acc_row(wt, i), col0 + acc_col(wt, i), seq_kv, causal, window)) {
         x = -INFINITY;
       }
       s[i] = x;
@@ -165,7 +192,9 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(
     wgmma_fence();
     fence_regs(o);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) wgmma_rs(o, a[kk], desc_mn_major(s_v(st), kk), 1);
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      wgmma_rs(o, a[kk], desc_mn_major(s_v(st) + wg * TILE64_BYTES, kk), 1);
+    }
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(o);
@@ -176,37 +205,69 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_wgmma_kernel(
   const float ln2 = 0.6931471805599453f;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int row = q0 + acc_row(tid, 2 * r);
+    const int row = q0 + acc_row(wt, 2 * r);
     const float l = quad_sum(l_run[r]);
     if (row >= seq_q) continue;
     const float inv = l > 0.f ? 1.f / l : 0.f;  // a fully masked row writes 0
-    bf16* orow = out + ((size_t)bh * seq_q + row) * D;
+    bf16* orow = out + ((size_t)bh * seq_q + row) * d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < 8; ++j) {
       const int i = 4 * j + 2 * r;
-      *reinterpret_cast<__nv_bfloat162*>(orow + acc_col(tid, i)) =
-          __floats2bfloat162_rn(o[i] * inv, o[i + 1] * inv);
+      const int col = wg * 64 + acc_col(wt, i);  // even; d is a multiple of 8
+      if (col < d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(o[i] * inv, o[i + 1] * inv);
+      }
     }
-    if ((tid & 3) == 0) {
+    if (wg == 0 && (wt & 3) == 0) {
       lse[(size_t)bh * seq_q + row] = l > 0.f ? m_run[r] * ln2 + logf(l) : -INFINITY;
     }
   }
 }
 
+template <int D, bool PAD>
+int launch(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
+           int heads, int kv_heads, int seq_q, int seq_kv, int d, int causal, int window,
+           float sm_scale, cudaStream_t stream) {
+  const auto kernel = flash_fwd_wgmma_kernel<D, PAD>;
+  if (smem_bytes<D>() > 48 * 1024) {
+    // Above 48 KB a block's shared memory must be asked for, on the
+    // current device: set on every launch, as the backward kernels do.
+    const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<D>());
+    if (attr != cudaSuccess) return (int)attr;
+  }
+  const dim3 grid(batch * heads, (seq_q + BQ - 1) / BQ);
+  kernel<<<grid, threads<D>(), smem_bytes<D>(), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), static_cast<float*>(lse), heads, kv_heads, seq_q, seq_kv, d,
+      causal, window, sm_scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// head_dim 16, 32, 64 or 128 (the padded 64-wide build takes 16 and 32).
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                                          void* lse, int batch, int heads, int kv_heads,
                                          int seq_q, int seq_kv, int head_dim, int causal,
                                          int window, float sm_scale, void* stream) {
-  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0 ||
-      head_dim != D) {
+  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid(batch * heads, (seq_q + BQ - 1) / BQ);
-  flash_fwd_wgmma_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), static_cast<float*>(lse), heads, kv_heads, seq_q, seq_kv, causal,
-      window, sm_scale * 1.4426950408889634f);
-  return (int)cudaGetLastError();
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+    case 32:
+      return launch<64, true>(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, head_dim,
+                        causal, window, sm_scale, s);
+    case 64:
+      return launch<64, false>(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, head_dim,
+                        causal, window, sm_scale, s);
+    case 128:
+      return launch<128, false>(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, head_dim,
+                         causal, window, sm_scale, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

@@ -3,20 +3,28 @@
 // shared-memory descriptors for those tiles, and the m64n64k16 bf16 wgmma
 // with float32 accumulators (A from shared memory or from registers).
 //
-// Tile layout.  Every shared tile here holds rows of 64 bf16 values (128
-// bytes: head_dim 64), with its base 1024-byte aligned.  16-byte chunk c of
-// row r lives at r * 128 + ((c ^ (r % 8)) * 16): the 128-byte swizzle that
-// TMA's CU_TENSOR_MAP_SWIZZLE_128B writes and that the descriptor's layout
-// type 1 ("B128") reads.  Such a tile serves wgmma two ways:
+// Tile layout.  Every shared tile here is made of slabs of 64 bf16 columns
+// (128 bytes a row), each slab's base 1024-byte aligned; head_dim 64 is one
+// slab a row, head_dim 128 two, side by side in memory (slab s of a 64-row
+// tile starts s * TILE64_BYTES in).  16-byte chunk c of row r of a slab
+// lives at r * 128 + ((c ^ (r % 8)) * 16): the 128-byte swizzle that TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B writes and that the descriptor's layout type 1
+// ("B128") reads.  Such a slab serves wgmma two ways:
 //   - K-major (the row is the reduction axis, e.g. Q or K in Q.K^T): one
 //     8-row group is 1024 bytes (SBO), and the k16 step kk starts 32 * kk
-//     bytes into the row;
+//     bytes into the row; a 128-wide reduction runs the four steps of each
+//     slab in turn;
 //   - MN-major (the row is the output axis, e.g. V in P.V, transpose bit
 //     set): 16 rows of the reduction axis per step, so step kk starts
 //     2048 * kk bytes in; 64 columns are one swizzle atom wide, so the
-//     stride between atoms along N never comes into play.
+//     stride between atoms along N never comes into play, and each slab is
+//     the B operand of its own 64 output columns.
 // A wrong swizzle or descriptor gives wrong numbers, not a fault: the card
 // tests hold every kernel built on this against its plain version.
+//
+// Head dims below the instantiated width (16 and 32 in the 64-wide
+// kernels) load as zero columns past the real head_dim: they add nothing to
+// any product, and the epilogues write only the real columns.
 //
 // Accumulator layout of m64nN (PTX ISA, wgmma D fragments): thread t of the
 // warpgroup, warp w = t / 32, lane l = t % 32, holds element i of its N / 2
@@ -34,7 +42,7 @@
 
 namespace hopper {
 
-constexpr int ROW_BYTES = 128;                  // 64 bf16 values
+constexpr int ROW_BYTES = 128;                  // 64 bf16 values: one slab row
 constexpr int TILE64_BYTES = 64 * ROW_BYTES;    // a 64-row tile
 constexpr int SWIZZLE_ATOM_BYTES = 8 * ROW_BYTES;
 
@@ -80,21 +88,32 @@ __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Copy `rows` rows of 64 bf16 (row stride 64 elements, starting at src) into
-// the swizzled tile at `tile`, spread over THREADS threads with 16 bytes
-// each per step; rows at or past `valid_rows` are zero-filled.  Neighbouring
-// threads take neighbouring 16-byte chunks of a row, so the reads coalesce.
-template <int ROWS, int THREADS>
+// 8 bytes global -> shared, zero-filled when not valid (src 8-byte aligned).
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+// Copy ROWS rows of a bf16 matrix with d_real columns (row stride d_real,
+// starting at src) into the D / 64 swizzled slabs of the tile at `tile`,
+// spread over THREADS threads with 16 bytes each per step; rows at or past
+// `valid_rows` and columns at or past d_real (a multiple of 8) are
+// zero-filled.  Neighbouring threads take neighbouring 16-byte chunks of a
+// row, so the reads coalesce.
+template <int ROWS, int D, int THREADS>
 __device__ __forceinline__ void load_tile_sw128(uint32_t tile, const __nv_bfloat16* src,
-                                                int valid_rows, int tid) {
-  static_assert((ROWS * 8) % THREADS == 0, "whole 16-byte chunks per thread");
+                                                int valid_rows, int d_real, int tid) {
+  constexpr int CPR = D / 8;  // 16-byte chunks a row
+  static_assert(D % 64 == 0 && (ROWS * CPR) % THREADS == 0, "whole chunks per thread");
 #pragma unroll
-  for (int i = 0; i < ROWS * 8 / THREADS; ++i) {
+  for (int i = 0; i < ROWS * CPR / THREADS; ++i) {
     const int idx = tid + i * THREADS;
-    const int r = idx >> 3, c = idx & 7;
-    const bool ok = r < valid_rows;
-    cp_async16(tile + r * ROW_BYTES + ((c ^ (r & 7)) << 4), src + (ok ? r : 0) * 64 + c * 8,
-               ok);
+    const int r = idx / CPR, cc = idx % CPR;  // row, chunk of the row
+    const int slab = cc >> 3, c = cc & 7;
+    const bool ok = r < valid_rows && cc * 8 < d_real;
+    cp_async16(tile + slab * ROWS * ROW_BYTES + r * ROW_BYTES + ((c ^ (r & 7)) << 4),
+               src + (ok ? r * d_real + cc * 8 : 0), ok);
   }
 }
 

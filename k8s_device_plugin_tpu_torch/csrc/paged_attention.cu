@@ -20,22 +20,25 @@
 //     axis spreads a row's pages over blocks so that the 132 SMs have work
 //     (ops/tuning.py picks the split count); split s takes table entries
 //     [s * pps, (s + 1) * pps), the reference's partition, and only the live
-//     ones (below ceil(len / page_size), at or past the window's first
-//     page), so no dead page is read.  Spreading a row's live pages evenly
+//     positions (below len, at or past the window's first), so no dead
+//     page is read.  Spreading a row's live pages evenly
 //     over the splits would halve the busiest block's pages at the serving
 //     shape, but the plain version would then round probabilities against
 //     other maxima than the reference and miss its bf16 test by one ulp;
 //     so the splits past a short row's pages stay idle;
 //   - every memory read of a block is in flight at once, in two waves:
 //     lens, the split's table entries and the query rows together; then
-//     cp.async copies of the raw bytes of all the split's pages (up to the
-//     ring's NSLOT pages; more stream through it) into shared memory;
+//     cp.async copies of the raw bytes of the split's positions into
+//     shared memory, in chunks of C = 16 positions, whatever the page size
+//     (a chunk spans several small pages or part of a large one, each row
+//     looked up through the table), up to the ring's NSLOT chunks; more
+//     stream through it;
 //   - rows are converted from the raw shared bytes at use, by every lane:
-//     lane t of a warp scores token t of each page in the ring (lanes past
-//     page_size split the head_dim dot), the ring's pages take one
-//     online-softmax update (m, l), and each lane accumulates head_dim / 32
-//     output dims of p.v, reading the probabilities from shared memory as
-//     broadcasts.  16-byte chunks are XOR-swizzled by row in shared memory,
+//     lane t of a warp scores position t of each chunk in the ring (the
+//     two lanes t and t + 16 split the head_dim dot), the ring's chunks
+//     take one online-softmax update (m, l), and each lane accumulates
+//     head_dim / 32 output dims of p.v, reading the probabilities from
+//     shared memory as broadcasts.  16-byte chunks are XOR-swizzled by row in shared memory,
 //     so the lanes that read one chunk of eight rows hit eight different
 //     bank groups.  The loops are unrolled over the ring's slots without a
 //     branch per slot (an empty slot's score is dropped by a select), so
@@ -60,6 +63,12 @@
 //     kv_heads], one scale per (position, kv head);
 //   - int4: two signed 4-bit codes per byte along head_dim (element 2i in
 //     the low nibble, ops/quant.py pack_int4) plus the same scale pools.
+// head_dim: the kernel is built 64 and 128 wide (D); head_dim 16 and 32 run
+// in the 64-wide one, their rows zero-filled past the real head_dim in
+// shared memory (cp.async's zero fill), so the padding adds nothing to a
+// score, and only the real dims are written.  Page size: any power of two
+// from 2 to 64, a run-time argument.
+//
 // Codes convert exactly, at use, through the mantissa of 2^23 rather than
 // I2F (i8_to_f, i4_to_f).  No dequantized page is formed: the
 // scale of K multiplies the score after sm_scale, and the scale of V
@@ -90,7 +99,8 @@ using hopper::smem_u32;
 
 constexpr int FMT_FLOAT = 0, FMT_INT8 = 1, FMT_INT4 = 2;
 constexpr int MAX_SPLITS = 8;  // the portable cluster size
-constexpr int RING_BUDGET = 32 * 1024;  // shared bytes for pages in flight
+constexpr int RING_BUDGET = 32 * 1024;  // shared bytes for chunks in flight
+constexpr int C = 16;  // positions per ring slot (one chunk of a row's positions)
 
 template <typename T> __device__ __forceinline__ float to_f(T x);
 template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
@@ -106,24 +116,24 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 
 constexpr unsigned FULL = 0xffffffffu;
 
-// The kernel's compile-time geometry for query type T, pool format FMT,
-// head_dim D and page size PS.
-template <typename T, int FMT, int D, int PS>
+// The kernel's compile-time geometry for query type T, pool format FMT and
+// head_dim D (the shared rows' width; the pool's may be narrower).
+template <typename T, int FMT, int D>
 struct Geo {
-  // Values per 16-byte chunk of a pool row, and a row's bytes.
+  // Values per 16-byte chunk of a shared row, and a shared row's bytes.
   static constexpr int ELEMS =
       FMT == FMT_FLOAT ? 16 / (int)sizeof(T) : (FMT == FMT_INT8 ? 16 : 32);
   static constexpr int VECS = D / ELEMS;           // 16-byte chunks per row
   static constexpr int ROW = VECS * 16;
   static constexpr int SWZ = VECS < 8 ? VECS : 8;  // rows a swizzle pattern spans
-  static constexpr int PAGE = PS * ROW;            // one page of K (or V) of one kv head
-  static constexpr int SLOT = 2 * PAGE + (FMT == FMT_FLOAT ? 0 : 2 * PS * 4);  // K, V, scales
+  static constexpr int PAGE = C * ROW;             // one chunk of K (or V) of one kv head
+  static constexpr int SLOT = 2 * PAGE + (FMT == FMT_FLOAT ? 0 : 2 * C * 4);  // K, V, scales
   // Slots in the ring: as many as RING_BUDGET holds, 2 to 4 (the code is
   // unrolled over them, and a longer kernel costs instruction fetches).
   static constexpr int NSLOT = RING_BUDGET / SLOT < 2   ? 2
                                : RING_BUDGET / SLOT > 4 ? 4
                                                         : RING_BUDGET / SLOT;
-  static constexpr int PARTS = 32 / PS;    // lanes sharing one token's dot
+  static constexpr int PARTS = 32 / C;     // lanes sharing one position's dot
   static constexpr int DP = D / PARTS;     // dims of the dot each of them takes
   static constexpr int DL = D / 32;        // output dims each lane accumulates
   static_assert(DP % ELEMS == 0 && SLOT % 16 == 0, "whole chunks per lane and slot");
@@ -241,36 +251,53 @@ template <int N> __device__ __forceinline__ void st_async_n(uint32_t addr, const
   for (int k = 0; k < N; k += 2) st_async(addr + 4 * k, x[k], x[k + 1], mbar);
 }
 
-// Dynamic shared memory: the page ring (NSLOT slots of K page, V page and,
-// for the quantized formats, their PS scales each), then the query rows as
-// float32 [G][D], then each warp's probabilities [G][NSLOT][PS], then the
+// Dynamic shared memory: the chunk ring (NSLOT slots of K chunk, V chunk
+// and, for the quantized formats, their C scales each), then the query rows
+// as float32 [G][D], then each warp's probabilities [G][NSLOT][C], then the
 // splits' states [S][G][acc[D], m, l, pad] (the block of rank 0 receives
 // every split's), then the mbarrier that counts them, then the split's table
 // entries.
-template <typename T, int FMT, int D, int PS>
+template <typename T, int FMT, int D>
 __host__ __device__ constexpr int ring_bytes() {
-  return Geo<T, FMT, D, PS>::NSLOT * Geo<T, FMT, D, PS>::SLOT;
+  return Geo<T, FMT, D>::NSLOT * Geo<T, FMT, D>::SLOT;
 }
 
-template <typename T, int FMT, int D, int PS>
+template <typename T, int FMT, int D>
 __host__ __device__ constexpr size_t smem_bytes(int group, int splits, int pps) {
-  return ring_bytes<T, FMT, D, PS>() + (size_t)group * D * 4 +
-         (size_t)group * Geo<T, FMT, D, PS>::NSLOT * PS * 4 +
+  return ring_bytes<T, FMT, D>() + (size_t)group * D * 4 +
+         (size_t)group * Geo<T, FMT, D>::NSLOT * C * 4 +
          (size_t)splits * group * (D + 4) * 4 + 8 + (size_t)pps * 4;
 }
 
-template <typename T, int FMT, int D, int PS>
+// A pool row's chunk cc of 16 bytes into shared memory at dst: the row's
+// real bytes (row_bytes; 8 for int4 at head_dim 16) and zeros past them.
+// `base` is the pool's 16-byte-aligned start, the mapped address a
+// zero-filling copy names.
+__device__ __forceinline__ void copy_chunk(uint32_t dst, const uint8_t* row, int cc,
+                                           int row_bytes, const uint8_t* base) {
+  const int rem = row_bytes - 16 * cc;
+  if (rem >= 16) {
+    cp_async16(dst, row + 16 * cc, true);
+  } else if (rem > 0) {
+    hopper::cp_async8(dst, row + 16 * cc, true);
+    hopper::cp_async8(dst + 8, base, false);
+  } else {
+    cp_async16(dst, base, false);
+  }
+}
+
+template <typename T, int FMT, int D>
 __global__ void __launch_bounds__(1024) paged_decode_kernel(
-    const T* __restrict__ q,             // [B, H, D]
-    const uint8_t* __restrict__ pool_k,  // [P, PS, Hk, ROW]
-    const uint8_t* __restrict__ pool_v,  // [P, PS, Hk, ROW]
+    const T* __restrict__ q,             // [B, H, d]
+    const uint8_t* __restrict__ pool_k,  // [P, PS, Hk, row_bytes]
+    const uint8_t* __restrict__ pool_v,  // [P, PS, Hk, row_bytes]
     const float* __restrict__ scale_k,   // [P, PS, Hk]  (quantized formats)
     const float* __restrict__ scale_v,   // [P, PS, Hk]
     const int* __restrict__ table,       // [B, mpp]
     const int* __restrict__ lens,        // [B]
-    T* __restrict__ out,                 // [B, H, D]
-    int H, int Hk, int mpp, int pps, int window, float sm_scale) {
-  using G_ = Geo<T, FMT, D, PS>;
+    T* __restrict__ out,                 // [B, H, d]
+    int H, int Hk, int d, int log2_ps, int mpp, int pps, int window, float sm_scale) {
+  using G_ = Geo<T, FMT, D>;
   constexpr bool QUANT = FMT != FMT_FLOAT;
   constexpr int NSLOT = G_::NSLOT, DP = G_::DP, DL = G_::DL, ELEMS = G_::ELEMS;
   constexpr int STATE = D + 4;  // floats per head: acc, m, l, pad (16-byte slots)
@@ -278,14 +305,16 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(
   extern __shared__ __align__(16) uint8_t smem[];
   const int G = blockDim.x >> 5;
   const int b = blockIdx.x, hk = blockIdx.y, s = blockIdx.z, S = gridDim.z;
-  float* s_q = reinterpret_cast<float*>(smem + ring_bytes<T, FMT, D, PS>());  // [G][D]
-  float* s_prob = s_q + G * D;                                              // [G][NSLOT][PS]
-  float* s_state = s_prob + G * NSLOT * PS;                                 // [S][G][STATE]
+  float* s_q = reinterpret_cast<float*>(smem + ring_bytes<T, FMT, D>());  // [G][D]
+  float* s_prob = s_q + G * D;                                          // [G][NSLOT][C]
+  float* s_state = s_prob + G * NSLOT * C;                                  // [S][G][STATE]
   uint64_t* s_mbar = reinterpret_cast<uint64_t*>(s_state + S * G * STATE);
   int* s_tab = reinterpret_cast<int*>(s_mbar + 1);                          // [pps]
   const int g = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int h = hk * G + g;
-  const int t = lane % PS, part = lane / PS;
+  const int t = lane % C, part = lane / C;
+  const int ps = 1 << log2_ps;
+  const int row_bytes = value_byte<T, FMT>(d);  // a pool row's real bytes
 
   // Rank 0's mbarrier expects every split's state (acc, m and l of each
   // head).  Phase 0 of the cluster barrier then says this block has started
@@ -300,40 +329,50 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(
   // load issued before any is used.
   const int first = s * pps;
   const int len = max(lens[b], 0);
-  float qx[DL];
+  float qx[DL];  // zero past the real head_dim
 #pragma unroll
-  for (int k = 0; k < DL; ++k) qx[k] = to_f(q[((size_t)b * H + h) * D + lane * DL + k]);
+  for (int k = 0; k < DL; ++k) {
+    const int e = lane * DL + k;
+    qx[k] = e < d ? to_f(q[((size_t)b * H + h) * d + e]) : 0.f;
+  }
   for (int i = threadIdx.x; i < pps; i += blockDim.x) {
     s_tab[i] = first + i < mpp ? table[b * mpp + first + i] : 0;
   }
 #pragma unroll
   for (int k = 0; k < DL; ++k) s_q[g * D + lane * DL + k] = qx[k];
-  const int n_live = min((len + PS - 1) / PS, mpp);
-  const int lo = window > 0 ? len - window : 0;
-  int p_begin = first;
-  const int p_end = min(first + pps, n_live);
-  if (window > 0 && lo > 0) p_begin = max(p_begin, lo / PS);
-  const int np = max(p_end - p_begin, 0);
+  // The split's live positions [tok_lo, tok_hi): its pages' positions
+  // below len (and the table's end), at or past the window's first.
+  const int lo = window > 0 ? max(len - window, 0) : 0;
+  const int tok_lo = max(first * ps, lo);
+  const int tok_hi = min(min(first + pps, mpp) * ps, len);
+  const int np = max(tok_hi - tok_lo + C - 1, 0) / C;  // chunks (none when empty)
   __syncthreads();  // s_tab and s_q are in place
 
-  // Wave 2: the raw bytes of the split's pages into the ring, as many as
-  // it holds (more come a ring at a time).
+  // (page, position, kv head) row index of live position tok; positions
+  // past the last live one read the last (finite, and masked below).
+  const auto pool_row = [&](int tok) {
+    tok = min(tok, tok_hi - 1);
+    const int page = s_tab[(tok >> log2_ps) - first];
+    return ((size_t)page * ps + (tok & (ps - 1))) * Hk + hk;
+  };
+
+  // Wave 2: the raw bytes of the split's positions into the ring, a chunk
+  // of C positions a slot, as many as it holds (more come a ring at a
+  // time).
   const auto issue = [&](int i, int slot) {
-    const int page = s_tab[p_begin + i - first];
     uint8_t* base = smem + slot * G_::SLOT;
-    const size_t row0 = (size_t)page * PS * Hk + hk;  // (page, position 0, hk)
-    for (int idx = threadIdx.x; idx < PS * G_::VECS; idx += blockDim.x) {
+    const int t0 = tok_lo + i * C;
+    for (int idx = threadIdx.x; idx < C * G_::VECS; idx += blockDim.x) {
       const int r = idx / G_::VECS, c = idx % G_::VECS;
-      const size_t off = (row0 + (size_t)r * Hk) * G_::ROW + c * 16;
+      const size_t off = pool_row(t0 + r) * row_bytes;
       const int dst = chunk_off<G_::VECS, G_::SWZ>(r, c);
-      cp_async16(smem_u32(base + dst), pool_k + off, true);
-      cp_async16(smem_u32(base + G_::PAGE + dst), pool_v + off, true);
+      copy_chunk(smem_u32(base + dst), pool_k + off, c, row_bytes, pool_k);
+      copy_chunk(smem_u32(base + G_::PAGE + dst), pool_v + off, c, row_bytes, pool_v);
     }
     if constexpr (QUANT) {
-      float* sc = reinterpret_cast<float*>(base + 2 * G_::PAGE);  // [2][PS]: K's, V's
-      for (int idx = threadIdx.x; idx < 2 * PS; idx += blockDim.x) {
-        const int r = idx % PS;
-        const float* src = (idx < PS ? scale_k : scale_v) + row0 + (size_t)r * Hk;
+      float* sc = reinterpret_cast<float*>(base + 2 * G_::PAGE);  // [2][C]: K's, V's
+      for (int idx = threadIdx.x; idx < 2 * C; idx += blockDim.x) {
+        const float* src = (idx < C ? scale_k : scale_v) + pool_row(t0 + idx % C);
         cp_async4(smem_u32(sc + idx), src, true);
       }
     }
@@ -341,24 +380,24 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(
   for (int i = 0; i < min(np, NSLOT); ++i) issue(i, i);
   cp_async_commit();
 
-  // The ring's pages are scored together and take one online-softmax
-  // update: one max and one sum over the warp per ring, not per page.
+  // The ring's chunks are scored together and take one online-softmax
+  // update: one max and one sum over the warp per ring, not per chunk.
   float m_run = -INFINITY, l_run = 0.f;
   float acc[DL];
 #pragma unroll
   for (int k = 0; k < DL; ++k) acc[k] = 0.f;
   constexpr int KC = DP / ELEMS;  // 16-byte K chunks of a token's dot per lane
   const float* qv = s_q + g * D + part * DP;  // this lane's DP query values
-  float* probs = s_prob + g * NSLOT * PS;     // this warp's [NSLOT][PS]
+  float* probs = s_prob + g * NSLOT * C;      // this warp's [NSLOT][C]
   const int vb = value_byte<T, FMT>(lane * DL);  // where its DL output dims sit in a V row
 
   for (int c0 = 0; c0 < np; c0 += NSLOT) {
-    const int nc = min(NSLOT, np - c0);  // pages in the ring, uniform over the block
+    const int nc = min(NSLOT, np - c0);  // chunks in the ring, uniform over the block
     cp_async_wait<0>();
     __syncthreads();  // every thread's copies have landed
 
-    // Token t of each page: lanes of one token split the head_dim dot.
-    // Each 16-byte chunk of the query is read once for all the pages.
+    // Position t of each chunk: lanes of one position split the head_dim
+    // dot.  Each 16-byte chunk of the query is read once for all of them.
     float sc[NSLOT];
 #pragma unroll
     for (int j = 0; j < NSLOT; ++j) sc[j] = 0.f;
@@ -386,17 +425,17 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(
 #pragma unroll
     for (int j = 0; j < NSLOT; ++j) {
 #pragma unroll
-      for (int off = PS; off < 32; off <<= 1) sc[j] += __shfl_xor_sync(FULL, sc[j], off);
+      for (int off = C; off < 32; off <<= 1) sc[j] += __shfl_xor_sync(FULL, sc[j], off);
       float v = sc[j] * sm_scale;
       if constexpr (QUANT) {
         v *= reinterpret_cast<const float*>(smem + j * G_::SLOT + 2 * G_::PAGE)[t];
       }
-      const int col = (p_begin + c0 + j) * PS + t;
-      sc[j] = j < nc && col < len && (window <= 0 || col >= lo) ? v : -INFINITY;
+      const int col = tok_lo + (c0 + j) * C + t;
+      sc[j] = j < nc && col < tok_hi ? v : -INFINITY;
       mx = fmaxf(mx, sc[j]);
     }
 #pragma unroll
-    for (int off = 1; off < PS; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+    for (int off = 1; off < C; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
     const float m_new = fmaxf(m_run, mx);
     // Nothing seen yet: m stays -inf, and exponentials against 0 give 0
     // (exp(-inf - -inf) would be NaN).
@@ -410,13 +449,13 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(
       if (j < nc && part == 0) {
         float pv = p;
         if constexpr (QUANT) {
-          pv *= reinterpret_cast<const float*>(smem + j * G_::SLOT + 2 * G_::PAGE)[PS + t];
+          pv *= reinterpret_cast<const float*>(smem + j * G_::SLOT + 2 * G_::PAGE)[C + t];
         }
-        probs[j * PS + t] = to_f(from_f<T>(pv));  // V's scale after l, then q's type
+        probs[j * C + t] = to_f(from_f<T>(pv));  // V's scale after l, then q's type
       }
     }
 #pragma unroll
-    for (int off = 1; off < PS; off <<= 1) psum += __shfl_xor_sync(FULL, psum, off);
+    for (int off = 1; off < C; off <<= 1) psum += __shfl_xor_sync(FULL, psum, off);
     l_run = alpha * l_run + psum;  // l sums the probabilities before V's scale
     m_run = m_new;
     __syncwarp();  // the warp's probabilities are in place
@@ -430,8 +469,8 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(
       if (j < nc) {
         const uint8_t* vpage = smem + j * G_::SLOT + G_::PAGE;
 #pragma unroll
-        for (int tt = 0; tt < PS; tt += 4) {
-          const float4 p4 = *reinterpret_cast<const float4*>(probs + j * PS + tt);
+        for (int tt = 0; tt < C; tt += 4) {
+          const float4 p4 = *reinterpret_cast<const float4*>(probs + j * C + tt);
           const float pt[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
@@ -445,7 +484,7 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(
       }
     }
     __syncwarp();  // done with the probabilities
-    if (c0 + NSLOT < np) {  // more pages than the ring holds: refill it
+    if (c0 + NSLOT < np) {  // more chunks than the ring holds: refill it
       __syncthreads();      // every warp is done with it
       for (int i = c0 + NSLOT; i < min(np, c0 + 2 * NSLOT); ++i) issue(i, i - c0 - NSLOT);
       cp_async_commit();
@@ -499,9 +538,11 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(
     for (int k = 0; k < DL; ++k) o[k] = fmaf(alpha, a_r[r][k], o[k]);
   }
   if (denom == 0.f) denom = 1.f;  // all-masked row -> 0, not NaN
-  T* orow = out + ((size_t)b * H + h) * D;
+  T* orow = out + ((size_t)b * H + h) * d;
 #pragma unroll
-  for (int k = 0; k < DL; ++k) orow[lane * DL + k] = from_f<T>(o[k] / denom);
+  for (int k = 0; k < DL; ++k) {
+    if (lane * DL + k < d) orow[lane * DL + k] = from_f<T>(o[k] / denom);
+  }
 }
 
 // A kernel that does nothing, launched like the paged kernel: the cost of
@@ -518,7 +559,7 @@ struct Args {
   const int* table;
   const int* lens;
   void* out;
-  int batch, heads, kv_heads, mpp, splits, window;
+  int batch, heads, kv_heads, head_dim, log2_ps, mpp, splits, window;
   float sm_scale;
   cudaStream_t stream;
 };
@@ -541,12 +582,12 @@ cudaLaunchConfig_t launch_config(int batch, int kv_heads, int group, int splits,
   return cfg;
 }
 
-template <typename T, int FMT, int D, int PS>
+template <typename T, int FMT, int D>
 int launch(const Args& a) {
   const int group = a.heads / a.kv_heads;
   const int pps = (a.mpp + a.splits - 1) / a.splits;
-  const size_t smem = smem_bytes<T, FMT, D, PS>(group, a.splits, pps);
-  const auto kernel = paged_decode_kernel<T, FMT, D, PS>;
+  const size_t smem = smem_bytes<T, FMT, D>(group, a.splits, pps);
+  const auto kernel = paged_decode_kernel<T, FMT, D>;
   if (smem > 48 * 1024) {
     const cudaError_t attr = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -558,32 +599,39 @@ int launch(const Args& a) {
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(a.q), static_cast<const uint8_t*>(a.pool_k),
       static_cast<const uint8_t*>(a.pool_v), a.scale_k, a.scale_v, a.table, a.lens,
-      static_cast<T*>(a.out), a.heads, a.kv_heads, a.mpp, pps, a.window, a.sm_scale);
+      static_cast<T*>(a.out), a.heads, a.kv_heads, a.head_dim, a.log2_ps, a.mpp, pps, a.window,
+      a.sm_scale);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
+// head_dim 16, 32 and 64 run the 64-wide kernel, 128 the 128-wide one.
 template <typename T, int FMT>
-int dispatch(int head_dim, int page_size, const Args& a) {
-#define PAGED_CASE(D_, PS_)                  \
-  if (head_dim == D_ && page_size == PS_) {  \
-    return launch<T, FMT, D_, PS_>(a);       \
+int dispatch(const Args& a) {
+  switch (a.head_dim) {
+    case 16:
+    case 32:
+    case 64: return launch<T, FMT, 64>(a);
+    case 128: return launch<T, FMT, 128>(a);
+    default: return (int)cudaErrorInvalidValue;
   }
-  PAGED_CASE(64, 16)
-  PAGED_CASE(64, 32)
-  PAGED_CASE(128, 16)
-  PAGED_CASE(128, 32)
-#undef PAGED_CASE
-  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
-int dispatch_format(int kv_format, int head_dim, int page_size, const Args& a) {
+int dispatch_format(int kv_format, const Args& a) {
   switch (kv_format) {
-    case FMT_FLOAT: return dispatch<T, FMT_FLOAT>(head_dim, page_size, a);
-    case FMT_INT8: return dispatch<T, FMT_INT8>(head_dim, page_size, a);
-    case FMT_INT4: return dispatch<T, FMT_INT4>(head_dim, page_size, a);
+    case FMT_FLOAT: return dispatch<T, FMT_FLOAT>(a);
+    case FMT_INT8: return dispatch<T, FMT_INT8>(a);
+    case FMT_INT4: return dispatch<T, FMT_INT4>(a);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// log2 of a page size that is a power of two from 2 to 64, else -1.
+int page_log2(int page_size) {
+  for (int l = 1; l <= 6; ++l) {
+    if (page_size == 1 << l) return l;
+  }
+  return -1;
 }
 
 bool bad_split(int heads, int kv_heads, int splits) {
@@ -595,6 +643,7 @@ bool bad_split(int heads, int kv_heads, int splits) {
 
 // kv_format: 0 float pools (in the query's type), 1 int8, 2 int4-packed;
 // the quantized formats need both scale pools, the float one takes none.
+// head_dim 16, 32, 64 or 128; page_size a power of two from 2 to 64.
 // splits: 1..8 (one cluster of that many blocks per row and kv head).
 extern "C" int paged_attention_fwd(const void* q, const void* pool_k, const void* pool_v,
                                    const void* scale_k, const void* scale_v,
@@ -602,16 +651,17 @@ extern "C" int paged_attention_fwd(const void* q, const void* pool_k, const void
                                    int heads, int kv_heads, int head_dim, int page_size,
                                    int mpp, int splits, int window, float sm_scale,
                                    int kv_format, int is_bf16, void* stream) {
-  if (bad_split(heads, kv_heads, splits)) return (int)cudaErrorInvalidValue;
+  const int log2_ps = page_log2(page_size);
+  if (bad_split(heads, kv_heads, splits) || log2_ps < 0) return (int)cudaErrorInvalidValue;
   if ((kv_format != FMT_FLOAT) != (scale_k != nullptr && scale_v != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const Args a{q, pool_k, pool_v, static_cast<const float*>(scale_k),
                static_cast<const float*>(scale_v), static_cast<const int*>(table),
-               static_cast<const int*>(lens), out, batch, heads, kv_heads, mpp, splits, window,
-               sm_scale, static_cast<cudaStream_t>(stream)};
-  if (is_bf16) return dispatch_format<__nv_bfloat16>(kv_format, head_dim, page_size, a);
-  return dispatch_format<float>(kv_format, head_dim, page_size, a);
+               static_cast<const int*>(lens), out, batch, heads, kv_heads, head_dim, log2_ps,
+               mpp, splits, window, sm_scale, static_cast<cudaStream_t>(stream)};
+  if (is_bf16) return dispatch_format<__nv_bfloat16>(kv_format, a);
+  return dispatch_format<float>(kv_format, a);
 }
 
 // The empty kernel with the paged kernel's grid, block and cluster shape

@@ -1,18 +1,23 @@
 """Where a decode step's time goes, and what the split-K degree buys.
 
     python -m k8s_device_plugin_tpu_torch.decode_profile [--steps 20] \
-        [--quant {w8,w8a8}] [--quant-kv]
+        [--quant {w8,w8a8}] [--quant-kv] [--decode-block 16] \
+        [--overlap-steps {0,1}] [--cuda-graphs {0,1}]
 
 Runs on the card only.  Three measurements at the serving slice's full
 width (vocab 32000, hidden 1024, 8 layers, 16 heads / 4 kv heads, page 16,
 512 pages, 32 pages per sequence, 8 slots, bf16):
 
 1. ``decode``: 8 requests (prompt 128) are admitted and prefilled, then
-   ``--steps`` decode steps run under ``torch.profiler``, with the engine's
-   weights and KV pools in the format ``--quant``/``--quant-kv`` ask for.
-   Reported: the step's host wall time, the device time summed over its
-   kernels, the device's busy share (the union of kernel intervals over
-   the span of the trace), and the kernels that take the most device time.
+   ``--steps`` engine steps run under ``torch.profiler``, with the engine's
+   weights and KV pools in the format ``--quant``/``--quant-kv`` ask for
+   and its decode loop as ``--decode-block``, ``--overlap-steps`` and
+   ``--cuda-graphs`` set it (a step is a block of up to that many tokens).
+   Reported: the step's host wall time, and per token emitted, the wall
+   and the device time summed over the kernels, the device's busy share
+   (the union of kernel intervals over the span of the trace), and the
+   kernels that take the most device time; then the wall of as many steps
+   again with the profiler off (its tracing slows the host).
 2. ``splits``: the paged-attention kernel alone at the decode shape (lens
    129..241, bf16 pools), for split counts 1..8 (the cluster's limit):
    CUDA-event time per call over a loop of launches (host launch cost
@@ -87,13 +92,17 @@ def trace_stats(prof, top: int = 12) -> dict:
     }
 
 
-def profile_decode(steps: int, quant_args: tuple = ()) -> dict:
+def profile_decode(steps: int, engine_args: tuple = ()) -> dict:
+    """One profiled window of ``steps`` engine steps in pure decode (the
+    ``decode`` measurement of the module note), the engine built from
+    WIDTH_ARGS plus ``engine_args``."""
     from torch.profiler import ProfilerActivity, profile
 
-    args = engine_mod.parse_args(WIDTH_ARGS + ["--device=cuda", *quant_args])
+    args = engine_mod.parse_args(WIDTH_ARGS + ["--device=cuda", *engine_args])
     eng = engine_mod.build_engine(args)
-    jobs = engine_mod.synthetic_jobs(args.slots, 128, 16 + steps + 8, args.vocab)
-    eng.run([(p, 2) for p, _ in jobs[:2]])  # warm every path once
+    block = args.decode_block
+    jobs = engine_mod.synthetic_jobs(args.slots, 128, block * (2 * steps + 4) + 16, args.vocab)
+    eng.run([(p, 2 * block) for p, _ in jobs[:2]])  # warm every path (and block size) once
     reqs = [eng.submit(p, n) for p, n in jobs]
     while not all(eng._slot_ready[s] for s in range(eng.max_slots)):
         eng.step()
@@ -101,22 +110,37 @@ def profile_decode(steps: int, quant_args: tuple = ()) -> dict:
         eng.step()
     torch.cuda.synchronize()
     pa.reset_launches()
+    emitted = sum(len(r.tokens) for r in reqs)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    tokens = sum(len(r.tokens) for r in reqs) - emitted
     launches = dict(pa.paged_attention.launches_by_format)
+    emitted = sum(len(r.tokens) for r in reqs)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    plain_tokens = sum(len(r.tokens) for r in reqs) - emitted
     while not all(r.done for r in reqs):
         eng.step()
     stats = trace_stats(prof)
+    device_ms = None if stats["device_us"] is None else stats["device_us"] / 1e3
     stats.update(
-        flags=list(quant_args),
+        flags=list(engine_args),
         steps=steps,
+        tokens=tokens,
         step_ms=wall / steps * 1e3,
+        wall_ms_per_token=wall / tokens * 1e3,
         paged_launches=launches,
-        device_ms_per_step=None if stats["device_us"] is None else stats["device_us"] / steps / 1e3,
+        device_ms_per_step=None if device_ms is None else device_ms / steps,
+        device_ms_per_token=None if device_ms is None else device_ms / tokens,
+        unprofiled_step_ms=plain_wall / steps * 1e3,
+        unprofiled_wall_ms_per_token=plain_wall / plain_tokens * 1e3,
     )
     return stats
 
@@ -127,12 +151,15 @@ def profile_decode(steps: int, quant_args: tuple = ()) -> dict:
 DECODE_SHAPE = dict(batch=8, heads=16, kv_heads=4, head_dim=64, page_size=16, mpp=32, pages=512)
 
 
-def decode_inputs(kv_format: str = "f", dtype=torch.bfloat16, seed: int = 0, device="cuda") -> dict:
-    """The paged kernel's keyword inputs at :data:`DECODE_SHAPE`: q in
-    ``dtype``, a random page table over pages 1.., and pools made from
-    the same seeded float values in ``kv_format`` (``dtype`` pools, or
-    int8/int4 codes with float32 scale pools through ops/quant.py)."""
+def decode_inputs(kv_format: str = "f", dtype=torch.bfloat16, seed: int = 0, device="cuda",
+                  head_dim=None) -> dict:
+    """The paged kernel's keyword inputs at :data:`DECODE_SHAPE` (its
+    head_dim replaced by ``head_dim`` when given): q in ``dtype``, a random
+    page table over pages 1.., and pools made from the same seeded float
+    values in ``kv_format`` (``dtype`` pools, or int8/int4 codes with
+    float32 scale pools through ops/quant.py)."""
     b, h, hk, d = (DECODE_SHAPE[k] for k in ("batch", "heads", "kv_heads", "head_dim"))
+    d = d if head_dim is None else head_dim
     ps, mpp, n_pool = DECODE_SHAPE["page_size"], DECODE_SHAPE["mpp"], DECODE_SHAPE["pages"]
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -222,15 +249,23 @@ def main(argv=None) -> None:
     p.add_argument("--quant", choices=["w8", "w8a8"], default=None,
                    help="profile the engine with int8 weights in this mode")
     p.add_argument("--quant-kv", action="store_true", help="profile the engine with int8 KV pools")
+    p.add_argument("--decode-block", type=int, default=1,
+                   help="the engine's decode block (each request decodes 2 x steps blocks: "
+                   "with 16, pass --steps 8 or fewer)")
+    p.add_argument("--overlap-steps", type=int, choices=[0, 1], default=0,
+                   help="the engine's overlap round (default 0: the synchronous loop)")
+    p.add_argument("--cuda-graphs", type=int, choices=[0, 1], default=0,
+                   help="replay the engine's dispatches as CUDA graphs (default 0: eager)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("decode_profile measures the card: no CUDA device")
-    quant_args = ([f"--quant={args.quant}"] if args.quant else []) + (
+    engine_args = ([f"--quant={args.quant}"] if args.quant else []) + (
         ["--quant-kv"] if args.quant_kv else []
-    )
+    ) + [f"--decode-block={args.decode_block}", f"--overlap-steps={args.overlap_steps}",
+         f"--cuda-graphs={args.cuda_graphs}"]
     result = {
         "card": torch.cuda.get_device_name(0),
-        "decode": profile_decode(args.steps, quant_args),
+        "decode": profile_decode(args.steps, engine_args),
         "splits": sweep_splits(),
         "formats": sweep_formats(),
     }

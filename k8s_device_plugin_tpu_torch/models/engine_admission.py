@@ -17,7 +17,8 @@ from typing import Optional
 
 import torch
 
-from .engine_sampling import filter_top_k_top_p, sample
+from ..utils import prng
+from .engine_sampling import filter_top_k_top_p
 from .engine_types import Request
 from .transformer import DenseCache
 
@@ -153,6 +154,10 @@ class AdmissionMixin:
         length bucket into prefill jobs."""
         admitted: list[tuple[int, Request, list[int], int]] = []
         burst_pages: dict[int, int] = {}  # page -> length bucket, this burst
+        # Whether this pass left the head stuck on a page shortage: nothing
+        # admits until something frees, so the decode-block gate and the
+        # overlap round need not stay fine-grained for it.
+        self._admit_page_blocked = False
         for slot in range(self.max_slots):
             with self._lock:
                 if self.slots[slot] is not None or not self.queue:
@@ -168,7 +173,9 @@ class AdmissionMixin:
                 )
                 n_private = n_pages - len(shared)
                 if n_private > len(self.free_pages):
-                    break  # FIFO: wait for pages rather than starve the head
+                    # FIFO: wait for pages rather than starve the head.
+                    self._admit_page_blocked = True
+                    break
                 self.queue.popleft()
                 private = [self.free_pages.popleft() for _ in range(n_private)]
                 pages = shared + private
@@ -205,19 +212,19 @@ class AdmissionMixin:
 
     def _sample_first_token(self, req: Request, last_logits) -> int:
         """The admission token from the prompt's last-position logits, by
-        the same math as the decode step."""
+        the same math as the decode step; a sampled one takes one split of
+        the engine's key (the reference's schedule)."""
         if req.temperature <= 0:
             return int(last_logits.argmax())
-        row = last_logits[None, :] / req.temperature
         topk = req.top_k if req.top_k is not None else self.cfg.vocab_size
         topp = req.top_p if req.top_p is not None else 1.0
+        self._rng, sub = prng.split(self._rng)
         row = filter_top_k_top_p(
-            row,
+            (last_logits / req.temperature)[None, :],
             torch.tensor([topk], device=self.device),
             torch.tensor([topp], dtype=torch.float32, device=self.device),
         )
-        temps = torch.ones(1, device=self.device)
-        return int(sample(row, temps, self._gen)[0])
+        return int(prng.categorical(sub, row[0]))
 
     def _activate(self, job: dict) -> list[Request]:
         """Graft a finished prefill job's K/V into pages, sample each
@@ -244,6 +251,8 @@ class AdmissionMixin:
             self._maybe_finish(slot)
             if req.done:
                 finished.append(req)
+        # Activated slots carry fresh scalars: rebuild the step state.
+        self._mark_state_dirty()
         return finished
 
     @staticmethod

@@ -65,6 +65,8 @@ class PagingMixin:
         self._slot_page_base[slot] = 0
         self._slot_ready[slot] = False
         self._slot_emit_t[slot] = 0.0
+        # Slot scalars changed: the step state is rebuilt from host truth.
+        self._mark_state_dirty()
 
     def _release_page(self, page: int) -> None:
         """Drop one reference; at zero, tear down every trie link touching

@@ -1,17 +1,20 @@
-"""Serving-engine sampling and the single-token decode step.
+"""Serving-engine sampling and the decode dispatch (one step or a block).
 
 Counterpart of the reference's ``models/engine_sampling.py``: the per-row
 top-k/top-p filter, the page-table view derived from each slot's full page
-chain, and the decode step (the reference's ``build_step_fn``) with greedy,
-temperature, top-k and top-p sampling.  Random draws come from an explicit
-``torch.Generator``: sampled streams are deterministic under a fixed seed
-but do not reproduce jax's threefry stream; greedy streams match.
+chain, and the decode dispatch, its ``build_step_fn`` (T = 1) and
+``build_block_fn`` (T > 1) in one function, with greedy, temperature and
+top-k/top-p sampling.  Random draws follow the reference's key schedule
+through jax's threefry (``utils/prng.py``): a sampled dispatch splits its
+key once, samples from the subkey (a step) or from ``split(subkey, T)`` (a
+block), and returns the other half as the next dispatch's key.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import prng
 from .transformer import NEG_LOGIT, PagedCache
 
 
@@ -46,30 +49,49 @@ def _derived_tables(chain, pos, page_size):
     return torch.where(visible, chain, 0)
 
 
-def sample(row, temps, generator, topks=None, topps=None):
+def pick(row, key, temps=None, topks=None, topps=None):
     """Next token per row of ``row`` [batch, vocab] float32 logits: argmax
-    where ``temps`` <= 0, else a categorical draw at that temperature
-    (after the top-k/top-p filter when ``topks``/``topps`` are given) by
-    the Gumbel-max trick, as jax.random.categorical draws."""
+    where ``temps`` <= 0, else ``prng.categorical`` under ``key`` of the
+    logits at that temperature (after the top-k/top-p filter when
+    ``topks``/``topps`` are given), as the reference's step picks.
+    ``temps`` None: every row greedy, and ``key`` is not read."""
     greedy = row.argmax(dim=-1)
     if temps is None:
         return greedy
     scaled = row / torch.where(temps > 0, temps, 1.0)[:, None]
     if topks is not None:
         scaled = filter_top_k_top_p(scaled, topks, topps)
-    u = torch.rand(scaled.shape, generator=generator, device=scaled.device)
-    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
-    sampled = (scaled + gumbel).argmax(dim=-1)
-    return torch.where(temps > 0, sampled, greedy)
+    return torch.where(temps > 0, prng.categorical(key, scaled), greedy)
 
 
-def decode_step(model, cache: PagedCache, chain, tokens, positions, temps=None,
-                generator=None, topks=None, topps=None):
-    """One single-token decode step over every slot: derive the visible
-    page table from ``chain`` [slots, max_pages_per_seq], run the model on
-    ``tokens``/``positions`` [slots, 1] (the append lands at the carried
-    ``seq_lens``), and pick each slot's next token.  ``temps`` None = every
-    slot greedy (no random draws).  Returns next tokens [slots] int64."""
-    cache.page_table = _derived_tables(chain, positions, model.config.paged.page_size)
-    row = model(tokens, positions, cache=cache)[:, -1]
-    return sample(row, temps, generator, topks, topps)
+def decode_tokens(model, cache: PagedCache, chain, tokens, positions, key, T: int = 1,
+                  temps=None, topks=None, topps=None):
+    """T exact single-token decode steps over every slot (T = 1: the
+    reference's step; T > 1: its block, a scan of such steps): each step
+    derives the visible page table from ``chain`` [slots, max_pages_per_seq]
+    at its position, runs the model on ``tokens``/``positions`` [slots, 1]
+    (the append lands at the carried ``seq_lens``), and picks each slot's
+    next token with a fresh key.  ``temps`` None = every slot greedy.
+
+    Returns ``(out [slots, T], next_tokens [slots, 1], next_positions
+    [slots, 1], next_key)``: the tokens, then the next dispatch's inputs.
+
+    A greedy dispatch neither draws nor splits, and returns its key as it
+    came: the carried key feeds only sampled dispatches, and the sampler
+    variant changes only at a state rebuild, which takes a fresh key from
+    the engine's, so the streams are the reference's and the step is spared
+    the hash's ~170 small kernels."""
+    if temps is None:
+        step_keys = [None] * T
+    else:
+        key, sub = prng.split(key)
+        step_keys = [sub] if T == 1 else prng.split(sub, T)
+    page_size = model.config.paged.page_size
+    out = []
+    for j in range(T):
+        cache.page_table = _derived_tables(chain, positions, page_size)
+        row = model(tokens, positions, cache=cache)[:, -1]
+        nxt = pick(row, step_keys[j], temps, topks, topps)
+        out.append(nxt)
+        tokens, positions = nxt[:, None], positions + 1
+    return torch.stack(out, dim=1), tokens, positions, key

@@ -3,7 +3,8 @@
 The port's own copy of the reference's ``models/engine_types.py``, trimmed
 to what this slice fills: the request lifecycle of a single-model engine
 (no adapters, priorities, deadlines or tracing yet) and the counters,
-gauges and TTFT/ITL histograms the synchronous step loop updates.  Metric
+gauges and TTFT/ITL histograms the step loop and its overlap round
+update.  Metric
 names are the reference's, so one dashboard reads both engines.
 """
 
@@ -37,6 +38,18 @@ class EngineMetrics:
             "tpu_engine_tokens_total", "Tokens emitted across all requests"
         )
         self.steps = registry.counter("tpu_engine_steps_total", "Decode steps executed")
+        self.state_rebuilds = registry.counter(
+            "tpu_engine_state_rebuilds_total",
+            "Device step-state rebuilds from host lists (admissions, teardowns)",
+        )
+        self.overlap_hits = registry.counter(
+            "tpu_engine_overlap_hits_total",
+            "Decode rounds consumed from an overlapped in-flight dispatch",
+        )
+        self.overlap_discards = registry.counter(
+            "tpu_engine_overlap_discards_total",
+            "Overlapped dispatches thrown away because a slot event invalidated their inputs",
+        )
         self.active_slots = registry.gauge(
             "tpu_engine_active_slots", "Slots currently serving a request"
         )

@@ -49,7 +49,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.flash_attention import flash_attention
+from ..ops.flash_attention import check_head_dim, flash_attention
+from ..ops.paged_attention import check_shape as check_paged_shape
 from ..ops.paged_attention import paged_attention
 from ..ops.quant import (
     Int8DenseGeneral,
@@ -152,6 +153,19 @@ def _check_supported(cfg: GPTConfig) -> None:
         raise ValueError(f"num_heads {cfg.num_heads} not divisible by kv_heads {cfg.kv_heads}")
     if cfg.attention_window is not None and cfg.attention_window < 1:
         raise ValueError(f"attention_window must be >= 1, got {cfg.attention_window}")
+
+
+def check_card_shapes(cfg: GPTConfig) -> None:
+    """On the card every attention runs a CUDA kernel, and there is no
+    other route: the flash kernels (full forward, bulk prefill, training)
+    take a head_dim of ``flash_attention.HEAD_DIMS``, and a paged config
+    with the kernel on needs a head_dim, page size and kv group the paged
+    kernel takes (``paged_attention.check_shape``).  Raises ValueError,
+    naming what is taken, at construction rather than at the first
+    launch."""
+    check_head_dim(cfg.head_dim)
+    if cfg.paged is not None and cfg.paged.kernel_enabled(cfg.quant_kv):
+        check_paged_shape(cfg.head_dim, cfg.paged.page_size, cfg.num_heads // cfg.kv_heads)
 
 
 # ------------------------------------------------------------------ caches
@@ -481,6 +495,8 @@ class TransformerLM(nn.Module):
         _check_supported(config)
         self.config = config
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            check_card_shapes(config)
         self.train_mode = train
         dev = self.device
         self.embed = Embed(config.vocab_size, config.hidden_size, config.dtype, dev)

@@ -39,11 +39,11 @@ from . import _build
 NEG_INF = float("-inf")
 
 # The CUDA forward's (q rows, kv columns) tile, the same in both variants
-# (BQ, BK in csrc/flash_attention_wgmma.cu: one warpgroup's m64n64 wgmma
-# tiles over a 64-row q tile and 64-column K/V ring stages; in
-# csrc/flash_attention.cu: one thread per q row).  It replaces the TPU's
-# per-generation block table.  The plain version tiles kv by 128.  All take
-# any sequence length: the last tile of either is ragged.
+# (BQ, BK in csrc/flash_attention_wgmma.cu: m64n64 wgmma tiles over a
+# 64-row q tile and 64-column K/V ring stages; in csrc/flash_attention.cu:
+# one thread per q row, with 32-column kv tiles at head_dim 128).  It
+# replaces the TPU's per-generation block table.  The plain version tiles kv
+# by 128.  All take any sequence length: the last tile of either is ragged.
 CUDA_TILE = (64, 64)
 _PLAIN_TILE = (128, 128)
 
@@ -234,11 +234,24 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout, *, causal, sm_sc
     return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+# The head dims every kernel takes, in both variants: the FMA kernels are
+# built at each; the wgmma kernels at 64 and 128, with 16 and 32 zero-filled
+# to 64 columns in shared memory.
+HEAD_DIMS = (16, 32, 64, 128)
+
+
+def check_head_dim(head_dim: int) -> None:
+    """Raise ValueError, naming what is taken, for a head_dim the CUDA
+    kernels do not take."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the CUDA flash kernels take head_dim {HEAD_DIMS}, got {head_dim}")
+
+
 def _check_kernel_inputs(kernel, **tensors) -> Variant:
     """The CUDA kernels take contiguous tensors of one type on one device,
-    head_dim 64, rows aligned for 16-byte loads; returns the variant of
-    ``kernel`` that their type launches (:func:`variant`, which raises for
-    a type no kernel takes)."""
+    a head_dim of :data:`HEAD_DIMS`, rows aligned for 16-byte loads;
+    returns the variant of ``kernel`` that their type launches
+    (:func:`variant`, which raises for a type no kernel takes)."""
     ref = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device != ref.device or t.dtype != ref.dtype:
@@ -248,8 +261,7 @@ def _check_kernel_inputs(kernel, **tensors) -> Variant:
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
     var = variant(kernel, ref.dtype)
-    if ref.shape[-1] != 64:
-        raise ValueError(f"the CUDA kernel takes head_dim 64, got {ref.shape[-1]}")
+    check_head_dim(ref.shape[-1])
     return var
 
 

@@ -110,6 +110,26 @@ def paged_attention_reference(q4, pool_k, pool_v, table, lens, *, sm_scale, wind
     return _combine_splits(acc, m[..., 0], l, q4.dtype)
 
 
+# What the CUDA kernel takes: head_dim 64 and 128 are built, 16 and 32 run
+# in the 64-wide build with zero-filled rows; any power-of-two page size
+# from 2 to 64; a kv group of at most 32 query heads (a warp each).
+HEAD_DIMS = (16, 32, 64, 128)
+PAGE_SIZES = (2, 4, 8, 16, 32, 64)
+MAX_GROUP = 32
+
+
+def check_shape(head_dim: int, page_size: int, group: int) -> None:
+    """Raise ValueError, naming what is taken, for a head_dim, page size or
+    kv group the CUDA kernel does not take."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the CUDA paged kernel takes head_dim {HEAD_DIMS}, got {head_dim}")
+    if page_size not in PAGE_SIZES:
+        raise ValueError(f"the CUDA paged kernel takes page_size {PAGE_SIZES}, got {page_size}")
+    if group > MAX_GROUP:
+        raise ValueError(f"the CUDA paged kernel takes a kv group of at most {MAX_GROUP} "
+                         f"query heads, got {group}")
+
+
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -138,13 +158,7 @@ def _launch(q, pool_k, pool_v, table, lens, scale_k, scale_v, *, sm_scale, windo
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel's row loads)")
     if table.dtype != torch.int32 or lens.dtype != torch.int32:
         raise ValueError("page_table and lens must be int32")
-    if head_dim not in (64, 128) or page_size not in (16, 32):
-        raise ValueError(
-            f"the CUDA kernel takes head_dim 64|128 and page_size 16|32, "
-            f"got {head_dim}, {page_size}"
-        )
-    if heads // kv_heads > 32:
-        raise ValueError(f"group {heads // kv_heads} exceeds 32 warps per block")
+    check_shape(head_dim, page_size, heads // kv_heads)
     out = torch.empty_like(q)
     ptrs = (None, None) if kv_format == "f" else (scale_k.data_ptr(), scale_v.data_ptr())
     status = _build.entry(*C_ENTRY)(

@@ -51,7 +51,9 @@ def _sym_quantize(x: torch.Tensor, axes: tuple[int, ...], qmax: float = _QMAX):
     amax = xf.abs().amax(dim=axes, keepdim=True)
     # A tensor divisor: CUDA turns division by a Python scalar into a
     # product with its reciprocal, which can be an ulp off the quotient.
-    scale = torch.where(amax > 0, amax / amax.new_tensor(qmax), 1.0)
+    # It is filled on the device (not copied from the host), so the decode
+    # step's appends capture in a CUDA graph.
+    scale = torch.where(amax > 0, amax / amax.new_full((), qmax), 1.0)
     q = torch.clamp(torch.round(xf / scale), -qmax, qmax).to(torch.int8)
     return q, scale.squeeze(axes)
 

@@ -355,3 +355,135 @@ def test_cuda_w8a8_products_match_cpu(dev, rows):
     got = quant.int8_dot_general(x.to(dev), w_q.to(dev), w_scale.to(dev), mode="w8a8",
                                  dtype=torch.float32)
     assert torch.equal(got.cpu(), want)
+
+
+def _flash_case(dev, seed, *, d, dtype, s=200, heads=4, group=2, batch=1):
+    rs = np.random.RandomState(seed)
+    shapes = ((batch, heads, s, d), (batch, heads // group, s, d),
+              (batch, heads // group, s, d), (batch, heads, s, d))
+    return [torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(dev, dtype)
+            for shape in shapes]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16-wgmma", "f32-fma"])
+def test_cuda_flash_kernels_at_every_head_dim(dev, d, dtype):
+    """Kernels 2, 3 and 4 at head_dim 16, 32 and 128 (64 is covered above)
+    against their plain versions, causal, window 40 and non-causal, one
+    launch of the dtype's variant each; forward tolerances as above, the
+    backward's relative to max |plain|."""
+    q, k, v, dout = _flash_case(dev, 70 + d, d=d, dtype=dtype)
+    fwd_tol = _BF16["atol"] if dtype == torch.bfloat16 else 2e-5
+    bwd_tol = _BF16["rel"] if dtype == torch.bfloat16 else 1e-4
+    for causal, window in _MASKS:
+        fa.reset_launches()
+        out, lse = fa.flash_forward(q, k, v, causal=causal, window=window)
+        got = fa.flash_backward(q, k, v, out, lse, dout, causal=causal, window=window)
+        design = _DESIGN[dtype]
+        assert fa.flash_attention.launches_by_design[design] == 1
+        assert fa.flash_backward.dq_launches_by_design[design] == 1
+        assert fa.flash_backward.dkv_launches_by_design[design] == 1
+        ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal, sm_scale=d ** -0.5,
+                                                    window=window, block_kv=128)
+        assert (out.float() - ref.float()).abs().max().item() <= fwd_tol, (causal, window)
+        assert (lse - ref_lse).abs().max().item() <= _BF16["lse"], (causal, window)
+        want = fa.flash_attention_backward_reference(
+            q, k, v, out, lse, dout, causal=causal, sm_scale=d ** -0.5, window=window,
+            block_kv=128,
+        )
+        for g, w in zip(got, want):
+            err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+            assert err.item() <= bwd_tol, (causal, window)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ps", [2, 4, 8, 64])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("fmt", ["f", "int8", "int4"])
+@pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)],
+                         ids=["bf16", "f32"])
+def test_cuda_paged_kernel_at_every_head_dim_and_page_size(dev, ps, d, fmt, dtype, tol):
+    """Kernel 1 at head_dim 16, 32, 64 and 128 and page sizes 2, 4, 8 and
+    64, in every pool format, against its plain version: lens 0, 1, page
+    edges and a full table, 1 and 4 splits, windows none and 7; one launch
+    counted per call."""
+    rs = np.random.RandomState(ps * 1000 + d)
+    batch, heads, kv_heads = 6, 8, 2
+    mpp = max(2, 96 // ps)  # 96 positions a row (128 at page 64)
+    n_pool = batch * mpp + 3
+    pools = _pools(fmt, dtype, dev, rs, (n_pool, ps, kv_heads, d))
+    q = torch.from_numpy(rs.randn(batch, heads, d).astype(np.float32)).to(dev, dtype)
+    table = torch.from_numpy(rs.permutation(n_pool)[: batch * mpp].reshape(batch, mpp)
+                             .astype(np.int32)).to(dev)
+    full = ps * mpp
+    lens = torch.tensor([0, 1, ps - 1 if ps > 2 else 2, ps + 1, full - 5, full],
+                        dtype=torch.int32, device=dev)
+    for splits in (1, 4):
+        for window in (None, 7):
+            pa.reset_launches()
+            got = pa.paged_attention(q, page_table=table, lens=lens, window=window,
+                                     num_splits=splits, **pools)
+            assert pa.paged_attention.launches_by_format == {
+                f: int(f == fmt) for f in pa.FORMATS}
+            want = pa.paged_attention_reference(
+                q.reshape(batch, kv_heads, heads // kv_heads, d), pools["pool_k"],
+                pools["pool_v"], table, lens, sm_scale=d ** -0.5, window=window,
+                num_splits=min(splits, mpp), scale_k=pools.get("scale_k"),
+                scale_v=pools.get("scale_v"), kv_format=fmt,
+            ).reshape(got.shape)
+            assert (got[0] == 0).all(), (splits, window)
+            assert (got.float() - want.float()).abs().max().item() <= tol, (splits, window)
+
+
+def _tiny_engine(dev, **kw):
+    """GPTConfig.tiny() (float32, head_dim 16) served at page size 4: the
+    paged kernel at its smallest head_dim and a small page."""
+    from k8s_device_plugin_tpu_torch.models import engine as engine_mod
+    from k8s_device_plugin_tpu_torch.models import transformer as tf
+
+    cfg = tf.GPTConfig.tiny()
+    paged = tf.PagedConfig(4, 64, 16)
+    return cfg, engine_mod.ServingEngine(cfg, tf.init_params(cfg, seed=0), paged, max_slots=4,
+                                         device=dev, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_cuda_block16_graphs_equal_eager(dev, sampled):
+    """The engine at decode_block 16 with the overlap round: its dispatches
+    replayed as CUDA graphs give the eager run's streams exactly (greedy,
+    and sampled under one rng), and the paged kernel is counted once per
+    layer on every dispatched step, replayed or eager."""
+    from k8s_device_plugin_tpu_torch.utils import prng
+
+    rs = np.random.RandomState(31)
+    jobs = [(rs.randint(1, 512, size=3 + 2 * i).tolist(), n)
+            for i, n in enumerate((40, 23, 33, 17, 45, 9))]
+    kw = dict(temperature=0.8, top_k=50) if sampled else {}
+    streams = {}
+    for graphs in (True, False):
+        pa.reset_launches()
+        cfg, eng = _tiny_engine(dev, decode_block=16, overlap_steps=1, cuda_graphs=graphs,
+                                rng=prng.PRNGKey(5))
+        streams[graphs] = [r.tokens for r in eng.run(jobs, **kw)]
+        launches = pa.paged_attention.launches_by_format
+        assert launches["f"] == cfg.num_layers * eng.device_steps > 0
+        assert (eng.graph_replays > 0) is graphs
+    assert streams[True] == streams[False]
+    assert [len(t) for t in streams[True]] == [n for _, n in jobs]
+
+
+@pytest.mark.cuda
+def test_cuda_engine_refuses_other_head_dims_at_construction(dev):
+    """head_dim 256 is outside what the kernels take: the engine refuses
+    when it is built on the card, naming the set."""
+    import dataclasses
+
+    from k8s_device_plugin_tpu_torch.models import engine as engine_mod
+    from k8s_device_plugin_tpu_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(tf.GPTConfig.tiny(), hidden_size=1024, num_heads=4)
+    with pytest.raises(ValueError, match=r"head_dim \(16, 32, 64, 128\), got 256"):
+        engine_mod.ServingEngine(cfg, tf.init_params(cfg, seed=0), tf.PagedConfig(4, 64, 16),
+                                 device=dev)

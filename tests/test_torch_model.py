@@ -342,3 +342,51 @@ def test_quant_kv_paged_decode_logits_match(qweights, use_kernel):
     # Scales are amax / 127 of activations that differ by ~1e-7 relative.
     for name, mine in (("pool_key_scale", cache.scale_k[1]), ("pool_value_scale", cache.scale_v[1])):
         np.testing.assert_allclose(mine.numpy(), np.asarray(attn[name]), rtol=1e-5, atol=0)
+
+
+def _shaped(head_dim, page_size=None, heads=4, kv_heads=2):
+    paged = None if page_size is None else ttf.PagedConfig(page_size, 8, 4)
+    return dataclasses.replace(ttf.GPTConfig.tiny(), hidden_size=heads * head_dim,
+                               num_heads=heads, num_kv_heads=kv_heads, paged=paged)
+
+
+@pytest.mark.parametrize("page_size", [2, 4, 8, 16, 32, 64])
+@pytest.mark.parametrize("head_dim", [16, 32, 64, 128])
+def test_card_takes_every_head_dim_and_page_size(head_dim, page_size):
+    """The shapes the card's kernels take: head_dim 16/32/64/128 (flash
+    and paged kernels), every power-of-two page size from 2 to 64."""
+    ttf.check_card_shapes(_shaped(head_dim, page_size))
+
+
+@pytest.mark.parametrize(
+    "cfg, match",
+    [
+        (_shaped(8), r"head_dim \(16, 32, 64, 128\), got 8"),
+        (_shaped(24), r"head_dim \(16, 32, 64, 128\), got 24"),
+        (_shaped(96), r"head_dim \(16, 32, 64, 128\), got 96"),
+        (_shaped(256), r"head_dim \(16, 32, 64, 128\), got 256"),
+        (_shaped(64, 1), r"page_size \(2, 4, 8, 16, 32, 64\), got 1"),
+        (_shaped(64, 12), r"page_size \(2, 4, 8, 16, 32, 64\), got 12"),
+        (_shaped(64, 128), r"page_size \(2, 4, 8, 16, 32, 64\), got 128"),
+        (_shaped(16, 16, heads=64, kv_heads=1), "kv group of at most 32"),
+    ],
+    ids=["d8", "d24", "d96", "d256", "page1", "page12", "page128", "group64"],
+)
+def test_card_refuses_other_shapes_at_construction(monkeypatch, cfg, match):
+    """Outside the set the model (and so the engine) refuses on the card
+    when it is built, before anything is allocated there; the CPU runs
+    the plain versions at any shape."""
+    with pytest.raises(ValueError, match=match):
+        ttf.check_card_shapes(cfg)
+    monkeypatch.setattr(ttf, "resolve_device", lambda device=None: torch.device("cuda"))
+    with pytest.raises(ValueError, match=match):
+        ttf.TransformerLM(cfg)
+    monkeypatch.undo()
+    ttf.TransformerLM(cfg, device="cpu")
+
+
+def test_gather_engine_needs_no_paged_shape():
+    """With the paged kernel off (use_kernel=False) only the flash kernels'
+    head dims bind: the gathered view runs at any page size."""
+    cfg = dataclasses.replace(_shaped(64), paged=ttf.PagedConfig(12, 8, 4, use_kernel=False))
+    ttf.check_card_shapes(cfg)

@@ -381,8 +381,11 @@ def test_kernel_inputs_are_checked_before_a_launch():
     for kernel in fa.VARIANTS:
         with pytest.raises(ValueError, match="float32"):
             fa._check_kernel_inputs(kernel, q=q.half())
-    with pytest.raises(ValueError, match="head_dim 64"):
-        fa._check_kernel_inputs("forward", q=torch.zeros(1, 2, 8, 32))
+    for head_dim in fa.HEAD_DIMS:
+        q_d = torch.zeros(1, 2, 8, head_dim)
+        assert fa._check_kernel_inputs("forward", q=q_d) == fa.variant("forward", torch.float32)
+    with pytest.raises(ValueError, match=r"head_dim \(16, 32, 64, 128\), got 48"):
+        fa._check_kernel_inputs("forward", q=torch.zeros(1, 2, 8, 48))
     # A wrapper refuses a type no kernel takes before it builds anything.
     with pytest.raises(ValueError, match="float32"):
         fa._launch(q.half(), q.half(), q.half(), causal=True, sm_scale=0.125, window=None)
