@@ -10,8 +10,10 @@ Phases, in order (any failure exits non-zero):
    parallel), and read each flash kernel's registers and spills (ptxas)
    and HGMMA count (cuobjdump) at every head_dim it is built for: the
    tensor-core (wgmma) variants (forward, dQ, dK/dV; built 64 and 128
-   wide) must show HGMMA and no spill, the FMA variants (built at 16, 32,
-   64 and 128) no HGMMA;
+   wide, and padded at each for the head_dims between) must show HGMMA and
+   no spill, the FMA variants (built the same way) no HGMMA; and kernel 1's
+   registers and spills in each of its twelve builds (float32 and bf16
+   queries, three pool formats, 64 and 128 wide), none of which may spill;
 3. hold each kernel against its plain PyTorch version on the card at the
    serving slice's shapes (the paged kernel in each pool format: bf16/f32,
    int8 and int4 codes with float32 scale pools, and the int4 unpack on
@@ -31,10 +33,11 @@ Phases, in order (any failure exits non-zero):
    h16 hk4 s1024 d64, causal; bf16 and float32) hold them once more, then
    time them, the plain backward, and SDPA's backward (by profiler device
    time, with the kernels timed the same way beside it);
-3c. kernel 1 at every head_dim (16, 32, 64, 128) and page size (2 to 64)
-   in every pool format, and kernels 2-4 at head_dim 16, 32 and 128 in both
-   variants, against their plain versions; then kernels 1-4 timed at
-   head_dim 128 in bf16 (the kernel line's ``head_dim_128``);
+3c. kernel 1 at head_dim 16, 32, 64, 80, 96 and 128 and every page size
+   (1 to 128) in every pool format, and kernels 2-4 at head_dim 16, 32, 80,
+   96 and 128 in both variants, against their plain versions; then kernels
+   1-4 timed at head_dim 80, 96 and 128 in bf16 (the kernel line's
+   ``head_dim_80``, ``head_dim_96`` and ``head_dim_128``);
 4. run the batch serving engine at the deployed model's full width (vocab
    32000, hidden 1024, 8 layers, 16 heads / 4 kv heads, page 16, 512 pages,
    32 pages per sequence, 8 slots; 32 requests, prompt 128, 128 new
@@ -55,6 +58,24 @@ Phases, in order (any failure exits non-zero):
    with graphs on and off; then ``decode_profile.profile_decode``'s step
    wall against device time per token at block 1 (synchronous and eager,
    and overlapped with graphs) and at block 16;
+4e. the port's HTTP server (``models/http_server.py``) as a subprocess at
+   the deployment's flags minus the KV-tier ones (hidden 1024, 8 layers,
+   16/4 heads, page 16, 512 pages, 8 slots, block 16, optimistic
+   admission, prefill chunk 256, overload, SLO, watchdog), an ephemeral
+   port and vocab 32000: after a warm-up, phase 4d's traffic from 32
+   client threads (24 unary, 8 SSE); the greedy tokens must equal an
+   in-process engine built from the same flags; 8 sampled requests (0.8,
+   top-k 50, n=2, logprobs) must return finite logprobs <= 0; the debug
+   routes are read, ``/metrics`` must pass ``tools/metrics_lint.py``, the
+   paged launches must equal layers x dispatched steps by the server's
+   own counters, and SIGTERM must drain it to exit 0.  Then again at 96
+   pages, where optimistic admission must preempt (the first 8 requests,
+   admitted at the full limit, need at least 100 of its 95 allocatable
+   pages by their last token): every request ends
+   with 128 tokens, equal to the 512-page run's where never preempted and
+   up to the first preemption where preempted (the first difference after
+   it is reported); and GPTConfig.tiny() in float32 in process, where
+   preempted streams must be identical in full;
 4c. ``decode_profile.sweep_formats``, the kernel benchmark (the reference
    reaches int4 pools only from its kernel benchmark): each pool format
    at the decode shape, launches counted by format;
@@ -87,7 +108,8 @@ with its design, HGMMA count, registers and spill bytes; every number in
 it measured in this run, the bounds computed from its inputs), one
 ``slice`` JSON line, one ``blocks`` JSON line (phase 4d, 3c's worst
 errors and the tiny phase 6), one
-``quant`` JSON line, one ``train`` JSON line, and last the line
+``quant`` JSON line, one ``train`` JSON line, one ``serve`` JSON line
+(phase 4e), and last the line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -367,27 +389,26 @@ FLASH_ROWS = {
 
 def build_facts(torch, fa, _build) -> dict:
     """Per flash kernel row, keyed as FLASH_ROWS: its name, source, design,
-    and per build (``widths``: the wgmma kernels at 64, 128 and the 64-wide
-    build that zero-pads head_dim 16 and 32, "16/32"; the FMA kernels at
-    16, 32, 64 and 128) its registers, spill bytes (ptxas) and HGMMA count
-    (cuobjdump); the row's own registers, spills and HGMMA are the head_dim
-    64 build's, the main paths'.  Fails if a wgmma build spills or has no
-    HGMMA, or an FMA build has any."""
+    and per build (``widths``: 64 and 128 wide, and padded at each,
+    "pad64" and "pad128", for the head_dims between) its registers, spill
+    bytes (ptxas) and HGMMA count (cuobjdump); the row's own registers,
+    spills and HGMMA are the head_dim 64 build's, the main paths'.  Fails if
+    a wgmma build spills or has no HGMMA, or an FMA build has any."""
     facts = {}
     for (kernel, dtype), (name, function) in FLASH_ROWS.items():
         var = fa.variant(kernel, getattr(torch, dtype))
         hgmma = sass_hgmma(_build.library_path(var.source))
         widths = {}
         for sym, regs in _build.ptxas_report(var.source).items():
-            # <function><D> or <function><D, PAD> in the mangled name.
-            m = re.search(function + r"ILi(\d+)E(?:Lb([01])E)?", sym)
+            # <function><D, PAD> in the mangled name.
+            m = re.search(function + r"ILi(\d+)ELb([01])E", sym)
             if m:
-                widths["16/32" if m.group(2) == "1" else m.group(1)] = {
+                widths[("pad" if m.group(2) == "1" else "") + m.group(1)] = {
                     "registers": regs["registers"],
                     "spill_bytes": regs["spill_stores"] + regs["spill_loads"],
                     "hgmma": hgmma.get(sym, 0),
                 }
-        built = {"64", "128", "16/32"} if var.design == "wgmma" else {"16", "32", "64", "128"}
+        built = {"64", "128", "pad64", "pad128"}
         if set(widths) != built:
             fail(f"csrc/{var.source}.cu builds {function} at head_dim {sorted(widths)}, "
                  f"not {sorted(built)}")
@@ -407,6 +428,36 @@ def build_facts(torch, fa, _build) -> dict:
             if var.design == "fma" and w["hgmma"]:
                 fail(f"{function} at head_dim {width} is the FMA variant but has "
                      f"{w['hgmma']} HGMMA")
+    return facts
+
+
+PAGED_FORMATS = {"0": "f", "1": "int8", "2": "int4"}
+
+
+def paged_build_facts(_build) -> dict:
+    """Kernel 1's registers and spill bytes (ptxas) per build, keyed by pool
+    format, then "<query type>_<width>" (float32 or bf16 queries, 64 and 128
+    wide: twelve builds).  Fails if one is missing or spills."""
+    facts = {fmt: {} for fmt in PAGED_FORMATS.values()}
+    for sym, regs in _build.ptxas_report("paged_attention").items():
+        # paged_decode_kernel<T, FMT, D> in the mangled name.
+        m = re.search(r"paged_decode_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d+)E", sym)
+        if m:
+            dtype = "float32" if m.group(1) == "f" else "bfloat16"
+            facts[PAGED_FORMATS[m.group(2)]][f"{dtype}_{m.group(3)}"] = {
+                "registers": regs["registers"],
+                "spill_bytes": regs["spill_stores"] + regs["spill_loads"],
+            }
+    want = {f"{t}_{w}" for t in ("float32", "bfloat16") for w in (64, 128)}
+    log(f"paged_attention paged_decode_kernel builds: {facts}")
+    for fmt, builds in facts.items():
+        if set(builds) != want:
+            fail(f"csrc/paged_attention.cu builds the {fmt} kernel as {sorted(builds)}, "
+                 f"not {sorted(want)}")
+        for name, b in builds.items():
+            if b["spill_bytes"]:
+                fail(f"paged_decode_kernel {fmt} {name}: {b['spill_bytes']} spill bytes "
+                     f"at {b['registers']} registers")
     return facts
 
 
@@ -493,18 +544,23 @@ def check_flash(torch, fa, facts):
     return rows
 
 
+# Phase 3c's head_dims: the builds' own widths and a padded width of each
+# (80: Phi-2's head_dim; 96: Phi-3-mini's).
+PAGED_WIDTHS = (16, 32, 64, 80, 96, 128)
+FLASH_WIDTHS = (16, 32, 80, 96, 128)
+
+
 def check_widths(torch, pa, fa, quant, tuning) -> dict:
-    """Phase 3c: kernel 1 at every head_dim and page size the reference's
-    configs use, in every pool format (bf16 queries), and kernels 2-4 at
-    head_dim 16, 32 and 128 in both variants, against their plain
-    versions, each call checking the launch it counted.  Returns the worst
-    errors by kernel."""
+    """Phase 3c: kernel 1 at PAGED_WIDTHS and every page size it takes
+    (1 to 128), in every pool format (bf16 queries), and kernels 2-4 at
+    FLASH_WIDTHS in both variants, against their plain versions, each call
+    checking the launch it counted.  Returns the worst errors by kernel."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(9)
     B, H, HK, SPAN = 8, 16, 4, 256  # SPAN: the positions a row's table covers
     lens = torch.tensor([1, 17, 100, 129, 200, 241, 255, 256], dtype=torch.int32, device=dev)
     worst = {}
-    for d in pa.HEAD_DIMS:
+    for d in PAGED_WIDTHS:
         for ps in pa.PAGE_SIZES:
             mpp, n_pool = SPAN // ps, B * SPAN // ps + 1
             table = torch.randperm(n_pool - 1, generator=gen, device=dev)[: B * mpp] + 1
@@ -526,10 +582,10 @@ def check_widths(torch, pa, fa, quant, tuning) -> dict:
                             fail(f"{label}: max_abs_err {err} > {TOL_BF16}")
                         key = f"paged_{kv_format}"
                         worst[key] = max(worst.get(key, 0.0), err)
-    log(f"paged kernel at head_dim {pa.HEAD_DIMS} x page {pa.PAGE_SIZES} x {pa.FORMATS}: "
+    log(f"paged kernel at head_dim {PAGED_WIDTHS} x page {pa.PAGE_SIZES} x {pa.FORMATS}: "
         f"worst {worst}")
     B = 2
-    for d in (16, 32, 128):
+    for d in FLASH_WIDTHS:
         for dtype_name, tol, tol_bwd in (("bfloat16", TOL_BF16, TOL_BWD_BF16),
                                          ("float32", TOL_F32, TOL_BWD_F32)):
             dtype = getattr(torch, dtype_name)
@@ -563,12 +619,12 @@ def check_widths(torch, pa, fa, quant, tuning) -> dict:
     return worst
 
 
-def time_head_dim_128(torch, pa, fa, dp, tuning) -> dict:
-    """Kernels 1-4 at head_dim 128 in bf16, timed as the head_dim 64 rows
+def time_head_dim(torch, pa, fa, dp, tuning, D: int) -> dict:
+    """Kernels 1-4 at head_dim D in bf16, timed as the head_dim 64 rows
     are (kernel 1 at the decode shape, kernels 2-4 at b8 h16 hk4 s1024
     causal), beside their bounds, plain versions and library calls; keyed
     by kernel row name."""
-    D, B, H, HK = 128, 8, 16, 4
+    B, H, HK = 8, 16, 4
     out = {}
     inputs = dp.decode_inputs("f", head_dim=D)
     tuned = tuning.pick_num_splits(inputs["page_table"].shape[1], tuning.device_generation(DEVICE))
@@ -598,7 +654,7 @@ def time_head_dim_128(torch, pa, fa, dp, tuning) -> dict:
     row_q, row_kv, vec = B * H * S * D * 2, B * HK * S * D * 2, B * H * S * 4
     plain_bwd, _ = time_ms(lambda: fa.flash_attention_backward_reference(
         q, k, v, o, lse, dout, block_kv=128, **opts), iters=3, warmup=1)
-    sdpa_bwd = profiled_ms(torch, sdpa_backward(torch, q, k, v, dout), "SDPA's backward (d128)")
+    sdpa_bwd = profiled_ms(torch, sdpa_backward(torch, q, k, v, dout), f"SDPA's backward (d{D})")
     shape = f"b{B} h{H} hk{HK} s{S} d{D} causal bfloat16"
     cases = {
         "flash_attention": (lambda: fa.flash_forward(q, k, v, causal=True),
@@ -619,7 +675,7 @@ def time_head_dim_128(torch, pa, fa, dp, tuning) -> dict:
             plain_ms, library_ms = plain_bwd, sdpa_bwd
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": library_ms, "shape": shape}
-    log(f"kernels 1-4 at head_dim 128: {out}")
+    log(f"kernels 1-4 at head_dim {D}: {out}")
     return out
 
 
@@ -672,6 +728,448 @@ def first_difference(a, b) -> str:
             j = next(j for j, (u, w) in enumerate(zip(x, y)) if u != w)
             return f"request {i} token {j}: {x[j]} vs {y[j]}"
     return "the request counts differ"
+
+
+# ------------------------------------------------------------- phase 4e
+
+# The deployment's serving flags (deploy/k8s-deploy-serve-http.yaml) minus
+# the KV-tier ones the port refuses (--kv-retain, --kv-host-cache-mb,
+# --snapshot-*); vocab is the CLI's default 32000.
+SERVE_FLAGS = (
+    "--hidden=1024", "--layers=8", "--heads=16", "--kv-heads=4", "--page-size=16",
+    "--num-pages=512", "--max-pages-per-seq=32", "--slots=8", "--decode-block=16",
+    "--admission=optimistic", "--prefill-chunk=256", "--overload=1",
+    "--overload-target-wait=0.5", "--overload-max-queue=512", "--slo=1",
+    "--watchdog=1", "--watchdog-min-deadline=5", "--watchdog-grace=120",
+    "--dump-budget-mb=256",
+)
+# What phase 4e adds to them: an ephemeral port, and a flight ring big
+# enough that no preemption event of the run is dropped.
+SERVE_EXTRA = ("--http-port=0", "--flight-ring=65536")
+SERVE_STREAMED = 8  # of the 32 requests; the other 24 are unary
+
+
+def http_call(port: int, path: str, payload=None, timeout: float = 300.0):
+    """(status, parsed JSON or raw bytes) of one request to the server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 headers={"Content-Type": "application/json"},
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            body, status, ctype = resp.read(), resp.status, resp.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as e:
+        body, status, ctype = e.read(), e.code, e.headers.get("Content-Type", "")
+    return status, json.loads(body) if "json" in ctype else body
+
+
+def start_server(flags, log_path, env) -> tuple:
+    """Start the port's HTTP server as a subprocess; returns (process,
+    port) once /healthz answers 200.  Fails (killing it) if it exits or
+    does not come up in 600 s."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "k8s_device_plugin_tpu_torch.models.http_server", *flags,
+         *SERVE_EXTRA],
+        stdout=subprocess.DEVNULL, stderr=open(log_path, "w"), env=env,
+    )
+    deadline, port = time.monotonic() + 600, None
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            fail(f"the HTTP server exited with {proc.returncode}: "
+                 f"{open(log_path).read()[-3000:]}")
+        if port is None:
+            m = re.search(r"serving on :(\d+)", open(log_path).read())
+            port = int(m.group(1)) if m else None
+        if port is not None:
+            try:
+                if http_call(port, "/healthz", timeout=5)[0] == 200:
+                    return proc, port
+            except OSError:
+                pass
+        time.sleep(0.2)
+    proc.kill()
+    fail(f"the HTTP server did not come up: {open(log_path).read()[-3000:]}")
+
+
+def stop_server(proc, log_path) -> float:
+    """SIGTERM: the server must drain and exit 0; returns the seconds it
+    took."""
+    import signal
+
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=120)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail("the HTTP server did not exit within 120 s of SIGTERM")
+    if rc != 0:
+        fail(f"the HTTP server exited {rc} after SIGTERM: {open(log_path).read()[-3000:]}")
+    if "draining" not in open(log_path).read():
+        fail("the HTTP server did not drain on SIGTERM")
+    return time.perf_counter() - t0
+
+
+def http_traffic(port: int, jobs, payload_kw=None) -> tuple:
+    """Send ``jobs`` from one client thread each, at once: the first
+    SERVE_STREAMED streamed (SSE), the rest unary.  Returns (results in
+    job order, wall seconds); a result holds the status, tokens, rid and
+    its client-side stamps (send, first token and each token for a
+    stream, the answer for a unary request)."""
+    import threading
+    import urllib.request
+
+    results = [None] * len(jobs)
+
+    def one(i, prompt, n):
+        body = {"prompt": prompt, "max_new_tokens": n, **(payload_kw or {})}
+        t0 = time.perf_counter()
+        if i >= SERVE_STREAMED:
+            status, out = http_call(port, "/generate", body)
+            ok = status == 200
+            results[i] = {"status": status, "t_send": t0, "t_done": time.perf_counter(),
+                          "tokens": out.get("tokens") if ok else None,
+                          "rid": out.get("rid") if ok else None, "body": out}
+            return
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}/generate", data=json.dumps({**body, "stream": True}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        stamps, final = [], None
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            for raw in resp:
+                line = raw.decode().strip()
+                if not line.startswith("data: "):
+                    continue
+                ev = json.loads(line[len("data: "):])
+                if "token" in ev:
+                    stamps.append(time.perf_counter())
+                if ev.get("done") or ev.get("error"):
+                    final = ev
+                    break
+        results[i] = {"status": 200 if final and final.get("done") else 500, "t_send": t0,
+                      "t_done": time.perf_counter(), "stamps": stamps,
+                      "tokens": (final or {}).get("tokens"), "rid": (final or {}).get("rid"),
+                      "body": final}
+
+    threads = [threading.Thread(target=one, args=(i, p, n)) for i, (p, n) in enumerate(jobs)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    bad = [(i, r["status"], r["body"]) for i, r in enumerate(results) if r["status"] != 200]
+    if bad:
+        fail(f"HTTP requests failed: {bad[:4]}")
+    return results, wall
+
+
+def client_latency(results, wall: float) -> dict:
+    """Client-side tokens/s over the run, TTFT (the streams' first token)
+    and ITL (the streams' token gaps) quantiles in ms, and the unary
+    requests' answer time."""
+    streams = [r for r in results if "stamps" in r]
+    ttft = [r["stamps"][0] - r["t_send"] for r in streams]
+    itl = [b - a for r in streams for a, b in zip(r["stamps"], r["stamps"][1:])]
+    unary = [r["t_done"] - r["t_send"] for r in results if "stamps" not in r]
+    tokens = sum(len(r["tokens"]) for r in results)
+    return {
+        "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+        "ttft_ms": {"p50": quantile(ttft, 0.5) * 1e3, "p99": quantile(ttft, 0.99) * 1e3},
+        "itl_ms": {"p50": quantile(itl, 0.5) * 1e3, "p99": quantile(itl, 0.99) * 1e3},
+        "unary_answer_ms": {"p50": quantile(unary, 0.5) * 1e3, "p99": quantile(unary, 0.99) * 1e3},
+        "streams": len(streams), "unary": len(unary),
+    }
+
+
+def engine_latency(done, wall: float) -> dict:
+    """The same numbers for an in-process run, from the requests' own
+    stamps (ITL as each request's mean gap: a block lands its tokens at
+    once)."""
+    tokens = sum(len(r.tokens) for r in done)
+    ttft = [r.first_token_at - r.submitted_at for r in done]
+    itl = [(r.finished_at - r.first_token_at) / (len(r.tokens) - 1) for r in done]
+    # The requests the HTTP run streams, and those it sends unary: the
+    # same populations as client_latency's.
+    ttft_streamed = ttft[:SERVE_STREAMED]
+    answer = [r.finished_at - r.submitted_at for r in done[SERVE_STREAMED:]]
+    return {
+        "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
+        "ttft_ms": {"p50": quantile(ttft, 0.5) * 1e3, "p99": quantile(ttft, 0.99) * 1e3},
+        "itl_ms": {"p50": quantile(itl, 0.5) * 1e3, "p99": quantile(itl, 0.99) * 1e3},
+        "ttft_streamed_jobs_ms": {"p50": quantile(ttft_streamed, 0.5) * 1e3,
+                                  "p99": quantile(ttft_streamed, 0.99) * 1e3},
+        "unary_jobs_answer_ms": {"p50": quantile(answer, 0.5) * 1e3,
+                                 "p99": quantile(answer, 0.99) * 1e3},
+    }
+
+
+def profile_delta(before: dict, after: dict, admission: dict) -> dict:
+    """What ``/debug/profile`` (engine_profiler.snapshot) accrued between
+    two reads: steps, tokens and seconds per phase, plus the overload
+    limiter's state at the second read."""
+    return {
+        "steps": after["steps"] - before["steps"],
+        "tokens": after["tokens"] - before["tokens"],
+        "phase_s": {ph: after["phases"][ph]["total_s"] - before["phases"][ph]["total_s"]
+                    for ph in after["phases"]},
+        "limit": {k: admission[k] for k in ("limit", "limit_decreases", "limit_increases")},
+    }
+
+
+def lint_metrics(port: int) -> None:
+    """/metrics must pass tools/metrics_lint.py."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "tools" / "metrics_lint.py"
+    spec = importlib.util.spec_from_file_location("metrics_lint", path)
+    lint = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(lint)
+    errors = lint.lint_url(f"http://127.0.0.1:{port}/metrics")
+    if errors:
+        fail(f"/metrics fails tools/metrics_lint.py: {errors[:5]}")
+
+
+def warm_up(port: int, jobs) -> float:
+    """What the in-process twin's warm-up runs, over HTTP: the first two
+    prompts for 32 tokens, unary, one after the other, so the first
+    launches, the prefill bucket and every block's CUDA graph are behind
+    the measured traffic.  One at a time: a request queued behind a cold
+    server's first step (seconds) would feed that wait to the overload
+    limiter, which would cut the measured run's concurrency for it.
+    Returns the seconds until both answered."""
+    t0 = time.perf_counter()
+    for prompt, _ in jobs[:2]:
+        status, body = http_call(port, "/generate", {"prompt": prompt, "max_new_tokens": 32})
+        if status != 200:
+            fail(f"warm-up request failed: {status} {body}")
+    return time.perf_counter() - t0
+
+
+def serve_once(flags, jobs, log_path, env, sampled: bool) -> dict:
+    """One server run: a warm-up, greedy traffic over HTTP, optionally the
+    sampled requests, the debug reads, the launch accounting, then
+    SIGTERM."""
+    proc, port = start_server(flags, log_path, env)
+    try:
+        cold_s = warm_up(port, jobs)
+        limit0 = http_call(port, "/debug/admission")[1]["limit"]
+        prof0 = http_call(port, "/debug/profile")[1]
+        results, wall = http_traffic(port, jobs)
+        out = {"results": results, "client": client_latency(results, wall),
+               "cold_warm_up_s": cold_s, "limit_at_start": limit0,
+               "traffic_profile": profile_delta(prof0, http_call(port, "/debug/profile")[1],
+                                                http_call(port, "/debug/admission")[1])}
+        if sampled:
+            # 8 sampled requests (n=2 is unary only), concurrently.
+            import threading
+
+            answers = [None] * 8
+
+            def one(i):
+                p, n = jobs[i]
+                answers[i] = http_call(port, "/generate", {
+                    "prompt": p, "max_new_tokens": n, "temperature": 0.8, "top_k": 50,
+                    "n": 2, "logprobs": True})
+
+            ts = [threading.Thread(target=one, args=(i,)) for i in range(len(answers))]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            for status, body in answers:
+                if status != 200:
+                    fail(f"sampled request answered {status}: {body}")
+                for choice in body["choices"]:
+                    lps = choice["logprobs"]
+                    if len(lps) != len(choice["tokens"]) or not all(
+                            math.isfinite(x) and x <= 0.0 for x in lps):
+                        fail(f"sampled logprobs not finite and <= 0: {lps[:8]}")
+            out["sampled"] = {"requests": len(answers), "choices": 2 * len(answers),
+                              "all_logprobs_finite_and_nonpositive": True}
+        status, out["summary"] = http_call(port, "/debug/state?summary=1")
+        status, out["profile"] = http_call(port, "/debug/profile")
+        status, out["admission"] = http_call(port, "/debug/admission")
+        status, state = http_call(port, "/debug/state")
+        status, flight = http_call(port, "/debug/flight")
+        lint_metrics(port)
+    except BaseException:
+        proc.kill()
+        raise
+    out["drain_s"] = stop_server(proc, log_path)
+    eng = state["engine"]
+    dev = eng["device"]
+    out["preemptions"] = eng["preemptions"]
+    out["device"] = dev
+    launches = dev["paged_launches"]["f"]
+    if launches != dev["num_layers"] * dev["device_steps"] or launches <= 0:
+        fail(f"the server counted {launches} paged launches over {dev['device_steps']} "
+             f"dispatched steps of {dev['num_layers']} layers")
+    preempt = {}
+    for ev in flight["events"]:
+        if ev["kind"] == "engine.preempt":
+            preempt[ev["rid"]] = min(preempt.get(ev["rid"], 1 << 30), ev["generated"])
+    out["preempted_at"] = preempt
+    out["flight_dropped"] = flight["dropped"]
+    return out
+
+
+def run_serve(torch, tf, http_server, smi, phase_4d: dict) -> dict:
+    """Phase 4e: the port's HTTP server as the deployment runs it, on the
+    card, at full width: phase 4d's traffic over HTTP (greedy tokens
+    equal to an in-process engine built from the same flags), 8 sampled
+    requests with logprobs, the debug reads, /metrics linted, the launch
+    accounting, and a drain on SIGTERM; then again at 96 pages, where
+    optimistic admission preempts; and GPTConfig.tiny() in float32 in
+    process, where preempted streams must equal unpreempted ones in full."""
+    import os
+    import pathlib
+
+    from k8s_device_plugin_tpu_torch.models.engine import synthetic_jobs
+
+    root = pathlib.Path(__file__).resolve().parent
+    out_dir = root / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root))
+    jobs = synthetic_jobs(32, 128, 128, 32000)
+
+    # The in-process twin: the same flags, weights and traffic.
+    args = http_server.parse_args([*SERVE_FLAGS, f"--device={DEVICE}"])
+    eng = http_server.build_engine(args)
+    eng.run([(p, 32) for p, _ in jobs[:2]])  # warm: kernels, graphs, buckets
+    prof0 = eng.profiler.snapshot()
+    t0 = time.perf_counter()
+    done = eng.run(jobs)
+    torch.cuda.synchronize()
+    inproc = engine_latency(done, time.perf_counter() - t0)
+    inproc["preemptions"] = eng.preemptions
+    inproc["traffic_profile"] = profile_delta(prof0, eng.profiler.snapshot(),
+                                              eng.overload.snapshot())
+    want = [r.tokens for r in done]
+    del eng, done
+    torch.cuda.empty_cache()
+    log(f"phase 4e in-process twin: {inproc}")
+
+    full = serve_once(SERVE_FLAGS, jobs, out_dir / "serve_512.log", env, sampled=True)
+    got = [r["tokens"] for r in full["results"]]
+    if got != want:
+        fail(f"HTTP greedy tokens differ from the in-process engine's at "
+             f"{first_difference(got, want)}")
+    if full["preemptions"]:
+        log(f"the 512-page run preempted {full['preemptions']} times")
+    log(f"phase 4e 512 pages: client {full['client']}, preemptions {full['preemptions']}")
+
+    small_flags = tuple(f for f in SERVE_FLAGS if not f.startswith("--num-pages")) + (
+        "--num-pages=96",)
+    small = serve_once(small_flags, jobs, out_dir / "serve_96.log", env, sampled=False)
+    # Preemption does not hang on timing: the limiter only cuts on queue
+    # waits past its setpoint, which the first wave (admitted as it
+    # arrives, at the full limit the serial warm-up leaves) does not have,
+    # and any 8 of the jobs need more pages than the pool holds: the 8
+    # that share a prefix need the fewest.
+    demand = first_wave_pages(jobs[0::2][:8], page_size=16)
+    small["first_wave_pages"] = demand
+    if small["limit_at_start"] < 8:
+        fail(f"the warm-up left the 96-page server's limiter at {small['limit_at_start']}, "
+             f"not 8")
+    if demand <= 95:
+        fail(f"the first wave needs {demand} pages, which 95 allocatable pages hold")
+    if small["preemptions"] <= 0:
+        fail(f"the 96-page server never preempted (the first wave needs {demand} of 95 "
+             f"pages)")
+    if any(len(r["tokens"]) != n for r, (_, n) in zip(small["results"], jobs)):
+        fail("a request on the 96-page server did not end with its 128 tokens")
+    # Both runs served the same 32 jobs: compare by job index (a server's
+    # rids are its own), with each 96-page request's first preemption
+    # point from that server's flight recorder.
+    divergence = {}
+    for i, (a, b) in enumerate(zip(small["results"], full["results"])):
+        at = small["preempted_at"].get(a["rid"])
+        if at is None:
+            if a["tokens"] != b["tokens"]:
+                fail(f"request {i} was never preempted at 96 pages but differs from the 512-page "
+                     f"run at {first_difference([a['tokens']], [b['tokens']])}")
+            continue
+        if a["tokens"][:at] != b["tokens"][:at]:
+            fail(f"request {i} differs from the 512-page run before its preemption at {at}")
+        diff = next((j for j, (x, y) in enumerate(zip(a["tokens"], b["tokens"])) if x != y), None)
+        divergence[i] = {"preempted_at": at, "first_difference": diff}
+    log(f"phase 4e 96 pages: client {small['client']}, preemptions {small['preemptions']}, "
+        f"preempted requests {divergence}")
+
+    tiny = run_tiny_preemption(torch, tf)
+    keep = ("client", "cold_warm_up_s", "limit_at_start", "traffic_profile", "preemptions",
+            "drain_s", "device", "flight_dropped")
+    report = {
+        "card": smi,
+        "flags": list(SERVE_FLAGS),
+        "in_process": inproc,
+        "phase_4d_in_process": {
+            "flags": phase_4d["flags"], "tokens_per_s": phase_4d["value"],
+            "ttft_ms": phase_4d["ttft_exact_ms"], "itl_ms": phase_4d["itl_request_mean_ms"],
+        },
+        "http_512": {k: full[k] for k in keep},
+        "http_96": {k: small[k] for k in keep},
+        "preempted_96": divergence,
+        "first_wave_pages_96": demand,
+        "sampled": full["sampled"],
+        "summary_512": full["summary"],
+        "admission_512": full["admission"],
+        "profile_512": full["profile"],
+        "profile_96": small["profile"],
+        "admission_96": small["admission"],
+        "tiny_f32": tiny,
+    }
+    return report
+
+
+def first_wave_pages(jobs, page_size: int) -> int:
+    """Pages ``jobs`` hold together once each has its every token: each
+    prompt's whole pages shared with an earlier job's (the prefix trie)
+    counted once."""
+    seen, pages = set(), 0
+    for prompt, n in jobs:
+        total = -(-(len(prompt) + n) // page_size)
+        shared = 0
+        for i in range(len(prompt) // page_size):
+            key = tuple(prompt[: (i + 1) * page_size])
+            if key not in seen:
+                break
+            shared += 1
+        seen.update(tuple(prompt[: (i + 1) * page_size]) for i in range(len(prompt) // page_size))
+        pages += total - shared
+    return pages
+
+
+def run_tiny_preemption(torch, tf) -> dict:
+    """GPTConfig.tiny() in float32 on the card: optimistic admission on a
+    pool that preempts must return, in full, the streams of a pool that
+    does not (block 16, overlap, CUDA graphs)."""
+    from k8s_device_plugin_tpu_torch.models.engine import ServingEngine
+
+    cfg = tf.GPTConfig.tiny()
+    params = tf.init_params(cfg, seed=3)
+    gen = torch.Generator().manual_seed(4)
+    jobs = [(torch.randint(1, 512, (8 + 3 * i,), generator=gen).tolist(), 40 + 4 * i)
+            for i in range(8)]
+    streams, pre = [], []
+    for pages in (200, 36):
+        eng = ServingEngine(cfg, params, tf.PagedConfig(4, pages, 32), max_slots=4,
+                            decode_block=16, overlap_steps=1, admission="optimistic",
+                            device=DEVICE)
+        streams.append([r.tokens for r in eng.run(jobs)])
+        pre.append(eng.preemptions)
+    if pre[1] <= 0 or pre[0]:
+        fail(f"tiny float32: preemptions {pre} (want 0 on 200 pages, > 0 on 36)")
+    if streams[1] != streams[0]:
+        fail(f"tiny float32: preempted streams differ at {first_difference(streams[1], streams[0])}")
+    log(f"tiny float32 preemption: {pre[1]} preemptions, streams identical")
+    return {"preemptions": pre[1], "requests": len(jobs), "identical": True}
 
 
 def run_blocks(torch, engine, pa, fa, dp, sync_tokens) -> dict:
@@ -1089,15 +1587,19 @@ def main() -> None:
     _build.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f}s")
     facts = build_facts(torch, fa, _build)
+    paged_builds = paged_build_facts(_build)
 
     paged = {row["kv_format"]: row for row in check_paged(torch, pa, quant, tuning, dp)}
     paged_hgmma = sum(sass_hgmma(_build.library_path("paged_attention")).values())
-    for row in paged.values():
-        row.update(design="fma", hgmma=paged_hgmma)
+    for fmt, row in paged.items():
+        # The row's registers and spills are the main path's build: bf16
+        # queries, 64 wide.
+        row.update(design="fma", hgmma=paged_hgmma, **paged_builds[fmt]["bfloat16_64"],
+                   builds=paged_builds[fmt])
     flash, flash_fma = check_flash(torch, fa, facts)
     bwd = check_flash_bwd(torch, fa, facts)
     widths = check_widths(torch, pa, fa, quant, tuning)
-    d128 = time_head_dim_128(torch, pa, fa, dp, tuning)
+    by_width = {D: time_head_dim(torch, pa, fa, dp, tuning, D) for D in (80, 96, 128)}
     dq, dq_fma = bwd[("dq", "bfloat16")], bwd[("dq", "float32")]
     dkv, dkv_fma = bwd[("dkv", "bfloat16")], bwd[("dkv", "float32")]
     summary, launches, sync_tokens = run_engine(torch, engine, pa, fa, SYNC_EAGER)
@@ -1108,6 +1610,9 @@ def main() -> None:
         q_summary["paged_launches"] = launches
         quant_runs.append(q_summary)
     blocks = run_blocks(torch, engine, pa, fa, dp, sync_tokens)
+    from k8s_device_plugin_tpu_torch.models import http_server
+
+    serve = run_serve(torch, tf, http_server, smi, blocks["greedy"])
     paged["f"]["block16_launches"] = blocks["paged_launches"]
     paged["int8"]["launches"] = quant_runs[1]["paged_launches"]["int8"]
     paged["int8"]["w8a8_launches"] = quant_runs[2]["paged_launches"]["int8"]
@@ -1137,7 +1642,8 @@ def main() -> None:
 
     for row, name in ((paged["f"], "paged_attention"), (flash, "flash_attention"),
                       (dq, "flash_attention_bwd_dq"), (dkv, "flash_attention_bwd_dkv")):
-        row["head_dim_128"] = d128[name]
+        for D, timed in by_width.items():
+            row[f"head_dim_{D}"] = timed[name]
     kernels = [paged["f"], paged["int8"], paged["int4"], flash, flash_fma, dq, dq_fma, dkv,
                dkv_fma]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -1147,6 +1653,7 @@ def main() -> None:
     print(json.dumps({"quant": quant_runs, "format_sweep": sweep, "paths_agree_w8_int8kv": agree_quant,
                       "card": smi}), flush=True)
     print(json.dumps({"train": trained}), flush=True)
+    print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -25,7 +25,9 @@
 //     instantiation, so full tiles carry no guards), so no length falls
 //     back to a plain path;
 //   - head_dim d is a template parameter (16, 32, 64 or 128), so q and the
-//     accumulator stay in registers at every width; at 128 the kv tile is
+//     accumulator stay in registers at every width; any other multiple of
+//     8 runs in the 64- or 128-wide build, padded: its rows load as zeros
+//     past d and only the real columns are written; at 128 the kv tile is
 //     32 columns, so that K and V stay within 48 KB of static shared
 //     memory (the registers of q and acc then spill to local memory: ptxas
 //     reports it in the build log);
@@ -58,7 +60,7 @@ template <int D> __host__ __device__ constexpr int kv_tile_cols() { return D > 6
 // and score -inf.  Full tiles compile without those guards.
 template <int D, bool RAGGED, int BK = kv_tile_cols<D>()>
 __device__ __forceinline__ void kv_tile(const float* __restrict__ kbase,
-                                        const float* __restrict__ vbase, int ki, int seq_kv,
+                                        const float* __restrict__ vbase, int d, int ki, int seq_kv,
                                         int row, int causal, int window, float sm_scale,
                                         const float (&qreg)[D], float (&acc)[D], float& m_run,
                                         float& l_run, float (*ks)[D], float (*vs)[D]) {
@@ -66,9 +68,9 @@ __device__ __forceinline__ void kv_tile(const float* __restrict__ kbase,
   __syncthreads();  // every thread is done with the previous tile
   for (int idx = threadIdx.x; idx < BK * ROW_VECS; idx += BQ) {
     const int r = idx / ROW_VECS, c = (idx % ROW_VECS) * 4;
-    const size_t off = ((size_t)ki * BK + r) * D + c;
+    const size_t off = ((size_t)ki * BK + r) * d + c;
     float4 kraw = make_float4(0.f, 0.f, 0.f, 0.f), vraw = kraw;
-    if (!RAGGED || ki * BK + r < seq_kv) {
+    if ((!RAGGED || ki * BK + r < seq_kv) && c < d) {
       kraw = *reinterpret_cast<const float4*>(kbase + off);
       vraw = *reinterpret_cast<const float4*>(vbase + off);
     }
@@ -106,7 +108,7 @@ __device__ __forceinline__ void kv_tile(const float* __restrict__ kbase,
     const bool seen = m_new > -INFINITY;
     const float alpha = seen ? expf(m_run - m_new) : 0.f;
 #pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
+    for (int e = 0; e < D; ++e) acc[e] *= alpha;
     float psum = 0.f;
 #pragma unroll
     for (int j = 0; j < CHUNK; ++j) {
@@ -127,11 +129,11 @@ __device__ __forceinline__ void kv_tile(const float* __restrict__ kbase,
   }
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ out, float* __restrict__ lse, int heads, int kv_heads, int seq_q,
-    int seq_kv, int causal, int window, float sm_scale) {
+    int seq_kv, int d_arg, int causal, int window, float sm_scale) {
   constexpr int BK = kv_tile_cols<D>();
   __shared__ __align__(16) float ks[BK][D];
   __shared__ __align__(16) float vs[BK][D];
@@ -140,21 +142,24 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
   const int group = heads / kv_heads;
   const int kvh = (bh / heads) * kv_heads + (bh % heads) / group;
   const int row = qi * BQ + threadIdx.x;
+  // The real head_dim: a constant of the build unless it pads.
+  const int d = PAD ? d_arg : D;
 
   float qreg[D];
   {
     // A row past seq_q in the last q tile reads the last real row (finite
     // values, no branch) and writes nothing.
-    const float* qrow = q + ((size_t)bh * seq_q + min(row, seq_q - 1)) * D;
+    const float* qrow = q + ((size_t)bh * seq_q + min(row, seq_q - 1)) * d;
 #pragma unroll
     for (int c = 0; c < D; c += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(qrow + c);
+      const float4 x =
+          c < d ? *reinterpret_cast<const float4*>(qrow + c) : make_float4(0.f, 0.f, 0.f, 0.f);
       qreg[c] = x.x, qreg[c + 1] = x.y, qreg[c + 2] = x.z, qreg[c + 3] = x.w;
     }
   }
   float acc[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
+  for (int e = 0; e < D; ++e) acc[e] = 0.f;
   float m_run = -INFINITY, l_run = 0.f;
 
   const int n_full = seq_kv / BK;
@@ -164,60 +169,60 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
     kv_hi = min(n_kv, (qi * BQ + BQ - 1) / BK + 1);
     if (window > 0) kv_lo = max(qi * BQ - (window - 1), 0) / BK;
   }
-  const float* kbase = k + (size_t)kvh * seq_kv * D;
-  const float* vbase = v + (size_t)kvh * seq_kv * D;
+  const float* kbase = k + (size_t)kvh * seq_kv * d;
+  const float* vbase = v + (size_t)kvh * seq_kv * d;
 
   for (int ki = kv_lo; ki < min(kv_hi, n_full); ++ki) {
-    kv_tile<D, false>(kbase, vbase, ki, seq_kv, row, causal, window, sm_scale, qreg, acc,
+    kv_tile<D, false>(kbase, vbase, d, ki, seq_kv, row, causal, window, sm_scale, qreg, acc,
                       m_run, l_run, ks, vs);
   }
   if (kv_lo <= n_full && n_full < kv_hi) {  // the ragged last tile is live
-    kv_tile<D, true>(kbase, vbase, n_full, seq_kv, row, causal, window, sm_scale, qreg, acc,
+    kv_tile<D, true>(kbase, vbase, d, n_full, seq_kv, row, causal, window, sm_scale, qreg, acc,
                      m_run, l_run, ks, vs);
   }
 
   if (row >= seq_q) return;
   const float l_safe = l_run == 0.f ? 1.f : l_run;  // fully masked row -> 0
-  float* orow = out + ((size_t)bh * seq_q + row) * D;
+  float* orow = out + ((size_t)bh * seq_q + row) * d;
 #pragma unroll
-  for (int d = 0; d < D; ++d) orow[d] = acc[d] / l_safe;
+  for (int e = 0; e < D; ++e) {
+    if (e < d) orow[e] = acc[e] / l_safe;
+  }
   lse[(size_t)bh * seq_q + row] = l_run > 0.f ? m_run + logf(l_safe) : -INFINITY;
 }
 
-template <int D>
+template <int D, bool PAD>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
-           int heads, int kv_heads, int seq_q, int seq_kv, int causal, int window,
+           int heads, int kv_heads, int seq_q, int seq_kv, int d, int causal, int window,
            float sm_scale, cudaStream_t stream) {
   const dim3 grid(batch * heads, (seq_q + BQ - 1) / BQ);
-  flash_fwd_kernel<D><<<grid, BQ, 0, stream>>>(
+  flash_fwd_kernel<D, PAD><<<grid, BQ, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), static_cast<float*>(lse), heads, kv_heads, seq_q, seq_kv, causal,
-      window, sm_scale);
+      static_cast<float*>(out), static_cast<float*>(lse), heads, kv_heads, seq_q, seq_kv, d,
+      causal, window, sm_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// head_dim 16, 32, 64 or 128, one instantiation each.
+// head_dim 64 or 128 in its own instantiation; any other multiple of 8 up
+// to 128 in the next wider of the two builds, padded.
 extern "C" int flash_attention_fwd_fma(const void* q, const void* k, const void* v, void* out,
                                        void* lse, int batch, int heads, int kv_heads, int seq_q,
                                        int seq_kv, int head_dim, int causal, int window,
                                        float sm_scale, void* stream) {
-  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0) {
+  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0 ||
+      head_dim < 8 || head_dim > 128 || head_dim % 8) {
     return (int)cudaErrorInvalidValue;
   }
   const auto s = static_cast<cudaStream_t>(stream);
-#define FMA_FWD_CASE(D_)                                                                    \
-  case D_:                                                                                  \
-    return launch<D_>(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, causal,     \
-                      window, sm_scale, s);
+#define BUILD(D_, PAD_)                                                                  \
+  launch<D_, PAD_>(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, head_dim, causal, \
+                   window, sm_scale, s)
   switch (head_dim) {
-    FMA_FWD_CASE(16)
-    FMA_FWD_CASE(32)
-    FMA_FWD_CASE(64)
-    FMA_FWD_CASE(128)
-    default:
-      return (int)cudaErrorInvalidValue;
+    case 64: return BUILD(64, false);
+    case 128: return BUILD(128, false);
+    default: return head_dim < 64 ? BUILD(64, true) : BUILD(128, true);
   }
-#undef FMA_FWD_CASE
+#undef BUILD
 }

@@ -32,7 +32,9 @@
 //   - both loops visit live tiles only: dQ from the sliding window's first
 //     kv tile to the causal diagonal (as the forward), dK/dV from the
 //     diagonal to the window's last q tile;
-//   - head_dim d is a template parameter (16, 32, 64 or 128); at 128 a
+//   - head_dim d is a template parameter (16, 32, 64 or 128; any other
+//     multiple of 8 runs in the 64- or 128-wide build, padded: global rows
+//     load as zeros past d and only the real columns are written); at 128 a
 //     block takes 32 rows and streams 32-row tiles, so both staged tiles
 //     stay within 48 KB of static shared memory;
 //   - register pressure: a row's head_dim is split over PARTS = 4 threads,
@@ -71,24 +73,32 @@ template <int D> __host__ __device__ constexpr int threads() { return tile_rows<
 // offset of its chunk c.
 __device__ __forceinline__ int chunk_at(int part, int c) { return (part + PARTS * c) * 4; }
 
-// This thread's PER = d / PARTS elements of a row (global or shared
-// memory).
+// This thread's PER = D / PARTS elements of a row (global or shared
+// memory); elements at or past `width` (a multiple of 4: the real head_dim
+// of a padded build's global rows) read as zeros.
 template <int PER>
 __device__ __forceinline__ void read_part(const float* __restrict__ row, int part,
-                                          float (&r)[PER]) {
+                                          float (&r)[PER], int width = PER * PARTS) {
 #pragma unroll
   for (int c = 0; c < PER / 4; ++c) {
-    const float4 x = *reinterpret_cast<const float4*>(row + chunk_at(part, c));
+    const int e = chunk_at(part, c);
+    const float4 x =
+        e < width ? *reinterpret_cast<const float4*>(row + e) : make_float4(0.f, 0.f, 0.f, 0.f);
     r[4 * c] = x.x, r[4 * c + 1] = x.y, r[4 * c + 2] = x.z, r[4 * c + 3] = x.w;
   }
 }
 
+// Writes the elements below `width` only.
 template <int PER>
-__device__ __forceinline__ void write_part(float* row, int part, const float (&r)[PER]) {
+__device__ __forceinline__ void write_part(float* row, int part, const float (&r)[PER],
+                                           int width = PER * PARTS) {
 #pragma unroll
   for (int c = 0; c < PER / 4; ++c) {
-    *reinterpret_cast<float4*>(row + chunk_at(part, c)) =
-        make_float4(r[4 * c], r[4 * c + 1], r[4 * c + 2], r[4 * c + 3]);
+    const int e = chunk_at(part, c);
+    if (e < width) {
+      *reinterpret_cast<float4*>(row + e) =
+          make_float4(r[4 * c], r[4 * c + 1], r[4 * c + 2], r[4 * c + 3]);
+    }
   }
 }
 
@@ -117,7 +127,7 @@ __device__ __forceinline__ bool in_band(int row, int col, int causal, int window
 // that TILE does not divide (its rows past seq_kv load as zeros and mask).
 template <int D, bool RAGGED, int TILE = tile_rows<D>(), int PER = D / PARTS>
 __device__ __forceinline__ void dq_tile(const float* __restrict__ kbase,
-                                        const float* __restrict__ vbase,
+                                        const float* __restrict__ vbase, int d,
                                         int ki, int seq_kv, int row, int part, int causal,
                                         int window, float sm_scale, float lse, float delta,
                                         const float (&qr)[PER], const float (&dor)[PER],
@@ -127,8 +137,8 @@ __device__ __forceinline__ void dq_tile(const float* __restrict__ kbase,
     const int r = threadIdx.x / PARTS, kr = ki * TILE + r;
     float kt[PER], vt[PER];
     if (!RAGGED || kr < seq_kv) {
-      read_part(kbase + (size_t)kr * D, part, kt);
-      read_part(vbase + (size_t)kr * D, part, vt);
+      read_part(kbase + (size_t)kr * d, part, kt, d);
+      read_part(vbase + (size_t)kr * d, part, vt, d);
     } else {
 #pragma unroll
       for (int e = 0; e < PER; ++e) kt[e] = vt[e] = 0.f;
@@ -155,12 +165,12 @@ __device__ __forceinline__ void dq_tile(const float* __restrict__ kbase,
   }
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__((D > 64 ? 32 : 64) * PARTS) flash_bwd_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ out, const float* __restrict__ dout, const float* __restrict__ lse,
     float* __restrict__ dq, float* __restrict__ delta_out, int heads, int kv_heads, int seq_q,
-    int seq_kv, int causal, int window, float sm_scale) {
+    int seq_kv, int d_arg, int causal, int window, float sm_scale) {
   constexpr int TILE = tile_rows<D>(), PER = D / PARTS;
   __shared__ __align__(16) float ks[TILE][D];
   __shared__ __align__(16) float vs[TILE][D];
@@ -173,14 +183,15 @@ __global__ void __launch_bounds__((D > 64 ? 32 : 64) * PARTS) flash_bwd_dq_kerne
   // A row past seq_q in the last q tile reads the last real row (finite
   // values, no branch) and writes nothing.
   const size_t rix = (size_t)bh * seq_q + min(row, seq_q - 1);
+  const int d = PAD ? d_arg : D;  // the real head_dim: a constant unless padded
 
   float qr[PER], dor[PER];
-  read_part(q + rix * D, part, qr);
-  read_part(dout + rix * D, part, dor);
+  read_part(q + rix * d, part, qr, d);
+  read_part(dout + rix * d, part, dor, d);
   float delta;
   {
     float orow[PER];
-    read_part(out + rix * D, part, orow);
+    read_part(out + rix * d, part, orow, d);
     delta = row_sum(dot_part(dor, orow));
   }
   const float l = lse[rix];
@@ -197,17 +208,17 @@ __global__ void __launch_bounds__((D > 64 ? 32 : 64) * PARTS) flash_bwd_dq_kerne
     kv_hi = min(n_kv, (qi * TILE + TILE - 1) / TILE + 1);
     if (window > 0) kv_lo = max(qi * TILE - (window - 1), 0) / TILE;
   }
-  const float* kbase = k + (size_t)kvh * seq_kv * D;
-  const float* vbase = v + (size_t)kvh * seq_kv * D;
+  const float* kbase = k + (size_t)kvh * seq_kv * d;
+  const float* vbase = v + (size_t)kvh * seq_kv * d;
   for (int ki = kv_lo; ki < min(kv_hi, n_full); ++ki) {
-    dq_tile<D, false>(kbase, vbase, ki, seq_kv, row, part, causal, window, sm_scale, l, delta, qr,
+    dq_tile<D, false>(kbase, vbase, d, ki, seq_kv, row, part, causal, window, sm_scale, l, delta, qr,
                    dor, acc, ks, vs);
   }
   if (kv_lo <= n_full && n_full < kv_hi) {  // the ragged last tile is live
-    dq_tile<D, true>(kbase, vbase, n_full, seq_kv, row, part, causal, window, sm_scale, l, delta,
+    dq_tile<D, true>(kbase, vbase, d, n_full, seq_kv, row, part, causal, window, sm_scale, l, delta,
                   qr, dor, acc, ks, vs);
   }
-  if (row < seq_q) write_part(dq + rix * D, part, acc);
+  if (row < seq_q) write_part(dq + rix * d, part, acc, d);
 }
 
 // ------------------------------------------------------------------ dK/dV
@@ -219,7 +230,8 @@ template <int D, bool RAGGED, int TILE = tile_rows<D>(), int PER = D / PARTS>
 __device__ __forceinline__ void dkv_tile(const float* __restrict__ qbase,
                                          const float* __restrict__ dobase,
                                          const float* __restrict__ lsebase,
-                                         const float* __restrict__ deltabase, int qi, int seq_q,
+                                         const float* __restrict__ deltabase, int d, int qi,
+                                         int seq_q,
                                          int col, int part, int causal, int window,
                                          float sm_scale, const float (&kr)[PER],
                                          const float (&vr)[PER], float (&dk)[PER],
@@ -231,8 +243,8 @@ __device__ __forceinline__ void dkv_tile(const float* __restrict__ qbase,
     float qt[PER], dt[PER];
     const bool live = !RAGGED || qrow < seq_q;
     if (live) {
-      read_part(qbase + (size_t)qrow * D, part, qt);
-      read_part(dobase + (size_t)qrow * D, part, dt);
+      read_part(qbase + (size_t)qrow * d, part, qt, d);
+      read_part(dobase + (size_t)qrow * d, part, dt, d);
     } else {
 #pragma unroll
       for (int e = 0; e < PER; ++e) qt[e] = dt[e] = 0.f;
@@ -265,12 +277,12 @@ __device__ __forceinline__ void dkv_tile(const float* __restrict__ qbase,
   }
 }
 
-template <int D>
+template <int D, bool PAD>
 __global__ void __launch_bounds__((D > 64 ? 32 : 64) * PARTS) flash_bwd_dkv_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const float* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int heads,
-    int kv_heads, int seq_q, int seq_kv, int causal, int window, float sm_scale) {
+    int kv_heads, int seq_q, int seq_kv, int d_arg, int causal, int window, float sm_scale) {
   constexpr int TILE = tile_rows<D>(), PER = D / PARTS;
   __shared__ __align__(16) float qs[TILE][D];
   __shared__ __align__(16) float dos[TILE][D];
@@ -284,10 +296,11 @@ __global__ void __launch_bounds__((D > 64 ? 32 : 64) * PARTS) flash_bwd_dkv_kern
   // A row past seq_kv in the last kv tile reads the last real row and
   // writes nothing.
   const size_t cix = (size_t)b2 * seq_kv + min(col, seq_kv - 1);
+  const int d = PAD ? d_arg : D;  // the real head_dim: a constant unless padded
 
   float kr[PER], vr[PER];
-  read_part(k + cix * D, part, kr);
-  read_part(v + cix * D, part, vr);
+  read_part(k + cix * d, part, kr, d);
+  read_part(v + cix * d, part, vr, d);
   float dk_acc[PER], dv_acc[PER];
 #pragma unroll
   for (int e = 0; e < PER; ++e) dk_acc[e] = dv_acc[e] = 0.f;
@@ -301,22 +314,22 @@ __global__ void __launch_bounds__((D > 64 ? 32 : 64) * PARTS) flash_bwd_dkv_kern
   }
   for (int g = 0; g < group; ++g) {
     const int h = (b2 / kv_heads) * heads + (b2 % kv_heads) * group + g;
-    const float* qbase = q + (size_t)h * seq_q * D;
-    const float* dobase = dout + (size_t)h * seq_q * D;
+    const float* qbase = q + (size_t)h * seq_q * d;
+    const float* dobase = dout + (size_t)h * seq_q * d;
     const float* lbase = lse + (size_t)h * seq_q;
     const float* dbase = delta + (size_t)h * seq_q;
     for (int qi = q_lo; qi < min(q_hi, n_full); ++qi) {
-      dkv_tile<D, false>(qbase, dobase, lbase, dbase, qi, seq_q, col, part, causal, window,
+      dkv_tile<D, false>(qbase, dobase, lbase, dbase, d, qi, seq_q, col, part, causal, window,
                       sm_scale, kr, vr, dk_acc, dv_acc, qs, dos, ls, dls);
     }
     if (q_lo <= n_full && n_full < q_hi) {  // the ragged last tile is live
-      dkv_tile<D, true>(qbase, dobase, lbase, dbase, n_full, seq_q, col, part, causal, window,
+      dkv_tile<D, true>(qbase, dobase, lbase, dbase, d, n_full, seq_q, col, part, causal, window,
                      sm_scale, kr, vr, dk_acc, dv_acc, qs, dos, ls, dls);
     }
   }
   if (col < seq_kv) {
-    write_part(dk + cix * D, part, dk_acc);
-    write_part(dv + cix * D, part, dv_acc);
+    write_part(dk + cix * d, part, dk_acc, d);
+    write_part(dv + cix * d, part, dv_acc, d);
   }
 }
 
@@ -324,46 +337,48 @@ bool bad_shape(int batch, int heads, int kv_heads, int seq_q, int seq_kv) {
   return batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0;
 }
 
-template <int D>
+template <int D, bool PAD>
 int launch_dq(const void* q, const void* k, const void* v, const void* out, const void* dout,
               const void* lse, void* dq, void* delta, int batch, int heads, int kv_heads,
-              int seq_q, int seq_kv, int causal, int window, float sm_scale,
+              int seq_q, int seq_kv, int d, int causal, int window, float sm_scale,
               cudaStream_t stream) {
   constexpr int TILE = tile_rows<D>();
   const dim3 grid(batch * heads, (seq_q + TILE - 1) / TILE);
-  flash_bwd_dq_kernel<D><<<grid, threads<D>(), 0, stream>>>(
+  flash_bwd_dq_kernel<D, PAD><<<grid, threads<D>(), 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(out), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<float*>(dq), static_cast<float*>(delta), heads,
-      kv_heads, seq_q, seq_kv, causal, window, sm_scale);
+      kv_heads, seq_q, seq_kv, d, causal, window, sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool PAD>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, int batch, int heads, int kv_heads,
-               int seq_q, int seq_kv, int causal, int window, float sm_scale,
+               int seq_q, int seq_kv, int d, int causal, int window, float sm_scale,
                cudaStream_t stream) {
   constexpr int TILE = tile_rows<D>();
   const dim3 grid(batch * kv_heads, (seq_kv + TILE - 1) / TILE);
-  flash_bwd_dkv_kernel<D><<<grid, threads<D>(), 0, stream>>>(
+  flash_bwd_dkv_kernel<D, PAD><<<grid, threads<D>(), 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), heads,
-      kv_heads, seq_q, seq_kv, causal, window, sm_scale);
+      kv_heads, seq_q, seq_kv, d, causal, window, sm_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Both entries take head_dim 16, 32, 64 or 128, one instantiation each.
-#define FMA_BWD_SWITCH(CALL)                    \
-  switch (head_dim) {                           \
-    case 16: return CALL<16>(FMA_BWD_ARGS);     \
-    case 32: return CALL<32>(FMA_BWD_ARGS);     \
-    case 64: return CALL<64>(FMA_BWD_ARGS);     \
-    case 128: return CALL<128>(FMA_BWD_ARGS);   \
-    default: return (int)cudaErrorInvalidValue; \
+// Both entries take head_dim 64 or 128 in its own instantiation, and any
+// other multiple of 8 up to 128 in the next wider of the two builds,
+// padded.
+#define FMA_BWD_SWITCH(CALL)                                                   \
+  if (head_dim < 8 || head_dim > 128 || head_dim % 8) return (int)cudaErrorInvalidValue; \
+  switch (head_dim) {                                                          \
+    case 64: return CALL<64, false>(FMA_BWD_ARGS);                             \
+    case 128: return CALL<128, false>(FMA_BWD_ARGS);                           \
+    default:                                                                   \
+      return head_dim < 64 ? CALL<64, true>(FMA_BWD_ARGS) : CALL<128, true>(FMA_BWD_ARGS); \
   }
 
 extern "C" int flash_attention_bwd_dq_fma(const void* q, const void* k, const void* v,
@@ -373,8 +388,8 @@ extern "C" int flash_attention_bwd_dq_fma(const void* q, const void* k, const vo
                                           int causal, int window, float sm_scale, void* stream) {
   if (bad_shape(batch, heads, kv_heads, seq_q, seq_kv)) return (int)cudaErrorInvalidValue;
 #define FMA_BWD_ARGS                                                                        \
-  q, k, v, out, dout, lse, dq, delta, batch, heads, kv_heads, seq_q, seq_kv, causal, window, \
-      sm_scale, static_cast<cudaStream_t>(stream)
+  q, k, v, out, dout, lse, dq, delta, batch, heads, kv_heads, seq_q, seq_kv, head_dim, causal, \
+      window, sm_scale, static_cast<cudaStream_t>(stream)
   FMA_BWD_SWITCH(launch_dq)
 #undef FMA_BWD_ARGS
 }
@@ -387,8 +402,8 @@ extern "C" int flash_attention_bwd_dkv_fma(const void* q, const void* k, const v
                                            void* stream) {
   if (bad_shape(batch, heads, kv_heads, seq_q, seq_kv)) return (int)cudaErrorInvalidValue;
 #define FMA_BWD_ARGS                                                                         \
-  q, k, v, dout, lse, delta, dk, dv, batch, heads, kv_heads, seq_q, seq_kv, causal, window, \
-      sm_scale, static_cast<cudaStream_t>(stream)
+  q, k, v, dout, lse, delta, dk, dv, batch, heads, kv_heads, seq_q, seq_kv, head_dim, causal, \
+      window, sm_scale, static_cast<cudaStream_t>(stream)
   FMA_BWD_SWITCH(launch_dkv)
 #undef FMA_BWD_ARGS
 }

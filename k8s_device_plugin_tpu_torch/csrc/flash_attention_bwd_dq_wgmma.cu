@@ -6,8 +6,8 @@
 // inputs run the FMA kernel of csrc/flash_attention_bwd.cu, since wgmma has
 // no float32 operands.  Inputs: q, out, dout [b, h, s_q, d]; k, v [b, hk,
 // s_kv, d] bf16 with hk dividing h (GQA: q head i reads kv head i / (h /
-// hk)); lse [b, h, s_q] float32 from the forward.  d is 16, 32, 64 or 128,
-// in kernels built 64 and 128 wide (D) as the forward's.  Outputs dq bf16 and
+// hk)); lse [b, h, s_q] float32 from the forward.  d is any multiple of 8
+// from 8 to 128, in kernels built 64 and 128 wide (D) as the forward's.  Outputs dq bf16 and
 // D = rowsum(dO o O) [b, h, s_q] float32, which the dK/dV kernel
 // (csrc/flash_attention_bwd_wgmma.cu) reads after this one on the same
 // stream.  Per q tile:
@@ -109,8 +109,9 @@ __global__ void __launch_bounds__(128 * (D / 64), 1) flash_bwd_dq_wgmma_kernel(
   const auto s_k = [&](int st) { return s_q + TILE * (2 + 2 * st); };
   const auto s_v = [&](int st) { return s_q + TILE * (3 + 2 * st); };
 
-  // The real head_dim: a constant of the build unless it pads (16 and 32
-  // in the 64-wide kernel), so the full-width paths carry no column checks.
+  // The real head_dim: a constant of the build unless it pads (a head_dim
+  // below the build's width), so the full-width paths carry no column
+  // checks.
   const int d = PAD ? d_arg : D;
   const int tid = threadIdx.x;
   // Thread in its warpgroup, and the warpgroup (always 0 at D = 64).
@@ -283,7 +284,8 @@ int launch(const void* q, const void* k, const void* v, const void* out, const v
 }  // namespace
 
 // dQ and the per-row D = rowsum(dO o O) (written to `delta`, [b, h, s_q]
-// float32, for flash_attention_bwd_dkv_wgmma); head_dim 16, 32, 64 or 128.
+// float32, for flash_attention_bwd_dkv_wgmma); head_dim a multiple of 8 from
+// 8 to 128.
 extern "C" int flash_attention_bwd_dq_wgmma(const void* q, const void* k, const void* v,
                                             const void* out, const void* dout, const void* lse,
                                             void* dq, void* delta, int batch, int heads,
@@ -294,18 +296,14 @@ extern "C" int flash_attention_bwd_dq_wgmma(const void* q, const void* k, const 
     return (int)cudaErrorInvalidValue;
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16:
-    case 32:
-      return launch<64, true>(q, k, v, out, dout, lse, dq, delta, batch, heads, kv_heads, seq_q,
-                        seq_kv, head_dim, causal, window, sm_scale, s);
-    case 64:
-      return launch<64, false>(q, k, v, out, dout, lse, dq, delta, batch, heads, kv_heads, seq_q,
-                        seq_kv, head_dim, causal, window, sm_scale, s);
-    case 128:
-      return launch<128, false>(q, k, v, out, dout, lse, dq, delta, batch, heads, kv_heads, seq_q,
-                         seq_kv, head_dim, causal, window, sm_scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  // Any multiple of 8 from 8 to 128: 64 and 128 run their own builds,
+  // the rest the next wider one, zero-filled past the real head_dim.
+  if (head_dim < 8 || head_dim > 128 || head_dim % 8) return (int)cudaErrorInvalidValue;
+#define BUILD(D_, PAD_) \
+  launch<D_, PAD_>(q, k, v, out, dout, lse, dq, delta, batch, heads, kv_heads, seq_q, seq_kv, head_dim, \
+      causal, window, sm_scale, s)
+  if (head_dim == 64) return BUILD(64, false);
+  if (head_dim == 128) return BUILD(128, false);
+  return head_dim < 64 ? BUILD(64, true) : BUILD(128, true);
+#undef BUILD
 }

@@ -9,8 +9,8 @@
 // lse [b, h, s_q] float32 from the forward and D = rowsum(dO o O) [b, h,
 // s_q] float32 from the bf16 dQ kernel
 // (csrc/flash_attention_bwd_dq_wgmma.cu), which runs before this one on the
-// same stream.  Outputs dk, dv bf16.  d is 16, 32, 64 or 128, in kernels
-// built 64 and 128 wide (D) as the forward's.  Per kv tile, written transposed (kv
+// same stream.  Outputs dk, dv bf16.  d is any multiple of 8 from 8 to
+// 128, in kernels built 64 and 128 wide (D) as the forward's.  Per kv tile, written transposed (kv
 // rows, q columns):
 //   S^T  = K Q^T                 P^T = exp(S^T scale - lse)  (0 where masked
 //   dP^T = V dO^T                                           or lse = -inf)
@@ -101,8 +101,9 @@ __global__ void __launch_bounds__(128 * (D / 64), D == 64 ? 3 : 1)
   // Generic pointers to the row statistics, for plain loads.
   const uint8_t* smem_gen = smem_raw + (s_k - smem_u32(smem_raw));
 
-  // The real head_dim: a constant of the build unless it pads (16 and 32
-  // in the 64-wide kernel), so the full-width paths carry no column checks.
+  // The real head_dim: a constant of the build unless it pads (a head_dim
+  // below the build's width), so the full-width paths carry no column
+  // checks.
   const int d = PAD ? d_arg : D;
   const int tid = threadIdx.x;
   // Thread in its warpgroup, and the warpgroup (always 0 at D = 64).
@@ -274,7 +275,7 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 }  // namespace
 
 // dK and dV, reading the `delta` that flash_attention_bwd_dq_wgmma wrote;
-// head_dim 16, 32, 64 or 128.
+// head_dim a multiple of 8 from 8 to 128.
 extern "C" int flash_attention_bwd_dkv_wgmma(const void* q, const void* k, const void* v,
                                              const void* dout, const void* lse,
                                              const void* delta, void* dk, void* dv, int batch,
@@ -285,18 +286,14 @@ extern "C" int flash_attention_bwd_dkv_wgmma(const void* q, const void* k, const
     return (int)cudaErrorInvalidValue;
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16:
-    case 32:
-      return launch<64, true>(q, k, v, dout, lse, delta, dk, dv, batch, heads, kv_heads, seq_q,
-                        seq_kv, head_dim, causal, window, sm_scale, s);
-    case 64:
-      return launch<64, false>(q, k, v, dout, lse, delta, dk, dv, batch, heads, kv_heads, seq_q,
-                        seq_kv, head_dim, causal, window, sm_scale, s);
-    case 128:
-      return launch<128, false>(q, k, v, dout, lse, delta, dk, dv, batch, heads, kv_heads, seq_q,
-                         seq_kv, head_dim, causal, window, sm_scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  // Any multiple of 8 from 8 to 128: 64 and 128 run their own builds,
+  // the rest the next wider one, zero-filled past the real head_dim.
+  if (head_dim < 8 || head_dim > 128 || head_dim % 8) return (int)cudaErrorInvalidValue;
+#define BUILD(D_, PAD_) \
+  launch<D_, PAD_>(q, k, v, dout, lse, delta, dk, dv, batch, heads, kv_heads, seq_q, seq_kv, head_dim, \
+      causal, window, sm_scale, s)
+  if (head_dim == 64) return BUILD(64, false);
+  if (head_dim == 128) return BUILD(128, false);
+  return head_dim < 64 ? BUILD(64, true) : BUILD(128, true);
+#undef BUILD
 }

@@ -7,10 +7,10 @@
 // operands.  q [b, h, s_q, d], k/v [b, hk, s_kv, d] bf16 with hk dividing
 // h (GQA: q head i reads kv head i / (h / hk)) -> out [b, h, s_q, d] bf16
 // and the per-row log-sum-exp [b, h, s_q] float32 (-inf, with out 0, for a
-// row that sees no column).  d is 16, 32, 64 or 128: the kernel is built
-// 64 and 128 wide (D), and 16 and 32 run in a 64-wide build that zero-fills
-// the columns past d (hopper_wgmma.cuh); the full-width builds carry d as
-// a constant.
+// row that sees no column).  d is any multiple of 8 from 8 to 128: the
+// kernel is built 64 and 128 wide (D), and any other d runs in the next
+// wider build, padded: it zero-fills the columns past d
+// (hopper_wgmma.cuh); the full-width builds carry d as a constant.
 //
 // Bound on the card: operations.  Causal attention does 4 x d flops per
 // (row, col) pair over bytes that grow only with s, past Hopper's ~295
@@ -89,8 +89,9 @@ __global__ void __launch_bounds__(128 * (D / 64), PAD ? 1 : 256 / D)
   const auto s_k = [&](int st) { return s_q + TILE * (1 + 2 * st); };
   const auto s_v = [&](int st) { return s_q + TILE * (2 + 2 * st); };
 
-  // The real head_dim: a constant of the build unless it pads (16 and 32
-  // in the 64-wide kernel), so the full-width paths carry no column checks.
+  // The real head_dim: a constant of the build unless it pads (a head_dim
+  // below the build's width), so the full-width paths carry no column
+  // checks.
   const int d = PAD ? d_arg : D;
   const int tid = threadIdx.x;
   // Thread in its warpgroup, and the warpgroup (always 0 at D = 64).
@@ -247,7 +248,8 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
 
 }  // namespace
 
-// head_dim 16, 32, 64 or 128 (the padded 64-wide build takes 16 and 32).
+// head_dim a multiple of 8 from 8 to 128 (the padded builds take all but 64
+// and 128).
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                                          void* lse, int batch, int heads, int kv_heads,
                                          int seq_q, int seq_kv, int head_dim, int causal,
@@ -256,18 +258,14 @@ extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const voi
     return (int)cudaErrorInvalidValue;
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16:
-    case 32:
-      return launch<64, true>(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, head_dim,
-                        causal, window, sm_scale, s);
-    case 64:
-      return launch<64, false>(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, head_dim,
-                        causal, window, sm_scale, s);
-    case 128:
-      return launch<128, false>(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, head_dim,
-                         causal, window, sm_scale, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  // Any multiple of 8 from 8 to 128: 64 and 128 run their own builds,
+  // the rest the next wider one, zero-filled past the real head_dim.
+  if (head_dim < 8 || head_dim > 128 || head_dim % 8) return (int)cudaErrorInvalidValue;
+#define BUILD(D_, PAD_) \
+  launch<D_, PAD_>(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, head_dim, causal, window, \
+      sm_scale, s)
+  if (head_dim == 64) return BUILD(64, false);
+  if (head_dim == 128) return BUILD(128, false);
+  return head_dim < 64 ? BUILD(64, true) : BUILD(128, true);
+#undef BUILD
 }

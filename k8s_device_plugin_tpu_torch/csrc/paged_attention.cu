@@ -63,11 +63,14 @@
 //     kv_heads], one scale per (position, kv head);
 //   - int4: two signed 4-bit codes per byte along head_dim (element 2i in
 //     the low nibble, ops/quant.py pack_int4) plus the same scale pools.
-// head_dim: the kernel is built 64 and 128 wide (D); head_dim 16 and 32 run
-// in the 64-wide one, their rows zero-filled past the real head_dim in
-// shared memory (cp.async's zero fill), so the padding adds nothing to a
-// score, and only the real dims are written.  Page size: any power of two
-// from 2 to 64, a run-time argument.
+// head_dim: the kernel is built 64 and 128 wide (D); any multiple of 8 up
+// to 64 runs in the 64-wide one, any above in the 128-wide one, its rows
+// zero-filled past the real head_dim in shared memory (cp.async's zero
+// fill), so the padding adds nothing to a score, and only the real dims are
+// written.  A pool row is copied in 16-byte pieces when its bytes allow,
+// else in 8- or 4-byte ones (an int4 row at head_dim 80 is 40 bytes, at 24
+// it is 12), so no pool is padded.  Page size: any power of two from 1 to
+// 128, a run-time argument.
 //
 // Codes convert exactly, at use, through the mantissa of 2^23 rather than
 // I2F (i8_to_f, i4_to_f).  No dequantized page is formed: the
@@ -270,19 +273,22 @@ __host__ __device__ constexpr size_t smem_bytes(int group, int splits, int pps) 
 }
 
 // A pool row's chunk cc of 16 bytes into shared memory at dst: the row's
-// real bytes (row_bytes; 8 for int4 at head_dim 16) and zeros past them.
-// `base` is the pool's 16-byte-aligned start, the mapped address a
-// zero-filling copy names.
+// real bytes (row_bytes) and zeros past them, in the widest pieces (16, 8
+// or 4 bytes) that every row start of the pool is aligned to.  `base` is
+// the pool's 16-byte-aligned start, the mapped address a zero-filling copy
+// names.
 __device__ __forceinline__ void copy_chunk(uint32_t dst, const uint8_t* row, int cc,
                                            int row_bytes, const uint8_t* base) {
   const int rem = row_bytes - 16 * cc;
-  if (rem >= 16) {
-    cp_async16(dst, row + 16 * cc, true);
-  } else if (rem > 0) {
-    hopper::cp_async8(dst, row + 16 * cc, true);
-    hopper::cp_async8(dst + 8, base, false);
+  const uint8_t* src = row + 16 * cc;
+  if ((row_bytes & 15) == 0) {
+    cp_async16(dst, rem > 0 ? src : base, rem > 0);
+  } else if ((row_bytes & 7) == 0) {
+#pragma unroll
+    for (int o = 0; o < 16; o += 8) hopper::cp_async8(dst + o, rem > o ? src + o : base, rem > o);
   } else {
-    cp_async16(dst, base, false);
+#pragma unroll
+    for (int o = 0; o < 16; o += 4) cp_async4(dst + o, rem > o ? src + o : base, rem > o);
   }
 }
 
@@ -387,6 +393,7 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(
 #pragma unroll
   for (int k = 0; k < DL; ++k) acc[k] = 0.f;
   constexpr int KC = DP / ELEMS;  // 16-byte K chunks of a token's dot per lane
+  constexpr int QE = ELEMS < 16 ? ELEMS : 16;  // values of a chunk scored together
   const float* qv = s_q + g * D + part * DP;  // this lane's DP query values
   float* probs = s_prob + g * NSLOT * C;      // this warp's [NSLOT][C]
   const int vb = value_byte<T, FMT>(lane * DL);  // where its DL output dims sit in a V row
@@ -397,28 +404,35 @@ __global__ void __launch_bounds__(1024) paged_decode_kernel(
     __syncthreads();  // every thread's copies have landed
 
     // Position t of each chunk: lanes of one position split the head_dim
-    // dot.  Each 16-byte chunk of the query is read once for all of them.
+    // dot.  Each piece of the query is read once for all of them; a piece
+    // is at most 16 values (half an int4 chunk), which keeps the 128-wide
+    // int4 build within the 64 registers 1024 threads leave it.
     float sc[NSLOT];
 #pragma unroll
     for (int j = 0; j < NSLOT; ++j) sc[j] = 0.f;
 #pragma unroll
     for (int c = 0; c < KC; ++c) {
-      float qc[ELEMS];
 #pragma unroll
-      for (int e = 0; e < ELEMS; e += 4) {
-        const float4 q4 = *reinterpret_cast<const float4*>(qv + c * ELEMS + e);
-        qc[e] = q4.x, qc[e + 1] = q4.y, qc[e + 2] = q4.z, qc[e + 3] = q4.w;
-      }
-      // Every slot is read, filled or not (a branch per slot would keep
-      // the loads from overlapping); an empty slot's score is dropped below.
+      for (int e0 = 0; e0 < ELEMS; e0 += QE) {
+        float qc[QE];
 #pragma unroll
-      for (int j = 0; j < NSLOT; ++j) {
-        const uint4 raw = *reinterpret_cast<const uint4*>(
-            smem + j * G_::SLOT + chunk_off<G_::VECS, G_::SWZ>(t, part * KC + c));
-        float x[ELEMS];
-        decode_n<T, FMT, ELEMS>(reinterpret_cast<const uint8_t*>(&raw), x);
+        for (int e = 0; e < QE; e += 4) {
+          const float4 q4 = *reinterpret_cast<const float4*>(qv + c * ELEMS + e0 + e);
+          qc[e] = q4.x, qc[e + 1] = q4.y, qc[e + 2] = q4.z, qc[e + 3] = q4.w;
+        }
+        // Every slot is read, filled or not (a branch per slot would keep
+        // the loads from overlapping); an empty slot's score is dropped
+        // below.
 #pragma unroll
-        for (int e = 0; e < ELEMS; ++e) sc[j] = fmaf(qc[e], x[e], sc[j]);
+        for (int j = 0; j < NSLOT; ++j) {
+          float x[QE];
+          load_n<T, FMT, QE>(smem + j * G_::SLOT +
+                                 chunk_off<G_::VECS, G_::SWZ>(t, part * KC + c) +
+                                 value_byte<T, FMT>(e0),
+                             x);
+#pragma unroll
+          for (int e = 0; e < QE; ++e) sc[j] = fmaf(qc[e], x[e], sc[j]);
+        }
       }
     }
     float mx = -INFINITY;
@@ -604,16 +618,12 @@ int launch(const Args& a) {
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 
-// head_dim 16, 32 and 64 run the 64-wide kernel, 128 the 128-wide one.
+// Any multiple of 8 up to 64 runs the 64-wide kernel, above it the
+// 128-wide one.
 template <typename T, int FMT>
 int dispatch(const Args& a) {
-  switch (a.head_dim) {
-    case 16:
-    case 32:
-    case 64: return launch<T, FMT, 64>(a);
-    case 128: return launch<T, FMT, 128>(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (a.head_dim < 8 || a.head_dim > 128 || a.head_dim % 8) return (int)cudaErrorInvalidValue;
+  return a.head_dim <= 64 ? launch<T, FMT, 64>(a) : launch<T, FMT, 128>(a);
 }
 
 template <typename T>
@@ -626,9 +636,9 @@ int dispatch_format(int kv_format, const Args& a) {
   }
 }
 
-// log2 of a page size that is a power of two from 2 to 64, else -1.
+// log2 of a page size that is a power of two from 1 to 128, else -1.
 int page_log2(int page_size) {
-  for (int l = 1; l <= 6; ++l) {
+  for (int l = 0; l <= 7; ++l) {
     if (page_size == 1 << l) return l;
   }
   return -1;
@@ -643,7 +653,8 @@ bool bad_split(int heads, int kv_heads, int splits) {
 
 // kv_format: 0 float pools (in the query's type), 1 int8, 2 int4-packed;
 // the quantized formats need both scale pools, the float one takes none.
-// head_dim 16, 32, 64 or 128; page_size a power of two from 2 to 64.
+// head_dim a multiple of 8 from 8 to 128; page_size a power of two from 1
+// to 128.
 // splits: 1..8 (one cluster of that many blocks per row and kv head).
 extern "C" int paged_attention_fwd(const void* q, const void* pool_k, const void* pool_v,
                                    const void* scale_k, const void* scale_v,

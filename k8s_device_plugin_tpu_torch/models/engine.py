@@ -1,7 +1,9 @@
 """Continuous-batching serving engine over the paged KV cache, in PyTorch.
 
-Counterpart of the reference's ``models/engine.py`` with reserve
-admission:
+Counterpart of the reference's ``models/engine.py`` (reserve and
+optimistic admission, overload control, the SLO plane, spans, the flight
+recorder, the anomaly monitor and the step profiler; not yet adapters,
+speculation, tensor parallelism or the KV tiers):
 
 - device side: a fixed-[slots] decode dispatch over the paged cache, one
   single-token step or, in pure decode, a block of T steps
@@ -18,8 +20,10 @@ admission:
   next dispatch is enqueued before the current one is read back, so host
   bookkeeping runs while the card computes; an event that changes a slot
   discards the dispatch in flight and repairs the carried ``seq_lens``;
-- host side, between steps: admission, page allocation and free, prefix
-  sharing, per-slot bookkeeping.
+- host side, between steps: the overload sweep, admission, page
+  allocation and free (on demand under optimistic admission, preempting
+  the newest slot when the pool runs dry), prefix sharing, per-slot
+  bookkeeping, SLO verdicts.
 
 Prefill bridges through the dense cache: an admitted prompt runs the
 bucketed cached-append prefill and its K/V rows are grafted into the
@@ -43,49 +47,79 @@ float32, a block-16 overlapped run::
 Module layout (this module is the import surface):
 
 - engine_types.py      — ``Request``, ``EngineMetrics``
-- engine_sampling.py   — top-k/top-p filter, table view, decode dispatch
-- engine_admission.py  — submit/cancel, batched chunked prefill, admission
-- engine_paging.py     — page pool, prefix trie, graft, reclamation
+- engine_sampling.py   — top-k/top-p filter, logprobs, table view, decode
+                         dispatch
+- engine_admission.py  — submit/cancel, overload gate and sweep, batched
+                         chunked prefill, admission, SLO accounting
+- engine_paging.py     — page pool, prefix trie, graft, frontier growth and
+                         preemption, reclamation
+- engine_unified.py    — KV-tier, handoff and fabric surfaces of a unified
+                         engine without tiers
+- engine_overload.py, engine_watchdog.py, engine_profiler.py,
+  engine_snapshot.py   — the reference's, copied or ported
 - here                 — ``ServingEngine`` wiring, step loop, overlap round,
                          CUDA graphs, batch CLI ``main``
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import gc
 import threading
 import time
 from collections import deque
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..ops import paged_attention as pa
-from ..utils import prng
+from ..utils import failpoints, prng
+from ..utils.anomaly import AnomalyMonitor
 from ..utils.device import fp32_reference_precision, resolve_device
+from ..utils.flight import FlightRecorder
+from ..utils.slo import SLOTracker, UsageMeter, default_objectives
+from ..utils.spans import ENGINE_TRACE, SpanRecorder
 from .engine_admission import AdmissionMixin
+from .engine_overload import OverloadConfig, OverloadController
 from .engine_paging import PagingMixin
+from .engine_profiler import EngineProfiler
 from .engine_sampling import decode_tokens
+from .engine_snapshot import params_fingerprint
 from .engine_types import EngineMetrics, Request, _pow2_int
+from .engine_unified import UnifiedRoleMixin
 from .transformer import GPTConfig, PagedCache, PagedConfig, TransformerLM, init_params
 
 # Why an overlapped dispatch was thrown away (the reference's reasons).
 DISCARD_REASONS = ("state_dirty", "shape_switch", "slot_teardown")
 
 
-class ServingEngine(AdmissionMixin, PagingMixin):
+class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
     """Batch-continuous decoding server (one host, one model, one card).
 
     ``cfg`` is the model config WITHOUT paging (the engine adds it);
     ``params`` a state dict in the flax names (``init_params`` or
-    ``convert.flax_to_state_dict``).  ``rng``: the sampling key
-    (``utils.prng.PRNGKey``; default ``PRNGKey(0)``, as the reference).
-    ``decode_block``: a power of two, the most tokens one dispatch advances
-    every slot in pure decode.  ``overlap_steps``: 1 keeps one dispatch in
-    flight ahead of the readback, 0 runs synchronously.  ``cuda_graphs``:
-    replay each dispatch shape as a CUDA graph (default on the card; the
-    CPU refuses it).  Runs on ``cuda`` unless ``device="cpu"`` is asked
-    for."""
+    ``convert.flax_to_state_dict``), float32 or quantized.  ``rng``: the
+    sampling key (``utils.prng.PRNGKey``; default ``PRNGKey(0)``, as the
+    reference).  ``decode_block``: a power of two, the most tokens one
+    dispatch advances every slot in pure decode.  ``overlap_steps``: 1
+    keeps one dispatch in flight ahead of the readback, 0 runs
+    synchronously.  ``admission``: ``reserve`` allocates a request's whole
+    chain at admission, ``optimistic`` its prompt pages and grows on
+    demand, preempting the newest slot when the pool runs dry.
+    ``overload``/``slo``: True (defaults), an ``OverloadConfig`` / a dict
+    of SLO thresholds or an ``SLOTracker``, or None (off).  ``spans``,
+    ``flight``, ``anomaly``, ``profiler``: shared instances, or None for
+    the engine's own (spans stay off).  ``cuda_graphs``: replay each
+    dispatch shape as a CUDA graph (default on the card; the CPU refuses
+    it).  Runs on ``cuda`` unless ``device="cpu"`` is asked for.
+
+    ``MAX_BIAS``: per-request logit bias entries pad to this width, so
+    biased requests come and go without new dispatch shapes."""
+
+    MAX_BIAS = 16
 
     def __init__(
         self,
@@ -101,6 +135,13 @@ class ServingEngine(AdmissionMixin, PagingMixin):
         prefill_chunk: Optional[int] = None,
         decode_block: int = 1,
         overlap_steps: int = 1,
+        admission: str = "reserve",
+        overload=None,
+        slo=None,
+        spans: Optional[SpanRecorder] = None,
+        flight: Optional[FlightRecorder] = None,
+        anomaly: Optional[AnomalyMonitor] = None,
+        profiler: Optional[EngineProfiler] = None,
         cuda_graphs: Optional[bool] = None,
         device=None,
     ):
@@ -113,6 +154,8 @@ class ServingEngine(AdmissionMixin, PagingMixin):
             # two every slot's remaining budget fits, so O(log
             # decode_block) dispatch shapes (graphs) ever exist.
             raise ValueError(f"decode_block must be a power of two >= 1, got {decode_block}")
+        if admission not in ("reserve", "optimistic"):
+            raise ValueError(f"admission must be 'reserve' or 'optimistic', got {admission!r}")
         if overlap_steps not in (0, 1):
             raise ValueError(f"overlap_steps must be 0 or 1, got {overlap_steps}")
         self.device = resolve_device(device)
@@ -123,12 +166,15 @@ class ServingEngine(AdmissionMixin, PagingMixin):
         self._prefill_chunk = prefill_chunk
         self._decode_block = decode_block
         self._overlap_steps = overlap_steps
+        self._optimistic = admission == "optimistic"
         self.paged = paged
         self.cfg = dataclasses.replace(cfg, paged=paged)
         self.max_slots = max_slots
         self.eos_id = eos_id
         self.prefix_sharing = prefix_sharing
         self.metrics = metrics
+        # The canary prober's oracle key, from the tree as it was given.
+        self.params_fingerprint = params_fingerprint(params)
 
         self.model = TransformerLM(self.cfg, device=self.device)
         self.model.load_state_dict(params)
@@ -149,9 +195,17 @@ class ServingEngine(AdmissionMixin, PagingMixin):
         self._slot_temp = [0.0] * max_slots  # 0 = greedy
         self._slot_topk = [cfg.vocab_size] * max_slots
         self._slot_topp = [1.0] * max_slots
+        # Sparse logit bias per slot, padded with (0, 0.0), a no-op.
+        self._slot_bias_ids = [[0] * self.MAX_BIAS for _ in range(max_slots)]
+        self._slot_bias_vals = [[0.0] * self.MAX_BIAS for _ in range(max_slots)]
         # Logical index of _slot_pages[s][0] (> 0 once a sliding window
         # reclaimed leading pages).
         self._slot_page_base = [0] * max_slots
+        # Admission order: optimistic growth serves the oldest first and
+        # preempts the newest.
+        self._slot_seq = [0] * max_slots
+        self._seq_counter = 0
+        self.preemptions = 0
         # A slot decodes only after its prefill job grafted it.
         self._slot_ready = [False] * max_slots
         self._slot_emit_t = [0.0] * max_slots  # last token's stamp (ITL)
@@ -159,7 +213,8 @@ class ServingEngine(AdmissionMixin, PagingMixin):
         # Private pages of not-yet-grafted requests (see _match_prefix).
         self._pending_pages: set[int] = set()
         self.queue: deque[Request] = deque()  # guarded by: _lock
-        # Set by each _admit pass; read by the decode-block gate.
+        # Set by each _admit pass; read by the decode-block gate: the head
+        # waits on the page pool.
         self._admit_page_blocked = False
         # submit()/cancel() may run on other threads than the step loop.
         self._lock = threading.RLock()
@@ -170,9 +225,55 @@ class ServingEngine(AdmissionMixin, PagingMixin):
         self._prefix_pages: dict[tuple[int, tuple], int] = {}
         self._page_keys: dict[int, list] = {}
         self._child_keys: dict[int, list] = {}
+        self._trie_version = 0  # guarded by: _lock
         self.kernel_on = paged.kernel_enabled(cfg.quant_kv)
         if metrics:
             metrics.kernel_enabled.set(int(self.kernel_on))
+            metrics.tp_size.set(1)
+
+        # Forensics, always on as in the reference: the flight recorder,
+        # the anomaly monitor that files incidents with its window, and
+        # the per-step phase profiler.
+        self.flight = flight if flight is not None else FlightRecorder(capacity=1024, name="engine")
+        if anomaly is None:
+            anomaly = AnomalyMonitor(
+                flight=self.flight,
+                on_incident=(lambda m: metrics.incidents.inc(metric=m)) if metrics else None,
+            )
+        self.anomaly = anomaly
+        self.anomaly.configure("engine.step_seconds", warmup=50, z_threshold=6.0, sustain=3)
+        self.anomaly.configure("engine.ttft_seconds", warmup=20, z_threshold=6.0, sustain=2)
+        # The step hook holds the monitor, not the engine: no reference
+        # cycle, so a dropped engine (and its CUDA graphs) is freed at once
+        # rather than by a later garbage collection.
+        self.profiler = profiler if profiler is not None else EngineProfiler(
+            flight=self.flight,
+            observe_step=functools.partial(self.anomaly.observe, "engine.step_seconds"),
+            device=self.device,
+        )
+        self._prof_timer = None
+        self._step_tokens = 0  # tokens emitted by the step in flight
+        # The hung-step watchdog, installed by the HTTP server; the engine
+        # feeds it step stamps and grace marks (builds, captures, prefill).
+        self.watchdog = None
+        self.overload = None
+        if overload:
+            self.overload = OverloadController(
+                max_slots, overload if isinstance(overload, OverloadConfig) else None,
+                metrics=metrics, flight=self.flight,
+            )
+        self.slo = None
+        self.usage = None
+        if slo:
+            if isinstance(slo, SLOTracker):
+                self.slo = slo
+            elif isinstance(slo, dict):
+                self.slo = SLOTracker(objectives=default_objectives(**slo))
+            else:
+                self.slo = SLOTracker()
+            self.usage = UsageMeter()
+        self.spans = spans
+        self._init_unified()
 
         # Device-resident step state.  The dispatch reads these buffers and
         # writes its next inputs back into them (tokens, positions, key), so
@@ -187,10 +288,16 @@ class ServingEngine(AdmissionMixin, PagingMixin):
             "temps": torch.zeros(max_slots, dtype=torch.float32, device=self.device),
             "topks": torch.zeros(max_slots, dtype=torch.long, device=self.device),
             "topps": torch.zeros(max_slots, dtype=torch.float32, device=self.device),
+            "bias_ids": torch.zeros((max_slots, self.MAX_BIAS), dtype=torch.long,
+                                    device=self.device),
+            "bias_vals": torch.zeros((max_slots, self.MAX_BIAS), dtype=torch.float32,
+                                     device=self.device),
         }
         self._outs: dict[int, torch.Tensor] = {}  # [slots, T] tokens per block size
+        self._lps: dict[int, torch.Tensor] = {}  # [slots, T] logprobs per block size
         self._dev: Optional[dict] = None
-        # (T, variant) -> (graph, paged launches by format one replay makes)
+        # (T, variant, biased, want_lp) -> (graph, paged launches by format
+        # one replay makes): at most 12 x (log2(decode_block) + 1) graphs.
         self._graphs: dict[tuple, tuple] = {}
         self._inflight: Optional[dict] = None
         self.overlap_hits = 0
@@ -199,6 +306,19 @@ class ServingEngine(AdmissionMixin, PagingMixin):
         self.state_rebuilds = 0
         self.graph_replays = 0
         self.device_steps = 0  # single-token steps dispatched, discarded ones included
+
+    def _wd_grace(self, reason: str) -> None:
+        """Mark the step in flight as legitimately slow for the hung-step
+        watchdog (a kernel build, a first launch, a graph capture, a
+        prefill).  No-op without a watchdog."""
+        if self.watchdog is not None:
+            self.watchdog.note_grace(reason)
+
+    def _mark(self, phase: str) -> None:
+        """Attribute the time since the previous mark of the current step
+        to ``phase`` (engine_profiler.PHASES); no-op outside step()."""
+        if self._prof_timer is not None:
+            self._prof_timer.mark(phase)
 
     # ------------------------------------------------- device-resident state
 
@@ -229,13 +349,18 @@ class ServingEngine(AdmissionMixin, PagingMixin):
                 self._slot_topk[s] < self.cfg.vocab_size or self._slot_topp[s] < 1.0
                 for s in occupied
             )
+            biased = any(self.slots[s].logit_bias for s in occupied)
+            want_lp = any(self.slots[s].logprobs for s in occupied)
             if sampled:
                 bufs["temps"].copy_(torch.tensor(self._slot_temp, dtype=torch.float32))
             if filtered:
                 bufs["topks"].copy_(torch.tensor(self._slot_topk))
                 bufs["topps"].copy_(torch.tensor(self._slot_topp, dtype=torch.float32))
+            if biased:
+                bufs["bias_ids"].copy_(torch.tensor(self._slot_bias_ids))
+                bufs["bias_vals"].copy_(torch.tensor(self._slot_bias_vals, dtype=torch.float32))
             variant = "filtered" if filtered else "sampled" if sampled else "greedy"
-            dev = self._dev = {"variant": variant}
+            dev = self._dev = {"variant": variant, "biased": biased, "want_lp": want_lp}
         return dev
 
     def _feed_forward(self, dev: dict) -> dict:
@@ -244,24 +369,28 @@ class ServingEngine(AdmissionMixin, PagingMixin):
         self._dev = dict(dev)
         return self._dev
 
-    def _dispatch_body(self, T: int, variant: str) -> None:
+    def _dispatch_body(self, T: int, shape: tuple) -> None:
         """One dispatch from the buffers: T decode steps, their tokens into
-        ``_outs[T]``, the next inputs back into the buffers.  What a CUDA
-        graph of the dispatch captures."""
+        ``_outs[T]`` (and logprobs into ``_lps[T]``), the next inputs back
+        into the buffers.  What a CUDA graph of the dispatch captures."""
+        variant, biased, want_lp = shape
         bufs = self._bufs
         temps = None if variant == "greedy" else bufs["temps"]
         topks, topps = (bufs["topks"], bufs["topps"]) if variant == "filtered" else (None, None)
-        out, tokens, positions, key = decode_tokens(
+        bias_ids, bias_vals = (bufs["bias_ids"], bufs["bias_vals"]) if biased else (None, None)
+        out, lps, tokens, positions, key = decode_tokens(
             self.model, self.cache, self._chain, bufs["tokens"], bufs["positions"], bufs["key"],
-            T, temps, topks, topps,
+            T, temps, topks, topps, bias_ids, bias_vals, want_lp,
         )
         self._outs[T].copy_(out)
+        if want_lp:
+            self._lps[T].copy_(lps)
         bufs["tokens"].copy_(tokens)
         bufs["positions"].copy_(positions)
         if key is not bufs["key"]:  # a greedy dispatch returns its key as is
             bufs["key"].copy_(key)
 
-    def _run_dispatch(self, T: int, variant: str) -> None:
+    def _run_dispatch(self, T: int, shape: tuple) -> None:
         """Enqueue one dispatch: eagerly, or as the replay of its graph.
         A shape's first dispatch runs eagerly (it is also the warm-up
         capture needs: the kernels' first launches set their attributes)
@@ -269,11 +398,17 @@ class ServingEngine(AdmissionMixin, PagingMixin):
         what one replay launches."""
         if T not in self._outs:
             self._outs[T] = torch.empty((self.max_slots, T), dtype=torch.long, device=self.device)
-        entry = self._graphs.get((T, variant)) if self.cuda_graphs else None
+            self._lps[T] = torch.empty((self.max_slots, T), dtype=torch.float32, device=self.device)
+        key = (T, *shape)
+        entry = self._graphs.get(key) if self.cuda_graphs else None
         if entry is None:
-            self._dispatch_body(T, variant)
-            if self.cuda_graphs:
-                self._graphs[(T, variant)] = self._capture(T, variant)
+            if key not in self._graphs:
+                # A new shape: its first launches may build kernels (and a
+                # capture follows): grace the watchdog.  Eager engines
+                # record the shape as seen, with no graph.
+                self._wd_grace(f"compile:block_{T}")
+            self._dispatch_body(T, shape)
+            self._graphs[key] = self._capture(T, shape) if self.cuda_graphs else None
             return
         graph, launches = entry
         graph.replay()
@@ -282,14 +417,23 @@ class ServingEngine(AdmissionMixin, PagingMixin):
         for fmt, n in launches.items():
             counts[fmt] += n
 
-    def _capture(self, T: int, variant: str) -> tuple:
+    def _capture(self, T: int, shape: tuple) -> tuple:
         """Capture the dispatch body as a CUDA graph.  Capture launches
         nothing, so the launch counts the capture advanced are taken back
         and kept as what each replay adds."""
         before = dict(pa.paged_attention.launches_by_format)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self._dispatch_body(T, variant)
+        # No garbage collection inside the capture: freeing another graph
+        # there (an engine dropped in a reference cycle) is not permitted
+        # while a stream captures, and invalidates this capture.
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph):
+                self._dispatch_body(T, shape)
+        finally:
+            if gc_on:
+                gc.enable()
         counts = pa.paged_attention.launches_by_format
         launches = {fmt: counts[fmt] - before[fmt] for fmt in before}
         counts.update(before)
@@ -299,15 +443,27 @@ class ServingEngine(AdmissionMixin, PagingMixin):
     #
     # Per step() call on the decode path (the reference's state machine):
     #
-    #   no in-flight    -> dispatch N; if overlap allowed, dispatch N+1 from
-    #                      N's fed-forward state; consume N.
-    #   valid in-flight -> dispatch N+1 from its fed-forward state FIRST,
+    #   no in-flight    -> make the coming writes addressable, dispatch N;
+    #                      if overlap allowed, dispatch N+1 from N's
+    #                      fed-forward state; consume N.
+    #   valid in-flight -> grow the frontier for N+1 and dispatch it FIRST,
     #                      then consume N while N+1 computes.
-    #   stale in-flight -> discard it: an admission, finish or cancel
-    #                      invalidated the state it was dispatched from.
-    #                      Its K/V writes are overwritten before any read
-    #                      can see them; only the carried seq_lens (the
-    #                      append writes there) go back to host truth.
+    #   stale in-flight -> discard it: an admission, finish, cancel or
+    #                      preemption invalidated the state it was
+    #                      dispatched from.  Its K/V writes are overwritten
+    #                      before any read can see them; only the carried
+    #                      seq_lens (the append writes there) go back to
+    #                      host truth.
+
+    def _head_cannot_admit(self) -> bool:
+        """Whether the queue head cannot admit at the next step: no queue,
+        no free slot, or the head waits on pages (only a finish or
+        reclamation frees them)."""
+        return (
+            not self.queue
+            or all(s is not None for s in self.slots)
+            or self._admit_page_blocked
+        )
 
     def _overlap_allowed(self) -> bool:
         """Whether dispatching one round ahead pays off now: not while a
@@ -315,35 +471,37 @@ class ServingEngine(AdmissionMixin, PagingMixin):
         activation would invalidate the round in flight)."""
         if not self._overlap_steps or self._pending:
             return False
-        return (
-            not self.queue
-            or all(s is not None for s in self.slots)
-            or self._admit_page_blocked
-        )
+        return self._head_cannot_admit()
 
     def _dispatch_decode(self, active: list[int], T: int = 1) -> dict:
         """Enqueue one dispatch (a step, or a T-step block) from the current
         state and install its fed-forward state.  Returns what consumption
-        needs: the tokens' host copy (and, on the card, the event that says
-        it landed), and the (slot, request) pairs pinned now so a consumer
-        skips lanes evicted since.  ``dev`` is the validity token."""
+        needs: the tokens' (and logprobs') host copy and, on the card, the
+        event that says it landed, and the (slot, request) pairs pinned now
+        so a consumer skips lanes evicted since.  ``dev`` is the validity
+        token."""
         dev = self._device_state()
-        self._run_dispatch(T, dev["variant"])
+        shape = (dev["variant"], dev["biased"], dev["want_lp"])
+        self._run_dispatch(T, shape)
         self.device_steps += T
-        out = self._outs[T]
-        if out.is_cuda:
-            # The copy is ordered after this dispatch and before the next
-            # one overwrites the buffer; its event lets the consumer wait
+        outs = [self._outs[T]] + ([self._lps[T]] if dev["want_lp"] else [])
+        if self.device.type == "cuda":
+            # The copies are ordered after this dispatch and before the next
+            # one overwrites the buffers; the event lets the consumer wait
             # for this dispatch alone.
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
+            host = []
+            for t in outs:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                host.append(h)
             landed = torch.cuda.Event()
             landed.record()
         else:
-            host, landed = out.clone(), None
+            host, landed = [t.clone() for t in outs], None
         return {
             "T": T,
-            "out": host,
+            "out": host[0],
+            "lps": host[1] if dev["want_lp"] else None,
             "landed": landed,
             "active": list(active),
             "reqs": [self.slots[s] for s in active],
@@ -378,6 +536,8 @@ class ServingEngine(AdmissionMixin, PagingMixin):
         self.discards_by_reason[reason] += 1
         if self.metrics:
             self.metrics.overlap_discards.inc()
+        self.flight.record("overlap.discard", reason=reason, T=inflight["T"],
+                           slots=len(inflight["active"]))
 
     def _drop_stale_inflight(self, reason: str) -> None:
         inflight, self._inflight = self._inflight, None
@@ -385,11 +545,23 @@ class ServingEngine(AdmissionMixin, PagingMixin):
             self._discard(inflight, reason)
 
     @staticmethod
-    def _unpack(rec: dict) -> list[list[int]]:
-        """The record's tokens [slots][T] (the step's one synchronisation)."""
+    def _unpack(rec: dict) -> tuple:
+        """The record's tokens [slots][T] and logprobs (or None): the
+        step's one synchronisation.  The ``engine.readback`` failpoint
+        delays it, raises out of step(), or flips the low bytes of the
+        token buffer (the silent corruption the canary prober scores)."""
+        hit = failpoints.fire("engine.readback")
         if rec["landed"] is not None:
             rec["landed"].synchronize()
-        return rec["out"].tolist()
+        toks = rec["out"]
+        if hit is not None and hit.mode == "corrupt":
+            nbytes = int(hit.arg) if hit.arg else 1
+            arr = toks.numpy().copy()
+            flat = arr.view(np.uint8).reshape(-1)
+            flat[: max(1, min(nbytes, flat.size))] ^= 0x01
+            toks = torch.from_numpy(arr)
+        lps = rec["lps"].tolist() if rec["lps"] is not None else None
+        return toks.tolist(), lps
 
     def _record_hit(self) -> None:
         self.overlap_hits += 1
@@ -407,24 +579,54 @@ class ServingEngine(AdmissionMixin, PagingMixin):
         """Admit what fits, advance each prefill job one chunk, advance
         every ready slot one token (or a block of them); returns every
         request that finished."""
-        if self.metrics:
-            with self.metrics.step_seconds.time():
+        span = (self.spans.span("engine.step", trace_id=ENGINE_TRACE) if self.spans
+                else contextlib.nullcontext())
+        self._run_owner_calls()
+        timer = self._prof_timer = self.profiler.timer()
+        self._step_tokens = 0
+        hits0, discards0 = self.overlap_hits, self.overlap_discards
+        wd = self.watchdog
+        if wd is not None:
+            wd.step_started()
+        try:
+            with span:
+                if self.metrics:
+                    with self.metrics.step_seconds.time():
+                        return self._step_inner()
                 return self._step_inner()
-        return self._step_inner()
+        finally:
+            self._prof_timer = None
+            with self._lock:
+                active = sum(1 for s in self.slots if s is not None)
+                queued = len(self.queue)
+                allocatable = self.paged.num_pages - 1
+                util = 1.0 - len(self.free_pages) / allocatable if allocatable else 0.0
+            wall = self.profiler.finish_step(
+                timer, active_slots=active, max_slots=self.max_slots, queued=queued,
+                kv_page_utilization=util, tokens=self._step_tokens,
+                overlap_hits=self.overlap_hits - hits0,
+                overlap_discards=self.overlap_discards - discards0,
+            )
+            if wd is not None:
+                wd.step_finished(wall)
 
     def _step_inner(self) -> list[Request]:
-        self._admit()
-        finished: list[Request] = []
+        # Overload sweeps run before admission: an expired queued request
+        # sheds without touching pages.
+        finished = self._overload_sweep() if self.overload is not None else []
+        finished += self._admit()
         # Cancelled live slots tear down before the dispatch.
         for s in range(self.max_slots):
             req = self.slots[s]
             if req is not None and req.cancelled and self._slot_ready[s]:
                 self._maybe_finish(s)
                 finished.append(req)
+        self._mark("schedule")
         for job in list(self._pending):
             if self._advance_prefill(job):
                 self._pending.remove(job)
                 finished.extend(self._activate(job))
+        self._mark("prefill")
         active = [s for s in range(self.max_slots) if self.slots[s] is not None and self._slot_ready[s]]
         if not active:
             self._update_gauges()
@@ -434,14 +636,10 @@ class ServingEngine(AdmissionMixin, PagingMixin):
             self._decode_block > 1
             and not self._pending  # no prompt mid-stream: keep chunking
             # Queued work argues for single steps only while the head could
-            # admit: a saturated engine or a page-blocked head cannot until
+            # admit: a saturated engine or a blocked head cannot until
             # something finishes, and a mid-block finish truncates that
             # slot's tail so the next step admits.
-            and (
-                not self.queue
-                or all(s is not None for s in self.slots)
-                or self._admit_page_blocked
-            )
+            and self._head_cannot_admit()
         ):
             # The largest power-of-two block no slot's remaining budget
             # truncates.
@@ -454,25 +652,40 @@ class ServingEngine(AdmissionMixin, PagingMixin):
         dispatch and consume them.  A round in flight from the previous
         call is consumed if still valid; under overlap the next round goes
         out before this one's readback (a block only when every slot has
-        room for both)."""
+        room for both).  The frontier covers every write dispatched: T - 1
+        positions ahead, 2T - 1 with a round in flight; under optimistic
+        admission growing it may preempt."""
         overlap = self._overlap_allowed() and (T == 1 or self._block_room(active) >= 2 * T)
         rec = self._take_inflight(T)
         if rec is None:
+            active = self._ensure_frontier(active, 2 * T - 1 if overlap else T - 1)
+            if not active:
+                self._update_gauges()
+                return finished
             rec = self._dispatch_decode(active, T)
+            if overlap:
+                self._inflight = self._dispatch_decode(active, T)
         else:
             self._record_hit()
-        if overlap:
-            self._inflight = self._dispatch_decode(active, T)
+            if overlap:
+                active = self._ensure_frontier(active, 2 * T - 1)
+                # A preemption in the ensure dirtied the state: this step
+                # consumes what it has and re-primes next call.
+                if active and self._dev is rec["dev"]:
+                    self._inflight = self._dispatch_decode(active, T)
+        self._mark("dispatch")
         return self._consume(rec, finished)
 
     def _consume(self, rec: dict, finished: list[Request]) -> list[Request]:
-        """Host half of one round: read back, then per slot up to T tokens,
-        truncated at EOS, max_new or a stop sequence (a slot that finishes
-        mid-block wastes its tail: its writes land past its final length
-        and are never read).  Under overlap this runs while the next round
-        computes."""
+        """Host half of one round: read back, then per slot up to T tokens
+        (each logprob before its token, so a streaming reader never sees
+        one without the other), truncated at EOS, max_new or a stop
+        sequence (a slot that finishes mid-block wastes its tail: its
+        writes land past its final length and are never read).  Under
+        overlap this runs while the next round computes."""
         T = rec["T"]
-        toks = self._unpack(rec)
+        toks, lps = self._unpack(rec)
+        self._mark("readback")
         now = time.monotonic()
         emitted = 0
         for s, req in zip(rec["active"], rec["reqs"]):
@@ -481,6 +694,8 @@ class ServingEngine(AdmissionMixin, PagingMixin):
             consumed = 0
             for j in range(T):
                 tok = toks[s][j]
+                if req.logprobs:
+                    req.token_logprobs.append(lps[s][j])
                 req.tokens.append(tok)
                 self._slot_last[s] = tok
                 consumed += 1
@@ -507,23 +722,31 @@ class ServingEngine(AdmissionMixin, PagingMixin):
                 self._drop_stale_inflight("slot_teardown")
             else:
                 self._repair_seq_lens()
-        self._count_tokens(emitted)
-        return finished
-
-    def _count_tokens(self, n: int) -> None:
+        self._mark("host_gap" if self._inflight is not None else "sample")
+        self._step_tokens += emitted
         if self.metrics:
             self.metrics.steps.inc()
-            self.metrics.tokens.inc(n)
+            self.metrics.tokens.inc(emitted)
         self._update_gauges()
+        return finished
 
     def _observe_itl(self, slot: int, consumed: int, now: float) -> None:
         """ITL for ``consumed`` tokens that landed at ``now`` on a slot: a
-        multi-token dispatch observes the amortized gap once per token."""
+        multi-token dispatch observes the amortized gap once per token;
+        the request keeps its peak gap (the SLO plane's ITL p99) and the
+        overload controller its per-token latency."""
         last = self._slot_emit_t[slot]
         self._slot_emit_t[slot] = now
-        if consumed <= 0 or last <= 0.0 or not self.metrics:
+        if consumed <= 0 or last <= 0.0:
             return
         per = (now - last) / consumed
+        req = self.slots[slot]
+        if req is not None and per > req.itl_peak_s:
+            req.itl_peak_s = per
+        if self.overload is not None:
+            self.overload.observe_itl(per)
+        if not self.metrics:
+            return
         for _ in range(consumed):
             self.metrics.itl_seconds.observe(per)
 
@@ -538,6 +761,108 @@ class ServingEngine(AdmissionMixin, PagingMixin):
             m.shared_pages.set(sum(1 for c in self._page_refs.values() if c > 1))
             allocatable = self.paged.num_pages - 1  # page 0 is scratch
             m.page_utilization.set(1.0 - len(self.free_pages) / allocatable if allocatable else 0.0)
+            m.kvcache_retained_pages.set(0)
+            m.kvcache_host_bytes.set(0)
+
+    # -------------------------------------------------------------- states
+
+    def debug_state(self) -> dict:
+        """JSON-safe engine snapshot for ``GET /debug/state`` (the
+        reference's keys): slot occupancy, queue, pool pressure, the
+        overlap round, overload, SLO, tiers and config.  Lengths only,
+        never token content."""
+        with self._lock:
+            slots = []
+            for s in range(self.max_slots):
+                req = self.slots[s]
+                if req is None:
+                    slots.append(None)
+                    continue
+                slots.append({
+                    "rid": req.rid,
+                    "trace_id": req.trace_id,
+                    "prompt_tokens": len(req.prompt),
+                    "generated": len(req.tokens),
+                    "max_new_tokens": req.max_new_tokens,
+                    "ready": self._slot_ready[s],
+                    "pages": len(self._slot_pages[s]),
+                    "cancelled": req.cancelled,
+                })
+            allocatable = self.paged.num_pages - 1
+            return {
+                "slots": slots,
+                "queue_depth": len(self.queue),
+                "pending_prefills": len(self._pending),
+                "free_pages": len(self.free_pages),
+                "allocatable_pages": allocatable,
+                "page_utilization": round(1.0 - len(self.free_pages) / allocatable, 4)
+                if allocatable else 0.0,
+                "shared_pages": sum(1 for c in self._page_refs.values() if c > 1),
+                "preemptions": self.preemptions,
+                "overlap": {
+                    "steps": self._overlap_steps,
+                    "in_flight": self._inflight is not None,
+                    "hits": self.overlap_hits,
+                    "discards": self.overlap_discards,
+                },
+                "tp": {"size": 1, "axis": None, "mesh": None, "devices": None},
+                "spec": {"gamma": 0, "proposed": 0, "accepted": 0},
+                "overload": self.overload.snapshot() if self.overload is not None
+                else {"enabled": False},
+                "slo": self.slo.snapshot() if self.slo is not None else {"enabled": False},
+                "kvcache": self.kvcache_state(),
+                "disagg": self.handoff_state(),
+                # The port's own block: what ran on the device, for the
+                # launch accounting a caller holds against the steps.
+                "device": {
+                    "type": self.device.type,
+                    "cuda_graphs": self.cuda_graphs,
+                    "graph_replays": self.graph_replays,
+                    "device_steps": self.device_steps,
+                    "state_rebuilds": self.state_rebuilds,
+                    "discards_by_reason": dict(self.discards_by_reason),
+                    "paged_launches": dict(pa.paged_attention.launches_by_format),
+                    "num_layers": self.cfg.num_layers,
+                },
+                "config": {
+                    "role": self.role,
+                    "max_slots": self.max_slots,
+                    "page_size": self.paged.page_size,
+                    "num_pages": self.paged.num_pages,
+                    "max_pages_per_seq": self.paged.max_pages_per_seq,
+                    "kernel": self.kernel_on,
+                    "kernel_splits": self.paged.kernel_num_splits,
+                    "decode_block": self._decode_block,
+                    "admission": "optimistic" if self._optimistic else "reserve",
+                    "prefix_sharing": self.prefix_sharing,
+                },
+            }
+
+    def overload_state(self) -> dict:
+        """Body of ``GET /debug/admission`` (``{"enabled": False}`` without
+        a controller)."""
+        with self._lock:
+            if self.overload is None:
+                return {"enabled": False}
+            return self.overload.snapshot()
+
+    def slo_state(self) -> dict:
+        """Body of ``GET /debug/slo``."""
+        with self._lock:
+            if self.slo is None:
+                return {"enabled": False}
+            snap = self.slo.snapshot()
+            snap["enabled"] = True
+            return snap
+
+    def usage_state(self) -> dict:
+        """Body of ``GET /debug/usage``."""
+        with self._lock:
+            if self.usage is None:
+                return {"enabled": False}
+            snap = self.usage.snapshot()
+            snap["enabled"] = True
+            return snap
 
     def run(self, requests: list[tuple[list[int], int]], **submit_kw) -> list[Request]:
         """Submit all (``submit_kw`` applies to every request), step until
@@ -611,6 +936,9 @@ def parse_args(argv: Optional[list[str]] = None):
     p.add_argument("--overlap-steps", type=int, choices=[0, 1], default=1,
                    help="decode dispatches kept in flight ahead of the readback (0: "
                    "synchronous)")
+    p.add_argument("--admission", choices=["reserve", "optimistic"], default="reserve",
+                   help="optimistic: prompt pages only at admission, grown on demand, the "
+                   "newest slot preempted (and recomputed) when the pool runs dry")
     p.add_argument("--cuda-graphs", type=int, choices=[0, 1], default=None,
                    help="replay each decode dispatch as a CUDA graph (the card only; "
                    "default 1 there)")
@@ -652,6 +980,7 @@ def build_engine(args) -> "ServingEngine":
         cfg, init_params(cfg, args.seed), paged, max_slots=args.slots,
         metrics=EngineMetrics(MetricsRegistry()), prefill_chunk=args.prefill_chunk,
         decode_block=args.decode_block, overlap_steps=args.overlap_steps,
+        admission=args.admission,
         cuda_graphs=None if args.cuda_graphs is None else bool(args.cuda_graphs),
         device=device,
     )
@@ -663,8 +992,8 @@ def benchmark(args) -> tuple[dict, list[Request]]:
     2 x ``--decode-block`` new tokens, so every block size (each a graph on
     the card) has run once.  Returns the summary (the reference's JSON keys
     plus ``decode_block``, ``cuda_graphs``, ``state_rebuilds``,
-    ``graph_replays``, ``device_steps`` and ``device``; the counts cover
-    the warmup too) and the timed run's finished requests."""
+    ``graph_replays``, ``device_steps``, ``admission``, ``preemptions`` and
+    ``device``; the counts cover the warmup too) and the timed run's finished requests."""
     eng = build_engine(args)
     device = eng.device
     sample_kw = dict(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p)
@@ -706,6 +1035,8 @@ def benchmark(args) -> tuple[dict, list[Request]]:
         "state_rebuilds": eng.state_rebuilds,
         "graph_replays": eng.graph_replays,
         "device_steps": eng.device_steps,
+        "admission": args.admission,
+        "preemptions": eng.preemptions,
         "kv_retain": False,
         "kv_retained_hits": 0,
         "kv_host_hits": 0,

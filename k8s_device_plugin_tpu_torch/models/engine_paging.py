@@ -1,11 +1,15 @@
 """Serving-engine page pool, prefix trie and the prefill -> pages graft.
 
-Counterpart of the reference's ``models/engine_paging.py`` for reserve
-admission: a request's whole page chain is allocated when it is admitted,
-page 0 is the scratch page idle rows write into, full prompt pages are
-shared through a per-page trie keyed (parent page, token chunk), and pages
-are refcounted and freed by their last user.  Mixed into ServingEngine,
-which owns the state.
+Counterpart of the reference's ``models/engine_paging.py``: under reserve
+admission a request's whole page chain is allocated when it is admitted;
+under optimistic admission only its prompt pages are, and generation
+pages grow on demand (``_ensure_frontier``), a shortage preempting the
+newest ready slot, which requeues at the head and resumes by recomputing
+its effective prompt.  Page 0 is the scratch page idle rows write into,
+full prompt pages are shared through a per-page trie keyed (parent page,
+token chunk), and pages are refcounted and freed by their last user.
+Every edit of the page chain is in place, so a captured CUDA graph keeps
+reading it.  Mixed into ServingEngine, which owns the state.
 """
 
 from __future__ import annotations
@@ -62,7 +66,10 @@ class PagingMixin:
         self._slot_temp[slot] = 0.0
         self._slot_topk[slot] = self.cfg.vocab_size
         self._slot_topp[slot] = 1.0
+        self._slot_bias_ids[slot] = [0] * self.MAX_BIAS
+        self._slot_bias_vals[slot] = [0.0] * self.MAX_BIAS
         self._slot_page_base[slot] = 0
+        self._slot_seq[slot] = 0
         self._slot_ready[slot] = False
         self._slot_emit_t[slot] = 0.0
         # Slot scalars changed: the step state is rebuilt from host truth.
@@ -86,9 +93,11 @@ class PagingMixin:
         another request's K/V."""
         for key in self._page_keys.pop(page, []):
             self._prefix_pages.pop(key, None)
+            self._trie_version += 1
         for key in self._child_keys.pop(page, []):
             child = self._prefix_pages.pop(key, None)
             if child is not None:
+                self._trie_version += 1
                 keys = self._page_keys.get(child)
                 if keys and key in keys:
                     keys.remove(key)
@@ -124,9 +133,82 @@ class PagingMixin:
             if key not in self._prefix_pages:
                 self._prefix_pages[key] = pages[i]
                 self._page_keys.setdefault(pages[i], []).append(key)
+                self._trie_version += 1
                 if parent >= 0:
                     self._child_keys.setdefault(parent, []).append(key)
             parent = self._prefix_pages[key]
+
+    def _ensure_frontier(self, active: list[int], lookahead: int) -> list[int]:
+        """Make every coming write in [len, len + lookahead] addressable for
+        each active slot (lookahead: 0 synchronous, 1 with a step in
+        flight, T - 1 for a block, 2T - 1 with a block in flight).  The
+        dispatch derives what a slot sees from its chain, so nothing is
+        published here (the reference's ``_extend_frontier`` moves only a
+        host watermark when tables are derived).
+
+        Reserve admission allocated every page already.  Optimistic
+        admission allocates here, oldest admission first; a dry pool
+        preempts the newest ready slot newer than the one growing, and a
+        slot still short after that is evicted itself (the oldest request
+        is never robbed: liveness).  Returns the active slots minus the
+        evicted."""
+        if not self._optimistic:
+            return active
+        ps = self.paged.page_size
+        for s in sorted(active, key=lambda x: self._slot_seq[x]):
+            if self.slots[s] is None or not self._slot_ready[s]:
+                continue  # evicted as a victim earlier in this pass
+            need = (self._slot_len[s] + lookahead) // ps + 1
+            while need > self._slot_page_base[s] + len(self._slot_pages[s]):
+                with self._lock:
+                    page = self.free_pages.popleft() if self.free_pages else None
+                    if page is not None:
+                        self._page_refs[page] = 1
+                        self._slot_pages[s].append(page)
+                        # The grown chain; the dispatch shows the page once
+                        # the frontier reaches it.
+                        idx = self._slot_page_base[s] + len(self._slot_pages[s]) - 1
+                        self._chain[s, idx] = page
+                        continue
+                if not self._preempt_newest(newer_than=self._slot_seq[s]):
+                    break
+            if need > self._slot_page_base[s] + len(self._slot_pages[s]):
+                self._evict_slot(s)  # starved even after preempting: resume later
+        return [s for s in active if self.slots[s] is not None and self._slot_ready[s]]
+
+    def _preempt_newest(self, newer_than: int) -> bool:
+        """Evict the most recently admitted ready slot strictly newer than
+        ``newer_than``; False when there is none."""
+        cands = [
+            s for s in range(self.max_slots)
+            if self.slots[s] is not None and self._slot_ready[s] and self._slot_seq[s] > newer_than
+        ]
+        if not cands:
+            return False
+        self._evict_slot(max(cands, key=lambda s: self._slot_seq[s]))
+        return True
+
+    def _evict_slot(self, slot: int) -> None:
+        """Preempt: tear the slot down like a finish, but requeue the
+        request at the queue head for recompute-resume, unless its client
+        already cancelled it (then eviction is the teardown)."""
+        req = self.slots[slot]
+        self._clear_slot(slot)
+        with self._lock:
+            # Atomic with cancel(): a cancel either marked it in its slot
+            # (seen here) or finds it back in the queue.
+            if req.cancelled:
+                req.done = True
+                self._update_gauges()
+                return
+            self.preemptions += 1
+            if self.metrics:
+                self.metrics.preemptions.inc()
+            self.queue.appendleft(req)
+            self._update_gauges()
+        if self.flight is not None:
+            self.flight.record("engine.preempt", rid=req.rid, generated=len(req.tokens),
+                               free_pages_after=len(self.free_pages), snapshot=False)
 
     def _reclaim_windowed(self, slot: int) -> None:
         """Free pages that scrolled wholly out of the sliding window: a

@@ -1,10 +1,12 @@
 """Serving-engine sampling and the decode dispatch (one step or a block).
 
 Counterpart of the reference's ``models/engine_sampling.py``: the per-row
-top-k/top-p filter, the page-table view derived from each slot's full page
+top-k/top-p filter, the emitted token's logprob under the unscaled
+distribution, the page-table view derived from each slot's full page
 chain, and the decode dispatch, its ``build_step_fn`` (T = 1) and
 ``build_block_fn`` (T > 1) in one function, with greedy, temperature and
-top-k/top-p sampling.  Random draws follow the reference's key schedule
+top-k/top-p sampling, a per-slot sparse logit bias on what is picked, and
+logprobs when a slot asks.  Random draws follow the reference's key schedule
 through jax's threefry (``utils/prng.py``): a sampled dispatch splits its
 key once, samples from the subkey (a step) or from ``split(subkey, T)`` (a
 block), and returns the other half as the next dispatch's key.
@@ -16,6 +18,14 @@ import torch
 
 from ..utils import prng
 from .transformer import NEG_LOGIT, PagedCache
+
+
+def token_logprob(row, nxt):
+    """The emitted tokens' logprobs under the UNSCALED model distribution
+    of ``row`` [batch, vocab] (the sampler settings and the bias change
+    what is picked, not what is reported)."""
+    lp = torch.log_softmax(row.float(), dim=-1)
+    return torch.gather(lp, 1, nxt[:, None].long())[:, 0]
 
 
 def filter_top_k_top_p(scaled, top_k, top_p):
@@ -65,16 +75,21 @@ def pick(row, key, temps=None, topks=None, topps=None):
 
 
 def decode_tokens(model, cache: PagedCache, chain, tokens, positions, key, T: int = 1,
-                  temps=None, topks=None, topps=None):
+                  temps=None, topks=None, topps=None, bias_ids=None, bias_vals=None,
+                  want_lp: bool = False):
     """T exact single-token decode steps over every slot (T = 1: the
     reference's step; T > 1: its block, a scan of such steps): each step
     derives the visible page table from ``chain`` [slots, max_pages_per_seq]
     at its position, runs the model on ``tokens``/``positions`` [slots, 1]
     (the append lands at the carried ``seq_lens``), and picks each slot's
     next token with a fresh key.  ``temps`` None = every slot greedy.
+    ``bias_ids``/``bias_vals`` [slots, MAX_BIAS]: added to the logits the
+    pick reads (padding is id 0 with 0.0).  ``want_lp``: also return each
+    token's :func:`token_logprob` of the unbiased logits.
 
-    Returns ``(out [slots, T], next_tokens [slots, 1], next_positions
-    [slots, 1], next_key)``: the tokens, then the next dispatch's inputs.
+    Returns ``(out [slots, T], logprobs [slots, T] float32 or None,
+    next_tokens [slots, 1], next_positions [slots, 1], next_key)``: the
+    tokens, then the next dispatch's inputs.
 
     A greedy dispatch neither draws nor splits, and returns its key as it
     came: the carried key feeds only sampled dispatches, and the sampler
@@ -87,11 +102,15 @@ def decode_tokens(model, cache: PagedCache, chain, tokens, positions, key, T: in
         key, sub = prng.split(key)
         step_keys = [sub] if T == 1 else prng.split(sub, T)
     page_size = model.config.paged.page_size
-    out = []
+    out, lps = [], []
     for j in range(T):
         cache.page_table = _derived_tables(chain, positions, page_size)
         row = model(tokens, positions, cache=cache)[:, -1]
-        nxt = pick(row, step_keys[j], temps, topks, topps)
+        picked = row if bias_ids is None else row.scatter_add(1, bias_ids, bias_vals.to(row.dtype))
+        nxt = pick(picked, step_keys[j], temps, topks, topps)
         out.append(nxt)
+        if want_lp:
+            lps.append(token_logprob(row, nxt))
         tokens, positions = nxt[:, None], positions + 1
-    return torch.stack(out, dim=1), tokens, positions, key
+    logprobs = torch.stack(lps, dim=1) if want_lp else None
+    return torch.stack(out, dim=1), logprobs, tokens, positions, key

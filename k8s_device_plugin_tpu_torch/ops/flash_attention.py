@@ -234,17 +234,21 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout, *, causal, sm_sc
     return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# The head dims every kernel takes, in both variants: the FMA kernels are
-# built at each; the wgmma kernels at 64 and 128, with 16 and 32 zero-filled
-# to 64 columns in shared memory.
-HEAD_DIMS = (16, 32, 64, 128)
+# The head dims every kernel takes, in both variants: any multiple of 8 from
+# 8 to 128.  The FMA kernels are built at 16, 32, 64 and 128, the wgmma
+# kernels at 64 and 128; any other head_dim runs in the next wider of the
+# 64- and 128-wide builds, its columns past head_dim zero-filled.
+HEAD_DIMS = tuple(range(8, 129, 8))
 
 
 def check_head_dim(head_dim: int) -> None:
     """Raise ValueError, naming what is taken, for a head_dim the CUDA
     kernels do not take."""
     if head_dim not in HEAD_DIMS:
-        raise ValueError(f"the CUDA flash kernels take head_dim {HEAD_DIMS}, got {head_dim}")
+        raise ValueError(
+            f"the CUDA flash kernels take a head_dim that is a multiple of 8 from 8 to 128, "
+            f"got {head_dim}"
+        )
 
 
 def _check_kernel_inputs(kernel, **tensors) -> Variant:

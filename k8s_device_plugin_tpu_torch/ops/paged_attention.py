@@ -110,11 +110,12 @@ def paged_attention_reference(q4, pool_k, pool_v, table, lens, *, sm_scale, wind
     return _combine_splits(acc, m[..., 0], l, q4.dtype)
 
 
-# What the CUDA kernel takes: head_dim 64 and 128 are built, 16 and 32 run
-# in the 64-wide build with zero-filled rows; any power-of-two page size
-# from 2 to 64; a kv group of at most 32 query heads (a warp each).
-HEAD_DIMS = (16, 32, 64, 128)
-PAGE_SIZES = (2, 4, 8, 16, 32, 64)
+# What the CUDA kernel takes: it is built 64 and 128 wide, and any multiple
+# of 8 from 8 to 128 runs in the next of them with zero-filled rows; any
+# power-of-two page size from 1 to 128; a kv group of at most 32 query
+# heads (a warp each).
+HEAD_DIMS = tuple(range(8, 129, 8))
+PAGE_SIZES = tuple(1 << i for i in range(8))
 MAX_GROUP = 32
 
 
@@ -122,9 +123,11 @@ def check_shape(head_dim: int, page_size: int, group: int) -> None:
     """Raise ValueError, naming what is taken, for a head_dim, page size or
     kv group the CUDA kernel does not take."""
     if head_dim not in HEAD_DIMS:
-        raise ValueError(f"the CUDA paged kernel takes head_dim {HEAD_DIMS}, got {head_dim}")
+        raise ValueError(f"the CUDA paged kernel takes a head_dim that is a multiple of 8 "
+                         f"from 8 to 128, got {head_dim}")
     if page_size not in PAGE_SIZES:
-        raise ValueError(f"the CUDA paged kernel takes page_size {PAGE_SIZES}, got {page_size}")
+        raise ValueError(f"the CUDA paged kernel takes a power-of-two page_size from 1 to 128, "
+                         f"got {page_size}")
     if group > MAX_GROUP:
         raise ValueError(f"the CUDA paged kernel takes a kv group of at most {MAX_GROUP} "
                          f"query heads, got {group}")

@@ -1,9 +1,14 @@
-"""Prometheus-format counters, gauges and histograms, stdlib-only.
+"""Prometheus-format metrics, stdlib-only.
 
-The port's own copy of the registry the serving engine's ``EngineMetrics``
-needs (the reference keeps the same machinery in its ``utils/metrics.py``);
-the exposition text is the same 0.0.4 format, so a scrape of either engine
-reads alike.  The HTTP exporter is not part of this slice.
+The port's own copy of the reference's ``utils/metrics.py`` (counters,
+gauges, summaries, histograms, the registry and the 0.0.4 text
+exposition), so a scrape of either engine reads alike and
+``tools/metrics_lint.py`` holds both.  The stand-alone ``MetricsServer``
+is not copied: the port's HTTP server serves ``/metrics`` itself.
+
+Exposition format: https://prometheus.io/docs/instrumenting/exposition_formats/
+(text version 0.0.4) — `# HELP` / `# TYPE` headers, one `name{labels} value`
+line per labeled series.
 """
 
 from __future__ import annotations
@@ -73,6 +78,10 @@ class Counter(_Metric):
         with self._lock:
             self._series[key] = self._series.get(key, 0.0) + amount
 
+    def value(self, **labels: str) -> float:
+        with self._lock:
+            return self._series.get(self._key(labels), 0.0)
+
 
 class Gauge(_Metric):
     TYPE = "gauge"
@@ -82,9 +91,28 @@ class Gauge(_Metric):
         with self._lock:
             self._series[key] = float(value)
 
+    def inc(self, amount: float = 1.0, **labels: str) -> None:
+        key = self._key(labels)
+        with self._lock:
+            self._series[key] = self._series.get(key, 0.0) + amount
+
+    def dec(self, amount: float = 1.0, **labels: str) -> None:
+        self.inc(-amount, **labels)
+
+    def value(self, **labels: str) -> float:
+        with self._lock:
+            return self._series.get(self._key(labels), 0.0)
+
+    def remove(self, **labels: str) -> None:
+        """Drop one labeled series (a per-device gauge whose device was
+        unplugged must stop exporting, not freeze at its last value)."""
+        with self._lock:
+            self._series.pop(self._key(labels), None)
+
 
 class _Timer:
-    """Context manager observing elapsed wall seconds into a histogram."""
+    """Context manager observing elapsed wall seconds into any metric
+    with an ``observe(seconds)`` method (Summary, Histogram)."""
 
     def __init__(self, observe):
         self._observe = observe
@@ -98,50 +126,139 @@ class _Timer:
         return False
 
 
+class Summary:
+    """count + sum pair (enough for rate()/avg in PromQL; no quantiles)."""
+
+    TYPE = "summary"
+
+    def __init__(self, name: str, help_text: str):
+        self.name = name
+        self.help = help_text
+        self._lock = threading.Lock()
+        self._count = 0
+        self._sum = 0.0
+
+    def observe(self, value: float) -> None:
+        with self._lock:
+            self._count += 1
+            self._sum += float(value)
+
+    def time(self) -> "_Timer":
+        return _Timer(self.observe)
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    def collect(self) -> list[str]:
+        with self._lock:
+            return [
+                f"# HELP {self.name} {self.help}",
+                f"# TYPE {self.name} {self.TYPE}",
+                f"{self.name}_count {self._count}",
+                f"{self.name}_sum {_format_value(self._sum)}",
+            ]
+
+
 class Histogram:
-    """Fixed-bucket histogram (cumulative ``le`` exposition) with the
-    PromQL-style ``quantile`` estimate the batch CLI reports."""
+    """Fixed-bucket histogram (cumulative ``le`` exposition): what
+    PromQL's histogram_quantile() needs for p50/p99 dashboards — the
+    piece Summary (count+sum only) can't provide.
+
+    ``labelnames`` (optional) makes it a labeled family: each distinct
+    labelset owns its own bucket counts, exported as
+    ``name_bucket{<labels>,le="..."}`` series the way prometheus_client
+    renders them (the exposition linter checks cumulative buckets per
+    non-le labelset).  Keep the label space SMALL and closed — a
+    per-priority-class split, never a per-request/tenant one."""
 
     TYPE = "histogram"
-    # Log-spaced seconds, 1ms..10s.
+    # Log-spaced seconds, 1ms..10s: covers local-chip decode steps
+    # (~ms), relay-RTT steps (~100ms), and compile stalls (~s).
     DEFAULT_BUCKETS = (
         0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
         1.0, 2.5, 5.0, 10.0,
     )
 
-    def __init__(self, name: str, help_text: str, buckets=None):
+    def __init__(
+        self,
+        name: str,
+        help_text: str,
+        buckets=None,
+        labelnames: Iterable[str] = (),
+    ):
         self.name = name
         self.help = help_text
+        self.labelnames = tuple(labelnames)
         self.buckets = tuple(sorted(buckets or self.DEFAULT_BUCKETS))
         self._lock = threading.Lock()
         self._bucket_counts = [0] * len(self.buckets)
         self._count = 0
         self._sum = 0.0
+        # Labeled series: labelset key -> [bucket_counts, count, sum].
+        self._series: dict[tuple[str, ...], list] = {}
 
-    def observe(self, value: float) -> None:
+    def _key(self, labels: Mapping[str, str]) -> tuple[str, ...]:
+        if set(labels) != set(self.labelnames):
+            raise ValueError(
+                f"{self.name}: got labels {sorted(labels)}, "
+                f"want {sorted(self.labelnames)}"
+            )
+        return tuple(str(labels[k]) for k in self.labelnames)
+
+    def observe(self, value: float, **labels: str) -> None:
         v = float(value)
         i = bisect.bisect_left(self.buckets, v)
+        if self.labelnames:
+            key = self._key(labels)
+            with self._lock:
+                series = self._series.get(key)
+                if series is None:
+                    series = self._series[key] = [
+                        [0] * len(self.buckets), 0, 0.0
+                    ]
+                if i < len(self.buckets):
+                    series[0][i] += 1
+                series[1] += 1
+                series[2] += v
+            return
+        if labels:
+            raise ValueError(f"{self.name} takes no labels")
         with self._lock:
             if i < len(self._bucket_counts):
                 self._bucket_counts[i] += 1
             self._count += 1
             self._sum += v
 
-    def time(self) -> _Timer:
+    def time(self) -> "_Timer":
         return _Timer(self.observe)
 
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
     def snapshot(self) -> tuple[tuple[int, ...], int, float]:
-        """(bucket_counts, count, sum) now — the ``since`` anchor for
-        :meth:`quantile`, so warmup observations can be subtracted."""
+        """(bucket_counts, count, sum) at this instant — the ``since``
+        anchor for :meth:`quantile`, so a benchmark can report the timed
+        region's percentiles with warmup observations subtracted."""
         with self._lock:
             return tuple(self._bucket_counts), self._count, self._sum
 
     def quantile(self, q: float, since=None) -> float | None:
-        """The q-quantile as PromQL's histogram_quantile() estimates it:
-        the bucket where the cumulative count crosses q*total, linearly
-        interpolated.  ``since`` (a prior :meth:`snapshot`) restricts the
-        window.  None on an empty window; a crossing in +Inf reports the
-        highest finite bound."""
+        """Estimate the q-quantile (0 <= q <= 1) the way PromQL's
+        histogram_quantile() does: find the bucket where the cumulative
+        count crosses q*total and interpolate linearly inside it.  With
+        ``since`` (a prior :meth:`snapshot`), only observations recorded
+        after that snapshot count.  Returns None on an empty window; a
+        crossing in the +Inf bucket reports the highest finite bound
+        (the same clamp PromQL applies)."""
         if not 0.0 <= q <= 1.0:
             raise ValueError(f"q must be in [0, 1], got {q}")
         counts, total, _ = self.snapshot()
@@ -153,19 +270,48 @@ class Histogram:
             return None
         rank = q * total
         cum = 0
-        for le, n, lower in zip(self.buckets, counts, (0.0,) + self.buckets[:-1]):
+        for le, n, lower in zip(
+            self.buckets, counts, (0.0,) + self.buckets[:-1]
+        ):
             cum += n
             if cum >= rank and n > 0:
-                return lower + (le - lower) * (rank - (cum - n)) / n
+                frac = (rank - (cum - n)) / n
+                return lower + (le - lower) * frac
         return self.buckets[-1]
 
     def collect(self) -> list[str]:
         with self._lock:
-            lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} {self.TYPE}"]
+            lines = [
+                f"# HELP {self.name} {self.help}",
+                f"# TYPE {self.name} {self.TYPE}",
+            ]
+            if self.labelnames:
+                for key in sorted(self._series):
+                    counts, count, total = self._series[key]
+                    labels = dict(zip(self.labelnames, key))
+                    blob = _format_labels(labels)  # "{k=\"v\",...}"
+                    inner = blob[1:-1]
+                    cum = 0
+                    for le, n in zip(self.buckets, counts):
+                        cum += n
+                        lines.append(
+                            f"{self.name}_bucket{{{inner},"
+                            f'le="{_format_value(le)}"}} {cum}'
+                        )
+                    lines.append(
+                        f'{self.name}_bucket{{{inner},le="+Inf"}} {count}'
+                    )
+                    lines.append(
+                        f"{self.name}_sum{blob} {_format_value(total)}"
+                    )
+                    lines.append(f"{self.name}_count{blob} {count}")
+                return lines
             cum = 0
             for le, n in zip(self.buckets, self._bucket_counts):
                 cum += n
-                lines.append(f'{self.name}_bucket{{le="{_format_value(le)}"}} {cum}')
+                lines.append(
+                    f'{self.name}_bucket{{le="{_format_value(le)}"}} {cum}'
+                )
             lines.append(f'{self.name}_bucket{{le="+Inf"}} {self._count}')
             lines.append(f"{self.name}_sum {_format_value(self._sum)}")
             lines.append(f"{self.name}_count {self._count}")
@@ -186,14 +332,32 @@ class MetricsRegistry:
             self._metrics[metric.name] = metric
         return metric
 
+    def get(self, name: str):
+        """Look up an already-registered metric family by name (None
+        when absent) — the get-or-create seam for hooks that may be
+        constructed more than once against a process-wide registry."""
+        with self._lock:
+            return self._metrics.get(name)
+
     def counter(self, name: str, help_text: str, labelnames: Iterable[str] = ()) -> Counter:
         return self._register(Counter(name, help_text, labelnames))
 
     def gauge(self, name: str, help_text: str, labelnames: Iterable[str] = ()) -> Gauge:
         return self._register(Gauge(name, help_text, labelnames))
 
-    def histogram(self, name: str, help_text: str, buckets=None) -> Histogram:
-        return self._register(Histogram(name, help_text, buckets))
+    def summary(self, name: str, help_text: str) -> Summary:
+        return self._register(Summary(name, help_text))
+
+    def histogram(
+        self,
+        name: str,
+        help_text: str,
+        buckets=None,
+        labelnames: Iterable[str] = (),
+    ) -> Histogram:
+        return self._register(
+            Histogram(name, help_text, buckets, labelnames=labelnames)
+        )
 
     def render(self) -> str:
         with self._lock:
@@ -202,3 +366,21 @@ class MetricsRegistry:
         for metric in metrics:
             lines.extend(metric.collect())
         return "\n".join(lines) + "\n"
+
+
+# Prometheus text exposition 0.0.4 — the one place the scrape
+# content-type lives.
+PROM_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def write_exposition(handler, registry: "MetricsRegistry") -> None:
+    """Answer one GET /metrics on a BaseHTTPRequestHandler: render the
+    registry and write a 200 text-exposition response.  Shared by the
+    plugin's MetricsServer and the serving EngineServer so the two
+    /metrics endpoints cannot drift in content-type or framing."""
+    body = registry.render().encode()
+    handler.send_response(200)
+    handler.send_header("Content-Type", PROM_CONTENT_TYPE)
+    handler.send_header("Content-Length", str(len(body)))
+    handler.end_headers()
+    handler.wfile.write(body)

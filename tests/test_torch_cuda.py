@@ -366,10 +366,11 @@ def _flash_case(dev, seed, *, d, dtype, s=200, heads=4, group=2, batch=1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [16, 32, 128])
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16-wgmma", "f32-fma"])
 def test_cuda_flash_kernels_at_every_head_dim(dev, d, dtype):
-    """Kernels 2, 3 and 4 at head_dim 16, 32 and 128 (64 is covered above)
+    """Kernels 2, 3 and 4 at every multiple of 8 from 8 to 128 (the padded
+    builds at all but 16, 32, 64 and 128 for FMA, 64 and 128 for wgmma)
     against their plain versions, causal, window 40 and non-causal, one
     launch of the dtype's variant each; forward tolerances as above, the
     backward's relative to max |plain|."""
@@ -398,14 +399,15 @@ def test_cuda_flash_kernels_at_every_head_dim(dev, d, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("ps", [2, 4, 8, 64])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("ps", [1, 2, 4, 8, 64, 128])
+@pytest.mark.parametrize("d", list(range(8, 129, 8)))
 @pytest.mark.parametrize("fmt", ["f", "int8", "int4"])
 @pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)],
                          ids=["bf16", "f32"])
 def test_cuda_paged_kernel_at_every_head_dim_and_page_size(dev, ps, d, fmt, dtype, tol):
-    """Kernel 1 at head_dim 16, 32, 64 and 128 and page sizes 2, 4, 8 and
-    64, in every pool format, against its plain version: lens 0, 1, page
+    """Kernel 1 at every multiple of 8 from 8 to 128 (int4 rows of 4, 12,
+    20, ... bytes copied in 4- and 8-byte pieces) and page sizes 1, 2, 4,
+    8, 64 and 128, in every pool format, against its plain version: lens 0, 1, page
     edges and a full table, 1 and 4 splits, windows none and 7; one launch
     counted per call."""
     rs = np.random.RandomState(ps * 1000 + d)
@@ -484,6 +486,6 @@ def test_cuda_engine_refuses_other_head_dims_at_construction(dev):
     from k8s_device_plugin_tpu_torch.models import transformer as tf
 
     cfg = dataclasses.replace(tf.GPTConfig.tiny(), hidden_size=1024, num_heads=4)
-    with pytest.raises(ValueError, match=r"head_dim \(16, 32, 64, 128\), got 256"):
+    with pytest.raises(ValueError, match=r"multiple of 8 from 8 to 128, got 256"):
         engine_mod.ServingEngine(cfg, tf.init_params(cfg, seed=0), tf.PagedConfig(4, 64, 16),
                                  device=dev)

@@ -384,8 +384,9 @@ def test_kernel_inputs_are_checked_before_a_launch():
     for head_dim in fa.HEAD_DIMS:
         q_d = torch.zeros(1, 2, 8, head_dim)
         assert fa._check_kernel_inputs("forward", q=q_d) == fa.variant("forward", torch.float32)
-    with pytest.raises(ValueError, match=r"head_dim \(16, 32, 64, 128\), got 48"):
-        fa._check_kernel_inputs("forward", q=torch.zeros(1, 2, 8, 48))
+    for head_dim in (4, 44, 136, 256):
+        with pytest.raises(ValueError, match=rf"multiple of 8 from 8 to 128, got {head_dim}"):
+            fa._check_kernel_inputs("forward", q=torch.zeros(1, 2, 8, head_dim))
     # A wrapper refuses a type no kernel takes before it builds anything.
     with pytest.raises(ValueError, match="float32"):
         fa._launch(q.half(), q.half(), q.half(), causal=True, sm_scale=0.125, window=None)
@@ -578,3 +579,52 @@ def test_nonzero_launch_status_raises():
     _build.check(0, "ok")
     with pytest.raises(_build.KernelError, match="CUDA error 9"):
         _build.check(9, "paged_attention_fwd")
+
+
+@pytest.mark.parametrize("fmt", ["f", "int8", "int4"])
+@pytest.mark.parametrize(
+    "head_dim, ps, mpp", [(80, 8, 4), (96, 8, 4), (64, 1, 24), (64, 128, 2)],
+    ids=["d80", "d96", "page1", "page128"],
+)
+def test_paged_plain_matches_jax_at_new_widths_and_pages(fmt, head_dim, ps, mpp):
+    """Kernel 1's plain version at head_dim 80 and 96 (Phi-2's and
+    Phi-3-mini's) and at page sizes 1 and 128, in every pool format,
+    against the reference's kernel run in the Pallas interpreter and its
+    XLA lane, 1 and 2 splits."""
+    kw = dict(head_dim=head_dim, ps=ps, mpp=mpp, n_pool=3 * mpp + 2)
+    if fmt == "f":
+        inputs = _paged_inputs(30 + head_dim + ps, **kw)
+    else:
+        inputs = _quantized_inputs(30 + head_dim + ps, fmt, **kw)
+    for splits in (1, 2):
+        for jax_kw in ({"interpret": True}, {"use_pallas": False}):
+            if fmt == "f":
+                want = np.asarray(jax_paged(*map(jnp.asarray, inputs), num_splits=splits,
+                                            **jax_kw))
+                got = pa.paged_attention(*_torch(*inputs), num_splits=splits)
+            else:
+                want, got = _paged_both(inputs, num_splits=splits, **jax_kw)
+            np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL,
+                                       err_msg=f"S={splits} {jax_kw}")
+
+
+@pytest.mark.parametrize("head_dim", [80, 96])
+@pytest.mark.parametrize("causal, window", CASES, ids=CASE_IDS)
+def test_flash_plain_matches_interpreted_pallas_at_new_widths(causal, window, head_dim):
+    """Kernels 2, 3 and 4's plain versions at head_dim 80 and 96 against
+    the reference's forward and backward kernels in the Pallas
+    interpreter (lse, output and dq/dk/dv of sum(out^2))."""
+    q, k, v = _flash_inputs(40 + head_dim, h=4, hk=2, s=128, d=head_dim)
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    want_out, want_lse = _flash_impl(jq, jk, jv, causal, window, head_dim ** -0.5, 64, 64, True)
+    out, lse = fa.flash_forward(*_torch(q, k, v), causal=causal, window=window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(
+        lse.numpy(), np.asarray(want_lse)[:, :, 0].reshape(lse.shape), rtol=TOL, atol=TOL
+    )
+    want = _jax_grads(q, k, v, causal=causal, window=window, bwd_impl="pallas",
+                      interpret=True, block_q=64, block_kv=64)
+    got = _grads(q, k, v, causal=causal, window=window)
+    for g, w, name in zip(got, want, "qkv"):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=BWD_TOL_PALLAS, atol=BWD_TOL_PALLAS,
+                                   err_msg=f"d{name}")
