@@ -2,6 +2,7 @@
 """Drive the PyTorch port on one NVIDIA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab-tiers N   # only: phase 4e's traffic, tiers off/retain/on, N rounds
 
 Phases, in order (any failure exits non-zero):
 
@@ -38,6 +39,12 @@ Phases, in order (any failure exits non-zero):
    96 and 128 in both variants, against their plain versions; then kernels
    1-4 timed at head_dim 80, 96 and 128 in bf16 (the kernel line's
    ``head_dim_80``, ``head_dim_96`` and ``head_dim_128``);
+3d. kernel 1 on pages that came back from the host: a serving engine at
+   the deployed widths (2 layers, bf16 pools and int8 pools with their
+   scale pools) reads 255 pages through its KV-tier row reads and restores
+   them into 255 others; every pool's rows must come back bit for bit, in
+   place, and the kernel on the restored pages must equal the kernel on
+   the source pages bit for bit and its plain version within tolerance;
 4. run the batch serving engine at the deployed model's full width (vocab
    32000, hidden 1024, 8 layers, 16 heads / 4 kv heads, page 16, 512 pages,
    32 pages per sequence, 8 slots; 32 requests, prompt 128, 128 new
@@ -59,10 +66,11 @@ Phases, in order (any failure exits non-zero):
    wall against device time per token at block 1 (synchronous and eager,
    and overlapped with graphs) and at block 16;
 4e. the port's HTTP server (``models/http_server.py``) as a subprocess at
-   the deployment's flags minus the KV-tier ones (hidden 1024, 8 layers,
-   16/4 heads, page 16, 512 pages, 8 slots, block 16, optimistic
-   admission, prefill chunk 256, overload, SLO, watchdog), an ephemeral
-   port and vocab 32000: after a warm-up, phase 4d's traffic from 32
+   the deployment's flags, nothing cut (hidden 1024, 8 layers, 16/4 heads,
+   page 16, 512 pages, 8 slots, block 16, optimistic admission, prefill
+   chunk 256, the KV tiers with a 512 MiB host arena, overload, SLO,
+   watchdog, snapshots every 60 s into a directory under build/), an
+   ephemeral port and vocab 32000: after a warm-up, phase 4d's traffic from 32
    client threads (24 unary, 8 SSE); the greedy tokens must equal an
    in-process engine built from the same flags; 8 sampled requests (0.8,
    top-k 50, n=2, logprobs) must return finite logprobs <= 0; the debug
@@ -71,11 +79,24 @@ Phases, in order (any failure exits non-zero):
    own counters, and SIGTERM must drain it to exit 0.  Then again at 96
    pages, where optimistic admission must preempt (the first 8 requests,
    admitted at the full limit, need at least 100 of its 95 allocatable
-   pages by their last token): every request ends
+   pages by their last token) and the KV tiers must restore at least one
+   resume: every request ends
    with 128 tokens, equal to the 512-page run's where never preempted and
    up to the first preemption where preempted (the first difference after
    it is reported); and GPTConfig.tiny() in float32 in process, where
    preempted streams must be identical in full;
+4f. warm restart: a server on the same flags serves the 16 shared-prefix
+   requests, SIGTERM drains it and the drain saves the snapshot; a second
+   server on the same snapshot directory must load more than 0 entries
+   and return the first's greedy tokens for the same requests (snapshot
+   bytes, save and load seconds, prefill positions, host hits and TTFT,
+   cold against warm, are reported);
+4g. split roles: a ``--role=prefill`` and a ``--role=decode`` server on the
+   one card; eight 256-token prompts go one at a time to the decode server
+   with ``X-Handoff-Source`` naming the prefill server (this script plays
+   the router), and must return the greedy tokens phase 4f's warm (unified)
+   server returned for them, with prefill skipped on the decode server
+   (TTFT and ITL beside the unified server's, the bytes handed off);
 4c. ``decode_profile.sweep_formats``, the kernel benchmark (the reference
    reaches int4 pools only from its kernel benchmark): each pool format
    at the decode shape, launches counted by format;
@@ -109,7 +130,8 @@ it measured in this run, the bounds computed from its inputs), one
 ``slice`` JSON line, one ``blocks`` JSON line (phase 4d, 3c's worst
 errors and the tiny phase 6), one
 ``quant`` JSON line, one ``train`` JSON line, one ``serve`` JSON line
-(phase 4e), and last the line
+(phase 4e), one ``warm_restart`` line (phases 4f, 4g and 3d), and last
+the line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -732,21 +754,32 @@ def first_difference(a, b) -> str:
 
 # ------------------------------------------------------------- phase 4e
 
-# The deployment's serving flags (deploy/k8s-deploy-serve-http.yaml) minus
-# the KV-tier ones the port refuses (--kv-retain, --kv-host-cache-mb,
-# --snapshot-*); vocab is the CLI's default 32000.
+# The deployment's serving flags (deploy/k8s-deploy-serve-http.yaml), nothing
+# cut; vocab is the CLI's default 32000.  ``--snapshot-dir`` is the one
+# path each run sets itself (snapshot_flag).
 SERVE_FLAGS = (
     "--hidden=1024", "--layers=8", "--heads=16", "--kv-heads=4", "--page-size=16",
     "--num-pages=512", "--max-pages-per-seq=32", "--slots=8", "--decode-block=16",
-    "--admission=optimistic", "--prefill-chunk=256", "--overload=1",
-    "--overload-target-wait=0.5", "--overload-max-queue=512", "--slo=1",
-    "--watchdog=1", "--watchdog-min-deadline=5", "--watchdog-grace=120",
-    "--dump-budget-mb=256",
+    "--admission=optimistic", "--prefill-chunk=256", "--kv-retain=1",
+    "--kv-host-cache-mb=512", "--overload=1", "--overload-target-wait=0.5",
+    "--overload-max-queue=512", "--slo=1", "--watchdog=1", "--watchdog-min-deadline=5",
+    "--watchdog-grace=120", "--snapshot-interval=60", "--dump-budget-mb=256",
 )
-# What phase 4e adds to them: an ephemeral port, and a flight ring big
-# enough that no preemption event of the run is dropped.
+# What the serving phases add to them: an ephemeral port, and a flight ring
+# big enough that no preemption event of the run is dropped.
 SERVE_EXTRA = ("--http-port=0", "--flight-ring=65536")
 SERVE_STREAMED = 8  # of the 32 requests; the other 24 are unary
+
+
+def snapshot_flag(name: str) -> str:
+    """``--snapshot-dir`` at an empty directory of the checkout's build/
+    (ignored by git) for the run ``name``."""
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "build" / "snapshots" / name
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return f"--snapshot-dir={path}"
 
 
 def http_call(port: int, path: str, payload=None, timeout: float = 300.0):
@@ -814,46 +847,60 @@ def stop_server(proc, log_path) -> float:
     return time.perf_counter() - t0
 
 
-def http_traffic(port: int, jobs, payload_kw=None) -> tuple:
+def stream_request(port: int, body: dict, headers=None) -> dict:
+    """One SSE /generate: status, tokens, rid and the client's stamps
+    (send, each token, done)."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate", data=json.dumps({**body, "stream": True}).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})}, method="POST")
+    stamps, final = [], None
+    try:
+        resp = urllib.request.urlopen(req, timeout=600)
+    except urllib.error.HTTPError as e:
+        return {"status": e.code, "t_send": t0, "t_done": time.perf_counter(), "stamps": [],
+                "tokens": None, "rid": None, "body": e.read().decode(errors="replace")}
+    with resp:
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            ev = json.loads(line[len("data: "):])
+            if "token" in ev:
+                stamps.append(time.perf_counter())
+            if ev.get("done") or ev.get("error"):
+                final = ev
+                break
+    return {"status": 200 if final and final.get("done") else 500, "t_send": t0,
+            "t_done": time.perf_counter(), "stamps": stamps,
+            "tokens": (final or {}).get("tokens"), "rid": (final or {}).get("rid"),
+            "body": final}
+
+
+def http_traffic(port: int, jobs, payload_kw=None, streamed: int = SERVE_STREAMED) -> tuple:
     """Send ``jobs`` from one client thread each, at once: the first
-    SERVE_STREAMED streamed (SSE), the rest unary.  Returns (results in
+    ``streamed`` streamed (SSE), the rest unary.  Returns (results in
     job order, wall seconds); a result holds the status, tokens, rid and
     its client-side stamps (send, first token and each token for a
     stream, the answer for a unary request)."""
     import threading
-    import urllib.request
 
     results = [None] * len(jobs)
 
     def one(i, prompt, n):
         body = {"prompt": prompt, "max_new_tokens": n, **(payload_kw or {})}
         t0 = time.perf_counter()
-        if i >= SERVE_STREAMED:
+        if i >= streamed:
             status, out = http_call(port, "/generate", body)
             ok = status == 200
             results[i] = {"status": status, "t_send": t0, "t_done": time.perf_counter(),
                           "tokens": out.get("tokens") if ok else None,
                           "rid": out.get("rid") if ok else None, "body": out}
             return
-        req = urllib.request.Request(
-            f"http://127.0.0.1:{port}/generate", data=json.dumps({**body, "stream": True}).encode(),
-            headers={"Content-Type": "application/json"}, method="POST")
-        stamps, final = [], None
-        with urllib.request.urlopen(req, timeout=600) as resp:
-            for raw in resp:
-                line = raw.decode().strip()
-                if not line.startswith("data: "):
-                    continue
-                ev = json.loads(line[len("data: "):])
-                if "token" in ev:
-                    stamps.append(time.perf_counter())
-                if ev.get("done") or ev.get("error"):
-                    final = ev
-                    break
-        results[i] = {"status": 200 if final and final.get("done") else 500, "t_send": t0,
-                      "t_done": time.perf_counter(), "stamps": stamps,
-                      "tokens": (final or {}).get("tokens"), "rid": (final or {}).get("rid"),
-                      "body": final}
+        results[i] = stream_request(port, body)
 
     threads = [threading.Thread(target=one, args=(i, p, n)) for i, (p, n) in enumerate(jobs)]
     t0 = time.perf_counter()
@@ -953,9 +1000,9 @@ def warm_up(port: int, jobs) -> float:
 
 def serve_once(flags, jobs, log_path, env, sampled: bool) -> dict:
     """One server run: a warm-up, greedy traffic over HTTP, optionally the
-    sampled requests, the debug reads, the launch accounting, then
-    SIGTERM."""
-    proc, port = start_server(flags, log_path, env)
+    sampled requests, the debug reads (the KV tiers' included), the launch
+    accounting, then SIGTERM (the drain saves the snapshot)."""
+    proc, port = start_server((*flags, snapshot_flag(log_path.stem)), log_path, env)
     try:
         cold_s = warm_up(port, jobs)
         limit0 = http_call(port, "/debug/admission")[1]["limit"]
@@ -997,6 +1044,7 @@ def serve_once(flags, jobs, log_path, env, sampled: bool) -> dict:
         status, out["admission"] = http_call(port, "/debug/admission")
         status, state = http_call(port, "/debug/state")
         status, flight = http_call(port, "/debug/flight")
+        status, out["kvcache"] = http_call(port, "/debug/kvcache")
         lint_metrics(port)
     except BaseException:
         proc.kill()
@@ -1005,6 +1053,8 @@ def serve_once(flags, jobs, log_path, env, sampled: bool) -> dict:
     eng = state["engine"]
     dev = eng["device"]
     out["preemptions"] = eng["preemptions"]
+    if not eng["kvcache"]["retain"] or not eng["kvcache"]["host"]["enabled"]:
+        fail(f"the server runs without the KV tiers: {eng['kvcache']}")
     out["device"] = dev
     launches = dev["paged_launches"]["f"]
     if launches != dev["num_layers"] * dev["device_steps"] or launches <= 0:
@@ -1025,8 +1075,9 @@ def run_serve(torch, tf, http_server, smi, phase_4d: dict) -> dict:
     equal to an in-process engine built from the same flags), 8 sampled
     requests with logprobs, the debug reads, /metrics linted, the launch
     accounting, and a drain on SIGTERM; then again at 96 pages, where
-    optimistic admission preempts; and GPTConfig.tiny() in float32 in
-    process, where preempted streams must equal unpreempted ones in full."""
+    optimistic admission preempts and the KV tiers restore the resumes;
+    and GPTConfig.tiny() in float32 in process, where preempted streams
+    must equal unpreempted ones in full."""
     import os
     import pathlib
 
@@ -1082,6 +1133,10 @@ def run_serve(torch, tf, http_server, smi, phase_4d: dict) -> dict:
     if small["preemptions"] <= 0:
         fail(f"the 96-page server never preempted (the first wave needs {demand} of 95 "
              f"pages)")
+    resumes = small["kvcache"]["resumes"]
+    if resumes["restored"] <= 0:
+        fail(f"the 96-page server preempted {small['preemptions']} times and restored no "
+             f"resume from the KV tiers: {small['kvcache']}")
     if any(len(r["tokens"]) != n for r, (_, n) in zip(small["results"], jobs)):
         fail("a request on the 96-page server did not end with its 128 tokens")
     # Both runs served the same 32 jobs: compare by job index (a server's
@@ -1100,11 +1155,11 @@ def run_serve(torch, tf, http_server, smi, phase_4d: dict) -> dict:
         diff = next((j for j, (x, y) in enumerate(zip(a["tokens"], b["tokens"])) if x != y), None)
         divergence[i] = {"preempted_at": at, "first_difference": diff}
     log(f"phase 4e 96 pages: client {small['client']}, preemptions {small['preemptions']}, "
-        f"preempted requests {divergence}")
+        f"resumes {resumes}, preempted requests {divergence}")
 
     tiny = run_tiny_preemption(torch, tf)
     keep = ("client", "cold_warm_up_s", "limit_at_start", "traffic_profile", "preemptions",
-            "drain_s", "device", "flight_dropped")
+            "drain_s", "device", "flight_dropped", "kvcache")
     report = {
         "card": smi,
         "flags": list(SERVE_FLAGS),
@@ -1170,6 +1225,330 @@ def run_tiny_preemption(torch, tf) -> dict:
         fail(f"tiny float32: preempted streams differ at {first_difference(streams[1], streams[0])}")
     log(f"tiny float32 preemption: {pre[1]} preemptions, streams identical")
     return {"preemptions": pre[1], "requests": len(jobs), "identical": True}
+
+
+# ------------------------------------------------------- phases 4f and 4g
+
+
+def long_jobs(n: int, length: int = 256, new: int = 128) -> list:
+    """``n`` distinct page-aligned prompts of ``length`` tokens (16 full
+    pages at page 16) with ``new`` tokens each, in vocab 32000."""
+    return [([(i * 7919 + j * 104729) % 31999 + 1 for j in range(length)], new)
+            for i in range(n)]
+
+
+def http_sequential(port: int, jobs, headers=None) -> list:
+    """Each job streamed alone, one after the other (prefill and decode at
+    batch 1 on every server, so the tokens of the split and the unified
+    setups are comparable bit for bit)."""
+    out = []
+    for prompt, n in jobs:
+        r = stream_request(port, {"prompt": prompt, "max_new_tokens": n}, headers)
+        if r["status"] != 200:
+            fail(f"a sequential request answered {r['status']}: {r['body']}")
+        out.append(r)
+    return out
+
+
+def stream_latency(results) -> dict:
+    """TTFT and ITL quantiles (ms) of streamed results."""
+    ttft = [r["stamps"][0] - r["t_send"] for r in results]
+    itl = [b - a for r in results for a, b in zip(r["stamps"], r["stamps"][1:])]
+    return {"ttft_ms": {"p50": quantile(ttft, 0.5) * 1e3, "p99": quantile(ttft, 0.99) * 1e3},
+            "itl_ms": {"p50": quantile(itl, 0.5) * 1e3, "p99": quantile(itl, 0.99) * 1e3},
+            "requests": len(results)}
+
+
+def exit_dump_events(dump_dir, kind: str) -> list:
+    """The ``kind`` events of the engine recorder in the flight dump a
+    server wrote at exit under ``dump_dir``."""
+    import pathlib
+
+    events = []
+    for path in sorted(pathlib.Path(dump_dir).glob("tpu-flight-*-exit-*.json")):
+        payload = json.loads(path.read_text())
+        events += [e for e in payload["recorders"]["engine"]["events"] if e["kind"] == kind]
+    return events
+
+
+def run_warm_restart(smi, jobs, reference_jobs) -> dict:
+    """Phase 4f: server A on the deployment's flags serves the
+    shared-prefix half of the traffic, SIGTERM drains it and the drain
+    saves the snapshot; server B starts on the same snapshot directory,
+    must load more than 0 entries, and replays the same requests with A's
+    greedy tokens.  B then serves ``reference_jobs`` one at a time (phase
+    4g's unified reference) and drains."""
+    import os
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent
+    out_dir = root / "build" / "logs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root))
+    snap_arg = snapshot_flag("warm_restart")
+    snap_file = pathlib.Path(snap_arg.split("=", 1)[1]) / "kv_arena.snapshot"
+    shared = jobs[0::2]  # the 16 requests that share a 64-token prefix
+    runs = {}
+    for name in ("cold", "warm"):
+        dump_dir = root / "build" / "dumps" / f"warm_restart_{name}"
+        shutil.rmtree(dump_dir, ignore_errors=True)
+        log_path = out_dir / f"warm_restart_{name}.log"
+        proc, port = start_server((*SERVE_FLAGS, snap_arg, f"--dump-dir={dump_dir}"), log_path,
+                                  env)
+        try:
+            restore_line = re.search(r"kv snapshot restore: (\{.*\})", open(log_path).read())
+            state0 = http_call(port, "/debug/state")[1]
+            warm_s = warm_up(port, jobs[1::2])  # prompts outside the measured half
+            dev0 = http_call(port, "/debug/state")[1]["engine"]["device"]
+            kv0 = http_call(port, "/debug/kvcache")[1]
+            results, wall = http_traffic(port, shared, streamed=len(shared))
+            dev1 = http_call(port, "/debug/state")[1]["engine"]["device"]
+            kv1 = http_call(port, "/debug/kvcache")[1]
+            reference = http_sequential(port, reference_jobs) if name == "warm" else None
+        except BaseException:
+            proc.kill()
+            raise
+        drain_s = stop_server(proc, log_path)
+        saved = exit_dump_events(dump_dir, "engine.snapshot.saved")
+        runs[name] = {
+            "tokens": [r["tokens"] for r in results],
+            "latency": stream_latency(results),
+            "tokens_per_s": sum(len(r["tokens"]) for r in results) / wall,
+            "prefill_positions": dev1["prefill_positions"] - dev0["prefill_positions"],
+            "host_hits": kv1["hits"]["host"] - kv0["hits"]["host"],
+            "retained_hits": kv1["hits"]["retained"] - kv0["hits"]["retained"],
+            "restores": kv1["restores"] - kv0["restores"],
+            "snapshot_load": state0["fence"]["snapshot"]["last_load"],
+            "restore_line": restore_line.group(1) if restore_line else None,
+            "drain_s": drain_s,
+            "warm_up_s": warm_s,
+            "drain_save": saved[-1] if saved else None,
+            "snapshot_bytes": snap_file.stat().st_size if snap_file.exists() else 0,
+            "reference": reference,
+        }
+        if not saved or not saved[-1].get("ok", True) or not snap_file.exists():
+            fail(f"phase 4f {name}: the drain saved no snapshot ({saved[-1:]})")
+    cold, warm = runs["cold"], runs["warm"]
+    load = warm["snapshot_load"] or {}
+    if not load.get("ok") or load.get("restored", 0) <= 0:
+        fail(f"phase 4f: the restarted server loaded no entry (a cold start): {load}")
+    if warm["tokens"] != cold["tokens"]:
+        fail(f"phase 4f: the warm server's greedy tokens differ from the cold one's at "
+             f"{first_difference(warm['tokens'], cold['tokens'])}")
+    if warm["host_hits"] <= 0:
+        fail(f"phase 4f: the warm server's replay never hit the restored arena: {warm}")
+    report = {
+        "card": smi,
+        "requests": len(shared),
+        "snapshot_bytes": cold["snapshot_bytes"],
+        "snapshot_entries": cold["drain_save"]["entries"],
+        "save_s": cold["drain_save"]["ms"] / 1e3,
+        "load_s": load["ms"] / 1e3,
+        "loaded_entries": load["restored"],
+        "loaded_arena_bytes": load["bytes"],
+        "greedy_tokens_equal": True,
+    }
+    for name, run in runs.items():
+        report[name] = {k: run[k] for k in ("latency", "tokens_per_s", "prefill_positions",
+                                            "host_hits", "retained_hits", "restores", "drain_s",
+                                            "warm_up_s")}
+    log(f"phase 4f warm restart: {report}")
+    return report, warm["reference"]
+
+
+def run_split_roles(smi, reference_jobs, reference) -> dict:
+    """Phase 4g: a ``--role=prefill`` and a ``--role=decode`` server on the
+    one card, on the deployment's flags; this script plays the router,
+    sending each long prompt to the decode server with ``X-Handoff-Source``
+    naming the prefill server.  The greedy tokens must equal the unified
+    server's (phase 4f's warm server, the same prompts one at a time) and
+    the decode server must skip prefill tokens."""
+    import os
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent
+    out_dir = root / "build" / "logs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root))
+    warm_job, measured = reference_jobs[0], reference_jobs[1:]
+    servers = {}
+    try:
+        for role in ("prefill", "decode"):
+            servers[role] = start_server((*SERVE_FLAGS, snapshot_flag(f"split_{role}"),
+                                          f"--role={role}"), out_dir / f"split_{role}.log", env)
+        source = {"X-Handoff-Source": f"127.0.0.1:{servers['prefill'][1]}"}
+        dport = servers["decode"][1]
+        http_sequential(dport, [warm_job], source)  # captures, first launches
+        d0 = http_call(dport, "/debug/disagg")[1]
+        results = http_sequential(dport, measured, source)
+        d1 = http_call(dport, "/debug/disagg")[1]
+        p1 = http_call(servers["prefill"][1], "/debug/disagg")[1]
+        layout = http_call(dport, "/debug/state")[1]["engine"]["config"]
+    except BaseException:
+        for proc, _ in servers.values():
+            proc.kill()
+        raise
+    drains = {role: stop_server(proc, out_dir / f"split_{role}.log")
+              for role, (proc, _) in servers.items()}
+    got = [r["tokens"] for r in results]
+    want = [r["tokens"] for r in reference[1:]]
+    if got != want:
+        fail(f"phase 4g: the split replicas' greedy tokens differ from the unified server's at "
+             f"{first_difference(got, want)}")
+    delta = {k: d1[k] - d0[k] for k in ("fetches", "fetch_failures", "fetched_entries",
+                                        "skipped_prefill_tokens", "noprefill_admits")}
+    if delta["skipped_prefill_tokens"] <= 0 or delta["fetches"] != len(measured) \
+            or delta["fetch_failures"]:
+        fail(f"phase 4g: the decode server skipped no prefill or its pulls failed: {delta}")
+    # One entry is one page's rows: K and V, every layer (bf16 pools).
+    flag = dict(f[2:].split("=", 1) for f in SERVE_FLAGS)
+    entry_bytes = (2 * int(flag["layers"]) * layout["page_size"] * int(flag["kv-heads"])
+                   * (int(flag["hidden"]) // int(flag["heads"])) * 2)
+    report = {
+        "card": smi,
+        "requests": len(measured),
+        "prompt_tokens": len(measured[0][0]),
+        "new_tokens": measured[0][1],
+        "greedy_tokens_equal": True,
+        "decode": delta,
+        "prefill_served_entries": p1["served_entries"],
+        "bytes_handed_off": delta["fetched_entries"] * entry_bytes,
+        "bytes_note": "fetched entries x one page's K and V rows over every layer (bf16), "
+                      "wire headers aside",
+        "split": stream_latency(results),
+        "unified": stream_latency(reference[1:]),
+        "drain_s": drains,
+    }
+    log(f"phase 4g split roles: {report}")
+    return report
+
+
+def run_ab_tiers(smi, rounds: int) -> dict:
+    """``--ab-tiers N``: phase 4e's traffic over HTTP at 512 and 96 pages
+    with the KV tiers off, with retained pages only (no host arena) and
+    with both, the three in a rotated order in each of ``N`` rounds, the
+    rest of the deployment's flags as they are.  Per run: client tokens/s,
+    TTFT, ITL, steps, the limiter, seconds by profiler phase, preemptions,
+    reclaims, offloads and how the resumes went."""
+    import os
+    import pathlib
+
+    from k8s_device_plugin_tpu_torch.models.engine import synthetic_jobs
+
+    root = pathlib.Path(__file__).resolve().parent
+    out_dir = root / "build" / "logs"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root))
+    jobs = synthetic_jobs(32, 128, 128, 32000)
+    base = [f for f in SERVE_FLAGS
+            if not f.startswith(("--kv-retain", "--kv-host-cache-mb", "--num-pages"))]
+    tiers = {"on": ["--kv-retain=1", "--kv-host-cache-mb=512"],
+             "retain": ["--kv-retain=1", "--kv-host-cache-mb=0"],
+             "off": ["--kv-retain=0", "--kv-host-cache-mb=0"]}
+    modes = list(tiers)
+    order = [modes[i % 3:] + modes[: i % 3] for i in range(rounds)]
+    rows = []
+    for i, mode in enumerate(m for pair in order for m in pair):
+        for pages in (512, 96):
+            log_path = out_dir / f"ab_tiers_{i}_{mode}_{pages}.log"
+            proc, port = start_server((*base, f"--num-pages={pages}", *tiers[mode]), log_path,
+                                      env)
+            try:
+                warm_up(port, jobs)
+                prof0 = http_call(port, "/debug/profile")[1]
+                results, wall = http_traffic(port, jobs)
+                prof = profile_delta(prof0, http_call(port, "/debug/profile")[1],
+                                     http_call(port, "/debug/admission")[1])
+                eng = http_call(port, "/debug/state")[1]["engine"]
+            except BaseException:
+                proc.kill()
+                raise
+            stop_server(proc, log_path)
+            c = client_latency(results, wall)
+            kv = eng["kvcache"]
+            rows.append({"run": i, "tiers": mode, "pages": pages,
+                         "tokens_per_s": c["tokens_per_s"], "ttft_ms": c["ttft_ms"],
+                         "itl_ms": c["itl_ms"], "steps": prof["steps"], "limit": prof["limit"],
+                         "phase_s": prof["phase_s"], "preemptions": eng["preemptions"],
+                         "reclaims": kv["reclaims"], "offloads": kv["offloads"],
+                         "resumes": kv["resumes"], "hits": kv["hits"]})
+            log(f"ab tiers: {rows[-1]}")
+    return {"ab_tiers": rows, "rounds": rounds, "card": smi}
+
+
+def check_restored_pages(torch, pa, quant, tf) -> dict:
+    """Kernel 1 on pages that came back from the host: a serving engine at
+    the deployed widths (2 layers; page 16, 512 pages) in bf16 and with
+    int8 pools, its pools filled, pages 1-255 read to the host through the
+    engine's row reads (one gather per pool per layer) and written into
+    pages 256-511 through its restore (one in-place ``index_copy_`` per
+    pool per layer).  Every pool's rows must come back bit for bit, the
+    kernel on the restored pages must equal the kernel on the source
+    pages bit for bit and its plain version within tolerance."""
+    from k8s_device_plugin_tpu_torch.models.engine import ServingEngine
+
+    dev = torch.device(DEVICE)
+    B, H, HK, D, PS, MPP, P = 8, 16, 4, 64, 16, 32, 512
+    out = {}
+    for kv_format, quant_kv in (("f", False), ("int8", True)):
+        cfg = tf.GPTConfig(vocab_size=512, hidden_size=1024, num_layers=2, num_heads=16,
+                           intermediate_size=3072, max_seq=PS * MPP, num_kv_heads=4,
+                           dtype=torch.bfloat16, quant_kv=quant_kv)
+        eng = ServingEngine(cfg, tf.init_params(cfg, 0), tf.PagedConfig(PS, P, MPP),
+                            max_slots=B, kv_retain=True, kv_host_cache_mb=64, device=DEVICE)
+        gen = torch.Generator(device=dev).manual_seed(11)
+        for layer in range(cfg.num_layers):
+            pools = eng.kv_pools(layer)
+            k, v = (torch.randn((P, PS, HK, D), generator=gen, device=dev) for _ in range(2))
+            fill = quantized_pools(quant, kv_format, k, v, torch.bfloat16)
+            pools["pool_key"].copy_(fill["pool_k"])
+            pools["pool_value"].copy_(fill["pool_v"])
+            if quant_kv:
+                pools["pool_key_scale"].copy_(fill["scale_k"])
+                pools["pool_value_scale"].copy_(fill["scale_v"])
+        src = list(range(1, P // 2))
+        dst = list(range(P // 2, P // 2 + len(src)))
+        before = [{n: (t.data_ptr(), t.clone()) for n, t in eng.kv_pools(i).items()}
+                  for i in range(cfg.num_layers)]
+        rows = eng._kv_read_pages_rows(src)
+        eng._kv_write_page_rows(dst, rows)
+        torch.cuda.synchronize()
+        for layer in range(cfg.num_layers):
+            for name, t in eng.kv_pools(layer).items():
+                ptr, old = before[layer][name]
+                if t.data_ptr() != ptr:
+                    fail(f"restored pages: layer {layer} {name} was rebound, not written in "
+                         f"place ({kv_format})")
+                if not torch.equal(t[dst], old[src]):
+                    fail(f"restored pages: layer {layer} {name} rows differ after the round "
+                         f"trip ({kv_format})")
+        q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        lens = torch.tensor([1, 17, 100, 255, 256, 333, 480, 500], dtype=torch.int32,
+                            device=dev)
+        pick = torch.randperm(len(src) - 1, generator=gen, device=dev)[: B * MPP // 2]
+        table_src = torch.tensor(src, device=dev)[pick].reshape(B, MPP // 2).to(torch.int32)
+        table_src = torch.cat([table_src, table_src], dim=1)  # 32 pages a row
+        table_dst = table_src + (P // 2 - 1)
+        pools0 = eng.kv_pools(0)
+        kw = {"pool_k": pools0["pool_key"], "pool_v": pools0["pool_value"]}
+        if quant_kv:
+            kw.update(scale_k=pools0["pool_key_scale"], scale_v=pools0["pool_value_scale"])
+        lens = lens.clamp(max=MPP * PS)
+        got = pa.paged_attention(q, page_table=table_dst, lens=lens, num_splits=8, **kw)
+        want = pa.paged_attention(q, page_table=table_src, lens=lens, num_splits=8, **kw)
+        if not torch.equal(got, want):
+            fail(f"kernel 1 on restored {kv_format} pages differs from the source pages")
+        err = hold_paged(torch, pa, q, kw, table_dst, lens, window=None, splits=8,
+                         kv_format=kv_format)
+        log(f"kernel 1 on host-restored {kv_format} pages: equal to the source pages, "
+            f"max_abs_err {err:.3e} against the plain version (tol {TOL_BF16})")
+        if not err <= TOL_BF16:
+            fail(f"kernel 1 on restored {kv_format} pages: {err} > {TOL_BF16}")
+        out[kv_format] = {"max_abs_err": err, "tolerance": TOL_BF16, "pages": len(src),
+                          "equal_to_source_pages": True}
+        del eng
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_blocks(torch, engine, pa, fa, dp, sync_tokens) -> dict:
@@ -1567,6 +1946,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("no CUDA device")
+    ab_pairs = None
+    if sys.argv[1:2] == ["--ab-tiers"]:
+        ab_pairs = int(sys.argv[2]) if len(sys.argv) > 2 else 3
     from k8s_device_plugin_tpu_torch.models import benchmark as bench
     from k8s_device_plugin_tpu_torch.models import data, engine, train
     from k8s_device_plugin_tpu_torch import decode_profile as dp
@@ -1582,6 +1964,13 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     fp32_reference_precision()
+    if ab_pairs is not None:
+        print(json.dumps(run_ab_tiers(smi, ab_pairs)), flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}),
+              flush=True)
+        return
 
     t0 = time.perf_counter()
     _build.build_all()
@@ -1599,6 +1988,9 @@ def main() -> None:
     flash, flash_fma = check_flash(torch, fa, facts)
     bwd = check_flash_bwd(torch, fa, facts)
     widths = check_widths(torch, pa, fa, quant, tuning)
+    restored = check_restored_pages(torch, pa, quant, tf)
+    for fmt, held in restored.items():
+        paged[fmt]["restored_pages"] = held
     by_width = {D: time_head_dim(torch, pa, fa, dp, tuning, D) for D in (80, 96, 128)}
     dq, dq_fma = bwd[("dq", "bfloat16")], bwd[("dq", "float32")]
     dkv, dkv_fma = bwd[("dkv", "bfloat16")], bwd[("dkv", "float32")]
@@ -1613,6 +2005,9 @@ def main() -> None:
     from k8s_device_plugin_tpu_torch.models import http_server
 
     serve = run_serve(torch, tf, http_server, smi, blocks["greedy"])
+    warm_restart, reference = run_warm_restart(
+        smi, engine.synthetic_jobs(32, 128, 128, 32000), long_jobs(9))
+    split_roles = run_split_roles(smi, long_jobs(9), reference)
     paged["f"]["block16_launches"] = blocks["paged_launches"]
     paged["int8"]["launches"] = quant_runs[1]["paged_launches"]["int8"]
     paged["int8"]["w8a8_launches"] = quant_runs[2]["paged_launches"]["int8"]
@@ -1654,6 +2049,8 @@ def main() -> None:
                       "card": smi}), flush=True)
     print(json.dumps({"train": trained}), flush=True)
     print(json.dumps({"serve": serve}), flush=True)
+    print(json.dumps({"warm_restart": warm_restart, "split_roles": split_roles,
+                      "restored_pages": restored, "card": smi}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -2,8 +2,9 @@
 
 Counterpart of the reference's ``models/engine.py`` (reserve and
 optimistic admission, overload control, the SLO plane, spans, the flight
-recorder, the anomaly monitor and the step profiler; not yet adapters,
-speculation, tensor parallelism or the KV tiers):
+recorder, the anomaly monitor, the step profiler, the KV tiers, warm
+snapshots and the prefill/decode roles; not yet adapters, speculation or
+tensor parallelism):
 
 - device side: a fixed-[slots] decode dispatch over the paged cache, one
   single-token step or, in pure decode, a block of T steps
@@ -22,8 +23,9 @@ speculation, tensor parallelism or the KV tiers):
   discards the dispatch in flight and repairs the carried ``seq_lens``;
 - host side, between steps: the overload sweep, admission, page
   allocation and free (on demand under optimistic admission, preempting
-  the newest slot when the pool runs dry), prefix sharing, per-slot
-  bookkeeping, SLO verdicts.
+  the newest slot when the pool runs dry), prefix sharing, the KV tiers
+  (retained pages, the host arena, restore-resume), per-slot bookkeeping,
+  SLO verdicts.
 
 Prefill bridges through the dense cache: an admitted prompt runs the
 bucketed cached-append prefill and its K/V rows are grafted into the
@@ -42,7 +44,8 @@ float32, a block-16 overlapped run::
         --vocab 512 --page-size 4 --num-pages 64 --decode-block 16 \\
         --overlap-steps 1
 
-(``--quant w8 --quant-kv`` serves int8 weights and KV pools.)
+(``--quant w8 --quant-kv`` serves int8 weights and KV pools; ``--kv-retain
+1 --kv-host-cache-mb 8`` turns the KV tiers on.)
 
 Module layout (this module is the import surface):
 
@@ -53,8 +56,9 @@ Module layout (this module is the import surface):
                          chunked prefill, admission, SLO accounting
 - engine_paging.py     — page pool, prefix trie, graft, frontier growth and
                          preemption, reclamation
-- engine_unified.py    — KV-tier, handoff and fabric surfaces of a unified
-                         engine without tiers
+- engine_kvcache.py    — retained pages, the host arena, restore-resume
+- engine_handoff.py    — prefill/decode roles, the KV handoff, the fabric,
+                         the owner-thread call queue
 - engine_overload.py, engine_watchdog.py, engine_profiler.py,
   engine_snapshot.py   — the reference's, copied or ported
 - here                 — ``ServingEngine`` wiring, step loop, overlap round,
@@ -83,20 +87,21 @@ from ..utils.flight import FlightRecorder
 from ..utils.slo import SLOTracker, UsageMeter, default_objectives
 from ..utils.spans import ENGINE_TRACE, SpanRecorder
 from .engine_admission import AdmissionMixin
+from .engine_handoff import HandoffMixin
+from .engine_kvcache import KVCacheMixin
 from .engine_overload import OverloadConfig, OverloadController
 from .engine_paging import PagingMixin
 from .engine_profiler import EngineProfiler
 from .engine_sampling import decode_tokens
 from .engine_snapshot import params_fingerprint
 from .engine_types import EngineMetrics, Request, _pow2_int
-from .engine_unified import UnifiedRoleMixin
 from .transformer import GPTConfig, PagedCache, PagedConfig, TransformerLM, init_params
 
 # Why an overlapped dispatch was thrown away (the reference's reasons).
 DISCARD_REASONS = ("state_dirty", "shape_switch", "slot_teardown")
 
 
-class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
+class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
     """Batch-continuous decoding server (one host, one model, one card).
 
     ``cfg`` is the model config WITHOUT paging (the engine adds it);
@@ -110,7 +115,14 @@ class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
     chain at admission, ``optimistic`` its prompt pages and grows on
     demand, preempting the newest slot when the pool runs dry.
     ``overload``/``slo``: True (defaults), an ``OverloadConfig`` / a dict
-    of SLO thresholds or an ``SLOTracker``, or None (off).  ``spans``,
+    of SLO thresholds or an ``SLOTracker``, or None (off).  ``kv_retain``
+    keeps refcount-zero prefix pages for a later match and
+    ``kv_host_cache_mb`` > 0 adds the host arena they and preemption
+    snapshots spill into (engine_kvcache.py; off by default, as the
+    reference's library default).  ``role``: ``unified``, ``prefill`` or
+    ``decode`` (engine_handoff.py; the split roles need both tiers).
+    ``racecheck``: guard the queue, free pages, page refcounts and the
+    in-flight round (utils/racecheck.py).  ``spans``,
     ``flight``, ``anomaly``, ``profiler``: shared instances, or None for
     the engine's own (spans stay off).  ``cuda_graphs``: replay each
     dispatch shape as a CUDA graph (default on the card; the CPU refuses
@@ -138,6 +150,10 @@ class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
         admission: str = "reserve",
         overload=None,
         slo=None,
+        kv_retain: bool = False,
+        kv_host_cache_mb: float = 0,
+        role: str = "unified",
+        racecheck: bool = False,
         spans: Optional[SpanRecorder] = None,
         flight: Optional[FlightRecorder] = None,
         anomaly: Optional[AnomalyMonitor] = None,
@@ -179,6 +195,9 @@ class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
         self.model = TransformerLM(self.cfg, device=self.device)
         self.model.load_state_dict(params)
         self.cache = PagedCache.zeros(self.cfg, paged, max_slots, self.device)
+        # The reference's per-layer cache names: KV rows, snapshots and the
+        # handoff wire are keyed by them.
+        self._layer_names = [f"layer_{i}" for i in range(self.cfg.num_layers)]
         # Each slot's full allocated page chain; the step derives the
         # visible table from it (engine_sampling._derived_tables).
         self._chain = torch.zeros(
@@ -273,7 +292,8 @@ class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
                 self.slo = SLOTracker()
             self.usage = UsageMeter()
         self.spans = spans
-        self._init_unified()
+        self._init_kvcache(kv_retain, kv_host_cache_mb)
+        self._init_handoff(role)
 
         # Device-resident step state.  The dispatch reads these buffers and
         # writes its next inputs back into them (tokens, positions, key), so
@@ -306,6 +326,19 @@ class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
         self.state_rebuilds = 0
         self.graph_replays = 0
         self.device_steps = 0  # single-token steps dispatched, discarded ones included
+        # Prompt positions the prefill computed (chunk x requests per
+        # chunk): what a restore or a handoff saves shows here.
+        self.prefill_positions = 0
+        self._inflight_guard = None
+        if racecheck:
+            # Lock discipline checked at every mutation of the cross-thread
+            # state; the in-flight round is the owner thread's alone.
+            from ..utils.racecheck import GuardedDeque, GuardedDict, OwnerGuard
+
+            self._inflight_guard = OwnerGuard(lock=self._lock, name="_inflight")
+            self.free_pages = GuardedDeque(self.free_pages, lock=self._lock, name="free_pages")
+            self.queue = GuardedDeque(self.queue, lock=self._lock, name="queue")
+            self._page_refs = GuardedDict(self._page_refs, lock=self._lock, name="_page_refs")
 
     def _wd_grace(self, reason: str) -> None:
         """Mark the step in flight as legitimately slow for the hung-step
@@ -480,6 +513,7 @@ class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
         event that says it landed, and the (slot, request) pairs pinned now
         so a consumer skips lanes evicted since.  ``dev`` is the validity
         token."""
+        self._guard_inflight("dispatch")
         dev = self._device_state()
         shape = (dev["variant"], dev["biased"], dev["want_lp"])
         self._run_dispatch(T, shape)
@@ -508,12 +542,18 @@ class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
             "dev": self._feed_forward(dev),
         }
 
+    def _guard_inflight(self, op: str) -> None:
+        if self._inflight_guard is not None:
+            self._inflight_guard.check(op)
+
     def _take_inflight(self, T: int) -> Optional[dict]:
         """Pop the in-flight record if it is still consumable (its state is
         current and it has the shape this step consumes); else discard."""
-        inflight, self._inflight = self._inflight, None
+        inflight = self._inflight
         if inflight is None:
             return None
+        self._guard_inflight("consume")
+        self._inflight = None
         if self._dev is None or inflight["dev"] is not self._dev:
             self._discard(inflight, "state_dirty")
             return None
@@ -542,6 +582,7 @@ class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
     def _drop_stale_inflight(self, reason: str) -> None:
         inflight, self._inflight = self._inflight, None
         if inflight is not None:
+            self._guard_inflight("discard")
             self._discard(inflight, reason)
 
     @staticmethod
@@ -585,6 +626,8 @@ class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
         timer = self._prof_timer = self.profiler.timer()
         self._step_tokens = 0
         hits0, discards0 = self.overlap_hits, self.overlap_discards
+        kv_hits0 = self.kv_retained_hits + self.kv_host_hits
+        kv_restores0 = self.kv_restores
         wd = self.watchdog
         if wd is not None:
             wd.step_started()
@@ -606,6 +649,8 @@ class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
                 kv_page_utilization=util, tokens=self._step_tokens,
                 overlap_hits=self.overlap_hits - hits0,
                 overlap_discards=self.overlap_discards - discards0,
+                kvcache_hits=self.kv_retained_hits + self.kv_host_hits - kv_hits0,
+                kvcache_restores=self.kv_restores - kv_restores0,
             )
             if wd is not None:
                 wd.step_finished(wall)
@@ -761,8 +806,8 @@ class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
             m.shared_pages.set(sum(1 for c in self._page_refs.values() if c > 1))
             allocatable = self.paged.num_pages - 1  # page 0 is scratch
             m.page_utilization.set(1.0 - len(self.free_pages) / allocatable if allocatable else 0.0)
-            m.kvcache_retained_pages.set(0)
-            m.kvcache_host_bytes.set(0)
+            m.kvcache_retained_pages.set(len(self._kv_retained))
+            m.kvcache_host_bytes.set(self._kv_arena.bytes)
 
     # -------------------------------------------------------------- states
 
@@ -819,6 +864,7 @@ class ServingEngine(AdmissionMixin, PagingMixin, UnifiedRoleMixin):
                     "cuda_graphs": self.cuda_graphs,
                     "graph_replays": self.graph_replays,
                     "device_steps": self.device_steps,
+                    "prefill_positions": self.prefill_positions,
                     "state_rebuilds": self.state_rebuilds,
                     "discards_by_reason": dict(self.discards_by_reason),
                     "paged_launches": dict(pa.paged_attention.launches_by_format),
@@ -889,8 +935,8 @@ def synthetic_jobs(requests: int, prompt_len: int, max_new: int, vocab: int) -> 
 
 
 def parse_args(argv: Optional[list[str]] = None):
-    """The batch CLI's flags (the reference CLI's names for what this
-    slice serves, plus ``--dtype``, ``--seed``, ``--device`` and
+    """The batch CLI's flags (the reference CLI's names and defaults for
+    what the port serves, plus ``--dtype``, ``--seed``, ``--device`` and
     ``--cuda-graphs``)."""
     import argparse
 
@@ -939,6 +985,12 @@ def parse_args(argv: Optional[list[str]] = None):
     p.add_argument("--admission", choices=["reserve", "optimistic"], default="reserve",
                    help="optimistic: prompt pages only at admission, grown on demand, the "
                    "newest slot preempted (and recomputed) when the pool runs dry")
+    p.add_argument("--kv-retain", type=int, choices=[0, 1], default=1,
+                   help="KV cache tier 1: keep dead-but-valid prefix pages on an LRU for a "
+                   "later match instead of freeing them (default on)")
+    p.add_argument("--kv-host-cache-mb", type=float, default=64,
+                   help="KV cache tier 2: byte budget (MiB) of the host arena reclaimed "
+                   "pages and preemption snapshots spill into (0 disables; default 64)")
     p.add_argument("--cuda-graphs", type=int, choices=[0, 1], default=None,
                    help="replay each decode dispatch as a CUDA graph (the card only; "
                    "default 1 there)")
@@ -981,6 +1033,7 @@ def build_engine(args) -> "ServingEngine":
         metrics=EngineMetrics(MetricsRegistry()), prefill_chunk=args.prefill_chunk,
         decode_block=args.decode_block, overlap_steps=args.overlap_steps,
         admission=args.admission,
+        kv_retain=bool(args.kv_retain), kv_host_cache_mb=args.kv_host_cache_mb,
         cuda_graphs=None if args.cuda_graphs is None else bool(args.cuda_graphs),
         device=device,
     )
@@ -1037,9 +1090,9 @@ def benchmark(args) -> tuple[dict, list[Request]]:
         "device_steps": eng.device_steps,
         "admission": args.admission,
         "preemptions": eng.preemptions,
-        "kv_retain": False,
-        "kv_retained_hits": 0,
-        "kv_host_hits": 0,
+        "kv_retain": bool(args.kv_retain),
+        "kv_retained_hits": eng.kv_retained_hits,
+        "kv_host_hits": eng.kv_host_hits,
         "ttft_p50_ms": _ms(ttft_h.quantile(0.5, since=ttft_snap)),
         "ttft_p99_ms": _ms(ttft_h.quantile(0.99, since=ttft_snap)),
         "itl_p50_ms": _ms(itl_h.quantile(0.5, since=itl_snap)),

@@ -3,17 +3,23 @@ batched chunked prefill, activation, SLO accounting and the finish
 conditions.
 
 Counterpart of the reference's ``models/engine_admission.py`` for an
-engine without adapters, speculation or KV tiers: ``submit`` takes the
-reference's arguments (logprobs, logit bias, trace ids, priority, tenant,
-deadline; ``adapter`` is refused as an engine without LoRA refuses it),
-the overload controller gates it and sweeps the queue, reserve admission
+engine without adapters or speculation: ``submit`` takes the reference's
+arguments (logprobs, logit bias, trace ids, priority, tenant, deadline;
+``adapter`` is refused as an engine without LoRA refuses it), the
+overload controller gates it and sweeps the queue, reserve admission
 allocates a request's whole chain and optimistic admission its prompt
-pages plus the first decode write, and a preempted request resumes by
-recomputing its effective prompt (prompt plus what it had generated).
-Prefill runs every prompt through the dense cached append
-(``cached_group_attention``) in length buckets: lengths pad to a power of
-two <= max_len and batches to a power of two, so an admission burst costs
-one forward per chunk.  Mixed into ServingEngine.
+pages plus the first decode write.  A preempted request at the head is
+rebuilt from the KV tiers when they cover it (engine_kvcache.py), else it
+resumes by recomputing its effective prompt (prompt plus what it had
+generated); a decode-role engine admits a handed-off prompt with no
+prefill when its pages and logits are resident (engine_handoff.py).  A
+prompt's trie walk continues into the host arena, whose pages restore
+instead of prefilling.  Prefill runs every prompt through the dense
+cached append (``cached_group_attention``) in length buckets: lengths pad
+to a power of two <= max_len and batches to a power of two, so an
+admission burst costs one forward per chunk; a decode-role engine seeds
+the chunks every item's resident pages cover and skips them.  Mixed into
+ServingEngine.
 """
 
 from __future__ import annotations
@@ -205,6 +211,8 @@ class AdmissionMixin:
                 pass  # admitted: the next step cleans up
             else:
                 req.done = True
+                # A preempted request dying in the queue never resumes.
+                self._kv_drop_snapshot(req.rid)
                 if self.overload is not None:
                     self.overload.on_finish(req)
                 # Excluded from the SLI verdicts, still metered.
@@ -226,6 +234,7 @@ class AdmissionMixin:
                 req.shed = SHED_EXPIRED
                 req.done = True
                 req.finished_at = now
+                self._kv_drop_snapshot(req.rid)
                 ctl.record_shed(req, SHED_EXPIRED, waited_s=round(now - req.submitted_at, 3))
                 ctl.on_finish(req)
                 self._slo_observe_finish(req, now)
@@ -265,6 +274,17 @@ class AdmissionMixin:
         rows = [p + [0] * (bucket - len(p)) for p in prompts]
         rows += [rows[0]] * (batch - n)  # pad rows are discarded
         last_idx = [len(p) - 1 for p in prompts] + [0] * (batch - n)
+        cache = DenseCache.zeros(self.cfg, batch, self.device, max_seq=bucket)
+        skip = 0
+        if self._handoff_skip_covered:
+            # Chunk-aligned positions every item's shared or restored pages
+            # cover, kept below every last position so the chunk whose
+            # logits sample the admission token always runs.
+            ps = self.paged.page_size
+            skip = min(min(it[3] * ps for it in items), min(len(p) for p in prompts) - 1)
+            skip -= skip % chunk
+        if skip > 0:
+            self._seed_dense(cache, items, skip)
         self._pending.append({
             "items": items,
             "bucket": bucket,
@@ -272,10 +292,28 @@ class AdmissionMixin:
             "batch": batch,
             "rows": torch.tensor(rows, dtype=torch.long, device=self.device),
             "last_idx": last_idx,
-            "cache": DenseCache.zeros(self.cfg, batch, self.device, max_seq=bucket),
-            "pos": 0,
+            "cache": cache,
+            "pos": skip,
             "logits": [None] * n,
         })
+
+    def _seed_dense(self, cache: DenseCache, items: list, skip: int) -> None:
+        """Copy positions [0, skip) of each item's resident pages into the
+        job's dense cache and start its write index there: those rows are
+        the bytes a recompute at the same bucket writes, so the covered
+        chunks need not run.  One gather per pool per layer per item."""
+        self._wd_grace("handoff_seed")
+        ps = self.paged.page_size
+        for row_idx, it in enumerate(items):
+            idx = torch.tensor(it[2][: -(-skip // ps)], dtype=torch.long, device=self.device)
+            for layer in range(self.cfg.num_layers):
+                for pool, slab in zip(self.cache.layer(layer), cache.layer(layer)):
+                    if pool is None:  # float pools carry no scales
+                        continue
+                    rows = pool.index_select(0, idx)
+                    slab[row_idx, :skip] = rows.reshape(-1, *rows.shape[2:])[:skip]
+        cache.index = skip
+        self.handoff_skipped_tokens += skip * len(items)
 
     def _advance_prefill(self, job: dict) -> bool:
         """Run ONE chunk of a prefill job (a cached append of ``chunk``
@@ -288,6 +326,7 @@ class AdmissionMixin:
         hidden = self.model(
             tokens, positions, cache=job["cache"], append_mode="cached", output="hidden"
         )
+        self.prefill_positions += chunk * len(job["items"])
         # Each row's true-last-position logits, from the chunk covering it.
         sel = [i for i, last in enumerate(job["last_idx"][: len(job["items"])]) if pos <= last < pos + chunk]
         if sel:
@@ -319,6 +358,7 @@ class AdmissionMixin:
                 while self.queue and self.queue[0].cancelled:
                     dead = self.queue.popleft()
                     dead.done = True
+                    self._kv_drop_snapshot(dead.rid)
                     self._slo_observe_finish(dead, time.monotonic())
                 if self.slots[slot] is not None or not self.queue:
                     continue
@@ -333,6 +373,15 @@ class AdmissionMixin:
                         del self.queue[idx]
                         self.queue.appendleft(chosen)
                 req = self.queue[0]
+                # A preempted request back at the head: rebuilt from the
+                # KV tiers, no prefill, when they cover it.
+                if self._kv_retain and self._kv_try_restore_resume(slot, req):
+                    continue
+                # Decode role: a fresh page-aligned prompt whose pages and
+                # shipped logits are resident admits with no prefill.
+                if (self._handoff_skip_covered and not req.tokens
+                        and self._handoff_try_admit(slot, req)):
+                    continue
                 eff = req.prompt + req.tokens  # the effective prompt
                 plen = len(eff)
                 bucket = self._bucket(plen)
@@ -342,8 +391,19 @@ class AdmissionMixin:
                     n_pages = math.ceil((plen + 1) / self.paged.page_size)
                 else:
                     n_pages = math.ceil((plen + req.max_new_tokens) / self.paged.page_size)
-                shared = self._match_prefix(eff, bucket, burst_pages) if self.prefix_sharing else []
+                shared = (self._match_prefix(eff, bucket, burst_pages, req.adapter)
+                          if self.prefix_sharing else [])
+                # The trie walk continues into the host arena: those pages
+                # are restored below and count as shared (the graft never
+                # rewrites them).
+                host = (self._kv_match_host(eff, req.adapter, len(shared),
+                                            plen // self.paged.page_size)
+                        if self.prefix_sharing and self._kv_retain else [])
                 n_private = n_pages - len(shared)
+                if n_private > len(self.free_pages):
+                    # Retained pages are one reclaim away from free; the
+                    # protect set pins this request's own match.
+                    self._kv_reclaim(n_private - len(self.free_pages), protect=frozenset(shared))
                 if n_private > len(self.free_pages):
                     self._admit_page_blocked = True
                     break
@@ -361,18 +421,26 @@ class AdmissionMixin:
                 pages = shared + private
                 for page in shared:
                     self._page_refs[page] += 1
-                for page in private:
-                    self._page_refs[page] = 1
+                    if self._page_refs[page] == 1:
+                        self._kv_revive(page)  # 0 -> 1: off the retained tier
+                n_restored = len(host)
+                if n_restored:
+                    self._kv_restore_pages(private[:n_restored], [e["rows"] for e in host])
+                for page in private[n_restored:]:
                     # Ungrafted until _activate: shareable within this
-                    # burst's same-bucket group only.
+                    # burst's same-bucket group only (restored pages are
+                    # on the device already, shareable at once).
                     burst_pages[page] = bucket
                     self._pending_pages.add(page)
+                for page in private:
+                    self._page_refs[page] = 1
                 if self.prefix_sharing:
-                    self._register_prefix(eff, pages, plen // self.paged.page_size)
+                    self._register_prefix(eff, pages, plen // self.paged.page_size, req.adapter)
                 self.slots[slot] = req
                 self._slot_pages[slot] = pages
                 self._slot_seq[slot] = self._seq_counter
                 self._seq_counter += 1
+                shared = pages[: len(shared) + n_restored]
             if self.spans:
                 self.spans.record_span(
                     "pages.alloc", req.trace_id, start_monotonic=req.admitted_at,

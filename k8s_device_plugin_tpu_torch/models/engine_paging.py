@@ -7,14 +7,18 @@ pages grow on demand (``_ensure_frontier``), a shortage preempting the
 newest ready slot, which requeues at the head and resumes by recomputing
 its effective prompt.  Page 0 is the scratch page idle rows write into,
 full prompt pages are shared through a per-page trie keyed (parent page,
-token chunk), and pages are refcounted and freed by their last user.
-Every edit of the page chain is in place, so a captured CUDA graph keeps
-reading it.  Mixed into ServingEngine, which owns the state.
+token chunk), and pages are refcounted and freed by their last user, or
+retained for a later match when the KV tiers are on (engine_kvcache.py:
+a dry pool reclaims them before it blocks or preempts, and a preempted
+slot snapshots its tail for a restore-resume).  Every edit of the page
+chain is in place, so a captured CUDA graph keeps reading it.  Mixed into
+ServingEngine, which owns the state.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -35,10 +39,7 @@ class PagingMixin:
         quantized them once, and nothing later re-derives a scale."""
         ps = self.paged.page_size
         n_cover = math.ceil(plen / ps)
-        full = torch.zeros((self.paged.max_pages_per_seq,), dtype=torch.int32)
-        full[: len(pages)] = torch.tensor(pages, dtype=torch.int32)
-        self._chain[slot] = full.to(self.device)
-        self.cache.seq_lens[slot] = plen
+        self._set_chain(slot, pages, plen)
         lo_tok = n_shared * ps
         n_priv = n_cover - n_shared
         if n_priv <= 0:
@@ -53,6 +54,14 @@ class PagingMixin:
                 if pad:  # zero rows after plen, along the token axis
                     rows = torch.nn.functional.pad(rows, (0, 0) * (rows.dim() - 1) + (0, pad))
                 pool[cover] = rows.reshape(n_priv, ps, *rows.shape[1:])
+
+    def _set_chain(self, slot: int, pages: list[int], length: int) -> None:
+        """Record a slot's full page chain and consumed length on the
+        device (the dispatch derives the visible table from the chain)."""
+        full = torch.zeros((self.paged.max_pages_per_seq,), dtype=torch.int32)
+        full[: len(pages)] = torch.tensor(pages, dtype=torch.int32)
+        self._chain[slot] = full.to(self.device)
+        self.cache.seq_lens[slot] = length
 
     def _clear_slot(self, slot: int):
         self._chain[slot] = 0
@@ -76,12 +85,16 @@ class PagingMixin:
         self._mark_state_dirty()
 
     def _release_page(self, page: int) -> None:
-        """Drop one reference; at zero, tear down every trie link touching
-        the page and return it to the pool.  The one page-free path."""
+        """Drop one reference; at zero, either retain the page (trie links
+        intact: the KV tier 1, reclaimed lazily when the pool runs dry) or
+        tear down every trie link touching it and return it to the pool.
+        The one page-free path."""
         with self._lock:
             self._page_refs[page] -= 1
             if self._page_refs[page] > 0:
                 return
+            if self._kv_retain and self._kv_retain_page(page):
+                return  # refcount parks at 0; revived on the next match
             del self._page_refs[page]
             self._teardown_page_links(page)
             self.free_pages.append(page)
@@ -102,14 +115,22 @@ class PagingMixin:
                 if keys and key in keys:
                     keys.remove(key)
 
-    def _match_prefix(self, prompt: list[int], bucket: int, burst_pages: dict[int, int]) -> list[int]:
+    @staticmethod
+    def _trie_root(adapter: Optional[int]) -> int:
+        """Root pseudo-parent of the prefix trie: -1 for the base model,
+        -(2+i) for adapter i (the reference's roots; pseudo-roots are never
+        real pages)."""
+        return -1 if adapter is None else -(2 + adapter)
+
+    def _match_prefix(self, prompt: list[int], bucket: int, burst_pages: dict[int, int],
+                      adapter: Optional[int] = None) -> list[int]:
         """Longest chain of registered pages whose token chunks equal this
         prompt's leading FULL pages.  A page still waiting for its owner's
         graft is shared only within the same admission burst and length
         bucket: that job grafts every item before any of them decodes."""
         ps = self.paged.page_size
         pages: list[int] = []
-        parent = -1  # the trie root
+        parent = self._trie_root(adapter)
         for i in range(len(prompt) // ps):
             page = self._prefix_pages.get((parent, tuple(prompt[i * ps : (i + 1) * ps])))
             if page is None:
@@ -123,11 +144,14 @@ class PagingMixin:
             parent = page
         return pages
 
-    def _register_prefix(self, eff: list[int], pages: list[int], n: int) -> None:  # caller holds: _lock
+    def _register_prefix(self, eff: list[int], pages: list[int], n: int,  # caller holds: _lock
+                         adapter: Optional[int] = None) -> None:
         """Register ``eff``'s first ``n`` full pages as trie links
-        (idempotent: an existing key wins and the walk follows it)."""
+        (idempotent: an existing key wins and the walk follows it).
+        Callers: admission, the preemption snapshot, restore-resume and
+        the handoff admission."""
         ps = self.paged.page_size
-        parent = -1
+        parent = self._trie_root(adapter)
         for i in range(n):
             key = (parent, tuple(eff[i * ps : (i + 1) * ps]))
             if key not in self._prefix_pages:
@@ -161,6 +185,10 @@ class PagingMixin:
             need = (self._slot_len[s] + lookahead) // ps + 1
             while need > self._slot_page_base[s] + len(self._slot_pages[s]):
                 with self._lock:
+                    if not self.free_pages and self._kv_retained:
+                        # Retained pages are reclaimable on demand: spill
+                        # one to the host tier before robbing a newer slot.
+                        self._kv_reclaim(1)
                     page = self.free_pages.popleft() if self.free_pages else None
                     if page is not None:
                         self._page_refs[page] = 1
@@ -193,11 +221,17 @@ class PagingMixin:
         request at the queue head for recompute-resume, unless its client
         already cancelled it (then eviction is the teardown)."""
         req = self.slots[slot]
+        # Snapshot before the teardown: the tail page's rows and the decode
+        # state (engine_kvcache.py); the release below then retains the
+        # full pages it registers.
+        snapshotted = self._kv_snapshot_slot(slot, req) if not req.cancelled else False
         self._clear_slot(slot)
         with self._lock:
             # Atomic with cancel(): a cancel either marked it in its slot
             # (seen here) or finds it back in the queue.
             if req.cancelled:
+                if snapshotted:
+                    self._kv_drop_snapshot(req.rid)
                 req.done = True
                 self._update_gauges()
                 return
@@ -208,7 +242,7 @@ class PagingMixin:
             self._update_gauges()
         if self.flight is not None:
             self.flight.record("engine.preempt", rid=req.rid, generated=len(req.tokens),
-                               free_pages_after=len(self.free_pages), snapshot=False)
+                               free_pages_after=len(self.free_pages), snapshot=snapshotted)
 
     def _reclaim_windowed(self, slot: int) -> None:
         """Free pages that scrolled wholly out of the sliding window: a

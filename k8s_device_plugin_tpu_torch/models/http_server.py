@@ -10,12 +10,12 @@ and owns the stream, the CUDA graphs and the kernel builds, and request
 completion is broadcast back to the waiting handlers.  The watchdog is
 graced around every kernel build, first launch and graph capture.
 
-The KV tiers (retention, the host arena, disk and peer snapshots, split
-prefill/decode roles) are not ported yet: the routes that belong to them
-answer what the reference answers for an engine built with
-``kv_retain=False``, ``kv_host_cache_mb=0`` and ``role="unified"``, and
-the CLI refuses their flags by name (``main``).  Traces are
-``torch.profiler`` traces (Chrome-trace JSON).
+The KV tiers (retention, the host arena), warm-restart snapshots
+(``--snapshot-dir``: saved on fence, drain/SIGTERM and every
+``--snapshot-interval`` seconds, loaded before serving), the peer and
+fleet warm-ups and the split prefill/decode roles serve as the
+reference's do; every read of a device page runs on the loop thread.
+Traces are ``torch.profiler`` traces (Chrome-trace JSON).
 
 On the CPU (``--device cpu --dtype float32``, tiny widths)::
 
@@ -152,8 +152,8 @@ from ..utils.spans import (
     parse_trace_context,
     sanitize_trace_id,
 )
+from . import engine_handoff as handoff_mod
 from . import engine_snapshot as snap_mod
-from . import engine_unified as handoff_mod
 from .engine import ServingEngine
 from .engine_overload import SHED_EXPIRED, SHED_INFEASIBLE, ShedError
 from .engine_watchdog import ChipHealthFeed, StepWatchdog, visible_chip_paths
@@ -181,6 +181,8 @@ class EngineServer:
         enable_admin: bool = True,
         watchdog=None,
         chip_health: Optional[ChipHealthFeed] = None,
+        snapshot_dir: str = "",
+        snapshot_interval_s: float = 60.0,
         handoff_timeout_s: float = 30.0,
     ):
         self.engine = engine
@@ -217,6 +219,15 @@ class EngineServer:
         # and the POST /debug/fence operator endpoint.
         self._fence = threading.Event()
         self._fence_lock = threading.Lock()
+        # Crash-safe warm restart (models/engine_snapshot.py): the KV
+        # host arena persists here on fence/drain/SIGTERM and on the
+        # periodic timer, and rehydrates via load_snapshot() at startup.
+        self._snapshot_dir = snapshot_dir
+        self._snapshot_interval_s = float(snapshot_interval_s)
+        self._snap_lock = threading.Lock()
+        self._snapshot_thread: Optional[threading.Thread] = None
+        self.last_snapshot_save: Optional[dict] = None
+        self.last_snapshot_load: Optional[dict] = None
         self.fence_reason: Optional[str] = None
         self.fence_source: Optional[str] = None
         self.fence_detail = None
@@ -518,34 +529,152 @@ class EngineServer:
                         trace_id,
                     )
                     return
-                # Fabric pull (the router's X-Handoff-Source locator with
-                # X-Fabric-Resident-Only): a prompt whose full pages are not
-                # resident is pulled before submit.  Without a KV arena the
-                # pull admits nothing and the request prefills locally, as
-                # the reference's unified engine without tiers does.
+                # Handoff admission gate (models/engine_handoff.py): a
+                # prompt whose full-page prefix is not resident is
+                # PULLED from the router's X-Handoff-Source locator
+                # before submit (the fetch rides this handler thread —
+                # the step loop keeps decoding others), refused with a
+                # typed 409 + X-Prefill-Needed when there is no
+                # locator, and degraded to ordinary LOCAL prefill when
+                # the fetch fails (prefill replica died mid-transfer,
+                # torn stream, refusal) — never a dropped request.
+                # Decode-role replicas always run the gate; unified
+                # replicas run it only when the router's FABRIC locator
+                # stamped a concrete owner (any-peer pull — resident-
+                # only on the serving side, so a stale locator costs
+                # one refused dial, then local prefill).
                 handoff_fetch = None
-                fabric_source = self.headers.get(handoff_mod.HANDOFF_SOURCE_HEADER)
-                if (
-                    self.headers.get(handoff_mod.FABRIC_RESIDENT_ONLY_HEADER)
+                fabric_source = self.headers.get(
+                    handoff_mod.HANDOFF_SOURCE_HEADER
+                )
+                fabric_pull = bool(
+                    self.headers.get(
+                        handoff_mod.FABRIC_RESIDENT_ONLY_HEADER
+                    )
+                )
+                if server.engine.role == "decode" or (
+                    server.engine.role == "unified"
+                    and fabric_pull
                     and fabric_source
                     and fabric_source != handoff_mod.HANDOFF_LOCAL
                 ):
                     try:
                         clean_prompt = [int(t) for t in prompt]
                     except (TypeError, ValueError) as e:
-                        self._reply(400, {"error": f"bad prompt: {e}"}, trace_id)
-                        return
-                    covered, n_full = server.engine.handoff_coverage(
-                        clean_prompt, kwargs.get("adapter")
-                    )
-                    if covered < n_full:
-                        t_fetch = time.monotonic()
-                        fetch_span = (
-                            server.engine.spans.reserve_id()
-                            if server.engine.spans
-                            else 0
+                        self._reply(
+                            400, {"error": f"bad prompt: {e}"}, trace_id
                         )
-                        handoff_fetch = server.engine.fetch_prefill(fabric_source)
+                        return
+                    adapter = kwargs.get("adapter")
+                    covered, n_full = server.engine.handoff_coverage(
+                        clean_prompt, adapter
+                    )
+                    source = None
+                    if covered < n_full:
+                        source = self.headers.get(
+                            handoff_mod.HANDOFF_SOURCE_HEADER
+                        )
+                        if source == handoff_mod.HANDOFF_LOCAL:
+                            # The router says there is nothing to pull
+                            # from (short prompt / prefill pool down):
+                            # run the ordinary local prefill.
+                            source = None
+                        elif not source:
+                            eng = server.engine
+                            with eng._lock:
+                                eng.handoff_refusals += 1
+                            if eng.metrics:
+                                eng.metrics.handoff_refusals.inc()
+                            eng.flight.record(
+                                "handoff.refused",
+                                trace_id=trace_id,
+                                prompt_tokens=len(clean_prompt),
+                                missing_pages=n_full - covered,
+                            )
+                            self._reply(
+                                409,
+                                {
+                                    "error": "prefix not resident on this "
+                                    "decode replica and no "
+                                    "X-Handoff-Source locator was sent",
+                                    "missing_pages": n_full - covered,
+                                    "trace_id": trace_id,
+                                },
+                                trace_id,
+                                prefill_needed=str(n_full - covered),
+                            )
+                            return
+                    pull_gate = None  # single-flight claim (fabric)
+                    if covered < n_full and source and fabric_pull:
+                        # Stampede collapse: concurrent requests all
+                        # missing the same source-resident prefix (the
+                        # fleet-wide shared system prompt arriving on
+                        # every session at once) must not each dial the
+                        # owner.  The first handler claims the per-
+                        # source gate and pulls; the rest wait on it,
+                        # re-read their coverage, and ride whatever the
+                        # winner admitted — falling through to ordinary
+                        # local prefill for anything still missing (a
+                        # failed pull degrades every waiter the same
+                        # way it degrades the winner).
+                        eng = server.engine
+                        waiter = None
+                        with eng._lock:
+                            waiter = eng._handoff_pull_waits.get(source)
+                            if waiter is None:
+                                pull_gate = threading.Event()
+                                eng._handoff_pull_waits[source] = pull_gate
+                        if waiter is not None:
+                            waiter.wait(server._handoff_timeout)
+                            covered, n_full = eng.handoff_coverage(
+                                clean_prompt, adapter
+                            )
+                            source = None
+                    if covered < n_full and source:
+                        t_fetch = time.monotonic()
+                        fetch_ctx = None
+                        if hop_ctx is not None:
+                            # One more hop: the prefill replica's serve
+                            # span roots under this fetch in the
+                            # assembled fleet timeline.
+                            from ..utils.spans import format_trace_context
+
+                            fetch_span = (
+                                server.engine.spans.reserve_id()
+                                if server.engine.spans
+                                else 0
+                            )
+                            fetch_ctx = format_trace_context(
+                                trace_id, fetch_span, hop_ctx.hop + 1, 0
+                            )
+                        else:
+                            fetch_span = (
+                                server.engine.spans.reserve_id()
+                                if server.engine.spans
+                                else 0
+                            )
+                        try:
+                            handoff_fetch = handoff_mod.fetch_prefill(
+                                server.engine,
+                                source,
+                                clean_prompt,
+                                adapter=adapter,
+                                timeout_s=min(
+                                    server._handoff_timeout,
+                                    deadline_s
+                                    if deadline_s is not None
+                                    else server._handoff_timeout,
+                                ),
+                                trace_context=fetch_ctx,
+                                resident_only=fabric_pull,
+                            )
+                        finally:
+                            if pull_gate is not None:
+                                with server.engine._lock:
+                                    server.engine._handoff_pull_waits.pop(
+                                        source, None
+                                    )
+                                pull_gate.set()
                         handoff_fetch["span_id"] = fetch_span
                         handoff_fetch["t0"] = t_fetch
                 try:
@@ -918,8 +1047,7 @@ class EngineServer:
             def _serve_snapshot(self) -> None:
                 """GET /debug/snapshot: stream the arena (+ retained
                 device pages) in the engine_snapshot wire format — the
-                donor half of peer warm-up; with no KV tiers the stream
-                holds the preamble and no entry.  A joiner's layout/params
+                donor half of peer warm-up.  A joiner's layout/params
                 fingerprint headers are checked FIRST (409 before any
                 bytes land), resumable fetches are refused (416 — the
                 blob is verified whole or not at all), and the
@@ -954,8 +1082,17 @@ class EngineServer:
                     return
                 with eng._lock:
                     layout = snap_mod.snapshot_layout(eng)
-                    fingerprint = eng.params_fingerprint
-                    entries: dict = {}  # no arena, no retained pages
+                fingerprint = eng.params_fingerprint
+                try:
+                    # Device pages are read on the owner thread.
+                    entries = snap_mod.collect_entries(
+                        eng, include_device=not server._fence.is_set()
+                    )
+                except TimeoutError as e:
+                    if metrics:
+                        metrics.snapshot_serves.inc(outcome="error")
+                    self._reply(503, {"error": f"snapshot unavailable: {e}"})
+                    return
                 layout_fp = snap_mod.layout_fingerprint(layout)
                 want_layout = self.headers.get(snap_mod.LAYOUT_HEADER)
                 want_params = self.headers.get(snap_mod.PARAMS_HEADER)
@@ -1227,13 +1364,24 @@ class EngineServer:
                         # admit with ZERO prefill compute (absent when
                         # the probe's logits are gone — the decode side
                         # then pays one tail chunk, nothing breaks).
-                        # (No arena keeps a served prefix's logits.)
                         logits = (
                             tap.logits if tap is not None else None
                         )
+                        if logits is None:
+                            with eng._lock:
+                                lg = eng._kv_arena.get(
+                                    (
+                                        "logits",
+                                        eng._trie_root(adapter),
+                                        tuple(prompt),
+                                    )
+                                )
+                            logits = (
+                                lg["logits"] if lg is not None else None
+                            )
                         if logits is not None:
                             self.wfile.write(
-                                snap_mod.encode_logits_section(logits)
+                                handoff_mod.encode_logits_section(logits)
                             )
                             self.wfile.flush()
                 except OSError:
@@ -1586,6 +1734,9 @@ class EngineServer:
                     self._cond.notify_all()
         finally:
             self._loop_alive = False
+            # Calls that touch the card run on their callers' threads now
+            # (a drain's snapshot, a late debug read).
+            self.engine.release_owner()
             with self._cond:
                 self._cond.notify_all()  # release any waiters on shutdown
 
@@ -1605,6 +1756,11 @@ class EngineServer:
             self.watchdog.start()
         if self.chip_health is not None:
             self.chip_health.start()
+        if self._snapshot_dir and self._snapshot_interval_s > 0:
+            self._snapshot_thread = threading.Thread(
+                target=self._snapshot_loop, name="engine-snapshot", daemon=True
+            )
+            self._snapshot_thread.start()
         return self
 
     # ------------------------------------------------------------ fencing
@@ -1663,6 +1819,17 @@ class EngineServer:
         eng.anomaly.report(
             "engine.fenced", 1.0, reason=reason, source=source
         )
+        # Persist the warm prefix state while the process still can — a
+        # fence is often the last stop before a restart.  A chip-health
+        # fence skips the device-page reads (rows off a sick chip are
+        # not worth trusting), and so does a hung-step fence here: device
+        # pages are read on the loop thread, which is the one hung.  The
+        # host-RAM arena is still safe.
+        if self._snapshot_dir:
+            self.save_snapshot(
+                trigger=f"fence:{source}",
+                include_device=source not in ("chip_health", "watchdog"),
+            )
         # Wake every waiter FIRST: streams cut and unary handlers 503
         # before the cancel sweep below can dress a teardown up as a
         # completion.
@@ -1733,14 +1900,107 @@ class EngineServer:
             if self.chip_health is not None
             else None
         )
-        # No KV arena to persist: the reference's block with snapshots off.
         state["snapshot"] = {
-            "dir": None,
-            "interval_s": 60.0,
-            "last_save": None,
-            "last_load": None,
+            "dir": self._snapshot_dir or None,
+            "interval_s": self._snapshot_interval_s,
+            "last_save": self.last_snapshot_save,
+            "last_load": self.last_snapshot_load,
         }
         return state
+
+    # ----------------------------------------------------- warm snapshots
+
+    def _snapshot_path(self) -> str:
+        from .engine_snapshot import SNAPSHOT_NAME
+
+        return os.path.join(self._snapshot_dir, SNAPSHOT_NAME)
+
+    def save_snapshot(
+        self, trigger: str = "manual", include_device: bool = True
+    ) -> dict:
+        """Persist the KV host arena (+ retained device pages) to the
+        snapshot dir; one save at a time (periodic vs fence vs drain
+        collapse onto the lock, last writer wins the atomic rename)."""
+        if not self._snapshot_dir:
+            return {"ok": False, "reason": "disabled"}
+        from .engine_snapshot import save_arena_snapshot
+
+        with self._snap_lock:
+            # Re-check the fence UNDER the save lock: the periodic
+            # thread tests the fence BEFORE
+            # blocking here, so a fence that lands while its save is
+            # queued on the lock would otherwise let the stale periodic
+            # save run second and republish device-page rows the
+            # fence-path save (chip_health source) deliberately
+            # excluded — the fence's safe snapshot, overwritten by a
+            # pre-fence view of a now-suspect chip.  Operator/drain
+            # saves still run while fenced; only the stale periodic
+            # writer is turned away.
+            if trigger == "periodic" and self._fence.is_set():
+                return {"ok": False, "reason": "fenced", "trigger": trigger}
+            result = save_arena_snapshot(
+                self.engine,
+                self._snapshot_path(),
+                include_device=include_device,
+                trigger=trigger,
+            )
+            self.last_snapshot_save = result
+        return result
+
+    def load_snapshot(self) -> dict:
+        """Rehydrate the KV host arena from the snapshot dir (call once
+        BEFORE start(): the first admissions then restore warm).  A
+        missing/corrupt snapshot degrades to a clean cold start."""
+        if not self._snapshot_dir:
+            return {"ok": False, "reason": "disabled"}
+        from .engine_snapshot import load_arena_snapshot
+
+        result = load_arena_snapshot(self.engine, self._snapshot_path())
+        self.last_snapshot_load = result
+        return result
+
+    def warm_from_peer(self, peer: str, timeout_s: float = 30.0) -> dict:
+        """Peer warm-up: stream ``peer``'s GET
+        /debug/snapshot into this engine's arena — call BEFORE start(),
+        like :meth:`load_snapshot`.  Any failure (peer gone mid-stream,
+        fingerprint refusal, corruption) degrades to a clean cold
+        start; the joiner serves either way."""
+        from .engine_snapshot import fetch_peer_snapshot
+
+        result = fetch_peer_snapshot(self.engine, peer, timeout_s=timeout_s)
+        self.last_snapshot_load = result
+        return result
+
+    def warm_from_fleet(self, router_url: str, self_name: str) -> dict:
+        """Resolve the warm-up donor from the router's membership view
+        (the neighbor owning the ring segments ``self_name`` is about
+        to inherit — engine_snapshot.donor_for) and fetch its snapshot.
+        An unreachable router or an empty fleet is an ordinary cold
+        join, not an error."""
+        from .engine_snapshot import (
+            SnapshotError,
+            donor_for,
+            fleet_members,
+        )
+
+        try:
+            members = fleet_members(router_url)
+        except SnapshotError as e:
+            result = {"ok": False, "reason": str(e), "restored": 0}
+            self.last_snapshot_load = result
+            return result
+        donor = donor_for(self_name, members)
+        if donor is None:
+            result = {"ok": False, "reason": "no_peer", "restored": 0}
+            self.last_snapshot_load = result
+            return result
+        return self.warm_from_peer(donor)
+
+    def _snapshot_loop(self) -> None:
+        while not self._stop.wait(self._snapshot_interval_s):
+            if self._fence.is_set():
+                continue  # the fence path already saved
+            self.save_snapshot(trigger="periodic")
 
     # ----------------------------------------------------------- draining
 
@@ -1792,6 +2052,10 @@ class EngineServer:
             cut_requests=cut,
             seconds=round(time.monotonic() - t0, 3),
         )
+        # The drain is the orderly half of a restart: persist the warm
+        # prefix state so the replacement pod's restores hit warm.
+        if self._snapshot_dir:
+            self.save_snapshot(trigger="drain")
         self._stop.set()
         self.drained.set()
         with self._cond:
@@ -1841,13 +2105,10 @@ def _positive_int(text: str) -> int:
 
 def parse_args(argv: Optional[list[str]] = None):
     """The serving CLI: the reference's flags under the reference's names
-    and defaults (the KV-tier ones default off here), plus ``--device``,
-    ``--dtype`` and ``--seed`` (the random weights).
-    Flags of what the port does not serve yet raise ``SystemExit`` naming
-    the flag: ``--kv-retain 1``, ``--kv-host-cache-mb > 0``,
-    ``--snapshot-dir``, ``--warm-from-peer``, ``--warm-from-fleet``, a
-    ``--role`` other than unified (the KV tiers), ``--spec-gamma``,
-    ``--adapters``, ``--tp > 1`` and ``--checkpoint-dir``."""
+    and defaults, plus ``--device``, ``--dtype`` and ``--seed`` (the random
+    weights).  Flags of what the port does not serve yet raise
+    ``SystemExit`` naming the flag: ``--spec-gamma``, ``--adapters``,
+    ``--tp > 1`` and ``--checkpoint-dir``."""
     import argparse
 
     from .engine import _pow2_int
@@ -1891,13 +2152,23 @@ def parse_args(argv: Optional[list[str]] = None):
                    help="SLO plane (utils/slo.py, default on)")
     p.add_argument("--slo-ttft-target", type=float, default=2.0)
     p.add_argument("--slo-itl-target", type=float, default=0.25)
-    p.add_argument("--kv-retain", type=int, choices=[0, 1], default=0,
-                   help="KV cache tier 1: not ported yet; 1 is refused")
-    p.add_argument("--kv-host-cache-mb", type=float, default=0,
-                   help="KV cache tier 2: not ported yet; > 0 is refused")
+    p.add_argument("--kv-retain", type=int, choices=[0, 1], default=1,
+                   help="KV cache tier 1 (default on): retain dead-but-valid prefix pages "
+                   "on an LRU, so a repeated prefix or a preemption resume restores them "
+                   "instead of recomputing; reclaimed lazily, leaf first")
+    p.add_argument("--kv-host-cache-mb", type=float, default=64,
+                   help="KV cache tier 2: host-RAM arena byte budget (MiB) that reclaimed "
+                   "pages and preemption snapshots spill into (0 disables)")
     p.add_argument("--role", choices=["unified", "prefill", "decode"], default="unified",
-                   help="disaggregated serving role: only unified is served yet")
-    p.add_argument("--handoff-timeout", type=float, default=30.0)
+                   help="disaggregated serving role (models/engine_handoff.py): unified "
+                   "prefills and decodes; prefill serves POST /v1/prefill and answers "
+                   "/generate 409; decode admits resident (or pulled) prefixes and skips "
+                   "their prefill.  Split roles require --kv-retain 1 and "
+                   "--kv-host-cache-mb > 0")
+    p.add_argument("--handoff-timeout", type=float, default=30.0,
+                   help="seconds a decode-role replica spends pulling a prefix from its "
+                   "X-Handoff-Source (and a /v1/prefill probe waits for chunk progress) "
+                   "before degrading to local prefill")
     p.add_argument("--tp", type=_positive_int, default=1,
                    help="tensor-parallel degree: not ported yet; > 1 is refused")
     p.add_argument("--http-port", type=int, default=8000)
@@ -1932,13 +2203,21 @@ def parse_args(argv: Optional[list[str]] = None):
                    help="plugin daemon device-health surface to watch")
     p.add_argument("--chip-health-interval", type=float, default=1.0)
     p.add_argument("--snapshot-dir", default="",
-                   help="warm-restart snapshots of the KV arena: not ported yet")
-    p.add_argument("--snapshot-interval", type=float, default=60.0)
+                   help="crash-safe warm restart (models/engine_snapshot.py): persist the "
+                   "KV host arena here on fence/drain/SIGTERM and every --snapshot-interval "
+                   "seconds, and rehydrate it at startup (empty = off)")
+    p.add_argument("--snapshot-interval", type=float, default=60.0,
+                   help="seconds between periodic KV-arena snapshots (0 disables the timer; "
+                   "fence/drain/SIGTERM saves still run)")
     p.add_argument("--warm-from-peer", default="",
-                   help="peer warm-up of the KV arena: not ported yet")
+                   help="peer warm-up: stream this host:port's GET /debug/snapshot into the "
+                   "KV host arena before serving (empty = off)")
     p.add_argument("--warm-from-fleet", default="",
-                   help="peer warm-up through the router: not ported yet")
-    p.add_argument("--warm-self", default="")
+                   help="peer warm-up via the router: pick the donor from this router URL's "
+                   "/debug/fleet membership and fetch its snapshot before serving")
+    p.add_argument("--warm-self", default="",
+                   help="this replica's host:port as the router's ring names it (the "
+                   "--warm-from-fleet donor key); default <hostname>:<http-port>")
     p.add_argument("--admin-endpoints", type=int, choices=[0, 1], default=1,
                    help="serve POST /debug/fence, /debug/unfence, /debug/role and the "
                    "fabric verbs")
@@ -1952,13 +2231,6 @@ def parse_args(argv: Optional[list[str]] = None):
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
     refused = [
-        ("--kv-retain", args.kv_retain == 1, "the KV cache tiers are not ported yet"),
-        ("--kv-host-cache-mb", args.kv_host_cache_mb > 0, "the host KV arena is not ported yet"),
-        ("--snapshot-dir", bool(args.snapshot_dir), "KV arena snapshots are not ported yet"),
-        ("--warm-from-peer", bool(args.warm_from_peer), "peer warm-up is not ported yet"),
-        ("--warm-from-fleet", bool(args.warm_from_fleet), "peer warm-up is not ported yet"),
-        ("--role", args.role != "unified",
-         "split prefill/decode roles need the KV tiers, which are not ported yet"),
         ("--spec-gamma", args.spec_gamma != 0, "speculative decoding is not ported yet"),
         ("--adapters", bool(args.adapters), "multi-LoRA serving is not ported yet"),
         ("--tp", args.tp > 1, "tensor-parallel serving is not ported yet"),
@@ -2027,6 +2299,9 @@ def build_engine(args, registry: Optional[MetricsRegistry] = None,
             if args.slo
             else None
         ),
+        kv_retain=bool(args.kv_retain),
+        kv_host_cache_mb=args.kv_host_cache_mb,
+        role=args.role,
         device=device,
     )
 
@@ -2090,8 +2365,24 @@ def main(argv: Optional[list[str]] = None) -> None:
         enable_admin=bool(args.admin_endpoints),
         watchdog=watchdog,
         chip_health=chip_feed,
+        snapshot_dir=args.snapshot_dir,
+        snapshot_interval_s=args.snapshot_interval,
         handoff_timeout_s=args.handoff_timeout,
     )
+    if args.snapshot_dir:
+        # Rehydrate before serving: the first admissions restore warm.
+        restored = server.load_snapshot()
+        print(f"kv snapshot restore: {restored}", file=sys.stderr, flush=True)
+    if args.warm_from_peer or args.warm_from_fleet:
+        # Peer warm-up before serving; a failure is an ordinary cold join.
+        if args.warm_from_peer:
+            warmed = server.warm_from_peer(args.warm_from_peer)
+        else:
+            import socket as socket_mod
+
+            self_name = args.warm_self or f"{socket_mod.gethostname()}:{args.http_port}"
+            warmed = server.warm_from_fleet(args.warm_from_fleet, self_name)
+        print(f"peer warm-up: {warmed}", file=sys.stderr, flush=True)
     if args.dump_budget_mb:
         flight_mod.set_dump_budget(args.dump_budget_mb * 1024 * 1024)
     if args.dump_dir:

@@ -24,6 +24,7 @@ import dataclasses
 import importlib
 import json
 import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -343,6 +344,15 @@ def _spans(pkg, tmp_path):
     rec.record_span("request", "trace-a", start_monotonic=10.0, end_monotonic=13.0,
                     span_id=root, attrs={"outcome": "completed"})
     dump = rec.dump(trace_id="trace-a")
+    # ``start`` converts each span's monotonic start to wall time with a
+    # clock reading taken at dump time, so the two packages' values differ
+    # by the time between their calls.  Each is held to the wall clock
+    # (within 5 s) and to the spans' order instead of being compared.
+    wall_now = time.time() - time.monotonic()
+    mono = {"queue": 10.0, "prefill": 11.0, "decode": 12.0, "request": 10.0}
+    starts = [(mono[s["name"]], s.pop("start")) for s in dump["spans"]]
+    assert all(abs(t - (wall_now + m)) < 5.0 for m, t in starts), starts
+    assert [t for _, t in sorted(starts)] == sorted(t for _, t in starts)
     for s in dump["spans"]:
         s.pop("start_unix", None)
         s.pop("ts", None)

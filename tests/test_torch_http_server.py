@@ -405,12 +405,6 @@ def test_step_capture_traces_the_next_steps(pair):
 @pytest.mark.parametrize(
     "argv, flag",
     [
-        (["--kv-retain", "1"], "--kv-retain"),
-        (["--kv-host-cache-mb", "64"], "--kv-host-cache-mb"),
-        (["--snapshot-dir", "/x"], "--snapshot-dir"),
-        (["--warm-from-peer", "h:1"], "--warm-from-peer"),
-        (["--warm-from-fleet", "http://r"], "--warm-from-fleet"),
-        (["--role", "decode"], "--role"),
         (["--spec-gamma", "4"], "--spec-gamma"),
         (["--adapters", "a,b"], "--adapters"),
         (["--tp", "2"], "--tp"),
@@ -422,31 +416,54 @@ def test_cli_refuses_what_the_port_does_not_serve(argv, flag):
         port_http.parse_args(argv)
 
 
+DEPLOYMENT_FLAGS = [
+    "--hidden=1024", "--layers=8", "--heads=16", "--kv-heads=4", "--page-size=16",
+    "--num-pages=512", "--max-pages-per-seq=32", "--slots=8", "--decode-block=16",
+    "--admission=optimistic", "--prefill-chunk=256", "--kv-retain=1", "--kv-host-cache-mb=512",
+    "--overload=1", "--overload-target-wait=0.5", "--overload-max-queue=512", "--slo=1",
+    "--watchdog=1", "--watchdog-min-deadline=5", "--watchdog-grace=120",
+    "--snapshot-dir=/var/lib/tpu-snapshot", "--snapshot-interval=60", "--dump-budget-mb=256",
+    "--http-port=8000", "--compilation-cache-dir=/var/cache/xla",
+]
+
+
 def test_cli_takes_the_deployment_flags():
-    """The deployed manifest's flags, minus the KV-tier ones, parse; the
-    XLA cache flag is accepted."""
-    args = port_http.parse_args([
-        "--hidden=1024", "--layers=8", "--heads=16", "--kv-heads=4", "--page-size=16",
-        "--num-pages=512", "--max-pages-per-seq=32", "--slots=8", "--decode-block=16",
-        "--admission=optimistic", "--prefill-chunk=256", "--overload=1",
-        "--overload-target-wait=0.5", "--overload-max-queue=512", "--slo=1", "--watchdog=1",
-        "--watchdog-min-deadline=5", "--watchdog-grace=120", "--dump-budget-mb=256",
-        "--compilation-cache-dir=/tmp/xla",
-    ])
+    """Every flag of deploy/k8s-deploy-serve-http.yaml parses, nothing cut;
+    the tier flags default as the reference's (tier 1 on, a 64 MiB arena)."""
+    manifest = open(os.path.join(REPO, "deploy", "k8s-deploy-serve-http.yaml")).read()
+    for flag in DEPLOYMENT_FLAGS:
+        assert f'"{flag}"' in manifest, flag
+    args = port_http.parse_args(DEPLOYMENT_FLAGS)
     assert args.admission == "optimistic" and args.decode_block == 16
+    assert args.kv_retain == 1 and args.kv_host_cache_mb == 512
+    assert args.snapshot_dir == "/var/lib/tpu-snapshot" and args.snapshot_interval == 60
+    defaults = port_http.parse_args([])
+    assert (defaults.kv_retain, defaults.kv_host_cache_mb, defaults.role) == (1, 64, "unified")
 
 
-def test_server_process_serves_and_drains_on_sigterm(tmp_path):
-    """``python -m ...http_server`` on the CPU at tiny widths with the
-    deployment's admission flags: it serves, and SIGTERM drains it to exit
-    code 0."""
+@pytest.mark.parametrize(
+    "argv, attr, value",
+    [
+        (["--snapshot-interval", "15"], "snapshot_interval", 15.0),
+        (["--warm-self", "10.0.0.7:8000"], "warm_self", "10.0.0.7:8000"),
+        (["--handoff-timeout", "2.5"], "handoff_timeout", 2.5),
+    ],
+)
+def test_cli_takes_the_warm_restart_and_handoff_flags(argv, attr, value):
+    """The flags the reference pairs with the tiers parse to what the
+    server is built from."""
+    assert getattr(port_http.parse_args(argv), attr) == value
+
+
+def _serve_process(tmp_path, name, extra):
+    """``python -m ...http_server`` on the CPU at tiny widths: (process,
+    port, log path)."""
     import re
-    import signal
     import subprocess
     import sys
     import time
 
-    log = tmp_path / "server.log"
+    log = tmp_path / f"{name}.log"
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
     proc = subprocess.Popen(
@@ -454,17 +471,66 @@ def test_server_process_serves_and_drains_on_sigterm(tmp_path):
          "--device", "cpu", "--dtype", "float32", "--hidden", "64", "--layers", "2",
          "--heads", "4", "--kv-heads", "2", "--vocab", "512", "--page-size", "4",
          "--num-pages", "64", "--slots", "2", "--decode-block", "16",
-         "--admission", "optimistic", "--prefill-chunk", "256", "--http-port", "0"],
+         "--admission", "optimistic", "--prefill-chunk", "256", "--http-port", "0", *extra],
         cwd=REPO, env=env, stdout=subprocess.DEVNULL, stderr=open(log, "w"),
     )
+    port, deadline = None, time.monotonic() + 120
+    while port is None and time.monotonic() < deadline:
+        assert proc.poll() is None, log.read_text()
+        m = re.search(r"serving on :(\d+)", log.read_text())
+        port = int(m.group(1)) if m else None
+        time.sleep(0.1)
+    assert port is not None, log.read_text()
+    return proc, port, log
+
+
+def test_sigterm_saves_a_snapshot_and_a_restart_serves_warm(tmp_path):
+    """The deployment's warm restart on the CPU: a server on the tier and
+    snapshot flags serves a shared-prefix prompt, SIGTERM drains it and
+    the drain writes the snapshot; a second server on the same directory
+    loads it before serving, and the same prompt restores from the arena
+    (host hits, no prefill of the prefix) with the cold server's tokens."""
+    import signal
+
+    snap_dir = tmp_path / "snap"
+    flags = ["--kv-retain", "1", "--kv-host-cache-mb", "8", "--snapshot-dir", str(snap_dir),
+             "--snapshot-interval", "60"]
+    prompt = [(7 * i) % 500 + 1 for i in range(12)]  # three full pages
+    tokens = []
+    for name in ("cold", "warm"):
+        proc, port, log = _serve_process(tmp_path, name, flags)
+        try:
+            status, _, body = _request(port, "/generate", {"prompt": prompt, "max_new_tokens": 6})
+            assert status == 200
+            tokens.append(json.loads(body)["tokens"])
+            kv = json.loads(_request(port, "/debug/kvcache")[2])
+            state = json.loads(_request(port, "/debug/state")[2])["fence"]["snapshot"]
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=60) == 0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        text = log.read_text()
+        assert state["dir"] == str(snap_dir) and state["interval_s"] == 60.0
+        if name == "cold":
+            assert kv["hits"]["host"] == 0
+            assert (snap_dir / "kv_arena.snapshot").exists()
+            assert "'ok': False, 'reason': 'missing'" in text
+        else:
+            assert "kv snapshot restore: {'ok': True, 'restored': 3" in text
+            assert kv["hits"]["host"] >= 3 and kv["restores"] >= 3
+    assert tokens[1] == tokens[0]
+
+
+def test_server_process_serves_and_drains_on_sigterm(tmp_path):
+    """``python -m ...http_server`` on the CPU at tiny widths with the
+    deployment's admission flags: it serves, and SIGTERM drains it to exit
+    code 0."""
+    import signal
+
+    proc, port, log = _serve_process(tmp_path, "server", [])
     try:
-        port, deadline = None, time.monotonic() + 120
-        while port is None and time.monotonic() < deadline:
-            assert proc.poll() is None, log.read_text()
-            m = re.search(r"serving on :(\d+)", log.read_text())
-            port = int(m.group(1)) if m else None
-            time.sleep(0.1)
-        assert port is not None, log.read_text()
         status, _, body = _request(port, "/generate", {"prompt": [1, 2, 3], "max_new_tokens": 5})
         assert status == 200 and len(json.loads(body)["tokens"]) == 5
         status, _, body = _request(port, "/debug/state?summary=1")

@@ -68,7 +68,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "models.benchmark", "utils.flight", "utils.failpoints", "utils.spans",
                  "utils.anomaly", "utils.slo", "utils.postmortem", "utils.tracing",
                  "models.engine_overload", "models.engine_watchdog", "models.engine_profiler",
-                 "models.engine_snapshot", "models.engine_unified", "models.http_server"):
+                 "models.engine_snapshot", "models.engine_kvcache", "models.engine_handoff",
+                 "models.http_server", "utils.racecheck", "utils.prefixbloom", "utils.ring"):
         assert f"k8s_device_plugin_tpu_torch.{name}" in mods
     code = (
         "import sys\n"
