@@ -53,9 +53,10 @@ Phases, in order (any failure exits non-zero):
    read just after: the paged-decode kernel must have launched (float
    pools) once per layer on every dispatched step;
 4b. the same engine run with the deployed pod's ``--quant=w8``, then with
-   ``--quant=w8 --quant-kv``, then with ``--quant=w8a8 --quant-kv``: each
-   must return 32 x 128 in-vocab tokens, and the ``--quant-kv`` runs must
-   have launched the paged kernel's int8 branch on every decode step;
+   ``--quant=w8 --quant-kv``, then with ``--quant=w8a8 --quant-kv``, on the
+   first 8 requests: each must return 8 x 128 in-vocab tokens, and the
+   ``--quant-kv`` runs must have launched the paged kernel's int8 branch on
+   every decode step;
 4d. the same engine at ``--decode-block 16 --overlap-steps 1`` with its
    dispatches replayed as CUDA graphs: the greedy tokens must equal phase
    4's exactly, the paged kernel counted once per layer on every
@@ -97,12 +98,35 @@ Phases, in order (any failure exits non-zero):
    the router), and must return the greedy tokens phase 4f's warm (unified)
    server returned for them, with prefill skipped on the decode server
    (TTFT and ITL beside the unified server's, the bytes handed off);
+4h. speculation: the batch engine at ``--slots 2 --spec-gamma 2`` (the pod
+   manifest's latency variant), at ``--slots 1`` and at gamma 4, on 8
+   requests (prompt 128, half sharing a 64-token prefix; 128 new), against
+   the non-speculative engine at decode block 1 (and 16) at the same
+   slots: greedy tokens equal wherever the reference's top-2 margin
+   clears TOL_MARGIN_BF16, the paged kernel launched exactly 8 layers x
+   gamma x rounds (none in the verify pass), the ``kernel.fallback``
+   flight event with ``spec_verify`` recorded, graphed rounds equal to
+   eager ones greedy and sampled (0.8, top-k 50) on the first two
+   requests; then the HTTP server at the pod's flags with ``--slots 2
+   --spec-gamma 2``, whose tokens must equal its in-process twin's;
+4i. multi-LoRA: the HTTP server at phase 4e's flags plus ``--adapters`` over
+   four rank-8 adapter directories (the port's CheckpointManager, seeded,
+   ``lora_b`` not zero), phase 4e's 32 requests with ``adapter`` cycling
+   none, 0, 1, 2, 3: tokens equal to an in-process engine on the same
+   stacked tree and, by the margin rule, to a single-model engine on each
+   adapter's ``merge_lora_params``; one prompt under two adapters shares no
+   page; an adapter out of range answers 422; paged launches = layers x
+   steps;
 4c. ``decode_profile.sweep_formats``, the kernel benchmark (the reference
    reaches int4 pools only from its kernel benchmark): each pool format
    at the decode shape, launches counted by format;
 5. run greedy_generate at full width (batch 8, prompt 128, 32 new tokens)
    the same way: the flash-forward kernel must have launched, as its
    tensor-core variant only;
+5b. ``speculative_generate`` (batch 1, prompt 128, 128 new, gamma 2, the
+   w8 self-draft) against ``greedy_generate``: equal tokens by the margin
+   rule, the flash kernel launched once per layer of the target and of
+   the draft, as its tensor-core variant only;
 6. at 2 layers in float32, the engine's greedy tokens on the kernel path
    must equal those on the gathered-page path wherever the reference's
    top-2 logit margin clears the tolerance, at full width and page 16 and
@@ -130,14 +154,15 @@ it measured in this run, the bounds computed from its inputs), one
 ``slice`` JSON line, one ``blocks`` JSON line (phase 4d, 3c's worst
 errors and the tiny phase 6), one
 ``quant`` JSON line, one ``train`` JSON line, one ``serve`` JSON line
-(phase 4e), one ``warm_restart`` line (phases 4f, 4g and 3d), and last
-the line
+(phase 4e), one ``warm_restart`` line (phases 4f, 4g and 3d), one
+``spec_lora`` line (phases 4h, 5b and 4i), and last the line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -701,13 +726,15 @@ def time_head_dim(torch, pa, fa, dp, tuning, D: int) -> dict:
     return out
 
 
-def run_engine(torch, engine, pa, fa, flags=()):
+def run_engine(torch, engine, pa, fa, flags=(), requests: int = 32):
     """Phases 4 and 4b: the batch engine at full width with the extra
-    ``flags``; returns (summary, paged launches by pool format)."""
+    ``flags`` on ``requests`` of the synthetic stream; returns (summary,
+    paged launches by pool format)."""
     args = engine.parse_args([
         "--hidden=1024", "--layers=8", "--heads=16", "--kv-heads=4", "--vocab=32000",
         "--page-size=16", "--num-pages=512", "--max-pages-per-seq=32", "--slots=8",
-        "--requests=32", "--prompt-len=128", "--max-new=128", f"--device={DEVICE}", *flags,
+        f"--requests={requests}", "--prompt-len=128", "--max-new=128", f"--device={DEVICE}",
+        *flags,
     ])
     pa.reset_launches()
     fa.reset_launches()
@@ -725,8 +752,8 @@ def run_engine(torch, engine, pa, fa, flags=()):
     if launches[want] != args.layers * summary["device_steps"]:
         fail(f"the engine {list(flags)} counted {launches[want]} paged launches over "
              f"{summary['device_steps']} dispatched steps of {args.layers} layers")
-    if len(done) != 32 or any(len(r.tokens) != 128 for r in done):
-        fail("the engine did not return 32 requests of 128 tokens")
+    if len(done) != requests or any(len(r.tokens) != 128 for r in done):
+        fail(f"the engine did not return {requests} requests of 128 tokens")
     if any(not 0 <= t < 32000 for r in done for t in r.tokens):
         fail("the engine emitted a token id outside the vocabulary")
     # The summary's quantiles interpolate histogram buckets; these are exact
@@ -740,6 +767,7 @@ def run_engine(torch, engine, pa, fa, flags=()):
 
 
 SYNC_EAGER = ("--decode-block=1", "--overlap-steps=0", "--cuda-graphs=0")
+QUANT_REQUESTS = 16  # phase 4b: two waves of 8 slots, so slots free and re-admit
 BLOCKS = ("--decode-block=16", "--overlap-steps=1")  # CUDA graphs: the card's default
 SAMPLED = ("--temperature=0.8", "--top-k=50")
 
@@ -890,8 +918,14 @@ def http_traffic(port: int, jobs, payload_kw=None, streamed: int = SERVE_STREAME
 
     results = [None] * len(jobs)
 
-    def one(i, prompt, n):
-        body = {"prompt": prompt, "max_new_tokens": n, **(payload_kw or {})}
+    def one(i, prompt, n, extra=None):
+        try:
+            send(i, prompt, n, extra)
+        except Exception as e:  # noqa: BLE001 - reported below as a failed request
+            results[i] = {"status": None, "body": repr(e)}
+
+    def send(i, prompt, n, extra):
+        body = {"prompt": prompt, "max_new_tokens": n, **(payload_kw or {}), **(extra or {})}
         t0 = time.perf_counter()
         if i >= streamed:
             status, out = http_call(port, "/generate", body)
@@ -902,7 +936,7 @@ def http_traffic(port: int, jobs, payload_kw=None, streamed: int = SERVE_STREAME
             return
         results[i] = stream_request(port, body)
 
-    threads = [threading.Thread(target=one, args=(i, p, n)) for i, (p, n) in enumerate(jobs)]
+    threads = [threading.Thread(target=one, args=(i, *job)) for i, job in enumerate(jobs)]
     t0 = time.perf_counter()
     for t in threads:
         t.start()
@@ -928,7 +962,8 @@ def client_latency(results, wall: float) -> dict:
         "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall,
         "ttft_ms": {"p50": quantile(ttft, 0.5) * 1e3, "p99": quantile(ttft, 0.99) * 1e3},
         "itl_ms": {"p50": quantile(itl, 0.5) * 1e3, "p99": quantile(itl, 0.99) * 1e3},
-        "unary_answer_ms": {"p50": quantile(unary, 0.5) * 1e3, "p99": quantile(unary, 0.99) * 1e3},
+        "unary_answer_ms": {"p50": quantile(unary, 0.5) * 1e3, "p99": quantile(unary, 0.99) * 1e3}
+        if unary else None,
         "streams": len(streams), "unary": len(unary),
     }
 
@@ -951,7 +986,7 @@ def engine_latency(done, wall: float) -> dict:
         "ttft_streamed_jobs_ms": {"p50": quantile(ttft_streamed, 0.5) * 1e3,
                                   "p99": quantile(ttft_streamed, 0.99) * 1e3},
         "unary_jobs_answer_ms": {"p50": quantile(answer, 0.5) * 1e3,
-                                 "p99": quantile(answer, 0.99) * 1e3},
+                                 "p99": quantile(answer, 0.99) * 1e3} if answer else None,
     }
 
 
@@ -991,17 +1026,19 @@ def warm_up(port: int, jobs) -> float:
     limiter, which would cut the measured run's concurrency for it.
     Returns the seconds until both answered."""
     t0 = time.perf_counter()
-    for prompt, _ in jobs[:2]:
+    for prompt, *_ in jobs[:2]:
         status, body = http_call(port, "/generate", {"prompt": prompt, "max_new_tokens": 32})
         if status != 200:
             fail(f"warm-up request failed: {status} {body}")
     return time.perf_counter() - t0
 
 
-def serve_once(flags, jobs, log_path, env, sampled: bool) -> dict:
+def serve_once(flags, jobs, log_path, env, sampled: bool, probe=None) -> dict:
     """One server run: a warm-up, greedy traffic over HTTP, optionally the
-    sampled requests, the debug reads (the KV tiers' included), the launch
-    accounting, then SIGTERM (the drain saves the snapshot)."""
+    sampled requests and ``probe(port)`` (its result under ``probe``), the
+    debug reads (the KV tiers' included), the launch accounting, then
+    SIGTERM (the drain saves the snapshot).  A job is (prompt, n) or
+    (prompt, n, extra payload)."""
     proc, port = start_server((*flags, snapshot_flag(log_path.stem)), log_path, env)
     try:
         cold_s = warm_up(port, jobs)
@@ -1039,6 +1076,8 @@ def serve_once(flags, jobs, log_path, env, sampled: bool) -> dict:
                         fail(f"sampled logprobs not finite and <= 0: {lps[:8]}")
             out["sampled"] = {"requests": len(answers), "choices": 2 * len(answers),
                               "all_logprobs_finite_and_nonpositive": True}
+        if probe is not None:
+            out["probe"] = probe(port)
         status, out["summary"] = http_call(port, "/debug/state?summary=1")
         status, out["profile"] = http_call(port, "/debug/profile")
         status, out["admission"] = http_call(port, "/debug/admission")
@@ -1649,27 +1688,12 @@ def check_paths_agree(torch, tf, engine, cfg=None, page=(16, 512, 32), prompt_le
         paged = tf.PagedConfig(*page, use_kernel=use_kernel)
         eng = engine.ServingEngine(cfg, params, paged, max_slots=8, device=DEVICE)
         streams[use_kernel] = [r.tokens for r in eng.run(jobs)]
-    model = eng.model
-    checked = ties = 0
-    for (prompt, _), a, b in zip(jobs, streams[None], streams[False]):
-        for j, (x, y) in enumerate(zip(a, b)):
-            checked += 1
-            if x == y:
-                continue
-            with torch.no_grad():
-                # The cached append over the whole sequence: each position
-                # attends over the (dequantized) cache as a decode step does.
-                ids = torch.tensor([prompt + a[:j]], device=DEVICE)
-                cache = tf.DenseCache.zeros(cfg, 1, DEVICE, max_seq=ids.shape[1])
-                top2 = model(ids, cache=cache, append_mode="cached")[0, -1].topk(2).values
-            margin = float(top2[0] - top2[1])
-            if margin >= TOL_MARGIN:
-                fail(f"kernel and gather paths disagree at token {j} with margin {margin}")
-            ties += 1
-            break  # past a near-tie the two streams legitimately differ
+    held = hold_streams(torch, tf, eng.model, jobs, streams[None], streams[False],
+                        f"fp32 {quant_kw or 'float'} kernel against gather path",
+                        tol=TOL_MARGIN)
     log(f"fp32 {quant_kw or 'float'} head_dim {cfg.head_dim} page {page[0]}: paths agree on "
-        f"{checked} tokens ({ties} near-ties)")
-    return {"checked": checked, "near_ties": ties}
+        f"{held['checked']} tokens ({len(held['near_ties'])} near-ties)")
+    return held
 
 
 def rel_err(got, want) -> float:
@@ -1941,6 +1965,561 @@ def check_train_parity(torch, fa, tf, train, data):
             "launches_by_design": launches}
 
 
+# ------------------------------------------------- phases 4h, 5b and 4i
+
+# The deployed model's logits come from bf16 activations through the
+# float32 head: two computations of one step (the verify pass's gathered
+# pages against the paged kernel, a merged kernel against the base plus an
+# adapter's delta) differ by a few hundredths.  A greedy stream may part
+# from its reference only where the reference's top-2 margin is under this.
+TOL_MARGIN_BF16 = 0.1
+# A merged bf16 kernel (W + delta rounded to bf16) is other weights than W
+# and the delta kept apart: at 8 layers that moves the logits by up to about
+# a tenth (phase 4i reports the measured gap beside each check).
+TOL_MARGIN_MERGED = 0.25
+SPEC_JOBS = 8  # phase 4h: prompt 128 (half share a 64-token prefix), 128 new
+# The pod manifest's flags (deploy/k8s-pod-serve-http.yaml) at the latency
+# variant it names, --slots 2 --spec-gamma 2 (decode block 1 under it).
+POD_SPEC_FLAGS = (
+    "--hidden=1024", "--layers=8", "--heads=16", "--kv-heads=4", "--page-size=16",
+    "--num-pages=512", "--max-pages-per-seq=32", "--slots=2", "--spec-gamma=2",
+    "--kv-retain=1", "--kv-host-cache-mb=512", "--overload=1", "--slo=1", "--watchdog=1",
+    "--snapshot-interval=60",
+)
+LORA_RANK, LORA_ADAPTERS = 8, 4
+# lora_b's std: each adapter's delta moves some logit by several tenths or
+# more (phase 4i reports the shift), well above the limits that hold it.
+LORA_B_STD = 0.08
+# The bf16 multi-LoRA model's logits against a float32 model of plain
+# x·W + (alpha/rank)·(x·A)·B sites over the same weights: bf16 rounding
+# over 8 layers.  Each adapter's measured shift must be 4x this or more.
+TOL_LORA_F32 = 0.25
+LORA_COST_ADAPTERS = (4, 32)  # 4i's count, and tens of tenants
+
+
+def hold_streams(torch, tf, model, jobs, got, want, what: str,
+                 tol: float = TOL_MARGIN_BF16) -> dict:
+    """Greedy streams ``got`` against the reference's ``want`` (computed on
+    ``model``'s weights): equal, or at a request's first difference the
+    reference's top-2 margin there (the dense cached append over the prompt
+    and ``want``'s tokens so far, as a decode step attends) is under
+    ``tol``, past which the two legitimately part."""
+    checked, ties = 0, []
+    for job, a, b in zip(jobs, got, want):
+        if len(a) != len(b):
+            fail(f"{what}: a request returned {len(a)} tokens against {len(b)}")
+        for j, (x, y) in enumerate(zip(a, b)):
+            checked += 1
+            if x == y:
+                continue
+            with torch.no_grad():
+                ids = torch.tensor([list(job[0]) + list(b[:j])], device=DEVICE)
+                cache = tf.DenseCache.zeros(model.config, 1, DEVICE, max_seq=ids.shape[1])
+                top2 = model(ids, cache=cache, append_mode="cached")[0, -1].topk(2).values
+            margin = float(top2[0] - top2[1])
+            if margin >= tol:
+                fail(f"{what}: token {j} differs ({x} vs {y}) where the reference's top-2 "
+                     f"margin is {margin}")
+            ties.append({"token": j, "margin": margin})
+            break
+    return {"checked": checked, "near_ties": ties, "tolerance": tol}
+
+
+def spec_engine_run(torch, engine, pa, flags) -> tuple:
+    """One batch-engine run at the deployed widths on phase 4h's traffic
+    with ``flags``; the launch counters are set to 0 just before it.
+    Returns (summary, tokens, engine)."""
+    args = engine.parse_args([
+        "--hidden=1024", "--layers=8", "--heads=16", "--kv-heads=4", "--vocab=32000",
+        "--page-size=16", "--num-pages=512", "--max-pages-per-seq=32",
+        f"--requests={SPEC_JOBS}", "--prompt-len=128", "--max-new=128", f"--device={DEVICE}",
+        *flags,
+    ])
+    eng = engine.build_engine(args)
+    pa.reset_launches()
+    summary, done = engine.benchmark(args, eng)
+    torch.cuda.synchronize()
+    summary["paged_launches"] = dict(pa.paged_attention.launches_by_format)
+    summary["flags"] = list(flags)
+    if len(done) != SPEC_JOBS or any(len(r.tokens) != 128 for r in done):
+        fail(f"the engine {list(flags)} did not return {SPEC_JOBS} requests of 128 tokens")
+    if any(not 0 <= t < 32000 for r in done for t in r.tokens):
+        fail(f"the engine {list(flags)} emitted a token id outside the vocabulary")
+    ttft = [r.first_token_at - r.submitted_at for r in done]
+    itl = [(r.finished_at - r.first_token_at) / (len(r.tokens) - 1) for r in done]
+    summary["ttft_exact_ms"] = {"p50": quantile(ttft, 0.5) * 1e3, "p99": quantile(ttft, 0.99) * 1e3}
+    summary["itl_request_mean_ms"] = {"p50": quantile(itl, 0.5) * 1e3,
+                                      "p99": quantile(itl, 0.99) * 1e3}
+    log(f"phase 4h engine {list(flags)}: {summary}")
+    return summary, [r.tokens for r in done], eng
+
+
+def spec_row(summary) -> dict:
+    keep = ("value", "spec_gamma", "spec_acceptance", "spec_rounds", "device_steps",
+            "graph_replays", "ttft_exact_ms", "itl_request_mean_ms", "paged_launches", "flags")
+    return {k: summary[k] for k in keep}
+
+
+def graphs_vs_eager(torch, eng, jobs) -> dict:
+    """``jobs`` through a spec engine whose rounds are captured, first
+    replayed as graphs and then eager, greedy and sampled under one key:
+    the tokens must be equal and valid."""
+    from k8s_device_plugin_tpu_torch.utils import prng
+
+    out = {}
+    for name, kw in (("greedy", {}), ("sampled", dict(temperature=0.8, top_k=50))):
+        streams = {}
+        for graphs in (True, False):
+            eng.cuda_graphs = graphs
+            eng._rng = prng.PRNGKey(0).to(eng.device)
+            replays, t0 = eng.graph_replays, time.perf_counter()
+            done = eng.run(jobs, **kw)
+            torch.cuda.synchronize()
+            streams[graphs] = [r.tokens for r in done]
+            if (eng.graph_replays > replays) is not graphs:
+                fail(f"spec {name} rounds with graphs={graphs} replayed "
+                     f"{eng.graph_replays - replays} graphs")
+            out[f"{name}_{'graphed' if graphs else 'eager'}_tokens_per_s"] = (
+                sum(map(len, streams[graphs])) / (time.perf_counter() - t0))
+        if streams[True] != streams[False]:
+            fail(f"spec {name} rounds differ graphed against eager at "
+                 f"{first_difference(streams[True], streams[False])}")
+        if any(len(t) != n or not all(0 <= x < 32000 for x in t)
+               for t, (_, n) in zip(streams[True], jobs)):
+            fail(f"spec {name} rounds returned invalid tokens")
+    eng.cuda_graphs = True
+    log(f"phase 4h graphs against eager: {out}")
+    return out
+
+
+def round_costs(torch, eng) -> dict:
+    """Device time (profiler) of a round's pieces on an idle spec engine at
+    its slots, every row at position 192 (idle rows read and write scratch
+    page 0): one w8 draft step, one bf16 target step for comparison, the
+    (gamma+1)-token verify pass, and a whole greedy round."""
+    from k8s_device_plugin_tpu_torch.models import engine_sampling
+
+    gamma, slots = eng._spec_gamma, eng.max_slots
+    tok = torch.zeros((slots, 1), dtype=torch.long, device=DEVICE)
+    pos = torch.full((slots, 1), 192, dtype=torch.long, device=DEVICE)
+    block = torch.zeros((slots, gamma + 1), dtype=torch.long, device=DEVICE)
+    block_pos = pos + torch.arange(gamma + 1, device=DEVICE)[None, :]
+    eng.cache.page_table = engine_sampling._derived_tables(eng._chain, pos + gamma,
+                                                           eng.paged.page_size)
+    eng._bufs["tokens"].zero_()
+    eng._bufs["positions"].fill_(192)
+    with torch.no_grad():
+        out = {
+            "draft_step_w8": profiled_ms(torch, lambda: eng.draft_model(tok, pos, cache=eng.cache),
+                                         "w8 draft step", iters=5, warmup=2),
+            "target_step_bf16": profiled_ms(torch, lambda: eng.model(tok, pos, cache=eng.cache),
+                                            "bf16 target step", iters=5, warmup=2),
+            "verify_pass": profiled_ms(torch, lambda: eng.model(block, block_pos, cache=eng.cache),
+                                       "verify pass", iters=5, warmup=2),
+            "round": profiled_ms(torch, lambda: eng._spec_body(False), "greedy round", iters=5, warmup=2),
+        }
+    eng._repair_seq_lens()
+    log(f"phase 4h round pieces (device ms, {slots} slots, gamma {gamma}): {out}")
+    return out
+
+
+def run_speculation(torch, tf, engine, http_server, pa) -> dict:
+    """Phase 4h: the batch engine at --slots 2 --spec-gamma 2 (the pod
+    manifest's latency variant), at --slots 1 and at gamma 4, against the
+    non-speculative engine at decode block 1 (and 16) at the same slots;
+    graphed against eager, greedy and sampled; then the HTTP server at the
+    pod's flags with --slots 2 --spec-gamma 2 against its in-process twin.
+    Graphs against eager run on the main engine over the first two
+    requests (eager rounds cost a launch per kernel)."""
+    import os
+    import pathlib
+
+    from k8s_device_plugin_tpu_torch.models.engine import synthetic_jobs
+
+    jobs = synthetic_jobs(SPEC_JOBS, 128, 128, 32000)
+    report = {}
+    for slots in (2, 1):
+        ref, ref_tokens, ref_eng = spec_engine_run(torch, engine, pa,
+                                                   (f"--slots={slots}", "--decode-block=1"))
+        report[f"block1_slots{slots}"] = spec_row(ref)
+        block16, _, eng = spec_engine_run(torch, engine, pa, (f"--slots={slots}",
+                                                              "--decode-block=16"))
+        report[f"block16_slots{slots}"] = spec_row(block16)
+        del eng
+        gammas = (2, 4) if slots == 2 else (2,)
+        for gamma in gammas:
+            flags = (f"--slots={slots}", f"--spec-gamma={gamma}")
+            run, tokens, eng = spec_engine_run(torch, engine, pa, flags)
+            launches = run["paged_launches"]
+            # The draft's single-token steps run the paged kernel, the verify
+            # pass the gathered pages: exactly layers x gamma per round.
+            if launches["f"] != 8 * gamma * eng.spec_rounds or launches["int8"] or \
+                    launches["int4"]:
+                fail(f"spec {flags}: {launches} paged launches over {eng.spec_rounds} rounds "
+                     f"of gamma {gamma}, not 8 x gamma x rounds")
+            if not eng.flight.window(kinds=["kernel.fallback"]) or eng.flight.window(
+                    kinds=["kernel.fallback"])[0]["reason"] != "spec_verify":
+                fail(f"spec {flags}: no kernel.fallback flight event with reason spec_verify")
+            if eng.graph_replays <= 0:
+                fail(f"spec {flags}: the rounds never replayed a CUDA graph")
+            row = spec_row(run)
+            row["vs_block1"] = hold_streams(torch, tf, ref_eng.model, jobs, tokens, ref_tokens,
+                                            f"spec {flags} against block 1")
+            report[f"spec_gamma{gamma}_slots{slots}"] = row
+            if slots == 2 and gamma == 2:
+                main_launches, main_eng = launches["f"], eng
+            del eng
+        del ref_eng
+        torch.cuda.empty_cache()
+    # Graphed rounds against eager ones, greedy and sampled (temperature
+    # 0.8, top-k 50, one key), on the main engine: the first two requests
+    # again, with graphs and then without.
+    report["graphs_vs_eager"] = graphs_vs_eager(torch, main_eng, jobs[:2])
+    report["round_device_ms"] = round_costs(torch, main_eng)
+    del main_eng
+    torch.cuda.empty_cache()
+
+    # Over HTTP at the pod's flags: tokens equal the in-process twin's.
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    args = http_server.parse_args([*POD_SPEC_FLAGS, f"--device={DEVICE}"])
+    twin = http_server.build_engine(args)
+    twin.run([(p, 32) for p, _ in jobs[:2]])
+    t0 = time.perf_counter()
+    done = twin.run(jobs)
+    torch.cuda.synchronize()
+    inproc = engine_latency(done, time.perf_counter() - t0)
+    want = [r.tokens for r in done]
+    del twin, done
+    torch.cuda.empty_cache()
+    log_dir = root / "build" / "logs"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    served = serve_once(POD_SPEC_FLAGS, jobs, log_dir / "spec_http.log", env, sampled=False)
+    got = [r["tokens"] for r in served["results"]]
+    if got != want:
+        fail(f"spec HTTP tokens differ from the in-process engine's at "
+             f"{first_difference(got, want)}")
+    spec_state = served["summary"]
+    report["http"] = {"flags": list(POD_SPEC_FLAGS), "client": served["client"],
+                      "in_process": inproc, "device": served["device"],
+                      "profile": served["traffic_profile"], "drain_s": served["drain_s"],
+                      "summary": spec_state}
+    report["main_path_launches"] = main_launches
+    log(f"phase 4h: {report}")
+    return report
+
+
+def run_dense_spec(torch, tf, fa, pa, quant) -> dict:
+    """Phase 5b: speculative_generate at batch 1 (prompt 128, 128 new,
+    gamma 2, the w8 self-draft) against greedy_generate: the same tokens
+    (margin rule), the flash forward launched (the target's and the draft's
+    bulk prefill) as its tensor-core variant only; tokens/s of each, with
+    each call's model builds timed apart."""
+    from k8s_device_plugin_tpu_torch.models import speculative
+
+    cfg = tf.GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=8, num_heads=16,
+                       intermediate_size=3072, max_seq=512, num_kv_heads=4)
+    params = tf.init_params(cfg, seed=0)
+    dcfg = dataclasses.replace(cfg, quant="w8")
+    dparams = quant.quantize_lm_params(params)
+    prompt = torch.randint(0, 32000, (1, 128), generator=torch.Generator().manual_seed(5))
+
+    def build_s(c, p):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = tf.TransformerLM(c, device=DEVICE)
+        model.load_state_dict(p)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, model
+
+    # Warm: kernel builds and first launches stay out of both timings.
+    tf.greedy_generate(cfg, params, prompt, 2, device=DEVICE)
+    speculative.speculative_generate(cfg, params, dcfg, dparams, prompt, 4, gamma=2,
+                                     device=DEVICE)
+    target_build, model = build_s(cfg, params)
+    draft_build, _ = build_s(dcfg, dparams)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = tf.greedy_generate(cfg, params, prompt, 128, device=DEVICE)
+    torch.cuda.synchronize()
+    greedy_s = time.perf_counter() - t0
+    pa.reset_launches()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    seq, acc = speculative.speculative_generate(cfg, params, dcfg, dparams, prompt, 128, gamma=2,
+                                                device=DEVICE)
+    torch.cuda.synchronize()
+    spec_s = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    if launches != 2 * cfg.num_layers:
+        fail(f"speculative_generate's prefills launched the flash kernel {launches} times, not "
+             f"once per layer of the target and the draft")
+    expect_designs(fa.flash_attention.launches_by_design, "wgmma", launches,
+                   "speculative_generate's bf16 prefill")
+    if tuple(seq.shape) != (1, 256) or not torch.equal(seq[:, :128].cpu(), prompt):
+        fail(f"speculative_generate returned {tuple(seq.shape)} or altered the prompt")
+    held = hold_streams(torch, tf, model, [(prompt[0].tolist(), 128)], [seq[0, 128:].tolist()],
+                        [want[0, 128:].tolist()], "speculative_generate against greedy_generate")
+    greedy_tps = 128 / (greedy_s - target_build)
+    spec_tps = 128 / (spec_s - target_build - draft_build)
+    out = {"flash_launches": launches, "paged_launches": dict(pa.paged_attention.launches_by_format),
+           "acceptance": float(acc.float().mean()), "tokens_equal": held,
+           "greedy_s": greedy_s, "spec_s": spec_s, "target_build_s": target_build,
+           "draft_build_s": draft_build, "greedy_tokens_per_s": greedy_tps,
+           "spec_tokens_per_s": spec_tps, "speedup": spec_tps / greedy_tps}
+    log(f"phase 5b: {out}")
+    return out
+
+
+def write_adapters(torch, tf, ckpt, root) -> tuple:
+    """LORA_ADAPTERS adapter directories (the port's CheckpointManager) of
+    rank-LORA_RANK trees at the deployed widths, seeded: ``lora_a`` normal
+    with variance 1/fan_in, ``lora_b`` normal at LORA_B_STD (not zero, so
+    each adapter changes the tokens).  Only the adapter leaves are written:
+    the server stacks them over its own base weights."""
+    cfg = tf.GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=8, num_heads=16,
+                       intermediate_size=3072, max_seq=512, num_kv_heads=4, lora_rank=LORA_RANK)
+    shapes = {k: v for k, v in tf.param_shapes(cfg).items() if ".lora_" in k}
+    dirs, trees = [], []
+    for i in range(LORA_ADAPTERS):
+        gen = torch.Generator().manual_seed(100 + i)
+        tree = {}
+        for name, shape in shapes.items():
+            scale = LORA_B_STD if ".lora_b" in name else math.prod(shape[:-1]) ** -0.5
+            tree[name] = torch.randn(shape, generator=gen) * scale
+        path = root / "build" / "adapters" / f"adapter_{i}"
+        shutil.rmtree(path, ignore_errors=True)
+        ckpt.CheckpointManager(path).save(tree, 0)
+        dirs.append(str(path))
+        trees.append(tree)
+    return dirs, trees
+
+
+def adapter_effect(torch, tf, model, prompt) -> dict:
+    """One prompt's last-position logits on the multi-LoRA ``model``
+    under every adapter and none, in one batch (rows -1, 0, .., n-1),
+    against a float32 model of plain LoRA sites (``LoRADense``:
+    x·W + (alpha/rank)·(x·A)·B) on the same weights, adapter by adapter.
+    Fails where the card's logits part from the float32 ones by
+    TOL_LORA_F32 or more, or where an adapter shifts the float32 logits by
+    less than 4 x TOL_LORA_F32 (the check would then not see the adapter
+    ignored)."""
+    cfg = model.config
+    ref = tf.TransformerLM(dataclasses.replace(cfg, dtype=torch.float32, lora_serve=0), DEVICE)
+    served = model.state_dict()
+    n = cfg.lora_serve
+    want = []
+    with torch.no_grad():
+        ids = torch.tensor([list(prompt)] * (n + 1), device=DEVICE)
+        got = model(ids, adapter_ids=torch.arange(-1, n, device=DEVICE))[:, -1].float()
+        for i in range(-1, n):
+            tree = {}
+            for name, value in served.items():
+                if name.endswith("_stack"):
+                    leaf = name[: -len("_stack")]
+                    value = value[max(i, 0)]
+                    tree[leaf] = torch.zeros_like(value) if i < 0 and ".lora_b" in leaf else value
+                else:
+                    tree[name] = value
+            ref.load_state_dict({k: v.float() for k, v in tree.items()})
+            want.append(ref(ids[:1])[0, -1])
+    want = torch.stack(want)
+    err = (got - want).abs().amax(dim=-1).tolist()
+    shift = (want[1:] - want[0]).abs().amax(dim=-1).tolist()
+    out = {"max_abs_err_vs_float32": err, "adapter_logit_shift": shift,
+           "tolerance": TOL_LORA_F32, "rows": list(range(-1, n))}
+    if max(err) >= TOL_LORA_F32:
+        fail(f"multi-LoRA logits part from the float32 plain sites: {out}")
+    if min(shift) < 4 * TOL_LORA_F32:
+        fail(f"an adapter moves the logits too little for the check to see it: {out}")
+    del ref
+    return out
+
+
+def gather_site(torch, mod, x, adapter_ids):
+    """The reference's per-row multi-LoRA site (the JAX package's
+    ``MultiLoRADense``): clamp the ids, gather each row's adapter, two
+    batched products, -1 rows gated off.  Timed beside the port's site
+    only."""
+    batch = x.shape[0]
+    keep = x.shape[1 : x.dim() - len(mod.in_shape)]
+    n_in, n_out = math.prod(mod.in_shape), math.prod(mod.features)
+    xd = x.reshape(batch, -1, n_in).to(mod.dtype)
+    base = xd @ mod.kernel.reshape(n_in, n_out)
+    ids = adapter_ids.long().clamp(min=0)
+    a = mod.lora_a_stack.reshape(mod.n_adapters, n_in, mod.rank)[ids]
+    b = mod.lora_b_stack.reshape(mod.n_adapters, mod.rank, n_out)[ids]
+    gate = (adapter_ids >= 0).to(mod.dtype) * (mod.alpha / mod.rank)
+    out = base + gate[:, None, None] * torch.bmm(torch.bmm(xd, a), b)
+    return out.reshape(batch, *keep, *mod.features)
+
+
+def lora_site_costs(torch, tf, lora) -> dict:
+    """Device time (profiler) of one pass over the deployed model's dense
+    sites (every projection and the head), the products a step runs beside
+    attention: plain sites against multi-LoRA sites over LORA_COST_ADAPTERS
+    stacked rank-8 adapters (the port's stacked products), and the
+    reference's per-row gather at the larger count, at a decode step's 8
+    rows (4i's slots, each on another adapter or none) and a 256-position
+    prefill (two prompts of 128 on two adapters)."""
+    widths = dict(vocab_size=32000, hidden_size=1024, num_layers=8, num_heads=16,
+                  intermediate_size=3072, max_seq=512, num_kv_heads=4)
+    models = {0: tf.TransformerLM(tf.GPTConfig(**widths), DEVICE)}
+    for n in LORA_COST_ADAPTERS:
+        models[n] = tf.TransformerLM(
+            tf.GPTConfig(**widths, lora_rank=LORA_RANK, lora_serve=n), DEVICE)
+    sites = {}
+    with torch.no_grad():
+        for n, m in models.items():
+            for p in m.parameters():
+                p.normal_(0.0, 0.02)
+            sites[n] = [mod for mod in m.modules()
+                        if isinstance(mod, (tf.DenseGeneral, lora.MultiLoRADense))]
+    top = max(LORA_COST_ADAPTERS)
+    out = {"sites": len(sites[0]), "rank": LORA_RANK}
+    for label, lead, rows_ids in (
+        ("decode_8_rows", (8, 1), lambda n: [-1] + [(i * n) // 7 for i in range(7)]),
+        ("prefill_256_positions", (2, 128), lambda n: [0, n - 1]),
+    ):
+        xs = [torch.randn(*lead, *mod.in_shape, device=DEVICE, dtype=mod.dtype)
+              for mod in sites[0]]
+        ids = {n: torch.tensor(rows_ids(n), device=DEVICE) for n in LORA_COST_ADAPTERS}
+        calls = {"plain": lambda: [mod(x) for mod, x in zip(sites[0], xs)]}
+        for n in LORA_COST_ADAPTERS:
+            calls[f"stacked_{n}"] = (lambda n=n: [lora.site_call(mod, x, ids[n])
+                                                  for mod, x in zip(sites[n], xs)])
+        calls[f"gather_{top}"] = lambda: [gather_site(torch, mod, x, ids[top])
+                                          for mod, x in zip(sites[top], xs)]
+        with torch.no_grad():
+            out[label] = {name: profiled_ms(torch, call, f"LoRA sites {name} {label}",
+                                            iters=5, warmup=2)
+                          for name, call in calls.items()}
+    del models, sites
+    torch.cuda.empty_cache()
+    log(f"phase 4i LoRA site costs (device ms a pass over the sites): {out}")
+    return out
+
+
+def run_multi_lora(torch, tf, http_server, serve: dict) -> dict:
+    """Phase 4i: the HTTP server at phase 4e's deployment flags plus
+    --adapters over four rank-8 adapter directories, phase 4e's 32
+    requests with "adapter" cycling none, 0, 1, 2, 3: tokens equal an
+    in-process engine on the same stacked tree, and (margin rule) a
+    single-model engine on each adapter's merge_lora_params; one prompt
+    under adapters 0, 0, 1 and none shares pages only between the two
+    0s, and decodes three different streams; the logits hold against
+    float32 plain LoRA sites (``adapter_effect``); an adapter out of range
+    answers 422; paged launches = layers x steps; the sites' device time
+    (``lora_site_costs``)."""
+    import os
+    import pathlib
+
+    from k8s_device_plugin_tpu_torch.models import checkpoint as ckpt
+    from k8s_device_plugin_tpu_torch.models import lora
+    from k8s_device_plugin_tpu_torch.models.engine import synthetic_jobs
+
+    root = pathlib.Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    dirs, trees = write_adapters(torch, tf, ckpt, root)
+    flags = (*SERVE_FLAGS, f"--adapters={','.join(dirs)}", f"--lora-rank={LORA_RANK}")
+    cycle = (None, 0, 1, 2, 3)
+    jobs = [(p, n) if cycle[i % 5] is None else (p, n, {"adapter": cycle[i % 5]})
+            for i, (p, n) in enumerate(synthetic_jobs(32, 128, 128, 32000))]
+
+    def aid(job):
+        return job[2]["adapter"] if len(job) > 2 else None
+
+    # The in-process twin; first, one prompt under adapters 0, 0, 1 and
+    # none in one burst: the two adapter-0 requests share its full pages,
+    # adapter 1 and the base model share none of them; over 32 tokens the
+    # two adapter-0 streams are equal and those of adapter 0, adapter 1 and
+    # none all differ.
+    twin = http_server.build_engine(http_server.parse_args([*flags, f"--device={DEVICE}"]))
+    prompt = jobs[0][0]
+    probe = [twin.submit(prompt, 32, adapter=a) for a in (0, 0, 1, None)]
+    twin.step()
+    pages = [twin._slot_pages[s][:8] for s in range(4)]
+    if pages[0] != pages[1] or set(pages[0]) & (set(pages[2]) | set(pages[3])):
+        fail(f"the prefix trie crossed adapters: slot pages {pages}")
+    while not all(r.done for r in probe):
+        twin.step()
+    probe_streams = [r.tokens for r in probe]
+    if probe_streams[0] != probe_streams[1] or len(
+            {tuple(t) for t in probe_streams[1:]}) != 3:
+        fail(f"one prompt under adapters 0, 0, 1 and none: {probe_streams}")
+    effect = adapter_effect(torch, tf, twin.model, prompt)
+    twin.kvcache_clear()
+    twin.run([(p, 32) for p, *_ in jobs[:2]])
+    reqs = [twin.submit(j[0], j[1], adapter=aid(j)) for j in jobs]
+    t0 = time.perf_counter()
+    while not all(r.done for r in reqs):
+        twin.step()
+    torch.cuda.synchronize()
+    inproc = engine_latency(reqs, time.perf_counter() - t0)
+    want = [r.tokens for r in reqs]
+    lora_model = twin.model
+    del twin, reqs
+    torch.cuda.empty_cache()
+
+    def bad_adapter(port):
+        status, body = http_call(port, "/generate", {"prompt": prompt, "max_new_tokens": 2,
+                                                     "adapter": LORA_ADAPTERS})
+        if status != 422:
+            fail(f"an adapter out of range answered {status}, not 422: {body}")
+        return {"status": status, "body": body}
+
+    log_dir = root / "build" / "logs"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    served = serve_once(flags, jobs, log_dir / "lora_http.log", env, sampled=False,
+                        probe=bad_adapter)
+    got = [r["tokens"] for r in served["results"]]
+    if got != want:
+        fail(f"multi-LoRA HTTP tokens differ from the in-process engine's at "
+             f"{first_difference(got, want)}")
+
+    # Each adapter's requests on a single-model engine over its merged
+    # weights (loaded in place, so the engine's graphs stay valid).
+    plain = http_server.build_engine(http_server.parse_args([*SERVE_FLAGS, f"--device={DEVICE}"]))
+    base = tf.init_params(tf.GPTConfig(
+        vocab_size=32000, hidden_size=1024, num_layers=8, num_heads=16, intermediate_size=3072,
+        max_seq=512, num_kv_heads=4), seed=0)
+    merged_held = {}
+    for a in cycle:
+        plain.kvcache_clear()
+        weights = base if a is None else lora.merge_lora_params({**base, **trees[a]}, alpha=16.0)
+        plain.model.load_state_dict(weights)
+        idx = [i for i, j in enumerate(jobs) if aid(j) == a]
+        done = plain.run([jobs[i][:2] for i in idx])
+        merged_held[str(a)] = hold_streams(
+            torch, tf, plain.model, [jobs[i] for i in idx], [got[i] for i in idx],
+            [r.tokens for r in done], f"adapter {a} against its merged single model",
+            tol=TOL_MARGIN_MERGED)
+        # The two computations' logits over one request's prompt and first
+        # 64 tokens: how far merging moves them.
+        with torch.no_grad():
+            ids = torch.tensor([jobs[idx[0]][0] + done[0].tokens[:64]], device=DEVICE)
+            aids = torch.tensor([-1 if a is None else a], device=DEVICE)
+            gap = (lora_model(ids, adapter_ids=aids) - plain.model(ids)).abs().max()
+        merged_held[str(a)]["max_logit_gap"] = float(gap)
+    del plain, lora_model
+    torch.cuda.empty_cache()
+    e = served["client"]
+    ref = serve["http_512"]["client"]
+    report = {
+        "flags": list(flags), "adapters": LORA_ADAPTERS, "rank": LORA_RANK,
+        "lora_b_std": LORA_B_STD, "client": e, "in_process": inproc,
+        "no_adapter_http_512": {k: ref[k] for k in ("tokens_per_s", "ttft_ms", "itl_ms")},
+        "tokens_per_s_vs_no_adapter": e["tokens_per_s"] / ref["tokens_per_s"],
+        "device": served["device"], "profile": served["traffic_profile"],
+        "preemptions": served["preemptions"], "drain_s": served["drain_s"],
+        "merged_single_models": merged_held, "out_of_range": served["probe"],
+        "trie_pages_disjoint_across_adapters": True, "probe_streams_differ": True,
+        "logits_vs_float32": effect, "site_costs": lora_site_costs(torch, tf, lora),
+    }
+    log(f"phase 4i: {report}")
+    return report
+
+
 def main() -> None:
     import torch
 
@@ -1973,8 +2552,15 @@ def main() -> None:
         return
 
     t0 = time.perf_counter()
+    phase_s, last = {}, [t0]
+
+    def mark(phase: str) -> None:
+        now = time.perf_counter()
+        phase_s[phase], last[0] = now - last[0], now
+
     _build.build_all()
     log(f"kernels built in {time.perf_counter() - t0:.1f}s")
+    mark("build")
     facts = build_facts(torch, fa, _build)
     paged_builds = paged_build_facts(_build)
 
@@ -1992,22 +2578,36 @@ def main() -> None:
     for fmt, held in restored.items():
         paged[fmt]["restored_pages"] = held
     by_width = {D: time_head_dim(torch, pa, fa, dp, tuning, D) for D in (80, 96, 128)}
+    mark("kernel_checks")
     dq, dq_fma = bwd[("dq", "bfloat16")], bwd[("dq", "float32")]
     dkv, dkv_fma = bwd[("dkv", "bfloat16")], bwd[("dkv", "float32")]
     summary, launches, sync_tokens = run_engine(torch, engine, pa, fa, SYNC_EAGER)
     paged["f"]["launches"] = launches["f"]
+    mark("4_engine")
     quant_runs = []
     for flags in (["--quant=w8"], ["--quant=w8", "--quant-kv"], ["--quant=w8a8", "--quant-kv"]):
-        q_summary, launches, _ = run_engine(torch, engine, pa, fa, (*SYNC_EAGER, *flags))
+        # Two slot waves (32 requests until phases 4h, 4i and 5b needed
+        # the time): pages freed under int8 scales are admitted again.
+        q_summary, launches, _ = run_engine(torch, engine, pa, fa, (*SYNC_EAGER, *flags),
+                                            requests=QUANT_REQUESTS)
         q_summary["paged_launches"] = launches
         quant_runs.append(q_summary)
+    mark("4b_quant")
     blocks = run_blocks(torch, engine, pa, fa, dp, sync_tokens)
+    mark("4c_blocks")
     from k8s_device_plugin_tpu_torch.models import http_server
 
     serve = run_serve(torch, tf, http_server, smi, blocks["greedy"])
+    mark("4d_4e_serve")
     warm_restart, reference = run_warm_restart(
         smi, engine.synthetic_jobs(32, 128, 128, 32000), long_jobs(9))
+    mark("4f_warm_restart")
     split_roles = run_split_roles(smi, long_jobs(9), reference)
+    mark("4g_split_roles")
+    speculation = run_speculation(torch, tf, engine, http_server, pa)
+    mark("4h_speculation")
+    multi_lora = run_multi_lora(torch, tf, http_server, serve)
+    mark("4i_multi_lora")
     paged["f"]["block16_launches"] = blocks["paged_launches"]
     paged["int8"]["launches"] = quant_runs[1]["paged_launches"]["int8"]
     paged["int8"]["w8a8_launches"] = quant_runs[2]["paged_launches"]["int8"]
@@ -2018,16 +2618,25 @@ def main() -> None:
     paged["int4"]["launches"] = sweep["launches"]["int4"]
     if paged["int4"]["launches"] <= 0:
         fail("the kernel benchmark never launched the paged kernel's int4 branch")
+    mark("format_sweep")
     flash["launches"] = run_generate(torch, tf, pa, fa)
+    mark("5_generate")
+    dense_spec = run_dense_spec(torch, tf, fa, pa, quant)
+    mark("5b_dense_spec")
+    flash["dense_spec_launches"] = dense_spec["flash_launches"]
+    paged["f"]["spec_launches"] = speculation["main_path_launches"]
+    paged["f"]["multi_lora_launches"] = multi_lora["device"]["paged_launches"]["f"]
     check_paths_agree(torch, tf, engine)
     agree_tiny = check_paths_agree(torch, tf, engine, cfg=tf.GPTConfig.tiny(), page=(4, 64, 16),
                                    prompt_len=16)
     agree_quant = check_paths_agree(torch, tf, engine, quant="w8", quant_kv=True)
+    mark("6_paths_agree")
     trained, launches = run_training(torch, fa, bench, smi)
     flash["train_launches"] = launches["flash_attention"]
     dq["launches"] = launches["flash_attention_bwd_dq"]
     dkv["launches"] = launches["flash_attention_bwd_dkv"]
     trained["card_vs_cpu"] = check_train_parity(torch, fa, tf, train, data)
+    mark("8_training")
     # The FMA variants run on float32 inputs only: their launches are phase
     # 8's, the float32 train step's.
     fma_launches = trained["card_vs_cpu"]["launches_by_design"]
@@ -2051,6 +2660,10 @@ def main() -> None:
     print(json.dumps({"serve": serve}), flush=True)
     print(json.dumps({"warm_restart": warm_restart, "split_roles": split_roles,
                       "restored_pages": restored, "card": smi}), flush=True)
+    print(json.dumps({"spec_lora": {"speculation": speculation, "dense_speculation": dense_spec,
+                                    "multi_lora": multi_lora}, "card": smi}), flush=True)
+    print(json.dumps({"phase_seconds": phase_s, "total_s": time.perf_counter() - t0,
+                      "card": smi}), flush=True)
     print(json.dumps({
         "ok": True,
         "device": {

@@ -60,3 +60,13 @@ def state_dict_to_flax(state: Mapping) -> dict:
         node[leaf] = (value.float() if value.is_floating_point() else value).numpy()
     return tree
 
+
+
+def save_flax_params(directory, params: Mapping, step: int = 0) -> None:
+    """Write a flax parameter tree (numpy leaves, ``np.asarray`` of JAX
+    arrays) as step ``step`` of a port checkpoint directory
+    (``models/checkpoint.py``): what ``--checkpoint-dir`` and ``--adapters``
+    of the port's server read."""
+    from .models.checkpoint import CheckpointManager
+
+    CheckpointManager(directory).save(flax_to_state_dict(params), step)

@@ -3,8 +3,8 @@
 Counterpart of the reference's ``models/engine.py`` (reserve and
 optimistic admission, overload control, the SLO plane, spans, the flight
 recorder, the anomaly monitor, the step profiler, the KV tiers, warm
-snapshots and the prefill/decode roles; not yet adapters, speculation or
-tensor parallelism):
+snapshots, the prefill/decode roles, speculative rounds and multi-LoRA
+serving; not yet tensor parallelism):
 
 - device side: a fixed-[slots] decode dispatch over the paged cache, one
   single-token step or, in pure decode, a block of T steps
@@ -21,6 +21,11 @@ tensor parallelism):
   next dispatch is enqueued before the current one is read back, so host
   bookkeeping runs while the card computes; an event that changes a slot
   discards the dispatch in flight and repairs the carried ``seq_lens``;
+- speculative rounds (``spec_gamma``, engine_spec.py): gamma ``w8``
+  self-draft steps and one (gamma+1)-token verify over the shared pool,
+  synchronous, one CUDA graph per sampler variant on the card;
+- multi-LoRA serving (``cfg.lora_serve``): each slot's adapter id lives in
+  a device buffer every dispatch reads, written in place when slots change;
 - host side, between steps: the overload sweep, admission, page
   allocation and free (on demand under optimistic admission, preempting
   the newest slot when the pool runs dry), prefix sharing, the KV tiers
@@ -34,7 +39,8 @@ from jax's threefry (utils/prng.py) on the reference's key schedule, so
 they equal the reference engine's under the same ``rng``.
 
 The batch CLI takes the reference CLI's flags, ``--quant w8|w8a8``,
-``--quant-kv``, ``--decode-block`` and ``--overlap-steps`` included, plus
+``--quant-kv``, ``--decode-block``, ``--overlap-steps`` and ``--spec-gamma``
+included, plus
 ``--dtype``, ``--seed`` (the weights), ``--device`` and ``--cuda-graphs
 0|1`` (the card only; 1 by default there).  On the CPU, at tiny widths in
 float32, a block-16 overlapped run::
@@ -59,6 +65,7 @@ Module layout (this module is the import surface):
 - engine_kvcache.py    — retained pages, the host arena, restore-resume
 - engine_handoff.py    — prefill/decode roles, the KV handoff, the fabric,
                          the owner-thread call queue
+- engine_spec.py       — the speculative round and its host consumption
 - engine_overload.py, engine_watchdog.py, engine_profiler.py,
   engine_snapshot.py   — the reference's, copied or ported
 - here                 — ``ServingEngine`` wiring, step loop, overlap round,
@@ -80,6 +87,7 @@ import numpy as np
 import torch
 
 from ..ops import paged_attention as pa
+from ..ops import tuning
 from ..utils import failpoints, prng
 from ..utils.anomaly import AnomalyMonitor
 from ..utils.device import fp32_reference_precision, resolve_device
@@ -94,6 +102,7 @@ from .engine_paging import PagingMixin
 from .engine_profiler import EngineProfiler
 from .engine_sampling import decode_tokens
 from .engine_snapshot import params_fingerprint
+from .engine_spec import SpeculativeMixin
 from .engine_types import EngineMetrics, Request, _pow2_int
 from .transformer import GPTConfig, PagedCache, PagedConfig, TransformerLM, init_params
 
@@ -101,7 +110,7 @@ from .transformer import GPTConfig, PagedCache, PagedConfig, TransformerLM, init
 DISCARD_REASONS = ("state_dirty", "shape_switch", "slot_teardown")
 
 
-class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
+class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, SpeculativeMixin):
     """Batch-continuous decoding server (one host, one model, one card).
 
     ``cfg`` is the model config WITHOUT paging (the engine adds it);
@@ -122,7 +131,11 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
     reference's library default).  ``role``: ``unified``, ``prefill`` or
     ``decode`` (engine_handoff.py; the split roles need both tiers).
     ``racecheck``: guard the queue, free pages, page refcounts and the
-    in-flight round (utils/racecheck.py).  ``spans``,
+    in-flight round (utils/racecheck.py).  ``spec_gamma`` > 0: speculative
+    rounds of gamma proposals from ``draft_params`` under ``draft_cfg``
+    (default: the target's config with ``quant="w8"``; only the weight
+    format may differ), synchronous and one token a slot at least per
+    round; greedy slots emit exactly the non-speculative stream.  ``spans``,
     ``flight``, ``anomaly``, ``profiler``: shared instances, or None for
     the engine's own (spans stay off).  ``cuda_graphs``: replay each
     dispatch shape as a CUDA graph (default on the card; the CPU refuses
@@ -144,6 +157,9 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
         prefix_sharing: bool = True,
         rng: Optional[torch.Tensor] = None,
         metrics: Optional[EngineMetrics] = None,
+        spec_gamma: int = 0,
+        draft_params: Optional[dict] = None,
+        draft_cfg: Optional[GPTConfig] = None,
         prefill_chunk: Optional[int] = None,
         decode_block: int = 1,
         overlap_steps: int = 1,
@@ -163,6 +179,8 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
     ):
         if cfg.paged is not None:
             raise ValueError("pass the base config; the engine adds paging")
+        if spec_gamma < 0:
+            raise ValueError(f"spec_gamma must be >= 0, got {spec_gamma}")
         if prefill_chunk is not None and (prefill_chunk < 1 or prefill_chunk & (prefill_chunk - 1)):
             raise ValueError(f"prefill_chunk must be a power of two, got {prefill_chunk}")
         if decode_block < 1 or decode_block & (decode_block - 1):
@@ -170,10 +188,32 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
             # two every slot's remaining budget fits, so O(log
             # decode_block) dispatch shapes (graphs) ever exist.
             raise ValueError(f"decode_block must be a power of two >= 1, got {decode_block}")
+        if decode_block > 1 and spec_gamma > 0:
+            # Both advance several tokens a dispatch, on schedules that do
+            # not compose (a scan of exact steps vs draft and verify).
+            raise ValueError("decode_block > 1 is not supported with spec_gamma")
         if admission not in ("reserve", "optimistic"):
             raise ValueError(f"admission must be 'reserve' or 'optimistic', got {admission!r}")
         if overlap_steps not in (0, 1):
             raise ValueError(f"overlap_steps must be 0 or 1, got {overlap_steps}")
+        if cfg.lora_serve and spec_gamma > 0:
+            # The self-draft is the model quantized, and quant excludes LoRA:
+            # a multi-adapter batch has no coherent draft.
+            raise ValueError("lora_serve is not supported with spec_gamma")
+        if spec_gamma > 0:
+            # Shared-pool speculation: the draft writes approximate K/V that
+            # the verify overwrites before any read, so both must address
+            # the pool alike; only the weight format may differ (quant_kv
+            # is the pool's storage format).
+            if draft_params is None:
+                raise ValueError("spec_gamma > 0 requires draft_params")
+            if draft_cfg is None:
+                draft_cfg = dataclasses.replace(cfg, quant="w8")
+            if dataclasses.replace(draft_cfg, quant=None) != dataclasses.replace(cfg, quant=None):
+                raise ValueError(
+                    "engine speculation is shared-pool self-speculation: draft_cfg must match "
+                    "the target architecture and cache format (only quant may differ)"
+                )
         self.device = resolve_device(device)
         on_card = self.device.type == "cuda"
         if cuda_graphs and not on_card:
@@ -181,7 +221,9 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
         self.cuda_graphs = on_card if cuda_graphs is None else bool(cuda_graphs)
         self._prefill_chunk = prefill_chunk
         self._decode_block = decode_block
-        self._overlap_steps = overlap_steps
+        # A round's host consumption decides the next round's inputs: a
+        # speculative engine has nothing to dispatch ahead.
+        self._overlap_steps = 0 if spec_gamma else overlap_steps
         self._optimistic = admission == "optimistic"
         self.paged = paged
         self.cfg = dataclasses.replace(cfg, paged=paged)
@@ -194,6 +236,17 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
 
         self.model = TransformerLM(self.cfg, device=self.device)
         self.model.load_state_dict(params)
+        self._spec_gamma = spec_gamma
+        self.draft_model = None
+        if spec_gamma:
+            self.draft_model = TransformerLM(dataclasses.replace(draft_cfg, paged=paged),
+                                             device=self.device)
+            self.draft_model.load_state_dict(draft_params)
+        # Speculation counters (acceptance = accepted / proposed) and the
+        # rounds dispatched.
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rounds = 0
         self.cache = PagedCache.zeros(self.cfg, paged, max_slots, self.device)
         # The reference's per-layer cache names: KV rows, snapshots and the
         # handoff wire are keyed by them.
@@ -214,6 +267,8 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
         self._slot_temp = [0.0] * max_slots  # 0 = greedy
         self._slot_topk = [cfg.vocab_size] * max_slots
         self._slot_topp = [1.0] * max_slots
+        # Each slot's adapter id (-1 = the base model) under lora_serve.
+        self._slot_aid = [-1] * max_slots
         # Sparse logit bias per slot, padded with (0, 0.0), a no-op.
         self._slot_bias_ids = [[0] * self.MAX_BIAS for _ in range(max_slots)]
         self._slot_bias_vals = [[0.0] * self.MAX_BIAS for _ in range(max_slots)]
@@ -262,6 +317,15 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
         self.anomaly = anomaly
         self.anomaly.configure("engine.step_seconds", warmup=50, z_threshold=6.0, sustain=3)
         self.anomaly.configure("engine.ttft_seconds", warmup=20, z_threshold=6.0, sustain=2)
+        if self.kernel_on and spec_gamma > 0:
+            # A kernel-on spec engine runs its multi-token verify pass on the
+            # gathered pages (the draft's single-token steps keep the
+            # kernel), as the reference does: surfaced as it surfaces it.
+            if metrics:
+                metrics.kernel_fallbacks.inc(reason="spec_verify")
+            self.flight.record("kernel.fallback", reason="spec_verify",
+                               generation=tuning.device_generation(self.device),
+                               splits=paged.kernel_num_splits)
         # The step hook holds the monitor, not the engine: no reference
         # cycle, so a dropped engine (and its CUDA graphs) is freed at once
         # rather than by a later garbage collection.
@@ -312,7 +376,12 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
                                     device=self.device),
             "bias_vals": torch.zeros((max_slots, self.MAX_BIAS), dtype=torch.float32,
                                      device=self.device),
+            "aids": torch.full((max_slots,), -1, dtype=torch.long, device=self.device),
         }
+        # A speculative round's outputs: each slot's gamma+1 tokens and a.
+        self._spec_out = torch.zeros((max_slots, spec_gamma + 1), dtype=torch.long,
+                                     device=self.device)
+        self._spec_a = torch.zeros((max_slots,), dtype=torch.long, device=self.device)
         self._outs: dict[int, torch.Tensor] = {}  # [slots, T] tokens per block size
         self._lps: dict[int, torch.Tensor] = {}  # [slots, T] logprobs per block size
         self._dev: Optional[dict] = None
@@ -376,6 +445,9 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
             bufs["tokens"].copy_(torch.tensor(self._slot_last)[:, None])
             bufs["positions"].copy_(torch.tensor(self._slot_len)[:, None])
             bufs["key"].copy_(sub)
+            if self.cfg.lora_serve:
+                # In place: a captured graph reads this buffer's address.
+                bufs["aids"].copy_(torch.tensor(self._slot_aid))
             occupied = [s for s in range(self.max_slots) if self.slots[s] is not None]
             sampled = any(self._slot_temp[s] > 0 for s in occupied)
             filtered = any(
@@ -414,6 +486,7 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
         out, lps, tokens, positions, key = decode_tokens(
             self.model, self.cache, self._chain, bufs["tokens"], bufs["positions"], bufs["key"],
             T, temps, topks, topps, bias_ids, bias_vals, want_lp,
+            adapter_ids=bufs["aids"] if self.cfg.lora_serve else None,
         )
         self._outs[T].copy_(out)
         if want_lp:
@@ -424,24 +497,27 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
             bufs["key"].copy_(key)
 
     def _run_dispatch(self, T: int, shape: tuple) -> None:
-        """Enqueue one dispatch: eagerly, or as the replay of its graph.
-        A shape's first dispatch runs eagerly (it is also the warm-up
-        capture needs: the kernels' first launches set their attributes)
-        and is then captured; the paged kernel's launch counts advance by
-        what one replay launches."""
+        """Enqueue one decode dispatch of T steps (see :meth:`_run_graphed`)."""
         if T not in self._outs:
             self._outs[T] = torch.empty((self.max_slots, T), dtype=torch.long, device=self.device)
             self._lps[T] = torch.empty((self.max_slots, T), dtype=torch.float32, device=self.device)
-        key = (T, *shape)
+        self._run_graphed((T, *shape), lambda: self._dispatch_body(T, shape), f"compile:block_{T}")
+
+    def _run_graphed(self, key: tuple, body, grace: str) -> None:
+        """Enqueue ``body`` (a dispatch from the buffers): eagerly, or as the
+        replay of its graph.  A key's first run is eager (it is also the
+        warm-up capture needs: the kernels' first launches set their
+        attributes) and is then captured; the paged kernel's launch counts
+        advance by what one replay launches."""
         entry = self._graphs.get(key) if self.cuda_graphs else None
         if entry is None:
             if key not in self._graphs:
                 # A new shape: its first launches may build kernels (and a
                 # capture follows): grace the watchdog.  Eager engines
                 # record the shape as seen, with no graph.
-                self._wd_grace(f"compile:block_{T}")
-            self._dispatch_body(T, shape)
-            self._graphs[key] = self._capture(T, shape) if self.cuda_graphs else None
+                self._wd_grace(grace)
+            body()
+            self._graphs[key] = self._capture(body) if self.cuda_graphs else None
             return
         graph, launches = entry
         graph.replay()
@@ -450,10 +526,10 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
         for fmt, n in launches.items():
             counts[fmt] += n
 
-    def _capture(self, T: int, shape: tuple) -> tuple:
-        """Capture the dispatch body as a CUDA graph.  Capture launches
-        nothing, so the launch counts the capture advanced are taken back
-        and kept as what each replay adds."""
+    def _capture(self, body) -> tuple:
+        """Capture ``body`` as a CUDA graph.  Capture launches nothing, so
+        the launch counts the capture advanced are taken back and kept as
+        what each replay adds."""
         before = dict(pa.paged_attention.launches_by_format)
         graph = torch.cuda.CUDAGraph()
         # No garbage collection inside the capture: freeing another graph
@@ -463,7 +539,7 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
         gc.disable()
         try:
             with torch.cuda.graph(graph):
-                self._dispatch_body(T, shape)
+                body()
         finally:
             if gc_on:
                 gc.enable()
@@ -676,6 +752,8 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
         if not active:
             self._update_gauges()
             return finished
+        if self._spec_gamma:
+            return self._spec_step(active, finished)
         T = 1
         if (
             self._decode_block > 1
@@ -851,7 +929,8 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
                     "discards": self.overlap_discards,
                 },
                 "tp": {"size": 1, "axis": None, "mesh": None, "devices": None},
-                "spec": {"gamma": 0, "proposed": 0, "accepted": 0},
+                "spec": {"gamma": self._spec_gamma, "proposed": self.spec_proposed,
+                         "accepted": self.spec_accepted},
                 "overload": self.overload.snapshot() if self.overload is not None
                 else {"enabled": False},
                 "slo": self.slo.snapshot() if self.slo is not None else {"enabled": False},
@@ -864,6 +943,7 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin):
                     "cuda_graphs": self.cuda_graphs,
                     "graph_replays": self.graph_replays,
                     "device_steps": self.device_steps,
+                    "spec_rounds": self.spec_rounds,
                     "prefill_positions": self.prefill_positions,
                     "state_rebuilds": self.state_rebuilds,
                     "discards_by_reason": dict(self.discards_by_reason),
@@ -974,6 +1054,10 @@ def parse_args(argv: Optional[list[str]] = None):
                    help="sample every request at this temperature (0 = greedy)")
     p.add_argument("--top-k", type=positive, default=None)
     p.add_argument("--top-p", type=float, default=None)
+    p.add_argument("--spec-gamma", type=int, default=0,
+                   help="speculative decoding: gamma w8 self-draft proposals per verify pass "
+                   "(shared pool; greedy slots emit exactly the greedy decode). Incompatible "
+                   "with --quant")
     p.add_argument("--prefill-chunk", type=_pow2_int, default=None,
                    help="stream prompts into the prefill in chunks of this many tokens")
     p.add_argument("--decode-block", type=_pow2_int, default=1,
@@ -998,6 +1082,9 @@ def parse_args(argv: Optional[list[str]] = None):
     p.add_argument("--seed", type=int, default=0, help="the random weights' seed")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
+    if args.spec_gamma and args.quant:
+        p.error("--spec-gamma uses the w8 SELF-draft against the unquantized target; an "
+                "already-quantized target (--quant) leaves nothing to verify against")
     if args.cuda_graphs is not None and args.device is not None and \
             torch.device(args.device).type == "cpu":
         p.error("--cuda-graphs is meaningless on the CPU, which runs every dispatch eagerly")
@@ -1028,9 +1115,15 @@ def build_engine(args) -> "ServingEngine":
     )
     from ..utils.metrics import MetricsRegistry
 
+    params = init_params(cfg, args.seed)
+    spec_kw = {}
+    if args.spec_gamma:
+        from ..ops.quant import quantize_lm_params
+
+        spec_kw = dict(spec_gamma=args.spec_gamma, draft_params=quantize_lm_params(params))
     return ServingEngine(
-        cfg, init_params(cfg, args.seed), paged, max_slots=args.slots,
-        metrics=EngineMetrics(MetricsRegistry()), prefill_chunk=args.prefill_chunk,
+        cfg, params, paged, max_slots=args.slots,
+        metrics=EngineMetrics(MetricsRegistry()), prefill_chunk=args.prefill_chunk, **spec_kw,
         decode_block=args.decode_block, overlap_steps=args.overlap_steps,
         admission=args.admission,
         kv_retain=bool(args.kv_retain), kv_host_cache_mb=args.kv_host_cache_mb,
@@ -1039,20 +1132,24 @@ def build_engine(args) -> "ServingEngine":
     )
 
 
-def benchmark(args) -> tuple[dict, list[Request]]:
+def benchmark(args, eng: Optional["ServingEngine"] = None) -> tuple[dict, list[Request]]:
     """The reference CLI's synthetic request stream through the engine,
     after a warmup that runs every distinct prompt length once, for
     2 x ``--decode-block`` new tokens, so every block size (each a graph on
-    the card) has run once.  Returns the summary (the reference's JSON keys
+    the card) has run once, on ``eng`` (default: ``build_engine(args)``, a
+    caller that reads the engine afterwards passes its own).  Returns the
+    summary (the reference's JSON keys
     plus ``decode_block``, ``cuda_graphs``, ``state_rebuilds``,
-    ``graph_replays``, ``device_steps``, ``admission``, ``preemptions`` and
-    ``device``; the counts cover the warmup too) and the timed run's finished requests."""
-    eng = build_engine(args)
+    ``graph_replays``, ``device_steps``, ``spec_rounds``, ``admission``,
+    ``preemptions`` and ``device``; the counts cover the warmup too) and the timed run's finished requests."""
+    eng = build_engine(args) if eng is None else eng
     device = eng.device
     sample_kw = dict(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p)
     jobs = synthetic_jobs(args.requests, args.prompt_len, args.max_new, args.vocab)
     warm = {len(prompt): prompt for prompt, _ in jobs}
     eng.run([(prompt, 2 * args.decode_block) for prompt in warm.values()], **sample_kw)
+    # The acceptance covers the timed run only, as the throughput does.
+    eng.spec_proposed = eng.spec_accepted = 0
     # Latency quantiles of the timed region only (warmup subtracted).
     ttft_h, itl_h = eng.metrics.ttft_seconds, eng.metrics.itl_seconds
     ttft_snap, itl_snap = ttft_h.snapshot(), itl_h.snapshot()
@@ -1076,11 +1173,13 @@ def benchmark(args) -> tuple[dict, list[Request]]:
         "sampler": "greedy"
         if args.temperature <= 0
         else f"temperature={args.temperature},top_k={args.top_k},top_p={args.top_p}",
-        "spec_gamma": 0,
-        "spec_acceptance": None,
+        "spec_gamma": args.spec_gamma,
+        "spec_acceptance": round(eng.spec_accepted / max(eng.spec_proposed, 1), 3)
+        if args.spec_gamma else None,
+        "spec_rounds": eng.spec_rounds,
         "tokens": tokens,
         "wall_s": round(dt, 2),
-        "overlap_steps": args.overlap_steps,
+        "overlap_steps": eng._overlap_steps,  # 0 under speculation, whatever the flag
         "overlap_hits": eng.overlap_hits,
         "overlap_discards": eng.overlap_discards,
         "decode_block": args.decode_block,

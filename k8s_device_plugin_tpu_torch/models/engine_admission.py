@@ -2,10 +2,10 @@
 batched chunked prefill, activation, SLO accounting and the finish
 conditions.
 
-Counterpart of the reference's ``models/engine_admission.py`` for an
-engine without adapters or speculation: ``submit`` takes the reference's
-arguments (logprobs, logit bias, trace ids, priority, tenant, deadline;
-``adapter`` is refused as an engine without LoRA refuses it), the
+Counterpart of the reference's ``models/engine_admission.py``: ``submit``
+takes the reference's arguments (logprobs, logit bias, trace ids,
+priority, tenant, deadline, ``adapter`` on a multi-LoRA engine; a
+speculative engine refuses logprobs and logit bias, as the reference), the
 overload controller gates it and sweeps the queue, reserve admission
 allocates a request's whole chain and optimistic admission its prompt
 pages plus the first decode write.  A preempted request at the head is
@@ -115,7 +115,7 @@ class AdmissionMixin:
                     raise
             req = Request(
                 prompt, max_new_tokens, temperature, top_k, top_p,
-                logprobs=logprobs, stop=stop, logit_bias=logit_bias,
+                adapter=adapter, logprobs=logprobs, stop=stop, logit_bias=logit_bias,
                 priority=priority, tenant=tenant, deadline=deadline,
                 trace_id=trace_id or new_trace_id(),
                 trace_parent=str(trace_parent or ""),
@@ -171,8 +171,19 @@ class AdmissionMixin:
             bad = [t for t in logit_bias if not 0 <= t < self.cfg.vocab_size]
             if bad:
                 raise ValueError(f"logit_bias ids out of vocab range: {bad}")
+            if self._spec_gamma:
+                # The round's acceptance scores the unbiased distributions;
+                # biasing only the emitted pick would break its exactness.
+                raise ValueError("logit_bias is not supported on a speculative engine")
+        if logprobs and self._spec_gamma:
+            # Accepted draft tokens come back without the target's
+            # log-softmax at their positions.
+            raise ValueError("logprobs is not supported on a speculative engine (spec_gamma > 0)")
         if adapter is not None:
-            raise ValueError("adapter requires an engine built with cfg.lora_serve")
+            if not self.cfg.lora_serve:
+                raise ValueError("adapter requires an engine built with cfg.lora_serve")
+            if not 0 <= adapter < self.cfg.lora_serve:
+                raise ValueError(f"adapter must be in [0, {self.cfg.lora_serve}), got {adapter}")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
         if temperature < 0:
@@ -274,6 +285,11 @@ class AdmissionMixin:
         rows = [p + [0] * (bucket - len(p)) for p in prompts]
         rows += [rows[0]] * (batch - n)  # pad rows are discarded
         last_idx = [len(p) - 1 for p in prompts] + [0] * (batch - n)
+        aids = None
+        if self.cfg.lora_serve:
+            ids = [it[1].adapter if it[1].adapter is not None else -1 for it in items]
+            ids += [ids[0]] * (batch - n)  # pad rows are discarded anyway
+            aids = torch.tensor(ids, device=self.device)
         cache = DenseCache.zeros(self.cfg, batch, self.device, max_seq=bucket)
         skip = 0
         if self._handoff_skip_covered:
@@ -292,6 +308,7 @@ class AdmissionMixin:
             "batch": batch,
             "rows": torch.tensor(rows, dtype=torch.long, device=self.device),
             "last_idx": last_idx,
+            "aids": aids,
             "cache": cache,
             "pos": skip,
             "logits": [None] * n,
@@ -323,15 +340,18 @@ class AdmissionMixin:
         chunk, pos, batch = job["chunk"], job["pos"], job["batch"]
         tokens = job["rows"][:, pos : pos + chunk]
         positions = (pos + torch.arange(chunk, device=self.device)).expand(batch, chunk)
+        aids = job["aids"]
         hidden = self.model(
-            tokens, positions, cache=job["cache"], append_mode="cached", output="hidden"
+            tokens, positions, cache=job["cache"], append_mode="cached", output="hidden",
+            adapter_ids=aids,
         )
         self.prefill_positions += chunk * len(job["items"])
         # Each row's true-last-position logits, from the chunk covering it.
         sel = [i for i, last in enumerate(job["last_idx"][: len(job["items"])]) if pos <= last < pos + chunk]
         if sel:
             idx = torch.tensor([job["last_idx"][i] - pos for i in sel], device=self.device)
-            logits = self.model.logits(hidden[torch.tensor(sel, device=self.device), idx])
+            rows = torch.tensor(sel, device=self.device)
+            logits = self.model.logits(hidden[rows, idx], None if aids is None else aids[rows])
             for j, i in enumerate(sel):
                 job["logits"][i] = logits[j]
         job["pos"] = pos + chunk
@@ -469,6 +489,7 @@ class AdmissionMixin:
         else:
             topk, topp = self.cfg.vocab_size, 1.0
         self._slot_temp[slot] = req.temperature
+        self._slot_aid[slot] = req.adapter if req.adapter is not None else -1
         self._slot_topk[slot] = topk
         self._slot_topp[slot] = topp
         ids, vals = list(req.logit_bias or {}), list((req.logit_bias or {}).values())

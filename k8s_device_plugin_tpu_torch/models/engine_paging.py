@@ -73,6 +73,7 @@ class PagingMixin:
         self._slot_last[slot] = 0
         self._slot_len[slot] = 0
         self._slot_temp[slot] = 0.0
+        self._slot_aid[slot] = -1
         self._slot_topk[slot] = self.cfg.vocab_size
         self._slot_topp[slot] = 1.0
         self._slot_bias_ids[slot] = [0] * self.MAX_BIAS

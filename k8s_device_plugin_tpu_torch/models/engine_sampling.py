@@ -76,7 +76,7 @@ def pick(row, key, temps=None, topks=None, topps=None):
 
 def decode_tokens(model, cache: PagedCache, chain, tokens, positions, key, T: int = 1,
                   temps=None, topks=None, topps=None, bias_ids=None, bias_vals=None,
-                  want_lp: bool = False):
+                  want_lp: bool = False, adapter_ids=None):
     """T exact single-token decode steps over every slot (T = 1: the
     reference's step; T > 1: its block, a scan of such steps): each step
     derives the visible page table from ``chain`` [slots, max_pages_per_seq]
@@ -85,7 +85,8 @@ def decode_tokens(model, cache: PagedCache, chain, tokens, positions, key, T: in
     next token with a fresh key.  ``temps`` None = every slot greedy.
     ``bias_ids``/``bias_vals`` [slots, MAX_BIAS]: added to the logits the
     pick reads (padding is id 0 with 0.0).  ``want_lp``: also return each
-    token's :func:`token_logprob` of the unbiased logits.
+    token's :func:`token_logprob` of the unbiased logits.  ``adapter_ids``
+    [slots]: each slot's stacked adapter (multi-LoRA engines; -1 = base).
 
     Returns ``(out [slots, T], logprobs [slots, T] float32 or None,
     next_tokens [slots, 1], next_positions [slots, 1], next_key)``: the
@@ -105,7 +106,7 @@ def decode_tokens(model, cache: PagedCache, chain, tokens, positions, key, T: in
     out, lps = [], []
     for j in range(T):
         cache.page_table = _derived_tables(chain, positions, page_size)
-        row = model(tokens, positions, cache=cache)[:, -1]
+        row = model(tokens, positions, cache=cache, adapter_ids=adapter_ids)[:, -1]
         picked = row if bias_ids is None else row.scatter_add(1, bias_ids, bias_vals.to(row.dtype))
         nxt = pick(picked, step_keys[j], temps, topks, topps)
         out.append(nxt)

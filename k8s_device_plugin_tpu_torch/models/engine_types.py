@@ -5,8 +5,8 @@ request lifecycle (logprobs, logit bias, trace ids, priority, tenant,
 deadline, shed and preemption stamps) and every ``EngineMetrics`` series
 the reference server exposes, under the reference's names, so one
 dashboard and ``tools/metrics_lint.py`` read both engines.  Series of
-features the port does not serve yet (adapters, speculation) are
-registered and stay at zero.
+features the port does not serve yet (tensor parallelism) are registered
+and stay at their idle values.
 """
 
 from __future__ import annotations

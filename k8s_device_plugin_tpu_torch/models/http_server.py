@@ -2106,9 +2106,10 @@ def _positive_int(text: str) -> int:
 def parse_args(argv: Optional[list[str]] = None):
     """The serving CLI: the reference's flags under the reference's names
     and defaults, plus ``--device``, ``--dtype`` and ``--seed`` (the random
-    weights).  Flags of what the port does not serve yet raise
-    ``SystemExit`` naming the flag: ``--spec-gamma``, ``--adapters``,
-    ``--tp > 1`` and ``--checkpoint-dir``."""
+    weights, when no ``--checkpoint-dir`` is given).  ``--tp > 1``, which
+    the port does not serve yet, raises ``SystemExit`` naming the flag, as
+    do the reference's refused pairs (``--adapters`` or ``--spec-gamma``
+    with ``--quant``, ``--adapters`` with ``--spec-gamma``)."""
     import argparse
 
     from .engine import _pow2_int
@@ -2131,7 +2132,9 @@ def parse_args(argv: Optional[list[str]] = None):
                    "--no-use-kernel, through the gathered page view")
     p.add_argument("--kernel-splits", type=_positive_int, default=None,
                    help="pin the paged kernel's split-K degree (default: ops/tuning.py)")
-    p.add_argument("--spec-gamma", type=int, default=0)
+    p.add_argument("--spec-gamma", type=int, default=0,
+                   help="speculative decoding: gamma w8 self-draft proposals per verify pass "
+                   "(shared pool; decode block 1). Incompatible with --quant and --adapters")
     p.add_argument("--prefill-chunk", type=_pow2_int, default=None,
                    help="stream prompts into the prefill in chunks (power of two)")
     p.add_argument("--decode-block", type=_pow2_int, default=None,
@@ -2222,34 +2225,48 @@ def parse_args(argv: Optional[list[str]] = None):
                    help="serve POST /debug/fence, /debug/unfence, /debug/role and the "
                    "fabric verbs")
     p.add_argument("--checkpoint-dir", default="",
-                   help="restore params from a checkpoint: not ported yet")
-    p.add_argument("--adapters", default="", help="multi-LoRA serving: not ported yet")
-    p.add_argument("--lora-rank", type=_positive_int, default=None)
-    p.add_argument("--lora-alpha", type=float, default=None)
+                   help="serve the params of this checkpoint directory's newest step "
+                   "(models/checkpoint.py, torch.save; not orbax) instead of --seed's")
+    p.add_argument("--adapters", default="",
+                   help="comma-separated checkpoint dirs of LoRA trees (GPTConfig(lora_rank=r) "
+                   'layouts) served as stacked adapters; a request picks one with "adapter": '
+                   "i or omits it for the base model")
+    p.add_argument("--lora-rank", type=_positive_int, default=None,
+                   help="expected rank of the --adapters trees (a cross-check; the served "
+                   "rank is read from the trees)")
+    p.add_argument("--lora-alpha", type=float, default=None,
+                   help="LoRA alpha the --adapters trees were trained with (default 16.0)")
     p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
     p.add_argument("--seed", type=int, default=0, help="the random weights' seed")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    refused = [
-        ("--spec-gamma", args.spec_gamma != 0, "speculative decoding is not ported yet"),
-        ("--adapters", bool(args.adapters), "multi-LoRA serving is not ported yet"),
-        ("--tp", args.tp > 1, "tensor-parallel serving is not ported yet"),
-        ("--checkpoint-dir", bool(args.checkpoint_dir),
-         "checkpoint restore is not ported yet; weights come from --seed"),
-    ]
-    for flag, bad, why in refused:
-        if bad:
-            raise SystemExit(f"{flag}: {why} (the PyTorch port)")
+    if args.tp > 1:
+        raise SystemExit("--tp: tensor-parallel serving is not ported yet (the PyTorch port)")
+    if args.spec_gamma < 0:
+        raise SystemExit(f"--spec-gamma must be >= 0, got {args.spec_gamma}")
+    if args.adapters and args.quant:
+        raise SystemExit("--adapters serves the base weights plus LoRA deltas; quantize after "
+                         "merging instead (--quant is mutually exclusive)")
+    if args.adapters and args.spec_gamma:
+        raise SystemExit("--adapters is not supported with --spec-gamma (the w8 self-draft has "
+                         "no coherent multi-adapter form)")
+    if args.spec_gamma and args.quant:
+        raise SystemExit("--spec-gamma uses the w8 SELF-draft against the unquantized target; "
+                         "an already-quantized target (--quant) leaves nothing to verify "
+                         "against: drop one of the flags")
     return args
 
 
 def build_engine(args, registry: Optional[MetricsRegistry] = None,
                  flight=None, spans=None) -> ServingEngine:
-    """The engine the serving flags describe, with random weights from
-    ``--seed`` (quantized under ``--quant``, as the reference CLI
-    quantizes its init).  chip_smoke.py builds its in-process twin of a
-    served engine through here."""
+    """The engine the serving flags describe: weights from
+    ``--checkpoint-dir`` or random from ``--seed``, the ``--adapters`` trees
+    stacked over them, the w8 self-draft under ``--spec-gamma``, quantized
+    under ``--quant`` (as the reference CLI quantizes its init).
+    chip_smoke.py builds its in-process twin of a served engine through
+    here."""
     import dataclasses
+    import sys
 
     import torch
 
@@ -2278,14 +2295,43 @@ def build_engine(args, registry: Optional[MetricsRegistry] = None,
         args.page_size, args.num_pages, args.max_pages_per_seq,
         use_kernel=args.use_kernel, kernel_num_splits=args.kernel_splits,
     )
+    from ..ops.quant import quantize_lm_params
+    from .checkpoint import CheckpointManager
+
+    if args.checkpoint_dir:
+        params = CheckpointManager(args.checkpoint_dir).restore_params()
+        print(f"restored params from {args.checkpoint_dir}", file=sys.stderr)
+        if args.quant:
+            params = quantize_lm_params(params)
+    else:
+        params = init_params(cfg, args.seed)
+    spec_kw = {}
+    if args.spec_gamma:
+        spec_kw = dict(spec_gamma=args.spec_gamma, draft_params=quantize_lm_params(params))
+    if args.adapters:
+        from .lora import lora_rank_of, stack_lora_adapters
+
+        trees = [CheckpointManager(d).restore_params() for d in args.adapters.split(",") if d]
+        # The served rank always comes from the trees: a wrong flag would
+        # scale every delta by alpha/wrong_rank and still shape-check.
+        rank = lora_rank_of(trees[0])
+        if args.lora_rank is not None and args.lora_rank != rank:
+            raise SystemExit(f"--lora-rank {args.lora_rank} does not match the adapter trees' "
+                             f"actual rank {rank}")
+        params = stack_lora_adapters(params, trees)
+        cfg = dataclasses.replace(cfg, lora_rank=rank, lora_serve=len(trees))
+        if args.lora_alpha is not None:
+            cfg = dataclasses.replace(cfg, lora_alpha=args.lora_alpha)
+        print(f"serving {len(trees)} LoRA adapter(s) over the base weights", file=sys.stderr)
     overload_cfg = None
     if args.overload:
         overload_cfg = OverloadConfig(
             target_queue_wait_s=args.overload_target_wait, max_queue=args.overload_max_queue,
         )
     return ServingEngine(
-        cfg, init_params(cfg, args.seed), paged,
+        cfg, params, paged,
         max_slots=args.slots,
+        **spec_kw,
         metrics=EngineMetrics(registry if registry is not None else MetricsRegistry()),
         spans=spans,
         flight=flight,

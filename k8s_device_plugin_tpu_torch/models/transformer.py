@@ -22,6 +22,12 @@ takes an explicit cache object:
   pool through the paged-attention kernel, or through a gathered view when
   ``PagedConfig.use_kernel`` is False.
 
+LoRA, as the reference's: ``lora_rank=r`` builds every dense site, the
+``lm_head`` included, as a ``LoRADense`` (``models/lora.py``; ``kernel``
+plus ``lora_a``/``lora_b``), and ``lora_serve=n`` as a ``MultiLoRADense``
+over ``n`` stacked adapters, every call then taking the per-row
+``adapter_ids`` [batch] (-1 = the base model) down to each projection.
+
 Quantized serving, as the reference's: ``quant="w8"|"w8a8"`` builds every
 dense site, the float32 ``lm_head`` included, as an ``Int8DenseGeneral``
 (``ops/quant.py``; parameters ``kernel_q``/``kernel_scale`` from
@@ -59,7 +65,9 @@ from ..ops.quant import (
     quantize_kv_pair,
     quantize_lm_params,
 )
+from ..utils import prng
 from ..utils.device import resolve_device
+from .lora import LoRADense, MultiLoRADense, site_call
 
 # Finite large-negative logit for masks and top-k filtering: softmax stays
 # NaN-free even if a whole row were masked.
@@ -93,9 +101,9 @@ class PagedConfig:
 
 @dataclass(frozen=True)
 class GPTConfig:
-    """Field for field the reference's ``GPTConfig``.  ``quant`` (None,
-    "w8", "w8a8") and ``quant_kv`` are ported; ``lora_rank`` and
-    ``lora_serve`` must keep their defaults."""
+    """Field for field the reference's ``GPTConfig``: ``quant`` (None,
+    "w8", "w8a8"), ``quant_kv``, ``lora_rank``/``lora_alpha`` and
+    ``lora_serve`` (stacked adapters; needs ``lora_rank``)."""
 
     vocab_size: int = 32000
     hidden_size: int = 2048
@@ -145,10 +153,8 @@ def _check_supported(cfg: GPTConfig) -> None:
         )
     if cfg.quant not in (None, "w8", "w8a8"):
         raise ValueError(f"quant must be None, w8 or w8a8, got {cfg.quant!r}")
-    later = {"lora_rank": cfg.lora_rank is not None, "lora_serve": bool(cfg.lora_serve)}
-    on = [name for name, set_ in later.items() if set_]
-    if on:
-        raise NotImplementedError(f"{on}: not ported yet (see ROADMAP.md)")
+    if cfg.lora_serve and cfg.lora_rank is None:
+        raise ValueError("lora_serve requires lora_rank")
     if cfg.num_heads % cfg.kv_heads:
         raise ValueError(f"num_heads {cfg.num_heads} not divisible by kv_heads {cfg.kv_heads}")
     if cfg.attention_window is not None and cfg.attention_window < 1:
@@ -319,10 +325,17 @@ class Embed(nn.Module):
 
 def dense_site(cfg: GPTConfig, in_shape: tuple, features: tuple, device, dtype=None):
     """One constructor for every projection (the reference's dense_site):
-    ``DenseGeneral`` when ``cfg.quant`` is None, else ``Int8DenseGeneral``
-    in that mode, with the same names (``kernel`` -> ``kernel_q`` /
-    ``kernel_scale``).  ``dtype`` defaults to ``cfg.dtype``."""
+    ``MultiLoRADense`` under ``cfg.lora_serve``, ``LoRADense`` under
+    ``cfg.lora_rank``, ``DenseGeneral`` when ``cfg.quant`` is None, else
+    ``Int8DenseGeneral`` in that mode, with the same names (``kernel`` ->
+    ``kernel_q`` / ``kernel_scale``).  ``dtype`` defaults to ``cfg.dtype``.
+    Call a site through ``lora.site_call``."""
     dtype = cfg.dtype if dtype is None else dtype
+    if cfg.lora_serve:
+        return MultiLoRADense(in_shape, features, cfg.lora_rank, cfg.lora_serve, cfg.lora_alpha,
+                              dtype, device)
+    if cfg.lora_rank is not None:
+        return LoRADense(in_shape, features, cfg.lora_rank, cfg.lora_alpha, dtype, device)
     if cfg.quant is None:
         return DenseGeneral(in_shape, features, dtype, device)
     return Int8DenseGeneral(in_shape, features, cfg.quant, dtype, device)
@@ -389,12 +402,13 @@ class CausalSelfAttention(nn.Module):
         self.value = dense_site(cfg, (d,), (cfg.kv_heads, hd), device)
         self.out = dense_site(cfg, (cfg.num_heads, hd), (d,), device)
 
-    def forward(self, hidden, positions, cache=None, layer: int = 0, append_mode: str = "auto"):
+    def forward(self, hidden, positions, cache=None, layer: int = 0, append_mode: str = "auto",
+                adapter_ids=None):
         cfg = self.cfg
         cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-        q = apply_rope(self.query(hidden), cos, sin)
-        k = apply_rope(self.key(hidden), cos, sin)
-        v = self.value(hidden)
+        q = apply_rope(site_call(self.query, hidden, adapter_ids), cos, sin)
+        k = apply_rope(site_call(self.key, hidden, adapter_ids), cos, sin)
+        v = site_call(self.value, hidden, adapter_ids)
         batch, q_len = hidden.shape[:2]
         if isinstance(cache, PagedCache):
             attn = self._paged(q, k, v, positions, cache, layer)
@@ -418,7 +432,7 @@ class CausalSelfAttention(nn.Module):
         else:
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             attn = tiled_causal_attention(qh, kh, vh, cfg.attention_window).transpose(1, 2)
-        return self.out(attn)
+        return site_call(self.out, attn, adapter_ids)
 
     def _paged(self, q, k, v, positions, cache: PagedCache, layer: int):
         cfg = self.cfg
@@ -464,8 +478,9 @@ class SwiGluMlp(nn.Module):
         self.up = dense_site(cfg, (d,), (f,), device)
         self.down = dense_site(cfg, (f,), (d,), device)
 
-    def forward(self, x):
-        return self.down(torch.nn.functional.silu(self.gate(x)) * self.up(x))
+    def forward(self, x, adapter_ids=None):
+        gate, up = site_call(self.gate, x, adapter_ids), site_call(self.up, x, adapter_ids)
+        return site_call(self.down, torch.nn.functional.silu(gate) * up, adapter_ids)
 
 
 class DecoderBlock(nn.Module):
@@ -476,16 +491,20 @@ class DecoderBlock(nn.Module):
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.dtype, device=device)
         self.mlp = SwiGluMlp(cfg, device)
 
-    def forward(self, hidden, positions, cache=None, layer: int = 0, append_mode: str = "auto"):
-        hidden = hidden + self.attn(self.attn_norm(hidden), positions, cache, layer, append_mode)
-        return hidden + self.mlp(self.mlp_norm(hidden))
+    def forward(self, hidden, positions, cache=None, layer: int = 0, append_mode: str = "auto",
+                adapter_ids=None):
+        hidden = hidden + self.attn(self.attn_norm(hidden), positions, cache, layer, append_mode,
+                                    adapter_ids)
+        return hidden + self.mlp(self.mlp_norm(hidden), adapter_ids)
 
 
 class TransformerLM(nn.Module):
     """embed -> N pre-norm blocks -> RMSNorm -> float32 vocab logits.
 
     ``forward(input_ids, positions=None, cache=None, append_mode="auto",
-    output="logits")``; parameters come from :func:`init_params` or
+    output="logits", adapter_ids=None)`` (``adapter_ids`` [batch]: each
+    row's stacked adapter under ``lora_serve``, -1 or None the base model);
+    parameters come from :func:`init_params` or
     ``convert.flax_to_state_dict`` through ``load_state_dict``.  Runs on
     ``cuda`` unless ``device="cpu"`` is asked for.  ``train=True`` keeps
     float32 parameters with gradients (see the module docstring)."""
@@ -510,7 +529,8 @@ class TransformerLM(nn.Module):
             self.to(torch.float32)  # float32 master weights, as flax keeps them
         self.requires_grad_(train)  # serving: no autograd state
 
-    def forward(self, input_ids, positions=None, cache=None, append_mode="auto", output="logits"):
+    def forward(self, input_ids, positions=None, cache=None, append_mode="auto", output="logits",
+                adapter_ids=None):
         if append_mode not in ("auto", "cached"):
             raise ValueError(f"append_mode must be auto|cached, got {append_mode!r}")
         if output not in ("logits", "hidden"):
@@ -518,6 +538,8 @@ class TransformerLM(nn.Module):
         seq_len = input_ids.shape[-1]
         if positions is None:
             positions = torch.arange(seq_len, device=input_ids.device).expand(input_ids.shape)
+        if self.config.lora_serve and adapter_ids is None:
+            adapter_ids = torch.full((input_ids.shape[0],), -1, device=input_ids.device)
         hidden = self.embed(input_ids)
         # remat (the reference's nn.remat(DecoderBlock)): keep only each
         # block's input and recompute the block in the backward.
@@ -525,26 +547,31 @@ class TransformerLM(nn.Module):
         for i in range(self.config.num_layers):
             block = getattr(self, f"layer_{i}")
             if remat:
-                hidden = checkpoint(block, hidden, positions, use_reentrant=False)
+                hidden = checkpoint(block, hidden, positions, None, i, append_mode, adapter_ids,
+                                    use_reentrant=False)
             else:
-                hidden = block(hidden, positions, cache, i, append_mode)
+                hidden = block(hidden, positions, cache, i, append_mode, adapter_ids)
         if isinstance(cache, DenseCache):
             cache.index += seq_len
         elif isinstance(cache, PagedCache):
             cache.seq_lens += seq_len
         hidden = self.final_norm(hidden)
-        return hidden if output == "hidden" else self.logits(hidden)
+        return hidden if output == "hidden" else self.logits(hidden, adapter_ids)
 
-    def logits(self, hidden):
-        """The float32 ``lm_head`` on final-norm hidden states."""
-        return self.lm_head(hidden.float())
+    def logits(self, hidden, adapter_ids=None):
+        """The float32 ``lm_head`` on final-norm hidden states (a multi-LoRA
+        head takes each row's adapter id; None is the base model)."""
+        if self.config.lora_serve and adapter_ids is None:
+            adapter_ids = torch.full((hidden.shape[0],), -1, device=hidden.device)
+        return site_call(self.lm_head, hidden.float(), adapter_ids)
 
 
 def param_shapes(config: GPTConfig) -> dict:
     """Every parameter's name and shape, in the flax names and layouts (a
     quantized config: each ``kernel`` as ``kernel_q`` of the same shape and
     ``kernel_scale`` over its output features, as quantize_lm_params
-    gives them)."""
+    gives them; a LoRA config adds each site's ``lora_a``/``lora_b``, or
+    under ``lora_serve`` their ``_stack`` of n)."""
     d, hd, f = config.hidden_size, config.head_dim, config.intermediate_size
     h, hk = config.num_heads, config.kv_heads
     shapes = {"embed.embedding": (config.vocab_size, d)}
@@ -563,6 +590,15 @@ def param_shapes(config: GPTConfig) -> dict:
         })
     shapes["final_norm.scale"] = (d,)
     shapes["lm_head.kernel"] = (d, config.vocab_size)
+    if config.lora_rank is not None:
+        r, n = config.lora_rank, config.lora_serve
+        stack, pre = ("_stack", (n,)) if n else ("", ())
+        for name, shape in list(shapes.items()):
+            if name.endswith(".kernel"):
+                k = contract_ndim(name.split(".")[-2], len(shape))
+                site = name[: -len(".kernel")]
+                shapes[f"{site}.lora_a{stack}"] = pre + shape[:k] + (r,)
+                shapes[f"{site}.lora_b{stack}"] = pre + (r,) + shape[k:]
     if config.quant is None:
         return shapes
     quantized = {}
@@ -582,15 +618,27 @@ def init_params(config: GPTConfig, seed: int = 0) -> dict:
     like flax's lecun-normal dense sites, the embedding 1/hidden.  The
     values are not flax's; the tests convert flax's own init instead.  A
     quantized config gets this float init through ``quantize_lm_params``,
-    as the reference's engine CLI quantizes its init."""
+    as the reference's engine CLI quantizes its init.  LoRA leaves come
+    after the base ones (so a seed gives a LoRA config the plain config's
+    base weights): ``lora_a`` normal with variance 1/fan_in, ``lora_b``
+    zero, as the reference initializes them."""
     _check_supported(config)
     gen = torch.Generator().manual_seed(seed)
     params = {}
-    for name, shape in param_shapes(dataclasses.replace(config, quant=None)).items():
+    shapes = param_shapes(dataclasses.replace(config, quant=None))
+    base = [name for name in shapes if ".lora_" not in name]
+    for name in base + [name for name in shapes if ".lora_" in name]:
+        shape = shapes[name]
         if name.endswith(".scale"):
             params[name] = torch.ones(shape)
             continue
-        if name.endswith("embedding"):
+        if ".lora_b" in name:
+            params[name] = torch.zeros(shape)
+            continue
+        if ".lora_a" in name:
+            stacked = name.endswith("_stack")
+            fan_in = math.prod(shape[1 if stacked else 0 : -1])
+        elif name.endswith("embedding"):
             fan_in = shape[1]
         elif name.endswith("attn.out.kernel"):
             fan_in = shape[0] * shape[1]
@@ -609,6 +657,27 @@ def _check_decode_fits(config: GPTConfig, prompt_len: int, max_new_tokens: int):
 
 
 @torch.no_grad()
+def _generate(config: GPTConfig, params: dict, prompt, max_new_tokens: int, pick, device):
+    """The fixed-shape KV-cache decode both generators share: one bulk
+    prefill over the prompt (the flash kernel), then single-token steps in
+    a Python loop; ``pick(logits [batch, vocab], t)`` chooses the token
+    that follows position ``t``."""
+    model = TransformerLM(config, device=device)
+    model.load_state_dict(params)
+    prompt = torch.as_tensor(prompt, device=model.device).long()
+    batch, prompt_len = prompt.shape
+    _check_decode_fits(config, prompt_len, max_new_tokens)
+    cache = DenseCache.zeros(config, batch, model.device)
+    logits = model(prompt, cache=cache)
+    tok = pick(logits[:, -1], prompt_len - 1)
+    out = [prompt, tok[:, None]]
+    for t in range(prompt_len, prompt_len + max_new_tokens - 1):
+        pos = torch.full((batch, 1), t, device=model.device)
+        tok = pick(model(tok[:, None], pos, cache=cache)[:, -1], t)
+        out.append(tok[:, None])
+    return torch.cat(out, dim=1)
+
+
 def greedy_generate(config: GPTConfig, params: dict, prompt, max_new_tokens: int, *, device=None):
     """Greedy decode with the fixed-shape KV cache: one bulk-prefill
     forward over the whole prompt (the flash kernel when the prompt tiles
@@ -617,17 +686,30 @@ def greedy_generate(config: GPTConfig, params: dict, prompt, max_new_tokens: int
     ``params``: a state dict (``init_params`` or ``convert``).  ``prompt``:
     [batch, prompt_len] token ids.  Returns [batch, prompt_len + new] int64
     on the model's device."""
-    model = TransformerLM(config, device=device)
-    model.load_state_dict(params)
-    prompt = torch.as_tensor(prompt, device=model.device).long()
-    batch, prompt_len = prompt.shape
-    _check_decode_fits(config, prompt_len, max_new_tokens)
-    cache = DenseCache.zeros(config, batch, model.device)
-    logits = model(prompt, cache=cache)
-    tok = logits[:, -1].argmax(dim=-1)
-    out = [prompt, tok[:, None]]
-    for t in range(prompt_len, prompt_len + max_new_tokens - 1):
-        pos = torch.full((batch, 1), t, device=model.device)
-        tok = model(tok[:, None], pos, cache=cache)[:, -1].argmax(dim=-1)
-        out.append(tok[:, None])
-    return torch.cat(out, dim=1)
+    return _generate(config, params, prompt, max_new_tokens,
+                     lambda logits, t: logits.argmax(dim=-1), device)
+
+
+def sample_generate(config: GPTConfig, params: dict, prompt, max_new_tokens: int, *, rng,
+                    temperature: float = 1.0, top_k: Optional[int] = None, device=None):
+    """Temperature (plus optional top-k) sampling through the same decode
+    as :func:`greedy_generate`, on the reference's key schedule: the token
+    after position ``t`` draws from ``fold_in(rng, t)`` (``utils/prng.py``,
+    jax's threefry), so the tokens equal the reference's under one key.
+    ``rng``: a ``prng.PRNGKey``."""
+    if temperature <= 0:
+        raise ValueError(
+            f"temperature must be > 0, got {temperature}; use greedy_generate for argmax decoding"
+        )
+    if top_k is not None and not 1 <= top_k <= config.vocab_size:
+        raise ValueError(f"top_k must be in [1, vocab_size={config.vocab_size}], got {top_k}")
+
+    def pick(logits, t):
+        scaled = logits / max(temperature, 1e-6)
+        if top_k is not None:
+            kth = scaled.topk(top_k, dim=-1).values[..., -1:]
+            scaled = torch.where(scaled < kth, NEG_LOGIT, scaled)
+        return prng.categorical(prng.fold_in(key, t), scaled)
+
+    key = torch.as_tensor(rng).to(resolve_device(device))
+    return _generate(config, params, prompt, max_new_tokens, pick, device)

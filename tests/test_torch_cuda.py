@@ -489,3 +489,66 @@ def test_cuda_engine_refuses_other_head_dims_at_construction(dev):
     with pytest.raises(ValueError, match=r"multiple of 8 from 8 to 128, got 256"):
         engine_mod.ServingEngine(cfg, tf.init_params(cfg, seed=0), tf.PagedConfig(4, 64, 16),
                                  device=dev)
+
+
+@pytest.mark.cuda
+def test_cuda_lora_graph_replays_across_adapter_ids(dev):
+    """One multi-LoRA engine replays its captured dispatch while the slots'
+    adapter ids change (the same prompts under [0, 1, -1] and then [1, -1,
+    0]): every stream equals an eager engine's on the same jobs, so the
+    graph reads the id buffer written in place, not the ids of its
+    capture."""
+    import dataclasses
+
+    from k8s_device_plugin_tpu_torch.models import engine as engine_mod
+    from k8s_device_plugin_tpu_torch.models import transformer as tf
+
+    cfg = dataclasses.replace(tf.GPTConfig.tiny(), lora_rank=2, lora_serve=2)
+    params = tf.init_params(cfg, seed=0)
+    gen = torch.Generator().manual_seed(3)
+    for name in params:
+        if ".lora_b" in name:
+            params[name] = 0.1 * torch.randn(params[name].shape, generator=gen)
+    rs = np.random.RandomState(17)
+    prompts = [rs.randint(1, 512, size=5 + i).tolist() for i in range(3)]
+    rounds = [(0, 1, None), (1, None, 0)]
+    streams = {}
+    for graphs in (True, False):
+        eng = engine_mod.ServingEngine(cfg, params, tf.PagedConfig(4, 64, 16), max_slots=3,
+                                       decode_block=4, device=dev, cuda_graphs=graphs)
+        out = []
+        for aids in rounds:
+            reqs = [eng.submit(p, 12, adapter=a) for p, a in zip(prompts, aids)]
+            while not all(r.done for r in reqs):
+                eng.step()
+            out.append([r.tokens for r in reqs])
+        streams[graphs] = out
+        assert (eng.graph_replays > 0) is graphs
+    assert streams[True] == streams[False]
+    assert streams[True][0][0] != streams[True][1][2] or streams[True][0][1] != \
+        streams[True][1][0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "sampled"])
+def test_cuda_spec_round_replays_across_rewinds(dev, sampled):
+    """A speculative engine's rounds (each rewinds seq_lens in place and
+    realigns it after) replay one captured graph per sampler variant and
+    give the eager engine's streams; the paged kernel runs layers x gamma
+    launches a round, none in the verify pass."""
+    from k8s_device_plugin_tpu_torch.models import transformer as tf
+    from k8s_device_plugin_tpu_torch.utils import prng
+
+    rs = np.random.RandomState(41)
+    jobs = [(rs.randint(1, 512, size=3 + 2 * i).tolist(), n) for i, n in enumerate((30, 17, 25))]
+    kw = dict(temperature=0.8, top_k=50) if sampled else {}
+    draft = quant.quantize_lm_params(tf.init_params(tf.GPTConfig.tiny(), seed=0))
+    streams = {}
+    for graphs in (True, False):
+        pa.reset_launches()
+        cfg, eng = _tiny_engine(dev, spec_gamma=3, draft_params=draft, cuda_graphs=graphs,
+                                rng=prng.PRNGKey(5))
+        streams[graphs] = [r.tokens for r in eng.run(jobs, **kw)]
+        assert pa.paged_attention.launches_by_format["f"] == cfg.num_layers * 3 * eng.spec_rounds
+        assert eng.spec_rounds > 1 and (eng.graph_replays > 0) is graphs
+    assert streams[True] == streams[False]

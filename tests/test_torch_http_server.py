@@ -24,6 +24,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from k8s_device_plugin_tpu.models import engine as jax_engine
 from k8s_device_plugin_tpu.models import http_server as jax_http
@@ -411,8 +412,57 @@ def test_step_capture_traces_the_next_steps(pair):
         (["--checkpoint-dir", "/ckpt"], "--checkpoint-dir"),
     ],
 )
-def test_cli_refuses_what_the_port_does_not_serve(argv, flag):
-    with pytest.raises(SystemExit, match=flag):
+def test_cli_refuses_what_the_port_does_not_serve(argv, flag, tmp_path):
+    """``--tp > 1`` is still refused, naming the flag.  ``--spec-gamma``,
+    ``--adapters`` and ``--checkpoint-dir`` (refused until the port served
+    them) now build an engine: a spec engine with its w8 draft, a
+    multi-LoRA engine over two adapter directories, an engine on a
+    checkpoint's weights; the directories are written here
+    (``convert.save_flax_params`` / the port's CheckpointManager) in place
+    of the case's placeholder paths."""
+    if flag == "--tp":
+        with pytest.raises(SystemExit, match=flag):
+            port_http.parse_args(argv)
+        return
+    from k8s_device_plugin_tpu_torch.models import checkpoint, lora
+
+    tiny = ["--device=cpu", "--dtype=float32", "--hidden=64", "--layers=2", "--heads=4",
+            "--kv-heads=2", "--vocab=512", "--page-size=4", "--num-pages=32",
+            "--max-pages-per-seq=8", "--slots=2", "--watchdog=0"]
+    cfg = port_tf.GPTConfig(vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
+                            intermediate_size=192, max_seq=32, num_kv_heads=2,
+                            dtype=torch.float32)
+    if flag == "--adapters":
+        dirs = []
+        for i in range(2):
+            tree = port_tf.init_params(dataclasses.replace(cfg, lora_rank=2), seed=i)
+            dirs.append(str(tmp_path / f"adapter_{i}"))
+            checkpoint.CheckpointManager(dirs[-1]).save(tree, 0)
+        argv = ["--adapters", ",".join(dirs)]
+    elif flag == "--checkpoint-dir":
+        checkpoint.CheckpointManager(tmp_path / "ckpt").save(port_tf.init_params(cfg, seed=5), 7)
+        argv = ["--checkpoint-dir", str(tmp_path / "ckpt")]
+    eng = port_http.build_engine(port_http.parse_args(tiny + argv))
+    if flag == "--spec-gamma":
+        assert eng._spec_gamma == 4 and eng.draft_model.config.quant == "w8"
+        assert eng._decode_block == 1 and eng._overlap_steps == 0
+    elif flag == "--adapters":
+        assert eng.cfg.lora_serve == 2 and eng.cfg.lora_rank == 2
+        assert lora.lora_rank_of(eng.model.state_dict()) == 2
+    else:
+        want = port_tf.init_params(cfg, seed=5)
+        assert torch.equal(eng.model.state_dict()["embed.embedding"], want["embed.embedding"])
+    [req] = eng.run([([1, 2, 3], 3)], **({"adapter": 1} if flag == "--adapters" else {}))
+    assert len(req.tokens) == 3
+
+
+@pytest.mark.parametrize("argv, match", [
+    (["--adapters", "a", "--quant", "w8"], "--quant is mutually exclusive"),
+    (["--adapters", "a", "--spec-gamma", "2"], "not supported with --spec-gamma"),
+    (["--spec-gamma", "2", "--quant", "w8"], "SELF-draft"),
+])
+def test_cli_refuses_the_reference_pairs(argv, match):
+    with pytest.raises(SystemExit, match=match):
         port_http.parse_args(argv)
 
 

@@ -63,13 +63,15 @@ def test_every_port_module_imports_with_jax_blocked():
     """A fresh interpreter where importing jax, flax or the JAX package
     fails; every port module must still import."""
     mods = _port_modules()
-    assert len(mods) >= 33
+    assert len(mods) >= 37
     for name in ("ops.fused_xent", "ops.quant", "models.data", "models.train",
                  "models.benchmark", "utils.flight", "utils.failpoints", "utils.spans",
                  "utils.anomaly", "utils.slo", "utils.postmortem", "utils.tracing",
                  "models.engine_overload", "models.engine_watchdog", "models.engine_profiler",
                  "models.engine_snapshot", "models.engine_kvcache", "models.engine_handoff",
-                 "models.http_server", "utils.racecheck", "utils.prefixbloom", "utils.ring"):
+                 "models.http_server", "utils.racecheck", "utils.prefixbloom", "utils.ring",
+                 "models.lora", "models.speculative", "models.engine_spec",
+                 "models.checkpoint"):
         assert f"k8s_device_plugin_tpu_torch.{name}" in mods
     code = (
         "import sys\n"

@@ -210,19 +210,39 @@ def test_paged_kernel_path_equals_gather_and_dense(weights, window):
 
 
 def test_unported_options_raise():
-    """LoRA is not ported; the quantized formats now build (the reference
-    refuses quant with lora_rank, and so does the port)."""
+    """Every option of the reference's config builds since LoRA came in:
+    the quantized formats, ``lora_rank`` and ``lora_serve``; the reference
+    refuses quant with lora_rank and lora_serve without a rank, and so does
+    the port."""
     _, tcfg = _cfgs()
-    for field, value in (("lora_rank", 4), ("lora_serve", 2)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            ttf.TransformerLM(dataclasses.replace(tcfg, **{field: value}), device="cpu")
     for kw in ({"quant": "w8"}, {"quant": "w8a8"}, {"quant_kv": True},
-               {"quant": "w8", "quant_kv": True}):
+               {"quant": "w8", "quant_kv": True}, {"lora_rank": 4},
+               {"lora_rank": 4, "lora_serve": 2}):
         ttf.TransformerLM(dataclasses.replace(tcfg, **kw), device="cpu")
     with pytest.raises(ValueError, match="mutually exclusive"):
         ttf.TransformerLM(dataclasses.replace(tcfg, quant="w8", lora_rank=4), device="cpu")
+    with pytest.raises(ValueError, match="lora_serve requires lora_rank"):
+        ttf.TransformerLM(dataclasses.replace(tcfg, lora_serve=2), device="cpu")
     with pytest.raises(ValueError, match="quant must be"):
         ttf.TransformerLM(dataclasses.replace(tcfg, quant="w4"), device="cpu")
+
+
+@pytest.mark.parametrize("field, value", [("lora_rank", 4), ("lora_serve", 2)])
+def test_lora_fields_build_a_model(weights, field, value):
+    """``lora_rank`` and ``lora_serve`` (with a rank) build a model whose
+    init has zero B, so its logits equal the plain model's on the same base
+    weights (every row at adapter -1 for a serving model)."""
+    params, state = weights
+    jcfg, tcfg = _cfgs()
+    kw = {"lora_rank": 4} if field == "lora_rank" else {"lora_rank": 4, "lora_serve": value}
+    lcfg = dataclasses.replace(tcfg, **kw)
+    lstate = ttf.init_params(lcfg)
+    lstate.update(state)
+    model = _torch_model(lcfg, lstate)
+    ids = _ids(2, 9)
+    want = np.asarray(jtf.TransformerLM(jcfg).apply({"params": params}, jnp.asarray(ids)))
+    got = model(torch.from_numpy(ids).long()).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOGIT_TOL)
 
 
 def test_model_without_device_raises_when_cuda_absent():
