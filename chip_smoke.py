@@ -147,6 +147,34 @@ Phases, in order (any failure exits non-zero):
    FMA variants only) and the same step on the CPU (the plain versions) from
    the same weights: losses within 1e-5 relative and every updated
    parameter within 1e-5.
+9a. train the four image and encoder models through ``models/benchmark.py``
+   at their published widths, bf16 compute and float32 parameters, 2
+   warmup and 5 timed steps each, with the launch counters set to 0 just
+   before and read just after each run: ResNet-50 (conv7, 224 px, batch
+   128: bench.py's headline), AlexNet (224 px, batch 256:
+   deploy/k8s-pod-example-tpu.yaml), ViT-B/16 (256 px, 256 tokens, batch
+   64: the ViT pod's 256 over 4 chips) and BERT-base (seq 384, batch 32:
+   the BERT pod's 64 over dp 2).  ViT and BERT must launch the forward, dQ
+   and dK/dV kernels exactly 12 layers x the steps run, non-causal, as
+   their tensor-core variants only; ResNet-50 and AlexNet none of kernels
+   1-4; every loss must be finite.  Each prints images/s or tokens/s, step
+   ms and the busy share of one profiled step, ResNet-50 its MFU (bench.py's
+   3 x 8.2e9 flops an image over ``utils/platform.peak_bf16_flops``).  Then
+   one run with ``--stem=space_to_depth``, and its logits (float32) held
+   against conv7's with the stem kernel mapped;
+9b. one float32 train step of each, cut (ResNet18Thin at 64 px, AlexNet at
+   width 0.125 on 224 px, ViT 2 layers at 128 px and patch 8 = 256 tokens,
+   BERT 2 layers at seq 128), on the card (TF32 off; ViT and BERT on the FMA
+   kernels only) and on the CPU from the same weights, batch and dropout
+   keys: the loss, every parameter and every BatchNorm statistic within
+   TOL_TRAIN (ViT, BERT) or TOL_TRAIN_CONV (ResNet, AlexNet);
+9c. resume on the card: ResNet18Thin through the benchmark's run with
+   ``--checkpoint-every 2 --steps 4``, then ``--resume --steps 6``:
+   ``resumed_from`` 4, ``final_step`` 6, and the state restored from step 4
+   equal bit for bit to the state that was saved;
+9d. kernels 2-4 non-causal at the ViT shape (b64 h12 s256 d64) and the BERT
+   shape (b32 h12 s384 d64), held against their plain versions and timed
+   beside SDPA's forward and backward.
 
 Then it prints one ``kernels`` JSON line (a row per kernel variant, each
 with its design, HGMMA count, registers and spill bytes; every number in
@@ -155,7 +183,8 @@ it measured in this run, the bounds computed from its inputs), one
 errors and the tiny phase 6), one
 ``quant`` JSON line, one ``train`` JSON line, one ``serve`` JSON line
 (phase 4e), one ``warm_restart`` line (phases 4f, 4g and 3d), one
-``spec_lora`` line (phases 4h, 5b and 4i), and last the line
+``spec_lora`` line (phases 4h, 5b and 4i), one ``train_models`` line
+(phase 9), one ``phase_seconds`` line, and last the line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -181,6 +210,12 @@ TOL_MARGIN = 1e-3  # fp32 logits: kernel vs gather paths differ by sum order onl
 TOL_BWD_BF16 = 2e-2
 TOL_BWD_F32 = 1e-4
 TOL_TRAIN = 1e-5  # fp32 train step, card vs CPU: loss (relative) and params (absolute)
+# The conv models' fp32 step, card vs CPU (phase 9b): cuDNN sums each conv's
+# k*k*C products in another order than the CPU, and BatchNorm divides by
+# the batch's std, so parameters and statistics move more than phase 8's.
+TOL_TRAIN_CONV = 1e-4
+TOL_S2D = 1e-4  # space_to_depth vs conv7 logits, float32: 147 taps summed against 192
+RESNET50_TRAIN_FLOPS_PER_IMAGE = 3 * 8.2e9  # bench.py's count: 3 x the 8.2 GFLOP forward
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
 FP32_FLOPS = 67e12  # H100 SXM float32 peak outside the tensor cores (the FMA kernels' type)
@@ -294,18 +329,12 @@ def check_int4_bytes(torch, pa, quant) -> None:
 
 def kernels_per_call(torch, dp, call, what: str) -> list[tuple[str, int]]:
     """(name, launches) of each device kernel that one ``call`` (already
-    warm) runs, under torch.profiler; a window that traced nothing is
-    profiled again, up to ``decode_profile.PROFILE_WINDOWS`` times."""
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(dp.PROFILE_WINDOWS):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        top = dp.trace_stats(prof)["top"]
-        if top:
-            return [(row["kernel"], row["calls"]) for row in top]
-    fail(f"{what}: the profiler traced no device kernel in {dp.PROFILE_WINDOWS} windows")
+    warm) runs (``decode_profile.profiled_call``)."""
+    try:
+        top = dp.profiled_call(call, 1)["top"]
+    except RuntimeError as err:
+        fail(f"{what}: {err}")
+    return [(row["kernel"], row["calls"]) for row in top]
 
 
 def check_paged(torch, pa, quant, tuning, dp):
@@ -1701,40 +1730,43 @@ def rel_err(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
-def sdpa_forward(torch, q, k, v):
-    """A call of SDPA's causal forward on these inputs (the yardstick,
-    never called by the port)."""
+def sdpa_forward(torch, q, k, v, causal=True):
+    """A call of SDPA's forward on these inputs (the yardstick, never
+    called by the port)."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     try:
-        sdpa(q, k, v, is_causal=True, enable_gqa=True)
-        return lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        sdpa(q, k, v, is_causal=causal, enable_gqa=True)
+        return lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True)
     except TypeError:  # a PyTorch without enable_gqa: expanded kv
         group = q.shape[1] // k.shape[1]
         ke, ve = k.repeat_interleave(group, 1), v.repeat_interleave(group, 1)
-        return lambda: sdpa(q, ke, ve, is_causal=True)
+        return lambda: sdpa(q, ke, ve, is_causal=causal)
 
 
-def profiled_ms(torch, fn, what: str, iters: int = 10, warmup: int = 3) -> float:
-    """Device time per call of ``fn`` (``decode_profile.profiled_device_us``).
-    SDPA's backward is timed this way because a CUDA graph cannot capture
-    its ``autograd.grad`` here; the backward kernels are timed the same way
-    beside it, so the two compare by one method."""
+def profiled_ms(torch, fn, what: str, iters: int = 10, warmup: int = 3,
+                whole: bool = True) -> float:
+    """Device time per call of ``fn`` (``decode_profile.profiled_device_us``;
+    ``whole``: ``fn`` launches the same kernels every call, and a window
+    that traced fewer is profiled again).  SDPA's backward is timed this
+    way because a CUDA graph cannot capture its ``autograd.grad`` here; the
+    backward kernels are timed the same way beside it, so the two compare
+    by one method."""
     from k8s_device_plugin_tpu_torch.decode_profile import profiled_device_us
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     try:
-        return profiled_device_us(fn, iters) / 1e3
+        return profiled_device_us(fn, iters, whole) / 1e3
     except RuntimeError as err:
         fail(f"{what}: {err}")
 
 
-def sdpa_backward(torch, q, k, v, dout):
+def sdpa_backward(torch, q, k, v, dout, causal=True):
     """A call of SDPA's backward on these inputs (one call yields dq, dk
     and dv; the yardstick, never called by the port)."""
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-    out = sdpa_forward(torch, *leaves)()
+    out = sdpa_forward(torch, *leaves, causal=causal)()
     return lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True)
 
 
@@ -1867,30 +1899,55 @@ def model_flops_per_step(cfg, batch: int, seq: int) -> float:
     return 6 * n * batch * seq + 3 * attn_fwd
 
 
+def flash_launches(fa) -> tuple[dict, dict]:
+    """Kernels 2-4's launch counts since the last reset: in total and by
+    design."""
+    launches = {"flash_attention": fa.flash_attention.launches,
+                "flash_attention_bwd_dq": fa.flash_backward.dq_launches,
+                "flash_attention_bwd_dkv": fa.flash_backward.dkv_launches}
+    by_design = {"forward": dict(fa.flash_attention.launches_by_design),
+                 "dq": dict(fa.flash_backward.dq_launches_by_design),
+                 "dkv": dict(fa.flash_backward.dkv_launches_by_design)}
+    return launches, by_design
+
+
+def profiled_step(step, state, batch):
+    """One training step traced by ``decode_profile.profiled_call`` (host
+    and card, after one untraced warm-up step): (state after both, the
+    traced step's wall seconds, its ``trace_stats``)."""
+    from k8s_device_plugin_tpu_torch.decode_profile import profiled_call
+
+    walls = []
+
+    def one_step():
+        nonlocal state
+        t0 = time.perf_counter()
+        state, loss = step(state, batch)
+        loss.item()
+        walls.append(time.perf_counter() - t0)
+
+    try:
+        stats = profiled_call(one_step, 1, whole=False, cpu=True)
+    except RuntimeError as err:
+        fail(f"profiled training step: {err}")
+    return state, walls[-1], stats
+
+
 def run_training(torch, fa, bench, smi):
     """Phase 7: LM training at full width through the benchmark entry
     point; then one profiled step.  Returns (train summary, launches)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from k8s_device_plugin_tpu_torch.decode_profile import trace_stats
-
     args = bench.parse_args([
         "--model=gpt", "--batch-size=8", "--seq-len=1024", "--steps=5", "--warmup=2",
         "--dtype=bfloat16", f"--device={DEVICE}",
     ])
-    cfg, state, step, batch = bench.build(args)
+    built = bench.build(args)
+    state, step, batch = built.state, built.step, built.batch
+    cfg = state.model.config
     fa.reset_launches()
     state, losses, dt = bench.timed_steps(step, state, batch, args.warmup, args.steps)
     torch.cuda.synchronize()
-    launches = {
-        "flash_attention": fa.flash_attention.launches,
-        "flash_attention_bwd_dq": fa.flash_backward.dq_launches,
-        "flash_attention_bwd_dkv": fa.flash_backward.dkv_launches,
-    }
-    by_design = {"forward": dict(fa.flash_attention.launches_by_design),
-                 "dq": dict(fa.flash_backward.dq_launches_by_design),
-                 "dkv": dict(fa.flash_backward.dkv_launches_by_design)}
-    record = bench.make_record(args, state, losses, dt)
+    launches, by_design = flash_launches(fa)
+    record = bench.make_record(args, state, losses, dt, args.steps, built.items_per_step)
     log(f"training: {record}; launches {launches}, by design {by_design} over {state.step} steps")
     n = cfg.num_layers * state.step
     for name, count in launches.items():
@@ -1905,12 +1962,8 @@ def run_training(torch, fa, bench, smi):
         fail(f"training loss not finite at steps {bad}")
     step_s, steps_run = dt / args.steps, state.step
     flops = model_flops_per_step(cfg, args.batch_size, args.seq_len)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, loss = step(state, batch)
-        loss.item()
-        wall = time.perf_counter() - t0
-    stats = trace_stats(prof, top=16)  # deep enough to list kernels 2 and 4
+    state, wall, stats = profiled_step(step, state, batch)
+    stats["top"] = stats["top"][:16]  # deep enough to list kernels 2 and 4
     summary = {
         "config": "vocab 32000, hidden 1024, 8 layers, 16/4 heads, intermediate 2816, "
                   "bf16 compute, float32 params, batch 8, seq 1024",
@@ -1963,6 +2016,378 @@ def check_train_parity(torch, fa, tf, train, data):
         fail(f"train step card vs CPU: loss rel {loss_rel}, params {param_err}")
     return {"loss_rel_err": loss_rel, "param_max_abs_err": param_err,
             "launches_by_design": launches}
+
+
+# ---------------------------------------------------------------- phase 9
+
+# Phase 9a's runs: (--model, its flags, where the width and batch come from).
+TRAIN_MODELS = (
+    ("resnet50", ["--batch-size=128", "--image-size=224", "--stem=conv7"],
+     "bench.py's headline: ResNet-50, conv7, 224 px, batch 128"),
+    ("alexnet", ["--batch-size=256", "--image-size=224"],
+     "deploy/k8s-pod-example-tpu.yaml: AlexNet, 224 px, batch 256"),
+    ("vit", ["--batch-size=64"],
+     "deploy/k8s-pod-vit-tpu4.yaml's 256 over 4 chips: ViT-B/16, 256 px (256 tokens), batch 64"),
+    ("bert", ["--batch-size=32", "--seq-len=384"],
+     "deploy/k8s-pod-bert-tpu8.yaml's 64 over dp 2: BERT-base, seq 384, batch 32"),
+)
+FLASH_MODELS = ("vit", "bert")
+
+
+def train_model(torch, fa, pa, bench, model: str, flags, source: str) -> dict:
+    """One phase 9a run through the benchmark's entry points, its launch
+    counts checked, then one profiled step."""
+    from k8s_device_plugin_tpu_torch.utils.platform import peak_bf16_flops
+
+    args = bench.parse_args([f"--model={model}", *flags, "--steps=5", "--warmup=2",
+                             "--dtype=bfloat16", f"--device={DEVICE}"])
+    built = bench.build(args)
+    fa.reset_launches()
+    pa.reset_launches()
+    state, losses, dt = bench.timed_steps(built.step, built.state, built.batch, args.warmup,
+                                          args.steps)
+    torch.cuda.synchronize()
+    launches, by_design = flash_launches(fa)
+    paged = sum(pa.paged_attention.launches_by_format.values())
+    record = bench.make_record(args, state, losses, dt, args.steps, built.items_per_step)
+    log(f"phase 9a {model}: {record}; launches {launches}, by design {by_design}, paged {paged}")
+    layers = state.model.config.num_layers if model in FLASH_MODELS else 0
+    n = layers * state.step
+    for name, count in launches.items():
+        if count != n:
+            fail(f"{model} training launched {name} {count} times, not {layers} layers x "
+                 f"{state.step} steps")
+    for kernel, counts in by_design.items():
+        expect_designs(counts, "wgmma", n, f"{model}'s bf16 training run's {kernel} kernel")
+    if paged:
+        fail(f"{model} training launched the paged kernel {paged} times")
+    bad = [i for i, loss in enumerate(losses) if not torch.isfinite(loss).item()]
+    if bad:
+        fail(f"{model} training loss not finite at steps {bad}: {[l.item() for l in losses]}")
+    steps_run = state.step
+    state, wall, stats = profiled_step(built.step, state, built.batch)
+    stats["top"] = stats["top"][:12]
+    step_s = dt / args.steps
+    row = {
+        "source": source,
+        "flags": flags,
+        "throughput": record["throughput"],
+        "unit": record["unit"],
+        "step_time_ms": step_s * 1e3,
+        "steps_run": steps_run,
+        "attention_layers": layers,
+        "losses": [l.item() for l in losses],
+        "launches": launches,
+        "launches_by_design": by_design,
+        "profiled_step": {"wall_ms": wall * 1e3, **stats},
+        "record": record,
+    }
+    if model == "resnet50":
+        peak = peak_bf16_flops(state.model.device)
+        row["mfu"] = (None if peak is None else
+                      args.batch_size / step_s * RESNET50_TRAIN_FLOPS_PER_IMAGE / peak)
+        row["mfu_formula"] = "images/s x 3 x 8.2e9 (bench.py) / peak_bf16_flops"
+    log(f"phase 9a {model}: {row['throughput']} {row['unit']}, step {row['step_time_ms']:.2f} "
+        f"ms, busy {row['profiled_step']['busy_share']}, mfu {row.get('mfu')}")
+    return row
+
+
+def check_space_to_depth(torch, bench) -> dict:
+    """Phase 9a's space_to_depth run, then its logits against conv7's with
+    the stem kernel mapped (a 7x7 kernel zero-padded to 8x8 and repacked as
+    [4, 4, 12, out], tests/test_models.py), in float32 at ResNet-50's full
+    width, eval mode."""
+    from k8s_device_plugin_tpu_torch.models.resnet import ResNet50
+
+    args = bench.parse_args(["--model=resnet50", "--batch-size=128", "--image-size=224",
+                             "--stem=space_to_depth", "--steps=5", "--warmup=2",
+                             "--dtype=bfloat16", f"--device={DEVICE}"])
+    built = bench.build(args)
+    state, losses, dt = bench.timed_steps(built.step, built.state, built.batch, args.warmup,
+                                          args.steps)
+    record = bench.make_record(args, state, losses, dt, args.steps, built.items_per_step)
+    if not all(torch.isfinite(l).item() for l in losses):
+        fail(f"space_to_depth training loss not finite: {[l.item() for l in losses]}")
+    del built, state
+    conv7, s2d = (ResNet50(num_classes=1000, dtype=torch.float32, norm_dtype=torch.float32,
+                           stem=stem, device=DEVICE, seed=3) for stem in ("conv7", "space_to_depth"))
+    sd = {k: v for k, v in conv7.state_dict().items() if not k.startswith("Conv_stem.")}
+    s2d.load_state_dict({**sd, "Conv_stem.kernel": s2d.Conv_stem.kernel}, strict=True)
+    with torch.no_grad():
+        w7 = conv7.Conv_stem.kernel.permute(2, 3, 1, 0)  # [7, 7, 3, out]
+        w8 = torch.zeros((8, 8, 3, w7.shape[-1]), device=w7.device)
+        w8[:7, :7] = w7
+        wp = w8.reshape(4, 2, 4, 2, 3, -1).permute(0, 2, 1, 3, 4, 5).reshape(4, 4, 12, -1)
+        s2d.Conv_stem.kernel.copy_(wp.permute(3, 2, 0, 1))
+        images = torch.randn((8, 224, 224, 3), generator=torch.Generator(device=DEVICE)
+                             .manual_seed(11), device=DEVICE)
+        err = rel_err(s2d(images), conv7(images))
+    log(f"phase 9a space_to_depth: {record}; logits vs conv7 (float32, mapped kernel) rel "
+        f"{err:.2e} (tol {TOL_S2D})")
+    if not err <= TOL_S2D:
+        fail(f"space_to_depth logits differ from conv7's with the kernel mapped: {err}")
+    return {"record": record, "logits_rel_err_vs_conv7": err, "tolerance": TOL_S2D,
+            "losses": [l.item() for l in losses]}
+
+
+def cut_models(torch):
+    """Phase 9b's models as (name, factory(device), batch on the CPU, input
+    key, tolerance): each at the reference's widths, cut as the docstring
+    says."""
+    import dataclasses as dc
+
+    from k8s_device_plugin_tpu_torch.models.alexnet import AlexNet
+    from k8s_device_plugin_tpu_torch.models.bert import Bert, BertConfig
+    from k8s_device_plugin_tpu_torch.models.data import (
+        synthetic_image_batch,
+        synthetic_token_batch,
+    )
+    from k8s_device_plugin_tpu_torch.models.resnet import ResNet18Thin
+    from k8s_device_plugin_tpu_torch.models.vit import ViT, ViTConfig
+
+    f32 = torch.float32
+    vit = ViTConfig(image_size=128, patch_size=8, num_layers=2, dtype=f32)
+    bert = dc.replace(BertConfig.base(), num_layers=2, dtype=f32)
+    gen = torch.Generator().manual_seed(12)
+    return (
+        ("resnet18thin", lambda d: ResNet18Thin(num_classes=1000, dtype=f32, norm_dtype=f32,
+                                                device=d, seed=13),
+         synthetic_image_batch(8, 64, 1000, generator=gen), "images", TOL_TRAIN_CONV),
+        ("alexnet_w0.125", lambda d: AlexNet(1000, f32, width=0.125, image_size=224, device=d,
+                                             seed=14),
+         synthetic_image_batch(8, 224, 1000, generator=gen), "images", TOL_TRAIN_CONV),
+        ("vit_2l_128px_p8", lambda d: ViT(vit, device=d, seed=15),
+         synthetic_image_batch(2, 128, 1000, generator=gen), "images", TOL_TRAIN),
+        ("bert_2l_s128", lambda d: Bert(bert, device=d, seed=16),
+         synthetic_token_batch(2, 128, bert.vocab_size, generator=gen), "input_ids", TOL_TRAIN),
+    )
+
+
+def check_models_card_vs_cpu(torch, fa, train) -> dict:
+    """Phase 9b: one float32 train step of each cut model on the card and
+    on the CPU from the same weights, batch and dropout keys (step 0's)."""
+    out = {}
+    for name, make, batch, key, tol in cut_models(torch):
+        cpu_model = make("cpu")
+        weights = {k: v.clone() for k, v in cpu_model.state_dict().items()}
+        result = {}
+        for device in (DEVICE, "cpu"):
+            model = cpu_model if device == "cpu" else make(device)
+            model.load_state_dict(weights)
+            state = train.state_for(model, 0.1, 0.9)
+            fa.reset_launches()
+            state, loss = train.make_train_step(input_key=key)(
+                state, {k: v.to(device) for k, v in batch.items()})
+            result[device] = loss.item(), {k: v.cpu() for k, v in model.state_dict().items()}
+            if device == DEVICE:
+                launches, by_design = flash_launches(fa)
+                n = model.config.num_layers if key == "input_ids" or name.startswith("vit") else 0
+                # float32 runs the FMA kernels 2, 3 and 4, never the tensor-core ones.
+                for kernel, counts in by_design.items():
+                    expect_designs(counts, "fma", n, f"{name}'s float32 step's {kernel} kernel")
+        (card_loss, card_sd), (cpu_loss, cpu_sd) = result[DEVICE], result["cpu"]
+        loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+        errs = {k: (card_sd[k] - cpu_sd[k]).abs().max().item() for k in cpu_sd}
+        worst = max(errs, key=errs.get)
+        stats = [k for k in cpu_sd if k.endswith((".mean", ".var"))]
+        row = {"loss_card": card_loss, "loss_cpu": cpu_loss, "loss_rel_err": loss_rel,
+               "param_max_abs_err": max(v for k, v in errs.items() if k not in stats),
+               "batch_stats_max_abs_err": max((errs[k] for k in stats), default=None),
+               "worst_leaf": worst, "tolerance": tol, "flash_launches_by_design": by_design}
+        log(f"phase 9b {name} fp32 step card vs CPU: {row}")
+        if not (loss_rel <= tol and errs[worst] <= tol):
+            fail(f"{name} train step card vs CPU: loss rel {loss_rel}, {worst} {errs[worst]} "
+                 f"(tol {tol})")
+        out[name] = row
+    return out
+
+
+def check_resume(torch, bench) -> dict:
+    """Phase 9c: ResNet18Thin trained to step 4 with saves every 2 steps,
+    then resumed to 6, through the benchmark's run; the state restored
+    from step 4 must equal the state saved there, bit for bit."""
+    from k8s_device_plugin_tpu_torch.models.checkpoint import CheckpointManager
+    from k8s_device_plugin_tpu_torch.models.resnet import ResNet18Thin
+    from k8s_device_plugin_tpu_torch.models.train import state_for
+
+    ckpt = "build/checkpoints/resnet18thin"
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+    def args(*extra):
+        return bench.parse_args(["--model=resnet50", "--batch-size=8", "--image-size=64",
+                                 "--warmup=1", "--checkpoint-every=2", f"--checkpoint-dir={ckpt}",
+                                 "--dtype=bfloat16", f"--device={DEVICE}", *extra])
+
+    def model():
+        return ResNet18Thin(num_classes=1000, device=DEVICE, seed=17)
+
+    first, saved = bench.run(args("--steps=4"), model())
+    restored = CheckpointManager(ckpt).restore(state_for(model(), 0.1, 0.9), 4)
+    torch.cuda.synchronize()
+    if restored.step != saved.step:
+        fail(f"restored step {restored.step}, saved {saved.step}")
+    a, b = saved.model.state_dict(), restored.model.state_dict()
+    unequal = [k for k in a if not torch.equal(a[k], b[k])]
+    for (name, p), q in zip(saved.model.named_parameters(), restored.model.parameters()):
+        if not torch.equal(saved.optimizer.state[p]["momentum_buffer"],
+                           restored.optimizer.state[q]["momentum_buffer"]):
+            unequal.append(f"{name} momentum")
+    if unequal:
+        fail(f"the restored state differs from the saved one at {unequal[:5]}")
+    second, final = bench.run(args("--resume", "--steps=6"), model())
+    report = {"first": first, "resumed": second, "steps_on_disk": CheckpointManager(ckpt).steps(),
+              "tensors_compared": len(a) + len(list(saved.model.parameters()))}
+    log(f"phase 9c resume: {report}")
+    if (second["resumed_from"], second["final_step"], second["noop"]) != (4, 6, False):
+        fail(f"resume: resumed_from {second['resumed_from']}, final_step {second['final_step']}")
+    if not all(math.isfinite(r["final_loss"]) for r in (first, second)):
+        fail(f"resume: loss not finite: {first['final_loss']}, {second['final_loss']}")
+    return report
+
+
+# Phase 9d's shapes (b, h, s, d): ViT-B/16 at 256 px, batch 64; BERT-base at
+# seq 384, batch 32; one kv head per head, non-causal.
+NONCAUSAL_SHAPES = {"vit": (64, 12, 256, 64), "bert": (32, 12, 384, 64)}
+
+
+# SDPA's backends, each timed alone at phase 9d's shapes.
+SDPA_BACKENDS = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION")
+
+
+def sdpa_backward_kernels(torch, q, k, v, dout, what: str, iters: int = 10) -> dict:
+    """SDPA's non-causal backward on these inputs: device time per call and
+    the kernels the profiler saw (each with its time per call), under the
+    backend SDPA picks by itself ("default", measured first and again
+    last, "default_again") and under each of SDPA_BACKENDS alone
+    ("refused" where it does not take the inputs).  Phase 9d records which
+    kernels the yardstick ran and whether its reading holds in one run."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from k8s_device_plugin_tpu_torch.decode_profile import profiled_call
+
+    def measure(fn) -> dict:
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        try:
+            stats = profiled_call(fn, iters, name_chars=200)
+        except RuntimeError as err:
+            fail(f"{what}: {err}")
+        return {"ms": stats["device_us"] / iters / 1e3,
+                "kernels": [{"kernel": t["kernel"], "us": t["us"] / iters,
+                             "calls": t["calls"] / iters} for t in stats["top"][:6]]}
+
+    out = {"default": measure(sdpa_backward(torch, q, k, v, dout, causal=False))}
+    for name in SDPA_BACKENDS:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            out[name.lower()] = {"ms": None, "refused": "not in this PyTorch"}
+            continue
+        try:
+            with sdpa_kernel(backend):
+                fn = sdpa_backward(torch, q, k, v, dout, causal=False)
+        except RuntimeError as err:
+            out[name.lower()] = {"ms": None, "refused": str(err).splitlines()[0][:160]}
+            continue
+        out[name.lower()] = measure(fn)
+    out["default_again"] = measure(sdpa_backward(torch, q, k, v, dout, causal=False))
+    return out
+
+
+def time_noncausal(torch, fa) -> dict:
+    """Phase 9d: kernels 2-4 at the ViT and BERT training shapes, held
+    against their plain versions and timed (CUDA graph replay; the
+    backward kernels also by profiler, beside SDPA's backward) with SDPA's
+    forward and backward as yardsticks.  Returns {"forward"|"dq"|"dkv":
+    {model: entry}}."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {"forward": {}, "dq": {}, "dkv": {}}
+    for model, (B, H, S, D) in NONCAUSAL_SHAPES.items():
+        q, k, v, dout = (torch.randn((B, H, S, D), generator=gen, device=dev).bfloat16()
+                         for _ in range(4))
+        shape = f"b{B} h{H} hk{H} s{S} d{D} non-causal bfloat16"
+        opts = dict(causal=False, sm_scale=D ** -0.5, window=None)
+        fa.reset_launches()
+        o, lse = fa.flash_forward(q, k, v)
+        expect_designs(fa.flash_attention.launches_by_design, "wgmma", 1, f"forward at {shape}")
+        ref, _ = fa.flash_attention_reference(q, k, v, block_kv=128, **opts)
+        fwd_err = (o.float() - ref.float()).abs().max().item()
+        dq, delta = fa.launch_dq(q, k, v, o, lse, dout, **opts)
+        got = (dq, *fa.launch_dkv(q, k, v, lse, delta, dout, **opts))
+        want = fa.flash_attention_backward_reference(q, k, v, o, lse, dout, block_kv=128, **opts)
+        rels = [rel_err(g, w) for g, w in zip(got, want)]
+        log(f"phase 9d {shape}: forward max_abs_err {fwd_err:.3e} (tol {TOL_BF16}); backward "
+            f"rel {rels} (tol {TOL_BWD_BF16})")
+        if not (fwd_err <= TOL_BF16 and max(rels) <= TOL_BWD_BF16):
+            fail(f"kernels 2-4 at {shape}: forward {fwd_err}, backward {rels}")
+        pairs = B * H * S * S
+        size = q.element_size()
+        row, vec = B * H * S * D * size, B * H * S * 4
+        sdpa_fwd = sdpa_forward(torch, q, k, v, causal=False)
+        sdpa_bwd = sdpa_backward_kernels(torch, q, k, v, dout, f"SDPA's backward ({shape})")
+        log(f"phase 9d SDPA backward at {shape}: {sdpa_bwd}")
+        calls = {
+            # kernel 2 reads q, k, v and writes o, lse: 4 d flops a pair
+            "forward": (lambda: fa.flash_forward(q, k, v), 4 * row + vec, 4 * D * pairs),
+            # kernel 3 reads q, dO, O, lse, k, v and writes dq, D: 6 d flops a pair
+            "dq": (lambda: fa.launch_dq(q, k, v, o, lse, dout, **opts), 6 * row + 2 * vec,
+                   6 * D * pairs),
+            # kernel 4 reads q, dO, lse, D, k, v and writes dk, dv: 8 d flops a pair
+            "dkv": (lambda: fa.launch_dkv(q, k, v, lse, delta, dout, **opts), 6 * row + 2 * vec,
+                    8 * D * pairs),
+        }
+        plain_fwd_ms, _ = time_ms(lambda: fa.flash_attention_reference(q, k, v, block_kv=128,
+                                                                        **opts), iters=5, warmup=2)
+        plain_bwd_ms, _ = time_ms(lambda: fa.flash_attention_backward_reference(
+            q, k, v, o, lse, dout, block_kv=128, **opts), iters=5, warmup=2)
+        for kernel, (call, nbytes, flops) in calls.items():
+            ms, eager = time_ms(call, iters=20)
+            b_ms, b_by = bound(nbytes, flops, BF16_FLOPS)
+            entry = {"shape": shape, "ms": ms, "eager_ms": eager, "bound_ms": b_ms,
+                     "bound_by": b_by, "bytes": nbytes, "flops": flops,
+                     "max_err": fwd_err if kernel == "forward" else max(rels)}
+            if kernel == "forward":
+                entry.update(plain_ms=plain_fwd_ms, library_ms=time_ms(sdpa_fwd, iters=20)[0],
+                             library_note="SDPA forward, non-causal, CUDA graph replay")
+            else:
+                entry.update(profiled_ms=profiled_ms(torch, call, f"{kernel} ({shape})"),
+                             plain_ms=plain_bwd_ms,
+                             plain_note="the plain backward computes dq, dk and dv together",
+                             library_ms=sdpa_bwd["default"]["ms"],
+                             library_kernels=[t["kernel"] for t in sdpa_bwd["default"]["kernels"]],
+                             library_by_backend={name: run["ms"] for name, run in sdpa_bwd.items()
+                                                 if name != "default"},
+                             library_note="SDPA backward as it dispatches by itself (profiler "
+                                          "device time; compare with the dq and dk/dv rows' "
+                                          "profiled_ms summed); library_kernels are the "
+                                          "kernels it ran, library_by_backend each backend "
+                                          "alone (null: refused) and the default again, "
+                                          "last")
+            out[kernel][model] = entry
+            log(f"phase 9d {kernel} at {shape}: {ms:.4f} ms (bound {b_ms:.4f} {b_by}), "
+                f"library {entry['library_ms']:.4f}, plain {entry['plain_ms']:.3f}")
+    return out
+
+
+def run_phase_9(torch, fa, pa, bench, train, smi, mark) -> tuple[dict, dict]:
+    """Phases 9a-9d; returns (the train_models line, 9d's kernel entries)."""
+    models = {}
+    for model, flags, source in TRAIN_MODELS:
+        models[model] = train_model(torch, fa, pa, bench, model, flags, source)
+        torch.cuda.empty_cache()
+    models["resnet50_space_to_depth"] = check_space_to_depth(torch, bench)
+    torch.cuda.empty_cache()
+    mark("9a_models")
+    card_vs_cpu = check_models_card_vs_cpu(torch, fa, train)
+    mark("9b_card_vs_cpu")
+    resume = check_resume(torch, bench)
+    mark("9c_resume")
+    timed = time_noncausal(torch, fa)
+    mark("9d_timings")
+    line = {"models": models, "card_vs_cpu": card_vs_cpu, "resume": resume,
+            "noncausal_kernels": timed, "card": smi}
+    return line, timed
 
 
 # ------------------------------------------------- phases 4h, 5b and 4i
@@ -2116,7 +2541,8 @@ def round_costs(torch, eng) -> dict:
                                             "bf16 target step", iters=5, warmup=2),
             "verify_pass": profiled_ms(torch, lambda: eng.model(block, block_pos, cache=eng.cache),
                                        "verify pass", iters=5, warmup=2),
-            "round": profiled_ms(torch, lambda: eng._spec_body(False), "greedy round", iters=5, warmup=2),
+            "round": profiled_ms(torch, lambda: eng._spec_body(False), "greedy round", iters=5,
+                                 warmup=2, whole=False),
         }
     eng._repair_seq_lens()
     log(f"phase 4h round pieces (device ms, {slots} slots, gamma {gamma}): {out}")
@@ -2637,6 +3063,18 @@ def main() -> None:
     dkv["launches"] = launches["flash_attention_bwd_dkv"]
     trained["card_vs_cpu"] = check_train_parity(torch, fa, tf, train, data)
     mark("8_training")
+    train_models, noncausal = run_phase_9(torch, fa, pa, bench, train, smi, mark)
+    for row, kernel in ((flash, "forward"), (dq, "dq"), (dkv, "dkv")):
+        for model in FLASH_MODELS:
+            run = train_models["models"][model]
+            launched = run["launches"][row["name"]]
+            per_step = launched / run["steps_run"]
+            if per_step != run["attention_layers"]:
+                fail(f"{model} launched {row['name']} {per_step} times a step, not once for "
+                     f"each of its {run['attention_layers']} layers")
+            row[f"{model}_noncausal"] = noncausal[kernel][model]
+            row[f"{model}_train_launches"] = launched
+            row[f"{model}_launches_per_step"] = per_step
     # The FMA variants run on float32 inputs only: their launches are phase
     # 8's, the float32 train step's.
     fma_launches = trained["card_vs_cpu"]["launches_by_design"]
@@ -2662,6 +3100,7 @@ def main() -> None:
                       "restored_pages": restored, "card": smi}), flush=True)
     print(json.dumps({"spec_lora": {"speculation": speculation, "dense_speculation": dense_spec,
                                     "multi_lora": multi_lora}, "card": smi}), flush=True)
+    print(json.dumps({"train_models": train_models}), flush=True)
     print(json.dumps({"phase_seconds": phase_s, "total_s": time.perf_counter() - t0,
                       "card": smi}), flush=True)
     print(json.dumps({

@@ -33,6 +33,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+from typing import Optional
 
 import torch
 
@@ -51,8 +52,9 @@ def _is_device(evt) -> bool:
     return getattr(evt, "device_type", None) == torch.autograd.DeviceType.CUDA
 
 
-def trace_stats(prof, top: int = 12) -> dict:
-    """Device time, busy share and top kernels of one profiled window."""
+def trace_stats(prof, top: Optional[int] = 12, name_chars: int = 90) -> dict:
+    """Device time, busy share and the ``top`` kernels (None: every one;
+    names cut to ``name_chars``) of one profiled window."""
     events = list(prof.events())
     # Device events other than kernels: user annotations (e.g. the
     # optimizer's step range) also land on the device timeline.
@@ -86,7 +88,7 @@ def trace_stats(prof, top: int = 12) -> dict:
         "busy_share": busy / (hi - lo) if hi > lo else None,
         "trace_span_us": hi - lo,
         "top": [
-            {"kernel": name[:90], "us": us, "calls": n, "share": us / total}
+            {"kernel": name[:name_chars], "us": us, "calls": n, "share": us / total}
             for name, (us, n) in ranked
         ],
     }
@@ -95,8 +97,9 @@ def trace_stats(prof, top: int = 12) -> dict:
 def profile_decode(steps: int, engine_args: tuple = ()) -> dict:
     """One profiled window of ``steps`` engine steps in pure decode (the
     ``decode`` measurement of the module note), the engine built from
-    WIDTH_ARGS plus ``engine_args``."""
-    from torch.profiler import ProfilerActivity, profile
+    WIDTH_ARGS plus ``engine_args``.  The window follows one untraced
+    warm-up step (``profiled_call``'s reason)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     args = engine_mod.parse_args(WIDTH_ARGS + ["--device=cuda", *engine_args])
     eng = engine_mod.build_engine(args)
@@ -106,17 +109,24 @@ def profile_decode(steps: int, engine_args: tuple = ()) -> dict:
     reqs = [eng.submit(p, n) for p, n in jobs]
     while not all(eng._slot_ready[s] for s in range(eng.max_slots)):
         eng.step()
-    for _ in range(3):
+    for _ in range(2):
         eng.step()
     torch.cuda.synchronize()
-    pa.reset_launches()
-    emitted = sum(len(r.tokens) for r in reqs)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    traced = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: traced.append(trace_stats(p))) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+        prof.step()
+        pa.reset_launches()
+        emitted = sum(len(r.tokens) for r in reqs)
         t0 = time.perf_counter()
         for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        prof.step()
     tokens = sum(len(r.tokens) for r in reqs) - emitted
     launches = dict(pa.paged_attention.launches_by_format)
     emitted = sum(len(r.tokens) for r in reqs)
@@ -128,7 +138,8 @@ def profile_decode(steps: int, engine_args: tuple = ()) -> dict:
     plain_tokens = sum(len(r.tokens) for r in reqs) - emitted
     while not all(r.done for r in reqs):
         eng.step()
-    stats = trace_stats(prof)
+    stats = traced[0] if traced else {"device_us": None, "busy_share": None, "top": [],
+                                      "note": "no window traced"}
     device_ms = None if stats["device_us"] is None else stats["device_us"] / 1e3
     stats.update(
         flags=list(engine_args),
@@ -177,27 +188,49 @@ def decode_inputs(kv_format: str = "f", dtype=torch.bfloat16, seed: int = 0, dev
     return dict(inputs, pool_k=pk, pool_v=pv, scale_k=sk, scale_v=sv)
 
 
-# Profiler windows tried before profiled_device_us gives up on a call.
-PROFILE_WINDOWS = 3
+# Profiler windows tried before profiled_call gives up on a call.
+PROFILE_WINDOWS = 5
 
 
-def profiled_device_us(call, iters: int) -> float:
-    """Device time per call of ``call`` (already warm): its kernels' time
-    summed under torch.profiler over ``iters`` calls.  A window in which
-    the profiler traced no device event at all (it happens now and then on
-    a sandboxed card) is profiled again, up to :data:`PROFILE_WINDOWS`
-    times; then it raises RuntimeError."""
-    from torch.profiler import ProfilerActivity, profile
+def profiled_call(call, iters: int, whole: bool = True, name_chars: int = 90,
+                  cpu: bool = False) -> dict:
+    """``trace_stats`` (every kernel listed) of ``iters`` calls of ``call``
+    (already warm) under torch.profiler (tracing the host too if ``cpu``).  Each window first runs the calls
+    once untraced by the profiler's own warm-up step: a window traced from
+    its first call may miss the launches of its first calls.  A window
+    that traced no device event, or (``whole``: ``call`` launches the same
+    kernels each time) one in which a kernel's count is not a multiple of
+    ``iters``, is profiled again, up to :data:`PROFILE_WINDOWS` times; then
+    it raises RuntimeError."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    counts = None
     for _ in range(PROFILE_WINDOWS):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                call()
-            torch.cuda.synchronize()
-        device_us = trace_stats(prof)["device_us"]
-        if device_us is not None:
-            return device_us / iters
-    raise RuntimeError(f"the profiler traced no device time in {PROFILE_WINDOWS} windows")
+        traced = []
+        activities = [ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]
+        with profile(activities=activities,
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: traced.append(
+                         trace_stats(p, top=None, name_chars=name_chars))) as prof:
+            for _ in range(2):
+                for _ in range(iters):
+                    call()
+                torch.cuda.synchronize()
+                prof.step()
+        if not traced or traced[0]["device_us"] is None:
+            continue
+        stats = traced[0]
+        counts = [t["calls"] for t in stats["top"]]
+        if not whole or all(n % iters == 0 for n in counts):
+            return stats
+    raise RuntimeError(f"the profiler traced no whole window of {iters} calls in "
+                       f"{PROFILE_WINDOWS} tries (last kernel counts {counts})")
+
+
+def profiled_device_us(call, iters: int, whole: bool = True) -> float:
+    """Device time per call of ``call``: its kernels' time summed over a
+    ``profiled_call`` window, over ``iters``."""
+    return profiled_call(call, iters, whole)["device_us"] / iters
 
 
 def _time_call(call, iters: int) -> dict:

@@ -1,14 +1,22 @@
-"""Parameter checkpoints for serving, over ``torch.save``.
+"""Checkpoints over ``torch.save``: train states to resume, parameters to
+serve.
 
-Counterpart of the reference's ``models/checkpoint.py`` with what a serving
-process needs: save a parameter state dict at a step, find the newest
-step, restore its parameters.  Each step is a directory ``<dir>/<step>/``
-holding ``params.pt``, the port's flat state dict under flax path names
-(``layer_0.attn.query.kernel``); a step appears whole or not at all (it is
-written under a temporary name and renamed).  The reference's directories
-are orbax's, and orbax needs JAX, so this port cannot read them: a JAX tree
-comes over through ``convert.save_flax_params``.  Resuming a train state
-(``restore(target)``) comes with the training slice.
+Counterpart of the reference's ``models/checkpoint.py``.  Each step is a
+directory ``<dir>/<step>/`` holding ``params.pt``, the flat parameter state
+dict under flax path names (``layer_0.attn.query.kernel``,
+``BottleneckBlock_3.Conv_1.kernel``), and, for a saved train state,
+``train_state.pt``: the step, the model's buffers (``batch_stats``:
+BatchNorm's ``mean``/``var``) and the SGD momentum of every parameter that
+has one.  A step appears whole or not at all (written under a temporary
+name and renamed); the newest ``max_to_keep`` steps are kept.
+``restore_params`` reads ``params.pt`` alone, so serving reads a train
+state's directory as it reads a parameter checkpoint.
+
+The reference's directories are orbax's, and orbax needs JAX, so this port
+cannot read them: a JAX tree comes over through ``convert.py``
+(``save_flax_params``, ``load_flax_train_state``).  Saves are synchronous
+(the reference's async save is orbax's mechanism; a step is durable when
+``save`` returns), so ``wait`` has nothing to wait for.
 """
 
 from __future__ import annotations
@@ -20,16 +28,25 @@ from typing import Mapping, Optional
 
 import torch
 
+from .train import TrainState
+
 PARAMS_FILE = "params.pt"
+STATE_FILE = "train_state.pt"
+
+
+def _cpu(tensors: Mapping[str, torch.Tensor]) -> dict:
+    return {name: t.detach().to("cpu").contiguous() for name, t in tensors.items()}
 
 
 class CheckpointManager:
-    """The steps under ``directory`` (created if missing).  Saves are
-    synchronous, so ``wait`` has nothing to wait for; it and ``close`` keep
-    the reference's call shape."""
+    """The steps under ``directory`` (created if missing), keeping the newest
+    ``max_to_keep``."""
 
-    def __init__(self, directory: str | os.PathLike):
+    def __init__(self, directory: str | os.PathLike, max_to_keep: int = 3):
+        if max_to_keep < 1:
+            raise ValueError(f"max_to_keep must be >= 1, got {max_to_keep}")
         self.directory = os.fspath(directory)
+        self.max_to_keep = max_to_keep
         os.makedirs(self.directory, exist_ok=True)
 
     def steps(self) -> list[int]:
@@ -44,28 +61,71 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def save(self, params: Mapping[str, torch.Tensor], step: int = 0) -> None:
-        """Write ``params`` (a flat state dict; tensors go to the CPU) as
-        ``step``, replacing a step of that number."""
+    def _resolve(self, step: Optional[int]) -> int:
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {self.directory}")
+        return step
+
+    def save(self, state: TrainState | Mapping[str, torch.Tensor], step: Optional[int] = None) -> int:
+        """Write a train state at its own step, or a flat parameter state
+        dict at ``step`` (default 0), replacing a step of that number; then
+        drop the steps past ``max_to_keep``.  Returns the step written."""
+        if isinstance(state, TrainState):
+            step = state.step if step is None else step
+            model = state.model
+            params = dict(model.named_parameters())
+            momentum = {}
+            for name, p in params.items():
+                buf = state.optimizer.state.get(p, {}).get("momentum_buffer")
+                if buf is not None:
+                    momentum[name] = buf
+            extra = {"step": int(step), "batch_stats": _cpu(dict(model.named_buffers())),
+                     "momentum": _cpu(momentum)}
+        else:
+            params, extra = state, None
+            step = 0 if step is None else step
         final = os.path.join(self.directory, str(int(step)))
         tmp = tempfile.mkdtemp(prefix=f".{int(step)}.", dir=self.directory)
         try:
-            state = {name: t.detach().to("cpu").contiguous() for name, t in params.items()}
-            torch.save(state, os.path.join(tmp, PARAMS_FILE))
+            torch.save(_cpu(params), os.path.join(tmp, PARAMS_FILE))
+            if extra is not None:
+                torch.save(extra, os.path.join(tmp, STATE_FILE))
             if os.path.exists(final):
                 shutil.rmtree(final)
             os.replace(tmp, final)
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
+        for old in self.steps()[: -self.max_to_keep]:
+            shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
+        return int(step)
+
+    def restore(self, target: TrainState, step: Optional[int] = None) -> TrainState:
+        """Load ``step`` (default: the newest) into ``target`` in place, on
+        its model's device: parameters, buffers, momentum and the step
+        counter.  Returns ``target``."""
+        step = self._resolve(step)
+        path = os.path.join(self.directory, str(step))
+        if not os.path.isfile(os.path.join(path, STATE_FILE)):
+            raise FileNotFoundError(f"step {step} under {self.directory} holds parameters only, "
+                                    "not a train state")
+        saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
+        model = target.model
+        model.load_state_dict({**self.restore_params(step), **saved["batch_stats"]})
+        for name, p in model.named_parameters():
+            if name in saved["momentum"]:
+                buf = saved["momentum"][name].to(p.device)
+                target.optimizer.state[p]["momentum_buffer"] = buf
+            else:
+                target.optimizer.state.pop(p, None)
+        target.step = int(saved["step"])
+        return target
 
     def restore_params(self, step: Optional[int] = None) -> dict:
         """The parameter state dict of ``step`` (default: the newest), on
         the CPU."""
-        step = self.latest_step() if step is None else step
-        if step is None:
-            raise FileNotFoundError(f"no checkpoints under {self.directory}")
-        path = os.path.join(self.directory, str(step), PARAMS_FILE)
+        path = os.path.join(self.directory, str(self._resolve(step)), PARAMS_FILE)
         return torch.load(path, map_location="cpu", weights_only=True)
 
     def wait(self) -> None:
@@ -79,3 +139,16 @@ class CheckpointManager:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def save_once(directory: str | os.PathLike, state: TrainState) -> None:
+    """One-shot save keeping only this step (benchmark/export convenience)."""
+    with CheckpointManager(directory, max_to_keep=1) as mgr:
+        mgr.save(state)
+
+
+def restore_latest(directory: str | os.PathLike, target: TrainState) -> TrainState:
+    """One-shot restore of the newest step under ``directory`` into
+    ``target``."""
+    with CheckpointManager(directory) as mgr:
+        return mgr.restore(target)

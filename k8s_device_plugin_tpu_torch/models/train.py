@@ -1,4 +1,4 @@
-"""Decoder-LM training steps (the reference's ``models/train.py``).
+"""Training steps for every trained model (the reference's ``models/train.py``).
 
 The reference builds pure functions for XLA (state in, state out); here a
 step updates the :class:`TrainState`'s model and optimizer in place, since
@@ -7,40 +7,80 @@ The optimizer is ``torch.optim.SGD(lr, momentum, dampening=0,
 nesterov=False)``, the same update as ``optax.sgd(lr, momentum)``: a trace
 t = g + momentum * t from zero, then p -= lr * t.
 
-Not ported here: BatchNorm state (the image models' slice) and the MoE
-auxiliary loss (the MoE slice).
+BatchNorm state lives in the model's buffers (``TrainState.batch_stats``
+reads them): a training forward updates them, an eval forward reads them
+and changes nothing.  Models whose ``forward`` takes ``train`` (the image
+models; not BERT or the LM) get it, as the reference's
+``_takes_train_kwarg``; those that also take ``dropout_rng`` get the step's
+dropout key, the reference's: ``fold_in(PRNGKey(0), step)``, and under
+``grad_accum`` microbatch i's ``fold_in(that, i)``, as two ints
+(``utils/prng.fold_in_words``).
+
+Not ported here: the MoE auxiliary loss and LoRA training (``lora_labels``,
+``make_lora_tx``), ROADMAP.md queue 1.
 """
 
 from __future__ import annotations
 
+import inspect
 from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+from torch import nn
 
 from ..ops.fused_xent import fused_linear_xent
+from ..utils import prng
 from .transformer import GPTConfig, TransformerLM
 
 
 @dataclass
 class TrainState:
-    """Steps taken, the training model (float32 parameters) and its
-    optimizer."""
+    """Steps taken, the training model (float32 parameters, BatchNorm
+    statistics as its buffers) and its optimizer."""
 
     step: int
-    model: TransformerLM
+    model: nn.Module
     optimizer: torch.optim.Optimizer
+
+    @property
+    def batch_stats(self) -> dict:
+        """The model's running statistics by flax path
+        (``BatchNorm_0.mean``); empty for a model without BatchNorm."""
+        return dict(self.model.named_buffers())
+
+
+def state_for(model: nn.Module, lr: float = 0.1, momentum: float = 0.9) -> TrainState:
+    """A train state at step 0 over ``model`` (float32 parameters) with
+    zero momentum."""
+    opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=momentum, dampening=0,
+                          nesterov=False)
+    return TrainState(step=0, model=model, optimizer=opt)
 
 
 def create_train_state(config: GPTConfig, params: dict, lr: float = 0.1, momentum: float = 0.9,
                        *, device=None) -> TrainState:
-    """A training model loaded from ``params`` (a state dict: ``init_params``
-    or ``convert.flax_to_state_dict``) with zero momentum."""
+    """An LM training model loaded from ``params`` (a state dict:
+    ``init_params`` or ``convert.flax_to_state_dict``) with zero momentum."""
     model = TransformerLM(config, device=device, train=True)
     model.load_state_dict(params)
-    opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=momentum, dampening=0,
-                          nesterov=False)
-    return TrainState(step=0, model=model, optimizer=opt)
+    return state_for(model, lr, momentum)
+
+
+def _forward_args(model: nn.Module) -> set:
+    return set(inspect.signature(type(model).forward).parameters)
+
+
+def _apply(model: nn.Module, x, train: bool, key_words: Optional[tuple]):
+    """The model's output on ``x``, with ``train`` (and ``dropout_rng``)
+    where its forward takes them."""
+    args = _forward_args(model)
+    kwargs = {}
+    if "train" in args:
+        kwargs["train"] = train
+    if "dropout_rng" in args:
+        kwargs["dropout_rng"] = key_words
+    return model(x, **kwargs)
 
 
 def softmax_xent(logits, labels):
@@ -50,12 +90,17 @@ def softmax_xent(logits, labels):
     )
 
 
-def make_train_step(aux_loss_coeff: float = 0.0, grad_accum: int = 1) -> Callable:
+def make_train_step(aux_loss_coeff: float = 0.0, grad_accum: int = 1,
+                    input_key: str = "input_ids") -> Callable:
     """``(state, batch) -> (state, loss)``: forward, backward, one
-    optimizer update.  ``grad_accum > 1`` splits the batch into that many
-    microbatches and averages their float32 gradients before the one
-    update (the reference's scanned step; activation memory of one
-    microbatch).  The batch's leading dim must divide evenly."""
+    optimizer update; the model reads ``batch[input_key]`` ("images" for
+    the image models, the reference's default; "input_ids" for BERT and the
+    LM, this module's default).  ``grad_accum > 1`` splits the batch into
+    that many microbatches and averages their float32 gradients before the
+    one update (the reference's scanned step; activation memory of one
+    microbatch); BatchNorm statistics carry from one microbatch to the next,
+    as the reference's scan carries them.  The batch's leading dim must
+    divide evenly."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if aux_loss_coeff > 0.0:
@@ -64,10 +109,11 @@ def make_train_step(aux_loss_coeff: float = 0.0, grad_accum: int = 1) -> Callabl
         )
 
     def train_step(state: TrainState, batch: dict):
-        x, y = batch["input_ids"], batch["labels"]
+        x, y = batch[input_key], batch["labels"]
+        root = prng.fold_in_words((0, 0), state.step)  # fold_in(PRNGKey(0), step)
         state.optimizer.zero_grad(set_to_none=True)
         if grad_accum == 1:
-            loss = softmax_xent(state.model(x), y)
+            loss = softmax_xent(_apply(state.model, x, True, root), y)
             loss.backward()
         else:
             if x.shape[0] % grad_accum:
@@ -75,8 +121,9 @@ def make_train_step(aux_loss_coeff: float = 0.0, grad_accum: int = 1) -> Callabl
                     f"batch size {x.shape[0]} is not divisible by grad_accum {grad_accum}"
                 )
             loss = torch.zeros((), device=x.device)
-            for xm, ym in zip(x.chunk(grad_accum), y.chunk(grad_accum)):
-                loss_i = softmax_xent(state.model(xm), ym)
+            for i, (xm, ym) in enumerate(zip(x.chunk(grad_accum), y.chunk(grad_accum))):
+                key_i = prng.fold_in_words(root, i)
+                loss_i = softmax_xent(_apply(state.model, xm, True, key_i), ym)
                 loss_i.backward()  # float32 parameters: the grads sum in float32
                 loss = loss + loss_i.detach()
             for p in state.model.parameters():
@@ -114,11 +161,12 @@ def make_fused_lm_train_step(chunk: Optional[int] = None) -> Callable:
     return train_step
 
 
-def make_eval_step() -> Callable:
-    """``(state, batch) -> logits`` without gradients."""
+def make_eval_step(input_key: str = "input_ids") -> Callable:
+    """``(state, batch) -> logits`` without gradients; BatchNorm normalizes
+    with the running averages and leaves them as they are."""
 
     def eval_step(state: TrainState, batch: dict):
         with torch.no_grad():
-            return state.model(batch["input_ids"])
+            return _apply(state.model, batch[input_key], False, None)
 
     return eval_step

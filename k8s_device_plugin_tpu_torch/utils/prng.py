@@ -19,9 +19,16 @@ Partitionable layout: the hash of element i of a shape (row-major) takes
 the 64-bit counter i as its two words (high, low), and 32-bit random bits
 are the two output words xor-ed; ``split(key, n)`` takes the two output
 words of counter i as new key i.
+
+A training step's keys are host data (the step counter, a module's name):
+:func:`fold_in_words` and :func:`fold_in_static` derive them as two Python
+ints with no tensor operation, and :func:`key_tensor` makes the key of a
+draw on the device where the draw runs.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -83,6 +90,37 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return torch.stack([b1, b2])
 
 
+def fold_in_words(words: tuple[int, int], data: int) -> tuple[int, int]:
+    """``jax.random.fold_in`` on a key held as its two words in Python ints
+    (``PRNGKey(0)`` is (0, 0)): the same hash as :func:`fold_in`, on the
+    host."""
+    return threefry2x32(int(words[0]), int(words[1]), 0, int(data) & _M32)
+
+
+def fold_in_static(words: tuple[int, int], data: tuple) -> tuple[int, int]:
+    """flax's ``_fold_in_static(rng, data)`` (flax 0.12.3, with
+    ``flax_fix_rng_separator`` off, its default): the SHA-1 of ``data``'s
+    items one after the other, strings as UTF-8 and ints as their
+    big-endian bytes (the fewest that hold them), no separator; the first
+    4 digest bytes, big-endian, folded in.  ``make_rng("dropout")`` in a
+    module named ``Dropout_1`` is ``fold_in_static(root, ("Dropout_1",
+    1))``: the path, then the call's counter."""
+    if not data:
+        return tuple(words)
+    digest = hashlib.sha1()
+    for item in data:
+        if isinstance(item, str):
+            digest.update(item.encode("utf-8"))
+        else:
+            digest.update(int(item).to_bytes((int(item).bit_length() + 7) // 8, "big"))
+    return fold_in_words(words, int.from_bytes(digest.digest()[:4], "big"))
+
+
+def key_tensor(words: tuple[int, int], device=None) -> torch.Tensor:
+    """The key ``words`` as the int64 [2] tensor the draws take."""
+    return torch.tensor([int(words[0]), int(words[1])], dtype=torch.int64, device=device)
+
+
 def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 values in [0, 2^32)."""
     shape = tuple(shape)
@@ -109,6 +147,12 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) 
     lo = float(np.float32(minval))
     scale = float(np.float32(maxval) - np.float32(minval))
     return (floats.double() * scale + lo).float().clamp_min(lo)
+
+
+def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``:
+    float32 uniform draws below ``p``."""
+    return uniform(key, shape) < float(np.float32(p))
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:

@@ -26,6 +26,13 @@ _active_traces = 0
 _active_lock = threading.Lock()
 
 
+def default_trace_dir(environ=None) -> Optional[str]:
+    """The conventional trace-dir env (TPU_PLUGIN_TRACE_DIR), as the
+    reference reads it."""
+    environ = os.environ if environ is None else environ
+    return environ.get("TPU_PLUGIN_TRACE_DIR") or None
+
+
 def trace_active() -> bool:
     """True while a trace started via :func:`trace` runs."""
     return _active_traces > 0

@@ -552,3 +552,93 @@ def test_cuda_spec_round_replays_across_rewinds(dev, sampled):
         assert pa.paged_attention.launches_by_format["f"] == cfg.num_layers * 3 * eng.spec_rounds
         assert eng.spec_rounds > 1 and (eng.graph_replays > 0) is graphs
     assert streams[True] == streams[False]
+
+
+def _image_batch(n, size, seed=0):
+    rs = np.random.RandomState(seed)
+    return {"images": torch.from_numpy(rs.randn(n, size, size, 3).astype(np.float32)),
+            "labels": torch.from_numpy(rs.randint(0, 10, size=n)).long()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["resnet", "alexnet", "vit"])
+def test_cuda_image_model_step_equals_the_cpu_step(dev, name):
+    """One float32 train step (TF32 off) of each image model, card against
+    CPU from the same weights, batch and dropout keys: loss and every
+    parameter and statistic within 1e-4 (cuDNN's sum order over a conv's
+    k*k*C terms, through BatchNorm's 1/std).  ViT at 256 tokens runs the
+    FMA variants of kernels 2-4, 2 layers x 1 step each."""
+    from k8s_device_plugin_tpu_torch.models import alexnet, resnet, train, vit
+    from k8s_device_plugin_tpu_torch.utils.device import fp32_reference_precision
+
+    fp32_reference_precision()
+    f32 = torch.float32
+    makers = {
+        "resnet": (lambda d: resnet.ResNet18Thin(num_classes=10, dtype=f32, norm_dtype=f32,
+                                                 device=d), 32),
+        "alexnet": (lambda d: alexnet.AlexNet(10, f32, width=0.125, image_size=128, device=d),
+                    128),
+        "vit": (lambda d: vit.ViT(vit.ViTConfig(image_size=64, patch_size=4, num_classes=10,
+                                                hidden_size=128, num_layers=2, num_heads=2,
+                                                intermediate_size=256, dtype=f32), device=d), 64),
+    }
+    make, size = makers[name]
+    batch = _image_batch(8, size)
+    cpu = make("cpu")
+    card = make(dev)
+    card.load_state_dict(cpu.state_dict())
+    results = []
+    for model, device in ((card, dev), (cpu, torch.device("cpu"))):
+        state = train.state_for(model)
+        fa.reset_launches()
+        _, loss = train.make_train_step(input_key="images")(
+            state, {k: v.to(device) for k, v in batch.items()})
+        if device.type == "cuda":
+            n = 2 if name == "vit" else 0
+            assert fa.flash_attention.launches_by_design == {"wgmma": 0, "fma": n}
+            assert fa.flash_backward.dq_launches_by_design == {"wgmma": 0, "fma": n}
+            assert fa.flash_backward.dkv_launches_by_design == {"wgmma": 0, "fma": n}
+        results.append((loss.item(), {k: v.cpu() for k, v in model.state_dict().items()}))
+    (card_loss, card_sd), (cpu_loss, cpu_sd) = results
+    assert abs(card_loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+    for k in cpu_sd:
+        torch.testing.assert_close(card_sd[k], cpu_sd[k], rtol=0, atol=1e-4, msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_bert_bf16_step_runs_kernels_2_to_4_non_causal(dev):
+    """BERT's flash route on the card: one bf16 step launches the wgmma
+    variants of kernels 2, 3 and 4 once per layer; with an attention mask
+    it takes the plain route and launches none."""
+    from k8s_device_plugin_tpu_torch.models import bert, train
+
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=128, num_layers=3, num_heads=2,
+                          intermediate_size=256, max_position=256)
+    model = bert.Bert(cfg, device=dev)
+    ids = torch.randint(0, 512, (2, 256), device=dev)
+    fa.reset_launches()
+    _, loss = train.make_train_step()(train.state_for(model), {"input_ids": ids, "labels": ids})
+    assert torch.isfinite(loss)
+    assert fa.flash_attention.launches_by_design == {"wgmma": 3, "fma": 0}
+    assert fa.flash_backward.dq_launches_by_design == {"wgmma": 3, "fma": 0}
+    assert fa.flash_backward.dkv_launches_by_design == {"wgmma": 3, "fma": 0}
+    fa.reset_launches()
+    with torch.no_grad():
+        model(ids, attention_mask=torch.ones_like(ids))
+    assert fa.flash_attention.launches == 0
+    with pytest.raises(ValueError, match="head_dim"):
+        bert.Bert(bert.BertConfig(hidden_size=100, num_heads=2, num_layers=1), device=dev)
+
+
+@pytest.mark.cuda
+def test_cuda_prefetch_lands_batches_on_the_card(dev):
+    from k8s_device_plugin_tpu_torch.models import input_pipeline
+    from k8s_device_plugin_tpu_torch.utils.platform import peak_bf16_flops
+
+    batches = [{"x": np.full((4, 1024), i, np.float32)} for i in range(6)]
+    got = list(input_pipeline.prefetch_to_device(iter(batches), size=2, device=dev))
+    assert [int(b["x"][0, 0].item()) for b in got] == list(range(6))
+    assert all(b["x"].device.type == "cuda" for b in got)
+    name = torch.cuda.get_device_name(dev)
+    if "H100 80GB HBM3" in name:
+        assert peak_bf16_flops(dev) == 989e12

@@ -236,6 +236,7 @@ def test_benchmark_cli_trains_on_the_cpu(capsys, extra):
     assert np.isfinite(record["final_loss"]) and record["final_loss"] < np.log(VOCAB)
 
 
-def test_benchmark_refuses_fused_xent_with_grad_accum():
+def test_benchmark_refuses_fused_xent_with_grad_accum(capsys):
     with pytest.raises(SystemExit):
-        tbench.parse_args(["--fused-xent", "--grad-accum=2"])
+        tbench.parse_args(["--model=gpt", "--fused-xent", "--grad-accum=2"])
+    assert "--grad-accum does not combine with --fused-xent" in capsys.readouterr().err
