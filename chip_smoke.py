@@ -49,7 +49,9 @@ Phases, in order (any failure exits non-zero):
    32000, hidden 1024, 8 layers, 16 heads / 4 kv heads, page 16, 512 pages,
    32 pages per sequence, 8 slots; 32 requests, prompt 128, 128 new
    tokens, greedy), decode block 1, synchronous and eager (``--overlap-steps
-   0 --cuda-graphs 0``), with the launch counters set to 0 just before and
+   0 --cuda-graphs 0``; phases 4, 4b, 4d and 4h run the batch engine with
+   ``--overload=0 --slo=0``, without the overload limiter and the SLO plane
+   that its CLI turns on by default), with the launch counters set to 0 just before and
    read just after: the paged-decode kernel must have launched (float
    pools) once per layer on every dispatched step;
 4b. the same engine run with the deployed pod's ``--quant=w8``, then with
@@ -174,7 +176,37 @@ Phases, in order (any failure exits non-zero):
    equal bit for bit to the state that was saved;
 9d. kernels 2-4 non-causal at the ViT shape (b64 h12 s256 d64) and the BERT
    shape (b32 h12 s384 d64), held against their plain versions and timed
-   beside SDPA's forward and backward.
+   beside SDPA's forward and backward;
+10a. ``benchmark.py --model serving`` at the reference's defaults (full-width
+   ``gpt_config``: vocab 32000, hidden 1024, 8 layers, 16/4 heads,
+   intermediate 2816, bf16; 4 slots, 16 requests, prompt 64, 128 new, the
+   kernels phase on), the launch counters set to 0 just before: the paged
+   kernel must launch once per layer on every step both engines dispatched
+   (the main one and the disagg phase's decode role), beside the kernels
+   phase's own launches; the overlapped greedy streams must equal the
+   synchronous ones, tracing on equal tracing off; each kernels-phase shape
+   must hold the kernel arm and its one-split arm against the gather arm
+   (TOL_F32 for float32 queries, TOL_BF16 for bf16 ones over bf16, int8 and
+   int4 pools); the disagg tokens must match; restart and elastic must
+   restore entries; the record's keys must be the reference's, null exactly
+   for ``tp`` and the router-side blocks; then kernel 1 is held against its
+   plain version at the engines' own geometry (4 rows, 12 pages a row, the
+   tuned splits, lens 65..192, bf16) within TOL_BF16;
+10b. ``benchmark.py --model gpt-decode`` at full width (batch 128, prompt 64,
+   128 new), greedy and then sampled (0.8, top-k 50): kernel 2 must launch
+   as its wgmma variant only, once per layer a generate call; every token in
+   the vocabulary; a second generate under the same key must repeat it;
+   then kernel 2 is held against its plain version at the bulk prefill's
+   shape (b128 h16 hk4 s64 d64, causal, bf16) within TOL_BF16 and TOL_LSE;
+10c. LoRA training (rank 8, alpha 16, every dense site) through the LM's
+   train step: bf16 at phase 7's configuration under AdamW, 2 warm-up and 5
+   timed steps (13 run), kernels 2-4 exactly 8 layers x 13 as their wgmma
+   variants, every loss finite, every base parameter bit for bit
+   unchanged, every ``lora_b`` moved, optimizer state for the adapters
+   alone; then one float32 step at 2 layers on the card (the FMA variants)
+   and on the CPU from the same weights: loss and parameters within
+   TOL_TRAIN, each adapter's gradient within TOL_BWD_F32 of the CPU's
+   relative to its norm.
 
 Then it prints one ``kernels`` JSON line (a row per kernel variant, each
 with its design, HGMMA count, registers and spill bytes; every number in
@@ -184,7 +216,9 @@ errors and the tiny phase 6), one
 ``quant`` JSON line, one ``train`` JSON line, one ``serve`` JSON line
 (phase 4e), one ``warm_restart`` line (phases 4f, 4g and 3d), one
 ``spec_lora`` line (phases 4h, 5b and 4i), one ``train_models`` line
-(phase 9), one ``phase_seconds`` line, and last the line
+(phase 9), one ``serving_bench``, one ``decode_bench`` and one
+``lora_train`` line (phase 10), one ``phase_seconds`` line, and last the
+line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -795,9 +829,13 @@ def run_engine(torch, engine, pa, fa, flags=(), requests: int = 32):
     return summary, launches, [r.tokens for r in done]
 
 
-SYNC_EAGER = ("--decode-block=1", "--overlap-steps=0", "--cuda-graphs=0")
+# Phases 4, 4b, 4d and 4h measure the batch engine without the overload
+# limiter and the SLO plane (the CLI's defaults since it took the
+# reference's flags); 4e's in-process twin takes the server's flags.
+NO_LIMITER = ("--overload=0", "--slo=0")
+SYNC_EAGER = ("--decode-block=1", "--overlap-steps=0", "--cuda-graphs=0", *NO_LIMITER)
 QUANT_REQUESTS = 16  # phase 4b: two waves of 8 slots, so slots free and re-admit
-BLOCKS = ("--decode-block=16", "--overlap-steps=1")  # CUDA graphs: the card's default
+BLOCKS = ("--decode-block=16", "--overlap-steps=1", *NO_LIMITER)  # graphs: the card's default
 SAMPLED = ("--temperature=0.8", "--top-k=50")
 
 
@@ -1647,7 +1685,7 @@ def run_blocks(torch, engine, pa, fa, dp, sync_tokens) -> dict:
     profiles = {}
     for name, flags, steps in (
         ("block1_sync_eager", SYNC_EAGER, 16),
-        ("block1_overlap_graphs", ("--decode-block=1", "--overlap-steps=1"), 16),
+        ("block1_overlap_graphs", ("--decode-block=1", "--overlap-steps=1", *NO_LIMITER), 16),
         ("block16_overlap_graphs", BLOCKS, 8),  # 8 blocks: 128 tokens a row, twice
     ):
         prof = dp.profile_decode(steps, flags)
@@ -2458,7 +2496,7 @@ def spec_engine_run(torch, engine, pa, flags) -> tuple:
         "--hidden=1024", "--layers=8", "--heads=16", "--kv-heads=4", "--vocab=32000",
         "--page-size=16", "--num-pages=512", "--max-pages-per-seq=32",
         f"--requests={SPEC_JOBS}", "--prompt-len=128", "--max-new=128", f"--device={DEVICE}",
-        *flags,
+        *NO_LIMITER, *flags,
     ])
     eng = engine.build_engine(args)
     pa.reset_launches()
@@ -2946,6 +2984,356 @@ def run_multi_lora(torch, tf, http_server, serve: dict) -> dict:
     return report
 
 
+# ---------------------------------------------------------------- phase 10
+
+# The reference's run_serving record (k8s_device_plugin_tpu/models/
+# benchmark.py), key for key; tests/test_torch_benchmark_serving.py holds
+# the port's to it on the CPU.
+SERVING_KEYS = (
+    "model", "chips", "slots", "requests", "prompt_len", "new_tokens", "throughput", "unit",
+    "overlap", "ttft_p50_ms", "ttft_p99_ms", "itl_p50_ms", "itl_p99_ms", "kvcache", "tp",
+    "kernels", "overload", "restart", "elastic", "disagg", "router", "fabric", "slo", "canary",
+    "autoscale", "postmortem", "trace", "spans_recorded", "profile",
+)
+# Printed null by the port on one card: tensor parallelism and the blocks
+# that drive the reference's router and controller daemons.
+SERVING_NULL = ("tp", "router", "fabric", "canary", "autoscale", "postmortem")
+# The kernels phase's arms against the gather arm: float32 shapes by sum
+# order, bf16 queries (bf16, int8 and int4 pools) by bf16 rounding, as
+# phase 3 holds the kernel against its plain version in every format.
+KERNEL_ARM_TOL = {"f32": TOL_F32, "bf16": TOL_BF16, "int8": TOL_BF16, "int4": TOL_BF16}
+LORA_RANK, LORA_ALPHA = 8, 16.0  # phase 4i's adapters' rank
+
+
+def check_engine_paged(torch, pa, tuning, cfg, slots: int, prompt_len: int,
+                       new_tokens: int) -> dict:
+    """Kernel 1 against its plain version at the serving engine's geometry
+    (``run_serving``'s page 16, ``slots`` rows, a row's pages covering
+    prompt plus new tokens, bf16 queries and pools, the tuned split count
+    the engine's default routing takes), over lens from the first decode
+    step (prompt + 1) to the last: the rows the main path's decode steps
+    give it."""
+    dev = torch.device(DEVICE)
+    page = 16
+    mpp = -(-(prompt_len + new_tokens) // page)
+    n_pages = slots * mpp + 1
+    splits = tuning.pick_num_splits(mpp, tuning.device_generation(dev))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    heads, kv_heads, head_dim = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    first, last = prompt_len + 1, prompt_len + new_tokens
+    worst = 0.0
+    for draw in range(3):
+        if draw == 0:  # both ends, a page boundary and a partial page
+            lens = [first, last, first + page * (slots // 2) - 1, (first + last) // 2][:slots]
+            lens += [last] * (slots - len(lens))
+        else:
+            lens = torch.randint(first, last + 1, (slots,), generator=gen, device=dev).tolist()
+        q = torch.randn((slots, heads, head_dim), generator=gen, device=dev).to(torch.bfloat16)
+        pools = {name: torch.randn((n_pages, page, kv_heads, head_dim), generator=gen,
+                                   device=dev).to(torch.bfloat16) for name in ("pool_k", "pool_v")}
+        table = (torch.randperm(n_pages - 1, generator=gen, device=dev) + 1)
+        table = table.reshape(slots, mpp).to(torch.int32)
+        err = hold_paged(torch, pa, q, pools, table,
+                         torch.tensor(lens, dtype=torch.int32, device=dev),
+                         window=cfg.attention_window, splits=splits, kv_format="f")
+        log(f"phase 10a kernel 1 at the engine's geometry (B{slots} H{heads} Hk{kv_heads} "
+            f"D{head_dim} page {page}, {mpp} pages a row, {splits} splits, lens {lens}): "
+            f"max_abs_err {err:.3e} (tol {TOL_BF16})")
+        if not err <= TOL_BF16:
+            fail(f"paged_attention at the serving engine's geometry, lens {lens}: "
+                 f"{err} > {TOL_BF16}")
+        worst = max(worst, err)
+    return {"shape": f"B{slots} H{heads} Hk{kv_heads} D{head_dim} page{page} mpp{mpp} "
+                     f"splits{splits} lens{first}..{last} bf16 q and pools",
+            "max_abs_err": worst, "tolerance": TOL_BF16}
+
+
+def run_serving_bench(torch, bench, pa, fa, tuning) -> dict:
+    """Phase 10a: ``benchmark.py --model serving`` at the reference's
+    defaults on the card (full-width ``gpt_config``, bf16, 4 slots, 16
+    requests, prompt 64, 128 new, the kernels phase on), the launch
+    counters set to 0 just before the call; then kernel 1 against its
+    plain version at the engines' geometry (``check_engine_paged``)."""
+    args = bench.parse_args(["--model=serving", f"--device={DEVICE}"])
+    pa.reset_launches()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    run = bench.run_serving(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(pa.paged_attention.launches_by_format)
+    record, extras = run.record, run.extras
+    log(f"phase 10a serving benchmark ({wall:.1f}s): {json.dumps(record)}; device steps "
+        f"{extras['device_steps']}, graphs {extras['graphs']}, paged launches {launches}")
+    if tuple(record) != SERVING_KEYS:
+        fail(f"the serving record's keys {list(record)} are not the reference's")
+    if tuple(k for k, v in record.items() if v is None) != SERVING_NULL:
+        fail(f"the serving record's null blocks are not {SERVING_NULL}")
+    kernels = extras["kernels"]
+    steps = extras["device_steps"]
+    layers = bench.gpt_config(args).num_layers
+    engine_launches = {fmt: n - kernels["launches"][fmt] for fmt, n in launches.items()}
+    # Once per layer on every dispatched step of both engines (the main one
+    # and the disagg phase's decode role), bf16 pools only.
+    want = layers * (steps["main"] + steps["disagg_decode"])
+    if engine_launches != {"f": want, "int8": 0, "int4": 0}:
+        fail(f"the serving engines launched the paged kernel {engine_launches} times over "
+             f"{steps} dispatched steps of {layers} layers, not {want} (bf16 pools)")
+    if extras["graphs"]["timed"] != extras["graphs"]["warmup"]:
+        fail(f"the timed runs dispatched shapes the warm-up did not: {extras['graphs']}")
+    done = [list(r.tokens) for r in run.done]
+    if len(done) != args.requests or any(len(t) != args.decode_tokens for t in done):
+        fail(f"the serving run did not return {args.requests} requests of "
+             f"{args.decode_tokens} tokens")
+    if any(not 0 <= t < 32000 for tokens in done for t in tokens):
+        fail("the serving run emitted a token id outside the vocabulary")
+    if extras["sync_tokens"] != done:
+        fail(f"overlapped greedy streams differ from the synchronous ones at "
+             f"{first_difference(done, extras['sync_tokens'])}")
+    if extras["trace_on_tokens"] != extras["trace_off_tokens"]:
+        fail(f"greedy streams with tracing on differ from tracing off at "
+             f"{first_difference(extras['trace_on_tokens'], extras['trace_off_tokens'])}")
+    arms = {}
+    for name, row in record["kernels"]["shapes"].items():
+        held, tol = kernels[name], KERNEL_ARM_TOL[row["fmt"]]
+        arms[name] = {"kernel": held["kernel_err"], "single": held["single_err"], "tol": tol}
+        if not (held["kernel_err"] <= tol and held["single_err"] <= tol):
+            fail(f"kernels phase {name}: kernel {held['kernel_err']}, one split "
+                 f"{held['single_err']} from the gather arm (tol {tol})")
+    if not record["disagg"]["disagg"]["tokens_match"]:
+        fail(f"the disagg decode engine's tokens differ from the unified engine's: "
+             f"{record['disagg']}")
+    if record["restart"].get("entries_loaded", 0) <= 0 or \
+            record["elastic"].get("entries_restored", 0) <= 0:
+        fail(f"restart / elastic restored no entry: {record['restart']}, {record['elastic']}")
+    held = check_engine_paged(torch, pa, tuning, bench.gpt_config(args), args.slots,
+                              args.prompt_len, args.decode_tokens)
+    return {"record": record, "wall_s": wall, "paged_launches": launches,
+            "engine_paged_launches": engine_launches["f"],
+            "kernels_phase_launches": kernels["launches"], "device_steps": steps,
+            "arm_errors": arms, "engine_geometry_kernel": held}
+
+
+def run_decode_bench(torch, tf, bench, fa, dp) -> dict:
+    """Phase 10b: ``benchmark.py --model gpt-decode`` at full width and the
+    reference's defaults (batch 128, prompt 64, 128 new), greedy, then
+    sampled at 0.8 and top-k 50.  Kernel 2 (the bulk prefill) must launch
+    as its wgmma variant only, once per layer a generate call: run_decode
+    makes two warm-up calls and measure_two_point's three.  Then one more
+    generate under the profiler: device time a step against the record's
+    wall time a step.  Last, kernel 2 against its plain version at the bulk
+    prefill's shape (bf16, batch x 16 heads over 4 KV heads, prompt-long,
+    64 wide, causal)."""
+    from k8s_device_plugin_tpu_torch.utils import prng
+
+    out, streams = {}, {}
+    for name, flags in (("greedy", ()), ("sampled", SAMPLED)):
+        args = bench.parse_args(["--model=gpt-decode", "--batch-size=128", f"--device={DEVICE}",
+                                 *flags])
+        cfg = bench.gpt_config(args)
+        fa.reset_launches()
+        record, tokens = bench.run_decode(args)
+        torch.cuda.synchronize()
+        by_design = dict(fa.flash_attention.launches_by_design)
+        calls = 5 if args.decode_tokens > 1 else 1
+        expect_designs(by_design, "wgmma", cfg.num_layers * calls,
+                       f"gpt-decode {name}'s bulk prefill")
+        shape = (args.batch_size, args.prompt_len + args.decode_tokens)
+        if tuple(tokens.shape) != shape:
+            fail(f"gpt-decode {name} returned {tuple(tokens.shape)}, not {shape}")
+        if int(tokens.min()) < 0 or int(tokens.max()) >= cfg.vocab_size:
+            fail(f"gpt-decode {name} emitted a token id outside the vocabulary")
+        # The same weights, prompt and key once more: the stream repeats.
+        params = {k: v.to(DEVICE) for k, v in tf.init_params(cfg, 0).items()}
+        prompt = tokens[:, : args.prompt_len]
+
+        def generate():
+            if args.temperature is None:
+                return tf.greedy_generate(cfg, params, prompt, args.decode_tokens, device=DEVICE)
+            return tf.sample_generate(cfg, params, prompt, args.decode_tokens,
+                                      rng=prng.PRNGKey(1), temperature=args.temperature,
+                                      top_k=args.top_k, device=DEVICE)
+
+        if not torch.equal(generate(), tokens):
+            fail(f"gpt-decode {name}: a second generate under the same key differs")
+        streams[name] = tokens
+        try:
+            prof = dp.profiled_call(generate, 1)
+        except RuntimeError as err:
+            fail(f"gpt-decode {name} profile: {err}")
+        out[name] = {"record": record, "flash_launches": by_design["wgmma"],
+                     "launches_by_design": by_design, "generate_calls": calls,
+                     "profiled_generate": {
+                         "device_ms": prof["device_us"] / 1e3,
+                         "device_ms_per_step": prof["device_us"] / 1e3 / args.decode_tokens,
+                         "busy_share": prof["busy_share"],
+                         "kernels": sum(row["calls"] for row in prof["top"]),
+                         "top": prof["top"][:8]}}
+        log(f"phase 10b gpt-decode {name}: {record}; flash launches {by_design}")
+    if torch.equal(streams["greedy"], streams["sampled"]):
+        fail("the sampled gpt-decode run returned the greedy tokens")
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    b, s, d = args.batch_size, args.prompt_len, cfg.head_dim
+    q = torch.randn((b, cfg.num_heads, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, cfg.kv_heads, s, d), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    fa.reset_launches()
+    got, lse = fa.flash_forward(q, k, v, causal=True, window=cfg.attention_window)
+    expect_designs(fa.flash_attention.launches_by_design, "wgmma", 1,
+                   "flash_forward at the bulk prefill's shape")
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True, sm_scale=d ** -0.5,
+                                                window=cfg.attention_window, block_kv=128)
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    lerr = (lse - ref_lse).abs().max().item()
+    shape = f"b{b} h{cfg.num_heads} hk{cfg.kv_heads} s{s} d{d} causal bfloat16"
+    log(f"phase 10b kernel 2 at the bulk prefill's shape ({shape}): max_abs_err {err:.3e} "
+        f"(tol {TOL_BF16}), lse {lerr:.3e} (tol {TOL_LSE})")
+    if not (err <= TOL_BF16 and lerr <= TOL_LSE):
+        fail(f"flash_forward at the bulk prefill's shape {shape}: out {err}, lse {lerr}")
+    return {"runs": out, "prefill_kernel": {"shape": shape, "max_abs_err": err,
+                                            "lse_max_abs_err": lerr, "tolerance": TOL_BF16,
+                                            "lse_tolerance": TOL_LSE}}
+
+
+def run_lora_training(torch, tf, train, lora, data, bench, fa, smi) -> dict:
+    """Phase 10c: LoRA training (rank 8, alpha 16) through the LM's train
+    step.  bf16 at phase 7's configuration under AdamW (1e-3, weight decay
+    1e-4), 2 warm-up and 5 timed steps: kernels 2-4 exactly layers x steps
+    run, wgmma only; every loss finite; then one profiled step (after a
+    warm-up step); every base parameter bit for bit unchanged, every
+    ``lora_b`` moved; optimizer state for the adapters only.  Then float32
+    at 2 layers, one step (SGD 0.1, momentum 0.9, a seeded non-zero
+    ``lora_b`` so both adapters see gradients) on the card (the FMA
+    variants) and on the CPU from the same weights: loss and parameters
+    within TOL_TRAIN, and each adapter's gradient within TOL_BWD_F32 of the
+    CPU's relative to its norm (the base frozen, kernels 3-4 reach the
+    parameters only through the adapters' lr x gradient, which the
+    absolute check alone would pass for small updates)."""
+    import functools
+
+    cfg = tf.GPTConfig(
+        vocab_size=32000, hidden_size=1024, num_layers=8, num_heads=16, num_kv_heads=4,
+        intermediate_size=2816, max_seq=1024, dtype=torch.bfloat16, lora_rank=LORA_RANK,
+        lora_alpha=LORA_ALPHA,
+    )
+    batch = data.synthetic_lm_batch(8, 1024, cfg.vocab_size,
+                                    generator=torch.Generator(device=DEVICE).manual_seed(0),
+                                    device=DEVICE)
+    adamw = functools.partial(torch.optim.AdamW, lr=1e-3, weight_decay=1e-4)
+    state = train.create_train_state(cfg, tf.init_params(cfg, 0), tx=lora.make_lora_tx(adamw),
+                                     device=DEVICE)
+    named = dict(state.model.named_parameters())
+    labels = lora.lora_labels(named)
+    before = {n: p.detach().clone() for n, p in named.items()}
+    fa.reset_launches()
+    state, losses, dt = bench.timed_steps(train.make_train_step(), state, batch, 2, 5)
+    torch.cuda.synchronize()
+    launches, by_design = flash_launches(fa)
+    n = cfg.num_layers * state.step
+    for name, count in launches.items():
+        if count != n:
+            fail(f"LoRA training launched {name} {count} times, not {cfg.num_layers} x "
+                 f"{state.step} steps")
+    for kernel, counts in by_design.items():
+        expect_designs(counts, "wgmma", n, f"the bf16 LoRA step's {kernel} kernel")
+    bad = [i for i, loss in enumerate(losses) if not torch.isfinite(loss).item()]
+    if bad:
+        fail(f"LoRA training loss not finite at steps {bad}")
+    steps_run = state.step
+    state, wall, stats = profiled_step(train.make_train_step(), state, batch)
+    stats["top"] = stats["top"][:12]
+    moved_base = [k for k, p in named.items() if labels[k] == "frozen"
+                  and not torch.equal(p.detach(), before[k])]
+    still_b = [k for k, p in named.items() if k.endswith(".lora_b")
+               and torch.equal(p.detach(), before[k])]
+    if moved_base or still_b:
+        fail(f"LoRA training moved base parameters {moved_base[:4]} or left lora_b "
+             f"{still_b[:4]} where it was")
+    held = {id(p) for p in state.optimizer.state}
+    adapters = {id(p) for k, p in named.items() if labels[k] == "lora"}
+    if held != adapters or not held:
+        fail(f"the LoRA optimizer holds state for {len(held)} tensors, not the "
+             f"{len(adapters)} adapters alone")
+    step_s = dt / 5
+    bf16 = {
+        "config": "vocab 32000, hidden 1024, 8 layers, 16/4 heads, intermediate 2816, bf16 "
+                  f"compute, float32 params, batch 8, seq 1024, LoRA rank {LORA_RANK} alpha "
+                  f"{LORA_ALPHA:g} on every dense site, AdamW(1e-3, weight decay 1e-4)",
+        "tokens_per_s": 8 * 1024 / step_s,
+        "step_time_ms": step_s * 1e3,
+        "steps_run": steps_run,
+        "losses": [loss.item() for loss in losses],
+        "profiled_step": {"wall_ms": wall * 1e3, **stats},
+        "adapter_tensors": len(adapters),
+        "optimizer_state_tensors": len(held),
+        "launches": launches,
+        "launches_by_design": by_design,
+    }
+    log(f"phase 10c LoRA bf16: {bf16}")
+    del state, named, before
+    torch.cuda.empty_cache()
+
+    cfg32 = dataclasses.replace(cfg, num_layers=2, max_seq=256, dtype=torch.float32)
+    params = tf.init_params(cfg32, seed=5)
+    gen = torch.Generator().manual_seed(7)
+    for name in params:
+        if name.endswith(".lora_b"):
+            params[name] = torch.randn(params[name].shape, generator=gen) * 0.05
+    batch32 = data.synthetic_lm_batch(2, 256, cfg32.vocab_size,
+                                      generator=torch.Generator().manual_seed(6), device="cpu")
+    sgd = functools.partial(torch.optim.SGD, lr=0.1, momentum=0.9)
+    result, grads = {}, {}
+    for device in (DEVICE, "cpu"):
+        st = train.create_train_state(cfg32, params, tx=lora.make_lora_tx(sgd), device=device)
+        fa.reset_launches()
+        st, loss = train.make_train_step()(st, {k: v.to(device) for k, v in batch32.items()})
+        result[device] = loss.item(), {k: v.cpu() for k, v in st.model.state_dict().items()}
+        grads[device] = {k: p.grad.cpu() for k, p in st.model.named_parameters()
+                         if p.grad is not None}
+        if device == DEVICE:
+            fma = flash_launches(fa)[1]
+            for kernel, counts in fma.items():
+                expect_designs(counts, "fma", cfg32.num_layers,
+                               f"the float32 LoRA step's {kernel} kernel")
+    (card_loss, card_params), (cpu_loss, cpu_params) = result[DEVICE], result["cpu"]
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    param_err = max((card_params[k] - cpu_params[k]).abs().max().item() for k in cpu_params)
+    frozen_moved = [k for k in cpu_params if ".lora_" not in k
+                    and not torch.equal(card_params[k], params[k])]
+    adapters = sorted(k for k in params if ".lora_" in k)
+    if set(grads[DEVICE]) != set(adapters) or set(grads["cpu"]) != set(adapters):
+        fail(f"the float32 LoRA step gave gradients to {sorted(grads[DEVICE])[:4]}..., not the "
+             f"{len(adapters)} adapters alone")
+    grad_rel = {k: ((grads[DEVICE][k] - grads["cpu"][k]).norm() / grads["cpu"][k].norm()).item()
+                for k in adapters}
+    worst_grad = max(grad_rel, key=grad_rel.get)
+    # The q/k/v sites' adapters: their gradients are dQ, dK and dV through
+    # the site.
+    qkv_rel = max(v for k, v in grad_rel.items() if any(f".attn.{s}." in k
+                                                        for s in ("query", "key", "value")))
+    update = max((cpu_params[k] - params[k]).abs().max().item() for k in adapters)
+    log(f"phase 10c LoRA fp32 step card vs CPU: loss {card_loss:.6f} vs {cpu_loss:.6f} (rel "
+        f"{loss_rel:.2e}), max param diff {param_err:.2e} (tol {TOL_TRAIN}) beside the largest "
+        f"adapter update {update:.2e}; adapter gradients rel {grad_rel[worst_grad]:.2e} at "
+        f"{worst_grad}, q/k/v sites {qkv_rel:.2e} (tol {TOL_BWD_F32})")
+    if not (loss_rel <= TOL_TRAIN and param_err <= TOL_TRAIN) or frozen_moved:
+        fail(f"LoRA step card vs CPU: loss rel {loss_rel}, params {param_err}, base moved "
+             f"{frozen_moved[:4]}")
+    if not grad_rel[worst_grad] <= TOL_BWD_F32:
+        fail(f"LoRA step card vs CPU: the gradient of {worst_grad} is {grad_rel[worst_grad]} "
+             f"from the CPU's relative to its norm (tol {TOL_BWD_F32})")
+    return {"bf16": bf16, "card_vs_cpu": {"loss_rel_err": loss_rel,
+                                          "param_max_abs_err": param_err,
+                                          "adapter_update_max_abs": update,
+                                          "adapter_grad_rel_err": grad_rel[worst_grad],
+                                          "adapter_grad_rel_err_at": worst_grad,
+                                          "qkv_adapter_grad_rel_err": qkv_rel,
+                                          "grad_tolerance": TOL_BWD_F32,
+                                          "launches_by_design": fma}, "card": smi}
+
+
 def main() -> None:
     import torch
 
@@ -2955,7 +3343,7 @@ def main() -> None:
     if sys.argv[1:2] == ["--ab-tiers"]:
         ab_pairs = int(sys.argv[2]) if len(sys.argv) > 2 else 3
     from k8s_device_plugin_tpu_torch.models import benchmark as bench
-    from k8s_device_plugin_tpu_torch.models import data, engine, train
+    from k8s_device_plugin_tpu_torch.models import data, engine, lora, train
     from k8s_device_plugin_tpu_torch import decode_profile as dp
     from k8s_device_plugin_tpu_torch.models import transformer as tf
     from k8s_device_plugin_tpu_torch.ops import _build, quant, tuning
@@ -3082,6 +3470,23 @@ def main() -> None:
         row["launches"] = fma_launches[kernel]["fma"]
         row["launches_from"] = "phase 8, the float32 train step (2 layers, 1 step)"
 
+    serving_bench = run_serving_bench(torch, bench, pa, fa, tuning)
+    mark("10a_serving_bench")
+    decode_bench = run_decode_bench(torch, tf, bench, fa, dp)
+    mark("10b_decode_bench")
+    lora_train = run_lora_training(torch, tf, train, lora, data, bench, fa, smi)
+    mark("10c_lora_train")
+    paged["f"]["serving_bench_launches"] = serving_bench["engine_paged_launches"]
+    for fmt, row in paged.items():
+        row["serving_bench_kernels_phase_launches"] = serving_bench["kernels_phase_launches"][fmt]
+    flash["decode_bench_launches"] = {name: run["flash_launches"]
+                                      for name, run in decode_bench["runs"].items()}
+    for row, name in ((flash, "flash_attention"), (dq, "flash_attention_bwd_dq"),
+                      (dkv, "flash_attention_bwd_dkv")):
+        row["lora_train_launches"] = lora_train["bf16"]["launches"][name]
+    for row, kernel in ((flash_fma, "forward"), (dq_fma, "dq"), (dkv_fma, "dkv")):
+        row["lora_fp32_launches"] = lora_train["card_vs_cpu"]["launches_by_design"][kernel]["fma"]
+
     for row, name in ((paged["f"], "paged_attention"), (flash, "flash_attention"),
                       (dq, "flash_attention_bwd_dq"), (dkv, "flash_attention_bwd_dkv")):
         for D, timed in by_width.items():
@@ -3101,6 +3506,9 @@ def main() -> None:
     print(json.dumps({"spec_lora": {"speculation": speculation, "dense_speculation": dense_spec,
                                     "multi_lora": multi_lora}, "card": smi}), flush=True)
     print(json.dumps({"train_models": train_models}), flush=True)
+    print(json.dumps({"serving_bench": serving_bench, "card": smi}), flush=True)
+    print(json.dumps({"decode_bench": decode_bench, "card": smi}), flush=True)
+    print(json.dumps({"lora_train": lora_train}), flush=True)
     print(json.dumps({"phase_seconds": phase_s, "total_s": time.perf_counter() - t0,
                       "card": smi}), flush=True)
     print(json.dumps({

@@ -1,5 +1,5 @@
-"""Training benchmark (the training path of the reference's
-``models/benchmark.py``): what the training pods run.
+"""The reference's ``models/benchmark.py``: what the training pods run,
+and the inference benchmarks (``--model gpt-decode``, ``--model serving``).
 
     python -m k8s_device_plugin_tpu_torch.models.benchmark --model resnet50 \\
         --batch-size 128 --steps 5 --warmup 2
@@ -30,6 +30,23 @@ adds ``resumed_from`` and ``noop``.  ``--trace-dir`` writes a
 ``torch.profiler`` trace of the timed region.  ``--dp``, ``--mp`` and
 ``--pp`` are taken at their one-card values only (ROADMAP.md queue 1 item
 7 ports the parallel layers).
+
+The inference modes print the reference's records, key for key::
+
+    python -m k8s_device_plugin_tpu_torch.models.benchmark --model serving
+    python -m k8s_device_plugin_tpu_torch.models.benchmark --model gpt-decode \
+        --batch-size 128 [--temperature 0.8 --top-k 50]
+    python -m k8s_device_plugin_tpu_torch.models.benchmark --model serving --tiny \
+        --device cpu --dtype float32 --router-replicas 0 --requests 8 --slots 4 \
+        --prompt-len 16 --decode-tokens 48
+    python -m k8s_device_plugin_tpu_torch.models.benchmark --model gpt-decode --tiny \
+        --device cpu --dtype float32 --batch-size 2 --prompt-len 4 --decode-tokens 8
+
+``gpt-decode`` times ``greedy_generate`` (``sample_generate`` under
+``--temperature``) two-point, as the reference; ``serving`` runs the
+engine's phases (``run_serving``) and prints ``tp`` and the router-side
+blocks null: those phases drive the reference's router and controller
+daemons, which this package does not import (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -45,7 +62,7 @@ import torch
 from torch import nn
 
 from ..utils import tracing
-from ..utils.device import resolve_device
+from ..utils.device import fp32_reference_precision, resolve_device
 from .data import synthetic_image_batch, synthetic_lm_batch, synthetic_token_batch
 from .train import (
     TrainState,
@@ -57,7 +74,7 @@ from .train import (
 from .transformer import GPTConfig, init_params
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-MODELS = ("alexnet", "resnet50", "vit", "bert", "gpt")
+MODELS = ("alexnet", "resnet50", "vit", "bert", "gpt", "gpt-decode", "serving")
 TOKEN_MODELS = ("bert", "gpt")
 
 
@@ -70,6 +87,13 @@ def _positive_int(text: str) -> int:
     if value < 1:
         raise argparse.ArgumentTypeError(f"must be >= 1, got {value}")
     return value
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for the device (the reference's ``_sync``: every timed region
+    ends here).  The CPU runs eagerly and has nothing to wait for."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def measure_two_point(run_small, run_big, n_delta: int, n_big: int):
@@ -147,13 +171,15 @@ def checkpointed_steps(step, state, batch, target_steps: int, ckpt, every: int,
 
 
 def gpt_config(args) -> GPTConfig:
-    """The reference's ``_gpt_config`` in ``--dtype``."""
+    """The reference's ``_gpt_config`` in ``--dtype``: room for the
+    training sequence and for a prompt plus its decoded tokens."""
     dtype = DTYPES[args.dtype]
     if args.tiny:
         return dataclasses.replace(GPTConfig.tiny(), dtype=dtype)
     return GPTConfig(
         vocab_size=32000, hidden_size=1024, num_layers=8, num_heads=16, num_kv_heads=4,
-        intermediate_size=2816, max_seq=args.seq_len, dtype=dtype,
+        intermediate_size=2816, max_seq=max(args.seq_len, args.prompt_len + args.decode_tokens),
+        dtype=dtype,
     )
 
 
@@ -175,7 +201,27 @@ def parse_args(argv=None):
                    "the [batch, seq, vocab] logits tensor never exists")
     p.add_argument("--grad-accum", type=_positive_int, default=1,
                    help="microbatches per optimizer step (the batch must divide evenly)")
-    p.add_argument("--tiny", action="store_true", help="tiny model config (CPU smoke; gpt and vit)")
+    p.add_argument("--prompt-len", type=_positive_int, default=64,
+                   help="gpt-decode/serving prompt")
+    p.add_argument("--decode-tokens", type=_positive_int, default=128,
+                   help="gpt-decode/serving new tokens")
+    p.add_argument("--slots", type=_positive_int, default=4,
+                   help="serving: engine decode slots (continuous-batching width)")
+    p.add_argument("--requests", type=_positive_int, default=16,
+                   help="serving: synthetic requests pushed through the engine")
+    p.add_argument("--kernel", action=argparse.BooleanOptionalAction, default=True,
+                   help="serving: run the KERNELS phase (the paged-attention kernel against "
+                   "the engine's gather path and the kernel at one split, per shape and KV "
+                   "format; --no-kernel skips it)")
+    p.add_argument("--router-replicas", type=int, default=2,
+                   help="serving: replicas of the reference's ROUTER phase; the port runs no "
+                   "router-side phase (its blocks print null) and takes the flag for the "
+                   "reference's command lines")
+    p.add_argument("--temperature", type=float, default=None,
+                   help="gpt-decode: sample with this temperature instead of greedy argmax")
+    p.add_argument("--top-k", type=_positive_int, default=None,
+                   help="gpt-decode: restrict sampling to the k highest logits")
+    p.add_argument("--tiny", action="store_true", help="tiny model config (CPU smoke; gpt, gpt-decode, serving and vit)")
     p.add_argument("--trace-dir", default=tracing.default_trace_dir(),
                    help="write a torch.profiler trace of the timed region here")
     p.add_argument("--checkpoint-dir", default="",
@@ -194,6 +240,9 @@ def parse_args(argv=None):
         p.error("--fused-xent requires --model gpt")
     if args.fused_xent and args.grad_accum > 1:
         p.error("--grad-accum does not combine with --fused-xent (as in the reference)")
+    if args.model == "gpt-decode" and args.grad_accum > 1:
+        p.error("--grad-accum applies to training; gpt-decode does not train (as in the "
+                "reference)")
     if args.batch_size % args.grad_accum:
         p.error(f"--batch-size {args.batch_size} is not divisible by --grad-accum "
                 f"{args.grad_accum}")
@@ -332,8 +381,906 @@ def run(args, model: Optional[nn.Module] = None) -> tuple[dict, TrainState]:
     return record, state
 
 
+# ------------------------------------------------------------- inference modes
+
+
+def run_decode(args, params: Optional[dict] = None) -> tuple[dict, torch.Tensor]:
+    """Autoregressive decode throughput (tokens/sec) through the KV cache,
+    the reference's ``run_decode``: ``greedy_generate`` (``sample_generate``
+    under ``--temperature``, key ``PRNGKey(1)``) at ``gpt_config`` on a
+    seeded [batch, prompt_len] prompt.  Two-point timing: a 1-token
+    generate covers the constant costs (the bulk prefill, launches, the
+    sync); the full one adds exactly ``decode_tokens - 1`` decode steps.
+    ``params`` (a state dict) stands in for ``init_params(cfg, 0)``.
+    Returns (the reference's record, the last full generate's tokens)."""
+    from ..utils import prng
+    from .transformer import greedy_generate, sample_generate
+
+    device = resolve_device(args.device)
+    fp32_reference_precision()
+    cfg = gpt_config(args)
+    gen = torch.Generator().manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch_size, args.prompt_len),
+                           generator=gen).to(device)
+    # On the device once: each generate loads its model from these.
+    params = {name: t.to(device) for name, t in
+              (init_params(cfg, 0) if params is None else params).items()}
+    if args.temperature is None:
+        def generate(n):
+            return greedy_generate(cfg, params, prompt, n, device=device)
+    else:
+        key = prng.PRNGKey(1)
+
+        def generate(n):
+            return sample_generate(cfg, params, prompt, n, rng=key, temperature=args.temperature,
+                                   top_k=args.top_k, device=device)
+    held = {}
+
+    def run_n(n):
+        held["out"] = generate(n)
+        _sync(device)
+
+    two_point = args.decode_tokens > 1
+    full_steps = args.decode_tokens
+    t0 = time.perf_counter()
+    if two_point:
+        run_n(1)
+    run_n(args.decode_tokens)
+    log(f"decode first runs (kernel builds, warm-up) {time.perf_counter() - t0:.1f}s")
+    with tracing.trace(args.trace_dir):
+        if two_point:
+            dt, fell_back = measure_two_point(lambda: run_n(1), lambda: run_n(args.decode_tokens),
+                                              args.decode_tokens - 1, full_steps)
+            if fell_back:
+                log("decode delta below noise floor; reporting single-point")
+                two_point = False
+                dt = dt * full_steps / (args.decode_tokens - 1)
+        else:
+            t0 = time.perf_counter()
+            run_n(args.decode_tokens)
+            dt = time.perf_counter() - t0
+    steps = args.decode_tokens - 1 if two_point else full_steps
+    record = {
+        "model": "gpt-decode",
+        "sampler": "greedy" if args.temperature is None
+        else f"temperature={args.temperature},top_k={args.top_k}",
+        "chips": 1,
+        "batch": args.batch_size,
+        "prompt_len": args.prompt_len,
+        "new_tokens": args.decode_tokens,
+        "steps": steps,
+        "throughput": round(args.batch_size * steps / dt, 2),
+        "unit": "decoded tokens/sec (two-point, prefill+overhead excluded)" if two_point
+        else "generated tokens/sec (incl. prefill cost)",
+        "ms_per_token": round(dt / steps * 1e3, 3),
+    }
+    return record, held["out"]
+
+
+# The reference's fleet-side blocks: they run its router/ and controller/
+# daemons, which this package does not import; the port prints them null.
+ROUTER_SIDE_BLOCKS = ("router", "fabric", "canary", "autoscale", "postmortem")
+
+
+class ServingRun(NamedTuple):
+    """What ``run_serving`` measured: the reference's record, the finished
+    requests of the timed overlapped run, and what a caller checks beyond
+    the record (``extras``: each engine's dispatched device steps, the
+    paged-kernel launches and the arms' errors of the kernels phase, the
+    dispatch shapes seen after the warm-up and after the timed runs, and
+    the greedy streams of the synchronous run and of tracing off and on)."""
+
+    record: dict
+    done: list
+    extras: dict
+
+
+def _ttfts(reqs) -> list:
+    return sorted(r.first_token_at - r.submitted_at for r in reqs if r.first_token_at)
+
+
+def _q(sorted_vals, q: float):
+    """The reference's index quantile of an ascending list (None if empty)."""
+    if not sorted_vals:
+        return None
+    return sorted_vals[min(int(q * len(sorted_vals)), len(sorted_vals) - 1)]
+
+
+def _ms(value):
+    return None if value is None else round(value * 1e3, 3)
+
+
+# (name, batch, heads, kv_heads, head_dim, page_size, pages, fill, fmt): the
+# reference's kernels-phase shapes; fill < 1 leaves a partial last page.
+KERNEL_SHAPES = (
+    ("b4_gqa_f32", 4, 8, 4, 64, 16, 8, 0.75, "f32"),
+    ("b2_mqa_long_f32", 2, 16, 2, 64, 16, 32, 0.4, "f32"),
+    ("b4_gqa_bf16", 4, 8, 4, 64, 16, 8, 0.75, "bf16"),
+    ("b4_gqa_int8", 4, 8, 4, 64, 16, 8, 0.75, "int8"),
+    ("b4_gqa_int4", 4, 8, 4, 64, 16, 8, 0.75, "int4"),
+)
+
+
+def _run_kernels_phase(args) -> tuple[Optional[dict], Optional[dict]]:
+    """KERNELS phase, the reference's per-shape ledger: three arms on the
+    same inputs, per shape and KV format.
+
+    - **kernel**: ``ops.paged_attention`` through its default routing (the
+      CUDA kernel on the card, its plain version on the CPU) with the split
+      count ``ops/tuning.py`` picks for the device;
+    - **gather**: the engine's gather-path math from ``transformer.py``
+      (the [max_len] view gathered through the table and dequantized, then
+      ``cached_group_attention``);
+    - **single**: the kernel forced to one split.
+
+    Every arm is warmed twice, then timed as the minimum over N calls, each
+    ended by a device sync: wall milliseconds of a synced call, launch and
+    sync included, not replayed device time.  Returns the ``kernels``
+    block and, for a caller that holds the arms, per shape each arm's max
+    |arm - gather| and the paged-kernel launches the phase made (both None
+    under ``--no-kernel``)."""
+    if not args.kernel:
+        return None, None
+    import zlib
+
+    from ..ops import paged_attention as pa
+    from ..ops import tuning
+    from ..ops.quant import quantize_kv, quantize_kv4
+    from .transformer import cached_group_attention, gather_pages
+
+    device = resolve_device(args.device)
+
+    def _time(fn, iters):
+        fn()
+        _sync(device)
+        fn()
+        _sync(device)
+        best = float("inf")
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn()
+            _sync(device)
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    generation = tuning.device_generation(device)
+    launches0 = dict(pa.paged_attention.launches_by_format)
+    rows: dict[str, dict] = {}
+    held: dict = {}
+    for name, batch, heads, kv_heads, head_dim, ps, pages, fill, fmt in KERNEL_SHAPES:
+        dt = torch.float32 if fmt == "f32" else torch.bfloat16
+        gen = torch.Generator().manual_seed(zlib.crc32(name.encode()) % (1 << 31))
+        n_pool = batch * pages + 1
+        q = torch.randn((batch, heads, head_dim), generator=gen).to(device, dt)
+        pool_k, pool_v = (torch.randn((n_pool, ps, kv_heads, head_dim), generator=gen)
+                          .to(device, dt) for _ in range(2))
+        table = (torch.arange(batch * pages, dtype=torch.int32).reshape(batch, pages) + 1
+                 ).to(device)
+        max_len = pages * ps
+        lens = torch.tensor([max(1, int(max_len * fill) - 3 * i) for i in range(batch)],
+                            dtype=torch.int32, device=device)
+        sk = sv = None
+        if fmt in ("int8", "int4"):
+            quantize = quantize_kv if fmt == "int8" else quantize_kv4
+            (pool_k, sk), (pool_v, sv) = quantize(pool_k), quantize(pool_v)
+        splits = tuning.pick_num_splits(pages, generation)
+        quant_kw = {"scale_k": sk, "scale_v": sv} if sk is not None else {}
+
+        def kernel():
+            return pa.paged_attention(q, pool_k, pool_v, table, lens, **quant_kw)
+
+        def single():
+            return pa.paged_attention(q, pool_k, pool_v, table, lens, num_splits=1, **quant_kw)
+
+        def gather():
+            int4 = fmt == "int4"
+            positions = (lens.long() - 1)[:, None]
+            out = cached_group_attention(q[:, None], gather_pages(pool_k, sk, table, dt, int4=int4),
+                                         gather_pages(pool_v, sv, table, dt, int4=int4),
+                                         positions, None, heads)
+            return out.reshape(batch, heads, head_dim)
+
+        kernel_ms = _time(kernel, iters=7)
+        gather_ms = _time(gather, iters=7)
+        single_ms = _time(single, iters=2)
+        want = gather().float()
+        held[name] = {
+            "fmt": fmt,
+            "kernel_err": (kernel().float() - want).abs().max().item(),
+            "single_err": (single().float() - want).abs().max().item(),
+        }
+        rows[name] = {
+            "fmt": fmt,
+            "batch": batch,
+            "heads": heads,
+            "kv_heads": kv_heads,
+            "head_dim": head_dim,
+            "page_size": ps,
+            "pages": pages,
+            "splits": splits,
+            "kernel_ms": round(kernel_ms, 4),
+            "gather_ms": round(gather_ms, 4),
+            "single_ms": round(single_ms, 4),
+            "kernel_vs_gather": round(gather_ms / kernel_ms, 3),
+            "single_vs_gather": round(gather_ms / single_ms, 3),
+        }
+        log(f"  kernels {name:<16} {fmt:<5} S={splits} kernel {kernel_ms:.3f}ms gather "
+            f"{gather_ms:.3f}ms single {single_ms:.3f}ms -> {gather_ms / kernel_ms:.2f}x gather "
+            "(min wall ms of a synced call)")
+    held["launches"] = {fmt: n - launches0[fmt]
+                        for fmt, n in pa.paged_attention.launches_by_format.items()}
+    min_ratio = min(r["kernel_vs_gather"] for r in rows.values())
+    int8_vs_bf16 = round(rows["b4_gqa_bf16"]["kernel_ms"] / rows["b4_gqa_int8"]["kernel_ms"], 3)
+    log(f"perf-ledger row: | KERNELS split-K paged attention ({len(rows)} shapes) | kernel vs "
+        f"gather min {min_ratio:.2f}x (int8 vs bf16 {int8_vs_bf16}x; splits from {generation} "
+        "row) | - | `benchmark.py --model serving --kernel` | update on bench round |")
+    return {
+        "generation": generation,
+        "shapes": rows,
+        "min_kernel_vs_gather": min_ratio,
+        "int8_vs_bf16": int8_vs_bf16,
+    }, held
+
+
+def _job_prompt(eng, args, i: int) -> list:
+    """The phases' prompt ``i`` (the main jobs' shape)."""
+    return [(13 * i + j) % eng.cfg.vocab_size for j in range(args.prompt_len)]
+
+
+def _run_overload_phase(eng, args, baseline_tps: float) -> dict:
+    """OVERLOAD phase: a 2x sustained storm of mixed priorities through the
+    same engine with an overload controller installed (submit-side shedding
+    off, so the shed ledger isolates the deadline path).  High-priority
+    TTFT p99 unloaded against during the storm, the goodput ratio (tokens
+    inside their deadline over all emitted), the sheds, and whether the
+    sheds returned every page (``pool_exact``).  The storm sizes itself
+    from the measured decode rate: low-priority deadlines are half its
+    expected drain, so its tail must shed."""
+    from .engine_overload import OverloadConfig, OverloadController
+
+    eng.overload = OverloadController(
+        eng.max_slots, OverloadConfig(target_queue_wait_s=0.25, shed_wait_factor=1e9),
+        metrics=eng.metrics, flight=eng.flight,
+    )
+    n_new = args.decode_tokens
+    # Warm the admission-burst shapes a mixed storm can hit (2- and 3-wide).
+    eng.run([(_job_prompt(eng, args, 90 + i), 2) for i in range(2)])
+    eng.run([(_job_prompt(eng, args, 94 + i), 2) for i in range(3)])
+
+    def _ttft_p99(reqs):
+        return _q(_ttfts(reqs), 0.99)
+
+    unloaded = []
+    for i in range(4):
+        unloaded += eng.run([(_job_prompt(eng, args, i), n_new)], priority=0)
+    hi_unloaded = _ttft_p99(unloaded)
+    n_hi, n_norm, n_low = eng.max_slots, 2 * eng.max_slots, 2 * eng.max_slots
+    est_drain_s = ((n_hi + n_norm + n_low) * n_new) / max(baseline_tps, 1.0)
+    low_deadline_s = max(est_drain_s / 2, 0.05)
+    goodput0, raw0 = eng.overload.goodput_tokens, eng.overload.raw_tokens
+    sheds0 = eng.overload.sheds_total
+    storm, hi_reqs = [], []
+    for i in range(n_norm):
+        storm.append(eng.submit(_job_prompt(eng, args, 10 + i), n_new, priority=1,
+                                tenant="norm"))
+    for i in range(n_low):
+        storm.append(eng.submit(_job_prompt(eng, args, 30 + i), n_new, priority=2,
+                                tenant="low", deadline_s=low_deadline_s))
+    for i in range(n_hi):
+        req = eng.submit(_job_prompt(eng, args, 50 + i), n_new, priority=0, tenant="hi")
+        storm.append(req)
+        hi_reqs.append(req)
+    t0 = time.perf_counter()
+    guard = 0
+    while not all(r.done for r in storm):
+        eng.step()
+        guard += 1
+        if guard > 200_000:
+            raise RuntimeError("overload storm failed to drain")
+    storm_s = time.perf_counter() - t0
+    hi_storm = _ttft_p99(hi_reqs)
+    sheds = eng.overload.sheds_total - sheds0
+    goodput = eng.overload.goodput_tokens - goodput0
+    raw = eng.overload.raw_tokens - raw0
+    pool_exact = (len(eng.free_pages) == eng.paged.num_pages - 1
+                  and all(s is None for s in eng.slots))
+    ratio = (hi_storm / hi_unloaded) if hi_unloaded and hi_storm else None
+    block = {
+        "storm_requests": len(storm),
+        "storm_seconds": round(storm_s, 2),
+        "low_deadline_s": round(low_deadline_s, 3),
+        "hi_ttft_p99_unloaded_ms": round(hi_unloaded * 1e3, 3) if hi_unloaded else None,
+        "hi_ttft_p99_storm_ms": round(hi_storm * 1e3, 3) if hi_storm else None,
+        "hi_ttft_p99_ratio": round(ratio, 3) if ratio else None,
+        "goodput_tokens": goodput,
+        "raw_tokens": raw,
+        "goodput_ratio": round(goodput / raw, 3) if raw else None,
+        "sheds": sheds,
+        "sheds_by_kind": dict(eng.overload.shed_counts),
+        "limit_final": round(eng.overload.limit, 2),
+        "pool_exact": pool_exact,
+    }
+    log(f"perf-ledger row: | OVERLOAD control (b{eng.max_slots}, {len(storm)}-req storm) | "
+        f"hi-pri TTFT p99 {block['hi_ttft_p99_unloaded_ms']} -> {block['hi_ttft_p99_storm_ms']} "
+        f"ms ({block['hi_ttft_p99_ratio']}x), goodput {block['goodput_ratio']}, {sheds} sheds, "
+        f"pool exact {pool_exact} | - | `benchmark.py --model serving` | update on bench round |")
+    eng.overload = None  # the next phase expects none
+    return block
+
+
+def _run_slo_phase(eng, args) -> dict:
+    """SLO phase: the same jobs with the SLO plane detached, then attached
+    (a host-side toggle); the per-token cost difference is the accounting
+    overhead.  A synthetic burn on the live tracker must fire the fast-burn
+    page rule."""
+    from ..utils.slo import SLOTracker, UsageMeter
+
+    jobs = [(_job_prompt(eng, args, 120 + i), args.decode_tokens)
+            for i in range(2 * eng.max_slots)]
+    eng.slo = eng.usage = None
+    t0 = time.perf_counter()
+    off_tokens = sum(len(r.tokens) for r in eng.run(jobs))
+    off_dt = time.perf_counter() - t0
+    eng.slo, eng.usage = SLOTracker(), UsageMeter()
+    t0 = time.perf_counter()
+    on_tokens = sum(len(r.tokens) for r in eng.run(jobs))
+    on_dt = time.perf_counter() - t0
+    off_tps = off_tokens / off_dt if off_dt else 0.0
+    on_tps = on_tokens / on_dt if on_dt else 0.0
+    overhead = (off_tps / on_tps) - 1.0 if on_tps else 0.0
+    verdicts = sum(pair[1] for pair in eng.slo.totals().values())
+    tenants_metered = eng.usage.snapshot()["tracked_tenants"]
+    # A sustained burn (half the availability verdicts bad, budget 0.001).
+    eng.slo.record("availability", True, n=50)
+    eng.slo.record("availability", False, n=50)
+    burn_alert_fired = any(t["state"] == "fired" and t["rule"] == "fast_burn"
+                           for t in eng.slo.evaluate())
+    eng.slo = eng.usage = None  # the next phase expects none
+    block = {
+        "overhead": round(overhead, 4),
+        "off_tokens_per_sec": round(off_tps, 2),
+        "on_tokens_per_sec": round(on_tps, 2),
+        "sli_verdicts": verdicts,
+        "tenants_metered": tenants_metered,
+        "burn_alert_fired": burn_alert_fired,
+    }
+    log(f"perf-ledger row: | SLO accounting (b{eng.max_slots}) | slo off {off_tps:.2f} -> on "
+        f"{on_tps:.2f} tokens/sec (overhead {overhead * 100.0:+.2f}%; {verdicts} verdicts, burn "
+        f"alert fired {burn_alert_fired}) | - | `benchmark.py --model serving` | update on "
+        "bench round |")
+    return block
+
+
+def _prefix_sessions(eng, args, first: int, stride: int, tail0: int) -> Optional[tuple]:
+    """Four sessions sharing a full-page prompt prefix (tokens from
+    ``first``), their tails from ``tail0 + stride * s``; None when the
+    prompt holds no full page."""
+    page = eng.paged.page_size
+    pl = (args.prompt_len // page) * page
+    if pl < page:
+        return None
+    prefix = [(first + j) % eng.cfg.vocab_size for j in range(pl)]
+    return pl, [prefix + [(tail0 + stride * s + j) % eng.cfg.vocab_size
+                          for j in range(args.prompt_len - pl)] for s in range(4)]
+
+
+def _warm_tiers(eng, sessions, n_new: int) -> None:
+    """Serve the sessions, spill the retained tier into the host arena, and
+    run one restore, so the timed passes meet no first-use work."""
+    eng.kvcache_clear()
+    for s in sessions:
+        eng.run([(s, n_new)])
+    with eng._lock:
+        eng._kv_reclaim(len(eng._kv_retained))
+    eng.run([(sessions[0], n_new)])
+
+
+def _serial_pass(eng, sessions, n_new: int) -> tuple:
+    """The sessions one at a time (TTFT is prefill, not queueing): (sorted
+    TTFTs, host hits, pages restored)."""
+    hits0, restores0 = eng.kv_host_hits, eng.kv_restores
+    reqs = [eng.run([(s, n_new)])[0] for s in sessions]
+    return _ttfts(reqs), eng.kv_host_hits - hits0, eng.kv_restores - restores0
+
+
+def _run_restart_phase(eng, args) -> dict:
+    """RESTART phase: cold against warm post-restart TTFT through the
+    arena snapshot (engine_snapshot.py).  The restart is modelled on the
+    same engine: ``kvcache_clear()`` is the serving state a process death
+    loses; warm then loads the snapshot saved after the warm-up."""
+    import tempfile
+
+    from .engine_snapshot import load_arena_snapshot, save_arena_snapshot
+
+    got = _prefix_sessions(eng, args, 17, 3, 70)
+    if got is None:
+        return {"skipped": f"prompt_len {args.prompt_len} < one page ({eng.paged.page_size})"}
+    pl, sessions = got
+    n_new = args.decode_tokens
+    _warm_tiers(eng, sessions, n_new)
+    path = f"{tempfile.mkdtemp(prefix='kv-restart-')}/kv_arena.snapshot"
+    saved = save_arena_snapshot(eng, path, trigger="bench")
+    if not saved.get("ok"):
+        return {"skipped": f"snapshot save failed: {saved.get('reason')}"}
+    eng.kvcache_clear()
+    cold, cold_hits, _ = _serial_pass(eng, sessions, n_new)
+    eng.kvcache_clear()
+    loaded = load_arena_snapshot(eng, path)
+    warm, warm_hits, restored_pages = _serial_pass(eng, sessions, n_new)
+    eng.kvcache_clear()
+    cold_p99, warm_p99 = _q(cold, 0.99), _q(warm, 0.99)
+    block = {
+        "sessions": len(sessions),
+        "prefix_tokens": pl,
+        "snapshot_bytes": saved["bytes"],
+        "snapshot_entries": saved["entries"],
+        "entries_loaded": loaded.get("restored", 0),
+        "cold": {"ttft_p50_ms": _ms(_q(cold, 0.5)), "ttft_p99_ms": _ms(cold_p99),
+                 "prefix_hits": cold_hits},
+        "warm": {"ttft_p50_ms": _ms(_q(warm, 0.5)), "ttft_p99_ms": _ms(warm_p99),
+                 "prefix_hits": warm_hits, "restored_pages": restored_pages},
+        "warm_speedup": round(cold_p99 / warm_p99, 3) if warm_p99 else None,
+    }
+    log(f"perf-ledger row: | RESTART warm vs cold (b{eng.max_slots}, {len(sessions)} sessions) "
+        f"| post-restart TTFT p99 cold {block['cold']['ttft_p99_ms']} -> warm "
+        f"{block['warm']['ttft_p99_ms']} ms ({block['warm_speedup']}x; {restored_pages} pages "
+        f"restored, {block['entries_loaded']} arena entries, snapshot {saved['bytes']} B) | - | "
+        "`benchmark.py --model serving` | update on bench round |")
+    return block
+
+
+def _run_elastic_phase(eng, args) -> dict:
+    """ELASTIC phase: cold join against a peer-warmed join.  The donor is
+    the same engine after a shared-prefix session set, its state encoded as
+    ``GET /debug/snapshot`` streams it; a cold join clears every tier, a
+    warmed one clears them and admits the donor's bytes through the fetch
+    path's parse, verify and admit (minus the socket)."""
+    import io
+
+    from . import engine_snapshot as snap_mod
+
+    got = _prefix_sessions(eng, args, 23, 5, 90)
+    if got is None:
+        return {"skipped": f"prompt_len {args.prompt_len} < one page ({eng.paged.page_size})"}
+    pl, sessions = got
+    n_new = args.decode_tokens
+    _warm_tiers(eng, sessions, n_new)
+    with eng._lock:
+        layout = snap_mod.snapshot_layout(eng)
+    fingerprint = eng.params_fingerprint
+    entries = snap_mod.collect_entries(eng)
+    wire = b"".join(snap_mod.encode_snapshot(layout, fingerprint, entries))
+    eng.kvcache_clear()
+    cold, cold_hits, _ = _serial_pass(eng, sessions, n_new)
+    eng.kvcache_clear()
+    _, parsed = snap_mod._parse_snapshot(io.BytesIO(wire), layout, fingerprint)
+    restored_entries = snap_mod._admit_entries(eng, parsed)
+    warm, warm_hits, restored_pages = _serial_pass(eng, sessions, n_new)
+    eng.kvcache_clear()
+    cold_p99, warm_p99 = _q(cold, 0.99), _q(warm, 0.99)
+    block = {
+        "sessions": len(sessions),
+        "prefix_tokens": pl,
+        "wire_bytes": len(wire),
+        "entries": len(entries),
+        "entries_restored": restored_entries,
+        "cold_join": {"ttft_p50_ms": _ms(_q(cold, 0.5)), "ttft_p99_ms": _ms(cold_p99),
+                      "prefix_hits": cold_hits},
+        "warmed_join": {"ttft_p50_ms": _ms(_q(warm, 0.5)), "ttft_p99_ms": _ms(warm_p99),
+                        "prefix_hits": warm_hits, "restored_pages": restored_pages},
+        "warmed_speedup": round(cold_p99 / warm_p99, 3) if warm_p99 else None,
+    }
+    log(f"perf-ledger row: | ELASTIC cold vs peer-warmed join (b{eng.max_slots}, "
+        f"{len(sessions)} sessions) | join TTFT p99 cold {block['cold_join']['ttft_p99_ms']} -> "
+        f"warmed {block['warmed_join']['ttft_p99_ms']} ms ({block['warmed_speedup']}x; "
+        f"{restored_entries} entries / {restored_pages} pages restored over {len(wire)} wire "
+        "bytes) | - | `benchmark.py --model serving` | update on bench round |")
+    return block
+
+
+def _run_disagg_phase(eng, args, params: dict) -> tuple[dict, int]:
+    """DISAGG phase: decode ITL p99 (per-step wall) of chatty traffic alone,
+    with long prompts injected into the same loop every 24 steps (the
+    unified control), and on a decode-role engine fed the long prompts'
+    pages through the handoff wire at twice that rate.  The decode engine's
+    tokens for the injected prompts must equal the unified engine's
+    (greedy).  Keeps the reference's sizing: the chatty requests take
+    ``max(decode_tokens, 6 * 24 // n_chatty)`` tokens, which a small paged
+    window can refuse.  Returns the ``disagg`` block and the decode-role
+    engine's dispatched device steps."""
+    import io
+
+    from ..utils.metrics import MetricsRegistry
+    from . import engine_handoff as handoff_mod
+    from . import engine_snapshot as snap_mod
+    from .engine import ServingEngine
+    from .engine_types import EngineMetrics
+
+    page = eng.paged.page_size
+    long_new = 4
+    long_len = ((eng.paged.max_len - long_new - 2) // page) * page
+    if long_len < 2 * page or long_len <= args.prompt_len:
+        return {"skipped": f"max_len {eng.paged.max_len} leaves no room for a long prompt"}, 0
+    chatty_prompts = [_job_prompt(eng, args, i) for i in range(max(2, args.slots - 1))]
+    long_prompts = [[(17 * i + 29 + j) % eng.cfg.vocab_size for j in range(long_len)]
+                    for i in range(8)]
+    interval = 24  # steps between injected long prompts (the control's rate)
+    chatty_new = max(args.decode_tokens, 6 * interval // len(chatty_prompts))
+
+    def _measure(engine, inject=None):
+        """(per-step wall p99, injected requests): every active chatty slot
+        emits one token a step, so a step's wall is that token's gap."""
+        gaps: list[float] = []
+        reqs = [engine.submit(p, chatty_new) for p in chatty_prompts]
+        injected = []
+        steps = 0
+        while any(not r.done for r in reqs):
+            t0 = time.perf_counter()
+            engine.step()
+            gaps.append(time.perf_counter() - t0)
+            steps += 1
+            if inject is not None:
+                got = inject(steps)
+                if got is not None:
+                    injected.append(got)
+        guard = 0
+        while any(not r.done for r in injected):
+            engine.step()
+            guard += 1
+            if guard > 50_000:
+                raise RuntimeError("disagg phase failed to drain")
+        return _q(sorted(gaps), 0.99), injected
+
+    prev_chunk = eng._prefill_chunk
+    eng._prefill_chunk = page * 2
+
+    def _warm_mixed(engine, pre_admit=None):
+        """Untimed: the measured traffic's shape, the long admission in the
+        same slot beside the same chatty slots."""
+        reqs = [engine.submit(p, 8) for p in chatty_prompts]
+        long_req = None
+        steps = 0
+        while any(not r.done for r in reqs) or (long_req is not None and not long_req.done):
+            engine.step()
+            steps += 1
+            if steps == 2:
+                if pre_admit is not None:
+                    pre_admit()
+                long_req = engine.submit(long_prompts[0], long_new)
+        engine.kvcache_clear()
+
+    eng.kvcache_clear()
+    dec = None
+    try:
+        _warm_mixed(eng)
+        itl_unloaded, _ = _measure(eng)
+
+        def inject_unified(step, _next=[0]):
+            if step % interval or _next[0] >= len(long_prompts) // 2:
+                return None
+            prompt = long_prompts[_next[0]]
+            _next[0] += 1
+            return eng.submit(prompt, long_new)
+
+        itl_unified, _ = _measure(eng, inject_unified)
+        dec = ServingEngine(
+            dataclasses.replace(eng.cfg, paged=None), params, eng.paged,
+            max_slots=eng.max_slots, metrics=EngineMetrics(MetricsRegistry()),
+            prefill_chunk=page * 2, kv_retain=True, kv_host_cache_mb=64, role="decode",
+            device=eng.device,
+        )
+        eng.kvcache_clear()
+        with eng._lock:
+            layout = snap_mod.snapshot_layout(eng)
+        fingerprint = eng.params_fingerprint
+        wires, oracle_tokens = [], []
+        for prompt in long_prompts:
+            # The unified run is the local-prefill oracle; the wire is a
+            # real prefill probe's (the tap /v1/prefill serves).
+            oracle_tokens.append(list(eng.run([(prompt, long_new)])[0].tokens))
+            tap = eng.handoff_begin(prompt, None)
+            entries = []
+            try:
+                for _ in range(10_000):
+                    eng.step()
+                    while True:
+                        e = tap.pop(0.0)
+                        if e is None:
+                            break
+                        entries.append(e)
+                    if tap.req.done and tap.pushed <= len(entries):
+                        break
+            finally:
+                eng.handoff_end(tap)
+            wires.append(
+                snap_mod.encode_preamble(layout, fingerprint, len(entries))
+                + b"".join(snap_mod.encode_entry(layout, k, r) for k, r in entries)
+                + (handoff_mod.encode_logits_section(tap.logits) if tap.logits is not None
+                   else b"")
+            )
+            eng.kvcache_clear()
+
+        def _admit_wire(idx):
+            buf = io.BytesIO(wires[idx])
+            _, parsed = snap_mod._parse_snapshot(buf, layout, fingerprint)
+            admitted = snap_mod._admit_entries(dec, parsed)
+            logits = handoff_mod.read_logits_section(buf)
+            if logits is not None:
+                with dec._lock:
+                    dec._kv_arena.put(("logits", dec._trie_root(None), tuple(long_prompts[idx])),
+                                      {"logits": logits}, logits.nbytes)
+            return admitted
+
+        dec.run([(chatty_prompts[0], 2)])
+        _warm_mixed(dec, pre_admit=lambda: _admit_wire(0))
+        if dec.handoff_skipped_tokens <= 0:
+            raise RuntimeError("disagg warm-up never skipped covered prefill")
+        handoff_entries = 0
+
+        def inject_disagg(step, _next=[0]):
+            nonlocal handoff_entries
+            if step % (interval // 2) or _next[0] >= len(long_prompts) // 2:
+                return None
+            idx = _next[0]
+            _next[0] += 1
+            handoff_entries += _admit_wire(idx)
+            return dec.submit(long_prompts[idx], long_new)
+
+        itl_disagg, disagg_long = _measure(dec, inject_disagg)
+        tokens_match = bool(disagg_long) and (
+            [list(r.tokens) for r in disagg_long] == oracle_tokens[: len(disagg_long)])
+    finally:
+        eng._prefill_chunk = prev_chunk
+        eng.kvcache_clear()
+
+    def _ratio(loaded):
+        return round(loaded / itl_unloaded, 3) if loaded and itl_unloaded else None
+
+    block = {
+        "prefill_jobs": len(long_prompts) // 2,
+        "long_prompt_tokens": long_len,
+        "itl_p99_unloaded_ms": _ms(itl_unloaded),
+        "unified": {"itl_p99_loaded_ms": _ms(itl_unified), "ratio": _ratio(itl_unified)},
+        "disagg": {
+            "itl_p99_loaded_ms": _ms(itl_disagg),
+            "ratio": _ratio(itl_disagg),
+            "handoff_entries": handoff_entries,
+            "skipped_prefill_tokens": dec.handoff_skipped_tokens,
+            "tokens_match": tokens_match,
+        },
+    }
+    log(f"perf-ledger row: | DISAGG prefill/decode split (b{eng.max_slots}, {long_len}-token "
+        f"prefills) | decode ITL p99 {block['itl_p99_unloaded_ms']} ms unloaded -> unified "
+        f"{block['unified']['itl_p99_loaded_ms']} ({block['unified']['ratio']}x) vs disagg "
+        f"{block['disagg']['itl_p99_loaded_ms']} ms at 2x prefill load "
+        f"({block['disagg']['ratio']}x; {handoff_entries} entries shipped, "
+        f"{dec.handoff_skipped_tokens} prefill tokens skipped, tokens "
+        f"{'bit-identical' if tokens_match else 'DIVERGED'}) | - | `benchmark.py --model "
+        "serving` | update on bench round |")
+    return block, dec.device_steps
+
+
+def run_serving(args, params: Optional[dict] = None) -> ServingRun:
+    """Continuous-batching serving benchmark, the reference's
+    ``run_serving`` on one card: TTFT/ITL quantiles read back from the
+    engine's metric histograms; the same jobs timed synchronous (overlap
+    off), then overlapped (the serving default); the step-phase profile;
+    the KV tiers (a serial repeated prefix with retain off, then on, and
+    preemption churn over parked free pages); tracing off against on; then
+    the kernels, overload, restart, elastic, disagg and SLO phases.  The
+    router-side blocks and ``tp`` print null (one card; see
+    ``ROUTER_SIDE_BLOCKS``).  ``params`` (a state dict) stands in for
+    ``init_params(cfg, 0)``.  On the card the engine replays each decode
+    dispatch as a CUDA graph; the warm-up runs every shape the timed runs
+    dispatch."""
+    from ..utils.metrics import MetricsRegistry
+    from ..utils.spans import SpanRecorder
+    from .engine import ServingEngine
+    from .engine_types import EngineMetrics
+    from .transformer import PagedConfig
+
+    device = resolve_device(args.device)
+    fp32_reference_precision()
+    page_size = 16
+    mpp = -(-(args.prompt_len + args.decode_tokens) // page_size)
+    paged = PagedConfig(page_size, num_pages=args.slots * mpp + 1, max_pages_per_seq=mpp)
+    cfg = dataclasses.replace(gpt_config(args), max_seq=paged.max_len)
+    params = init_params(cfg, 0) if params is None else params
+    spans = SpanRecorder()
+    eng = ServingEngine(cfg, params, paged, max_slots=args.slots,
+                        metrics=EngineMetrics(MetricsRegistry()), spans=spans, kv_retain=True,
+                        kv_host_cache_mb=64, device=device)
+    jobs = [([(11 * i + j) % cfg.vocab_size for j in range(args.prompt_len)], args.decode_tokens)
+            for i in range(args.requests)]
+    # Both admission-burst prefill shapes (one request, then slots-wide)
+    # and the decode dispatch the timed runs replay (its graph on the card).
+    eng.run([(jobs[0][0], 2)])
+    eng.run([(p, 2) for p, _ in jobs[: args.slots]])
+    extras = {"device_steps": {}, "graphs": {"warmup": sorted(map(str, eng._graphs))}}
+
+    # Synchronous first: any warm-cache bias then works against overlap.
+    eng._overlap_steps = 0
+    t0 = time.perf_counter()
+    sync_done = eng.run(jobs)
+    sync_tps = sum(len(r.tokens) for r in sync_done) / (time.perf_counter() - t0)
+    ttft_h, itl_h = eng.metrics.ttft_seconds, eng.metrics.itl_seconds
+    ttft_snap, itl_snap = ttft_h.snapshot(), itl_h.snapshot()
+    eng._overlap_steps = 1
+    hits0, discards0 = eng.overlap_hits, eng.overlap_discards
+    t0 = time.perf_counter()
+    done = eng.run(jobs)
+    dt = time.perf_counter() - t0
+    extras["graphs"]["timed"] = sorted(map(str, eng._graphs))
+    tokens = sum(len(r.tokens) for r in done)
+    overlap_tps = tokens / dt
+    log(f"perf-ledger row: | Overlapped decode pipeline (b{args.slots}) | sync {sync_tps:.2f} -> "
+        f"overlapped {overlap_tps:.2f} tokens/sec ({overlap_tps / sync_tps:.3f}x; hits "
+        f"{eng.overlap_hits - hits0}, discards {eng.overlap_discards - discards0}) | - | "
+        "`benchmark.py --model serving` | update on bench round |")
+    extras["sync_tokens"] = [list(r.tokens) for r in sync_done]
+    prof = eng.profiler.snapshot()
+    phase_p50 = {phase: stats["window_p50_ms"] for phase, stats in prof["phases"].items()
+                 if stats["window_steps"]}
+    log(f"perf-ledger row: | Serving step phase breakdown (b{args.slots}) | step p50 "
+        f"{prof['step_ms']['p50']:.3f} ms ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in phase_p50.items())
+        + ") | - | `benchmark.py --model serving` = GET /debug/profile | update on bench round |")
+
+    # KV tiers 1: one hot prompt with serial lifetimes, retain off then on.
+    prefix_job = (jobs[0][0], args.decode_tokens)
+    n_rep = min(args.requests, 6)
+
+    def _repeat() -> tuple:
+        t0 = time.perf_counter()
+        n = sum(len(r.tokens) for _ in range(n_rep) for r in eng.run([prefix_job]))
+        return n, time.perf_counter() - t0
+
+    eng._kv_retain = False
+    eng.kvcache_clear()
+    rec_tokens, dt_recompute = _repeat()
+    eng._kv_retain = True
+    eng.kvcache_clear()
+    kv_hits0 = eng.kv_retained_hits + eng.kv_host_hits
+    res_tokens, dt_restore = _repeat()
+    kv_hits = eng.kv_retained_hits + eng.kv_host_hits - kv_hits0
+    rec_tps = rec_tokens / dt_recompute if dt_recompute else 0.0
+    res_tps = res_tokens / dt_restore if dt_restore else 0.0
+    kv_speedup = res_tps / rec_tps if rec_tps else 0.0
+    # KV tiers 2: optimistic admission over a pool tightened by parking
+    # free pages, so growing slots preempt their juniors and resume.
+    eng.kvcache_clear()
+    pre0, resumes0 = eng.preemptions, eng.kv_resumes_restored
+    recomputes0 = eng.kv_resumes_recompute
+    eng._optimistic = True
+    prompt_pages = -(-(args.prompt_len + 1) // page_size)
+    keep = mpp + 2 * prompt_pages  # the oldest can finish; juniors must churn
+    with eng._lock:
+        parked = [eng.free_pages.pop() for _ in range(max(0, len(eng.free_pages) - keep))]
+    churn_done = eng.run(jobs[: max(2, args.slots)])
+    churn_tokens = sum(len(r.tokens) for r in churn_done)
+    with eng._lock:
+        eng.kvcache_clear()
+        eng.free_pages.extend(parked)
+    eng._optimistic = False
+    churn_preempts = eng.preemptions - pre0
+    churn_restored = eng.kv_resumes_restored - resumes0
+    churn_recomputed = eng.kv_resumes_recompute - recomputes0
+    log(f"perf-ledger row: | KV cache tiering (b{args.slots}) | repeated-prefix recompute "
+        f"{rec_tps:.2f} -> restore {res_tps:.2f} tokens/sec ({kv_speedup:.3f}x; tier hits "
+        f"{kv_hits}) | preemption churn: {churn_preempts} preempts, {churn_restored} restored / "
+        f"{churn_recomputed} recomputed resumes | `benchmark.py --model serving` | update on "
+        "bench round |")
+
+    # Tracing: the same jobs with the span recorder detached, then attached.
+    trace_spans0 = len(spans.snapshot()) + spans.dropped
+    eng.spans = None
+    t0 = time.perf_counter()
+    off_done = eng.run(jobs)
+    trace_off_dt = time.perf_counter() - t0
+    extras["trace_off_tokens"] = [list(r.tokens) for r in off_done]
+    off_tokens = sum(len(r.tokens) for r in off_done)
+    eng.spans = spans
+    t0 = time.perf_counter()
+    on_done = eng.run(jobs)
+    trace_on_dt = time.perf_counter() - t0
+    extras["trace_on_tokens"] = [list(r.tokens) for r in on_done]
+    on_tokens = sum(len(r.tokens) for r in on_done)
+    trace_off_tps = off_tokens / trace_off_dt if trace_off_dt else 0.0
+    trace_on_tps = on_tokens / trace_on_dt if trace_on_dt else 0.0
+    trace_overhead = (trace_off_tps / trace_on_tps) - 1.0 if trace_on_tps else 0.0
+    trace_spans_recorded = len(spans.snapshot()) + spans.dropped - trace_spans0
+    eng.profiler.note_trace_overhead(trace_overhead)
+    trace_block = {
+        "overhead": round(trace_overhead, 4),
+        "off_tokens_per_sec": round(trace_off_tps, 2),
+        "on_tokens_per_sec": round(trace_on_tps, 2),
+        "spans_recorded": trace_spans_recorded,
+    }
+    log(f"perf-ledger row: | Tracing overhead (b{args.slots}) | spans off {trace_off_tps:.2f} -> "
+        f"on {trace_on_tps:.2f} tokens/sec (overhead {trace_overhead * 100.0:+.2f}%; "
+        f"{trace_spans_recorded} spans) | - | `benchmark.py --model serving` | update on bench "
+        "round |")
+    # tp: the tensor-parallel phase needs several devices (ROADMAP.md queue
+    # 1 item 4); the reference prints null on one device too.
+    kernels_block, extras["kernels"] = _run_kernels_phase(args)
+    overload_block = _run_overload_phase(eng, args, overlap_tps)
+    restart_block = _run_restart_phase(eng, args)
+    elastic_block = _run_elastic_phase(eng, args)
+    disagg_block, extras["device_steps"]["disagg_decode"] = _run_disagg_phase(eng, args, params)
+    slo_block = _run_slo_phase(eng, args)
+    log(f"router-side blocks {', '.join(ROUTER_SIDE_BLOCKS)}: null (they drive the reference's "
+        "router and controller daemons, which this package does not import)")
+    extras["device_steps"]["main"] = eng.device_steps
+    record = {
+        "model": "serving",
+        "chips": 1,
+        "slots": args.slots,
+        "requests": len(done),
+        "prompt_len": args.prompt_len,
+        "new_tokens": args.decode_tokens,
+        "throughput": round(tokens / dt, 2),
+        "unit": "tokens/sec (continuous batching, warm, overlapped pipeline; kernels "
+        "*_ms: min wall ms of a synced call)",
+        "overlap": {
+            "tokens_per_sec": round(overlap_tps, 2),
+            "sync_tokens_per_sec": round(sync_tps, 2),
+            "speedup": round(overlap_tps / sync_tps, 3) if sync_tps else None,
+            "hits": eng.overlap_hits - hits0,
+            "discards": eng.overlap_discards - discards0,
+        },
+        "ttft_p50_ms": _ms(ttft_h.quantile(0.5, since=ttft_snap)),
+        "ttft_p99_ms": _ms(ttft_h.quantile(0.99, since=ttft_snap)),
+        "itl_p50_ms": _ms(itl_h.quantile(0.5, since=itl_snap)),
+        "itl_p99_ms": _ms(itl_h.quantile(0.99, since=itl_snap)),
+        "kvcache": {
+            "prefix_recompute_tokens_per_sec": round(rec_tps, 2),
+            "prefix_restore_tokens_per_sec": round(res_tps, 2),
+            "restore_speedup": round(kv_speedup, 3),
+            "hits": kv_hits,
+            "retained_hits": eng.kv_retained_hits,
+            "host_hits": eng.kv_host_hits,
+            "restores": eng.kv_restores,
+            "reclaims": eng.kv_reclaims,
+            "offloads": eng.kv_offloads,
+            "churn_tokens": churn_tokens,
+            "preemptions": churn_preempts,
+            "resumes_restored": churn_restored,
+            "resumes_recomputed": churn_recomputed,
+        },
+        "tp": None,
+        "kernels": kernels_block,
+        "overload": overload_block,
+        "restart": restart_block,
+        "elastic": elastic_block,
+        "disagg": disagg_block,
+        **dict.fromkeys(("router", "fabric"), None),
+        "slo": slo_block,
+        **dict.fromkeys(("canary", "autoscale", "postmortem"), None),
+        "trace": trace_block,
+        "spans_recorded": len(spans.snapshot()) + spans.dropped,
+        "profile": {
+            "steps": prof["steps"],
+            "step_ms_p50": prof["step_ms"]["p50"],
+            "step_ms_p99": prof["step_ms"]["p99"],
+            "phase_ms_p50": phase_p50,
+            "occupancy": prof["occupancy"],
+            "trace_overhead": trace_block["overhead"],
+            "incidents": eng.anomaly.snapshot()["incidents_total"],
+        },
+    }
+    return ServingRun(record, done, extras)
+
+
+
 def main(argv=None) -> None:
-    print(json.dumps(run(parse_args(argv))[0]), flush=True)
+    args = parse_args(argv)
+    if args.model == "gpt-decode":
+        record = run_decode(args)[0]
+    elif args.model == "serving":
+        record = run_serving(args).record
+    else:
+        record = run(args)[0]
+    print(json.dumps(record), flush=True)
 
 
 if __name__ == "__main__":

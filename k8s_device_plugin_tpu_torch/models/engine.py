@@ -39,8 +39,9 @@ from jax's threefry (utils/prng.py) on the reference's key schedule, so
 they equal the reference engine's under the same ``rng``.
 
 The batch CLI takes the reference CLI's flags, ``--quant w8|w8a8``,
-``--quant-kv``, ``--decode-block``, ``--overlap-steps`` and ``--spec-gamma``
-included, plus
+``--quant-kv``, ``--decode-block``, ``--overlap-steps``, ``--spec-gamma``,
+``--overload`` and ``--slo`` (both on by default, as there) included, but
+not ``--tp``, plus
 ``--dtype``, ``--seed`` (the weights), ``--device`` and ``--cuda-graphs
 0|1`` (the card only; 1 by default there).  On the CPU, at tiny widths in
 float32, a block-16 overlapped run::
@@ -1069,6 +1070,24 @@ def parse_args(argv: Optional[list[str]] = None):
     p.add_argument("--admission", choices=["reserve", "optimistic"], default="reserve",
                    help="optimistic: prompt pages only at admission, grown on demand, the "
                    "newest slot preempted (and recomputed) when the pool runs dry")
+    p.add_argument("--overload", type=int, choices=[0, 1], default=1,
+                   help="overload control (models/engine_overload.py): priority and "
+                   "deadline-aware admission, per-tenant fair sharing, expiry sweeping and "
+                   "an AIMD concurrency limiter on measured queue wait (default on; 0: the "
+                   "plain FIFO queue)")
+    p.add_argument("--overload-target-wait", type=float, default=0.5,
+                   help="AIMD setpoint: the queue wait (seconds) the limiter steers "
+                   "admitted concurrency toward")
+    p.add_argument("--overload-max-queue", type=int, default=512,
+                   help="hard queue cap: submits past this depth shed at once")
+    p.add_argument("--slo", type=int, choices=[0, 1], default=1,
+                   help="SLO plane (utils/slo.py): per-request SLI verdicts into "
+                   "sliding-window error budgets with burn-rate alerts, plus per-tenant "
+                   "usage meters (default on; 0 disables all accounting)")
+    p.add_argument("--slo-ttft-target", type=float, default=2.0,
+                   help="TTFT objective threshold (seconds)")
+    p.add_argument("--slo-itl-target", type=float, default=0.25,
+                   help="per-request ITL p99 objective threshold (seconds)")
     p.add_argument("--kv-retain", type=int, choices=[0, 1], default=1,
                    help="KV cache tier 1: keep dead-but-valid prefix pages on an LRU for a "
                    "later match instead of freeing them (default on)")
@@ -1094,7 +1113,9 @@ def parse_args(argv: Optional[list[str]] = None):
 def build_engine(args) -> "ServingEngine":
     """The engine the batch CLI's flags describe, with random weights from
     ``--seed`` (quantized by ``init_params`` under ``--quant``, as the
-    reference CLI quantizes its init) and a fresh metrics registry."""
+    reference CLI quantizes its init), a fresh metrics registry, and the
+    overload controller and SLO plane unless ``--overload 0`` / ``--slo 0``
+    (the reference CLI's wiring)."""
     device = resolve_device(args.device)
     fp32_reference_precision()
     cfg = GPTConfig(
@@ -1121,11 +1142,18 @@ def build_engine(args) -> "ServingEngine":
         from ..ops.quant import quantize_lm_params
 
         spec_kw = dict(spec_gamma=args.spec_gamma, draft_params=quantize_lm_params(params))
+    overload = None
+    if args.overload:
+        overload = OverloadConfig(target_queue_wait_s=args.overload_target_wait,
+                                  max_queue=args.overload_max_queue)
+    slo = None
+    if args.slo:
+        slo = {"ttft_target_s": args.slo_ttft_target, "itl_p99_target_s": args.slo_itl_target}
     return ServingEngine(
         cfg, params, paged, max_slots=args.slots,
         metrics=EngineMetrics(MetricsRegistry()), prefill_chunk=args.prefill_chunk, **spec_kw,
         decode_block=args.decode_block, overlap_steps=args.overlap_steps,
-        admission=args.admission,
+        admission=args.admission, overload=overload, slo=slo,
         kv_retain=bool(args.kv_retain), kv_host_cache_mb=args.kv_host_cache_mb,
         cuda_graphs=None if args.cuda_graphs is None else bool(args.cuda_graphs),
         device=device,

@@ -30,14 +30,18 @@ so here they are ``torch`` products.  Their cost: a step reads every
 stacked adapter, n·rank·(in+out) weights a site, where the gather reads
 rank·(in+out) a row; at the deployed widths a site's dozen small kernels
 set its device time, not n (PERF.md §5: 4 to 32 adapters add 5 %, and
-32 stacked cost what the gather does).  Training adapters
-(``lora_labels``, ``make_lora_tx``) comes with the training slice.
+32 stacked cost what the gather does).
+
+Training the adapters: :func:`lora_labels` names each parameter ``"lora"``
+or ``"frozen"``, and :func:`make_lora_tx` turns an optimizer factory into
+one over the adapters alone (the reference's ``optax.multi_transform`` with
+``set_to_zero`` on the base), for ``models/train.py``'s step.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Mapping, Sequence
+from typing import Callable, Iterable, Mapping, Sequence
 
 import torch
 from torch import nn
@@ -177,3 +181,39 @@ def merge_lora_params(params: Mapping, *, alpha: float) -> dict:
         delta = torch.tensordot(a.float(), b.float(), dims=1)
         out[f"{site}.kernel"] = (kernel.float() + (alpha / rank) * delta).to(kernel.dtype)
     return out
+
+
+ADAPTER_LEAVES = ("lora_a", "lora_b")
+
+
+def lora_labels(params: Mapping) -> dict[str, str]:
+    """Label each parameter by name: ``"lora"`` on adapter leaves
+    (``lora_a``/``lora_b``), ``"frozen"`` elsewhere (the reference's
+    ``lora_labels`` over a flat state dict or ``named_parameters()``)."""
+    return {name: "lora" if name.rsplit(".", 1)[-1] in ADAPTER_LEAVES else "frozen"
+            for name in params}
+
+
+def make_lora_tx(inner: Callable[[Iterable[nn.Parameter]], torch.optim.Optimizer]
+                 ) -> Callable[[nn.Module], torch.optim.Optimizer]:
+    """An optimizer factory that trains only the adapters: ``tx(model)``
+    builds ``inner`` (e.g. ``functools.partial(torch.optim.AdamW, lr=1e-2,
+    weight_decay=1e-4)``) over the ``"lora"`` parameters and freezes the
+    rest (``requires_grad`` off), so the base gets no gradient, no update
+    and no weight decay: the reference's ``set_to_zero`` on the frozen
+    label, not the raw gradient that a plain mask would pass through.
+    Optimizer state exists only for the adapters."""
+
+    def tx(model: nn.Module) -> torch.optim.Optimizer:
+        labels = lora_labels(dict(model.named_parameters()))
+        adapters = []
+        for name, param in model.named_parameters():
+            if labels[name] == "lora":
+                adapters.append(param)
+            else:
+                param.requires_grad_(False)
+        if not adapters:
+            raise ValueError("the model has no LoRA adapters (lora_a/lora_b parameters)")
+        return inner(adapters)
+
+    return tx

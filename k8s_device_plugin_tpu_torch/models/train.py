@@ -16,8 +16,10 @@ dropout key, the reference's: ``fold_in(PRNGKey(0), step)``, and under
 ``grad_accum`` microbatch i's ``fold_in(that, i)``, as two ints
 (``utils/prng.fold_in_words``).
 
-Not ported here: the MoE auxiliary loss and LoRA training (``lora_labels``,
-``make_lora_tx``), ROADMAP.md queue 1.
+LoRA training (``GPTConfig(lora_rank=r)``) takes the same step: pass
+``tx=lora.make_lora_tx(inner)`` to :func:`create_train_state` (or
+:func:`state_for`), whose optimizer then holds the adapters alone with the
+base frozen.  Not ported here: the MoE auxiliary loss, ROADMAP.md queue 1.
 """
 
 from __future__ import annotations
@@ -50,21 +52,28 @@ class TrainState:
         return dict(self.model.named_buffers())
 
 
-def state_for(model: nn.Module, lr: float = 0.1, momentum: float = 0.9) -> TrainState:
-    """A train state at step 0 over ``model`` (float32 parameters) with
-    zero momentum."""
-    opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=momentum, dampening=0,
-                          nesterov=False)
+def state_for(model: nn.Module, lr: float = 0.1, momentum: float = 0.9,
+              tx: Optional[Callable[[nn.Module], torch.optim.Optimizer]] = None) -> TrainState:
+    """A train state at step 0 over ``model`` (float32 parameters): SGD with
+    zero momentum, or the optimizer ``tx(model)`` builds (e.g.
+    ``lora.make_lora_tx``)."""
+    if tx is not None:
+        opt = tx(model)
+    else:
+        opt = torch.optim.SGD(model.parameters(), lr=lr, momentum=momentum, dampening=0,
+                              nesterov=False)
     return TrainState(step=0, model=model, optimizer=opt)
 
 
 def create_train_state(config: GPTConfig, params: dict, lr: float = 0.1, momentum: float = 0.9,
-                       *, device=None) -> TrainState:
+                       *, tx: Optional[Callable[[nn.Module], torch.optim.Optimizer]] = None,
+                       device=None) -> TrainState:
     """An LM training model loaded from ``params`` (a state dict:
-    ``init_params`` or ``convert.flax_to_state_dict``) with zero momentum."""
+    ``init_params`` or ``convert.flax_to_state_dict``) with zero momentum,
+    or with the optimizer ``tx`` builds (see :func:`state_for`)."""
     model = TransformerLM(config, device=device, train=True)
     model.load_state_dict(params)
-    return state_for(model, lr, momentum)
+    return state_for(model, lr, momentum, tx)
 
 
 def _forward_args(model: nn.Module) -> set:
@@ -127,7 +136,8 @@ def make_train_step(aux_loss_coeff: float = 0.0, grad_accum: int = 1,
                 loss_i.backward()  # float32 parameters: the grads sum in float32
                 loss = loss + loss_i.detach()
             for p in state.model.parameters():
-                p.grad.div_(grad_accum)
+                if p.grad is not None:  # frozen parameters have none
+                    p.grad.div_(grad_accum)
             loss = loss / grad_accum
         state.optimizer.step()
         state.step += 1

@@ -62,6 +62,7 @@ from ..ops.quant import (
     Int8DenseGeneral,
     contract_ndim,
     dequantize_kv,
+    dequantize_kv4,
     quantize_kv_pair,
     quantize_lm_params,
 )
@@ -271,6 +272,20 @@ def _dequant(codes, scales, dtype):
     return codes if scales is None else dequantize_kv(codes, scales, dtype)
 
 
+def gather_pages(codes, scales, table, dtype, *, int4: bool = False):
+    """The paged decode's gather path: one pool (``[pages, page, Hk, D]``
+    codes, with ``[pages, page, Hk]`` scales or None) read through
+    ``table`` (``[B, pages a row]``) as a ``[B, pages a row x page, Hk, D]``
+    view, dequantized to ``dtype``; ``int4`` unpacks packed nibble codes
+    (the kernels phase's int4 pools; the engine's are float or int8)."""
+    idx = table.long()
+    rows = codes[idx].reshape(idx.shape[0], -1, *codes.shape[2:])
+    if scales is None:
+        return rows
+    scales = scales[idx].reshape(rows.shape[:-1])
+    return (dequantize_kv4 if int4 else dequantize_kv)(rows, scales, dtype)
+
+
 # ----------------------------------------------------------------- pieces
 
 
@@ -455,15 +470,9 @@ class CausalSelfAttention(nn.Module):
                 q[:, 0], pool_k, pool_v, table, lens, scale_k=scale_k, scale_v=scale_v,
                 window=cfg.attention_window, num_splits=pg.kernel_num_splits,
             )[:, None]
-        shape = (batch, pg.max_len, cfg.kv_heads, cfg.head_dim)
-        idx = table.long()
-
-        def view(codes, scales):  # gathered [max_len] view, dequantized
-            return _dequant(codes[idx].reshape(shape),
-                            None if scales is None else scales[idx].reshape(shape[:-1]), cfg.dtype)
-
         return cached_group_attention(
-            q, view(pool_k, scale_k), view(pool_v, scale_v),
+            q, gather_pages(pool_k, scale_k, table, cfg.dtype),
+            gather_pages(pool_v, scale_v, table, cfg.dtype),
             positions, cfg.attention_window, cfg.num_heads,
         )
 

@@ -146,3 +146,18 @@ def test_metrics_registry_renders_engine_series():
     assert m.itl_seconds.quantile(0.5) == pytest.approx(0.01 + 0.015 * 1 / 2)
     with pytest.raises(ValueError, match="duplicate"):
         m.registry.counter("tpu_engine_tokens_total", "again")
+
+
+@pytest.mark.parametrize("model", ["gpt-decode", "serving"])
+def test_inference_benchmarks_raise_without_a_card(model):
+    """``--model gpt-decode`` and ``--model serving`` run on the card unless
+    ``--device cpu`` asks for the CPU; with no card they raise, and never
+    fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from k8s_device_plugin_tpu_torch.models import benchmark
+
+    args = benchmark.parse_args(["--model", model, "--tiny"])
+    run = benchmark.run_decode if model == "gpt-decode" else benchmark.run_serving
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(args)

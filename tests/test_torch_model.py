@@ -414,3 +414,33 @@ def test_gather_engine_needs_no_paged_shape():
     head dims bind: the gathered view runs at any page size."""
     cfg = dataclasses.replace(_shaped(64), paged=ttf.PagedConfig(12, 8, 4, use_kernel=False))
     ttf.check_card_shapes(cfg)
+
+
+@pytest.mark.parametrize("fmt", ["f32", "int8", "int4"])
+def test_gather_pages_matches_reference_dequant(fmt):
+    """The gather path's view (``gather_pages``): each row's pages read
+    through the table in order, dequantized as the reference's
+    ``dequantize_kv`` / ``dequantize_kv4`` do.  Codes and scales come from
+    the reference's quantizers; float32 throughout, so the views agree to
+    1e-6 (one product a value)."""
+    from k8s_device_plugin_tpu.ops import quant as jq
+
+    rng = np.random.RandomState(3)
+    pages, page, kv_heads, head_dim, batch, per_row = 9, 4, 2, 8, 2, 4
+    pool = rng.randn(pages, page, kv_heads, head_dim).astype(np.float32)
+    table = (rng.permutation(pages - 1)[: batch * per_row] + 1).reshape(batch, per_row)
+    if fmt == "f32":
+        codes, scales, dequant = pool, None, None
+    else:
+        quantize, dequant = ((jq.quantize_kv, jq.dequantize_kv) if fmt == "int8"
+                             else (jq.quantize_kv4, jq.dequantize_kv4))
+        codes, scales = (np.asarray(a) for a in quantize(jnp.asarray(pool)))
+    rows = codes[table].reshape(batch, per_row * page, kv_heads, -1)
+    want = rows if scales is None else np.asarray(dequant(
+        jnp.asarray(rows), jnp.asarray(scales[table].reshape(rows.shape[:-1])), jnp.float32))
+    got = ttf.gather_pages(torch.from_numpy(codes),
+                           None if scales is None else torch.from_numpy(scales),
+                           torch.from_numpy(table.astype(np.int32)), torch.float32,
+                           int4=fmt == "int4")
+    assert got.shape == (batch, per_row * page, kv_heads, head_dim)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
