@@ -170,10 +170,14 @@ Phases, in order (any failure exits non-zero):
    kernels only) and on the CPU from the same weights, batch and dropout
    keys: the loss, every parameter and every BatchNorm statistic within
    TOL_TRAIN (ViT, BERT) or TOL_TRAIN_CONV (ResNet, AlexNet);
-9c. resume on the card: ResNet18Thin through the benchmark's run with
-   ``--checkpoint-every 2 --steps 4``, then ``--resume --steps 6``:
-   ``resumed_from`` 4, ``final_step`` 6, and the state restored from step 4
-   equal bit for bit to the state that was saved;
+9c. resume on the card: ResNet18Thin through ``benchmark.launch`` as the
+   CLI runs it (an NCCL group of one, FSDP: the sharded save and restore)
+   with ``--checkpoint-every 2 --steps 4``, then ``--resume --steps 4``
+   (nothing trained: its restored state, gathered, and an unsharded
+   restore of the files equal bit for bit to the state that was saved),
+   then ``--resume --steps 6`` (``resumed_from`` 4, ``final_step`` 6) held
+   against an uninterrupted run to 6: losses of steps 5 and 6 within
+   TOL_DIST_BF16 relative, the final state within TOL_DIST_BF16;
 9d. kernels 2-4 non-causal at the ViT shape (b64 h12 s256 d64) and the BERT
    shape (b32 h12 s384 d64), held against their plain versions and timed
    beside SDPA's forward and backward;
@@ -206,7 +210,33 @@ Phases, in order (any failure exits non-zero):
    alone; then one float32 step at 2 layers on the card (the FMA variants)
    and on the CPU from the same weights: loss and parameters within
    TOL_TRAIN, each adapter's gradient within TOL_BWD_F32 of the CPU's
-   relative to its norm.
+   relative to its norm;
+11a. distributed training at a world of one: ``benchmark.launch`` at
+   ``--model bert --batch-size 64 --seq-len 384 --dp 1 --mp 1`` (BERT-base
+   at the BERT pod's global batch, bf16, 1 warm-up and 2 timed steps: 6
+   run) joins an NCCL group of one, lays out the (1, 1) mesh and shards
+   the model with FSDP (``parallel/sharding.shard_train_step``), after the
+   unsharded run at the same flags and seed: the losses of every step
+   within TOL_DIST_BF16 relative and every parameter within TOL_DIST_BF16
+   of the unsharded run's (|a - b| / (1 + |b|), each element), and
+   kernels 2-4 launched exactly 12 layers x 6 steps in the sharded run,
+   the launch counters set to 0 just before it; each run's step time and
+   peak allocated memory are printed.  Then ResNet-50 the same way at
+   ``--batch-size 128 --image-size 224`` (the ResNet-50 pod's 512 over 4
+   chips): its sharded step makes the channels-last conv kernels
+   contiguous, so both step times are printed and the losses and state
+   (BatchNorm statistics too) held within TOL_DIST_BF16;
+11b. two ranks sharing the card over gloo (spawned by ``benchmark.launch``
+   with ``backend="gloo", local_ranks=2``), float32: BERT cut to 2 layers
+   (seq 128, batch 8) at ``--dp 2 --mp 1`` and ``--dp 1 --mp 2``, AlexNet
+   at width 0.25 on 128 px, 10 classes (batch 16) at ``--dp 1 --mp 2``,
+   ResNet18Thin at 64 px, 10 classes (batch 16) at ``--dp 2 --mp 1`` (its
+   BatchNorm takes the global batch's moments across the two ranks):
+   each step's global loss within TOL_DIST_F32 relative and every final
+   parameter and BatchNorm statistic within TOL_DIST_F32 of one rank's
+   unsharded run in this process (|a - b| / (1 + |b|)), and at mp 2 each rank holding at most 0.6
+   of the parameter and momentum bytes one rank holds.  Their times stage
+   through host memory and are not a speed.
 
 Then it prints one ``kernels`` JSON line (a row per kernel variant, each
 with its design, HGMMA count, registers and spill bytes; every number in
@@ -217,8 +247,8 @@ errors and the tiny phase 6), one
 (phase 4e), one ``warm_restart`` line (phases 4f, 4g and 3d), one
 ``spec_lora`` line (phases 4h, 5b and 4i), one ``train_models`` line
 (phase 9), one ``serving_bench``, one ``decode_bench`` and one
-``lora_train`` line (phase 10), one ``phase_seconds`` line, and last the
-line
+``lora_train`` line (phase 10), one ``distributed`` line (phase 11), one
+``phase_seconds`` line, and last the line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -249,6 +279,18 @@ TOL_TRAIN = 1e-5  # fp32 train step, card vs CPU: loss (relative) and params (ab
 # the batch's std, so parameters and statistics move more than phase 8's.
 TOL_TRAIN_CONV = 1e-4
 TOL_S2D = 1e-4  # space_to_depth vs conv7 logits, float32: 147 taps summed against 192
+# Phase 11a: FSDP at a world of one against the unsharded step on the same
+# card and seed (and 9c's resumed run against the uninterrupted one).  The
+# all-gather and reduce-scatter over one rank copy, so the two compute the
+# same thing; the bound leaves room for a kernel whose bf16 sums are not
+# run-to-run deterministic, or a conv whose contiguous kernel (FSDP shards
+# contiguous parameters only) picks another cuDNN algorithm than the
+# channels-last one.
+TOL_DIST_BF16 = 1e-3
+# Phase 11b: two ranks' float32 step against one rank's: each rank sums the
+# gradient over its half of the batch and the halves are averaged, another
+# order of the same float32 sums, carried through 5 SGD-momentum steps.
+TOL_DIST_F32 = 1e-4
 RESNET50_TRAIN_FLOPS_PER_IMAGE = 3 * 8.2e9  # bench.py's count: 3 x the 8.2 GFLOP forward
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak
@@ -2176,6 +2218,7 @@ def cut_models(torch):
 
     from k8s_device_plugin_tpu_torch.models.alexnet import AlexNet
     from k8s_device_plugin_tpu_torch.models.bert import Bert, BertConfig
+    from k8s_device_plugin_tpu_torch.models.resnet import ResNet18Thin
     from k8s_device_plugin_tpu_torch.models.data import (
         synthetic_image_batch,
         synthetic_token_batch,
@@ -2241,45 +2284,62 @@ def check_models_card_vs_cpu(torch, fa, train) -> dict:
 
 
 def check_resume(torch, bench) -> dict:
-    """Phase 9c: ResNet18Thin trained to step 4 with saves every 2 steps,
-    then resumed to 6, through the benchmark's run; the state restored
-    from step 4 must equal the state saved there, bit for bit."""
+    """Phase 9c: ResNet18Thin through ``benchmark.launch`` as the CLI runs
+    it (an NCCL group of one, the model sharded by FSDP): trained to step 4
+    with saves every 2 steps, resumed at ``--steps 4`` and then to 6, and an
+    uninterrupted run to 6.  The run resumed at step 4 trains nothing, and
+    its state (restored into the sharded model, gathered again) must equal
+    the state saved there bit for bit, as must an unsharded restore of the
+    files; the run resumed to 6 must take steps 5 and 6 as the
+    uninterrupted run does, within TOL_DIST_BF16."""
+    import functools
+
     from k8s_device_plugin_tpu_torch.models.checkpoint import CheckpointManager
     from k8s_device_plugin_tpu_torch.models.resnet import ResNet18Thin
     from k8s_device_plugin_tpu_torch.models.train import state_for
 
-    ckpt = "build/checkpoints/resnet18thin"
-    shutil.rmtree(ckpt, ignore_errors=True)
+    ckpt, whole_dir = "build/checkpoints/resnet18thin", "build/checkpoints/resnet18thin-whole"
+    for directory in (ckpt, whole_dir):
+        shutil.rmtree(directory, ignore_errors=True)
+    model_fn = functools.partial(ResNet18Thin, num_classes=1000, seed=17)
 
-    def args(*extra):
-        return bench.parse_args(["--model=resnet50", "--batch-size=8", "--image-size=64",
-                                 "--warmup=1", "--checkpoint-every=2", f"--checkpoint-dir={ckpt}",
-                                 "--dtype=bfloat16", f"--device={DEVICE}", *extra])
+    def launch(directory, *extra):
+        args = bench.parse_args(["--model=resnet50", "--batch-size=8", "--image-size=64",
+                                 "--warmup=1", "--checkpoint-every=2",
+                                 f"--checkpoint-dir={directory}", "--dtype=bfloat16",
+                                 f"--device={DEVICE}", *extra])
+        return bench.launch(args, model_fn=model_fn, gather_params=True)
 
-    def model():
-        return ResNet18Thin(num_classes=1000, device=DEVICE, seed=17)
-
-    first, saved = bench.run(args("--steps=4"), model())
-    restored = CheckpointManager(ckpt).restore(state_for(model(), 0.1, 0.9), 4)
+    first = launch(ckpt, "--steps=4")
+    again = launch(ckpt, "--resume", "--steps=4")
+    restored = CheckpointManager(ckpt).restore(state_for(model_fn(device=DEVICE), 0.1, 0.9), 4)
     torch.cuda.synchronize()
-    if restored.step != saved.step:
-        fail(f"restored step {restored.step}, saved {saved.step}")
-    a, b = saved.model.state_dict(), restored.model.state_dict()
-    unequal = [k for k in a if not torch.equal(a[k], b[k])]
-    for (name, p), q in zip(saved.model.named_parameters(), restored.model.parameters()):
-        if not torch.equal(saved.optimizer.state[p]["momentum_buffer"],
-                           restored.optimizer.state[q]["momentum_buffer"]):
-            unequal.append(f"{name} momentum")
+    unsharded = {k: v.detach().cpu() for k, v in restored.model.state_dict().items()}
+    del restored
+    saved = first.state_dict
+    unequal = []
+    for what, got in (("sharded restore", again.state_dict), ("unsharded restore", unsharded)):
+        if got.keys() != saved.keys():
+            fail(f"{what}: names {sorted(got.keys() ^ saved.keys())[:5]} differ from the saved")
+        unequal += [f"{what}: {k}" for k, v in saved.items() if not torch.equal(got[k], v)]
     if unequal:
         fail(f"the restored state differs from the saved one at {unequal[:5]}")
-    second, final = bench.run(args("--resume", "--steps=6"), model())
-    report = {"first": first, "resumed": second, "steps_on_disk": CheckpointManager(ckpt).steps(),
-              "tensors_compared": len(a) + len(list(saved.model.parameters()))}
+    if (again.record["resumed_from"], again.record["final_step"], again.record["noop"]) != (
+            4, 4, True):
+        fail(f"resume at --steps 4 trained: {again.record}")
+    second = launch(ckpt, "--resume", "--steps=6")
+    whole = launch(whole_dir, "--steps=6")
+    if (second.record["resumed_from"], second.record["final_step"], second.record["noop"]) != (
+            4, 6, False):
+        fail(f"resume: resumed_from {second.record['resumed_from']}, final_step "
+             f"{second.record['final_step']}")
+    held = _held(torch, "9c resumed against uninterrupted", second,
+                 {"losses": whole.losses[4:], "state_dict": whole.state_dict}, TOL_DIST_BF16)
+    report = {"first": first.record, "resumed": second.record, "uninterrupted": whole.record,
+              "steps_on_disk": CheckpointManager(ckpt).steps(),
+              "tensors_compared": 2 * len(saved), "resumed_held": held,
+              "path": "benchmark.launch: NCCL world of one, FSDP, sharded save and restore"}
     log(f"phase 9c resume: {report}")
-    if (second["resumed_from"], second["final_step"], second["noop"]) != (4, 6, False):
-        fail(f"resume: resumed_from {second['resumed_from']}, final_step {second['final_step']}")
-    if not all(math.isfinite(r["final_loss"]) for r in (first, second)):
-        fail(f"resume: loss not finite: {first['final_loss']}, {second['final_loss']}")
     return report
 
 
@@ -2426,6 +2486,189 @@ def run_phase_9(torch, fa, pa, bench, train, smi, mark) -> tuple[dict, dict]:
     line = {"models": models, "card_vs_cpu": card_vs_cpu, "resume": resume,
             "noncausal_kernels": timed, "card": smi}
     return line, timed
+
+
+# ------------------------------------------------------------- phase 11
+
+# deploy/k8s-pod-bert-tpu8.yaml's model and global batch (--dp=2 --mp=4 there).
+DIST_FLAGS = ("--model=bert", "--batch-size=64", "--seq-len=384", "--steps=2", "--warmup=1")
+# ResNet-50 at deploy/k8s-pod-resnet50-tpu4.yaml's share of one chip (its
+# global batch 512 over 4), 224 px: the sharded step's channels-last conv
+# kernels are made contiguous, so it is timed against the unsharded one.
+RESNET_DIST_FLAGS = ("--model=resnet50", "--batch-size=128", "--image-size=224", "--steps=2",
+                     "--warmup=1")
+# (dp, mp) of each 11b run: BERT at both; AlexNet at mp 2 alone, which
+# splits its batch (dropout rows) and shards its conv kernels (made
+# contiguous for FSDP); ResNet18Thin at dp 2 alone, whose BatchNorm takes
+# the global batch's moments across the ranks: each spawn costs about 20 s.
+SHARED_CARD_MESHES = {"bert": ((2, 1), (1, 2)), "alexnet": ((1, 2),),
+                      "resnet18thin": ((2, 1),)}
+# What gloo does not carry on CUDA tensors (PyTorch 2.11 on an H100):
+# DTensor's functional collectives segfault, so 11b gathers no DTensor
+# (``sharding.gather_full_state`` sends local shards through c10d) and saves
+# no checkpoint.  The c10d all_reduce, all_gather_into_tensor and
+# reduce_scatter_tensor that FSDP's step runs all work, so both meshes run.
+GLOO_NOT_CARRIED = ("DTensor functional collectives (full_tensor, redistribute, "
+                    "torch.distributed.checkpoint's full-state gather)",)
+
+
+def _relative_errors(got, want) -> list:
+    return [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want)]
+
+
+def _max_rel_err(torch, got: dict, want: dict) -> float:
+    """The largest |got - want| / (1 + |want|) of any element: absolute for
+    values under 1, relative above (AlexNet's weights grow by orders of
+    magnitude at SGD 0.1 on a small batch)."""
+    if set(got) != set(want):
+        fail(f"state dicts name different tensors: {sorted(set(got) ^ set(want))[:5]}")
+    return max(float(((got[k].float() - want[k].float()).abs()
+                      / (1 + want[k].float().abs())).max()) for k in want)
+
+
+def _unsharded(torch, bench, args, model=None) -> dict:
+    """``args`` trained unsharded in this process: losses, final state dict
+    (CPU), step ms, peak allocated bytes, parameter and momentum bytes."""
+    from k8s_device_plugin_tpu_torch.parallel.sharding import local_state_bytes
+
+    torch.cuda.reset_peak_memory_stats()
+    built = bench.build(args, model)
+    state, losses, dt = bench.timed_steps(built.step, built.state, built.batch, args.warmup,
+                                          args.steps)
+    torch.cuda.synchronize()
+    out = {"losses": [l.item() for l in losses], "step_time_ms": dt / args.steps * 1e3,
+           "steps_run": state.step, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "state_bytes": local_state_bytes(state),
+           "state_dict": {k: v.detach().cpu() for k, v in state.model.state_dict().items()}}
+    del built, state, losses
+    torch.cuda.empty_cache()
+    return out
+
+
+def _held(torch, what: str, run, want: dict, tol: float) -> dict:
+    """A sharded run's losses and final state against an unsharded run's."""
+    if len(run.losses) != len(want["losses"]):
+        fail(f"{what}: {len(run.losses)} steps against {len(want['losses'])}")
+    loss_err = max(_relative_errors(run.losses, want["losses"]))
+    param_err = _max_rel_err(torch, run.state_dict, want["state_dict"])
+    log(f"phase {what}: loss rel err {loss_err:.3g}, param rel err {param_err:.3g} "
+        f"(tol {tol}); losses {run.losses}")
+    if not loss_err <= tol or not param_err <= tol:
+        fail(f"{what}: the sharded run parts from the unsharded one (loss rel {loss_err}, "
+             f"params rel {param_err}, tolerance {tol})")
+    return {"loss_rel_err": loss_err, "param_rel_err": param_err, "tolerance": tol,
+            "losses": run.losses}
+
+
+def run_phase_11(torch, fa, bench, smi, mark) -> tuple[dict, dict]:
+    """Phases 11a and 11b; returns (the distributed line, 11a's launches)."""
+    import functools
+
+    from k8s_device_plugin_tpu_torch.models.alexnet import AlexNet
+    from k8s_device_plugin_tpu_torch.models.bert import Bert, BertConfig
+    from k8s_device_plugin_tpu_torch.models.resnet import ResNet18Thin
+
+    args = bench.parse_args([*DIST_FLAGS, "--dp=1", "--mp=1", "--dtype=bfloat16",
+                             f"--device={DEVICE}"])
+    plain = _unsharded(torch, bench, args)
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    run = bench.launch(args, gather_params=True)
+    torch.cuda.synchronize()
+    launches, by_design = flash_launches(fa)
+    sharded_peak = torch.cuda.max_memory_allocated()
+    steps = run.record["final_step"]
+    layers = BertConfig.base().num_layers
+    for name, count in launches.items():
+        if count != layers * steps:
+            fail(f"the sharded BERT run launched {name} {count} times, not {layers} layers x "
+                 f"{steps} steps")
+    for kernel, counts in by_design.items():
+        expect_designs(counts, "wgmma", layers * steps, f"the sharded BERT run's {kernel} kernel")
+    world_of_one = {
+        "flags": [*DIST_FLAGS, "--dp=1", "--mp=1"],
+        "backend": "nccl", "world": run.record["chips"], "mesh": {"dp": 1, "mp": 1},
+        "record": run.record,
+        "held": _held(torch, "11a world of one", run, plain, TOL_DIST_BF16),
+        "sharded_step_ms": run.record["step_time_ms"],
+        "unsharded_step_ms": plain["step_time_ms"],
+        "sharded_max_memory_allocated": sharded_peak,
+        "unsharded_max_memory_allocated": plain["max_memory_allocated"],
+        "rank_bytes": run.rank_bytes,
+        "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+    }
+    log(f"phase 11a: {world_of_one}")
+    torch.cuda.empty_cache()
+
+    args = bench.parse_args([*RESNET_DIST_FLAGS, "--dp=1", "--mp=1", "--dtype=bfloat16",
+                             f"--device={DEVICE}"])
+    plain = _unsharded(torch, bench, args)
+    torch.cuda.reset_peak_memory_stats()
+    run = bench.launch(args, gather_params=True)
+    torch.cuda.synchronize()
+    resnet_world_of_one = {
+        "flags": [*RESNET_DIST_FLAGS, "--dp=1", "--mp=1"],
+        "backend": "nccl", "world": run.record["chips"], "mesh": {"dp": 1, "mp": 1},
+        "record": run.record,
+        "held": _held(torch, "11a ResNet-50 world of one", run, plain, TOL_DIST_BF16),
+        "sharded_step_ms": run.record["step_time_ms"],
+        "unsharded_step_ms": plain["step_time_ms"],
+        "sharded_max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "unsharded_max_memory_allocated": plain["max_memory_allocated"],
+        "rank_bytes": run.rank_bytes,
+    }
+    del run, plain
+    torch.cuda.empty_cache()
+    log(f"phase 11a ResNet-50: {resnet_world_of_one}")
+    mark("11a_world_of_one")
+
+    shared = {}
+    cut = {
+        "bert": (["--model=bert", "--seq-len=128", "--batch-size=8"], functools.partial(
+            Bert, BertConfig(num_layers=2, dtype=torch.float32))),
+        # 10 classes and batch 16: at 1000 classes and batch 8 SGD 0.1
+        # diverges within the 5 steps (loss 1e23 by the fifth).
+        "alexnet": (["--model=alexnet", "--image-size=128", "--batch-size=16"],
+                    functools.partial(AlexNet, num_classes=10, dtype=torch.float32, width=0.25,
+                                      image_size=128)),
+        # 10 classes, as AlexNet; float32 statistics.
+        "resnet18thin": (["--model=resnet50", "--image-size=64", "--batch-size=16"],
+                         functools.partial(ResNet18Thin, num_classes=10, dtype=torch.float32,
+                                           norm_dtype=torch.float32, seed=3)),
+    }
+    for model, (flags, model_fn) in cut.items():
+        base = [*flags, "--steps=1", "--warmup=1", "--dtype=float32", f"--device={DEVICE}"]
+        one = _unsharded(torch, bench, bench.parse_args([*base, "--dp=1", "--mp=1"]),
+                         model_fn(device=torch.device(DEVICE)))
+        rows = {}
+        for dp_, mp_ in SHARED_CARD_MESHES[model]:
+            t0 = time.perf_counter()
+            run = bench.launch(bench.parse_args([*base, f"--dp={dp_}", f"--mp={mp_}"]),
+                               backend="gloo", local_ranks=2, model_fn=model_fn,
+                               gather_params=True)
+            share = max(run.rank_bytes) / one["state_bytes"]
+            if mp_ == 2 and share > 0.6:
+                fail(f"{model} at mp 2 holds {share:.3f} of one rank's parameter and momentum "
+                     "bytes a rank, not about half")
+            rows[f"dp{dp_}_mp{mp_}"] = {
+                "held": _held(torch, f"11b {model} dp{dp_} mp{mp_}", run, one, TOL_DIST_F32),
+                "rank_bytes": run.rank_bytes, "share_of_one_rank_bytes": share,
+                "staged_step_ms": run.record["step_time_ms"],
+                "launch_wall_s": time.perf_counter() - t0,
+            }
+        shared[model] = {"flags": base, "unsharded_step_ms": one["step_time_ms"],
+                         "one_rank_bytes": one["state_bytes"], **rows}
+        log(f"phase 11b {model}: {shared[model]}")
+    mark("11b_shared_card")
+    line = {"world_of_one": world_of_one, "resnet50_world_of_one": resnet_world_of_one,
+            "shared_card": {"backend": "gloo", "world": 2, "ranks_per_card": 2,
+                            "meshes": {k: [{"dp": d, "mp": m} for d, m in v]
+                                       for k, v in SHARED_CARD_MESHES.items()},
+                            "gloo_not_carried": list(GLOO_NOT_CARRIED),
+                            "times": "staged through host memory by gloo: not a speed",
+                            **shared},
+            "card": smi}
+    return line, launches
 
 
 # ------------------------------------------------- phases 4h, 5b and 4i
@@ -3486,6 +3729,10 @@ def main() -> None:
         row["lora_train_launches"] = lora_train["bf16"]["launches"][name]
     for row, kernel in ((flash_fma, "forward"), (dq_fma, "dq"), (dkv_fma, "dkv")):
         row["lora_fp32_launches"] = lora_train["card_vs_cpu"]["launches_by_design"][kernel]["fma"]
+    distributed, launches = run_phase_11(torch, fa, bench, smi, mark)
+    for row, name in ((flash, "flash_attention"), (dq, "flash_attention_bwd_dq"),
+                      (dkv, "flash_attention_bwd_dkv")):
+        row["distributed_launches"] = launches[name]
 
     for row, name in ((paged["f"], "paged_attention"), (flash, "flash_attention"),
                       (dq, "flash_attention_bwd_dq"), (dkv, "flash_attention_bwd_dkv")):
@@ -3509,6 +3756,7 @@ def main() -> None:
     print(json.dumps({"serving_bench": serving_bench, "card": smi}), flush=True)
     print(json.dumps({"decode_bench": decode_bench, "card": smi}), flush=True)
     print(json.dumps({"lora_train": lora_train}), flush=True)
+    print(json.dumps({"distributed": distributed}), flush=True)
     print(json.dumps({"phase_seconds": phase_s, "total_s": time.perf_counter() - t0,
                       "card": smi}), flush=True)
     print(json.dumps({

@@ -27,9 +27,24 @@ images/sec (AlexNet, ResNet-50, ViT) or tokens/sec (BERT, the LM).  Runs on
 the end (``models/checkpoint.py``), and ``--resume`` restores the newest
 step first; ``--steps`` is then the absolute target step, and the record
 adds ``resumed_from`` and ``noop``.  ``--trace-dir`` writes a
-``torch.profiler`` trace of the timed region.  ``--dp``, ``--mp`` and
-``--pp`` are taken at their one-card values only (ROADMAP.md queue 1 item
-7 ports the parallel layers).
+``torch.profiler`` trace of the timed region.
+
+Training runs one process per card (:func:`launch`): ``--dp``/``--mp`` lay
+the ranks out as the reference's ``make_slice_mesh({"dp", "mp"})`` lays
+devices out (``parallel/``), and the step is FSDP over that mesh
+(``parallel/sharding.shard_train_step``), so it computes the global batch's
+step.  One card joins a world of one over NCCL; several are spawned, rank r
+on card r; a multi-host slice (``TPU_WORKER_HOSTNAMES``/``TPU_WORKER_ID``,
+or the ``JAX_*`` overrides: ``parallel/distributed.py``) numbers its ranks
+host-major.  ``--device cpu`` runs dp·mp gloo ranks (``--dp -1`` counting
+as 1).  The global batch must divide over the ranks (times
+``--grad-accum``).  The record counts every rank in ``chips`` and prints
+once per host.  ``--pp`` is not ported (ROADMAP.md queue 1 item 7)::
+
+    python -m k8s_device_plugin_tpu_torch.models.benchmark --model bert \
+        --batch-size 64 --seq-len 384 --dp 2 --mp 4
+    python -m k8s_device_plugin_tpu_torch.models.benchmark --model vit --tiny \
+        --device cpu --dtype float32 --dp 2 --mp 2 --batch-size 4 --steps 2 --warmup 1
 
 The inference modes print the reference's records, key for key::
 
@@ -54,7 +69,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import socket
 import sys
+import tempfile
 import time
 from typing import Callable, NamedTuple, Optional
 
@@ -191,9 +209,9 @@ def parse_args(argv=None):
     p.add_argument("--seq-len", type=_positive_int, default=384)
     p.add_argument("--steps", type=_positive_int, default=30)
     p.add_argument("--warmup", type=_positive_int, default=5)
-    p.add_argument("--dp", type=int, default=-1, help="data-parallel axis size (one card: -1 or 1)")
-    p.add_argument("--mp", type=int, default=1, help="param-sharding axis size (one card: 1)")
-    p.add_argument("--pp", type=int, default=0, help="pipeline stages (one card: 0 or 1)")
+    p.add_argument("--dp", type=int, default=-1, help="data-parallel axis size (-1: all devices)")
+    p.add_argument("--mp", type=int, default=1, help="param-sharding axis size")
+    p.add_argument("--pp", type=int, default=0, help="pipeline stages (not ported: 0 or 1)")
     p.add_argument("--stem", choices=["conv7", "space_to_depth"], default="conv7",
                    help="resnet50 stem: the 7x7/s2 conv or the space-to-depth packing")
     p.add_argument("--fused-xent", action="store_true",
@@ -246,10 +264,8 @@ def parse_args(argv=None):
     if args.batch_size % args.grad_accum:
         p.error(f"--batch-size {args.batch_size} is not divisible by --grad-accum "
                 f"{args.grad_accum}")
-    if args.dp not in (-1, 1) or args.mp != 1 or args.pp not in (0, 1):
-        p.error(f"--dp {args.dp} --mp {args.mp} --pp {args.pp}: this port trains on one card "
-                "(--dp -1 or 1, --mp 1, --pp 0 or 1); the parallel layers are ROADMAP.md "
-                "queue 1 item 7")
+    if args.pp > 1:
+        p.error(f"--pp {args.pp}: the pipeline is not ported yet (ROADMAP.md queue 1 item 7)")
     return args
 
 
@@ -296,11 +312,12 @@ def build_model(args, device) -> nn.Module:
     raise SystemExit(f"unknown model {args.model!r}")
 
 
-def build(args, model: Optional[nn.Module] = None) -> Built:
-    """The state, step, batch and items per step for ``args``.  ``model``,
-    when given, stands in for the one ``--model`` names (the same kind of
-    input; a test or a smoke run passes a cut-down model)."""
-    device = resolve_device(args.device)
+def build(args, model: Optional[nn.Module] = None, device=None) -> Built:
+    """The state, step, batch and items per step for ``args``, on
+    ``device`` (default: ``--device`` resolved).  ``model``, when given,
+    stands in for the one ``--model`` names (the same kind of input; a test
+    or a smoke run passes a cut-down model)."""
+    device = resolve_device(args.device) if device is None else device
     gen = torch.Generator(device=device).manual_seed(0)
     input_key = "input_ids" if args.model in TOKEN_MODELS else "images"
     if args.model == "gpt" and model is None:
@@ -332,16 +349,18 @@ def build(args, model: Optional[nn.Module] = None) -> Built:
     return Built(state, step, batch, items)
 
 
-def make_record(args, state, losses, dt, steps_run: int, items_per_step: int) -> dict:
-    """The reference CLI's JSON record (plus ``device``) for a run."""
+def make_record(args, state, losses, dt, steps_run: int, items_per_step: int,
+                chips: int = 1) -> dict:
+    """The reference CLI's JSON record (plus ``device``) for a run over
+    ``chips`` ranks; ``losses`` are global-batch means."""
     throughput = items_per_step * steps_run / dt if dt > 0 else 0.0
     device = next(state.model.parameters()).device
     return {
         "model": args.model,
-        "chips": 1,
+        "chips": chips,
         "global_batch": args.batch_size,
         "throughput": round(throughput, 2),
-        "throughput_per_chip": round(throughput, 2),
+        "throughput_per_chip": round(throughput / chips, 2),
         "unit": "tokens/sec" if args.model in TOKEN_MODELS else "images/sec",
         "step_time_ms": round(dt / steps_run * 1e3, 2) if steps_run else 0.0,
         "final_loss": losses[-1].item() if losses else None,
@@ -350,14 +369,15 @@ def make_record(args, state, losses, dt, steps_run: int, items_per_step: int) ->
     }
 
 
-def run(args, model: Optional[nn.Module] = None) -> tuple[dict, TrainState]:
-    """Build, train and time; returns (the record, the final state)."""
-    built = build(args, model)
-    state, step, batch = built.state, built.step, built.batch
+def _train(args, state, step, batch, items_per_step: int, chips: int = 1):
+    """Time ``step`` from ``state`` (checkpointed under
+    ``--checkpoint-dir``); returns (record, final state, every step's
+    loss)."""
     if not args.checkpoint_dir:
         with tracing.trace(args.trace_dir):
             state, losses, dt = timed_steps(step, state, batch, args.warmup, args.steps)
-        return make_record(args, state, losses, dt, args.steps, built.items_per_step), state
+        return (make_record(args, state, losses, dt, args.steps, items_per_step, chips), state,
+                losses)
     from .checkpoint import CheckpointManager
 
     ckpt = CheckpointManager(args.checkpoint_dir)
@@ -374,11 +394,132 @@ def run(args, model: Optional[nn.Module] = None) -> tuple[dict, TrainState]:
         state, losses, dt, steps_run = checkpointed_steps(
             step, state, batch, args.steps, ckpt, args.checkpoint_every, warmup=args.warmup)
     ckpt.close()
-    record = make_record(args, state, losses, dt, steps_run, built.items_per_step)
+    record = make_record(args, state, losses, dt, steps_run, items_per_step, chips)
     record["resumed_from"] = resumed_from
     # True when this run trained nothing (the checkpoint was at or past --steps).
     record["noop"] = record["final_step"] == resumed_from
-    return record, state
+    return record, state, losses
+
+
+# ------------------------------------------------------------ ranks and meshes
+
+
+class DistributedRun(NamedTuple):
+    """What :func:`launch` returns from local rank 0: its record, the global
+    mean loss of every step, the full state dict after the run (parameters
+    and buffers on the CPU, on global rank 0; None unless
+    ``gather_params``) and the parameter + optimizer-state bytes each rank
+    held."""
+
+    record: dict
+    losses: list
+    state_dict: Optional[dict]
+    rank_bytes: list
+
+
+def local_rank_count(args) -> int:
+    """Ranks on this host: one per visible card, or on ``--device cpu``
+    dp·mp (-1 counting as 1)."""
+    if resolve_device(args.device).type == "cuda":
+        return torch.cuda.device_count()
+    return max(args.dp, 1) * max(args.mp, 1)
+
+
+def check_layout(args, local_ranks: int) -> int:
+    """Exit, as the reference does before it builds anything, when
+    ``--dp``/``--mp`` do not lay out the slice's ranks or the global batch
+    does not split over them; returns the world size."""
+    from ..parallel import distributed
+    from ..parallel.mesh import mesh_shape
+
+    try:
+        config = distributed.process_group_from_env()
+        world = (config.num_processes if config else 1) * local_ranks
+        mesh_shape({"dp": args.dp, "mp": args.mp}, world)
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if args.batch_size % (world * args.grad_accum):
+        raise SystemExit(
+            f"--batch-size {args.batch_size} does not split over {world} ranks (dp·mp)"
+            + (f" x --grad-accum {args.grad_accum}" if args.grad_accum > 1 else "")
+            + ": each rank takes an equal share of every microbatch")
+    return world
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch(args, *, backend: Optional[str] = None, local_ranks: Optional[int] = None,
+           model_fn: Optional[Callable] = None, gather_params: bool = False) -> DistributedRun:
+    """Train ``args`` on every local rank: in this process when there is
+    one, else one spawned process per rank (``torch.multiprocessing``,
+    rank r on card r, with this process's TF32 settings).  ``backend``
+    (default NCCL on cards, gloo on the CPU) and ``local_ranks`` (default
+    :func:`local_rank_count`) let ranks share one card over gloo;
+    ``model_fn(device=...)`` (picklable) stands in for the model
+    ``--model`` names.  Returns local rank 0's :class:`DistributedRun`."""
+    n = local_rank_count(args) if local_ranks is None else local_ranks
+    check_layout(args, n)
+    init_method = f"tcp://127.0.0.1:{_free_port()}"
+    if n == 1:
+        return _rank_main(0, args, 1, backend, init_method, model_fn, gather_params, None, None)
+    import torch.multiprocessing as mp
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    with tempfile.TemporaryDirectory(prefix="ranks-") as out:
+        mp.start_processes(_rank_main, nprocs=n, start_method="spawn", args=(
+            args, n, backend, init_method, model_fn, gather_params, out, tf32))
+        return DistributedRun(*torch.load(os.path.join(out, "rank0.pt"), weights_only=False))
+
+
+def _rank_main(local_rank: int, args, local_ranks: int, backend, init_method, model_fn,
+               gather_params: bool, out_dir: Optional[str],
+               tf32: Optional[tuple]) -> DistributedRun:
+    """One rank: join the group, build, shard, train, record; leaves the
+    group at the end."""
+    from ..parallel import distributed
+    from ..parallel.sharding import (
+        gather_full_state,
+        local_state_bytes,
+        shard_batch,
+        shard_train_step,
+    )
+
+    dist = torch.distributed
+    device = resolve_device(args.device, local_rank)
+    if tf32 is not None:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    distributed.initialize(local_rank=local_rank, local_ranks=local_ranks,
+                           init_method=init_method, backend=backend)
+    try:
+        rank, world = dist.get_rank(), dist.get_world_size()
+        mesh = distributed.make_slice_mesh({"dp": args.dp, "mp": args.mp},
+                                           device_type=device.type)
+        if rank == 0:
+            log(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} over {world} "
+                f"rank(s), {backend}")
+        built = build(args, model_fn(device=device) if model_fn else None, device=device)
+        step, state = shard_train_step(built.step, mesh, built.state)
+        batch = shard_batch(built.batch, rank, world, args.grad_accum)
+        items_per_step = built.items_per_step
+        del built  # the global batch: each rank keeps its rows
+        record, state, losses = _train(args, state, step, batch, items_per_step, world)
+        rank_bytes = [None] * world
+        dist.all_gather_object(rank_bytes, local_state_bytes(state))
+        full = gather_full_state(state.model) if gather_params else None
+        result = DistributedRun(record, [float(x) for x in losses], full, rank_bytes)
+        if out_dir is not None and local_rank == 0:
+            torch.save(tuple(result), os.path.join(out_dir, "rank0.pt"))
+        dist.barrier()
+        return result
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------------------------------- inference modes
@@ -1279,7 +1420,7 @@ def main(argv=None) -> None:
     elif args.model == "serving":
         record = run_serving(args).record
     else:
-        record = run(args)[0]
+        record = launch(args).record
     print(json.dumps(record), flush=True)
 
 

@@ -17,6 +17,14 @@ cannot read them: a JAX tree comes over through ``convert.py``
 (``save_flax_params``, ``load_flax_train_state``).  Saves are synchronous
 (the reference's async save is orbax's mechanism; a step is durable when
 ``save`` returns), so ``wait`` has nothing to wait for.
+
+A sharded train state (``parallel/sharding.shard_train_step``) keeps the
+file format, so checkpoints move between meshes as orbax's restore into any
+sharding: ``save`` gathers the whole state to rank 0 (``sharding.gather_full``;
+every rank calls it), which writes it; ``restore`` reads the files on every
+rank, and each keeps its own chunk of every sharded tensor
+(``sharding.shard_like``).  The directory must then be one that every rank
+reads.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from typing import Mapping, Optional
 
 import torch
 
+from ..parallel.sharding import gather_full, shard_like
 from .train import TrainState
 
 PARAMS_FILE = "params.pt"
@@ -36,6 +45,11 @@ STATE_FILE = "train_state.pt"
 
 def _cpu(tensors: Mapping[str, torch.Tensor]) -> dict:
     return {name: t.detach().to("cpu").contiguous() for name, t in tensors.items()}
+
+
+def _sharded(model) -> bool:
+    """Whether ``model`` holds FSDP-sharded parameters (DTensors)."""
+    return any(hasattr(p, "device_mesh") for p in model.parameters())
 
 
 class CheckpointManager:
@@ -71,22 +85,33 @@ class CheckpointManager:
         """Write a train state at its own step, or a flat parameter state
         dict at ``step`` (default 0), replacing a step of that number; then
         drop the steps past ``max_to_keep``.  Returns the step written."""
+        sharded = isinstance(state, TrainState) and _sharded(state.model)
         if isinstance(state, TrainState):
             step = state.step if step is None else step
             model = state.model
             params = dict(model.named_parameters())
+            buffers = dict(model.named_buffers())
             momentum = {}
             for name, p in params.items():
                 buf = state.optimizer.state.get(p, {}).get("momentum_buffer")
                 if buf is not None:
                     momentum[name] = buf
-            extra = {"step": int(step), "batch_stats": _cpu(dict(model.named_buffers())),
-                     "momentum": _cpu(momentum)}
+            if sharded:  # whole, on rank 0 (empty elsewhere): every rank calls this
+                params, buffers, momentum = (gather_full(t) or {}
+                                             for t in (params, buffers, momentum))
+            extra = {"step": int(step), "batch_stats": _cpu(buffers), "momentum": _cpu(momentum)}
         else:
             params, extra = state, None
             step = 0 if step is None else step
-        final = os.path.join(self.directory, str(int(step)))
-        tmp = tempfile.mkdtemp(prefix=f".{int(step)}.", dir=self.directory)
+        if not sharded or torch.distributed.get_rank() == 0:
+            self._write(int(step), params, extra)
+        if sharded:
+            torch.distributed.barrier()  # the step is on disk for every rank
+        return int(step)
+
+    def _write(self, step: int, params, extra) -> None:
+        final = os.path.join(self.directory, str(step))
+        tmp = tempfile.mkdtemp(prefix=f".{step}.", dir=self.directory)
         try:
             torch.save(_cpu(params), os.path.join(tmp, PARAMS_FILE))
             if extra is not None:
@@ -99,7 +124,6 @@ class CheckpointManager:
             raise
         for old in self.steps()[: -self.max_to_keep]:
             shutil.rmtree(os.path.join(self.directory, str(old)), ignore_errors=True)
-        return int(step)
 
     def restore(self, target: TrainState, step: Optional[int] = None) -> TrainState:
         """Load ``step`` (default: the newest) into ``target`` in place, on
@@ -112,10 +136,18 @@ class CheckpointManager:
                                     "not a train state")
         saved = torch.load(os.path.join(path, STATE_FILE), map_location="cpu", weights_only=True)
         model = target.model
-        model.load_state_dict({**self.restore_params(step), **saved["batch_stats"]})
+        params = self.restore_params(step)
+        if _sharded(model):
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    p.copy_(shard_like(params[name], p))
+                for name, b in model.named_buffers():
+                    b.copy_(saved["batch_stats"][name])
+        else:
+            model.load_state_dict({**params, **saved["batch_stats"]})
         for name, p in model.named_parameters():
             if name in saved["momentum"]:
-                buf = saved["momentum"][name].to(p.device)
+                buf = shard_like(saved["momentum"][name], p)
                 target.optimizer.state[p]["momentum_buffer"] = buf
             else:
                 target.optimizer.state.pop(p, None)

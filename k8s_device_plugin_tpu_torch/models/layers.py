@@ -174,7 +174,13 @@ class BatchNorm(nn.Module):
     ``train=False`` normalizes with the running averages and changes
     nothing.  The normalization runs in the wider of
     the input's type and ``dtype`` (flax computes it in float32 from the
-    float32 statistics) and returns ``dtype``."""
+    float32 statistics) and returns ``dtype``.
+
+    ``batch_group`` (set by ``parallel/sharding.shard_train_step`` when the
+    batch is split over ranks) makes the training statistics the global
+    batch's, as flax's means over a sharded batch: :class:`_GlobalMoments`
+    all-reduces the count, sum and sum of squares over the group, and its
+    backward the two sums the input gradient needs."""
 
     def __init__(self, features: int, momentum: float = 0.9, epsilon: float = 1e-5,
                  dtype=torch.float32, zero_scale: bool = False, device=None):
@@ -185,6 +191,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("mean", torch.zeros(features, device=device))
         self.register_buffer("var", torch.ones(features, device=device))
+        self.batch_group = None
 
     @torch.no_grad()
     def reset_from(self, gen: torch.Generator) -> None:
@@ -199,6 +206,11 @@ class BatchNorm(nn.Module):
             y = F.batch_norm(x.to(wide), self.mean, self.var, self.scale, self.bias, False, 0.0,
                              self.epsilon)
             return y.to(self.dtype)
+        if self.batch_group is not None:
+            y, mean, var = _GlobalMoments.apply(x, self.scale, self.bias, self.epsilon,
+                                                self.batch_group)
+            self._update_running(mean, var)
+            return y.to(self.dtype)
         # One pass computes the batch statistics and normalizes with them;
         # the running averages take the biased variance back from its
         # 1/sqrt(var + eps), in float64 (a few ulps of float32).
@@ -206,10 +218,60 @@ class BatchNorm(nn.Module):
                                                   True, 0.0, self.epsilon)
         with torch.no_grad():
             var = (invstd.double().square().reciprocal() - self.epsilon).clamp_min(0.0)
-            m = self.momentum
-            self.mean.mul_(m).add_(mean.float(), alpha=1.0 - m)
-            self.var.mul_(m).add_(var.float(), alpha=1.0 - m)
+        self._update_running(mean, var)
         return y.to(self.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var) -> None:
+        m = self.momentum
+        self.mean.mul_(m).add_(mean.float(), alpha=1.0 - m)
+        self.var.mul_(m).add_(var.float(), alpha=1.0 - m)
+
+
+class _GlobalMoments(torch.autograd.Function):
+    """Training BatchNorm over dim 1 with the moments of the whole batch
+    split over ``group``'s ranks, in float32, as flax computes them: mean =
+    E[x], var = max(E[x^2] - mean^2, 0) (biased), y = (x - mean) *
+    (rsqrt(var + eps) * scale) + bias.  Forward all-reduces (sum, sum of
+    squares, count) per channel; backward all-reduces (sum dy, sum dy *
+    xhat), whose global means the input gradient takes.  Each rank's
+    ``scale``/``bias`` gradients are its own rows' (FSDP averages them).
+    Returns (y float32, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps, group):
+        xf = x.float()
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        c = x.shape[1]
+        count = torch.full((1,), float(x.numel() // c), device=x.device)
+        stats = torch.cat([xf.sum(dims), xf.square().sum(dims), count])
+        torch.distributed.all_reduce(stats, group=group)
+        n = stats[-1]
+        mean = stats[:c] / n
+        var = (stats[c:2 * c] / n - mean.square()).clamp_min(0.0)
+        invstd = torch.rsqrt(var + eps)
+        y = (xf - mean.view(shape)) * (invstd * scale).view(shape) + bias.view(shape)
+        ctx.save_for_backward(x, scale, mean, invstd, n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, scale, mean, invstd, n = ctx.saved_tensors
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        c = x.shape[1]
+        dy = dy.float()
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        sums = torch.cat([dy.sum(dims), (dy * xhat).sum(dims)])
+        dscale, dbias = sums[c:].clone(), sums[:c].clone()
+        torch.distributed.all_reduce(sums, group=ctx.group)
+        mean_dy, mean_dy_xhat = sums[:c] / n, sums[c:] / n
+        dx = (scale * invstd).view(shape) * (
+            dy - mean_dy.view(shape) - xhat * mean_dy_xhat.view(shape))
+        return dx.to(x.dtype), dscale, dbias, None, None
 
 
 def gelu(x):
@@ -217,18 +279,23 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-def dropout(x: torch.Tensor, rate: float, key_words: Optional[tuple], name: str):
+def dropout(x: torch.Tensor, rate: float, key_words: Optional[tuple], name: str,
+            batch_group=None):
     """flax ``nn.Dropout(rate)`` named ``name`` in training: keep where
     ``bernoulli(fold_in_static(root, (name, 1)), 1 - rate, x.shape)`` (the
     module's first ``make_rng("dropout")``) and divide the kept values by
-    1 - rate.  ``key_words`` is the step's root dropout key as two ints."""
+    1 - rate.  ``key_words`` is the step's root dropout key as two ints.
+    With ``batch_group``, ``x`` is rank r's equal share of a batch split in
+    rank order, and the mask is the global mask's rows: the draw starts at
+    element ``r * x.numel()``."""
     from ..utils import prng
 
     if key_words is None:
         raise ValueError(f"{name} needs a dropout key in training (dropout_rng=...)")
     keep = 1.0 - rate
     key = prng.key_tensor(prng.fold_in_static(key_words, (name, 1)), x.device)
-    mask = prng.bernoulli(key, keep, x.shape)
+    rank = 0 if batch_group is None else torch.distributed.get_rank(batch_group)
+    mask = prng.bernoulli(key, keep, x.shape, offset=rank * x.numel())
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

@@ -16,6 +16,15 @@ dropout key, the reference's: ``fold_in(PRNGKey(0), step)``, and under
 ``grad_accum`` microbatch i's ``fold_in(that, i)``, as two ints
 (``utils/prng.fold_in_words``).
 
+Over several ranks (``parallel/sharding.shard_train_step``) a step takes
+this rank's rows of the global batch, laid out by ``sharding.batch_rows``
+so that chunk i under ``grad_accum`` is the rank's share of global
+microbatch i (the reference's rows ``[i·B/g, (i+1)·B/g)``): BatchNorm's
+statistics then carry microbatch to microbatch as the reference's scan
+carries them, and dropout draws microbatch i's global mask under the same
+key.  The sharded step all-reduces the loss, so what it returns is the
+global batch's mean.
+
 LoRA training (``GPTConfig(lora_rank=r)``) takes the same step: pass
 ``tx=lora.make_lora_tx(inner)`` to :func:`create_train_state` (or
 :func:`state_for`), whose optimizer then holds the adapters alone with the

@@ -11,9 +11,12 @@ from __future__ import annotations
 import torch
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None, local_rank: int | None = None) -> torch.device:
     """``None`` -> ``cuda`` (raises without a card); anything else is taken
-    as asked, and a CUDA request without a card raises too."""
+    as asked, and a CUDA request without a card raises too.  With
+    ``local_rank`` (one process per card, ``models/benchmark.py``'s ranks) a
+    CUDA request means card ``local_rank`` of the visible ones, modulo their
+    count, so ranks can share a card."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -22,6 +25,8 @@ def resolve_device(device=None) -> torch.device:
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be cuda or cpu, got {dev}")
+    if dev.type == "cuda" and local_rank is not None:
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
     return dev
 
 

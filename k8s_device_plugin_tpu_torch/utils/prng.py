@@ -69,10 +69,10 @@ def PRNGKey(seed: int, device=None) -> torch.Tensor:
     return torch.tensor([0, int(seed) & _M32], dtype=torch.int64, device=device)
 
 
-def _counters(n: int, device):
+def _counters(n: int, device, offset: int = 0):
     """The partitionable counters of n elements: (high, low) words of
-    0..n-1."""
-    i = torch.arange(n, dtype=torch.int64, device=device)
+    offset..offset+n-1."""
+    i = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     return i >> 32, i & _M32
 
 
@@ -121,18 +121,23 @@ def key_tensor(words: tuple[int, int], device=None) -> torch.Tensor:
     return torch.tensor([int(words[0]), int(words[1])], dtype=torch.int64, device=device)
 
 
-def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
-    """``jax.random.bits(key, shape, uint32)`` as int64 values in [0, 2^32)."""
+def random_bits(key: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 values in [0, 2^32).
+    ``offset`` draws elements ``offset..`` of a larger draw instead: a rank
+    holding rows [r, r + shape[0]) of a global array draws its rows of the
+    global draw at ``offset = r * prod(shape[1:])``, since the counters are
+    flat element indices."""
     shape = tuple(shape)
     n = 1
     for dim in shape:
         n *= dim
-    hi, lo = _counters(n, key.device)
+    hi, lo = _counters(n, key.device, offset)
     b1, b2 = threefry2x32(key[0], key[1], hi, lo)
     return (b1 ^ b2).reshape(shape)
 
 
-def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0,
+            offset: int = 0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``: the top 23
     bits as the mantissa of a number in [1, 2), minus 1, scaled to
     [minval, maxval) and clamped at minval, in float32.  XLA compiles the
@@ -140,7 +145,7 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) 
     24-bit mantissas is exact in float64 and the sum rounds to float32
     (through float64 first, which can differ only where that rounding lands
     on a float32 tie; with [tiny, 1), gumbel's range, the sum is exact)."""
-    bits = random_bits(key, shape)
+    bits = random_bits(key, shape, offset)
     floats = ((bits >> (32 - _NMANT)) | _ONE_BITS).to(torch.int32).view(torch.float32) - 1.0
     # The bounds as float32 values (Python floats hold them exactly): no
     # tensor is made from host data, so the draw captures in a graph.
@@ -149,10 +154,10 @@ def uniform(key: torch.Tensor, shape, minval: float = 0.0, maxval: float = 1.0) 
     return (floats.double() * scale + lo).float().clamp_min(lo)
 
 
-def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:
+def bernoulli(key: torch.Tensor, p: float, shape, offset: int = 0) -> torch.Tensor:
     """``jax.random.bernoulli(key, p, shape)`` for a Python float ``p``:
-    float32 uniform draws below ``p``."""
-    return uniform(key, shape) < float(np.float32(p))
+    float32 uniform draws below ``p`` (``offset`` as :func:`random_bits`)."""
+    return uniform(key, shape, offset=offset) < float(np.float32(p))
 
 
 def gumbel(key: torch.Tensor, shape) -> torch.Tensor:
