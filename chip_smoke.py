@@ -237,6 +237,35 @@ Phases, in order (any failure exits non-zero):
    unsharded run in this process (|a - b| / (1 + |b|)), and at mp 2 each rank holding at most 0.6
    of the parameter and momentum bytes one rank holds.  Their times stage
    through host memory and are not a speed.
+12a. tensor-parallel serving over an NCCL group of one: the batch engine at
+   phase 4d's flags and traffic over a ``tp`` mesh of one
+   (``models/engine_tp.launch(1)``, graphed) must return 4d's greedy tokens
+   bit for bit (an all-reduce over one rank is the identity), launch the
+   paged kernel once per layer on every step, and each graph must hold its
+   collectives (per step 2 x 8 + 1 all-reduces, one all-gather of the
+   logits, one broadcast of the tokens);
+12b. two gloo ranks sharing the card (``launch(2, backend="gloo")``), float32,
+   eager, at the deployed widths: ``__graft_entry__.py``'s tp bar, greedy
+   under preemption churn (optimistic admission, the KV tiers with an 8 MB
+   arena, the pool cut to 3 free pages) and sampled (``PRNGKey(42)``, 0.8,
+   top-k 8) repeated after a reclaim so it restores through the host arena:
+   the streams equal the unsharded float32 engine's on the card (a greedy
+   difference is taken only at a step whose top-2 margin there is under
+   TOL_TP_MARGIN, and reported), preemptions, restored resumes and overlap
+   discards equal and above 0, the lint green on both ranks after the
+   traffic, the ranks' pools gathered equal to the unsharded engine's
+   within TOL_TP_F32, each rank's kernel 1 launches = layers x its device
+   steps; then kernel 1 at the shard geometry (B 8, H 8, Hk 2, D 64, page
+   16, bf16) held against its plain version and timed with its bound;
+12c. the HTTP server at the deployment's flags plus ``--tp 2`` over gloo on
+   the card (its ``main(tp_backend="gloo")``): 8 streamed requests (phase
+   4d's prompts, 16 new tokens) whose
+   greedy tokens equal an in-process tp=2 engine's built from the same
+   flags on 12b's ranks, ``/debug/state``'s ``tp`` block and the
+   ``tpu_engine_tp_size`` gauge at 2, SIGTERM draining it (the snapshot
+   saved) with no follower left, then a restarted tp=2 server on the same
+   snapshot directory loading its entries and answering a request with the
+   first server's tokens.
 
 Then it prints one ``kernels`` JSON line (a row per kernel variant, each
 with its design, HGMMA count, registers and spill bytes; every number in
@@ -248,14 +277,17 @@ errors and the tiny phase 6), one
 ``spec_lora`` line (phases 4h, 5b and 4i), one ``train_models`` line
 (phase 9), one ``serving_bench``, one ``decode_bench`` and one
 ``lora_train`` line (phase 10), one ``distributed`` line (phase 11), one
-``phase_seconds`` line, and last the line
+``tensor_parallel`` line (phase 12), one ``phase_seconds`` line, and last
+the line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
 """
 
 from __future__ import annotations
 
+import ast
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -831,16 +863,21 @@ def time_head_dim(torch, pa, fa, dp, tuning, D: int) -> dict:
     return out
 
 
+# The batch engine's deployed widths (phases 4, 4b, 4d, 12a).
+ENGINE_WIDTHS = (
+    "--hidden=1024", "--layers=8", "--heads=16", "--kv-heads=4", "--vocab=32000",
+    "--page-size=16", "--num-pages=512", "--max-pages-per-seq=32", "--slots=8",
+    "--prompt-len=128", "--max-new=128",
+)
+BLOCK16_TOKENS: list = []  # phase 4d's greedy streams
+
+
 def run_engine(torch, engine, pa, fa, flags=(), requests: int = 32):
     """Phases 4 and 4b: the batch engine at full width with the extra
     ``flags`` on ``requests`` of the synthetic stream; returns (summary,
     paged launches by pool format)."""
-    args = engine.parse_args([
-        "--hidden=1024", "--layers=8", "--heads=16", "--kv-heads=4", "--vocab=32000",
-        "--page-size=16", "--num-pages=512", "--max-pages-per-seq=32", "--slots=8",
-        f"--requests={requests}", "--prompt-len=128", "--max-new=128", f"--device={DEVICE}",
-        *flags,
-    ])
+    args = engine.parse_args([*ENGINE_WIDTHS, f"--requests={requests}", f"--device={DEVICE}",
+                              *flags])
     pa.reset_launches()
     fa.reset_launches()
     summary, done = engine.benchmark(args)
@@ -1708,6 +1745,7 @@ def run_blocks(torch, engine, pa, fa, dp, sync_tokens) -> dict:
     time per token at block 1 (synchronous and eager, then overlapped and
     graphed) and at block 16."""
     greedy, launches, tokens = run_engine(torch, engine, pa, fa, BLOCKS)
+    BLOCK16_TOKENS[:] = tokens  # phase 12a holds its tensor-parallel run to them
     if tokens != sync_tokens:
         fail(f"block 16 with overlap and graphs differs from phase 4's greedy tokens at "
              f"{first_difference(tokens, sync_tokens)}")
@@ -3577,6 +3615,395 @@ def run_lora_training(torch, tf, train, lora, data, bench, fa, smi) -> dict:
                                           "launches_by_design": fma}, "card": smi}
 
 
+# ------------------------------------------------------------- phase 12
+
+# Phase 12b: __graft_entry__.py's tensor-parallel bar at the deployed widths
+# (vocab 32000, hidden 1024, 8 layers, 16/4 heads, the CLI's intermediate
+# 3072), float32, two slots, optimistic admission, the KV tiers with an 8 MB
+# host arena, over two gloo ranks sharing the card.  Page 16: the sampled
+# prompts are 40 tokens, two full pages the prefix trie registers (the
+# reference's 8 at page 4).
+TP_CFG = dict(vocab_size=32000, hidden_size=1024, num_layers=8, num_heads=16,
+              num_kv_heads=4, intermediate_size=3072, max_seq=512)
+TP_PAGED = dict(page_size=16, num_pages=64, max_pages_per_seq=32)
+TP_FREE = 3  # pages left free in the greedy run: its two rows need 4 by their end
+TP_SCENARIOS = (
+    {"name": "greedy_churn", "jobs": [([3, 5, 7], 16), ([9, 10, 11], 16)], "park": True},
+    {"name": "sampled_restore", "rng": 42, "reclaim": 3,
+     "sample": {"temperature": 0.8, "top_k": 8},
+     "jobs": [([(7 * j + 3) % 32000 for j in range(40)], 12),
+              ([(13 * j + 9) % 32000 for j in range(40)], 12)]},
+)
+# The sharded float32 forward against the unsharded one on the card: the
+# row-parallel sums split in two and added, another order of the same
+# float32 sums (phase 11b's bound).
+TOL_TP_F32 = 1e-5
+# A greedy step the sharded and unsharded float32 runs may decide apart: a
+# top-2 logit margin under this in the unsharded run.
+TOL_TP_MARGIN = 1e-3
+# Phase 12c: the deployment's flags at --tp 2, over gloo on the shared card;
+# 8 of phase 4d's prompts, 16 new tokens each (the warm-up's too): gloo
+# stages every collective through host memory (43-85 ms a token), and the
+# overload limiter, which the slow steps feed, admits them in waves.
+TP_SERVE_JOBS, TP_SERVE_NEW = 8, 16
+TP_SERVER = ("import sys\n"
+             "from k8s_device_plugin_tpu_torch.models import http_server\n"
+             "if __name__ == '__main__':\n"
+             "    http_server.main(sys.argv[1:], tp_backend='gloo')\n")
+
+
+@functools.lru_cache(maxsize=1)
+def tp_bar_params():
+    """Phase 12b's config and seed 0's weights, drawn once a process."""
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models.transformer import GPTConfig, init_params
+
+    cfg = GPTConfig(**TP_CFG, dtype=torch.float32)
+    return cfg, init_params(cfg, 0)
+
+
+def tp_bar_engine(rng, mesh=None, device=None):
+    """Phase 12b's engine (one rank of it, or the unsharded one without a
+    mesh), from seed 0's weights."""
+    from k8s_device_plugin_tpu_torch.models.engine import ServingEngine
+    from k8s_device_plugin_tpu_torch.models.transformer import PagedConfig
+    from k8s_device_plugin_tpu_torch.utils import prng
+
+    cfg, params = tp_bar_params()
+    return ServingEngine(cfg, params, PagedConfig(**TP_PAGED), max_slots=2,
+                         mesh=mesh, rng=None if rng is None else prng.PRNGKey(rng),
+                         admission="optimistic", kv_retain=True, kv_host_cache_mb=8,
+                         cuda_graphs=False, overload=None, slo=None, device=device or DEVICE)
+
+
+def tp_scenario(eng, scenario: dict) -> dict:
+    """One scenario of the bar on ``eng``: its streams and counters."""
+    kw = scenario.get("sample", {})
+    parked = 0
+    if scenario.get("park"):
+        with eng._lock:
+            parked = len(eng.free_pages) - TP_FREE
+            for _ in range(parked):
+                eng.free_pages.pop()
+    t0 = time.perf_counter()
+    done = eng.run(scenario["jobs"], **kw)
+    if scenario.get("reclaim"):
+        with eng._lock:
+            eng._kv_reclaim(scenario["reclaim"])
+        done += eng.run(scenario["jobs"], **kw)
+    return {"tokens": [r.tokens for r in done], "wall_s": time.perf_counter() - t0,
+            "pages_removed": parked,
+            "counters": {k: getattr(eng, k) for k in (
+                "preemptions", "kv_resumes_restored", "overlap_discards", "kv_host_hits",
+                "kv_restores", "device_steps")}}
+
+
+def greedy_margins(torch, tf, jobs, streams) -> list:
+    """Each greedy step's top-2 logit margin in the unsharded float32 model
+    (its full forward over the prompt and the tokens before the step)."""
+    cfg = tf.GPTConfig(**TP_CFG, dtype=torch.float32)
+    model = tf.TransformerLM(cfg, device=DEVICE)
+    model.load_state_dict(tf.init_params(cfg, 0))
+    out = []
+    with torch.no_grad():
+        for (prompt, _), tokens in zip(jobs, streams):
+            logits = model(torch.tensor([prompt + tokens[:-1]], device=DEVICE))[0]
+            top2 = logits[len(prompt) - 1:].topk(2, dim=-1).values
+            out.append((top2[:, 0] - top2[:, 1]).tolist())
+    del model
+    return out
+
+
+def hold_tp_streams(got: list, want: list, margins, what: str) -> dict | None:
+    """Streams equal, or the first difference at a greedy step whose top-2
+    margin in the unsharded run is under TOL_TP_MARGIN (``margins`` None:
+    sampled, which must be equal)."""
+    if got == want:
+        return None
+    i = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    j = next(j for j, (a, b) in enumerate(zip(got[i], want[i])) if a != b)
+    margin = None if margins is None or i >= len(margins) else margins[i][j]
+    if margin is None or margin >= TOL_TP_MARGIN:
+        fail(f"{what}: the tp=2 stream differs from the unsharded one at request {i} token "
+             f"{j} (top-2 margin {margin}, tolerance {TOL_TP_MARGIN})")
+    return {"request": i, "step": j, "margin": margin}
+
+
+def shard_kernel_row(torch, pa, tuning) -> dict:
+    """Kernel 1 at one rank's shard geometry at tp 2 (B 8, H 8, Hk 2, D 64,
+    page 16, 32 pages a row, bf16 q and pools) against its plain version,
+    timed with its bound."""
+    dev = torch.device(DEVICE)
+    B, H, HK, D, PS, MPP, P = 8, 8, 2, 64, 16, 32, 512
+    gen = torch.Generator(device=dev).manual_seed(12)
+    splits = tuning.pick_num_splits(MPP, tuning.device_generation(dev))
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    pools = {name: torch.randn((P, PS, HK, D), generator=gen, device=dev).to(torch.bfloat16)
+             for name in ("pool_k", "pool_v")}
+    table = (torch.randperm(P - 1, generator=gen, device=dev)[: B * MPP] + 1)
+    table = table.reshape(B, MPP).to(torch.int32)
+    lens = torch.tensor([129, 145, 160, 176, 192, 208, 224, 256], dtype=torch.int32, device=dev)
+    err = hold_paged(torch, pa, q, pools, table, lens, window=None, splits=splits,
+                     kv_format="f")
+    if not err <= TOL_BF16:
+        fail(f"paged_attention at the tp=2 shard geometry: {err} > {TOL_BF16}")
+    ms, _ = time_ms(lambda: pa.paged_attention(q, page_table=table, lens=lens,
+                                               num_splits=splits, **pools))
+    plain_ms, _ = time_ms(lambda: pa.paged_attention_reference(
+        q.reshape(B, HK, H // HK, D), pools["pool_k"], pools["pool_v"], table, lens,
+        sm_scale=D ** -0.5, window=None, num_splits=splits), iters=20)
+    live = lens.tolist()
+    nbytes = (2 * B * H * D * 2 + sum(live) * HK * 2 * D * 2
+              + sum(-(-n // PS) for n in live) * 4 + B * 4)
+    b_ms, b_by = bound(nbytes, sum(4 * H * n * D for n in live), BF16_FLOPS)
+    row = {"shape": f"B{B} H{H} Hk{HK} D{D} page{PS} mpp{MPP} splits{splits} "
+                    f"lens{live[0]}..{live[-1]} bf16 q and pools",
+           "max_abs_err": err, "tolerance": TOL_BF16, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes}
+    log(f"phase 12b kernel 1 at the tp=2 shard geometry: {row}")
+    return row
+
+
+def run_phase_12a(torch, engine, engine_tp, pa, blocks) -> dict:
+    """Phase 12a: an NCCL group of one, graphed: phase 4d's traffic through
+    the batch engine over a ``tp`` mesh of one must return 4d's greedy
+    tokens bit for bit, with the collectives captured in its graphs."""
+    import functools
+
+    args = engine.parse_args([*ENGINE_WIDTHS, "--requests=32", f"--device={DEVICE}", *BLOCKS])
+    with engine_tp.launch(1, backend="nccl", device=DEVICE) as group:
+        pa.reset_launches()
+        eng = group.build(functools.partial(engine.build_engine, args))
+        summary, done = engine.benchmark(args, eng)
+        torch.cuda.synchronize()
+        launches = dict(pa.paged_attention.launches_by_format)
+        captured = dict(eng.captured_collectives)
+        tp_state = eng.debug_state()["tp"]
+        del eng
+    tokens = [r.tokens for r in done]
+    if tokens != BLOCK16_TOKENS:
+        fail(f"12a: the tp mesh of one differs from phase 4d's greedy tokens at "
+             f"{first_difference(tokens, BLOCK16_TOKENS)}")
+    if launches["f"] != args.layers * summary["device_steps"] or launches["f"] <= 0:
+        fail(f"12a: {launches} paged launches over {summary['device_steps']} steps of "
+             f"{args.layers} layers")
+    if summary["graph_replays"] <= 0 or not captured:
+        fail(f"12a: {summary['graph_replays']} graph replays, collectives captured {captured}")
+    for key, calls in captured.items():
+        steps = int(key.split(",")[0].strip("("))
+        want = {"all_reduce": (2 * args.layers + 1) * steps, "all_gather": steps,
+                "broadcast": steps}
+        if calls != want:
+            fail(f"12a: graph {key} captured {calls}, not {want}")
+    if tp_state != {"size": 1, "axis": "tp", "mesh": {"tp": 1}, "devices": ["cuda:0"]}:
+        fail(f"12a: debug_state tp block {tp_state}")
+    block16 = max(captured, key=lambda k: int(k.split(",")[0].strip("(")))
+    out = {"flags": [*BLOCKS], "backend": "nccl", "tp": tp_state,
+           "tokens_per_s": summary["value"], "phase_4d_tokens_per_s": blocks["greedy"]["value"],
+           "ratio_to_4d": summary["value"] / blocks["greedy"]["value"],
+           "graph_replays": summary["graph_replays"], "device_steps": summary["device_steps"],
+           "overlap_discards": summary["overlap_discards"], "paged_launches": launches["f"],
+           "collectives_per_graph": captured, "block16_graph": block16,
+           "tokens_equal_4d": True}
+    log(f"phase 12a: {out}")
+    return out
+
+
+def run_phase_12b_c(torch, tf, pa, tuning, http_server, engine_tp, smi) -> tuple[dict, dict]:
+    """Phases 12b (the bar over two gloo ranks sharing the card, then the
+    in-process twin of 12c's server) and 12c (the HTTP server at --tp 2)."""
+    import functools
+
+    from k8s_device_plugin_tpu_torch.models.engine import synthetic_jobs
+
+    bar = {}
+    with engine_tp.launch(2, backend="gloo", device=DEVICE) as group:
+        for scenario in TP_SCENARIOS:
+            eng = group.build(functools.partial(tp_bar_engine, scenario.get("rng")))
+            eng.rank_stats(reset=True)
+            got = tp_scenario(eng, scenario)
+            ranks = eng.rank_stats()
+            got["lint_leaves"] = eng.assert_sharded()
+            pools = eng.gathered_pools()
+            got["ranks"] = ranks
+            bar[scenario["name"]] = (got, pools)
+        # 12c's in-process twin: the server's flags at --tp 2, same jobs.
+        args = http_server.parse_args([*SERVE_FLAGS, "--tp=2", f"--device={DEVICE}"])
+        twin = group.build(functools.partial(http_server.build_engine, args))
+        jobs = synthetic_jobs(32, 128, TP_SERVE_NEW, 32000)[:TP_SERVE_JOBS]
+        twin.run([(p, TP_SERVE_NEW) for p, _ in jobs[:2]])
+        t0 = time.perf_counter()
+        twin_done = twin.run(jobs)
+        twin_s = time.perf_counter() - t0
+        want_http = [r.tokens for r in twin_done]
+        del twin, eng
+    layers = TP_CFG["num_layers"]
+    report = {"card": smi, "backend": "gloo", "ranks_per_card": 2, "dtype": "float32",
+              "config": TP_CFG, "paged": TP_PAGED, "tolerance_pools": TOL_TP_F32,
+              "tolerance_margin": TOL_TP_MARGIN, "scenarios": {}}
+    for scenario in TP_SCENARIOS:
+        name = scenario["name"]
+        got, pools = bar[name]
+        plain_eng = tp_bar_engine(scenario.get("rng"))
+        want = tp_scenario(plain_eng, scenario)
+        margins = None
+        if "sample" not in scenario:
+            margins = greedy_margins(torch, tf, scenario["jobs"], want["tokens"])
+        differs = hold_tp_streams(got["tokens"], want["tokens"], margins, f"12b {name}")
+        keys = ("preemptions", "kv_resumes_restored", "overlap_discards")
+        if any(got["counters"][k] != want["counters"][k] for k in keys):
+            fail(f"12b {name}: counters {got['counters']} vs unsharded {want['counters']}")
+        if "sample" not in scenario and not all(got["counters"][k] > 0 for k in keys):
+            fail(f"12b {name}: preemptions, restored resumes and discards must be above 0: "
+                 f"{got['counters']}")
+        if "sample" in scenario and not (got["counters"]["kv_host_hits"] > 0
+                                         and got["counters"]["kv_restores"] > 0):
+            fail(f"12b {name}: the repeat did not restore through the host arena: "
+                 f"{got['counters']}")
+        worst = 0.0
+        for layer, layer_pools in plain_eng.gathered_pools().items():
+            for pool, value in layer_pools.items():
+                worst = max(worst, (pools[layer][pool] - value).abs().max().item())
+        if not worst <= TOL_TP_F32:
+            fail(f"12b {name}: the gathered pools differ from the unsharded engine's by {worst}")
+        for rank, stats in enumerate(got["ranks"]):
+            if stats["paged_launches"]["f"] != layers * stats["device_steps"] or \
+                    stats["device_steps"] <= 0:
+                fail(f"12b {name}: rank {rank} launched kernel 1 {stats['paged_launches']} "
+                     f"times over {stats['device_steps']} steps of {layers} layers")
+        report["scenarios"][name] = {
+            "pages_removed": got["pages_removed"], "counters": got["counters"],
+            "unsharded_counters": want["counters"], "ranks": got["ranks"],
+            "lint_leaves": got["lint_leaves"], "pools_max_abs_err": worst,
+            "first_difference": differs,
+            "min_greedy_margin": None if margins is None else min(min(m) for m in margins),
+            "tp2_wall_s": got["wall_s"], "unsharded_wall_s": want["wall_s"],
+            "times": "staged through host memory by gloo: not a speed"}
+        del plain_eng
+        torch.cuda.empty_cache()
+    report["shard_kernel"] = shard_kernel_row(torch, pa, tuning)
+    log(f"phase 12b: {report}")
+    serve = run_phase_12c(jobs, want_http, twin_s, smi)
+    return report, serve
+
+
+def tp_server(flags, log_path, env) -> tuple:
+    """Start the HTTP server at ``flags`` (with --tp) over gloo; returns
+    (process, port, follower pids)."""
+    proc = subprocess.Popen([sys.executable, "-c", TP_SERVER, *flags, *SERVE_EXTRA],
+                            stdout=subprocess.DEVNULL, stderr=open(log_path, "w"), env=env)
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        text = open(log_path).read()
+        if proc.poll() is not None:
+            fail(f"the tp=2 HTTP server exited with {proc.returncode}: {text[-3000:]}")
+        port = re.search(r"serving on :(\d+)", text)
+        pids = re.search(r"follower pids \[([\d, ]+)\]", text)
+        if port and pids and http_call(int(port.group(1)), "/healthz", timeout=5)[0] == 200:
+            return proc, int(port.group(1)), [int(p) for p in pids.group(1).split(",")]
+        time.sleep(0.2)
+    proc.kill()
+    fail(f"the tp=2 HTTP server did not come up: {open(log_path).read()[-3000:]}")
+
+
+def pids_gone(pids) -> bool:
+    """No process of ``pids`` is left running (an exited one a zombie of
+    nobody is gone)."""
+    import os
+
+    for pid in pids:
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if f.read().split(") ")[-1].split()[0] != "Z":
+                    return False
+        except OSError:
+            continue
+    return True
+
+
+def run_phase_12c(jobs, want, twin_s: float, smi) -> dict:
+    """Phase 12c: the HTTP server's launcher at --tp 2 over gloo on the
+    shared card, the deployment's flags otherwise (snapshots included):
+    8 streamed requests whose greedy tokens equal the in-process tp=2
+    twin's, the ``tp`` block and gauge, a drain that saves the snapshot and
+    leaves no follower, and a restarted tp=2 server that loads it."""
+    import os
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent
+    (root / "chiprun_out").mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root))
+    snap = snapshot_flag("tp2")
+    flags = (*SERVE_FLAGS, "--tp=2", snap)
+    out = {"card": smi, "flags": [*flags], "backend": "gloo", "twin_wall_s": twin_s}
+    servers = []
+    for run in ("first", "restarted"):
+        log_path = root / "chiprun_out" / f"serve_tp2_{run}.log"
+        t0 = time.perf_counter()
+        proc, port, pids = tp_server(flags, log_path, env)
+        servers.append((proc, pids))
+        try:
+            up_s = time.perf_counter() - t0
+            if run == "first":
+                # The twin's warm-up, concurrent: over gloo a request takes
+                # seconds, and two sequential ones would give the limiter a
+                # drain rate under which the burst's tail sheds.
+                http_traffic(port, [(p, TP_SERVE_NEW) for p, _ in jobs[:2]], streamed=0)
+                results, wall = http_traffic(port, jobs, streamed=len(jobs))
+                got = [r["tokens"] for r in results]
+                if got != want:
+                    fail(f"12c: the tp=2 server's greedy tokens differ from the in-process "
+                         f"tp=2 engine's at {first_difference(got, want)}")
+                state = http_call(port, "/debug/state")[1]["engine"]
+                tp_block = state["tp"]
+                if {k: tp_block[k] for k in ("size", "axis", "mesh")} != {
+                        "size": 2, "axis": "tp", "mesh": {"tp": 2}}:
+                    fail(f"12c: /debug/state tp block {tp_block}")
+                gauge = [line for line in http_call(port, "/metrics")[1].decode().splitlines()
+                         if line.startswith("tpu_engine_tp_size ")]
+                if gauge != ["tpu_engine_tp_size 2"]:
+                    fail(f"12c: the tp gauge reads {gauge}")
+                out.update(tp=tp_block, gauge=gauge[0], client=client_latency(results, wall),
+                           start_s=up_s, tokens_equal_twin=True,
+                           device_steps=state["device"]["device_steps"],
+                           admission_limit=http_call(port, "/debug/admission")[1].get("limit"))
+            else:
+                restored = re.search(r"kv snapshot restore: (\{.*\})", log_path.read_text())
+                loaded = ast.literal_eval(restored.group(1)) if restored else {}
+                if not loaded.get("ok") or loaded.get("restored", 0) <= 0:
+                    fail(f"12c: the restarted tp=2 server loaded {loaded}")
+                status, body = http_call(port, "/generate", {"prompt": jobs[0][0],
+                                                             "max_new_tokens": jobs[0][1]})
+                if status != 200 or body["tokens"] != want[0]:
+                    fail(f"12c: the restarted server answered {status} with other tokens")
+                kv = http_call(port, "/debug/kvcache")[1]
+                out.update(restart_start_s=up_s, snapshot_load=loaded,
+                           restart_kvcache_hits=kv.get("hits"))
+        except BaseException:
+            proc.kill()
+            raise
+        out[f"{run}_drain_s"] = stop_server(proc, log_path)
+        time.sleep(1.0)
+        if not pids_gone(pids):
+            fail(f"12c: follower(s) {pids} still run after the {run} server exited")
+        out[f"{run}_follower_pids"] = pids
+    out["followers_left"] = 0
+    log(f"phase 12c: {out}")
+    return out
+
+
+def run_phase_12(torch, tf, engine, http_server, pa, tuning, blocks, smi, mark) -> dict:
+    """Phase 12: tensor-parallel serving; returns the tensor_parallel line."""
+    from k8s_device_plugin_tpu_torch.models import engine_tp
+
+    world_of_one = run_phase_12a(torch, engine, engine_tp, pa, blocks)
+    mark("12a_nccl_group_of_one")
+    shared, serve = run_phase_12b_c(torch, tf, pa, tuning, http_server, engine_tp, smi)
+    mark("12b_12c_gloo_tp2")
+    return {"world_of_one": world_of_one, "shared_card": shared, "http_tp2": serve, "card": smi}
+
+
 def main() -> None:
     import torch
 
@@ -3733,6 +4160,12 @@ def main() -> None:
     for row, name in ((flash, "flash_attention"), (dq, "flash_attention_bwd_dq"),
                       (dkv, "flash_attention_bwd_dkv")):
         row["distributed_launches"] = launches[name]
+    tensor_parallel = run_phase_12(torch, tf, engine, http_server, pa, tuning, blocks, smi, mark)
+    paged["f"]["tp_launches"] = {
+        "12a_nccl_group_of_one": tensor_parallel["world_of_one"]["paged_launches"],
+        **{f"12b_{name}_by_rank": [r["paged_launches"]["f"] for r in run["ranks"]]
+           for name, run in tensor_parallel["shared_card"]["scenarios"].items()}}
+    paged["f"]["tp_shard"] = tensor_parallel["shared_card"]["shard_kernel"]
 
     for row, name in ((paged["f"], "paged_attention"), (flash, "flash_attention"),
                       (dq, "flash_attention_bwd_dq"), (dkv, "flash_attention_bwd_dkv")):
@@ -3757,6 +4190,7 @@ def main() -> None:
     print(json.dumps({"decode_bench": decode_bench, "card": smi}), flush=True)
     print(json.dumps({"lora_train": lora_train}), flush=True)
     print(json.dumps({"distributed": distributed}), flush=True)
+    print(json.dumps({"tensor_parallel": tensor_parallel}), flush=True)
     print(json.dumps({"phase_seconds": phase_s, "total_s": time.perf_counter() - t0,
                       "card": smi}), flush=True)
     print(json.dumps({

@@ -65,7 +65,7 @@ class AlexNet(nn.Module):
         self.Dense_0 = Dense(size * size * in_ch, w(4096), dtype, device=self.device)
         self.Dense_1 = Dense(w(4096), w(4096), dtype, device=self.device)
         self.Dense_2 = Dense(w(4096), num_classes, torch.float32, device=self.device)
-        self.batch_group = None  # the ranks a split batch spans (layers.dropout)
+        self.batch_rank = 0  # the dp replica of a split batch (layers.dropout)
         init_from_seed(self, seed)
         if self.device.type == "cuda":
             self.to(memory_format=torch.channels_last)
@@ -79,8 +79,8 @@ class AlexNet(nn.Module):
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flatten (H, W, C)
         x = torch.relu(self.Dense_0(x))
         if train:
-            x = dropout(x, DROPOUT_RATE, dropout_rng, "Dropout_0", self.batch_group)
+            x = dropout(x, DROPOUT_RATE, dropout_rng, "Dropout_0", self.batch_rank)
         x = torch.relu(self.Dense_1(x))
         if train:
-            x = dropout(x, DROPOUT_RATE, dropout_rng, "Dropout_1", self.batch_group)
+            x = dropout(x, DROPOUT_RATE, dropout_rng, "Dropout_1", self.batch_rank)
         return self.Dense_2(x)

@@ -37,8 +37,8 @@ step.  One card joins a world of one over NCCL; several are spawned, rank r
 on card r; a multi-host slice (``TPU_WORKER_HOSTNAMES``/``TPU_WORKER_ID``,
 or the ``JAX_*`` overrides: ``parallel/distributed.py``) numbers its ranks
 host-major.  ``--device cpu`` runs dp·mp gloo ranks (``--dp -1`` counting
-as 1).  The global batch must divide over the ranks (times
-``--grad-accum``).  The record counts every rank in ``chips`` and prints
+as 1).  The global batch must divide over the ``dp`` replicas (times
+``--grad-accum``); the ``mp`` ranks of one take the same rows.  The record counts every rank in ``chips`` and prints
 once per host.  ``--pp`` is not ported (ROADMAP.md queue 1 item 7)::
 
     python -m k8s_device_plugin_tpu_torch.models.benchmark --model bert \
@@ -68,9 +68,9 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
-import socket
 import sys
 import tempfile
 import time
@@ -428,28 +428,24 @@ def local_rank_count(args) -> int:
 def check_layout(args, local_ranks: int) -> int:
     """Exit, as the reference does before it builds anything, when
     ``--dp``/``--mp`` do not lay out the slice's ranks or the global batch
-    does not split over them; returns the world size."""
+    does not split over the ``dp`` replicas (the ``mp`` ranks of one take
+    the same rows, as the reference replicates the batch over ``mp``);
+    returns the world size."""
     from ..parallel import distributed
     from ..parallel.mesh import mesh_shape
 
     try:
         config = distributed.process_group_from_env()
         world = (config.num_processes if config else 1) * local_ranks
-        mesh_shape({"dp": args.dp, "mp": args.mp}, world)
+        dp = mesh_shape({"dp": args.dp, "mp": args.mp}, world)["dp"]
     except ValueError as e:
         raise SystemExit(str(e))
-    if args.batch_size % (world * args.grad_accum):
+    if args.batch_size % (dp * args.grad_accum):
         raise SystemExit(
-            f"--batch-size {args.batch_size} does not split over {world} ranks (dp·mp)"
+            f"--batch-size {args.batch_size} does not split over dp={dp} replicas"
             + (f" x --grad-accum {args.grad_accum}" if args.grad_accum > 1 else "")
-            + ": each rank takes an equal share of every microbatch")
+            + ": each dp replica takes an equal share of every microbatch")
     return world
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def launch(args, *, backend: Optional[str] = None, local_ranks: Optional[int] = None,
@@ -463,7 +459,9 @@ def launch(args, *, backend: Optional[str] = None, local_ranks: Optional[int] = 
     ``--model`` names.  Returns local rank 0's :class:`DistributedRun`."""
     n = local_rank_count(args) if local_ranks is None else local_ranks
     check_layout(args, n)
-    init_method = f"tcp://127.0.0.1:{_free_port()}"
+    from ..parallel.distributed import local_init_method
+
+    init_method = local_init_method()
     if n == 1:
         return _rank_main(0, args, 1, backend, init_method, model_fn, gather_params, None, None)
     import torch.multiprocessing as mp
@@ -484,29 +482,25 @@ def _rank_main(local_rank: int, args, local_ranks: int, backend, init_method, mo
     from ..parallel.sharding import (
         gather_full_state,
         local_state_bytes,
+        dp_coordinate,
         shard_batch,
         shard_train_step,
     )
 
     dist = torch.distributed
-    device = resolve_device(args.device, local_rank)
     if tf32 is not None:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    if device.type == "cuda":
-        torch.cuda.set_device(device)
-    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
-    distributed.initialize(local_rank=local_rank, local_ranks=local_ranks,
-                           init_method=init_method, backend=backend)
+    device = distributed.join_local(args.device, local_rank, local_ranks, init_method, backend)
     try:
         rank, world = dist.get_rank(), dist.get_world_size()
         mesh = distributed.make_slice_mesh({"dp": args.dp, "mp": args.mp},
                                            device_type=device.type)
         if rank == 0:
             log(f"mesh: {dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} over {world} "
-                f"rank(s), {backend}")
+                f"rank(s), {dist.get_backend()}")
         built = build(args, model_fn(device=device) if model_fn else None, device=device)
         step, state = shard_train_step(built.step, mesh, built.state)
-        batch = shard_batch(built.batch, rank, world, args.grad_accum)
+        batch = shard_batch(built.batch, *dp_coordinate(mesh), args.grad_accum)
         items_per_step = built.items_per_step
         del built  # the global batch: each rank keeps its rows
         record, state, losses = _train(args, state, step, batch, items_per_step, world)
@@ -1201,6 +1195,67 @@ def _run_disagg_phase(eng, args, params: dict) -> tuple[dict, int]:
     return block, dec.device_steps
 
 
+def _tp_phase_engine(cfg, params: Optional[dict], paged, slots: int, mesh=None, device=None):
+    """The tensor-parallel phase's engine, one rank of it (every rank builds
+    it from the same arguments; ``params`` None: ``init_params(cfg, 0)``)."""
+    from ..utils.metrics import MetricsRegistry
+    from .engine import ServingEngine
+    from .engine_types import EngineMetrics
+
+    return ServingEngine(cfg, init_params(cfg, 0) if params is None else params, paged,
+                         max_slots=slots, metrics=EngineMetrics(MetricsRegistry()), mesh=mesh,
+                         kv_retain=True, kv_host_cache_mb=64, device=device)
+
+
+def run_tp_phase(args, cfg, params: Optional[dict], paged, jobs, done, overlap_tps: float, *,
+                 tp: Optional[int] = None, backend: Optional[str] = None) -> Optional[dict]:
+    """The reference's tensor-parallel phase: the same jobs through a tp=N
+    engine built the CLI way (``engine_tp.launch`` and the sharded
+    constructor), warmed on both admission shapes, timed against the tp=1
+    overlapped number ``overlap_tps``; ``done`` is that run's requests.
+    ``tp`` defaults to the visible cards; None (the block prints null)
+    unless it is above 1 and divides both head counts.  ``params`` None:
+    every rank builds ``init_params(cfg, 0)``; ``backend``: the launcher's
+    (gloo puts the ranks on one card, or on the CPU)."""
+    from .engine_tp import launch
+
+    device = resolve_device(args.device)
+    if tp is None:
+        tp = torch.cuda.device_count() if device.type == "cuda" else 1
+    if tp <= 1 or cfg.kv_heads % tp or cfg.num_heads % tp:
+        return None
+    factory = functools.partial(_tp_phase_engine, cfg, params, paged, args.slots)
+    with launch(tp, backend=backend, device=device) as group:
+        tp_eng = group.build(factory)
+        # The warm-up covers the sharded engine's own shapes: the single
+        # prefill and the slots-wide burst, as the tp=1 warm-up.
+        tp_eng.run([(jobs[0][0], 2)])
+        tp_eng.run([(p, 2) for p, _ in jobs[: args.slots]])
+        discards0 = tp_eng.overlap_discards
+        t0 = time.perf_counter()
+        tp_done = tp_eng.run(jobs)
+        tp_dt = time.perf_counter() - t0
+        discards = tp_eng.overlap_discards - discards0
+    tp_tps = sum(len(r.tokens) for r in tp_done) / tp_dt if tp_dt else 0.0
+    tp_match = [r.tokens for r in tp_done] == [r.tokens for r in done]
+    speedup = tp_tps / overlap_tps if overlap_tps else 0.0
+    block = {
+        "size": tp,
+        "tokens_per_sec": round(tp_tps, 2),
+        "tp1_tokens_per_sec": round(overlap_tps, 2),
+        "speedup": round(speedup, 3),
+        "scaling_efficiency": round(speedup / tp, 3),
+        "discards": discards,
+        "tokens_match": tp_match,
+    }
+    log(f"perf-ledger row: | MULTICHIP tensor-parallel serving (tp={tp}, b{args.slots}) | tp=1 "
+        f"{overlap_tps:.2f} -> tp={tp} {tp_tps:.2f} tokens/sec ({speedup:.3f}x, efficiency "
+        f"{speedup / tp:.3f}; discards {discards}; tokens "
+        f"{'bit-identical' if tp_match else 'DIVERGED'}) | - | `benchmark.py --model serving` | "
+        "update on bench round |")
+    return block
+
+
 def run_serving(args, params: Optional[dict] = None) -> ServingRun:
     """Continuous-batching serving benchmark, the reference's
     ``run_serving`` on one card: TTFT/ITL quantiles read back from the
@@ -1208,8 +1263,9 @@ def run_serving(args, params: Optional[dict] = None) -> ServingRun:
     off), then overlapped (the serving default); the step-phase profile;
     the KV tiers (a serial repeated prefix with retain off, then on, and
     preemption churn over parked free pages); tracing off against on; then
-    the kernels, overload, restart, elastic, disagg and SLO phases.  The
-    router-side blocks and ``tp`` print null (one card; see
+    the tensor-parallel phase (``run_tp_phase``: null on one card, as the
+    reference's on one device), the kernels, overload, restart, elastic,
+    disagg and SLO phases.  The router-side blocks print null (see
     ``ROUTER_SIDE_BLOCKS``).  ``params`` (a state dict) stands in for
     ``init_params(cfg, 0)``.  On the card the engine replays each decode
     dispatch as a CUDA graph; the warm-up runs every shape the timed runs
@@ -1226,6 +1282,7 @@ def run_serving(args, params: Optional[dict] = None) -> ServingRun:
     mpp = -(-(args.prompt_len + args.decode_tokens) // page_size)
     paged = PagedConfig(page_size, num_pages=args.slots * mpp + 1, max_pages_per_seq=mpp)
     cfg = dataclasses.replace(gpt_config(args), max_seq=paged.max_len)
+    given = params  # the tp phase's ranks build init_params(cfg, 0) themselves
     params = init_params(cfg, 0) if params is None else params
     spans = SpanRecorder()
     eng = ServingEngine(cfg, params, paged, max_slots=args.slots,
@@ -1341,8 +1398,7 @@ def run_serving(args, params: Optional[dict] = None) -> ServingRun:
         f"on {trace_on_tps:.2f} tokens/sec (overhead {trace_overhead * 100.0:+.2f}%; "
         f"{trace_spans_recorded} spans) | - | `benchmark.py --model serving` | update on bench "
         "round |")
-    # tp: the tensor-parallel phase needs several devices (ROADMAP.md queue
-    # 1 item 4); the reference prints null on one device too.
+    tp_block = run_tp_phase(args, cfg, given, paged, jobs, done, overlap_tps)
     kernels_block, extras["kernels"] = _run_kernels_phase(args)
     overload_block = _run_overload_phase(eng, args, overlap_tps)
     restart_block = _run_restart_phase(eng, args)
@@ -1388,7 +1444,7 @@ def run_serving(args, params: Optional[dict] = None) -> ServingRun:
             "resumes_restored": churn_restored,
             "resumes_recomputed": churn_recomputed,
         },
-        "tp": None,
+        "tp": tp_block,
         "kernels": kernels_block,
         "overload": overload_block,
         "restart": restart_block,

@@ -3,8 +3,8 @@
 Counterpart of the reference's ``models/engine.py`` (reserve and
 optimistic admission, overload control, the SLO plane, spans, the flight
 recorder, the anomaly monitor, the step profiler, the KV tiers, warm
-snapshots, the prefill/decode roles, speculative rounds and multi-LoRA
-serving; not yet tensor parallelism):
+snapshots, the prefill/decode roles, speculative rounds, multi-LoRA
+serving and tensor parallelism):
 
 - device side: a fixed-[slots] decode dispatch over the paged cache, one
   single-token step or, in pure decode, a block of T steps
@@ -26,6 +26,9 @@ serving; not yet tensor parallelism):
   synchronous, one CUDA graph per sampler variant on the card;
 - multi-LoRA serving (``cfg.lora_serve``): each slot's adapter id lives in
   a device buffer every dispatch reads, written in place when slots change;
+- tensor parallelism (``mesh``, engine_tp.py): one process per card, the
+  leader deciding and broadcasting each device write to the followers,
+  every rank running it on its shard of the model and pools;
 - host side, between steps: the overload sweep, admission, page
   allocation and free (on demand under optimistic admission, preempting
   the newest slot when the pool runs dry), prefix sharing, the KV tiers
@@ -40,11 +43,13 @@ they equal the reference engine's under the same ``rng``.
 
 The batch CLI takes the reference CLI's flags, ``--quant w8|w8a8``,
 ``--quant-kv``, ``--decode-block``, ``--overlap-steps``, ``--spec-gamma``,
-``--overload`` and ``--slo`` (both on by default, as there) included, but
-not ``--tp``, plus
+``--overload``, ``--slo`` (both on by default, as there) and ``--tp``
+included, plus
 ``--dtype``, ``--seed`` (the weights), ``--device`` and ``--cuda-graphs
-0|1`` (the card only; 1 by default there).  On the CPU, at tiny widths in
-float32, a block-16 overlapped run::
+0|1`` (the card only; 1 by default there).  ``--tp N`` starts N - 1
+follower processes (NCCL, one a card; gloo ranks on the CPU) and prints
+one record from the leader.  On the CPU, at tiny widths in float32, a
+block-16 overlapped run::
 
     python -m k8s_device_plugin_tpu_torch.models.engine --device cpu \\
         --dtype float32 --hidden 64 --layers 2 --heads 4 --kv-heads 2 \\
@@ -52,7 +57,8 @@ float32, a block-16 overlapped run::
         --overlap-steps 1
 
 (``--quant w8 --quant-kv`` serves int8 weights and KV pools; ``--kv-retain
-1 --kv-host-cache-mb 8`` turns the KV tiers on.)
+1 --kv-host-cache-mb 8`` turns the KV tiers on; ``--tp 2`` runs it over two
+gloo ranks.)
 
 Module layout (this module is the import surface):
 
@@ -67,6 +73,8 @@ Module layout (this module is the import surface):
 - engine_handoff.py    — prefill/decode roles, the KV handoff, the fabric,
                          the owner-thread call queue
 - engine_spec.py       — the speculative round and its host consumption
+- engine_tp.py         — the mesh: leader/follower device operations, the
+                         KV rows' gather and scatter, the launcher
 - engine_overload.py, engine_watchdog.py, engine_profiler.py,
   engine_snapshot.py   — the reference's, copied or ported
 - here                 — ``ServingEngine`` wiring, step loop, overlap round,
@@ -104,6 +112,7 @@ from .engine_profiler import EngineProfiler
 from .engine_sampling import decode_tokens
 from .engine_snapshot import params_fingerprint
 from .engine_spec import SpeculativeMixin
+from .engine_tp import TensorParallelMixin
 from .engine_types import EngineMetrics, Request, _pow2_int
 from .transformer import GPTConfig, PagedCache, PagedConfig, TransformerLM, init_params
 
@@ -111,8 +120,10 @@ from .transformer import GPTConfig, PagedCache, PagedConfig, TransformerLM, init
 DISCARD_REASONS = ("state_dirty", "shape_switch", "slot_teardown")
 
 
-class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, SpeculativeMixin):
-    """Batch-continuous decoding server (one host, one model, one card).
+class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, SpeculativeMixin,
+                    TensorParallelMixin):
+    """Batch-continuous decoding server (one host, one model, one card or a
+    tensor-parallel group of them).
 
     ``cfg`` is the model config WITHOUT paging (the engine adds it);
     ``params`` a state dict in the flax names (``init_params`` or
@@ -141,6 +152,13 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
     the engine's own (spans stay off).  ``cuda_graphs``: replay each
     dispatch shape as a CUDA graph (default on the card; the CPU refuses
     it).  Runs on ``cuda`` unless ``device="cpu"`` is asked for.
+    ``mesh``: a one-axis ``DeviceMesh`` named ``tp_axis`` over the group's
+    ranks (``parallel/mesh.mesh_from_allocation``; engine_tp.launch forms
+    it), every rank building the engine with the full ``params``: the
+    leader (rank 0) steps it, the followers call ``follow()``.  kv heads
+    must divide by the degree; speculation, LoRA, ``quant`` and the split
+    roles are refused, and so are CUDA graphs over gloo.  A mesh of one
+    runs the same collectives; None is no tensor parallelism.
 
     ``MAX_BIAS``: per-request logit bias entries pad to this width, so
     biased requests come and go without new dispatch shapes."""
@@ -177,6 +195,8 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
         profiler: Optional[EngineProfiler] = None,
         cuda_graphs: Optional[bool] = None,
         device=None,
+        mesh=None,
+        tp_axis: str = "tp",
     ):
         if cfg.paged is not None:
             raise ValueError("pass the base config; the engine adds paging")
@@ -216,6 +236,8 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
                     "the target architecture and cache format (only quant may differ)"
                 )
         self.device = resolve_device(device)
+        cuda_graphs = self._init_tp(mesh, tp_axis, cfg, spec_gamma=spec_gamma, role=role,
+                                    cuda_graphs=cuda_graphs)
         on_card = self.device.type == "cuda"
         if cuda_graphs and not on_card:
             raise ValueError("cuda_graphs replays on the card; the CPU runs every dispatch eagerly")
@@ -235,8 +257,8 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
         # The canary prober's oracle key, from the tree as it was given.
         self.params_fingerprint = params_fingerprint(params)
 
-        self.model = TransformerLM(self.cfg, device=self.device)
-        self.model.load_state_dict(params)
+        self.model = TransformerLM(self.cfg, device=self.device, tp=self._tp)
+        self.model.load_state_dict(self._tp_params(params))
         self._spec_gamma = spec_gamma
         self.draft_model = None
         if spec_gamma:
@@ -248,7 +270,7 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
         self.spec_proposed = 0
         self.spec_accepted = 0
         self.spec_rounds = 0
-        self.cache = PagedCache.zeros(self.cfg, paged, max_slots, self.device)
+        self.cache = PagedCache.zeros(self.cfg, paged, max_slots, self.device, tp=self._tp)
         # The reference's per-layer cache names: KV rows, snapshots and the
         # handoff wire are keyed by them.
         self._layer_names = [f"layer_{i}" for i in range(self.cfg.num_layers)]
@@ -257,7 +279,10 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
         self._chain = torch.zeros(
             (max_slots, paged.max_pages_per_seq), dtype=torch.int32, device=self.device
         )
-        self._rng = (prng.PRNGKey(0) if rng is None else rng).to(self.device)
+        # On a mesh the key stays on the host: the rebuild carries its split
+        # to the followers as ints, with no read of the card's stream.
+        self._rng = (prng.PRNGKey(0) if rng is None else rng).to(
+            self.device if self._tp is None else "cpu")
 
         # Page 0 is the idle-slot scratch target — never allocated.
         self.free_pages: deque[int] = deque(range(1, paged.num_pages))  # guarded by: _lock
@@ -285,6 +310,9 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
         self._slot_ready = [False] * max_slots
         self._slot_emit_t = [0.0] * max_slots  # last token's stamp (ITL)
         self._pending: list[dict] = []  # in-flight prefill jobs
+        # Each prefill job's device objects by id (a follower's too).
+        self._jobs: dict[int, dict] = {}
+        self._job_counter = 0
         # Private pages of not-yet-grafted requests (see _match_prefix).
         self._pending_pages: set[int] = set()
         self.queue: deque[Request] = deque()  # guarded by: _lock
@@ -304,7 +332,7 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
         self.kernel_on = paged.kernel_enabled(cfg.quant_kv)
         if metrics:
             metrics.kernel_enabled.set(int(self.kernel_on))
-            metrics.tp_size.set(1)
+            metrics.tp_size.set(self.tp_size)
 
         # Forensics, always on as in the reference: the flight recorder,
         # the anomaly monitor that files incidents with its window, and
@@ -389,6 +417,7 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
         # (T, variant, biased, want_lp) -> (graph, paged launches by format
         # one replay makes): at most 12 x (log2(decode_block) + 1) graphs.
         self._graphs: dict[tuple, tuple] = {}
+        self.captured_collectives: dict[str, dict] = {}  # graph key -> kind -> count
         self._inflight: Optional[dict] = None
         self.overlap_hits = 0
         self.overlap_discards = 0
@@ -442,13 +471,6 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
             if self.metrics:
                 self.metrics.state_rebuilds.inc()
             self._rng, sub = prng.split(self._rng)
-            bufs = self._bufs
-            bufs["tokens"].copy_(torch.tensor(self._slot_last)[:, None])
-            bufs["positions"].copy_(torch.tensor(self._slot_len)[:, None])
-            bufs["key"].copy_(sub)
-            if self.cfg.lora_serve:
-                # In place: a captured graph reads this buffer's address.
-                bufs["aids"].copy_(torch.tensor(self._slot_aid))
             occupied = [s for s in range(self.max_slots) if self.slots[s] is not None]
             sampled = any(self._slot_temp[s] > 0 for s in occupied)
             filtered = any(
@@ -457,17 +479,37 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
             )
             biased = any(self.slots[s].logit_bias for s in occupied)
             want_lp = any(self.slots[s].logprobs for s in occupied)
-            if sampled:
-                bufs["temps"].copy_(torch.tensor(self._slot_temp, dtype=torch.float32))
-            if filtered:
-                bufs["topks"].copy_(torch.tensor(self._slot_topk))
-                bufs["topps"].copy_(torch.tensor(self._slot_topp, dtype=torch.float32))
-            if biased:
-                bufs["bias_ids"].copy_(torch.tensor(self._slot_bias_ids))
-                bufs["bias_vals"].copy_(torch.tensor(self._slot_bias_vals, dtype=torch.float32))
+            self._device_op(
+                "rebuild", list(self._slot_last), list(self._slot_len), self._tp_key(sub),
+                list(self._slot_aid) if self.cfg.lora_serve else None,
+                list(self._slot_temp) if sampled else None,
+                (list(self._slot_topk), list(self._slot_topp)) if filtered else None,
+                ([list(r) for r in self._slot_bias_ids], [list(r) for r in self._slot_bias_vals])
+                if biased else None,
+            )
             variant = "filtered" if filtered else "sampled" if sampled else "greedy"
             dev = self._dev = {"variant": variant, "biased": biased, "want_lp": want_lp}
         return dev
+
+    def _op_rebuild(self, tokens, positions, key, aids, temps, filters, bias) -> None:
+        """Rewrite the step buffers in place from host lists (a captured
+        graph reads their addresses): every slot's last token, position and
+        the key; the adapter ids, temperatures, top-k/top-p and logit bias
+        when the state uses them (None: left as they are)."""
+        bufs = self._bufs
+        bufs["tokens"].copy_(torch.tensor(tokens)[:, None])
+        bufs["positions"].copy_(torch.tensor(positions)[:, None])
+        bufs["key"].copy_(torch.as_tensor(key))
+        if aids is not None:
+            bufs["aids"].copy_(torch.tensor(aids))
+        if temps is not None:
+            bufs["temps"].copy_(torch.tensor(temps, dtype=torch.float32))
+        if filters is not None:
+            bufs["topks"].copy_(torch.tensor(filters[0]))
+            bufs["topps"].copy_(torch.tensor(filters[1], dtype=torch.float32))
+        if bias is not None:
+            bufs["bias_ids"].copy_(torch.tensor(bias[0]))
+            bufs["bias_vals"].copy_(torch.tensor(bias[1], dtype=torch.float32))
 
     def _feed_forward(self, dev: dict) -> dict:
         """Install the state a dispatch fed forward (already in the buffers)
@@ -497,6 +539,12 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
         if key is not bufs["key"]:  # a greedy dispatch returns its key as is
             bufs["key"].copy_(key)
 
+    def _op_dispatch(self, T: int, variant: str, biased: bool, want_lp: bool) -> None:
+        """Enqueue one decode dispatch of T steps from the buffers and count
+        its device steps."""
+        self._run_dispatch(T, (variant, biased, want_lp))
+        self.device_steps += T
+
     def _run_dispatch(self, T: int, shape: tuple) -> None:
         """Enqueue one decode dispatch of T steps (see :meth:`_run_graphed`)."""
         if T not in self._outs:
@@ -518,7 +566,12 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
                 # record the shape as seen, with no graph.
                 self._wd_grace(grace)
             body()
+            before = dict(self._tp.calls) if self._tp is not None else {}
             self._graphs[key] = self._capture(body) if self.cuda_graphs else None
+            if self.cuda_graphs and self._tp is not None:
+                # The collectives one replay runs: what the capture issued.
+                self.captured_collectives[str(key)] = {
+                    kind: n - before.get(kind, 0) for kind, n in self._tp.calls.items()}
             return
         graph, launches = entry
         graph.replay()
@@ -592,9 +645,7 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
         token."""
         self._guard_inflight("dispatch")
         dev = self._device_state()
-        shape = (dev["variant"], dev["biased"], dev["want_lp"])
-        self._run_dispatch(T, shape)
-        self.device_steps += T
+        self._device_op("dispatch", T, dev["variant"], dev["biased"], dev["want_lp"])
         outs = [self._outs[T]] + ([self._lps[T]] if dev["want_lp"] else [])
         if self.device.type == "cuda":
             # The copies are ordered after this dispatch and before the next
@@ -642,7 +693,10 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
     def _repair_seq_lens(self) -> None:
         """Set the carried seq_lens back to host truth (after dispatches
         that ran past it were thrown away or cut short)."""
-        self.cache.seq_lens.copy_(torch.tensor(self._slot_len, dtype=torch.int32))
+        self._device_op("seq_lens", list(self._slot_len))
+
+    def _op_seq_lens(self, lens: list[int]) -> None:
+        self.cache.seq_lens.copy_(torch.tensor(lens, dtype=torch.int32))
 
     def _discard(self, inflight: dict, reason: str) -> None:
         """Throw away a dispatch in flight: drop the state it fed forward
@@ -929,7 +983,7 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
                     "hits": self.overlap_hits,
                     "discards": self.overlap_discards,
                 },
-                "tp": {"size": 1, "axis": None, "mesh": None, "devices": None},
+                "tp": self.tp_state(),
                 "spec": {"gamma": self._spec_gamma, "proposed": self.spec_proposed,
                          "accepted": self.spec_accepted},
                 "overload": self.overload.snapshot() if self.overload is not None
@@ -1097,6 +1151,14 @@ def parse_args(argv: Optional[list[str]] = None):
     p.add_argument("--cuda-graphs", type=int, choices=[0, 1], default=None,
                    help="replay each decode dispatch as a CUDA graph (the card only; "
                    "default 1 there)")
+    p.add_argument("--tp", type=positive, default=1,
+                   help="tensor-parallel degree: shard params (Megatron path rules) and KV "
+                   "pools (kv-heads axis) over a mesh built from the chips the plugin "
+                   "allocated — TPU_VISIBLE_CHIPS in physical ICI snake order "
+                   "(parallel/mesh.mesh_from_allocation); must equal the granted chip count "
+                   "on-cluster, and kv-heads must divide by it; off-cluster falls back to the "
+                   "first N ranks, one process per card (gloo ranks on the CPU); 1 = "
+                   "single-chip (default)")
     p.add_argument("--dtype", choices=["bfloat16", "float32"], default="bfloat16")
     p.add_argument("--seed", type=int, default=0, help="the random weights' seed")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -1104,19 +1166,25 @@ def parse_args(argv: Optional[list[str]] = None):
     if args.spec_gamma and args.quant:
         p.error("--spec-gamma uses the w8 SELF-draft against the unquantized target; an "
                 "already-quantized target (--quant) leaves nothing to verify against")
+    if args.tp > 1:
+        for flag, value in (("--spec-gamma", args.spec_gamma), ("--quant", args.quant)):
+            if value:
+                p.error(f"{flag} is not served under --tp > 1 yet (ROADMAP.md queue 3)")
     if args.cuda_graphs is not None and args.device is not None and \
             torch.device(args.device).type == "cpu":
         p.error("--cuda-graphs is meaningless on the CPU, which runs every dispatch eagerly")
     return args
 
 
-def build_engine(args) -> "ServingEngine":
+def build_engine(args, mesh=None, device=None) -> "ServingEngine":
     """The engine the batch CLI's flags describe, with random weights from
     ``--seed`` (quantized by ``init_params`` under ``--quant``, as the
     reference CLI quantizes its init), a fresh metrics registry, and the
     overload controller and SLO plane unless ``--overload 0`` / ``--slo 0``
-    (the reference CLI's wiring)."""
-    device = resolve_device(args.device)
+    (the reference CLI's wiring).  ``mesh``/``device``: a rank of a
+    tensor-parallel group (``engine_tp.launch``; every rank calls this
+    with the same ``args``)."""
+    device = resolve_device(args.device) if device is None else device
     fp32_reference_precision()
     cfg = GPTConfig(
         vocab_size=args.vocab,
@@ -1156,7 +1224,7 @@ def build_engine(args) -> "ServingEngine":
         admission=args.admission, overload=overload, slo=slo,
         kv_retain=bool(args.kv_retain), kv_host_cache_mb=args.kv_host_cache_mb,
         cuda_graphs=None if args.cuda_graphs is None else bool(args.cuda_graphs),
-        device=device,
+        device=device, mesh=mesh,
     )
 
 
@@ -1195,7 +1263,7 @@ def benchmark(args, eng: Optional["ServingEngine"] = None) -> tuple[dict, list[R
         "unit": "tokens/sec",
         "requests": len(done),
         "slots": args.slots,
-        "tp": 1,
+        "tp": eng.tp_size,
         "quant": args.quant,
         "kernel": eng.kernel_on,
         "sampler": "greedy"
@@ -1230,10 +1298,27 @@ def benchmark(args, eng: Optional["ServingEngine"] = None) -> tuple[dict, list[R
 
 
 def main(argv: Optional[list[str]] = None) -> None:
-    """Batch serving benchmark CLI: prints the summary as one JSON line."""
+    """Batch serving benchmark CLI: prints the summary as one JSON line.
+    ``--tp N`` > 1 runs it over N ranks (``engine_tp.launch``), the leader
+    printing."""
     import json
+    import sys
 
-    summary, _ = benchmark(parse_args(argv))
+    args = parse_args(argv)
+    if args.tp == 1:
+        summary, _ = benchmark(args)
+    else:
+        from .engine_tp import launch
+
+        try:
+            group = launch(args.tp, device=args.device)
+        except ValueError as e:
+            raise SystemExit(str(e))
+        with group:
+            eng = group.build(functools.partial(build_engine, args))
+            print(f"tensor parallel: tp={args.tp} over {eng.tp_state()['devices']} "
+                  f"(follower pids {group.follower_pids})", file=sys.stderr, flush=True)
+            summary, _ = benchmark(args, eng)
     print(json.dumps(summary), flush=True)
 
 

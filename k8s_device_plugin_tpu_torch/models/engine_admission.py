@@ -285,12 +285,12 @@ class AdmissionMixin:
         rows = [p + [0] * (bucket - len(p)) for p in prompts]
         rows += [rows[0]] * (batch - n)  # pad rows are discarded
         last_idx = [len(p) - 1 for p in prompts] + [0] * (batch - n)
-        aids = None
+        ids = None
         if self.cfg.lora_serve:
             ids = [it[1].adapter if it[1].adapter is not None else -1 for it in items]
             ids += [ids[0]] * (batch - n)  # pad rows are discarded anyway
-            aids = torch.tensor(ids, device=self.device)
-        cache = DenseCache.zeros(self.cfg, batch, self.device, max_seq=bucket)
+        job_id, self._job_counter = self._job_counter, self._job_counter + 1
+        dev = self._device_op("prefill_new", job_id, batch, bucket, rows, ids)
         skip = 0
         if self._handoff_skip_covered:
             # Chunk-aligned positions every item's shared or restored pages
@@ -300,29 +300,49 @@ class AdmissionMixin:
             skip = min(min(it[3] * ps for it in items), min(len(p) for p in prompts) - 1)
             skip -= skip % chunk
         if skip > 0:
-            self._seed_dense(cache, items, skip)
+            self._seed_dense(job_id, items, skip)
         self._pending.append({
+            "id": job_id,
             "items": items,
             "bucket": bucket,
             "chunk": chunk,
             "batch": batch,
-            "rows": torch.tensor(rows, dtype=torch.long, device=self.device),
             "last_idx": last_idx,
-            "aids": aids,
-            "cache": cache,
+            "cache": dev["cache"],  # the leader's shard (engine_handoff reads it)
             "pos": skip,
             "logits": [None] * n,
         })
 
-    def _seed_dense(self, cache: DenseCache, items: list, skip: int) -> None:
+    def _op_prefill_new(self, job_id: int, batch: int, bucket: int, rows: list,
+                        adapter_ids: Optional[list]) -> dict:
+        """A prefill job's device objects: its bucket-sized dense cache (the
+        rank's kv heads), token rows and adapter ids, kept under ``job_id``
+        until :meth:`_op_prefill_drop`."""
+        dev = self._jobs[job_id] = {
+            "cache": DenseCache.zeros(self.cfg, batch, self.device, max_seq=bucket, tp=self._tp),
+            "rows": torch.tensor(rows, dtype=torch.long, device=self.device),
+            "aids": None if adapter_ids is None else torch.tensor(adapter_ids,
+                                                                  device=self.device),
+        }
+        return dev
+
+    def _op_prefill_drop(self, job_id: int) -> None:
+        del self._jobs[job_id]
+
+    def _seed_dense(self, job_id: int, items: list, skip: int) -> None:
         """Copy positions [0, skip) of each item's resident pages into the
         job's dense cache and start its write index there: those rows are
         the bytes a recompute at the same bucket writes, so the covered
         chunks need not run.  One gather per pool per layer per item."""
         self._wd_grace("handoff_seed")
         ps = self.paged.page_size
-        for row_idx, it in enumerate(items):
-            idx = torch.tensor(it[2][: -(-skip // ps)], dtype=torch.long, device=self.device)
+        self._device_op("seed", job_id, [it[2][: -(-skip // ps)] for it in items], skip)
+        self.handoff_skipped_tokens += skip * len(items)
+
+    def _op_seed(self, job_id: int, item_pages: list, skip: int) -> None:
+        cache = self._jobs[job_id]["cache"]
+        for row_idx, pages in enumerate(item_pages):
+            idx = torch.tensor(pages, dtype=torch.long, device=self.device)
             for layer in range(self.cfg.num_layers):
                 for pool, slab in zip(self.cache.layer(layer), cache.layer(layer)):
                     if pool is None:  # float pools carry no scales
@@ -330,30 +350,20 @@ class AdmissionMixin:
                     rows = pool.index_select(0, idx)
                     slab[row_idx, :skip] = rows.reshape(-1, *rows.shape[2:])[:skip]
         cache.index = skip
-        self.handoff_skipped_tokens += skip * len(items)
 
     def _advance_prefill(self, job: dict) -> bool:
         """Run ONE chunk of a prefill job (a cached append of ``chunk``
         tokens against the bucket-sized dense cache); True when done."""
         # Prefill dwarfs a decode step, and a new shape may build kernels.
         self._wd_grace("prefill")
-        chunk, pos, batch = job["chunk"], job["pos"], job["batch"]
-        tokens = job["rows"][:, pos : pos + chunk]
-        positions = (pos + torch.arange(chunk, device=self.device)).expand(batch, chunk)
-        aids = job["aids"]
-        hidden = self.model(
-            tokens, positions, cache=job["cache"], append_mode="cached", output="hidden",
-            adapter_ids=aids,
-        )
-        self.prefill_positions += chunk * len(job["items"])
+        chunk, pos = job["chunk"], job["pos"]
         # Each row's true-last-position logits, from the chunk covering it.
         sel = [i for i, last in enumerate(job["last_idx"][: len(job["items"])]) if pos <= last < pos + chunk]
-        if sel:
-            idx = torch.tensor([job["last_idx"][i] - pos for i in sel], device=self.device)
-            rows = torch.tensor(sel, device=self.device)
-            logits = self.model.logits(hidden[rows, idx], None if aids is None else aids[rows])
-            for j, i in enumerate(sel):
-                job["logits"][i] = logits[j]
+        logits = self._device_op("prefill_chunk", job["id"], pos, chunk, sel,
+                                 [job["last_idx"][i] - pos for i in sel])
+        self.prefill_positions += chunk * len(job["items"])
+        for j, i in enumerate(sel):
+            job["logits"][i] = logits[j]
         job["pos"] = pos + chunk
         # Chunks past every row's last position compute nothing anyone reads.
         if job["pos"] > max(job["last_idx"]):
@@ -361,6 +371,26 @@ class AdmissionMixin:
         if self._handoff_taps:
             self._handoff_feed(job)
         return job["pos"] >= job["bucket"]
+
+    def _op_prefill_chunk(self, job_id: int, pos: int, chunk: int, sel: list,
+                          idx: list) -> Optional[torch.Tensor]:
+        """One cached append of ``chunk`` tokens at ``pos`` against the job's
+        dense cache; the float32 logits (the full vocabulary) of rows ``sel``
+        at their positions ``idx`` in the chunk, or None."""
+        job = self._jobs[job_id]
+        batch = job["rows"].shape[0]
+        tokens = job["rows"][:, pos : pos + chunk]
+        positions = (pos + torch.arange(chunk, device=self.device)).expand(batch, chunk)
+        aids = job["aids"]
+        hidden = self.model(
+            tokens, positions, cache=job["cache"], append_mode="cached", output="hidden",
+            adapter_ids=aids,
+        )
+        if not sel:
+            return None
+        rows = torch.tensor(sel, device=self.device)
+        at = torch.tensor(idx, device=self.device)
+        return self.model.logits(hidden[rows, at], None if aids is None else aids[rows])
 
     def _admit(self) -> list[Request]:
         """Admit queued requests into free slots, the queue head first
@@ -517,7 +547,7 @@ class AdmissionMixin:
                 torch.tensor([topk], device=self.device),
                 torch.tensor([topp], dtype=torch.float32, device=self.device),
             )
-            first = int(prng.categorical(sub, row[0]))
+            first = int(prng.categorical(sub.to(self.device), row[0]))
         else:
             first = int(picked.argmax())
         if req.logprobs:
@@ -535,7 +565,7 @@ class AdmissionMixin:
         for row_idx, (slot, req, pages, n_shared) in enumerate(job["items"]):
             resumed = bool(req.tokens)
             plen = len(req.prompt) + len(req.tokens)
-            self._graft(slot, job["cache"], pages, plen, n_shared, row_idx=row_idx)
+            self._graft(slot, job["id"], pages, plen, n_shared, row_idx=row_idx)
             grafted = self._pending_pages.intersection(pages[n_shared:])
             if grafted:
                 self._pending_pages.difference_update(grafted)
@@ -585,6 +615,7 @@ class AdmissionMixin:
             self._maybe_finish(slot)
             if req.done:
                 finished.append(req)
+        self._device_op("prefill_drop", job["id"])
         # Activated slots carry fresh scalars: rebuild the step state.
         self._mark_state_dirty()
         return finished

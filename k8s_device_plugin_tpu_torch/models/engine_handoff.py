@@ -110,6 +110,9 @@ class HandoffMixin:
     def _validate_role(self, role: str) -> None:
         if role not in ROLES:
             raise ValueError(f"role must be one of {ROLES}, got {role!r}")
+        if role != "unified" and self._tp is not None:
+            raise ValueError(f"role={role!r} is not served over a tensor-parallel mesh yet "
+                             "(ROADMAP.md queue 3)")
         if role != "unified":
             # Both split roles live on the content-addressed KV tiers.
             if not self.prefix_sharing:
@@ -231,7 +234,10 @@ class HandoffMixin:
         """Start one prefill probe for ``/v1/prefill``: submit the prompt
         with ``max_new_tokens=1`` (it finishes at activation) and register
         a tap the owner thread feeds as chunks complete.  Raises what
-        ``submit`` raises."""
+        ``submit`` raises, and ValueError over a tensor-parallel mesh (the
+        tap reads the leader's dense shard: not served there yet)."""
+        if self._tp is not None:
+            raise ValueError("the prefill handoff is not served over a tensor-parallel mesh yet")
         req = self.submit(list(prompt), 1, adapter=adapter)
         tap = HandoffTap(req, prompt, adapter, len(prompt) // self.paged.page_size)
         with self._lock:

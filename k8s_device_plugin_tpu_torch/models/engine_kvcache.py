@@ -33,7 +33,10 @@ for it.  A page freed right after its offload may be reused at once: what
 writes it later is enqueued later on the same stream.  A restore is one
 in-place ``index_copy_`` per pool per layer from pinned memory.  In place
 matters: the decode dispatch replays CUDA graphs that hold the pools'
-addresses, so a pool tensor is never rebound.  Host rows are CPU tensors
+addresses, so a pool tensor is never rebound.  Over a tensor-parallel mesh
+each rank holds its kv heads' slice: a read gathers the slices to the
+leader and joins them, a write scatters them back (engine_tp.py), so host
+rows are always whole, the unsharded engine's.  Host rows are CPU tensors
 (bfloat16 included, which numpy cannot hold); ``_kv_rows_nbytes`` counts
 them as the reference counts its arrays, so eviction order and counters
 agree.
@@ -243,7 +246,11 @@ class KVCacheMixin:
         pinned block, ordered after every dispatch enqueued before them;
         with ``wait`` the host waits for them, else the read is pending
         until ``_kv_host_sync``.  Whole pages: rows past a partial tail
-        carry whatever was there, masked until an append overwrites them."""
+        carry whatever was there, masked until an append overwrites them.
+        Over a mesh every rank's kv-head slice is gathered to the leader
+        and joined (engine_tp.py), and the host waits."""
+        if self._tp is not None:
+            return self._device_op("kv_read", list(pages))
         idx = self._kv_index(pages)
         gathered = []
         for i, name in enumerate(self._layer_names):
@@ -293,8 +300,12 @@ class KVCacheMixin:
     def _kv_write_page_rows(self, pages: list[int], rows_list: list[dict]) -> None:
         """Restore host rows into device pages: one ``index_copy_`` per pool
         per layer, in place (a captured graph keeps reading the same
-        pools), from pinned memory on the card."""
+        pools), from pinned memory on the card.  Over a mesh each rank gets
+        its kv-head slice of the rows (engine_tp.py)."""
         self._kv_host_sync()
+        if self._tp is not None:
+            self._device_op("kv_write", list(pages), rows_list=rows_list)
+            return
         idx = self._kv_index(pages)
         on_card = self.device.type == "cuda"
         for i, name in enumerate(self._layer_names):

@@ -27,8 +27,9 @@ class PagingMixin:
     """Page allocation/free, the prefix-sharing trie, windowed
     reclamation, and the graft of prefilled rows into pages."""
 
-    def _graft(self, slot: int, dense, pages: list[int], plen: int, n_shared: int, row_idx: int = 0):
-        """Copy a prefilled dense cache's rows [n_shared*page_size, plen)
+    def _graft(self, slot: int, job_id: int, pages: list[int], plen: int, n_shared: int,
+               row_idx: int = 0):
+        """Copy prefill job ``job_id``'s dense cache rows [n_shared*page_size, plen)
         into the slot's PRIVATE prompt pages (one indexed write per pool
         per layer) and record the slot's full chain and length.
 
@@ -37,9 +38,14 @@ class PagingMixin:
         zeros, which later appends overwrite before any read can see them.
         Under ``quant_kv`` the scale rows go with the codes: the prefill
         quantized them once, and nothing later re-derives a scale."""
+        self._device_op("graft", slot, job_id, list(pages), plen, n_shared, row_idx)
+
+    def _op_graft(self, slot: int, job_id: int, pages: list[int], plen: int, n_shared: int,
+                  row_idx: int) -> None:
+        dense = self._jobs[job_id]["cache"]
         ps = self.paged.page_size
         n_cover = math.ceil(plen / ps)
-        self._set_chain(slot, pages, plen)
+        self._op_set_chain(slot, pages, plen)
         lo_tok = n_shared * ps
         n_priv = n_cover - n_shared
         if n_priv <= 0:
@@ -58,14 +64,24 @@ class PagingMixin:
     def _set_chain(self, slot: int, pages: list[int], length: int) -> None:
         """Record a slot's full page chain and consumed length on the
         device (the dispatch derives the visible table from the chain)."""
+        self._device_op("set_chain", slot, list(pages), length)
+
+    def _op_set_chain(self, slot: int, pages: list[int], length: int) -> None:
         full = torch.zeros((self.paged.max_pages_per_seq,), dtype=torch.int32)
         full[: len(pages)] = torch.tensor(pages, dtype=torch.int32)
         self._chain[slot] = full.to(self.device)
         self.cache.seq_lens[slot] = length
 
-    def _clear_slot(self, slot: int):
+    def _op_chain_fill(self, slot: int, lo: int, pages: list[int]) -> None:
+        """Chain entries [lo, lo + len(pages)) of ``slot``, in place."""
+        self._chain[slot, lo : lo + len(pages)] = torch.tensor(pages, dtype=torch.int32)
+
+    def _op_clear_slot(self, slot: int) -> None:
         self._chain[slot] = 0
         self.cache.seq_lens[slot] = 0
+
+    def _clear_slot(self, slot: int):
+        self._device_op("clear_slot", slot)
         for page in self._slot_pages[slot]:
             self._release_page(page)
         self._slot_pages[slot] = []
@@ -197,7 +213,7 @@ class PagingMixin:
                         # The grown chain; the dispatch shows the page once
                         # the frontier reaches it.
                         idx = self._slot_page_base[s] + len(self._slot_pages[s]) - 1
-                        self._chain[s, idx] = page
+                        self._device_op("chain_fill", s, idx, [page])
                         continue
                 if not self._preempt_newest(newer_than=self._slot_seq[s]):
                     break
@@ -260,7 +276,7 @@ class PagingMixin:
             self._slot_pages[slot][n_dead:],
         )
         lo = self._slot_page_base[slot]
-        self._chain[slot, lo : lo + n_dead] = 0
+        self._device_op("chain_fill", slot, lo, [0] * n_dead)
         self._slot_page_base[slot] += n_dead
         for page in dead:
             self._release_page(page)

@@ -96,7 +96,9 @@ def decode_tokens(model, cache: PagedCache, chain, tokens, positions, key, T: in
     came: the carried key feeds only sampled dispatches, and the sampler
     variant changes only at a state rebuild, which takes a fresh key from
     the engine's, so the streams are the reference's and the step is spared
-    the hash's ~170 small kernels."""
+    the hash's ~170 small kernels.  On a tensor-parallel model
+    (``model.tp``) each step's tokens are broadcast from rank 0 over the
+    group."""
     if temps is None:
         step_keys = [None] * T
     else:
@@ -109,6 +111,10 @@ def decode_tokens(model, cache: PagedCache, chain, tokens, positions, key, T: in
         row = model(tokens, positions, cache=cache, adapter_ids=adapter_ids)[:, -1]
         picked = row if bias_ids is None else row.scatter_add(1, bias_ids, bias_vals.to(row.dtype))
         nxt = pick(picked, step_keys[j], temps, topks, topps)
+        if model.tp is not None:
+            # Every rank picked from the same gathered logits and key; rank
+            # 0's tokens win anyway, so no rank can drift.
+            model.tp.broadcast(nxt)
         out.append(nxt)
         if want_lp:
             lps.append(token_logprob(row, nxt))

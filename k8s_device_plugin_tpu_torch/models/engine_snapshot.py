@@ -116,15 +116,18 @@ def params_fingerprint(params: Mapping[str, torch.Tensor]) -> str:
 def snapshot_layout(engine) -> dict:
     """The page-row layout of the engine's pools, under the reference's
     layer and pool names: page size plus, per layer, each pool's shape and
-    dtype of ONE page's rows."""
+    dtype of ONE page's rows.  A tensor-parallel engine's rows are logical
+    (every kv head: its host rows are gathered whole), so the layout is the
+    unsharded engine's."""
     layers: dict[str, dict] = {}
+    tp = getattr(engine, "tp_size", 1)
     for i, layer in enumerate(engine._layer_names):
         pools = engine.kv_pools(i)
-        layers[layer] = {
-            name: {"shape": [int(d) for d in pools[name].shape[1:]],
-                   "dtype": dtype_name(pools[name].dtype)}
-            for name in sorted(engine._kv_pool_names(pools))
-        }
+        layers[layer] = {}
+        for name in sorted(engine._kv_pool_names(pools)):
+            shape = [int(d) for d in pools[name].shape[1:]]
+            shape[1] *= tp  # [page_size, kv_heads, ...]
+            layers[layer][name] = {"shape": shape, "dtype": dtype_name(pools[name].dtype)}
     return {"page_size": int(engine.paged.page_size), "layers": layers}
 
 

@@ -2106,10 +2106,12 @@ def _positive_int(text: str) -> int:
 def parse_args(argv: Optional[list[str]] = None):
     """The serving CLI: the reference's flags under the reference's names
     and defaults, plus ``--device``, ``--dtype`` and ``--seed`` (the random
-    weights, when no ``--checkpoint-dir`` is given).  ``--tp > 1``, which
-    the port does not serve yet, raises ``SystemExit`` naming the flag, as
-    do the reference's refused pairs (``--adapters`` or ``--spec-gamma``
-    with ``--quant``, ``--adapters`` with ``--spec-gamma``)."""
+    weights, when no ``--checkpoint-dir`` is given).  The reference's
+    refused pairs (``--adapters`` or ``--spec-gamma`` with ``--quant``,
+    ``--adapters`` with ``--spec-gamma``) raise ``SystemExit`` naming the
+    flag, as do ``--spec-gamma``, ``--adapters``, ``--role prefill|decode``
+    and ``--quant`` under ``--tp`` > 1, which the port does not shard yet
+    (``ROADMAP.md`` queue 3)."""
     import argparse
 
     from .engine import _pow2_int
@@ -2173,7 +2175,13 @@ def parse_args(argv: Optional[list[str]] = None):
                    "X-Handoff-Source (and a /v1/prefill probe waits for chunk progress) "
                    "before degrading to local prefill")
     p.add_argument("--tp", type=_positive_int, default=1,
-                   help="tensor-parallel degree: not ported yet; > 1 is refused")
+                   help="tensor-parallel degree: shard params (Megatron path rules) and KV "
+                   "pools (kv-heads axis) over a mesh built from the chips the plugin "
+                   "allocated — TPU_VISIBLE_CHIPS in physical ICI snake order "
+                   "(parallel/mesh.mesh_from_allocation); must equal the granted chip "
+                   "count on-cluster, and kv-heads must divide by it; off-cluster falls "
+                   "back to the first N ranks, one process per card; 1 = single-chip "
+                   "(default)")
     p.add_argument("--http-port", type=int, default=8000)
     p.add_argument("--compilation-cache-dir",
                    default=os.environ.get("TPU_COMPILATION_CACHE_DIR", ""),
@@ -2241,7 +2249,12 @@ def parse_args(argv: Optional[list[str]] = None):
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
     if args.tp > 1:
-        raise SystemExit("--tp: tensor-parallel serving is not ported yet (the PyTorch port)")
+        for flag, refused in (("--spec-gamma", args.spec_gamma > 0), ("--adapters", args.adapters),
+                              (f"--role {args.role}", args.role != "unified"),
+                              ("--quant", args.quant)):
+            if refused:
+                raise SystemExit(f"{flag} is not served under --tp > 1 yet (ROADMAP.md "
+                                 "queue 3)")
     if args.spec_gamma < 0:
         raise SystemExit(f"--spec-gamma must be >= 0, got {args.spec_gamma}")
     if args.adapters and args.quant:
@@ -2258,13 +2271,14 @@ def parse_args(argv: Optional[list[str]] = None):
 
 
 def build_engine(args, registry: Optional[MetricsRegistry] = None,
-                 flight=None, spans=None) -> ServingEngine:
+                 flight=None, spans=None, mesh=None, device=None) -> ServingEngine:
     """The engine the serving flags describe: weights from
     ``--checkpoint-dir`` or random from ``--seed``, the ``--adapters`` trees
     stacked over them, the w8 self-draft under ``--spec-gamma``, quantized
     under ``--quant`` (as the reference CLI quantizes its init).
-    chip_smoke.py builds its in-process twin of a served engine through
-    here."""
+    ``mesh``/``device``: one rank of a ``--tp`` group (every rank builds
+    from the same ``args``).  chip_smoke.py builds its in-process twin of
+    a served engine through here."""
     import dataclasses
     import sys
 
@@ -2275,7 +2289,7 @@ def build_engine(args, registry: Optional[MetricsRegistry] = None,
     from .engine_overload import OverloadConfig
     from .transformer import GPTConfig, PagedConfig, init_params
 
-    device = resolve_device(args.device)
+    device = resolve_device(args.device) if device is None else device
     fp32_reference_precision()
     cfg = GPTConfig(
         vocab_size=args.vocab,
@@ -2349,15 +2363,41 @@ def build_engine(args, registry: Optional[MetricsRegistry] = None,
         kv_host_cache_mb=args.kv_host_cache_mb,
         role=args.role,
         device=device,
+        mesh=mesh,
     )
 
 
-def main(argv: Optional[list[str]] = None) -> None:
+def main(argv: Optional[list[str]] = None, *, tp_backend: Optional[str] = None) -> None:
     """The serving process: engine, owner loop and HTTP on --http-port,
-    metrics co-hosted; SIGTERM drains and exits 0."""
+    metrics co-hosted; SIGTERM drains and exits 0.  Under ``--tp N`` > 1
+    this process is the group's leader and starts N - 1 followers
+    (``engine_tp.launch``, with ``tp_backend`` as its backend: NCCL on
+    cards by default, gloo to put ranks on one card); they exit with it."""
     import sys
 
     args = parse_args(argv)
+    group = None
+    if args.tp > 1:
+        from .engine_tp import launch
+
+        try:
+            group = launch(args.tp, backend=tp_backend, device=args.device)
+        except ValueError as e:
+            raise SystemExit(str(e))
+    try:
+        _serve(args, group)
+    except BaseException:
+        if group is not None:
+            group.abort()
+        raise
+    if group is not None:
+        group.close()
+
+
+def _serve(args, group) -> None:
+    """:func:`main` after the group (None without ``--tp``) is formed."""
+    import sys
+
     if args.compilation_cache_dir:
         print(
             f"--compilation-cache-dir {args.compilation_cache_dir}: XLA's cache; the PyTorch "
@@ -2377,10 +2417,16 @@ def main(argv: Optional[list[str]] = None) -> None:
     failpoints.arm_from_env()
     if args.failpoints:
         failpoints.arm_spec(args.failpoints)
-    engine = build_engine(
-        args, registry, flight=box,
-        spans=flight_mod.register_spans(SpanRecorder(capacity=args.span_ring, name="engine")),
-    )
+    spans = flight_mod.register_spans(SpanRecorder(capacity=args.span_ring, name="engine"))
+    if group is None:
+        engine = build_engine(args, registry, flight=box, spans=spans)
+    else:
+        import functools
+
+        engine = group.build(functools.partial(build_engine, args), registry=registry,
+                             flight=box, spans=spans)
+        print(f"tensor parallel: tp={args.tp} over {engine.tp_state()['devices']} "
+              f"(follower pids {group.follower_pids})", file=sys.stderr, flush=True)
     watchdog = None
     if args.watchdog:
         watchdog = StepWatchdog(

@@ -280,22 +280,22 @@ def gelu(x):
 
 
 def dropout(x: torch.Tensor, rate: float, key_words: Optional[tuple], name: str,
-            batch_group=None):
+            batch_rank: int = 0):
     """flax ``nn.Dropout(rate)`` named ``name`` in training: keep where
     ``bernoulli(fold_in_static(root, (name, 1)), 1 - rate, x.shape)`` (the
     module's first ``make_rng("dropout")``) and divide the kept values by
     1 - rate.  ``key_words`` is the step's root dropout key as two ints.
-    With ``batch_group``, ``x`` is rank r's equal share of a batch split in
-    rank order, and the mask is the global mask's rows: the draw starts at
-    element ``r * x.numel()``."""
+    With ``batch_rank`` r, ``x`` is ``dp`` replica r's equal share of a batch
+    split in replica order, and the mask is the global mask's rows: the
+    draw starts at element ``r * x.numel()`` (the ``mp`` ranks of a replica
+    draw one mask, as the reference's one draw gives them)."""
     from ..utils import prng
 
     if key_words is None:
         raise ValueError(f"{name} needs a dropout key in training (dropout_rng=...)")
     keep = 1.0 - rate
     key = prng.key_tensor(prng.fold_in_static(key_words, (name, 1)), x.device)
-    rank = 0 if batch_group is None else torch.distributed.get_rank(batch_group)
-    mask = prng.bernoulli(key, keep, x.shape, offset=rank * x.numel())
+    mask = prng.bernoulli(key, keep, x.shape, offset=batch_rank * x.numel())
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

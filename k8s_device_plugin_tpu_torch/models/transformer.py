@@ -37,6 +37,18 @@ paged kernel reads the codes and scales as they are, the gathered view and
 the dense cached path dequantize to ``cfg.dtype``, and the dense bulk
 prefill attends over the unquantized K/V while it writes the codes.
 
+Tensor parallelism (``tp``, a ``parallel/tensor.TensorParallel`` over the
+ranks of a ``tp`` group, one process per card): each rank builds the
+model at its shard's widths (``tp_local``: query and kv heads, ffn and
+vocab divided by the degree where the reference's path rules split them)
+and loads ``tensor.shard_state_dict``.  Query, key, value, gate and up are
+column-parallel; ``out`` and ``down`` are row-parallel, each followed by an
+all-reduce of its partial sums in ``cfg.dtype``; the embedding is a masked
+lookup of the rank's vocab rows, then an all-reduce; the float32
+``lm_head`` gives the rank's vocab columns, all-gathered to the full
+vocabulary.  Norms and RoPE are whole on every rank, and the caches hold
+the rank's kv heads.  Serving only: plain weights (no ``quant``, no LoRA).
+
 ``TransformerLM(config, train=True)`` is the training model: parameters in
 float32, cast to ``cfg.dtype`` at every dense site and at the embedding as
 flax casts its float32 params, with gradients on, and each block
@@ -66,6 +78,7 @@ from ..ops.quant import (
     quantize_kv_pair,
     quantize_lm_params,
 )
+from ..parallel.tensor import lm_layout
 from ..utils import prng
 from ..utils.device import resolve_device
 from .lora import LoRADense, MultiLoRADense, site_call
@@ -162,6 +175,25 @@ def _check_supported(cfg: GPTConfig) -> None:
         raise ValueError(f"attention_window must be >= 1, got {cfg.attention_window}")
 
 
+def tp_split(cfg: GPTConfig, tp, part: str):
+    """``tp`` when the rules split ``part`` ("attn", "mlp", "vocab") of
+    ``cfg`` over it (its collectives then run, a group of one included),
+    else None."""
+    return tp if tp is not None and lm_layout(cfg, tp.size, tp.axis)[part] else None
+
+
+def tp_local(cfg: GPTConfig, tp=None) -> tuple:
+    """``(heads, kv_heads, ffn, vocab)`` one rank of ``tp`` holds: each
+    divided by the degree where ``tensor.lm_layout`` splits it (never from
+    a replaced config: ``head_dim`` is ``hidden_size // num_heads``)."""
+    full = (cfg.num_heads, cfg.kv_heads, cfg.intermediate_size, cfg.vocab_size)
+    if tp is None:
+        return full
+    layout = lm_layout(cfg, tp.size, tp.axis)
+    split = (layout["attn"], layout["attn"], layout["mlp"], layout["vocab"])
+    return tuple(n // tp.size if cut else n for n, cut in zip(full, split))
+
+
 def check_card_shapes(cfg: GPTConfig) -> None:
     """On the card every attention runs a CUDA kernel, and there is no
     other route: the flash kernels (full forward, bulk prefill, training)
@@ -207,8 +239,10 @@ class DenseCache:
     value_scales: Optional[list] = None
 
     @classmethod
-    def zeros(cls, cfg: GPTConfig, batch: int, device, max_seq: Optional[int] = None):
-        shape = (batch, cfg.max_seq if max_seq is None else max_seq, cfg.kv_heads, cfg.head_dim)
+    def zeros(cls, cfg: GPTConfig, batch: int, device, max_seq: Optional[int] = None, tp=None):
+        """Zero slabs of a rank's kv heads (``tp_local``; all without tp)."""
+        shape = (batch, cfg.max_seq if max_seq is None else max_seq, tp_local(cfg, tp)[1],
+                 cfg.head_dim)
         k, v, ks, vs = _kv_slabs(cfg, shape, device)
         return cls(k, v, key_scales=ks, value_scales=vs)
 
@@ -236,8 +270,9 @@ class PagedCache:
     scale_v: Optional[list] = None
 
     @classmethod
-    def zeros(cls, cfg: GPTConfig, paged: PagedConfig, batch: int, device):
-        shape = (paged.num_pages, paged.page_size, cfg.kv_heads, cfg.head_dim)
+    def zeros(cls, cfg: GPTConfig, paged: PagedConfig, batch: int, device, tp=None):
+        """Zero pools of a rank's kv heads (``tp_local``; all without tp)."""
+        shape = (paged.num_pages, paged.page_size, tp_local(cfg, tp)[1], cfg.head_dim)
         k, v, ks, vs = _kv_slabs(cfg, shape, device)
         return cls(
             k, v,
@@ -327,15 +362,23 @@ class DenseGeneral(nn.Module):
 class Embed(nn.Module):
     """Token embedding stored in ``dtype`` (float32 in the training model);
     the looked-up rows are cast to ``dtype`` (flax casts the table, which
-    gives the same values)."""
+    gives the same values).  Vocab-parallel under ``tp``: the table holds
+    rows ``[offset, offset + vocab)``, an id outside them looks up zeros,
+    and the group's all-reduce sums the one non-zero row with zeros."""
 
-    def __init__(self, vocab: int, hidden: int, dtype, device=None):
+    def __init__(self, vocab: int, hidden: int, dtype, device=None, tp=None, offset: int = 0):
         super().__init__()
-        self.dtype = dtype
+        self.dtype, self.tp, self.offset = dtype, tp, offset
         self.embedding = nn.Parameter(torch.empty(vocab, hidden, dtype=dtype, device=device))
 
     def forward(self, ids):
-        return torch.nn.functional.embedding(ids, self.embedding).to(self.dtype)
+        if self.tp is None:
+            return torch.nn.functional.embedding(ids, self.embedding).to(self.dtype)
+        local = ids - self.offset
+        mine = (local >= 0) & (local < self.embedding.shape[0])
+        rows = torch.nn.functional.embedding(local.clamp(0, self.embedding.shape[0] - 1),
+                                             self.embedding).to(self.dtype)
+        return self.tp.all_reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
 
 
 def dense_site(cfg: GPTConfig, in_shape: tuple, features: tuple, device, dtype=None):
@@ -408,14 +451,17 @@ def tiled_causal_attention(qh, kh, vh, window):
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, tp=None):
         super().__init__()
         self.cfg = cfg
         d, hd = cfg.hidden_size, cfg.head_dim
-        self.query = dense_site(cfg, (d,), (cfg.num_heads, hd), device)
-        self.key = dense_site(cfg, (d,), (cfg.kv_heads, hd), device)
-        self.value = dense_site(cfg, (d,), (cfg.kv_heads, hd), device)
-        self.out = dense_site(cfg, (cfg.num_heads, hd), (d,), device)
+        self.heads, kv_heads = tp_local(cfg, tp)[:2]
+        # Row-parallel out: its partial sums are all-reduced over the group.
+        self.reduce = tp_split(cfg, tp, "attn")
+        self.query = dense_site(cfg, (d,), (self.heads, hd), device)
+        self.key = dense_site(cfg, (d,), (kv_heads, hd), device)
+        self.value = dense_site(cfg, (d,), (kv_heads, hd), device)
+        self.out = dense_site(cfg, (self.heads, hd), (d,), device)
 
     def forward(self, hidden, positions, cache=None, layer: int = 0, append_mode: str = "auto",
                 adapter_ids=None):
@@ -442,12 +488,13 @@ class CausalSelfAttention(nn.Module):
             else:
                 attn = cached_group_attention(
                     q, _dequant(ck, cks, cfg.dtype), _dequant(cv, cvs, cfg.dtype),
-                    positions, cfg.attention_window, cfg.num_heads,
+                    positions, cfg.attention_window, self.heads,
                 )
         else:
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             attn = tiled_causal_attention(qh, kh, vh, cfg.attention_window).transpose(1, 2)
-        return site_call(self.out, attn, adapter_ids)
+        out = site_call(self.out, attn, adapter_ids)
+        return out if self.reduce is None else self.reduce.all_reduce(out)
 
     def _paged(self, q, k, v, positions, cache: PagedCache, layer: int):
         cfg = self.cfg
@@ -473,32 +520,35 @@ class CausalSelfAttention(nn.Module):
         return cached_group_attention(
             q, gather_pages(pool_k, scale_k, table, cfg.dtype),
             gather_pages(pool_v, scale_v, table, cfg.dtype),
-            positions, cfg.attention_window, cfg.num_heads,
+            positions, cfg.attention_window, self.heads,
         )
 
 
 class SwiGluMlp(nn.Module):
     """silu(gate(x)) * up(x) -> down."""
 
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, tp=None):
         super().__init__()
-        d, f = cfg.hidden_size, cfg.intermediate_size
+        d, f = cfg.hidden_size, tp_local(cfg, tp)[2]
+        # Row-parallel down: its partial sums are all-reduced over the group.
+        self.reduce = tp_split(cfg, tp, "mlp")
         self.gate = dense_site(cfg, (d,), (f,), device)
         self.up = dense_site(cfg, (d,), (f,), device)
         self.down = dense_site(cfg, (f,), (d,), device)
 
     def forward(self, x, adapter_ids=None):
         gate, up = site_call(self.gate, x, adapter_ids), site_call(self.up, x, adapter_ids)
-        return site_call(self.down, torch.nn.functional.silu(gate) * up, adapter_ids)
+        out = site_call(self.down, torch.nn.functional.silu(gate) * up, adapter_ids)
+        return out if self.reduce is None else self.reduce.all_reduce(out)
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None):
+    def __init__(self, cfg: GPTConfig, device=None, tp=None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.hidden_size, cfg.dtype, device=device)
-        self.attn = CausalSelfAttention(cfg, device)
+        self.attn = CausalSelfAttention(cfg, device, tp)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.dtype, device=device)
-        self.mlp = SwiGluMlp(cfg, device)
+        self.mlp = SwiGluMlp(cfg, device, tp)
 
     def forward(self, hidden, positions, cache=None, layer: int = 0, append_mode: str = "auto",
                 adapter_ids=None):
@@ -516,24 +566,33 @@ class TransformerLM(nn.Module):
     parameters come from :func:`init_params` or
     ``convert.flax_to_state_dict`` through ``load_state_dict``.  Runs on
     ``cuda`` unless ``device="cpu"`` is asked for.  ``train=True`` keeps
-    float32 parameters with gradients (see the module docstring)."""
+    float32 parameters with gradients (see the module docstring).  ``tp``:
+    this rank's ``TensorParallel`` group (load ``tensor.shard_state_dict``
+    of the full parameters)."""
 
-    def __init__(self, config: GPTConfig, device=None, *, train: bool = False):
+    def __init__(self, config: GPTConfig, device=None, *, train: bool = False, tp=None):
         super().__init__()
         _check_supported(config)
+        if tp is not None and (train or config.quant or config.lora_rank is not None):
+            raise ValueError("tensor parallelism serves plain weights: no training model, no "
+                             "quant, no LoRA")
         self.config = config
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             check_card_shapes(config)
         self.train_mode = train
+        self.tp = tp
         dev = self.device
-        self.embed = Embed(config.vocab_size, config.hidden_size, config.dtype, dev)
+        vocab = tp_local(config, tp)[3]
+        self.embed = Embed(vocab, config.hidden_size, config.dtype, dev,
+                           tp=tp_split(config, tp, "vocab"),
+                           offset=tp.rank * vocab if tp is not None else 0)
         for i in range(config.num_layers):
-            self.add_module(f"layer_{i}", DecoderBlock(config, dev))
+            self.add_module(f"layer_{i}", DecoderBlock(config, dev, tp))
         self.final_norm = RMSNorm(config.hidden_size, config.dtype, device=dev)
-        self.lm_head = dense_site(
-            config, (config.hidden_size,), (config.vocab_size,), dev, torch.float32
-        )
+        self.lm_head = dense_site(config, (config.hidden_size,), (vocab,), dev, torch.float32)
+        # Column-parallel head: each rank's vocab columns, gathered.
+        self.gather = tp_split(config, tp, "vocab")
         if train:
             self.to(torch.float32)  # float32 master weights, as flax keeps them
         self.requires_grad_(train)  # serving: no autograd state
@@ -572,7 +631,8 @@ class TransformerLM(nn.Module):
         head takes each row's adapter id; None is the base model)."""
         if self.config.lora_serve and adapter_ids is None:
             adapter_ids = torch.full((hidden.shape[0],), -1, device=hidden.device)
-        return site_call(self.lm_head, hidden.float(), adapter_ids)
+        logits = site_call(self.lm_head, hidden.float(), adapter_ids)
+        return logits if self.gather is None else self.gather.all_gather_last(logits)
 
 
 def param_shapes(config: GPTConfig) -> dict:
@@ -666,17 +726,24 @@ def _check_decode_fits(config: GPTConfig, prompt_len: int, max_new_tokens: int):
 
 
 @torch.no_grad()
-def _generate(config: GPTConfig, params: dict, prompt, max_new_tokens: int, pick, device):
+def _generate(config: GPTConfig, params: dict, prompt, max_new_tokens: int, pick, device,
+              tp=None):
     """The fixed-shape KV-cache decode both generators share: one bulk
     prefill over the prompt (the flash kernel), then single-token steps in
     a Python loop; ``pick(logits [batch, vocab], t)`` chooses the token
-    that follows position ``t``."""
-    model = TransformerLM(config, device=device)
+    that follows position ``t``.  Under ``tp`` every rank runs it on its
+    shard of ``params`` (the full state dict) and picks from the gathered
+    logits."""
+    model = TransformerLM(config, device=device, tp=tp)
+    if tp is not None:
+        from ..parallel.tensor import shard_state_dict
+
+        params = shard_state_dict(params, tp.size, tp.rank, tp.axis)
     model.load_state_dict(params)
     prompt = torch.as_tensor(prompt, device=model.device).long()
     batch, prompt_len = prompt.shape
     _check_decode_fits(config, prompt_len, max_new_tokens)
-    cache = DenseCache.zeros(config, batch, model.device)
+    cache = DenseCache.zeros(config, batch, model.device, tp=tp)
     logits = model(prompt, cache=cache)
     tok = pick(logits[:, -1], prompt_len - 1)
     out = [prompt, tok[:, None]]
@@ -687,20 +754,24 @@ def _generate(config: GPTConfig, params: dict, prompt, max_new_tokens: int, pick
     return torch.cat(out, dim=1)
 
 
-def greedy_generate(config: GPTConfig, params: dict, prompt, max_new_tokens: int, *, device=None):
+def greedy_generate(config: GPTConfig, params: dict, prompt, max_new_tokens: int, *, device=None,
+                    tp=None):
     """Greedy decode with the fixed-shape KV cache: one bulk-prefill
     forward over the whole prompt (the flash kernel when the prompt tiles
     by 128), then single-token steps against the cache in a Python loop.
 
     ``params``: a state dict (``init_params`` or ``convert``).  ``prompt``:
     [batch, prompt_len] token ids.  Returns [batch, prompt_len + new] int64
-    on the model's device."""
+    on the model's device.  ``tp``: this rank's ``TensorParallel`` group
+    (every rank calls it with the full ``params``; the bulk prefill runs the
+    flash kernel on the rank's heads)."""
     return _generate(config, params, prompt, max_new_tokens,
-                     lambda logits, t: logits.argmax(dim=-1), device)
+                     lambda logits, t: logits.argmax(dim=-1), device, tp)
 
 
 def sample_generate(config: GPTConfig, params: dict, prompt, max_new_tokens: int, *, rng,
-                    temperature: float = 1.0, top_k: Optional[int] = None, device=None):
+                    temperature: float = 1.0, top_k: Optional[int] = None, device=None,
+                    tp=None):
     """Temperature (plus optional top-k) sampling through the same decode
     as :func:`greedy_generate`, on the reference's key schedule: the token
     after position ``t`` draws from ``fold_in(rng, t)`` (``utils/prng.py``,
@@ -721,4 +792,4 @@ def sample_generate(config: GPTConfig, params: dict, prompt, max_new_tokens: int
         return prng.categorical(prng.fold_in(key, t), scaled)
 
     key = torch.as_tensor(rng).to(resolve_device(device))
-    return _generate(config, params, prompt, max_new_tokens, pick, device)
+    return _generate(config, params, prompt, max_new_tokens, pick, device, tp)

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import logging
 import os
+import socket
 from dataclasses import dataclass
 from typing import Mapping, Optional, Sequence
 
@@ -161,6 +162,38 @@ def initialize(
     dist.init_process_group(backend, init_method=init_method, world_size=world, rank=rank,
                             **kwargs)
     return True
+
+
+def local_init_method() -> str:
+    """A rendezvous on a free local port, ``tcp://127.0.0.1:<port>``: what a
+    launcher of local ranks hands each of them as ``init_method``."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return f"tcp://127.0.0.1:{s.getsockname()[1]}"
+
+
+def join_local(
+    device,
+    local_rank: int,
+    local_ranks: int,
+    init_method: str,
+    backend: Optional[str] = None,
+    environ: Mapping[str, str] | None = None,
+    **kwargs,
+) -> torch.device:
+    """A launched rank's start: its card (``device`` resolved for
+    ``local_rank``, ``utils.device.resolve_device``) made current, then
+    :func:`initialize` as ``local_rank`` of ``local_ranks`` with NCCL on a
+    card and gloo without unless ``backend`` names one (``environ`` and
+    kwargs pass through).  Returns the rank's device."""
+    from ..utils.device import resolve_device
+
+    device = resolve_device(device, local_rank)
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    initialize(environ, local_rank=local_rank, local_ranks=local_ranks, init_method=init_method,
+               backend=backend or ("nccl" if device.type == "cuda" else "gloo"), **kwargs)
+    return device
 
 
 def make_slice_mesh(

@@ -4,10 +4,11 @@ Counterpart of the reference's ``parallel/sharding.py``.  The reference
 annotates the batch over ``dp`` and large parameters over ``mp`` and lets
 XLA insert the collectives.  Here each rank is one process:
 
-- the global batch splits over every rank in mesh order, ``dp``-major
-  (:func:`batch_rows`), since FSDP ranks each take their own rows; each
-  rank's loss is the mean over its rows, and the gradients FSDP averages
-  over the world are the global batch's;
+- the global batch splits over the ``dp`` replicas (:func:`batch_rows`),
+  as the reference's GSPMD splits it over ``dp`` and replicates it over
+  ``mp``: the ``mp`` ranks of one replica take the same rows.  Each rank's
+  loss is the mean over its rows, and the gradients FSDP averages over the
+  world are the mean of the replicas' means, the global batch's;
 - parameters follow the reference's per-leaf rule (:func:`shard_dim`):
   ``torch.distributed.fsdp.fully_shard`` over the 2-D mesh replicates over
   ``dp`` and shards over ``mp`` (HSDP), with the rule's ``Shard(dim)``.
@@ -17,7 +18,10 @@ XLA insert the collectives.  Here each rank is one process:
   by the world size, as FSDP averages the sharded ones;
 - BatchNorm takes its moments over the global batch and dropout draws the
   global mask's rows (``models/layers.py``): :func:`shard_train_step` hands
-  every module with a ``batch_group`` attribute the world group.
+  every module with a ``batch_group`` attribute the world group (rows an
+  ``mp`` replica repeats scale the sums and the counts alike), and every
+  module with a ``batch_rank`` attribute its ``dp`` index (the replicas of
+  one index draw one mask).
 
 No FSDP ``mp_policy`` is set: the modules cast their float32 parameters
 themselves, so a sharded step computes what the one-card step computes.
@@ -49,22 +53,30 @@ def shard_dim(shape: Sequence[int], axis_size: int) -> Optional[int]:
     return None
 
 
-def batch_rows(n: int, rank: int, world: int, grad_accum: int = 1) -> torch.Tensor:
-    """The global-batch rows ``rank`` of ``world`` takes: its part of each
-    of the ``grad_accum`` global microbatches (microbatch i is rows [i·n/g,
-    (i+1)·n/g), as the reference's reshape), one after the other, so that
-    chunking them in ``grad_accum`` gives the rank's part of each."""
-    if n % (world * grad_accum):
-        raise ValueError(f"global batch {n} is not divisible by {world} ranks x grad_accum "
-                         f"{grad_accum}")
-    return torch.arange(n).reshape(grad_accum, world, n // (grad_accum * world))[:, rank].reshape(-1)
+def batch_rows(n: int, index: int, replicas: int, grad_accum: int = 1) -> torch.Tensor:
+    """The global-batch rows ``dp`` replica ``index`` of ``replicas`` takes:
+    its part of each of the ``grad_accum`` global microbatches (microbatch
+    i is rows [i·n/g, (i+1)·n/g), as the reference's reshape), one after
+    the other, so that chunking them in ``grad_accum`` gives the replica's
+    part of each."""
+    if n % (replicas * grad_accum):
+        raise ValueError(f"global batch {n} is not divisible by {replicas} dp replicas x "
+                         f"grad_accum {grad_accum}")
+    per = n // (grad_accum * replicas)
+    return torch.arange(n).reshape(grad_accum, replicas, per)[:, index].reshape(-1)
 
 
-def shard_batch(batch: Mapping[str, torch.Tensor], rank: int, world: int,
+def dp_coordinate(mesh) -> tuple[int, int]:
+    """``(index, size)`` of this rank's replica on ``mesh``'s ``dp`` axis
+    (its first)."""
+    return int(mesh.get_coordinate()[0]), int(mesh.mesh.shape[0])
+
+
+def shard_batch(batch: Mapping[str, torch.Tensor], index: int, replicas: int,
                 grad_accum: int = 1) -> dict:
     """Every array of ``batch`` at :func:`batch_rows`'s rows."""
     n = next(iter(batch.values())).shape[0]
-    rows = batch_rows(n, rank, world, grad_accum)
+    rows = batch_rows(n, index, replicas, grad_accum)
     return {k: v.index_select(0, rows.to(v.device)) for k, v in batch.items()}
 
 
@@ -94,7 +106,8 @@ def shard_train_step(train_step: Callable, mesh, state):
     tensors FSDP no longer uses.  Restore a checkpoint after this
     (``models/checkpoint.py`` reshards it).  Returns ``(step,
     sharded_state)``; ``step(state, batch)`` takes this rank's rows
-    (:func:`shard_batch`) and returns the global batch's mean loss."""
+    (:func:`shard_batch` at its :func:`dp_coordinate`) and returns the global
+    batch's mean loss."""
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
@@ -123,9 +136,12 @@ def shard_train_step(train_step: Callable, mesh, state):
                 p.data = p.data.contiguous()
     fully_shard(model, mesh=mesh, shard_placement_fn=lambda p: Shard(by_param[p]),
                 ignored_params=replicated or None)
+    dp_index = dp_coordinate(mesh)[0]
     for module in model.modules():
         if hasattr(module, "batch_group"):
             module.batch_group = dist.group.WORLD if world > 1 else None
+        if hasattr(module, "batch_rank"):
+            module.batch_rank = dp_index
 
     params = dict(model.named_parameters())
     new_groups = []

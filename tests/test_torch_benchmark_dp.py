@@ -3,10 +3,11 @@
 ``--device cpu`` runs dp·mp ranks (``--dp -1`` counting as 1), spawned by
 ``models/benchmark.py`` as it spawns one per card; the record counts them
 in ``chips`` and prints once.  The refusals are the reference's mesh rules
-and one of the port's own: a global batch the ranks do not split evenly
-(``ROADMAP.md`` queue 3).  Each run that spawns ranks (the CLI, and a
-script calling ``launch``) is a subprocess with its own time limit (150
-s), killed with every rank it spawned when it passes it.
+and its batch rule: a global batch the ``dp`` replicas do not split evenly
+(the ``mp`` ranks of one replica take the same rows).  Each run that
+spawns ranks (the CLI, and a script calling ``launch``) is a subprocess
+with its own time limit (150 s), killed with every rank it spawned when it
+passes it.
 """
 
 import json
@@ -55,10 +56,10 @@ def test_cli_trains_vit_on_four_gloo_ranks_and_prints_one_record():
 
 
 @pytest.mark.parametrize("flags, local_ranks, message", [
-    (["--dp=2", "--mp=2", "--batch-size=6"], 4,
-     "--batch-size 6 does not split over 4 ranks (dp·mp): "),
-    (["--dp=2", "--mp=2", "--batch-size=8", "--grad-accum=4"], 4,
-     "--batch-size 8 does not split over 4 ranks (dp·mp) x --grad-accum 4"),
+    (["--dp=2", "--mp=2", "--batch-size=7"], 4,
+     "--batch-size 7 does not split over dp=2 replicas: "),
+    (["--dp=2", "--mp=2", "--batch-size=4", "--grad-accum=4"], 4,
+     "--batch-size 4 does not split over dp=2 replicas x --grad-accum 4"),
     (["--dp=-1", "--mp=-1"], 1, "at most one axis size may be -1"),
     (["--dp=3", "--mp=1"], 4, "axes {'dp': 3, 'mp': 1} do not cover 4 devices"),
     (["--dp=-1", "--mp=3"], 4, "4 devices not divisible by 3"),
@@ -75,7 +76,11 @@ def test_layouts_the_ranks_cannot_take_exit_first(flags, local_ranks, message):
     (["--batch-size=512"], None, 4, 4),                       # k8s-pod-resnet50-tpu4.yaml
     (["--batch-size=1024"], "h0,h1", 8, 16),                  # k8s-job-resnet50-2host.yaml
     (["--dp=-1", "--mp=2", "--batch-size=8"], "h0,h1", 2, 4),
-], ids=["bert-tpu8", "resnet50-tpu4", "resnet50-2host", "two-hosts-mp2"])
+    # dp divides these, dp·mp does not: the mp ranks of a replica share rows.
+    (["--dp=2", "--mp=2", "--batch-size=6"], None, 4, 4),
+    (["--dp=2", "--mp=2", "--batch-size=8", "--grad-accum=4"], None, 4, 4),
+], ids=["bert-tpu8", "resnet50-tpu4", "resnet50-2host", "two-hosts-mp2", "dp2-mp2-batch6",
+        "dp2-mp2-batch8-accum4"])
 def test_deployment_layouts_are_taken(monkeypatch, flags, hosts, local_ranks, world):
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
     if hosts is None:

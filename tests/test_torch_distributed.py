@@ -11,7 +11,10 @@ rank each, each deriving its group from its own env dict as a pod of
 tiny-GPT steps at ``--dp -1 --mp 1`` (``tests/torch_ranks.py``: a free
 port, killed after 170 s), which equal the one-process steps on the same
 global batch: losses 1e-5 relative, parameters 1e-5 absolute (float32; the
-two ranks sum the gradient in another order).
+two ranks sum the gradient in another order).  The same spawn then takes
+two steps at ``dp 1 x mp 2`` on a batch of 3, which ``dp`` divides and
+``dp`` x ``mp`` does not: both ranks take every row, as the reference
+replicates the batch over ``mp``.
 """
 
 import dataclasses
@@ -129,28 +132,58 @@ def test_ranks_map_to_cards():
     assert resolve_device("cpu", local_rank=3) == torch.device("cpu")
 
 
-def test_two_hosts_reduce_and_step_as_one_process(tmp_path):
+def _one_process_steps(kwargs, state_dict, batch, steps):
+    state = ttrain.state_for(_model("gpt", kwargs), 0.1, 0.9)
+    state.model.load_state_dict(state_dict)
+    step = ttrain.make_train_step()
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, batch)
+        losses.append(float(loss))
+    return losses, state.model.state_dict()
+
+
+def _assert_steps_equal(result, want):
+    losses, state_dict = want
+    np.testing.assert_allclose(result["losses"], losses, rtol=LOSS_RTOL)
+    for name, value in state_dict.items():
+        np.testing.assert_allclose(result["state_dict"][name].numpy(), value.numpy(), rtol=0,
+                                   atol=ATOL, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def two_hosts(tmp_path_factory):
+    """One spawn of two gloo ranks, one a "host": two tiny-GPT steps at
+    ``--dp -1 --mp 1`` on a batch of 4, then at ``dp 1 x mp 2`` on a batch
+    of 3 (both ranks take every row, as the reference replicates the batch
+    over ``mp``)."""
     cfg = dataclasses.replace(ttf.GPTConfig.tiny(), num_kv_heads=2)
     kwargs = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     state_dict = {k: v.detach().clone() for k, v in _model("gpt", kwargs).state_dict().items()}
     ids = torch.from_numpy(np.random.RandomState(3).randint(0, cfg.vocab_size, size=(4, 33)))
     batch = {"input_ids": ids[:, :-1].long(), "labels": ids[:, 1:].long()}
+    odd = {k: v[:3] for k, v in batch.items()}
     env = {"TPU_WORKER_HOSTNAMES": "localhost,localhost", "JAX_COORDINATOR_PORT": str(free_port())}
     case = {"kind": "gpt", "kwargs": kwargs, "state_dict": state_dict, "batch": batch,
             "input_key": "input_ids", "steps": 2}
-    got = Ranks({"env": env, "mesh": {"dp": -1, "mp": 1}, "cases": [case]}, 2,
-                str(tmp_path)).wait()
-    assert got["reduced"] == [3.0, 3.0]
+    cases = [case, dict(case, batch=odd, mesh={"dp": 1, "mp": 2})]
+    got = Ranks({"env": env, "mesh": {"dp": -1, "mp": 1}, "cases": cases}, 2,
+                str(tmp_path_factory.mktemp("two_hosts"))).wait()
+    return got, kwargs, state_dict, batch, odd
 
-    state = ttrain.state_for(_model("gpt", kwargs), 0.1, 0.9)
-    state.model.load_state_dict(state_dict)
-    step = ttrain.make_train_step()
-    losses = []
-    for _ in range(2):
-        state, loss = step(state, batch)
-        losses.append(float(loss))
-    result = got["cases"][0]
-    np.testing.assert_allclose(result["losses"], losses, rtol=LOSS_RTOL)
-    for name, value in state.model.state_dict().items():
-        np.testing.assert_allclose(result["state_dict"][name].numpy(), value.numpy(), rtol=0,
-                                   atol=ATOL, err_msg=name)
+
+def test_two_hosts_reduce_and_step_as_one_process(two_hosts):
+    got, kwargs, state_dict, batch, _ = two_hosts
+    assert got["reduced"] == [3.0, 3.0]
+    _assert_steps_equal(got["cases"][0], _one_process_steps(kwargs, state_dict, batch, 2))
+
+
+def test_dp1_mp2_takes_a_batch_of_three_as_one_process(two_hosts):
+    """A batch ``dp`` divides and ``dp`` x ``mp`` does not: each mp rank
+    takes all three rows, and the sharded steps equal one rank's within
+    1e-5."""
+    got, kwargs, state_dict, _, odd = two_hosts
+    result = got["cases"][1]
+    _assert_steps_equal(result, _one_process_steps(kwargs, state_dict, odd, 2))
+    # mp 2 sharded the large leaves.
+    assert any(n < state_dict[name].numel() for name, n in result["local_numel"][0].items())

@@ -2,7 +2,7 @@
 
 The flag sets are read from both sources' ``add_argument`` calls (the
 reference builds its parser inside ``main``): they must agree, defaults
-included, except for ``--tp`` (tensor parallelism is not ported yet) and
+included (``--tp`` too, since tensor-parallel serving was ported), except
 the port's own ``--dtype``, ``--seed``, ``--device`` and ``--cuda-graphs``.
 ``build_engine`` must hand the overload and SLO settings to the engine as
 the reference's ``main`` does.  Both CLIs then run the same tiny command
@@ -25,7 +25,7 @@ from k8s_device_plugin_tpu_torch.utils.slo import SLOTracker
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_ONLY_FLAGS = {"--dtype", "--seed", "--device", "--cuda-graphs"}
-REFERENCE_ONLY_FLAGS = {"--tp"}
+REFERENCE_ONLY_FLAGS: set = set()
 # Keys the port's JSON line adds to the reference's.
 PORT_ONLY_KEYS = {"decode_block", "cuda_graphs", "state_rebuilds", "graph_replays",
                   "device_steps", "spec_rounds", "admission", "preemptions", "device"}

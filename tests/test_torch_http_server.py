@@ -413,16 +413,18 @@ def test_step_capture_traces_the_next_steps(pair):
     ],
 )
 def test_cli_refuses_what_the_port_does_not_serve(argv, flag, tmp_path):
-    """``--tp > 1`` is still refused, naming the flag.  ``--spec-gamma``,
-    ``--adapters`` and ``--checkpoint-dir`` (refused until the port served
-    them) now build an engine: a spec engine with its w8 draft, a
-    multi-LoRA engine over two adapter directories, an engine on a
-    checkpoint's weights; the directories are written here
-    (``convert.save_flax_params`` / the port's CheckpointManager) in place
-    of the case's placeholder paths."""
+    """``--spec-gamma``, ``--adapters``, ``--tp`` and ``--checkpoint-dir``
+    (refused until the port served them) are taken.  Three build an engine
+    here: a spec engine with its w8 draft, a multi-LoRA engine over two
+    adapter directories, an engine on a checkpoint's weights; the
+    directories are written here (``convert.save_flax_params`` / the port's
+    CheckpointManager) in place of the case's placeholder paths.  ``--tp
+    2`` parses, and refuses the flags it does not shard yet, naming them
+    (its server runs over two ranks in tests/test_torch_tp_serving.py)."""
     if flag == "--tp":
-        with pytest.raises(SystemExit, match=flag):
-            port_http.parse_args(argv)
+        assert port_http.parse_args(argv).tp == 2
+        with pytest.raises(SystemExit, match="--spec-gamma"):
+            port_http.parse_args(argv + ["--spec-gamma", "2"])
         return
     from k8s_device_plugin_tpu_torch.models import checkpoint, lora
 

@@ -19,6 +19,12 @@ model (built on the CPU), its starting ``state_dict``, the global
 ``save_at`` (a step after which the sharded state is saved).  Each result
 holds, among the rest, the names of what every rank sent rank 0 when it
 gathered the final state (``received``).
+
+A spec with ``tp_serving`` runs tensor-parallel serving instead
+(:func:`_tp_main`): the sharded forward and ``greedy_generate`` on every
+rank, then each scenario through a ``ServingEngine`` over the ``tp`` mesh,
+rank 0 leading and the others following, and each rank's pools gathered
+to rank 0 after it.
 """
 
 from __future__ import annotations
@@ -138,7 +144,7 @@ def _run_case(case: dict, mesh, rank: int, world: int) -> dict:
         train.make_train_step(grad_accum=grad_accum, input_key=case["input_key"]), mesh, state)
     if case.get("restore"):
         state = checkpoint.CheckpointManager(case["restore"]).restore(state)
-    batch = sharding.shard_batch(case["batch"], rank, world, grad_accum)
+    batch = sharding.shard_batch(case["batch"], *sharding.dp_coordinate(mesh), grad_accum)
     losses = []
     for _ in range(case["steps"]):
         state, loss = step(state, batch)
@@ -152,6 +158,75 @@ def _run_case(case: dict, mesh, rank: int, world: int) -> dict:
     torch.distributed.all_gather_object(numels, local)
     return {"losses": losses, "state_dict": full, "local_numel": numels, "step": state.step,
             "received": received}
+
+
+def _tp_engine(sp: dict, mesh, rng):
+    from k8s_device_plugin_tpu_torch.models.engine import ServingEngine
+    from k8s_device_plugin_tpu_torch.models.transformer import GPTConfig, PagedConfig
+    from k8s_device_plugin_tpu_torch.utils import prng
+
+    return ServingEngine(GPTConfig(**sp["cfg"]), sp["state_dict"], PagedConfig(**sp["paged"]),
+                         max_slots=2, mesh=mesh, rng=None if rng is None else prng.PRNGKey(rng),
+                         admission="optimistic", kv_retain=True, kv_host_cache_mb=8,
+                         device="cpu")
+
+
+def _tp_scenario(eng, scenario: dict) -> dict:
+    """The leader's side of one scenario of ``__graft_entry__.py``'s tp bar."""
+    kw = scenario.get("sample", {})
+    if scenario.get("park"):
+        with eng._lock:
+            for _ in range(scenario["park"]):
+                eng.free_pages.pop()
+    done = eng.run(scenario["jobs"], **kw)
+    if scenario.get("reclaim"):
+        with eng._lock:
+            eng._kv_reclaim(scenario["reclaim"])
+        done += eng.run(scenario["jobs"], **kw)
+    return {"tokens": [r.tokens for r in done],
+            "counters": {"preemptions": eng.preemptions,
+                         "kv_resumes_restored": eng.kv_resumes_restored,
+                         "overlap_discards": eng.overlap_discards,
+                         "kv_host_hits": eng.kv_host_hits, "kv_restores": eng.kv_restores},
+            "lint": eng.assert_sharded(), "tp": eng.debug_state()["tp"]}
+
+
+def _tp_main(sp: dict, rank: int, world: int) -> dict:
+    from k8s_device_plugin_tpu_torch.models.transformer import (
+        GPTConfig,
+        TransformerLM,
+        greedy_generate,
+    )
+    from k8s_device_plugin_tpu_torch.parallel.mesh import mesh_from_allocation
+    from k8s_device_plugin_tpu_torch.parallel.tensor import TensorParallel, shard_state_dict
+
+    dist = torch.distributed
+    mesh = mesh_from_allocation(world, device_type="cpu")
+    tp = TensorParallel.from_mesh(mesh)
+    cfg = GPTConfig(**sp["cfg"])
+    model = TransformerLM(cfg, device="cpu", tp=tp)
+    model.load_state_dict(shard_state_dict(sp["state_dict"], tp.size, tp.rank))
+    results = {"logits": model(sp["ids"]),
+               "generated": greedy_generate(cfg, sp["state_dict"], sp["prompt"], sp["new"],
+                                            device="cpu", tp=tp),
+               "scenarios": {}}
+    for scenario in sp["scenarios"]:
+        eng = _tp_engine(sp, mesh, scenario.get("rng"))
+        if rank == 0:
+            result = _tp_scenario(eng, scenario)
+            eng.stop_followers()
+        else:
+            eng.follow()
+        pools = {f"layer_{i}": {k: v.clone() for k, v in eng.kv_pools(i).items()}
+                 for i in range(cfg.num_layers)}
+        every = [None] * world if rank == 0 else None
+        dist.gather_object(pools, every, dst=0)
+        if rank == 0:
+            result["pools"] = {layer: {k: torch.cat([p[layer][k] for p in every], dim=2)
+                                       for k in every[0][layer]} for layer in every[0]}
+            result["rank_kv_heads"] = [p["layer_0"]["pool_key"].shape[2] for p in every]
+            results["scenarios"][scenario["name"]] = result
+    return results
 
 
 def main(spec_path: str, rank: int) -> None:
@@ -171,6 +246,12 @@ def main(spec_path: str, rank: int) -> None:
                                       init_method=spec["init_method"], timeout=timeout)
     assert torch.distributed.get_world_size() == world and torch.distributed.get_rank() == rank
     try:
+        if spec.get("tp_serving"):
+            results = _tp_main(spec["tp_serving"], rank, world)
+            if rank == 0:
+                torch.save(results, spec["out"])
+            torch.distributed.barrier()
+            return
         results = [_run_case(case, distributed.make_slice_mesh(case.get("mesh", spec["mesh"])),
                              rank, world) for case in spec["cases"]]
         probe = torch.full((2,), float(rank + 1))
