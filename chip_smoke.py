@@ -265,7 +265,31 @@ Phases, in order (any failure exits non-zero):
    ``tpu_engine_tp_size`` gauge at 2, SIGTERM draining it (the snapshot
    saved) with no follower left, then a restarted tp=2 server on the same
    snapshot directory loading its entries and answering a request with the
-   first server's tokens.
+   first server's tokens;
+12d. what the reference serves over its mesh, at 12b's float32 widths and
+   weights, over an NCCL group of one (graphed) and over two gloo ranks
+   sharing the card (eager): ``--quant w8``, ``--quant w8a8 --quant-kv``,
+   4 rank-8 adapters (5 requests, one on the base model), ``--slots 2
+   --spec-gamma 2`` and a prefill -> decode handoff of a 4-page prompt
+   between a prefill-role and a decode-role engine on the group: greedy
+   streams equal the unsharded engine's (a difference taken only under
+   TOL_TP_MARGIN, as 12b; each scenario's least margin printed), pools
+   within TOL_TP_F32 (int8 pools dequantized, one code step allowed), the
+   handoff's wire record for record the unsharded one's (layout, keys,
+   byte counts; rows within TOL_TP_F32), its prefill skipped on receipt,
+   every rank launching kernel 1, the NCCL group replaying graphs;
+13. the MoE LM (``parallel/moe.py``): 13a phase 7's LM with every MLP an
+   8-expert top-2 MoE at capacity 1.25, aux loss 0.01, bf16, b8 s1024:
+   finite losses, step ms and tokens/s, kernels 2-4 launched 8 x steps on
+   ``wgmma``, the share of assignments dropped at capacity, and one traced
+   step's device time by stage (expert GEMMs, dispatch/combine einsums,
+   routing, kernels 2-4, the rest); 13b one float32 step of a cut MoE LM
+   (2 layers, seq 256) card vs CPU within TOL_TRAIN; 13c
+   ``tensor.shard_train_step_tp`` over an NCCL world of one, mesh (1, 1, 1),
+   bit for bit with the unsharded step; 13d the same config over four gloo
+   ranks sharing the card at (dp1, ep2, tp2) and (dp2, ep2, tp1), two steps
+   each within TOL_DIST_F32 of two unsharded steps on the card (its ranks
+   start after 11a and run beside 11b's, whose steps are not timed).
 
 Then it prints one ``kernels`` JSON line (a row per kernel variant, each
 with its design, HGMMA count, registers and spill bytes; every number in
@@ -277,7 +301,8 @@ errors and the tiny phase 6), one
 ``spec_lora`` line (phases 4h, 5b and 4i), one ``train_models`` line
 (phase 9), one ``serving_bench``, one ``decode_bench`` and one
 ``lora_train`` line (phase 10), one ``distributed`` line (phase 11), one
-``tensor_parallel`` line (phase 12), one ``phase_seconds`` line, and last
+``tensor_parallel`` line (phase 12), one ``moe`` line (phase 13), one
+``phase_seconds`` line, and last
 the line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
@@ -2598,8 +2623,10 @@ def _held(torch, what: str, run, want: dict, tol: float) -> dict:
             "losses": run.losses}
 
 
-def run_phase_11(torch, fa, bench, smi, mark) -> tuple[dict, dict]:
-    """Phases 11a and 11b; returns (the distributed line, 11a's launches)."""
+def run_phase_11(torch, fa, bench, smi, mark, after_11a=None) -> tuple[dict, dict]:
+    """Phases 11a and 11b; returns (the distributed line, 11a's launches).
+    ``after_11a`` runs between the two (what may share the card with 11b's
+    untimed ranks)."""
     import functools
 
     from k8s_device_plugin_tpu_torch.models.alexnet import AlexNet
@@ -2659,6 +2686,8 @@ def run_phase_11(torch, fa, bench, smi, mark) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     log(f"phase 11a ResNet-50: {resnet_world_of_one}")
     mark("11a_world_of_one")
+    if after_11a is not None:
+        after_11a()
 
     shared = {}
     cut = {
@@ -4001,7 +4030,563 @@ def run_phase_12(torch, tf, engine, http_server, pa, tuning, blocks, smi, mark) 
     mark("12a_nccl_group_of_one")
     shared, serve = run_phase_12b_c(torch, tf, pa, tuning, http_server, engine_tp, smi)
     mark("12b_12c_gloo_tp2")
-    return {"world_of_one": world_of_one, "shared_card": shared, "http_tp2": serve, "card": smi}
+    served = run_phase_12d(torch, pa, engine_tp, smi)
+    mark("12d_served_over_tp")
+    return {"world_of_one": world_of_one, "shared_card": shared, "http_tp2": serve,
+            "served": served, "card": smi}
+
+
+# ---------------------------------------------------------------- phase 12d
+
+# What the reference serves over its mesh, at phase 12b's float32
+# widths and weights: (name, config overrides, engine arguments, jobs of
+# (prompt, new tokens, adapter)).
+TP_PROMPTS = [[(7 * j + 3) % 32000 for j in range(40)], [(13 * j + 9) % 32000 for j in range(40)]]
+TP_SERVED = (
+    ("w8", {"quant": "w8"}, {}, [(p, 16, None) for p in TP_PROMPTS]),
+    ("w8a8_int8kv", {"quant": "w8a8", "quant_kv": True}, {}, [(p, 16, None) for p in TP_PROMPTS]),
+    ("lora4_rank8", {"lora_rank": 8, "lora_serve": 4}, {},
+     [(TP_PROMPTS[i % 2], 12, a) for i, a in enumerate((0, 1, 2, 3, None))]),
+    ("spec_gamma2", {}, {"spec_gamma": 2}, [(p, 16, None) for p in TP_PROMPTS]),
+)
+TP_HANDOFF = ([(11 * j + 5) % 32000 for j in range(64)], 12)  # 4 full pages of 16
+TP_ROLE_KW = dict(kv_retain=True, kv_host_cache_mb=64, prefill_chunk=32)
+
+
+@functools.lru_cache(maxsize=None)
+def tp_served_weights(name: str) -> tuple:
+    """(config, weights, draft weights) of a phase 12d scenario from seed
+    0's phase 12b weights: quantized, or with 4 stacked rank-8 adapters
+    (``lora_b`` drawn, as phase 4i's, so each adapter moves the logits)."""
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models.transformer import init_params
+    from k8s_device_plugin_tpu_torch.ops.quant import quantize_lm_params
+
+    cfg, params = tp_bar_params()
+    overrides = next(s[1] for s in TP_SERVED if s[0] == name) if name != "handoff" else {}
+    cfg = dataclasses.replace(cfg, **overrides)
+    draft = None
+    if cfg.quant:
+        params = quantize_lm_params(params)
+    elif cfg.lora_serve:
+        params = init_params(cfg, 0)
+        gen = torch.Generator().manual_seed(14)
+        for k in [k for k in params if k.endswith("lora_b_stack")]:
+            params[k] = torch.randn(params[k].shape, generator=gen) * LORA_B_STD
+    elif name == "spec_gamma2":
+        draft = quantize_lm_params(params)
+    return cfg, params, draft
+
+
+def tp_served_engine(name: str, role: str = "unified", mesh=None, device=None):
+    """One rank of a phase 12d engine (the unsharded one without a mesh)."""
+    from k8s_device_plugin_tpu_torch.models.engine import ServingEngine
+    from k8s_device_plugin_tpu_torch.models.transformer import PagedConfig
+
+    cfg, params, draft = tp_served_weights(name)
+    kw = dict(next((s[2] for s in TP_SERVED if s[0] == name), {}))
+    if draft is not None:
+        kw["draft_params"] = draft
+    if role != "unified":
+        kw.update(role=role, **TP_ROLE_KW)
+    return ServingEngine(cfg, params, PagedConfig(**TP_PAGED), max_slots=2, mesh=mesh,
+                         overload=None, slo=None, device=device or DEVICE, **kw)
+
+
+def served_jobs(eng, jobs) -> list:
+    """``(prompt, new, adapter)`` jobs through ``eng`` until drained."""
+    subs = [eng.submit(list(p), n, adapter=a) for p, n, a in jobs]
+    while not all(r.done for r in subs):
+        eng.step()
+    return [list(r.tokens) for r in subs]
+
+
+def handoff_wire(eng, prompt) -> tuple:
+    """A prefill-role engine's probe of ``prompt``: (the wire's entries as
+    the snapshot format's bytes, the shipped logits section)."""
+    from k8s_device_plugin_tpu_torch.models import engine_handoff as handoff
+    from k8s_device_plugin_tpu_torch.models import engine_snapshot as snap
+
+    tap = eng.handoff_begin(list(prompt), None)
+    entries = []
+    try:
+        for _ in range(1000):
+            eng.step()
+            while (e := tap.pop(0.0)) is not None:
+                entries.append(e)
+            if tap.req.done and tap.pushed <= len(entries):
+                break
+    finally:
+        eng.handoff_end(tap)
+    layout = snap.snapshot_layout(eng)
+    wire = snap.encode_preamble(layout, eng.params_fingerprint, len(entries)) + b"".join(
+        snap.encode_entry(layout, k, r) for k, r in entries)
+    return wire, handoff.encode_logits_section(tap.logits)
+
+
+def handoff_receive(eng, wire: bytes, prompt, new: int) -> dict:
+    """A decode-role engine admitting ``wire`` and decoding ``prompt``."""
+    import io
+
+    from k8s_device_plugin_tpu_torch.models import engine_snapshot as snap
+
+    layout = snap.snapshot_layout(eng)
+    _, parsed = snap._parse_snapshot(io.BytesIO(wire), layout, eng.params_fingerprint)
+    admitted = snap._admit_entries(eng, parsed)
+    tokens = served_jobs(eng, [(prompt, new, None)])
+    return {"tokens": tokens, "admitted": admitted, "skipped": eng.handoff_skipped_tokens}
+
+
+def wire_parts(wire: bytes) -> tuple:
+    """A wire as (preamble without its clock, [(key, bytes)], rows)."""
+    import io
+
+    from k8s_device_plugin_tpu_torch.models import engine_snapshot as snap
+
+    header, parsed = snap._parse_snapshot(io.BytesIO(wire), None, None)
+    header.pop("created_unix_ms", None)
+    return header, [(k, n) for k, _, n in parsed], [rows for _, rows, _ in parsed]
+
+
+def served_margins(torch, eng, jobs, streams) -> list:
+    """Each greedy step's top-2 logit margin in an unsharded engine's model
+    (its full forward over the prompt and the tokens before the step)."""
+    out = []
+    with torch.no_grad():
+        for (prompt, _, adapter), tokens in zip(jobs, streams):
+            ids = torch.tensor([list(prompt) + tokens[:-1]], device=DEVICE)
+            kw = {}
+            if eng.cfg.lora_serve:
+                kw["adapter_ids"] = torch.tensor([-1 if adapter is None else adapter],
+                                                 device=DEVICE)
+            logits = eng.model(ids, **kw)[0]
+            top2 = logits[len(prompt) - 1:].topk(2, dim=-1).values
+            out.append((top2[:, 0] - top2[:, 1]).tolist())
+    return out
+
+
+def pools_apart(got: dict, want: dict) -> tuple:
+    """(largest difference, int8 codes apart) of two engines' gathered
+    pools.  Float pools are compared as they are.  int8 pools are compared
+    dequantized, less one quantization step of the unsharded scale: K/V a
+    few ulps apart (float32 sums in another order) may round to the next
+    code (their dequantized difference is then one step)."""
+    import torch
+
+    worst, flips = 0.0, 0
+    for layer, pools in want.items():
+        for pool, value in pools.items():
+            if pool.endswith("_scale"):
+                continue
+            mine = got[layer][pool]
+            if value.dtype == torch.int8:
+                scale, other = pools[pool + "_scale"], got[layer][pool + "_scale"]
+                a, b = mine.float() * other[..., None], value.float() * scale[..., None]
+                flips += int((mine != value).sum())
+                diff = ((a - b).abs() - scale[..., None] * (mine != value)).clamp_min(0)
+            else:
+                diff = (mine.float() - value.float()).abs()
+            worst = max(worst, diff.max().item())
+    return worst, flips
+
+
+def run_group_served(group, functools) -> dict:
+    """Every phase 12d scenario and the handoff on one launched group."""
+    out = {}
+    for name, _, _, jobs in TP_SERVED:
+        eng = group.build(functools.partial(tp_served_engine, name))
+        eng.rank_stats(reset=True)
+        t0 = time.perf_counter()
+        tokens = served_jobs(eng, jobs)
+        wall = time.perf_counter() - t0
+        ranks = eng.rank_stats()
+        for rank, stats in enumerate(ranks):
+            if sum(stats["paged_launches"].values()) <= 0 or stats["device_steps"] <= 0:
+                fail(f"12d {name}: rank {rank} launched kernel 1 {stats['paged_launches']} "
+                     f"times over {stats['device_steps']} steps")
+        out[name] = {"tokens": tokens, "ranks": ranks, "lint_leaves": eng.assert_sharded(),
+                     "pools": eng.gathered_pools(), "wall_s": wall,
+                     "graph_replays": eng.graph_replays, "spec_rounds": eng.spec_rounds}
+        del eng
+    pre = group.build(functools.partial(tp_served_engine, "handoff", "prefill"))
+    wire, logits = handoff_wire(pre, TP_HANDOFF[0])
+    dec = group.build(functools.partial(tp_served_engine, "handoff", "decode"))
+    dec.rank_stats(reset=True)
+    out["handoff"] = dict(handoff_receive(dec, wire, *TP_HANDOFF), wire=wire, logits=logits,
+                          ranks=dec.rank_stats(), pools=dec.gathered_pools())
+    del pre, dec
+    return out
+
+
+def run_phase_12d(torch, pa, engine_tp, smi) -> dict:
+    """Phase 12d: w8, w8a8 with int8 pools, 4 rank-8 adapters, gamma-2
+    speculation and a prefill -> decode handoff over an NCCL tp mesh of one
+    (graphed) and over two gloo ranks sharing the card (eager), each held
+    to the unsharded engine on the same weights: greedy streams equal (or
+    apart only after a top-2 margin under TOL_TP_MARGIN), pools within
+    TOL_TP_F32, the handoff's wire the unsharded one's record for record."""
+    import functools
+
+    runs = {}
+    for label, tp, backend in (("nccl_tp1", 1, "nccl" if DEVICE == "cuda" else "gloo"),
+                               ("gloo_tp2", 2, "gloo")):
+        with engine_tp.launch(tp, backend=backend, device=DEVICE) as group:
+            runs[label] = run_group_served(group, functools)
+        torch.cuda.empty_cache()
+    report = {"card": smi, "dtype": "float32", "config": TP_CFG, "paged": TP_PAGED,
+              "tolerance_pools": TOL_TP_F32, "tolerance_margin": TOL_TP_MARGIN,
+              "scenarios": {}}
+    for name, _, _, jobs in TP_SERVED:
+        plain = tp_served_engine(name)
+        pa.reset_launches()
+        t0 = time.perf_counter()
+        want = served_jobs(plain, jobs)
+        wall = time.perf_counter() - t0
+        launches = sum(pa.paged_attention.launches_by_format.values())
+        margins = served_margins(torch, plain, jobs, want)
+        want_pools = plain.gathered_pools()
+        row = {"unsharded_wall_s": wall, "unsharded_paged_launches": launches,
+               "min_greedy_margin": min(min(m) for m in margins)}
+        for label, run in runs.items():
+            got = run[name]
+            differs = hold_tp_streams(got["tokens"], want, margins, f"12d {label} {name}")
+            worst, flips = 0.0, 0
+            if differs is None:
+                worst, flips = pools_apart(got["pools"], want_pools)
+                if not worst <= TOL_TP_F32:
+                    fail(f"12d {label} {name}: the gathered pools differ from the unsharded "
+                         f"engine's by {worst}")
+            if name == "spec_gamma2" and got["spec_rounds"] <= 0:
+                fail(f"12d {label} {name}: no speculative round ran")
+            if label == "nccl_tp1" and got["graph_replays"] <= 0:
+                fail(f"12d {label} {name}: the NCCL group of one replayed no graph")
+            row[label] = {"first_difference": differs, "pools_max_abs_err": worst,
+                          "int8_codes_one_step_apart": flips,
+                          "kernel1_launches_by_rank": [sum(r["paged_launches"].values())
+                                                       for r in got["ranks"]],
+                          "device_steps_by_rank": [r["device_steps"] for r in got["ranks"]],
+                          "lint_leaves": got["lint_leaves"], "graph_replays": got["graph_replays"],
+                          "spec_rounds": got["spec_rounds"], "wall_s": got["wall_s"]}
+        report["scenarios"][name] = row
+        del plain
+        torch.cuda.empty_cache()
+    pre = tp_served_engine("handoff", "prefill")
+    wire, logits = handoff_wire(pre, TP_HANDOFF[0])
+    dec = tp_served_engine("handoff", "decode")
+    want = handoff_receive(dec, wire, *TP_HANDOFF)
+    want_parts, want_pools = wire_parts(wire), dec.gathered_pools()
+    del pre, dec
+    row = {"prompt_tokens": len(TP_HANDOFF[0]), "wire_bytes": len(wire),
+           "logits_bytes": len(logits), "unsharded": {k: want[k] for k in ("admitted", "skipped")}}
+    for label, run in runs.items():
+        got = run["handoff"]
+        parts = wire_parts(got["wire"])
+        if parts[:2] != want_parts[:2] or len(got["logits"]) != len(logits):
+            fail(f"12d {label} handoff: the wire's layout, keys or sizes are not the unsharded "
+                 f"engine's: {parts[:2]} vs {want_parts[:2]}")
+        worst = max((mine[layer][pool].float() - theirs[layer][pool].float()).abs().max().item()
+                    for mine, theirs in zip(parts[2], want_parts[2])
+                    for layer in theirs for pool in theirs[layer])
+        if not worst <= TOL_TP_F32:
+            fail(f"12d {label} handoff: the wire's rows differ from the unsharded one's by {worst}")
+        hold_tp_streams(got["tokens"], want["tokens"], None, f"12d {label} handoff")
+        if got["admitted"] != want["admitted"] or got["skipped"] <= 0:
+            fail(f"12d {label} handoff: admitted {got['admitted']} (unsharded {want['admitted']}), "
+                 f"skipped {got['skipped']} prefill positions")
+        row[label] = {"wire_bytes": len(got["wire"]), "rows_max_abs_err": worst,
+                      "admitted": got["admitted"], "skipped": got["skipped"],
+                      "kernel1_launches_by_rank": [sum(r["paged_launches"].values())
+                                                   for r in got["ranks"]]}
+    report["handoff"] = row
+    log(f"phase 12d: {report}")
+    return report
+
+
+# ---------------------------------------------------------------- phase 13
+
+MOE_CFG = dict(vocab_size=32000, hidden_size=1024, num_layers=8, num_heads=16, num_kv_heads=4,
+               intermediate_size=2816, max_seq=1024)  # phase 7's LM, its MLPs MoE
+MOE_EXPERTS, MOE_TOP, MOE_CF, MOE_AUX = 8, 2, 1.25, 0.01
+MOE_BATCH, MOE_SEQ, MOE_STEPS = 8, 1024, 3
+# 13b/13d's cut config: phase 8's (2 layers, seq 256), MoE.
+MOE_CUT = dict(MOE_CFG, num_layers=2, max_seq=256)
+MOE_MESHES = ({"dp": 1, "ep": 2, "tp": 2}, {"dp": 2, "ep": 2, "tp": 1})
+
+
+def moe_state(torch, tf, train, moe, cfg_kw, dtype, device, seed: int = 0):
+    """A fresh MoE LM train state (SGD 0.1, momentum 0.9) from ``seed``."""
+    cfg = tf.GPTConfig(**cfg_kw, dtype=dtype)
+    params = moe.init_moe_params(cfg, MOE_EXPERTS, seed)
+    return train.create_train_state(cfg, params, 0.1, 0.9, device=device,
+                                    mlp_factory=moe.moe_mlp_factory(cfg, MOE_EXPERTS, MOE_TOP,
+                                                                    MOE_CF))
+
+
+def moe_split(torch, prof, moe) -> dict:
+    """One traced MoE step's device time (us) by stage: each forward op
+    under a ``moe.*`` range and each backward node whose forward op ran
+    under one (autograd's sequence numbers), kernels 2-4 by name, the
+    rest."""
+    events = list(prof.events())
+
+    def dev(e):
+        return e.device_time_total
+
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in events if getattr(e, "device_type", None) == cuda
+               and not getattr(e, "is_user_annotation", False)]
+    total = sum(e.time_range.end - e.time_range.start for e in kernels)
+    flash = sum(e.time_range.end - e.time_range.start for e in kernels if "flash_" in e.name)
+    fwd, bwd, seq_phase = dict.fromkeys(moe.PHASES, 0.0), dict.fromkeys(moe.PHASES, 0.0), {}
+    for e in events:
+        if getattr(e, "device_type", None) == cuda:
+            continue
+        if e.name in moe.PHASES and not (e.cpu_parent and e.cpu_parent.name in moe.PHASES):
+            fwd[e.name] += dev(e)
+        anc = e.cpu_parent
+        while anc is not None and anc.name not in moe.PHASES:
+            anc = anc.cpu_parent
+        if anc is not None and getattr(e, "sequence_nr", -1) >= 0:
+            seq_phase[e.sequence_nr] = anc.name
+    for e in events:
+        if e.name.startswith("autograd::engine::evaluate_function") and \
+                getattr(e, "sequence_nr", -1) in seq_phase:
+            bwd[seq_phase[e.sequence_nr]] += dev(e)
+    parts = {"expert_gemms": fwd["moe.experts"] + bwd["moe.experts"],
+             "dispatch_combine_einsums": sum(fwd[k] + bwd[k] for k in ("moe.dispatch",
+                                                                      "moe.combine")),
+             "routing": fwd["moe.route"] + bwd["moe.route"], "kernels_2_4": flash}
+    parts["other"] = total - sum(parts.values())
+    return {"device_us": total, "parts_us": parts,
+            "parts_share": {k: v / total for k, v in parts.items()} if total else None,
+            "forward_us": fwd, "backward_us": bwd}
+
+
+def run_phase_13a(torch, fa, tf, train, moe, data, smi) -> dict:
+    """13a: the MoE LM at phase 7's full width, 8 experts top 2 at capacity
+    1.25, aux loss 0.01, bf16 compute and float32 parameters, SGD 0.1/0.9,
+    b8 s1024: a warm-up and MOE_STEPS timed steps, then one traced step."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    state = moe_state(torch, tf, train, moe, MOE_CFG, torch.bfloat16, DEVICE)
+    cfg = state.model.config
+    batch = data.synthetic_lm_batch(MOE_BATCH, MOE_SEQ, cfg.vocab_size,
+                                    generator=torch.Generator(device=DEVICE).manual_seed(13),
+                                    device=DEVICE)
+    step = train.make_train_step(MOE_AUX)
+    state, loss = step(state, batch)
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    losses, t0 = [], time.perf_counter()
+    for _ in range(MOE_STEPS):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / MOE_STEPS
+    losses = [l.item() for l in losses]
+    launches, by_design = flash_launches(fa)
+    n = cfg.num_layers * MOE_STEPS
+    for name, count in launches.items():
+        if count != n:
+            fail(f"13a: the MoE LM launched {name} {count} times, not {cfg.num_layers} x "
+                 f"{MOE_STEPS} steps")
+    for kernel, counts in by_design.items():
+        expect_designs(counts, "wgmma", n, f"13a's {kernel} kernel")
+    if not all(math.isfinite(l) for l in losses):
+        fail(f"13a: MoE training loss not finite: {losses}")
+    layers = [m for m in state.model.modules() if isinstance(m, moe.MoeMlp)]
+    dropped = sum(float(m.dropped) for m in layers) / sum(m.assigned for m in layers)
+    aux = train.sown_aux_loss(state.model).item()
+    split = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: split.append(moe_split(torch, p, moe))) as prof:
+        for _ in range(2):
+            state, loss = step(state, batch)
+            loss.item()
+            torch.cuda.synchronize()
+            prof.step()
+    out = {"config": f"{MOE_CFG}, {MOE_EXPERTS} experts, top {MOE_TOP}, capacity factor "
+                     f"{MOE_CF}, aux {MOE_AUX}, bf16 compute, float32 params, SGD 0.1/0.9, "
+                     f"batch {MOE_BATCH}, seq {MOE_SEQ}",
+           "losses": losses, "step_time_ms": step_s * 1e3,
+           "tokens_per_s": MOE_BATCH * MOE_SEQ / step_s, "launches": launches,
+           "launches_by_design": by_design, "dropped_share": dropped, "aux_loss_sum": aux,
+           "capacity": layers[0].capacity(MOE_SEQ),
+           "max_memory_allocated": torch.cuda.max_memory_allocated() if DEVICE == "cuda" else None,
+           "profiled_step": split[0] if split else "no window traced", "card": smi}
+    log(f"phase 13a: {out}")
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_steps(torch, state, train, batch, steps: int) -> tuple:
+    step = train.make_train_step(MOE_AUX)
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, batch)
+        losses.append(loss.item())
+    return losses, {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+
+
+def moe_cut_batch(torch, data, device):
+    return data.synthetic_lm_batch(2, MOE_CUT["max_seq"], MOE_CUT["vocab_size"],
+                                   generator=torch.Generator().manual_seed(6), device=device)
+
+
+def run_phase_13b_c(torch, fa, tf, train, moe, data) -> dict:
+    """13b: one float32 step of the cut MoE LM on the card and on the CPU;
+    13c: ``shard_train_step_tp`` over an NCCL world of one, mesh (1, 1, 1),
+    against the unsharded step on the card, bit for bit."""
+    from k8s_device_plugin_tpu_torch.parallel import distributed, sharding, tensor
+
+    result = {}
+    for device in (DEVICE, "cpu"):
+        state = moe_state(torch, tf, train, moe, MOE_CUT, torch.float32, device, seed=5)
+        fa.reset_launches()
+        result[device] = moe_steps(torch, state, train, moe_cut_batch(torch, data, device), 1)
+        if device == DEVICE:
+            by_design = flash_launches(fa)[1]
+            for kernel, counts in by_design.items():
+                expect_designs(counts, "fma", MOE_CUT["num_layers"], f"13b's {kernel} kernel")
+    (card_loss, card_params), (cpu_loss, cpu_params) = result[DEVICE], result["cpu"]
+    loss_rel = abs(card_loss[0] - cpu_loss[0]) / abs(cpu_loss[0])
+    param_err = max((card_params[k] - cpu_params[k]).abs().max().item() for k in cpu_params)
+    if not (loss_rel <= TOL_TRAIN and param_err <= TOL_TRAIN):
+        fail(f"13b: MoE train step card vs CPU: loss rel {loss_rel}, params {param_err} "
+             f"(tolerance {TOL_TRAIN})")
+    parity = {"loss_rel_err": loss_rel, "param_max_abs_err": param_err, "tolerance": TOL_TRAIN,
+              "launches_by_design": by_design}
+    log(f"phase 13b: {parity}")
+    distributed.join_local(DEVICE, 0, 1, distributed.local_init_method(),
+                           "nccl" if DEVICE == "cuda" else "gloo")
+    try:
+        mesh = distributed.make_slice_mesh({"dp": 1, "ep": 1, "tp": 1}, device_type=DEVICE)
+        state = moe_state(torch, tf, train, moe, MOE_CUT, torch.float32, DEVICE, seed=5)
+        step, state = tensor.shard_train_step_tp(train.make_train_step(MOE_AUX), mesh, state)
+        batch = sharding.shard_batch(moe_cut_batch(torch, data, DEVICE),
+                                     *sharding.dp_coordinate(mesh))
+        state, loss = step(state, batch)
+        sharded = (loss.item(), {k: v.detach().cpu() for k, v in state.model.state_dict().items()})
+        calls = dict(state.model.tp.calls)
+        del state
+    finally:
+        torch.distributed.destroy_process_group()
+    equal = sharded[0] == card_loss[0] and all(torch.equal(sharded[1][k], card_params[k])
+                                               for k in card_params)
+    if not equal:
+        err = max((sharded[1][k] - card_params[k]).abs().max().item() for k in card_params)
+        fail(f"13c: the (1, 1, 1) sharded step is not the unsharded one bit for bit: loss "
+             f"{sharded[0]} vs {card_loss[0]}, params {err}")
+    world_of_one = {"bit_for_bit": True, "loss": sharded[0], "tp_calls": calls}
+    log(f"phase 13c: {world_of_one}")
+    return {"card_vs_cpu": parity, "world_of_one": world_of_one}
+
+
+def _moe_rank(rank: int, world: int, init_method: str, out_path: str) -> None:
+    """A phase 13d rank: each mesh of MOE_MESHES for two steps of the cut
+    MoE LM in float32, gloo ranks sharing the card; rank 0 saves."""
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import data, train
+    from k8s_device_plugin_tpu_torch.models import transformer as tf
+    from k8s_device_plugin_tpu_torch.parallel import distributed, moe, sharding, tensor
+    from k8s_device_plugin_tpu_torch.utils.device import fp32_reference_precision
+
+    fp32_reference_precision()
+    device = distributed.join_local(DEVICE, rank, world, init_method, "gloo")
+    results = []
+    try:
+        for axes in MOE_MESHES:
+            mesh = distributed.make_slice_mesh(axes, device_type=DEVICE)
+            state = moe_state(torch, tf, train, moe, MOE_CUT, torch.float32, device, seed=5)
+            step, state = tensor.shard_train_step_tp(train.make_train_step(MOE_AUX), mesh,
+                                                     state)
+            batch = sharding.shard_batch(moe_cut_batch(torch, data, device),
+                                         *sharding.dp_coordinate(mesh))
+            losses = []
+            for _ in range(2):
+                state, loss = step(state, batch)
+                losses.append(loss.item())
+            full = sharding.gather_full_state(state.model)
+            local = sum(p.numel() for p in state.model.parameters())
+            results.append({"mesh": axes, "losses": losses, "state_dict": full,
+                            "local_params": local})
+            del state
+        if rank == 0:
+            torch.save(results, out_path)
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def start_phase_13d() -> dict:
+    """Start 13d's four gloo ranks (they share the card with what runs
+    meanwhile: 11b's untimed ranks); :func:`run_phase_13d` waits for them."""
+    import multiprocessing
+    import pathlib
+
+    from k8s_device_plugin_tpu_torch.parallel import distributed
+
+    out_path = pathlib.Path(__file__).resolve().parent / "build" / "moe_ranks.pt"
+    out_path.parent.mkdir(exist_ok=True)
+    out_path.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    init = distributed.local_init_method()
+    procs = [ctx.Process(target=_moe_rank, args=(r, 4, init, str(out_path))) for r in range(4)]
+    for p in procs:
+        p.start()
+    return {"procs": procs, "out_path": out_path, "t0": time.perf_counter()}
+
+
+def run_phase_13d(torch, tf, train, moe, data, started: dict) -> dict:
+    """13d: dp x ep x tp over four gloo ranks sharing the card, float32, the
+    cut config: each mesh's two steps against two unsharded steps on the
+    card within TOL_DIST_F32 (relative).  Arithmetic, not a speed."""
+    procs, out_path, t0 = started["procs"], started["out_path"], started["t0"]
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    if any(p.exitcode != 0 for p in procs):
+        fail(f"13d: the ranks exited with {[p.exitcode for p in procs]}")
+    runs = torch.load(out_path, weights_only=False)
+    state = moe_state(torch, tf, train, moe, MOE_CUT, torch.float32, DEVICE, seed=5)
+    want_losses, want = moe_steps(torch, state, train, moe_cut_batch(torch, data, DEVICE), 2)
+    del state
+    out = {"ranks": 4, "backend": "gloo", "ranks_per_card": 4, "wall_s": wall,
+           "tolerance": TOL_DIST_F32, "meshes": []}
+    for run in runs:
+        loss_err = max(_relative_errors(run["losses"], want_losses))
+        param_err = _max_rel_err(torch, run["state_dict"], want)
+        if not loss_err <= TOL_DIST_F32 or not param_err <= TOL_DIST_F32:
+            fail(f"13d {run['mesh']}: loss rel {loss_err}, params rel {param_err} "
+                 f"(tolerance {TOL_DIST_F32})")
+        out["meshes"].append({"mesh": run["mesh"], "losses": run["losses"],
+                              "loss_rel_err": loss_err, "param_rel_err": param_err,
+                              "rank0_local_params": run["local_params"]})
+    out["unsharded_losses"] = want_losses
+    log(f"phase 13d: {out}")
+    return out
+
+
+def run_phase_13(torch, fa, tf, train, data, smi, mark, started_13d: dict) -> dict:
+    """Phase 13: the MoE LM and its dp x ep x tp step (13d's ranks started
+    by :func:`start_phase_13d`); the moe line."""
+    from k8s_device_plugin_tpu_torch.parallel import moe
+
+    full = run_phase_13a(torch, fa, tf, train, moe, data, smi)
+    mark("13a_moe_train")
+    parity = run_phase_13b_c(torch, fa, tf, train, moe, data)
+    mark("13b_13c_moe_parity")
+    shared = run_phase_13d(torch, tf, train, moe, data, started_13d)
+    mark("13d_moe_ranks")
+    return {"train": full, **parity, "dp_ep_tp": shared, "card": smi}
 
 
 def main() -> None:
@@ -4156,7 +4741,9 @@ def main() -> None:
         row["lora_train_launches"] = lora_train["bf16"]["launches"][name]
     for row, kernel in ((flash_fma, "forward"), (dq_fma, "dq"), (dkv_fma, "dkv")):
         row["lora_fp32_launches"] = lora_train["card_vs_cpu"]["launches_by_design"][kernel]["fma"]
-    distributed, launches = run_phase_11(torch, fa, bench, smi, mark)
+    started_13d = {}
+    distributed, launches = run_phase_11(torch, fa, bench, smi, mark,
+                                         lambda: started_13d.update(start_phase_13d()))
     for row, name in ((flash, "flash_attention"), (dq, "flash_attention_bwd_dq"),
                       (dkv, "flash_attention_bwd_dkv")):
         row["distributed_launches"] = launches[name]
@@ -4166,6 +4753,19 @@ def main() -> None:
         **{f"12b_{name}_by_rank": [r["paged_launches"]["f"] for r in run["ranks"]]
            for name, run in tensor_parallel["shared_card"]["scenarios"].items()}}
     paged["f"]["tp_shard"] = tensor_parallel["shared_card"]["shard_kernel"]
+    for name, row in {**tensor_parallel["served"]["scenarios"],
+                      "handoff": tensor_parallel["served"]["handoff"]}.items():
+        # 12d's kernel 1 launches on each rank, under the pool format's row.
+        fmt = "int8" if tp_served_weights(name)[0].quant_kv else "f"
+        launched = paged[fmt].setdefault("tp_served_launches_by_rank", {})
+        for label in ("nccl_tp1", "gloo_tp2"):
+            launched[f"12d_{label}_{name}"] = row[label]["kernel1_launches_by_rank"]
+    moe_run = run_phase_13(torch, fa, tf, train, data, smi, mark, started_13d)
+    for row, name in ((flash, "flash_attention"), (dq, "flash_attention_bwd_dq"),
+                      (dkv, "flash_attention_bwd_dkv")):
+        row["moe_train_launches"] = moe_run["train"]["launches"][name]
+    for row, kernel in ((flash_fma, "forward"), (dq_fma, "dq"), (dkv_fma, "dkv")):
+        row["moe_fp32_launches"] = moe_run["card_vs_cpu"]["launches_by_design"][kernel]["fma"]
 
     for row, name in ((paged["f"], "paged_attention"), (flash, "flash_attention"),
                       (dq, "flash_attention_bwd_dq"), (dkv, "flash_attention_bwd_dkv")):
@@ -4191,6 +4791,7 @@ def main() -> None:
     print(json.dumps({"lora_train": lora_train}), flush=True)
     print(json.dumps({"distributed": distributed}), flush=True)
     print(json.dumps({"tensor_parallel": tensor_parallel}), flush=True)
+    print(json.dumps({"moe": moe_run}), flush=True)
     print(json.dumps({"phase_seconds": phase_s, "total_s": time.perf_counter() - t0,
                       "card": smi}), flush=True)
     print(json.dumps({

@@ -48,8 +48,9 @@ def _cpu(tensors: Mapping[str, torch.Tensor]) -> dict:
 
 
 def _sharded(model) -> bool:
-    """Whether ``model`` holds FSDP-sharded parameters (DTensors)."""
-    return any(hasattr(p, "device_mesh") for p in model.parameters())
+    """Whether ``model`` holds sharded parameters: FSDP's DTensors, or the
+    chunks of ``parallel/tensor.shard_train_step_tp`` (``tp_layout``)."""
+    return any(hasattr(p, "device_mesh") or hasattr(p, "tp_layout") for p in model.parameters())
 
 
 class CheckpointManager:
@@ -97,7 +98,7 @@ class CheckpointManager:
                 if buf is not None:
                     momentum[name] = buf
             if sharded:  # whole, on rank 0 (empty elsewhere): every rank calls this
-                params, buffers, momentum = (gather_full(t) or {}
+                params, buffers, momentum = (gather_full(t, like=params) or {}
                                              for t in (params, buffers, momentum))
             extra = {"step": int(step), "batch_stats": _cpu(buffers), "momentum": _cpu(momentum)}
         else:

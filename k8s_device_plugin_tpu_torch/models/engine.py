@@ -154,11 +154,11 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
     it).  Runs on ``cuda`` unless ``device="cpu"`` is asked for.
     ``mesh``: a one-axis ``DeviceMesh`` named ``tp_axis`` over the group's
     ranks (``parallel/mesh.mesh_from_allocation``; engine_tp.launch forms
-    it), every rank building the engine with the full ``params``: the
-    leader (rank 0) steps it, the followers call ``follow()``.  kv heads
-    must divide by the degree; speculation, LoRA, ``quant`` and the split
-    roles are refused, and so are CUDA graphs over gloo.  A mesh of one
-    runs the same collectives; None is no tensor parallelism.
+    it), every rank building the engine with the full ``params`` (and
+    ``draft_params``): the leader (rank 0) steps it, the followers call
+    ``follow()``.  kv heads must divide by the degree, and CUDA graphs over
+    gloo are refused.  A mesh of one runs the same collectives; None is no
+    tensor parallelism.
 
     ``MAX_BIAS``: per-request logit bias entries pad to this width, so
     biased requests come and go without new dispatch shapes."""
@@ -236,8 +236,7 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
                     "the target architecture and cache format (only quant may differ)"
                 )
         self.device = resolve_device(device)
-        cuda_graphs = self._init_tp(mesh, tp_axis, cfg, spec_gamma=spec_gamma, role=role,
-                                    cuda_graphs=cuda_graphs)
+        cuda_graphs = self._init_tp(mesh, tp_axis, cfg, cuda_graphs=cuda_graphs)
         on_card = self.device.type == "cuda"
         if cuda_graphs and not on_card:
             raise ValueError("cuda_graphs replays on the card; the CPU runs every dispatch eagerly")
@@ -263,8 +262,8 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
         self.draft_model = None
         if spec_gamma:
             self.draft_model = TransformerLM(dataclasses.replace(draft_cfg, paged=paged),
-                                             device=self.device)
-            self.draft_model.load_state_dict(draft_params)
+                                             device=self.device, tp=self._tp)
+            self.draft_model.load_state_dict(self._tp_params(draft_params))
         # Speculation counters (acceptance = accepted / proposed) and the
         # rounds dispatched.
         self.spec_proposed = 0
@@ -1166,10 +1165,6 @@ def parse_args(argv: Optional[list[str]] = None):
     if args.spec_gamma and args.quant:
         p.error("--spec-gamma uses the w8 SELF-draft against the unquantized target; an "
                 "already-quantized target (--quant) leaves nothing to verify against")
-    if args.tp > 1:
-        for flag, value in (("--spec-gamma", args.spec_gamma), ("--quant", args.quant)):
-            if value:
-                p.error(f"{flag} is not served under --tp > 1 yet (ROADMAP.md queue 3)")
     if args.cuda_graphs is not None and args.device is not None and \
             torch.device(args.device).type == "cpu":
         p.error("--cuda-graphs is meaningless on the CPU, which runs every dispatch eagerly")

@@ -110,9 +110,6 @@ class HandoffMixin:
     def _validate_role(self, role: str) -> None:
         if role not in ROLES:
             raise ValueError(f"role must be one of {ROLES}, got {role!r}")
-        if role != "unified" and self._tp is not None:
-            raise ValueError(f"role={role!r} is not served over a tensor-parallel mesh yet "
-                             "(ROADMAP.md queue 3)")
         if role != "unified":
             # Both split roles live on the content-addressed KV tiers.
             if not self.prefix_sharing:
@@ -234,10 +231,7 @@ class HandoffMixin:
         """Start one prefill probe for ``/v1/prefill``: submit the prompt
         with ``max_new_tokens=1`` (it finishes at activation) and register
         a tap the owner thread feeds as chunks complete.  Raises what
-        ``submit`` raises, and ValueError over a tensor-parallel mesh (the
-        tap reads the leader's dense shard: not served there yet)."""
-        if self._tp is not None:
-            raise ValueError("the prefill handoff is not served over a tensor-parallel mesh yet")
+        ``submit`` raises."""
         req = self.submit(list(prompt), 1, adapter=adapter)
         tap = HandoffTap(req, prompt, adapter, len(prompt) // self.paged.page_size)
         with self._lock:
@@ -272,13 +266,9 @@ class HandoffMixin:
             lo, hi = tap.pushed, min(covered, tap.n_full)
             if hi <= lo:
                 continue
-            slabs = {}
-            for layer, name in enumerate(self._layer_names):
-                dense = job["cache"].layer(layer)
-                for pool, slab in zip(("pool_key", "pool_value", "pool_key_scale",
-                                       "pool_value_scale"), dense):
-                    if slab is not None:
-                        slabs[(name, pool)] = slab[row_idx, lo * ps : hi * ps].cpu()
+            # Every kv head: over a mesh each rank's are gathered to the
+            # leader (engine_tp.py), so the wire is the unsharded engine's.
+            slabs = self._device_op("dense_rows", job["id"], row_idx, lo * ps, hi * ps)
             for i in range(lo, hi):
                 rows = {name: {} for name in self._layer_names}
                 for (name, pool), rows_host in slabs.items():

@@ -121,6 +121,28 @@ class SpeculativeMixin:
                                 bufs["tokens"], bufs["positions"], self._spec_gamma, **kw)
         self._spec_out.copy_(emitted)
         self._spec_a.copy_(a)
+        if self._tp is not None:
+            # Every rank decided from the same gathered logits and key; the
+            # leader's tokens and acceptance win, as the decode step's do.
+            self._tp.broadcast(self._spec_out)
+            self._tp.broadcast(self._spec_a)
+
+    def _op_spec(self, tokens: list, positions: list, sampling, key) -> None:
+        """One round (:meth:`_spec_body`, eagerly or a graph replay) from
+        host truth: each slot's last token and length and, for a sampled
+        round, ``sampling`` = (temperatures, top-k, top-p) and the round's
+        key (host ints on a mesh)."""
+        bufs = self._bufs
+        bufs["tokens"].copy_(torch.tensor(tokens)[:, None])
+        bufs["positions"].copy_(torch.tensor(positions)[:, None])
+        if sampling is not None:
+            bufs["temps"].copy_(torch.tensor(sampling[0], dtype=torch.float32))
+            bufs["topks"].copy_(torch.tensor(sampling[1]))
+            bufs["topps"].copy_(torch.tensor(sampling[2], dtype=torch.float32))
+            bufs["key"].copy_(torch.as_tensor(key))
+        sampled = sampling is not None
+        self._run_graphed(("spec", sampled), lambda: self._spec_body(sampled), "compile:spec_round")
+        self.device_steps += self._spec_gamma
 
     def _spec_step(self, active: list[int], finished: list[Request]) -> list[Request]:
         """One speculative round: gamma draft steps plus one verify pass
@@ -133,22 +155,17 @@ class SpeculativeMixin:
             self._update_gauges()
             return finished
         round_t0 = time.monotonic()
-        bufs = self._bufs
         # Every round moves lengths by a data-dependent amount: its inputs
         # come from host truth, written into the buffers the graph reads.
-        bufs["tokens"].copy_(torch.tensor(self._slot_last)[:, None])
-        bufs["positions"].copy_(torch.tensor(self._slot_len)[:, None])
         sampled = any(self.slots[s] is not None and self._slot_temp[s] > 0
                       for s in range(self.max_slots))
+        sampling = key = None
         if sampled:
-            bufs["temps"].copy_(torch.tensor(self._slot_temp, dtype=torch.float32))
-            bufs["topks"].copy_(torch.tensor(self._slot_topk))
-            bufs["topps"].copy_(torch.tensor(self._slot_topp, dtype=torch.float32))
+            sampling = (list(self._slot_temp), list(self._slot_topk), list(self._slot_topp))
             self._rng, sub = prng.split(self._rng)
-            bufs["key"].copy_(sub)
-        self._run_graphed(("spec", sampled), lambda: self._spec_body(sampled), "compile:spec_round")
+            key = self._tp_key(sub)
+        self._device_op("spec", list(self._slot_last), list(self._slot_len), sampling, key)
         self.spec_rounds += 1
-        self.device_steps += gamma
         emitted = self._spec_out.tolist()
         a_vec = self._spec_a.tolist()
         self._mark("spec_verify")

@@ -19,18 +19,20 @@ per card (``parallel/mesh.py``), so the control flow is its own:
   args)`` to the followers over a gloo group (``broadcast_object_list``;
   c10d only, no DTensor functional collectives), then runs it locally.
   The ops: the step-state rebuild, the decode dispatch (eager or a graph
-  replay), ``seq_lens`` repairs, prefill-job creation, seeding, chunks and
-  release, the graft, the chain edits and slot clears, and the KV rows read
-  and written.  Without a mesh the same methods run directly.
+  replay), the speculative round, ``seq_lens`` repairs, prefill-job
+  creation, seeding, chunks and release, the graft, the chain edits and
+  slot clears, the KV rows read and written, and the prefill tap's rows of
+  a job's dense cache.  Without a mesh the same methods run directly.
 - **Identical results on every rank.**  The logits are all-gathered to the
   full vocabulary before sampling, so every rank draws the same token with
-  the same threefry key, and each decode step ends with a broadcast of
-  rank 0's tokens over the ``tp`` group.
+  the same threefry key, and each decode step (each speculative round: its
+  tokens and acceptance) ends with a broadcast of rank 0's over the ``tp``
+  group.  The w8 self-draft is sharded by the target's rules.
 - **KV rows at the leader.**  A read gathers each rank's kv-head slice to
   the leader and joins them on the kv-heads axis; a write scatters the
-  slices back.  The host arena, snapshots and warm restarts see full rows,
-  byte for byte the unsharded engine's (the reference's host rows stay
-  logical too).
+  slices back.  The host arena, snapshots, warm restarts and the split
+  roles' handoff wire see full rows, laid out as the unsharded engine's
+  (the reference's host rows stay logical too).
 
 :func:`launch` starts the followers (one process per local card, or gloo
 ranks sharing the cards), forms the group, orders the ranks
@@ -140,8 +142,7 @@ class TensorParallelMixin:
     the followers' loop, the KV rows' gather and scatter, and the sharding
     lint.  Mixed into ServingEngine."""
 
-    def _init_tp(self, mesh, tp_axis: str, cfg, *, spec_gamma: int, role: str,
-                 cuda_graphs: Optional[bool]) -> Optional[bool]:
+    def _init_tp(self, mesh, tp_axis: str, cfg, *, cuda_graphs: Optional[bool]) -> Optional[bool]:
         """Check and join ``mesh`` (None: no tensor parallelism); returns
         the ``cuda_graphs`` setting the group allows."""
         self.mesh, self._tp_axis = mesh, tp_axis
@@ -163,12 +164,6 @@ class TensorParallelMixin:
                 "shard on the kv-heads axis — pick a tp degree dividing the kv head count "
                 "(or a config with more kv heads)"
             )
-        for what, refused in (("spec_gamma", spec_gamma > 0), ("quant", cfg.quant is not None),
-                              ("lora_rank", cfg.lora_rank is not None),
-                              (f"role={role!r}", role != "unified")):
-            if refused:
-                raise ValueError(f"{what} is not served over a tensor-parallel mesh yet "
-                                 "(ROADMAP.md queue 3)")
         from ..parallel.tensor import TensorParallel
 
         self._tp = TensorParallel.from_mesh(mesh, tp_axis)
@@ -306,6 +301,27 @@ class TensorParallelMixin:
             return {name: {pool: t.cpu() for pool, t in self.kv_pools(i).items()}
                     for i, name in enumerate(self._layer_names)}
         return self._device_op("gather_pools")
+
+    def _op_dense_rows(self, job_id: int, row: int, lo: int, hi: int) -> Optional[dict]:
+        """Positions ``[lo, hi)`` (whole pages) of row ``row`` of a prefill
+        job's dense cache, every pool of every layer, on the host as
+        ``{(layer, pool): [hi - lo, kv_heads, ...]}``: joined on the kv-heads
+        axis at the leader over a mesh (None on a follower)."""
+        ps = self.paged.page_size
+        slabs = []
+        for layer, name in enumerate(self._layer_names):
+            for pool, slab in zip(("pool_key", "pool_value", "pool_key_scale", "pool_value_scale"),
+                                  self._jobs[job_id]["cache"].layer(layer)):
+                if slab is not None:
+                    rows = slab[row, lo:hi].cpu()
+                    slabs.append(((name, pool), rows.reshape(-1, ps, *rows.shape[1:])))
+        if self._tp is None:
+            full = [rows for _, rows in slabs]
+        else:
+            full = self._gather_kv_heads([rows for _, rows in slabs])
+            if full is None:
+                return None
+        return {key: t.reshape(hi - lo, *t.shape[2:]) for (key, _), t in zip(slabs, full)}
 
     def _op_rank_stats(self, reset: bool) -> Optional[list]:
         from ..ops import paged_attention as pa

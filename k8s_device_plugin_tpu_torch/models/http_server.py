@@ -2109,9 +2109,7 @@ def parse_args(argv: Optional[list[str]] = None):
     weights, when no ``--checkpoint-dir`` is given).  The reference's
     refused pairs (``--adapters`` or ``--spec-gamma`` with ``--quant``,
     ``--adapters`` with ``--spec-gamma``) raise ``SystemExit`` naming the
-    flag, as do ``--spec-gamma``, ``--adapters``, ``--role prefill|decode``
-    and ``--quant`` under ``--tp`` > 1, which the port does not shard yet
-    (``ROADMAP.md`` queue 3)."""
+    flag.  Every flag is served under ``--tp`` > 1."""
     import argparse
 
     from .engine import _pow2_int
@@ -2248,13 +2246,6 @@ def parse_args(argv: Optional[list[str]] = None):
     p.add_argument("--seed", type=int, default=0, help="the random weights' seed")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.tp > 1:
-        for flag, refused in (("--spec-gamma", args.spec_gamma > 0), ("--adapters", args.adapters),
-                              (f"--role {args.role}", args.role != "unified"),
-                              ("--quant", args.quant)):
-            if refused:
-                raise SystemExit(f"{flag} is not served under --tp > 1 yet (ROADMAP.md "
-                                 "queue 3)")
     if args.spec_gamma < 0:
         raise SystemExit(f"--spec-gamma must be >= 0, got {args.spec_gamma}")
     if args.adapters and args.quant:

@@ -28,7 +28,12 @@ global batch's mean.
 LoRA training (``GPTConfig(lora_rank=r)``) takes the same step: pass
 ``tx=lora.make_lora_tx(inner)`` to :func:`create_train_state` (or
 :func:`state_for`), whose optimizer then holds the adapters alone with the
-base frozen.  Not ported here: the MoE auxiliary loss, ROADMAP.md queue 1.
+base frozen.
+
+MoE models (``parallel/moe.py``): ``make_train_step(aux_loss_coeff=c)``
+adds ``c`` times the sum of every MoE layer's load-balance loss to the
+loss it differentiates and reports (:func:`sown_aux_loss`, the reference's
+sown ``moe_aux_loss``), once per microbatch under ``grad_accum``.
 """
 
 from __future__ import annotations
@@ -76,11 +81,12 @@ def state_for(model: nn.Module, lr: float = 0.1, momentum: float = 0.9,
 
 def create_train_state(config: GPTConfig, params: dict, lr: float = 0.1, momentum: float = 0.9,
                        *, tx: Optional[Callable[[nn.Module], torch.optim.Optimizer]] = None,
-                       device=None) -> TrainState:
+                       device=None, mlp_factory=None) -> TrainState:
     """An LM training model loaded from ``params`` (a state dict:
     ``init_params`` or ``convert.flax_to_state_dict``) with zero momentum,
-    or with the optimizer ``tx`` builds (see :func:`state_for`)."""
-    model = TransformerLM(config, device=device, train=True)
+    or with the optimizer ``tx`` builds (see :func:`state_for`);
+    ``mlp_factory``: the blocks' MLP (``parallel/moe.moe_mlp_factory``)."""
+    model = TransformerLM(config, device=device, train=True, mlp_factory=mlp_factory)
     model.load_state_dict(params)
     return state_for(model, lr, momentum, tx)
 
@@ -108,6 +114,17 @@ def softmax_xent(logits, labels):
     )
 
 
+def sown_aux_loss(model: nn.Module):
+    """The sum of the auxiliary losses the model's layers kept in their
+    last forward (each MoE layer's ``aux_loss``); 0.0 when none did."""
+    total = 0.0
+    for module in model.modules():
+        aux = getattr(module, "aux_loss", None)
+        if aux is not None:
+            total = total + aux
+    return total
+
+
 def make_train_step(aux_loss_coeff: float = 0.0, grad_accum: int = 1,
                     input_key: str = "input_ids") -> Callable:
     """``(state, batch) -> (state, loss)``: forward, backward, one
@@ -118,20 +135,24 @@ def make_train_step(aux_loss_coeff: float = 0.0, grad_accum: int = 1,
     one update (the reference's scanned step; activation memory of one
     microbatch); BatchNorm statistics carry from one microbatch to the next,
     as the reference's scan carries them.  The batch's leading dim must
-    divide evenly."""
+    divide evenly.  ``aux_loss_coeff > 0`` adds that multiple of
+    :func:`sown_aux_loss` to every microbatch's loss (MoE models; GShard
+    and Switch use about 0.01)."""
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    if aux_loss_coeff > 0.0:
-        raise NotImplementedError(
-            "aux_loss_coeff > 0 trains MoE models: not ported yet (the MoE slice, see ROADMAP.md)"
-        )
+
+    def loss_of(model, x, y, key):
+        loss = softmax_xent(_apply(model, x, True, key), y)
+        if aux_loss_coeff > 0.0:
+            loss = loss + aux_loss_coeff * sown_aux_loss(model)
+        return loss
 
     def train_step(state: TrainState, batch: dict):
         x, y = batch[input_key], batch["labels"]
         root = prng.fold_in_words((0, 0), state.step)  # fold_in(PRNGKey(0), step)
         state.optimizer.zero_grad(set_to_none=True)
         if grad_accum == 1:
-            loss = softmax_xent(_apply(state.model, x, True, root), y)
+            loss = loss_of(state.model, x, y, root)
             loss.backward()
         else:
             if x.shape[0] % grad_accum:
@@ -141,7 +162,7 @@ def make_train_step(aux_loss_coeff: float = 0.0, grad_accum: int = 1,
             loss = torch.zeros((), device=x.device)
             for i, (xm, ym) in enumerate(zip(x.chunk(grad_accum), y.chunk(grad_accum))):
                 key_i = prng.fold_in_words(root, i)
-                loss_i = softmax_xent(_apply(state.model, xm, True, key_i), ym)
+                loss_i = loss_of(state.model, xm, ym, key_i)
                 loss_i.backward()  # float32 parameters: the grads sum in float32
                 loss = loss + loss_i.detach()
             for p in state.model.parameters():

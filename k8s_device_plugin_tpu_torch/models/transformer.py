@@ -47,7 +47,18 @@ all-reduce of its partial sums in ``cfg.dtype``; the embedding is a masked
 lookup of the rank's vocab rows, then an all-reduce; the float32
 ``lm_head`` gives the rank's vocab columns, all-gathered to the full
 vocabulary.  Norms and RoPE are whole on every rank, and the caches hold
-the rank's kv heads.  Serving only: plain weights (no ``quant``, no LoRA).
+the rank's kv heads.  A quantized or multi-LoRA site splits its other
+leaves with its kernel (``tensor.leaf_spec``); a row-parallel ``w8a8``
+site takes each row's activation scale as the group's absmax and sums its
+int32 products over the group itself, so its result is the unsharded one
+bit for bit.  The training model runs the same layout with gradients:
+column-parallel inputs pass through ``tp.copy`` (f) and the reductions are
+``tp.reduce`` (g), Megatron's conjugate pair (``parallel/tensor.py``).
+
+``mlp_factory`` swaps every block's SwiGLU for another MLP (the reference's
+hook, for ``parallel/moe.py``): ``mlp_factory(device=, tp=, ep=)`` returns
+the module, registered under its ``NAME`` (``moe``: the state dict then
+holds ``layer_N.moe.router.kernel`` and ``layer_N.moe.experts_*``).
 
 ``TransformerLM(config, train=True)`` is the training model: parameters in
 float32, cast to ``cfg.dtype`` at every dense site and at the embedding as
@@ -378,7 +389,7 @@ class Embed(nn.Module):
         mine = (local >= 0) & (local < self.embedding.shape[0])
         rows = torch.nn.functional.embedding(local.clamp(0, self.embedding.shape[0] - 1),
                                              self.embedding).to(self.dtype)
-        return self.tp.all_reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
+        return self.tp.reduce(torch.where(mine[..., None], rows, torch.zeros_like(rows)))
 
 
 def dense_site(cfg: GPTConfig, in_shape: tuple, features: tuple, device, dtype=None):
@@ -397,6 +408,24 @@ def dense_site(cfg: GPTConfig, in_shape: tuple, features: tuple, device, dtype=N
     if cfg.quant is None:
         return DenseGeneral(in_shape, features, dtype, device)
     return Int8DenseGeneral(in_shape, features, cfg.quant, dtype, device)
+
+
+def row_site(cfg: GPTConfig, in_shape: tuple, features: tuple, device, reduce):
+    """A row-parallel :func:`dense_site` (``out``, ``down``): under
+    ``reduce`` (its group) a ``w8a8`` site reduces inside its product
+    (:func:`row_reduce` then skips it)."""
+    site = dense_site(cfg, in_shape, features, device)
+    if reduce is not None and cfg.quant == "w8a8":
+        site.row_group = reduce
+    return site
+
+
+def row_reduce(site, out, reduce):
+    """A row-parallel site's output summed over ``reduce`` (g), unless the
+    site summed it itself."""
+    if reduce is None or getattr(site, "row_group", None) is not None:
+        return out
+    return reduce.reduce(out)
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
@@ -461,11 +490,13 @@ class CausalSelfAttention(nn.Module):
         self.query = dense_site(cfg, (d,), (self.heads, hd), device)
         self.key = dense_site(cfg, (d,), (kv_heads, hd), device)
         self.value = dense_site(cfg, (d,), (kv_heads, hd), device)
-        self.out = dense_site(cfg, (self.heads, hd), (d,), device)
+        self.out = row_site(cfg, (self.heads, hd), (d,), device, self.reduce)
 
     def forward(self, hidden, positions, cache=None, layer: int = 0, append_mode: str = "auto",
                 adapter_ids=None):
         cfg = self.cfg
+        if self.reduce is not None:
+            hidden = self.reduce.copy(hidden)
         cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
         q = apply_rope(site_call(self.query, hidden, adapter_ids), cos, sin)
         k = apply_rope(site_call(self.key, hidden, adapter_ids), cos, sin)
@@ -493,8 +524,7 @@ class CausalSelfAttention(nn.Module):
         else:
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
             attn = tiled_causal_attention(qh, kh, vh, cfg.attention_window).transpose(1, 2)
-        out = site_call(self.out, attn, adapter_ids)
-        return out if self.reduce is None else self.reduce.all_reduce(out)
+        return row_reduce(self.out, site_call(self.out, attn, adapter_ids), self.reduce)
 
     def _paged(self, q, k, v, positions, cache: PagedCache, layer: int):
         cfg = self.cfg
@@ -534,27 +564,41 @@ class SwiGluMlp(nn.Module):
         self.reduce = tp_split(cfg, tp, "mlp")
         self.gate = dense_site(cfg, (d,), (f,), device)
         self.up = dense_site(cfg, (d,), (f,), device)
-        self.down = dense_site(cfg, (f,), (d,), device)
+        self.down = row_site(cfg, (f,), (d,), device, self.reduce)
 
     def forward(self, x, adapter_ids=None):
+        if self.reduce is not None:
+            x = self.reduce.copy(x)
         gate, up = site_call(self.gate, x, adapter_ids), site_call(self.up, x, adapter_ids)
         out = site_call(self.down, torch.nn.functional.silu(gate) * up, adapter_ids)
-        return out if self.reduce is None else self.reduce.all_reduce(out)
+        return row_reduce(self.down, out, self.reduce)
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None, tp=None):
+    def __init__(self, cfg: GPTConfig, device=None, tp=None, mlp_factory=None, ep=None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.hidden_size, cfg.dtype, device=device)
         self.attn = CausalSelfAttention(cfg, device, tp)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.dtype, device=device)
-        self.mlp = SwiGluMlp(cfg, device, tp)
+        if mlp_factory is None:
+            self.mlp = SwiGluMlp(cfg, device, tp)
+            self._mlp_name = "mlp"
+        else:
+            if cfg.lora_serve:
+                # A swapped-in MLP (MoE) has the plain one-argument call and
+                # would silently skip its adapters.
+                raise ValueError("lora_serve is not supported with mlp_factory")
+            mlp = mlp_factory(device=device, tp=tp, ep=ep)
+            self._mlp_name = mlp.NAME
+            self.add_module(mlp.NAME, mlp)
 
     def forward(self, hidden, positions, cache=None, layer: int = 0, append_mode: str = "auto",
                 adapter_ids=None):
         hidden = hidden + self.attn(self.attn_norm(hidden), positions, cache, layer, append_mode,
                                     adapter_ids)
-        return hidden + self.mlp(self.mlp_norm(hidden), adapter_ids)
+        mlp = getattr(self, self._mlp_name)
+        normed = self.mlp_norm(hidden)
+        return hidden + (mlp(normed, adapter_ids) if self._mlp_name == "mlp" else mlp(normed))
 
 
 class TransformerLM(nn.Module):
@@ -568,27 +612,30 @@ class TransformerLM(nn.Module):
     ``cuda`` unless ``device="cpu"`` is asked for.  ``train=True`` keeps
     float32 parameters with gradients (see the module docstring).  ``tp``:
     this rank's ``TensorParallel`` group (load ``tensor.shard_state_dict``
-    of the full parameters)."""
+    of the full parameters).  ``mlp_factory``: every block's MLP (see the
+    module docstring; ``parallel/moe.moe_mlp_factory``), ``ep`` its
+    expert-parallel group (``moe.ExpertParallel``)."""
 
-    def __init__(self, config: GPTConfig, device=None, *, train: bool = False, tp=None):
+    def __init__(self, config: GPTConfig, device=None, *, train: bool = False, tp=None,
+                 mlp_factory=None, ep=None):
         super().__init__()
         _check_supported(config)
-        if tp is not None and (train or config.quant or config.lora_rank is not None):
-            raise ValueError("tensor parallelism serves plain weights: no training model, no "
-                             "quant, no LoRA")
+        if tp is not None and train and (config.quant or config.lora_rank is not None):
+            raise ValueError("tensor-parallel training takes plain weights: no quant, no LoRA")
         self.config = config
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             check_card_shapes(config)
         self.train_mode = train
         self.tp = tp
+        self.mlp_factory = mlp_factory
         dev = self.device
         vocab = tp_local(config, tp)[3]
         self.embed = Embed(vocab, config.hidden_size, config.dtype, dev,
                            tp=tp_split(config, tp, "vocab"),
                            offset=tp.rank * vocab if tp is not None else 0)
         for i in range(config.num_layers):
-            self.add_module(f"layer_{i}", DecoderBlock(config, dev, tp))
+            self.add_module(f"layer_{i}", DecoderBlock(config, dev, tp, mlp_factory, ep))
         self.final_norm = RMSNorm(config.hidden_size, config.dtype, device=dev)
         self.lm_head = dense_site(config, (config.hidden_size,), (vocab,), dev, torch.float32)
         # Column-parallel head: each rank's vocab columns, gathered.
@@ -631,8 +678,11 @@ class TransformerLM(nn.Module):
         head takes each row's adapter id; None is the base model)."""
         if self.config.lora_serve and adapter_ids is None:
             adapter_ids = torch.full((hidden.shape[0],), -1, device=hidden.device)
-        logits = site_call(self.lm_head, hidden.float(), adapter_ids)
-        return logits if self.gather is None else self.gather.all_gather_last(logits)
+        hidden = hidden.float()
+        if self.gather is not None:
+            hidden = self.gather.copy(hidden)
+        logits = site_call(self.lm_head, hidden, adapter_ids)
+        return logits if self.gather is None else self.gather.gather_last(logits)
 
 
 def param_shapes(config: GPTConfig) -> dict:

@@ -42,13 +42,16 @@ _QMAX4 = 7.0
 _INT_MM_MIN_ROWS = 17
 
 
-def _sym_quantize(x: torch.Tensor, axes: tuple[int, ...], qmax: float = _QMAX):
+def _sym_quantize(x: torch.Tensor, axes: tuple[int, ...], qmax: float = _QMAX, group=None):
     """The symmetric core every quantized path shares: amax over ``axes``
     per remaining coordinate, zero amax guarded to scale 1, round half to
     even and clip to [-qmax, qmax].  Returns (int8 [x.shape], float32
-    scale [x.shape minus axes])."""
+    scale [x.shape minus axes]).  ``group`` (a ``TensorParallel``): ``x``
+    is this rank's slice of ``axes``, whose amax is the group's maximum."""
     xf = x.float()
     amax = xf.abs().amax(dim=axes, keepdim=True)
+    if group is not None:
+        group.all_reduce_max(amax)
     # A tensor divisor: CUDA turns division by a Python scalar into a
     # product with its reciprocal, which can be an ulp off the quotient.
     # It is filled on the device (not copied from the host), so the decode
@@ -144,12 +147,16 @@ def _normalize_axis(axis: Union[int, Sequence[int]], ndim: int) -> tuple[int, ..
 
 
 def int8_dot_general(x, w_q, w_scale, *, axis: Union[int, Sequence[int]] = -1,
-                     mode: str = "w8", dtype=torch.bfloat16) -> torch.Tensor:
+                     mode: str = "w8", dtype=torch.bfloat16, row_group=None) -> torch.Tensor:
     """Contract ``x``'s ``axis`` dims against the leading dims of ``w_q``
     [*contract, *features]; the result is [*x's other dims, *features] in
     ``dtype``.  ``w8``: the dequantized weight in ``dtype``, plain product.
     ``w8a8``: per-row dynamic int8 activations, exact int32 product,
-    rescaled by (row scale x channel scale) in float32."""
+    rescaled by (row scale x channel scale) in float32.  ``row_group`` (a
+    ``TensorParallel``, w8a8 only): ``x`` and ``w_q`` hold this rank's
+    slice of the contraction; each row's scale takes the group's absmax
+    and the int32 products are summed over the group before the rescale,
+    so every rank gets the unsharded result bit for bit."""
     if mode not in ("w8", "w8a8"):
         raise ValueError(f"mode must be w8|w8a8, got {mode!r}")
     axes = _normalize_axis(axis, x.dim())
@@ -162,9 +169,11 @@ def int8_dot_general(x, w_q, w_scale, *, axis: Union[int, Sequence[int]] = -1,
     if mode == "w8":
         w = dequantize_int8(w_q, w_scale, dtype).reshape(n_in, n_out)
         return (rows.to(dtype) @ w).reshape(*lead, *feats)
-    x_q, x_scale = _sym_quantize(rows, (1,))  # one scale per row
-    acc = _int8_matmul(x_q, w_q.reshape(n_in, n_out)).float()
-    out = acc * x_scale[:, None] * w_scale.reshape(1, n_out)
+    x_q, x_scale = _sym_quantize(rows, (1,), group=row_group)  # one scale per row
+    acc = _int8_matmul(x_q, w_q.reshape(n_in, n_out))
+    if row_group is not None:
+        row_group.all_reduce(acc)
+    out = acc.float() * x_scale[:, None] * w_scale.reshape(1, n_out)
     return out.to(dtype).reshape(*lead, *feats)
 
 
@@ -173,7 +182,8 @@ class Int8DenseGeneral(nn.Module):
     and ``kernel_scale`` float32 [*features] are buffers (not trainable;
     ``load_state_dict`` fills them under these names), contracting the
     input's trailing ``len(in_shape)`` axes in ``mode`` and returning
-    ``dtype``."""
+    ``dtype``.  ``row_group``: set by a row-parallel w8a8 site over a
+    ``tp`` group, which then returns the whole (reduced) product."""
 
     def __init__(self, in_shape: tuple, features: tuple, mode: str, dtype, device=None):
         super().__init__()
@@ -185,12 +195,13 @@ class Int8DenseGeneral(nn.Module):
             "kernel_q", torch.zeros(*self.in_shape, *self.features, dtype=torch.int8, device=device)
         )
         self.register_buffer("kernel_scale", torch.ones(self.features, device=device))
+        self.row_group = None
 
     def forward(self, x):
         n = len(self.in_shape)
         return int8_dot_general(
             x, self.kernel_q, self.kernel_scale, axis=tuple(range(-n, 0)),
-            mode=self.mode, dtype=self.dtype,
+            mode=self.mode, dtype=self.dtype, row_group=self.row_group,
         )
 
 

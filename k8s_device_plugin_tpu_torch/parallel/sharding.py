@@ -80,18 +80,19 @@ def shard_batch(batch: Mapping[str, torch.Tensor], index: int, replicas: int,
     return {k: v.index_select(0, rows.to(v.device)) for k, v in batch.items()}
 
 
-def _reduce_replicated(params: list, world: int) -> None:
-    """Sum the replicated leaves' gradients over every rank, one flat
-    all-reduce per dtype, and divide by ``world``."""
+def average_grads(params: list, size: int, group=None) -> None:
+    """Average the gradients of ``params`` over ``group`` (default: every
+    rank) of ``size`` ranks: one flat all-reduce per dtype, divided by
+    ``size``."""
     grads: dict = {}
     for p in params:
         if p.grad is not None:
             grads.setdefault(p.grad.dtype, []).append(p.grad)
-    for group in grads.values():
-        flat = torch.cat([g.reshape(-1) for g in group])
-        torch.distributed.all_reduce(flat)
-        flat.div_(world)
-        for g, part in zip(group, flat.split([g.numel() for g in group])):
+    for same in grads.values():
+        flat = torch.cat([g.reshape(-1) for g in same])
+        torch.distributed.all_reduce(flat, group=group)
+        flat.div_(size)
+        for g, part in zip(same, flat.split([g.numel() for g in same])):
             g.copy_(part.view_as(g))
 
 
@@ -155,7 +156,7 @@ def shard_train_step(train_step: Callable, mesh, state):
     plain_params = [params[n] for n, d in dims.items() if d is None]
     if world > 1 and plain_params:
         optimizer.register_step_pre_hook(
-            lambda *_: _reduce_replicated(plain_params, world))
+            lambda *_: average_grads(plain_params, world))
     sharded_state = TrainState(step=state.step, model=model, optimizer=optimizer)
 
     def step(state, batch):
@@ -165,6 +166,13 @@ def shard_train_step(train_step: Callable, mesh, state):
         return state, loss / world
 
     return step, sharded_state
+
+
+def _layout(t: torch.Tensor, like: Optional[torch.Tensor] = None):
+    """The ``tensor.MeshSplit`` of a tensor of ``tensor.shard_train_step_tp``'s
+    layout (its own, or that of the parameter ``like`` it belongs to), or
+    None."""
+    return getattr(t, "tp_layout", None) or getattr(like, "tp_layout", None)
 
 
 def _local(t: torch.Tensor) -> torch.Tensor:
@@ -191,27 +199,44 @@ def local_state_bytes(state) -> int:
     return total
 
 
-def gather_full(tensors: Mapping[str, torch.Tensor]) -> Optional[dict]:
+def gather_full(tensors: Mapping[str, torch.Tensor],
+                like: Optional[Mapping[str, torch.Tensor]] = None) -> Optional[dict]:
     """``tensors`` (named alike on every rank, in :func:`shard_train_step`'s
-    layout) whole, on global rank 0's CPU (None elsewhere); every rank must
-    call it.  The ranks of the first ``dp`` replica (ranks 0 .. mp-1) send
-    their ``mp`` shards to rank 0 in one ``gather_object`` (a c10d
-    collective), which concatenates them along each sharded dimension; a
-    whole tensor is rank 0's.  Every other rank sends nothing: it holds
-    copies of the first replica's shards.  DTensor's own gather runs
-    functional collectives, which gloo does not carry on CUDA tensors."""
+    or ``tensor.shard_train_step_tp``'s layout) whole, on global rank 0's
+    CPU (None elsewhere); every rank must call it.  ``like``: the
+    parameters the tensors belong to (optimizer moments), whose layout
+    they share.  The ranks of the first ``dp`` replica send their shards
+    to rank 0 in one ``gather_object`` (a c10d collective), which joins
+    them along each sharded dimension (``MeshSplit.join`` for the tp
+    layout); a whole tensor is rank 0's.  Every other rank sends nothing:
+    it holds copies of the first replica's shards.  DTensor's own gather
+    runs functional collectives, which gloo does not carry on CUDA
+    tensors."""
     dist = torch.distributed
     rank = dist.get_rank()
-    local = {name: (_local(t).detach().cpu(), _sharded_dim(t)) for name, t in tensors.items()
-             if rank == 0 or (_sharded_dim(t) is not None
-                              and t.device_mesh.get_coordinate()[0] == 0)}
+    like = like or {}
+    local = {}
+    for name, t in tensors.items():
+        split = _layout(t, like.get(name))
+        if split is not None:
+            if split.first_replica and (rank == 0 or split.key()):
+                local[name] = (t.detach().cpu(), split.key())
+        elif rank == 0 or (_sharded_dim(t) is not None and t.device_mesh.get_coordinate()[0] == 0):
+            local[name] = (_local(t).detach().cpu(), _sharded_dim(t))
     shards = [None] * dist.get_world_size() if rank == 0 else None
     dist.gather_object(local, shards, dst=0)
     if shards is None:
         return None
     out = {}
     for name, (t, dim) in shards[0].items():
-        if dim is not None:
+        split = _layout(tensors[name], like.get(name))
+        if split is not None:
+            chunks = {}
+            for sent in shards:
+                if name in sent:
+                    chunks.setdefault(sent[name][1], sent[name][0])
+            t = split.join(chunks)
+        elif dim is not None:
             mp_size = tensors[name].device_mesh.mesh.shape[-1]
             t = torch.cat([shards[r][name][0] for r in range(mp_size)], dim=dim)
         out[name] = t
@@ -226,8 +251,12 @@ def gather_full_state(model: torch.nn.Module) -> Optional[dict]:
 def shard_like(full: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """``full`` laid out as ``like``: this rank's ``mp`` chunk as a tensor of
     ``like``'s placements when ``like`` is sharded, else ``full`` itself, on
-    ``like``'s device.  Every rank holds ``full``, so nothing is sent."""
+    ``like``'s device (a plain tensor of this rank's chunk when ``like`` is
+    of ``tensor.shard_train_step_tp``'s layout).  Every rank holds
+    ``full``, so nothing is sent."""
     full = full.to(like.device)
+    if _layout(like) is not None:
+        return _layout(like).cut(full)
     if not hasattr(like, "device_mesh"):
         return full
     from torch.distributed.tensor import DTensor

@@ -419,12 +419,11 @@ def test_cli_refuses_what_the_port_does_not_serve(argv, flag, tmp_path):
     adapter directories, an engine on a checkpoint's weights; the
     directories are written here (``convert.save_flax_params`` / the port's
     CheckpointManager) in place of the case's placeholder paths.  ``--tp
-    2`` parses, and refuses the flags it does not shard yet, naming them
-    (its server runs over two ranks in tests/test_torch_tp_serving.py)."""
+    2`` parses, with the flags it serves over its mesh too (its server runs
+    over two ranks in tests/test_torch_tp_serving.py)."""
     if flag == "--tp":
         assert port_http.parse_args(argv).tp == 2
-        with pytest.raises(SystemExit, match="--spec-gamma"):
-            port_http.parse_args(argv + ["--spec-gamma", "2"])
+        assert port_http.parse_args(argv + ["--spec-gamma", "2"]).spec_gamma == 2
         return
     from k8s_device_plugin_tpu_torch.models import checkpoint, lora
 

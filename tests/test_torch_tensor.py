@@ -38,7 +38,7 @@ def _names(kind: str) -> dict:
 
 
 # The MoE expert kernels ([experts, hidden, ffn] and [experts, ffn, hidden])
-# of parallel/moe.py, which the port does not have yet: the rules' first two.
+# of parallel/moe.py: the rules' first two.
 MOE = {"layer_0.mlp.experts_gate": (4, 64, 128), "layer_0.mlp.experts_up": (4, 64, 128),
        "layer_0.mlp.experts_down": (4, 128, 64)}
 

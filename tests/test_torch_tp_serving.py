@@ -5,8 +5,9 @@ The sharding contract's units mirror tests/test_tp_serving.py: the cache
 specs, the refusal of an indivisible pool naming its path, and the lint
 naming a silently replicated pool or a leaf off the rank's device.  The
 engine refuses a mesh without its axis and kv heads the degree does not
-divide, with the reference's texts; both CLIs refuse ``--tp`` with the
-flags not sharded yet, naming them.
+divide, with the reference's texts; both CLIs take ``--tp`` with every
+flag the reference serves under it (``--spec-gamma``, ``--adapters``,
+``--role prefill|decode``, ``--quant``).
 
 One spawn of two gloo CPU ranks (tests/torch_ranks.py, float32,
 GPTConfig.tiny() with 2 kv heads from flax's init) runs, on every rank,
@@ -23,7 +24,18 @@ top-2 margin above ``MARGIN`` so no near-tie decides them; the scheduling
 counters must equal the port's unsharded engine's and be above 0; the lint
 must pass on both ranks; and the pools, joined on the kv-heads axis, must
 equal the unsharded engine's within 1e-5 (no device write bypassed the
-leader's operations).  Then the batch CLI runs at ``--tp 2 --device cpu``
+leader's operations).  The same spawn then serves what the reference
+serves over its mesh (``SERVED``): ``w8`` weights; ``w8a8`` weights with
+int8 pools, whose value and up kernels are scaled 4x on the second rank's
+half so that each out/down row's absmax lies there (a rank that quantized
+its slice with its own absmax would write other codes); two stacked LoRA
+adapters beside the base model; gamma-2 speculation with the w8
+self-draft; and a prefill -> decode handoff between a prefill-role and a
+decode-role engine on the group.  Each stream must equal the port's
+unsharded engine's and the JAX engine's on the same converted weights, the
+pools must reassemble the unsharded engine's within 1e-5, and the
+handoff's wire bytes (entries and logits section) must equal both
+unsharded engines'.  Then the batch CLI runs at ``--tp 2 --device cpu``
 and the benchmark's tensor-parallel phase over two gloo ranks, each in a
 subprocess killed after 150 s with every rank it spawned.
 """
@@ -43,15 +55,21 @@ import pytest
 import torch
 
 from k8s_device_plugin_tpu.models import engine as jax_engine
+from k8s_device_plugin_tpu.models import engine_snapshot as jax_snap
+from k8s_device_plugin_tpu.models import lora as jax_lora
 from k8s_device_plugin_tpu.models import transformer as jax_tf
+from k8s_device_plugin_tpu.ops import quant as jax_quant
 from k8s_device_plugin_tpu.parallel import serving as jserving
 from k8s_device_plugin_tpu_torch import convert
 from k8s_device_plugin_tpu_torch.models import engine as port_engine
+from k8s_device_plugin_tpu_torch.models import engine_snapshot as port_snap
 from k8s_device_plugin_tpu_torch.models import http_server as port_http
+from k8s_device_plugin_tpu_torch.models import lora as port_lora
 from k8s_device_plugin_tpu_torch.models import transformer as port_tf
+from k8s_device_plugin_tpu_torch.ops import quant as port_quant
 from k8s_device_plugin_tpu_torch.parallel import serving as tserving
 from k8s_device_plugin_tpu_torch.utils import prng
-from tests.torch_ranks import Ranks
+from tests.torch_ranks import Ranks, drive_jobs, handoff_decode, handoff_prefill
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ATOL = 1e-5
@@ -67,6 +85,18 @@ SCENARIOS = [
      "jobs": [([3, 5, 7, 11, 13, 17, 19, 23], 12), ([9, 10, 11, 12, 4, 5, 6, 7], 12)]},
 ]
 COUNTERS = ("preemptions", "kv_resumes_restored", "overlap_discards")
+# What the reference serves over its mesh: (name, config overrides, which
+# weights, engine arguments, jobs of (prompt, max_new, adapter)).
+JOBS = [([3, 5, 7, 11], 8, None), ([9, 10, 11], 8, None)]
+SERVED = [
+    ("w8", {"quant": "w8"}, "w8", {}, JOBS),
+    ("w8a8-skewed", {"quant": "w8a8", "quant_kv": True}, "w8a8", {}, JOBS),
+    ("lora", {"lora_rank": 4, "lora_serve": 2}, "lora", {},
+     [([3, 5, 7, 11], 8, 0), ([3, 5, 7, 11], 8, 1), ([9, 10, 11], 8, None)]),
+    ("spec-gamma2", {}, "float", {"spec_gamma": 2}, JOBS),
+]
+HANDOFF = ([3, 5, 7, 11, 13, 17, 19, 23], 6)
+LORA_RANK = 4
 
 
 # ---------------------------------------------------------- the contract
@@ -130,21 +160,21 @@ def test_engine_refuses_what_the_reference_refuses(axes, kv_heads, message):
 
 
 @pytest.mark.parametrize("cli, argv, flag", [
-    ("engine", ["--spec-gamma=2"], "--spec-gamma"),
-    ("engine", ["--quant=w8"], "--quant"),
-    ("http", ["--spec-gamma=2"], "--spec-gamma"),
-    ("http", ["--adapters=a,b"], "--adapters"),
-    ("http", ["--role=prefill"], "--role prefill"),
-    ("http", ["--role=decode"], "--role decode"),
-    ("http", ["--quant=w8a8"], "--quant"),
+    ("engine", ["--spec-gamma=2"], ("spec_gamma", 2)),
+    ("engine", ["--quant=w8"], ("quant", "w8")),
+    ("http", ["--spec-gamma=2"], ("spec_gamma", 2)),
+    ("http", ["--adapters=a,b"], ("adapters", "a,b")),
+    ("http", ["--role=prefill"], ("role", "prefill")),
+    ("http", ["--role=decode"], ("role", "decode")),
+    ("http", ["--quant=w8a8"], ("quant", "w8a8")),
 ])
-def test_clis_refuse_tp_with_what_it_does_not_shard(capsys, cli, argv, flag):
+def test_clis_refuse_tp_with_what_it_does_not_shard(cli, argv, flag):
+    """Every flag the reference serves over a mesh is taken with ``--tp``
+    and reaches the engine's arguments as it would without it."""
     parse = port_engine.parse_args if cli == "engine" else port_http.parse_args
-    with pytest.raises(SystemExit) as exc:
-        parse(["--tp=2", *argv])
-    said = str(exc.value) + capsys.readouterr().err
-    assert f"{flag} is not served under --tp > 1" in said
-    parse(argv)  # without --tp the flag is taken
+    args = parse(["--tp=2", *argv])
+    assert args.tp == 2 and getattr(args, flag[0]) == flag[1]
+    assert vars(args) == dict(vars(parse(argv)), tp=2)
 
 
 # -------------------------------------------------- two ranks, one spawn
@@ -184,6 +214,84 @@ def _scenario(eng, scenario: dict) -> list:
     return [r.tokens for r in done]
 
 
+def _skewed(tree):
+    """``tree`` with the second half of every value kernel's kv heads and
+    every up kernel's ffn columns scaled 4x: the second rank's half of each
+    out/down input row then holds the row's absmax."""
+    out = jax.tree_util.tree_map(np.array, tree)
+    for i in range(len([k for k in out if k.startswith("layer_")])):
+        layer = out[f"layer_{i}"]
+        value, up = layer["attn"]["value"]["kernel"], layer["mlp"]["up"]["kernel"]
+        value[:, value.shape[1] // 2:] *= 4.0
+        up[:, up.shape[1] // 2:] *= 4.0
+    return out
+
+
+def _weights(jcfg, params) -> dict:
+    """Each SERVED weight set as (JAX tree, port state dict, JAX draft,
+    port draft): float, w8, skewed w8a8 and the LoRA stack."""
+    tree = jax.tree_util.tree_map(np.asarray, params)
+    skewed = _skewed(tree)
+    lcfg = dataclasses.replace(jcfg, lora_rank=LORA_RANK)
+    lora_tree = jax.tree_util.tree_map(np.asarray, jax_tf.TransformerLM(lcfg).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8), jnp.int32))["params"])
+    rs = np.random.RandomState(3)
+
+    def adapter(t):
+        if not isinstance(t, dict):
+            return t
+        return {k: (0.1 * rs.standard_normal(v.shape)).astype(np.float32)
+                if k in ("lora_a", "lora_b") else adapter(v) for k, v in sorted(t.items())}
+
+    adapters = [adapter(lora_tree) for _ in range(2)]
+    to_port = convert.flax_to_state_dict
+    quantized = jax.tree_util.tree_map(np.asarray, jax_quant.quantize_lm_params(tree))
+    return {
+        "float": (tree, to_port(tree), quantized,
+                  port_quant.quantize_lm_params(to_port(tree))),
+        "w8": (quantized, port_quant.quantize_lm_params(to_port(tree)), None, None),
+        "w8a8": (jax.tree_util.tree_map(np.asarray, jax_quant.quantize_lm_params(skewed)),
+                 port_quant.quantize_lm_params(to_port(skewed)), None, None),
+        "lora": (jax.tree_util.tree_map(np.asarray,
+                                        jax_lora.stack_lora_adapters(lora_tree, adapters)),
+                 port_lora.stack_lora_adapters(to_port(lora_tree),
+                                               [to_port(a) for a in adapters]), None, None),
+    }
+
+
+def _served_refs(jcfg, pcfg, weights) -> dict:
+    """Every SERVED scenario and the handoff on the port's unsharded engine
+    and the JAX engine."""
+    refs = {}
+    for name, overrides, which, engine_kw, jobs in SERVED:
+        jtree, state, jdraft, draft = weights[which]
+        jkw, pkw = dict(engine_kw), dict(engine_kw)
+        if engine_kw.get("spec_gamma"):
+            jkw["draft_params"], pkw["draft_params"] = jdraft, draft
+        jeng = jax_engine.ServingEngine(dataclasses.replace(jcfg, **overrides), jtree,
+                                        jax_tf.PagedConfig(**PAGED), max_slots=2, **jkw)
+        peng = port_engine.ServingEngine(dataclasses.replace(pcfg, **overrides), state,
+                                         port_tf.PagedConfig(**PAGED), max_slots=2,
+                                         device="cpu", **pkw)
+        refs[name] = {"jax": drive_jobs(jeng, jobs), "port": drive_jobs(peng, jobs),
+                      "pools": {f"layer_{i}": peng.kv_pools(i) for i in range(pcfg.num_layers)}}
+    role_kw = dict(kv_retain=True, kv_host_cache_mb=8, prefill_chunk=4, max_slots=2)
+    tree, state = weights["float"][:2]
+    wires = []
+    for eng_mod, tf, snap, w, kw in ((jax_engine, jax_tf, jax_snap, tree, {}),
+                                     (port_engine, port_tf, port_snap, state, {"device": "cpu"})):
+        cfg = jcfg if eng_mod is jax_engine else pcfg
+        pre = eng_mod.ServingEngine(cfg, w, tf.PagedConfig(**PAGED), role="prefill", **role_kw,
+                                    **kw)
+        wires.append(handoff_prefill(pre, snap, HANDOFF[0]))
+    dec = port_engine.ServingEngine(pcfg, state, port_tf.PagedConfig(**PAGED), role="decode",
+                                    device="cpu", **role_kw)
+    refs["handoff"] = dict(handoff_decode(dec, port_snap, wires[1][0], *HANDOFF),
+                           jax_wire=wires[0], port_wire=wires[1],
+                           pools={f"layer_{i}": dec.kv_pools(i) for i in range(pcfg.num_layers)})
+    return refs
+
+
 @pytest.fixture(scope="module")
 def tp_run(tmp_path_factory):
     """Rank 0's results, and this process's references: the JAX model's
@@ -197,9 +305,18 @@ def tp_run(tmp_path_factory):
     ids = rs.randint(0, jcfg.vocab_size, size=(2, 9))
     prompt = rs.randint(0, jcfg.vocab_size, size=(2, 5))
     kwargs = {f.name: getattr(pcfg, f.name) for f in dataclasses.fields(pcfg)}
+    weights = _weights(jcfg, params)
+    served = []
+    for name, overrides, which, engine_kw, jobs in SERVED:
+        engine_kw = dict(engine_kw)
+        if engine_kw.get("spec_gamma"):
+            engine_kw["draft_params"] = weights[which][3]
+        served.append({"name": name, "cfg": overrides, "state": weights[which][1],
+                       "engine": engine_kw, "jobs": jobs})
+    served.append({"name": "handoff", "handoff": HANDOFF})
     spec = {"tp_serving": {"cfg": kwargs, "state_dict": state, "paged": PAGED,
                            "ids": torch.from_numpy(ids), "prompt": torch.from_numpy(prompt),
-                           "new": 6, "scenarios": SCENARIOS}}
+                           "new": 6, "scenarios": SCENARIOS, "served": served}}
     running = Ranks(spec, 2, str(tmp_path_factory.mktemp("tp_ranks")))
     ref = {"logits": np.asarray(jax_tf.TransformerLM(jcfg).apply({"params": params}, ids)),
            "generated": np.asarray(jax_tf.greedy_generate(jcfg, params, jnp.asarray(prompt), 6)),
@@ -215,6 +332,7 @@ def tp_run(tmp_path_factory):
         }
     margins = _greedy_margins(pcfg, state, SCENARIOS[0]["jobs"],
                               ref["scenarios"]["greedy-churn"]["jax"])
+    ref["served"] = _served_refs(jcfg, pcfg, weights)
     return running.wait(), ref, margins
 
 
@@ -268,6 +386,69 @@ def test_every_rank_s_pools_reassemble_the_unsharded_engine_s(tp_run, name):
     assert run["lint"] > 0  # both ranks' lint passed after the traffic
     for layer, pools in want["pools"].items():
         assert set(run["pools"][layer]) == set(pools)
+        for pool, value in pools.items():
+            np.testing.assert_allclose(run["pools"][layer][pool].numpy(), value.numpy(), rtol=0,
+                                       atol=ATOL, err_msg=f"{layer}.{pool}")
+
+
+@pytest.mark.parametrize("name", [s[0] for s in SERVED])
+def test_tp2_serves_what_the_reference_serves_over_its_mesh(tp_run, name):
+    got, ref, _ = tp_run
+    run, want = got["scenarios"][name], ref["served"][name]
+    assert want["port"] == want["jax"]
+    assert run["tokens"] == want["jax"]
+    assert run["rank_kv_heads"] == [1, 1] and run["lint"] > 0
+    # Both ranks ran every decode step (the card's kernel launches per rank
+    # are chip_smoke.py phase 12d's).
+    steps = [r["device_steps"] for r in run["rank_stats"]]
+    assert steps[0] == steps[1] > 0
+    if name == "spec-gamma2":
+        assert run["spec_rounds"] > 0
+    for layer, pools in want["pools"].items():
+        for pool, value in pools.items():
+            np.testing.assert_allclose(run["pools"][layer][pool].numpy(), value.numpy(), rtol=0,
+                                       atol=ATOL, err_msg=f"{name} {layer}.{pool}")
+
+
+def _wire(wire: bytes, logits: bytes, snap, handoff_mod) -> tuple:
+    """A handoff body as (preamble without its clock, the entries' keys and
+    byte counts, their rows, the shipped logits), parsed by ``snap``."""
+    import io
+
+    buf = io.BytesIO(wire)
+    header, parsed = snap._parse_snapshot(buf, None, None)
+    header = {k: v for k, v in header.items() if k != "created_unix_ms"}
+    keys = [(k, nbytes) for k, _, nbytes in parsed]
+    rows = [rows for _, rows, _ in parsed]
+    return header, keys, rows, handoff_mod.read_logits_section(io.BytesIO(logits))
+
+
+def test_tp2_handoff_wire_and_decode_are_the_unsharded_engines(tp_run):
+    """The wire of the prefill role over two ranks is the unsharded
+    engines' (the JAX package's and the port's) record for record: the same
+    layout (every kv head), fingerprint, keys and byte counts, rows and
+    logits within 1e-5; the JAX package's parser takes it."""
+    from k8s_device_plugin_tpu.models import engine_handoff as jax_handoff
+    from k8s_device_plugin_tpu_torch.models import engine_handoff as port_handoff
+
+    got, ref, _ = tp_run
+    run, want = got["scenarios"]["handoff"], ref["served"]["handoff"]
+    ours = _wire(run["wire"], run["logits"], port_snap, port_handoff)
+    for other, snap, mod in ((want["port_wire"], port_snap, port_handoff),
+                             (want["jax_wire"], jax_snap, jax_handoff)):
+        theirs = _wire(*other, snap, mod)
+        assert ours[0] == theirs[0] and ours[1] == theirs[1]
+        assert len(run["logits"]) == len(other[1])
+        for mine, them in zip(ours[2], theirs[2]):
+            for layer, pools in them.items():
+                for pool, value in pools.items():
+                    np.testing.assert_allclose(np.asarray(mine[layer][pool]), np.asarray(value),
+                                               rtol=0, atol=ATOL)
+        np.testing.assert_allclose(ours[3], theirs[3], rtol=0, atol=ATOL)
+    assert run["admitted"] == want["admitted"] == 2
+    assert run["tokens"] == want["tokens"]
+    assert run["skipped"] == want["skipped"] > 0
+    for layer, pools in want["pools"].items():
         for pool, value in pools.items():
             np.testing.assert_allclose(run["pools"][layer][pool].numpy(), value.numpy(), rtol=0,
                                        atol=ATOL, err_msg=f"{layer}.{pool}")

@@ -202,13 +202,18 @@ def test_synthetic_lm_batch_shifts_labels_and_is_seeded():
 
 
 def test_train_step_options_are_checked():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttrain.make_train_step(aux_loss_coeff=0.01)
     with pytest.raises(ValueError, match="grad_accum"):
         ttrain.make_train_step(grad_accum=0)
     _, tcfg = _cfgs()
     state = ttrain.create_train_state(tcfg, ttf.init_params(tcfg), device="cpu")
     batch = {k: torch.zeros((3, 8), dtype=torch.long) for k in ("input_ids", "labels")}
+    # A dense model sows no auxiliary loss: the coefficient changes nothing
+    # (the MoE cases are tests/test_torch_moe.py's).
+    twin = ttrain.create_train_state(tcfg, ttf.init_params(tcfg), device="cpu")
+    _, plain = ttrain.make_train_step()(twin, batch)
+    _, balanced = ttrain.make_train_step(aux_loss_coeff=0.01)(state, batch)
+    assert float(balanced) == float(plain) and ttrain.sown_aux_loss(state.model) == 0.0
+    state = ttrain.create_train_state(tcfg, ttf.init_params(tcfg), device="cpu")
     with pytest.raises(ValueError, match="not divisible"):
         ttrain.make_train_step(grad_accum=2)(state, batch)
     logits = ttrain.make_eval_step()(state, batch)

@@ -11,20 +11,27 @@ of ``spec["cases"]`` through ``parallel/sharding.shard_train_step`` over
 to ``spec["out"]``.  This file imports no JAX: the test modules hold the
 results against the JAX package.
 
-A case: ``kind`` ("gpt", "resnet", "alexnet") and ``kwargs`` of the port's
-model (built on the CPU), its starting ``state_dict``, the global
-``batch``, ``input_key``, ``steps`` and ``grad_accum``; optionally
-``mesh`` (a layout of the same ranks in place of the spec's), ``restore``
-(a checkpoint directory restored after sharding), ``save_dir`` and
-``save_at`` (a step after which the sharded state is saved).  Each result
-holds, among the rest, the names of what every rank sent rank 0 when it
-gathered the final state (``received``).
+A case: ``kind`` ("gpt", "moe", "resnet", "alexnet") and ``kwargs`` of
+the port's model (built on the CPU; "moe" adds ``experts``), its starting
+``state_dict``, the global ``batch``, ``input_key``, ``steps`` and
+``grad_accum``; optionally ``mesh`` (a layout of the same ranks in place
+of the spec's), ``tp`` (shard through ``parallel/tensor.shard_train_step_tp``
+over that mesh instead), ``aux_loss_coeff``, ``restore`` (a checkpoint
+directory restored after sharding), ``save_dir`` and ``save_at`` (a step
+after which the sharded state is saved).  Each result holds, among the
+rest, the names of what every rank sent rank 0 when it gathered the final
+state (``received``).
 
 A spec with ``tp_serving`` runs tensor-parallel serving instead
 (:func:`_tp_main`): the sharded forward and ``greedy_generate`` on every
 rank, then each scenario through a ``ServingEngine`` over the ``tp`` mesh,
 rank 0 leading and the others following, and each rank's pools gathered
-to rank 0 after it.
+to rank 0 after it.  Its ``served`` scenarios build their own engines
+(config overrides, weights and engine arguments: quantized weights,
+stacked adapters, a speculative draft) and drive ``(prompt, n, adapter)``
+jobs (:func:`drive_jobs`), or run a prefill -> decode handoff
+(:func:`handoff_run`); the test process drives the unsharded engines the
+same way.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import socket
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -98,10 +106,15 @@ class Ranks:
 
 
 def _model(kind: str, kwargs: dict):
-    if kind == "gpt":
+    if kind in ("gpt", "moe"):
         from k8s_device_plugin_tpu_torch.models.transformer import GPTConfig, TransformerLM
+        from k8s_device_plugin_tpu_torch.parallel.moe import moe_mlp_factory
 
-        return TransformerLM(GPTConfig(**kwargs), device="cpu", train=True)
+        kwargs = dict(kwargs)
+        experts = kwargs.pop("experts", None)
+        cfg = GPTConfig(**kwargs)
+        factory = moe_mlp_factory(cfg, experts) if kind == "moe" else None
+        return TransformerLM(cfg, device="cpu", train=True, mlp_factory=factory)
     if kind == "resnet":
         from k8s_device_plugin_tpu_torch.models.resnet import ResNet18Thin
 
@@ -134,14 +147,16 @@ def _gather_recorded(model):
 
 def _run_case(case: dict, mesh, rank: int, world: int) -> dict:
     from k8s_device_plugin_tpu_torch.models import checkpoint, train
-    from k8s_device_plugin_tpu_torch.parallel import sharding
+    from k8s_device_plugin_tpu_torch.parallel import sharding, tensor
 
     model = _model(case["kind"], case["kwargs"])
     model.load_state_dict(case["state_dict"])
     state = train.state_for(model, 0.1, 0.9)
     grad_accum = case.get("grad_accum", 1)
-    step, state = sharding.shard_train_step(
-        train.make_train_step(grad_accum=grad_accum, input_key=case["input_key"]), mesh, state)
+    shard = tensor.shard_train_step_tp if case.get("tp") else sharding.shard_train_step
+    step, state = shard(
+        train.make_train_step(case.get("aux_loss_coeff", 0.0), grad_accum=grad_accum,
+                              input_key=case["input_key"]), mesh, state)
     if case.get("restore"):
         state = checkpoint.CheckpointManager(case["restore"]).restore(state)
     batch = sharding.shard_batch(case["batch"], *sharding.dp_coordinate(mesh), grad_accum)
@@ -191,6 +206,124 @@ def _tp_scenario(eng, scenario: dict) -> dict:
             "lint": eng.assert_sharded(), "tp": eng.debug_state()["tp"]}
 
 
+def drive_jobs(eng, jobs: list, sample: Optional[dict] = None) -> list:
+    """Submit ``(prompt, max_new, adapter)`` jobs (``sample`` applies to
+    each), step until drained; the token streams in submission order.
+    Takes the JAX package's engine too."""
+    subs = [eng.submit(list(p), n, adapter=a, **(sample or {})) for p, n, a in jobs]
+    for _ in range(10_000):
+        if all(r.done for r in subs):
+            return [list(r.tokens) for r in subs]
+        eng.step()
+    raise RuntimeError("engine failed to drain")
+
+
+def handoff_prefill(eng, snap, prompt: list) -> tuple:
+    """A prefill-role engine's probe of ``prompt`` (chunk by chunk, the
+    tap's pushed entries) as the wire's bytes: ``(entries wire, logits
+    section)``.  ``snap``: the package's ``engine_snapshot`` module (the
+    logits section's encoder is its ``engine_handoff``'s)."""
+    import importlib
+
+    handoff = importlib.import_module(snap.__name__.replace("engine_snapshot", "engine_handoff"))
+    tap = eng.handoff_begin(list(prompt), None)
+    entries = []
+    try:
+        for _ in range(200):
+            eng.step()
+            while True:
+                e = tap.pop(0.0)
+                if e is None:
+                    break
+                entries.append(e)
+            if tap.req.done and tap.pushed <= len(entries):
+                break
+    finally:
+        eng.handoff_end(tap)
+    layout = snap.snapshot_layout(eng)
+    fp = getattr(eng, "params_fingerprint", None) or snap.params_fingerprint(eng.params)
+    wire = snap.encode_preamble(layout, fp, len(entries)) + b"".join(
+        snap.encode_entry(layout, k, r) for k, r in entries)
+    return wire, handoff.encode_logits_section(tap.logits)
+
+
+def handoff_decode(eng, snap, wire: bytes, prompt: list, n: int) -> dict:
+    """A decode-role engine admitting ``wire``'s entries, then decoding
+    ``prompt``: its tokens and the prefill positions it skipped."""
+    import io
+
+    layout = snap.snapshot_layout(eng)
+    _, parsed = snap._parse_snapshot(io.BytesIO(wire), layout, eng.params_fingerprint)
+    admitted = snap._admit_entries(eng, parsed)
+    tokens = drive_jobs(eng, [(prompt, n, None)])
+    return {"tokens": tokens, "admitted": admitted, "skipped": eng.handoff_skipped_tokens}
+
+
+def _served_engine(sp: dict, scenario: dict, mesh, role: str = "unified"):
+    from k8s_device_plugin_tpu_torch.models.engine import ServingEngine
+    from k8s_device_plugin_tpu_torch.models.transformer import GPTConfig, PagedConfig
+
+    kw = dict(scenario.get("engine", {}))
+    if role != "unified":
+        kw.update(role=role, kv_retain=True, kv_host_cache_mb=8, prefill_chunk=4)
+    return ServingEngine(GPTConfig(**{**sp["cfg"], **scenario.get("cfg", {})}),
+                         scenario.get("state", sp["state_dict"]), PagedConfig(**sp["paged"]),
+                         max_slots=2, mesh=mesh, device="cpu", **kw)
+
+
+def _gathered(eng, cfg, rank: int, world: int):
+    """Every rank's pools joined on kv heads at rank 0 (None elsewhere),
+    and each rank's kv head count."""
+    pools = {f"layer_{i}": {k: v.clone() for k, v in eng.kv_pools(i).items()}
+             for i in range(cfg.num_layers)}
+    every = [None] * world if rank == 0 else None
+    torch.distributed.gather_object(pools, every, dst=0)
+    if rank:
+        return None
+    joined = {layer: {k: torch.cat([p[layer][k] for p in every], dim=2) for k in every[0][layer]}
+              for layer in every[0]}
+    return joined, [p["layer_0"]["pool_key"].shape[2] for p in every]
+
+
+def _served(sp: dict, scenario: dict, mesh, rank: int, world: int) -> Optional[dict]:
+    """One ``served`` scenario on every rank; rank 0's result."""
+    from k8s_device_plugin_tpu_torch.models import engine_snapshot as snap
+    from k8s_device_plugin_tpu_torch.models.transformer import GPTConfig
+
+    cfg = GPTConfig(**sp["cfg"])
+    if "handoff" in scenario:
+        prompt, n = scenario["handoff"]
+        pre = _served_engine(sp, scenario, mesh, "prefill")
+        result = None
+        if rank == 0:
+            wire, logits = handoff_prefill(pre, snap, prompt)
+            result = {"wire": wire, "logits": logits}
+            pre.stop_followers()
+        else:
+            pre.follow()
+        dec = _served_engine(sp, scenario, mesh, "decode")
+        if rank == 0:
+            result.update(handoff_decode(dec, snap, wire, prompt, n))
+            dec.stop_followers()
+        else:
+            dec.follow()
+        eng = dec
+    else:
+        eng = _served_engine(sp, scenario, mesh)
+        result = None
+        if rank == 0:
+            result = {"tokens": drive_jobs(eng, scenario["jobs"], scenario.get("sample")),
+                      "rank_stats": eng.rank_stats(), "lint": eng.assert_sharded(),
+                      "spec_rounds": eng.spec_rounds}
+            eng.stop_followers()
+        else:
+            eng.follow()
+    joined = _gathered(eng, cfg, rank, world)
+    if rank == 0:
+        result["pools"], result["rank_kv_heads"] = joined
+    return result
+
+
 def _tp_main(sp: dict, rank: int, world: int) -> dict:
     from k8s_device_plugin_tpu_torch.models.transformer import (
         GPTConfig,
@@ -225,6 +358,10 @@ def _tp_main(sp: dict, rank: int, world: int) -> dict:
             result["pools"] = {layer: {k: torch.cat([p[layer][k] for p in every], dim=2)
                                        for k in every[0][layer]} for layer in every[0]}
             result["rank_kv_heads"] = [p["layer_0"]["pool_key"].shape[2] for p in every]
+            results["scenarios"][scenario["name"]] = result
+    for scenario in sp.get("served", []):
+        result = _served(sp, scenario, mesh, rank, world)
+        if rank == 0:
             results["scenarios"][scenario["name"]] = result
     return results
 
