@@ -289,7 +289,24 @@ Phases, in order (any failure exits non-zero):
    bit for bit with the unsharded step; 13d the same config over four gloo
    ranks sharing the card at (dp1, ep2, tp2) and (dp2, ep2, tp1), two steps
    each within TOL_DIST_F32 of two unsharded steps on the card (its ranks
-   start after 11a and run beside 11b's, whose steps are not timed).
+   start after 11a and run beside 11b's, whose steps are not timed);
+14. sequence-parallel LM training (``parallel/sequence.py``, ``ring.py``,
+   ``ulysses.py``): 14a ``shard_train_step_sp`` at (dp 1, sp 1) over an
+   NCCL world of one at phase 7's width (b8 s1024, bf16): Ulysses, its
+   all-to-alls made over the one rank and counted, bit for bit with the
+   unsharded step, kernels 2-4 launched 8 layers x 6 steps as their
+   ``wgmma`` variants; the ring (its float32 einsum fold in place of
+   kernel 2, no hop at sp 1) within TOL_DIST_BF16, launching none of them;
+   each run's step ms, tokens/s and peak allocated memory, timed between
+   two unsharded runs, one traced step's device time and busy share, and
+   one host-traced step's operators against the unsharded step's; 14b
+   phase 8's cut over four gloo
+   ranks sharing the card, float32, at (dp 2, sp 2) Ulysses, (dp 1, sp 4)
+   ring and (dp 1, sp 2, tp 2) ring: two steps each within TOL_DIST_F32 of
+   two unsharded steps on the card, every exchange staged through host
+   memory (gloo carries neither all-to-all nor send/recv on CUDA tensors;
+   chosen by the group's backend and counted), Ulysses's ranks launching
+   kernels 2-4 as their FMA builds (its ranks start beside 13d's).
 
 Then it prints one ``kernels`` JSON line (a row per kernel variant, each
 with its design, HGMMA count, registers and spill bytes; every number in
@@ -302,7 +319,7 @@ errors and the tiny phase 6), one
 (phase 9), one ``serving_bench``, one ``decode_bench`` and one
 ``lora_train`` line (phase 10), one ``distributed`` line (phase 11), one
 ``tensor_parallel`` line (phase 12), one ``moe`` line (phase 13), one
-``phase_seconds`` line, and last
+``sp`` line (phase 14), one ``phase_seconds`` line, and last
 the line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
@@ -4589,6 +4606,311 @@ def run_phase_13(torch, fa, tf, train, data, smi, mark, started_13d: dict) -> di
     return {"train": full, **parity, "dp_ep_tp": shared, "card": smi}
 
 
+# ---------------------------------------------------------------- phase 14
+
+# 14a: phase 7's LM (b8 s1024, bf16 compute, float32 parameters), 1 warm-up
+# and SP_STEPS - 1 timed steps a run.
+SP_CFG = dict(vocab_size=32000, hidden_size=1024, num_layers=8, num_heads=16, num_kv_heads=4,
+              intermediate_size=2816, max_seq=1024)
+SP_BATCH, SP_SEQ, SP_STEPS = 8, 1024, 6
+SP_KINDS = ("ulysses", "ring")
+# 14b: phase 8's cut (2 layers, seq 256, its seeds), float32, each mesh with
+# its engine over four gloo ranks sharing the card.
+SP_CUT = dict(SP_CFG, num_layers=2, max_seq=256)
+SP_MESHES = (({"dp": 2, "sp": 2}, "ulysses"), ({"dp": 1, "sp": 4}, "ring"),
+             ({"dp": 1, "sp": 2, "tp": 2}, "ring"))
+# What gloo does not carry on CUDA tensors, for the sp engines' exchanges.
+SP_GLOO_NOT_CARRIED = ("c10d all_to_all_single (Ulysses) and batch_isend_irecv (the ring) on "
+                       "CUDA tensors: a gloo group stages each exchange through host memory, "
+                       "chosen by its backend and counted as host_staged",)
+
+
+def sp_fresh(torch, tf, train, cfg, params, device, attention_fn=None):
+    """A train state (SGD 0.1, momentum 0.9) over ``params``."""
+    model = tf.TransformerLM(cfg, device=device, train=True, attention_fn=attention_fn)
+    model.load_state_dict(params)
+    return train.state_for(model, 0.1, 0.9)
+
+
+def sp_steps(torch, step, state, batch, steps: int) -> tuple:
+    """``steps`` steps from a fresh peak-memory count: the losses, ms a
+    step and tokens/s over all but the first, the peak allocated bytes and
+    those allocated at the start (the train state and what earlier phases
+    hold); the final state dict on the host; and the state."""
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    state, loss = step(state, batch)
+    losses = [loss]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps - 1):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / (steps - 1)
+    tokens = batch["input_ids"].numel()
+    run = {"losses": [l.item() for l in losses], "step_time_ms": step_s * 1e3,
+           "tokens_per_s": tokens / step_s,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "memory_allocated_at_start": at_start}
+    return run, {k: v.detach().cpu() for k, v in state.model.state_dict().items()}, state
+
+
+def sp_profiled(torch, step, state, batch) -> dict:
+    """One more step traced after a warm-up one (:func:`profiled_step`):
+    its wall and device ms and the device's busy share."""
+    _, wall, stats = profiled_step(step, state, batch)
+    return {"wall_ms": wall * 1e3, "device_ms": stats["device_us"] / 1e3,
+            "busy_share": stats["busy_share"]}
+
+
+def sp_host_ops(torch, step, state, batch) -> dict:
+    """One more step traced on the host alone, after a warm-up one: each
+    operator's self host ms and calls, by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    state, loss = step(state, batch)
+    loss.item()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        state, loss = step(state, batch)
+        loss.item()
+    return {e.key: (e.self_cpu_time_total / 1e3, e.count) for e in prof.key_averages()}
+
+
+def sp_host_delta(mine: dict, dense: dict, top: int = 10) -> dict:
+    """Where a sharded step's host time goes beyond the unsharded one's:
+    both steps' self host ms in total and the ``top`` operators by the
+    difference."""
+    names = sorted(set(mine) | set(dense),
+                   key=lambda k: -(mine.get(k, (0, 0))[0] - dense.get(k, (0, 0))[0]))
+    return {"self_host_ms": sum(ms for ms, _ in mine.values()),
+            "unsharded_self_host_ms": sum(ms for ms, _ in dense.values()),
+            "top": [{"op": k, "ms": mine.get(k, (0, 0))[0], "calls": mine.get(k, (0, 0))[1],
+                     "unsharded_ms": dense.get(k, (0, 0))[0]} for k in names[:top]]}
+
+
+def run_phase_14a(torch, fa, tf, train, data, smi) -> dict:
+    """14a: ``sequence.shard_train_step_sp`` at (dp 1, sp 1) over an NCCL
+    world of one, Ulysses and then the ring, against the unsharded step on
+    the card at phase 7's width: Ulysses bit for bit with kernels 2-4
+    launched layers x steps on ``wgmma``, the ring (its float32 einsum
+    fold in place of kernel 2) within TOL_DIST_BF16 and launching none of
+    them.  Ulysses issues its exchanges over the one rank, counted; a ring
+    of one has no hop to make."""
+    from k8s_device_plugin_tpu_torch.parallel import distributed, sequence
+
+    cfg = tf.GPTConfig(**SP_CFG, dtype=torch.bfloat16)
+    params = tf.init_params(cfg, 14)
+    batch = data.synthetic_lm_batch(SP_BATCH, SP_SEQ, cfg.vocab_size,
+                                    generator=torch.Generator(device=DEVICE).manual_seed(14),
+                                    device=DEVICE)
+    fa.reset_launches()
+    step = train.make_train_step()
+    dense, want, state = sp_steps(torch, step, sp_fresh(torch, tf, train, cfg, params, DEVICE),
+                                  batch, SP_STEPS)
+    dense["launches"] = flash_launches(fa)[0]
+    dense["profiled_step"] = sp_profiled(torch, step, state, batch)
+    dense_ops = sp_host_ops(torch, step, state, batch)
+    del step, state
+    torch.cuda.empty_cache()
+    n = cfg.num_layers * SP_STEPS
+    runs = {}
+    distributed.join_local(DEVICE, 0, 1, distributed.local_init_method(), "nccl")
+    try:
+        mesh = distributed.make_slice_mesh({"dp": 1, "sp": 1}, device_type=DEVICE)
+        for kind in SP_KINDS:
+            fn = sequence.sp_attention_fn(mesh, kind=kind)
+            step, state = sequence.shard_train_step_sp(
+                train.make_train_step(), mesh, sp_fresh(torch, tf, train, cfg, params, DEVICE, fn))
+            fa.reset_launches()
+            mine = sequence.sp_batch_sharding(batch, mesh)
+            run, got, state = sp_steps(torch, step, state, mine, SP_STEPS)
+            launches, by_design = flash_launches(fa)
+            calls = dict(fn.sp.calls)
+            run.update(launches=launches, launches_by_design=by_design, sp_calls=calls,
+                       loss_rel_err=max(_relative_errors(run["losses"], dense["losses"])),
+                       param_rel_err=_max_rel_err(torch, got, want),
+                       profiled_step=sp_profiled(torch, step, state, mine),
+                       host_ops=sp_host_delta(sp_host_ops(torch, step, state, mine), dense_ops))
+            del step, state
+            torch.cuda.empty_cache()
+            if calls.get("host_staged"):
+                fail(f"14a {kind}: an NCCL group staged {calls['host_staged']} exchanges "
+                     "through host memory")
+            if kind == "ulysses":
+                equal = run["losses"] == dense["losses"] and all(torch.equal(got[k], want[k])
+                                                               for k in want)
+                if not equal:
+                    fail(f"14a: Ulysses at sp 1 is not the unsharded step bit for bit: loss rel "
+                         f"{run['loss_rel_err']}, params rel {run['param_rel_err']}")
+                for name, count in launches.items():
+                    if count != n:
+                        fail(f"14a Ulysses launched {name} {count} times, not {cfg.num_layers} "
+                             f"x {SP_STEPS} steps")
+                for kernel, counts in by_design.items():
+                    expect_designs(counts, "wgmma", n, f"14a Ulysses's {kernel} kernel")
+                if calls["all_to_all"] != cfg.num_layers * SP_STEPS * 8:
+                    fail(f"14a Ulysses issued {calls['all_to_all']} all-to-alls, not 8 a "
+                         "layer a step (q, k, v and the output, and their gradients)")
+                run["bit_for_bit"] = True
+            else:
+                if any(launches.values()):
+                    fail(f"14a: the ring launched kernels 2-4: {launches}")
+                if not (run["loss_rel_err"] <= TOL_DIST_BF16
+                        and run["param_rel_err"] <= TOL_DIST_BF16):
+                    fail(f"14a ring: loss rel {run['loss_rel_err']}, params rel "
+                         f"{run['param_rel_err']} (tolerance {TOL_DIST_BF16})")
+                if calls.get("ring_shift"):
+                    fail(f"14a ring issued {calls['ring_shift']} shifts: a ring of one has no "
+                         "hop to make")
+            runs[kind] = run
+            log(f"phase 14a {kind}: {run}")
+    finally:
+        torch.distributed.destroy_process_group()
+    # The unsharded step once more, so each run is timed between two of it.
+    again = sp_steps(torch, train.make_train_step(),
+                     sp_fresh(torch, tf, train, cfg, params, DEVICE), batch, SP_STEPS)[0]
+    torch.cuda.empty_cache()
+    dense["step_time_ms_after"] = again["step_time_ms"]
+    return {"config": f"{SP_CFG}, bf16 compute, float32 params, SGD 0.1/0.9, batch {SP_BATCH}, "
+                      f"seq {SP_SEQ}, {SP_STEPS} steps (1 warm-up)",
+            "mesh": {"dp": 1, "sp": 1}, "backend": "nccl", "unsharded": dense, **runs,
+            "tolerance_ring": TOL_DIST_BF16, "card": smi}
+
+
+def sp_cut(torch, tf, data, device):
+    """14b's config, phase 8's parameters and batch (float32, on ``device``)."""
+    cfg = tf.GPTConfig(**SP_CUT, dtype=torch.float32)
+    batch = data.synthetic_lm_batch(2, SP_CUT["max_seq"], cfg.vocab_size,
+                                    generator=torch.Generator().manual_seed(6), device=device)
+    return cfg, tf.init_params(cfg, 5), batch
+
+
+def _sp_rank(rank: int, world: int, init_method: str, out_path: str) -> None:
+    """A phase 14b rank: each mesh of SP_MESHES for two steps of the cut LM
+    in float32, gloo ranks sharing the card; rank 0 saves."""
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import data, train
+    from k8s_device_plugin_tpu_torch.models import transformer as tf
+    from k8s_device_plugin_tpu_torch.ops import flash_attention as fa
+    from k8s_device_plugin_tpu_torch.parallel import distributed, sequence, sharding
+    from k8s_device_plugin_tpu_torch.utils.device import fp32_reference_precision
+
+    fp32_reference_precision()
+    device = distributed.join_local(DEVICE, rank, world, init_method, "gloo")
+    results = []
+    try:
+        for axes, kind in SP_MESHES:
+            mesh = distributed.make_slice_mesh(axes, device_type=DEVICE)
+            fn = sequence.sp_attention_fn(mesh, kind=kind)
+            cfg, params, batch = sp_cut(torch, tf, data, device)
+            step, state = sequence.shard_train_step_sp(
+                train.make_train_step(), mesh, sp_fresh(torch, tf, train, cfg, params, device, fn))
+            batch = sequence.sp_batch_sharding(batch, mesh)
+            fa.reset_launches()
+            losses = []
+            for _ in range(2):
+                state, loss = step(state, batch)
+                losses.append(loss.item())
+            mine = {"launches_by_design": flash_launches(fa)[1], "sp_calls": dict(fn.sp.calls)}
+            every = [None] * world
+            torch.distributed.all_gather_object(every, mine)
+            full = sharding.gather_full_state(state.model)
+            results.append({"mesh": axes, "kind": kind, "losses": losses, "state_dict": full,
+                            "by_rank": every})
+            del state
+        if rank == 0:
+            torch.save(results, out_path)
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def start_phase_14b() -> dict:
+    """Start 14b's four gloo ranks (beside 11b's untimed ranks and 13d's);
+    :func:`run_phase_14` waits for them."""
+    import multiprocessing
+    import pathlib
+
+    out_path = pathlib.Path(__file__).resolve().parent / "build" / "sp_ranks.pt"
+    rendezvous = out_path.with_suffix(".rendezvous")
+    out_path.parent.mkdir(exist_ok=True)
+    out_path.unlink(missing_ok=True)
+    rendezvous.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    # A file rendezvous: no port picked beside 13d's, which starts just before.
+    init = f"file://{rendezvous}"
+    procs = [ctx.Process(target=_sp_rank, args=(r, 4, init, str(out_path))) for r in range(4)]
+    for p in procs:
+        p.start()
+    return {"procs": procs, "out_path": out_path, "t0": time.perf_counter()}
+
+
+def run_phase_14b(torch, fa, tf, train, data, started: dict) -> dict:
+    """14b: dp x sp (x tp) over four gloo ranks sharing the card, float32,
+    phase 8's cut: each mesh's two steps against two unsharded steps on the
+    card within TOL_DIST_F32 (relative); Ulysses's ranks launch kernels
+    2-4 as their FMA builds, the ring's none.  Arithmetic, not a speed."""
+    procs, out_path, t0 = started["procs"], started["out_path"], started["t0"]
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    if any(p.exitcode != 0 for p in procs):
+        fail(f"14b: the ranks exited with {[p.exitcode for p in procs]}")
+    runs = torch.load(out_path, weights_only=False)
+    cfg, params, batch = sp_cut(torch, tf, data, DEVICE)
+    fa.reset_launches()
+    step, state = train.make_train_step(), sp_fresh(torch, tf, train, cfg, params, DEVICE)
+    want_losses = []
+    for _ in range(2):
+        state, loss = step(state, batch)
+        want_losses.append(loss.item())
+    want = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    del state
+    out = {"ranks": 4, "backend": "gloo", "ranks_per_card": 4, "wall_s": wall,
+           "tolerance": TOL_DIST_F32, "gloo_not_carried": list(SP_GLOO_NOT_CARRIED),
+           "times": "staged through host memory by gloo: not a speed", "meshes": []}
+    for run in runs:
+        loss_err = max(_relative_errors(run["losses"], want_losses))
+        param_err = _max_rel_err(torch, run["state_dict"], want)
+        what = f"14b {run['kind']} {run['mesh']}"
+        if not loss_err <= TOL_DIST_F32 or not param_err <= TOL_DIST_F32:
+            fail(f"{what}: loss rel {loss_err}, params rel {param_err} (tolerance {TOL_DIST_F32})")
+        for rank, mine in enumerate(run["by_rank"]):
+            calls = mine["sp_calls"]
+            exchanges = calls.get("all_to_all", 0) + calls.get("ring_shift", 0)
+            if not exchanges or calls.get("host_staged", 0) != exchanges:
+                fail(f"{what} rank {rank}: {exchanges} exchanges, {calls.get('host_staged', 0)} "
+                     "staged through host memory: a gloo group stages every one")
+            for kernel, counts in mine["launches_by_design"].items():
+                if run["kind"] == "ulysses":
+                    expect_designs(counts, "fma", 2 * cfg.num_layers,
+                                   f"{what} rank {rank} {kernel}")
+                elif any(counts.values()):
+                    fail(f"{what} rank {rank}: the ring launched kernel {kernel}: {counts}")
+        out["meshes"].append({"mesh": run["mesh"], "kind": run["kind"], "losses": run["losses"],
+                              "loss_rel_err": loss_err, "param_rel_err": param_err,
+                              "by_rank": run["by_rank"]})
+    out["unsharded_losses"] = want_losses
+    log(f"phase 14b: {out}")
+    return out
+
+
+def run_phase_14(torch, fa, tf, train, data, smi, mark, started_14b: dict) -> dict:
+    """Phase 14: sequence-parallel LM training (14b's ranks started by
+    :func:`start_phase_14b`); the sp line."""
+    world_of_one = run_phase_14a(torch, fa, tf, train, data, smi)
+    mark("14a_sp_world_of_one")
+    shared = run_phase_14b(torch, fa, tf, train, data, started_14b)
+    mark("14b_sp_ranks")
+    return {"world_of_one": world_of_one, "dp_sp_tp": shared, "card": smi}
+
+
 def main() -> None:
     import torch
 
@@ -4741,9 +5063,13 @@ def main() -> None:
         row["lora_train_launches"] = lora_train["bf16"]["launches"][name]
     for row, kernel in ((flash_fma, "forward"), (dq_fma, "dq"), (dkv_fma, "dkv")):
         row["lora_fp32_launches"] = lora_train["card_vs_cpu"]["launches_by_design"][kernel]["fma"]
-    started_13d = {}
-    distributed, launches = run_phase_11(torch, fa, bench, smi, mark,
-                                         lambda: started_13d.update(start_phase_13d()))
+    started_13d, started_14b = {}, {}
+
+    def after_11a():
+        started_13d.update(start_phase_13d())
+        started_14b.update(start_phase_14b())
+
+    distributed, launches = run_phase_11(torch, fa, bench, smi, mark, after_11a)
     for row, name in ((flash, "flash_attention"), (dq, "flash_attention_bwd_dq"),
                       (dkv, "flash_attention_bwd_dkv")):
         row["distributed_launches"] = launches[name]
@@ -4766,6 +5092,14 @@ def main() -> None:
         row["moe_train_launches"] = moe_run["train"]["launches"][name]
     for row, kernel in ((flash_fma, "forward"), (dq_fma, "dq"), (dkv_fma, "dkv")):
         row["moe_fp32_launches"] = moe_run["card_vs_cpu"]["launches_by_design"][kernel]["fma"]
+    sp_run = run_phase_14(torch, fa, tf, train, data, smi, mark, started_14b)
+    for row, name in ((flash, "flash_attention"), (dq, "flash_attention_bwd_dq"),
+                      (dkv, "flash_attention_bwd_dkv")):
+        row["sp_ulysses_launches"] = sp_run["world_of_one"]["ulysses"]["launches"][name]
+    ulysses_ranks = next(m for m in sp_run["dp_sp_tp"]["meshes"] if m["kind"] == "ulysses")
+    for row, kernel in ((flash_fma, "forward"), (dq_fma, "dq"), (dkv_fma, "dkv")):
+        row["sp_fp32_launches_by_rank"] = [r["launches_by_design"][kernel]["fma"]
+                                           for r in ulysses_ranks["by_rank"]]
 
     for row, name in ((paged["f"], "paged_attention"), (flash, "flash_attention"),
                       (dq, "flash_attention_bwd_dq"), (dkv, "flash_attention_bwd_dkv")):
@@ -4792,6 +5126,7 @@ def main() -> None:
     print(json.dumps({"distributed": distributed}), flush=True)
     print(json.dumps({"tensor_parallel": tensor_parallel}), flush=True)
     print(json.dumps({"moe": moe_run}), flush=True)
+    print(json.dumps({"sp": sp_run}), flush=True)
     print(json.dumps({"phase_seconds": phase_s, "total_s": time.perf_counter() - t0,
                       "card": smi}), flush=True)
     print(json.dumps({

@@ -60,6 +60,16 @@ hook, for ``parallel/moe.py``): ``mlp_factory(device=, tp=, ep=)`` returns
 the module, registered under its ``NAME`` (``moe``: the state dict then
 holds ``layer_N.moe.router.kernel`` and ``layer_N.moe.experts_*``).
 
+``attention_fn`` overrides the core attention of the full-sequence forward
+(the reference's hook, for ``parallel/sequence.py``):
+``attention_fn(q, k, v, causal=True)`` on [batch, heads, seq, head_dim],
+kv repeated to the query heads unless the function has ``supports_gqa``;
+ignored on the cached paths, refused with ``attention_window``.  One rank
+of a sequence-parallel group holds a slice of the sequence: when the
+function has ``seq_offset(local_seq)``, the default positions start there,
+so RoPE rotates each rank's tokens at their global positions.  It adds no
+parameter.
+
 ``TransformerLM(config, train=True)`` is the training model: parameters in
 float32, cast to ``cfg.dtype`` at every dense site and at the embedding as
 flax casts its float32 params, with gradients on, and each block
@@ -480,9 +490,10 @@ def tiled_causal_attention(qh, kh, vh, window):
 
 
 class CausalSelfAttention(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None, tp=None):
+    def __init__(self, cfg: GPTConfig, device=None, tp=None, attention_fn=None):
         super().__init__()
         self.cfg = cfg
+        self.attention_fn = attention_fn
         d, hd = cfg.hidden_size, cfg.head_dim
         self.heads, kv_heads = tp_local(cfg, tp)[:2]
         # Row-parallel out: its partial sums are all-reduced over the group.
@@ -523,8 +534,26 @@ class CausalSelfAttention(nn.Module):
                 )
         else:
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            attn = tiled_causal_attention(qh, kh, vh, cfg.attention_window).transpose(1, 2)
+            if self.attention_fn is None:
+                attn = tiled_causal_attention(qh, kh, vh, cfg.attention_window)
+            else:
+                attn = self._custom_attention(qh, kh, vh)
+            attn = attn.transpose(1, 2)
         return row_reduce(self.out, site_call(self.out, attn, adapter_ids), self.reduce)
+
+    def _custom_attention(self, qh, kh, vh):
+        """``attention_fn`` on the full sequence, as the reference calls it."""
+        group = qh.shape[1] // kh.shape[1]
+        if group > 1 and not getattr(self.attention_fn, "supports_gqa", False):
+            kh, vh = kh.repeat_interleave(group, dim=1), vh.repeat_interleave(group, dim=1)
+        if self.cfg.attention_window is not None:
+            # The sp engines compute full causal attention; training full-window
+            # while decode masks to the window would be a train/inference
+            # mismatch.
+            raise ValueError(
+                "attention_window is not supported with a custom attention_fn (sequence-parallel "
+                "engines are full-causal); unset one of them")
+        return self.attention_fn(qh, kh, vh, causal=True)
 
     def _paged(self, q, k, v, positions, cache: PagedCache, layer: int):
         cfg = self.cfg
@@ -575,10 +604,11 @@ class SwiGluMlp(nn.Module):
 
 
 class DecoderBlock(nn.Module):
-    def __init__(self, cfg: GPTConfig, device=None, tp=None, mlp_factory=None, ep=None):
+    def __init__(self, cfg: GPTConfig, device=None, tp=None, mlp_factory=None, ep=None,
+                 attention_fn=None):
         super().__init__()
         self.attn_norm = RMSNorm(cfg.hidden_size, cfg.dtype, device=device)
-        self.attn = CausalSelfAttention(cfg, device, tp)
+        self.attn = CausalSelfAttention(cfg, device, tp, attention_fn)
         self.mlp_norm = RMSNorm(cfg.hidden_size, cfg.dtype, device=device)
         if mlp_factory is None:
             self.mlp = SwiGluMlp(cfg, device, tp)
@@ -614,10 +644,12 @@ class TransformerLM(nn.Module):
     this rank's ``TensorParallel`` group (load ``tensor.shard_state_dict``
     of the full parameters).  ``mlp_factory``: every block's MLP (see the
     module docstring; ``parallel/moe.moe_mlp_factory``), ``ep`` its
-    expert-parallel group (``moe.ExpertParallel``)."""
+    expert-parallel group (``moe.ExpertParallel``).  ``attention_fn``: the
+    full-sequence forward's attention (see the module docstring;
+    ``parallel/sequence.sp_attention_fn``)."""
 
     def __init__(self, config: GPTConfig, device=None, *, train: bool = False, tp=None,
-                 mlp_factory=None, ep=None):
+                 mlp_factory=None, ep=None, attention_fn=None):
         super().__init__()
         _check_supported(config)
         if tp is not None and train and (config.quant or config.lora_rank is not None):
@@ -629,13 +661,15 @@ class TransformerLM(nn.Module):
         self.train_mode = train
         self.tp = tp
         self.mlp_factory = mlp_factory
+        self.attention_fn = attention_fn
         dev = self.device
         vocab = tp_local(config, tp)[3]
         self.embed = Embed(vocab, config.hidden_size, config.dtype, dev,
                            tp=tp_split(config, tp, "vocab"),
                            offset=tp.rank * vocab if tp is not None else 0)
         for i in range(config.num_layers):
-            self.add_module(f"layer_{i}", DecoderBlock(config, dev, tp, mlp_factory, ep))
+            self.add_module(f"layer_{i}", DecoderBlock(config, dev, tp, mlp_factory, ep,
+                                                       attention_fn))
         self.final_norm = RMSNorm(config.hidden_size, config.dtype, device=dev)
         self.lm_head = dense_site(config, (config.hidden_size,), (vocab,), dev, torch.float32)
         # Column-parallel head: each rank's vocab columns, gathered.
@@ -652,7 +686,11 @@ class TransformerLM(nn.Module):
             raise ValueError(f"output must be logits|hidden, got {output!r}")
         seq_len = input_ids.shape[-1]
         if positions is None:
-            positions = torch.arange(seq_len, device=input_ids.device).expand(input_ids.shape)
+            start = 0
+            if cache is None and hasattr(self.attention_fn, "seq_offset"):
+                start = self.attention_fn.seq_offset(seq_len)
+            positions = torch.arange(start, start + seq_len,
+                                     device=input_ids.device).expand(input_ids.shape)
         if self.config.lora_serve and adapter_ids is None:
             adapter_ids = torch.full((input_ids.shape[0],), -1, device=input_ids.device)
         hidden = self.embed(input_ids)

@@ -193,12 +193,12 @@ _all_gather_single = getattr(torch.distributed, "all_gather_single", None) or ge
 
 
 class TensorParallel:
-    """One rank's view of a ``tp`` group: its size and rank, and the
-    collectives the sharded model runs on device tensors (c10d ops on the
-    group: NCCL on cards, where a CUDA graph captures them, gloo on the
-    CPU or on ranks sharing a card).  A group of one runs the same
-    collectives.  ``calls`` counts each kind as it is issued (a graph
-    capture counts what its replays run)."""
+    """One rank's view of a ``tp`` group (or of an ``ep`` or ``sp`` one):
+    its size and rank, and the collectives the sharded model runs on device
+    tensors (c10d ops on the group: NCCL on cards, where a CUDA graph
+    captures them, gloo on the CPU or on ranks sharing a card).  A group
+    of one runs the same collectives.  ``calls`` counts each kind as it is
+    issued (a graph capture counts what its replays run)."""
 
     def __init__(self, group, *, axis: str = "tp"):
         dist = torch.distributed
@@ -206,6 +206,7 @@ class TensorParallel:
         self.size = dist.get_world_size(group)
         self.rank = dist.get_rank(group)
         self.src = dist.get_global_rank(group, 0)  # the leader's global rank
+        self.backend = dist.get_backend(group)
         self.calls: Counter = Counter()
 
     @classmethod
@@ -261,6 +262,63 @@ class TensorParallel:
         torch.distributed.broadcast(x, self.src, group=self.group)
         return x
 
+    # The sequence-parallel exchanges (``parallel/ring.py``, ``ulysses.py``).
+    # gloo carries neither c10d's all-to-all nor its point-to-point ops on
+    # CUDA tensors (ranks sharing a card), so on a gloo group a CUDA
+    # tensor's exchange is staged through host memory, chosen by the
+    # backend and counted in ``calls["host_staged"]``; NCCL exchanges on
+    # the card.
+
+    def _staged(self, x: torch.Tensor) -> bool:
+        staged = x.is_cuda and self.backend == "gloo"
+        self.calls["host_staged"] += staged
+        return staged
+
+    def exchange(self, x: torch.Tensor) -> torch.Tensor:
+        """Chunk j of ``x`` (its first dimension, of the group's size) sent
+        to group rank j, and what rank j sent this rank in its place: the
+        reference's tiled ``lax.all_to_all``.  Its gradient is the same
+        exchange of the gradient."""
+        if torch.is_grad_enabled() and x.requires_grad:
+            return _Exchange.apply(x, self)
+        return self.all_to_all(x)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """c10d's ``all_to_all_single`` of ``x`` (equal chunks over its
+        first dimension)."""
+        self.calls["all_to_all"] += 1
+        staged = self._staged(x)
+        send = (x.cpu() if staged else x).contiguous()
+        out = torch.empty_like(send)
+        torch.distributed.all_to_all_single(out, send, group=self.group)
+        return out.to(x.device) if staged else out
+
+    def ring_shift(self, *xs: torch.Tensor) -> tuple:
+        """Each of ``xs`` sent to the next rank of the ring, ``(rank + 1) %
+        size``, and the previous rank's in its place: the reference's
+        ``lax.ppermute`` over ``[(i, (i + 1) % n)]``.  Its gradient goes
+        the other way round (ppermute's transpose)."""
+        if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+            return _Shift.apply(self, *xs)
+        return self.shift(xs, 1)
+
+    def shift(self, xs: tuple, step: int) -> tuple:
+        """Every tensor of ``xs`` sent ``step`` ranks round the ring in
+        one ``batch_isend_irecv`` (a ring of two ranks or more: c10d's
+        point-to-point ops refuse a send to oneself)."""
+        dist = torch.distributed
+        self.calls["ring_shift"] += 1
+        staged = self._staged(xs[0])
+        send = [(x.cpu() if staged else x).contiguous() for x in xs]
+        got = [torch.empty_like(x) for x in send]
+        dst = dist.get_global_rank(self.group, (self.rank + step) % self.size)
+        src = dist.get_global_rank(self.group, (self.rank - step) % self.size)
+        ops = [dist.P2POp(dist.isend, x, dst, self.group) for x in send]
+        ops += [dist.P2POp(dist.irecv, out, src, self.group) for out in got]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return tuple(out.to(x.device) if staged else out for out, x in zip(got, xs))
+
 
 class _Reduce(torch.autograd.Function):
     @staticmethod
@@ -281,6 +339,28 @@ class _Copy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return ctx.tp.all_reduce(grad.contiguous().clone()), None
+
+
+class _Exchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.all_to_all(grad), None
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, tp, *xs):
+        ctx.tp = tp
+        return tp.shift(xs, 1)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, *ctx.tp.shift(grads, -1))
 
 
 class _GatherLast(torch.autograd.Function):
@@ -364,23 +444,14 @@ def shard_train_step_tp(train_step, mesh, state, dp_axis: str = "dp", tp_axis: s
     ``(step, sharded_state)``; ``step(state, batch)`` takes this rank's
     rows (``sharding.shard_batch`` at ``sharding.dp_coordinate``: the batch
     splits over ``dp`` alone) and returns the global batch's mean loss."""
-    from ..models.train import TrainState
-    from ..models.transformer import TransformerLM
     from .moe import ExpertParallel
-    from .sharding import average_grads
 
     dist = torch.distributed
     names = tuple(mesh.mesh_dim_names)
     if names[0] != dp_axis:
         raise ValueError(f"the mesh's first axis must be {dp_axis!r}, got {names}")
-    if mesh.mesh.flatten().tolist() != list(range(dist.get_world_size())):
-        raise ValueError("the mesh must hold every rank in rank order (make_slice_mesh)")
-    if state.optimizer.state:
-        raise ValueError("shard a fresh train state; restore a checkpoint after sharding")
     sizes = dict(zip(names, (int(n) for n in mesh.mesh.shape)))
     coords = dict(zip(names, mesh.get_coordinate()))
-    model = state.model
-    tp = TensorParallel.from_mesh(mesh, tp_axis) if tp_axis in sizes else None
     ep = None
     if ep_axis in sizes:
         # The ep x tp ranks of each dp replica (new_group runs on every rank,
@@ -389,10 +460,36 @@ def shard_train_step_tp(train_step, mesh, state, dp_axis: str = "dp", tp_axis: s
                     for i in range(sizes[dp_axis])]
         ep = ExpertParallel(TensorParallel(replicas[coords[dp_axis]], axis=ep_axis),
                             sizes[ep_axis], coords[ep_axis])
+    return shard_lm_step(train_step, mesh, state, ep=ep, replicas=sizes[dp_axis],
+                         replica_group=mesh.get_group(dp_axis), dp_axis=dp_axis, tp_axis=tp_axis)
+
+
+def shard_lm_step(train_step, mesh, state, *, ep, replicas: int, replica_group,
+                  dp_axis: str = "dp", tp_axis: str = "tp"):
+    """What :func:`shard_train_step_tp` and ``sequence.shard_train_step_sp``
+    share: the LM rebuilt at this rank's widths over ``mesh``'s ``tp`` (and
+    ``ep``) and loaded with its chunks, keeping the model's MLP factory and
+    ``attention_fn``; the optimizer built anew; gradients averaged over the
+    ``replicas`` ranks of ``replica_group`` (the ranks that hold the same
+    chunks) before each update, and the step's loss their mean."""
+    from ..models.train import TrainState
+    from ..models.transformer import TransformerLM
+    from .sharding import average_grads
+
+    dist = torch.distributed
+    if mesh.mesh.flatten().tolist() != list(range(dist.get_world_size())):
+        raise ValueError("the mesh must hold every rank in rank order (make_slice_mesh)")
+    if state.optimizer.state:
+        raise ValueError("shard a fresh train state; restore a checkpoint after sharding")
+    names = tuple(mesh.mesh_dim_names)
+    sizes = dict(zip(names, (int(n) for n in mesh.mesh.shape)))
+    coords = dict(zip(names, mesh.get_coordinate()))
+    model = state.model
+    tp = TensorParallel.from_mesh(mesh, tp_axis) if tp_axis in sizes else None
     specs = tp_state_sharding(state, mesh, tp_axis)
     full = {name: p.detach() for name, p in model.named_parameters()}
     local = TransformerLM(model.config, device=model.device, train=True, tp=tp,
-                          mlp_factory=model.mlp_factory, ep=ep)
+                          mlp_factory=model.mlp_factory, ep=ep, attention_fn=model.attention_fn)
     local.load_state_dict(shard_for_mesh(full, sizes, coords, tp_axis))
     for name, p in local.named_parameters():
         p.tp_layout = MeshSplit(specs[name], sizes, coords, dp_axis)
@@ -402,17 +499,16 @@ def shard_train_step_tp(train_step, mesh, state, dp_axis: str = "dp", tp_axis: s
                    params=[params[by_param[p]] for p in g["params"]])
               for g in state.optimizer.param_groups]
     optimizer = type(state.optimizer)(groups)
-    dp_size = sizes[dp_axis]
-    dp_group = mesh.get_group(dp_axis)
-    if dp_size > 1:
+    if replicas > 1:
         plist = list(params.values())
-        optimizer.register_step_pre_hook(lambda *_: average_grads(plist, dp_size, dp_group))
+        optimizer.register_step_pre_hook(
+            lambda *_: average_grads(plist, replicas, replica_group))
     sharded = TrainState(step=state.step, model=local, optimizer=optimizer)
 
     def step(state, batch):
         state, loss = train_step(state, batch)
         loss = loss.clone()
-        dist.all_reduce(loss, group=dp_group)
-        return state, loss / dp_size
+        dist.all_reduce(loss, group=replica_group)
+        return state, loss / replicas
 
     return step, sharded

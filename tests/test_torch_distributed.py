@@ -8,10 +8,11 @@ replaced: the world is processes x local ranks and the rank host-major.
 Then a real two-"host" rendezvous on localhost: two processes, one gloo
 rank each, each deriving its group from its own env dict as a pod of
 ``deploy/k8s-job-resnet50-2host.yaml`` would, reduce a tensor and take two
-tiny-GPT steps at ``--dp -1 --mp 1`` (``tests/torch_ranks.py``: a free
-port, killed after 170 s), which equal the one-process steps on the same
-global batch: losses 1e-5 relative, parameters 1e-5 absolute (float32; the
-two ranks sum the gradient in another order).  The same spawn then takes
+tiny-GPT steps at ``--dp -1 --mp 1`` (``tests/torch_ranks.py``: a
+coordinator port that rank 0 binds and holds, killed 170 s after its
+turn), which equal the one-process steps on the same global batch: losses
+1e-5 relative, parameters 1e-5 absolute (float32; the two ranks sum the
+gradient in another order).  The same spawn then takes
 two steps at ``dp 1 x mp 2`` on a batch of 3, which ``dp`` divides and
 ``dp`` x ``mp`` does not: both ranks take every row, as the reference
 replicates the batch over ``mp``.
@@ -29,7 +30,7 @@ from k8s_device_plugin_tpu_torch.models import transformer as ttf
 from k8s_device_plugin_tpu_torch.parallel import distributed as tdist
 from k8s_device_plugin_tpu_torch.parallel import mesh as tmesh
 from k8s_device_plugin_tpu_torch.utils.device import resolve_device
-from tests.torch_ranks import Ranks, _model, free_port
+from tests.torch_ranks import Ranks, _model
 
 LOSS_RTOL = 1e-5
 ATOL = 1e-5
@@ -114,7 +115,7 @@ def test_initialize_forms_a_local_group_when_asked(fake_group):
 
 def test_world_of_one_meshes():
     """A real gloo group of one: the slice mesh and the allocation mesh."""
-    torch.distributed.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}",
+    torch.distributed.init_process_group("gloo", store=torch.distributed.HashStore(),
                                          world_size=1, rank=0)
     try:
         mesh = tdist.make_slice_mesh({"dp": -1, "mp": 1})
@@ -163,7 +164,7 @@ def two_hosts(tmp_path_factory):
     ids = torch.from_numpy(np.random.RandomState(3).randint(0, cfg.vocab_size, size=(4, 33)))
     batch = {"input_ids": ids[:, :-1].long(), "labels": ids[:, 1:].long()}
     odd = {k: v[:3] for k, v in batch.items()}
-    env = {"TPU_WORKER_HOSTNAMES": "localhost,localhost", "JAX_COORDINATOR_PORT": str(free_port())}
+    env = {"TPU_WORKER_HOSTNAMES": "localhost,localhost"}  # the port: bound by rank 0 at its turn
     case = {"kind": "gpt", "kwargs": kwargs, "state_dict": state_dict, "batch": batch,
             "input_key": "input_ids", "steps": 2}
     cases = [case, dict(case, batch=odd, mesh={"dp": 1, "mp": 2})]

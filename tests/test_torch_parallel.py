@@ -4,8 +4,8 @@ package's.
 The pure parts (the leaf rule, the mesh's axis rules, snake order, the
 allocation env readers) are compared case by case with the reference's
 functions.  The sharded step runs in one group of 4 gloo ranks for the
-whole module (``tests/torch_ranks.py``: its own free port, killed after
-170 s), at dp2 x mp2, and is held against the JAX package's
+whole module (``tests/torch_ranks.py``: a file rendezvous, killed 170 s
+after its turn), at dp2 x mp2, and is held against the JAX package's
 ``shard_train_step`` at the same mesh over 4 of conftest's 8 virtual CPU
 devices, from the same flax init (moved over by ``convert``) and the same
 numpy batch:

@@ -23,7 +23,6 @@ from k8s_device_plugin_tpu.models import transformer as jax_tf
 from k8s_device_plugin_tpu.parallel import tensor as jtensor
 from k8s_device_plugin_tpu_torch.models import transformer as ttf
 from k8s_device_plugin_tpu_torch.parallel import tensor as ttensor
-from tests.torch_ranks import free_port
 
 
 def _names(kind: str) -> dict:
@@ -90,8 +89,8 @@ def world_of_one():
 
     dist = torch.distributed
     assert not dist.is_initialized()
-    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
-                            rank=0, timeout=timedelta(seconds=60))
+    dist.init_process_group("gloo", store=dist.HashStore(), world_size=1, rank=0,
+                            timeout=timedelta(seconds=60))
     try:
         yield DeviceMesh("cpu", torch.tensor([0]), mesh_dim_names=("tp",))
     finally:

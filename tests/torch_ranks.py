@@ -1,18 +1,27 @@
 """Gloo ranks on the CPU for the port's multi-rank tests.
 
 :class:`Ranks` starts one process per rank (``python
-tests/torch_ranks.py <spec> <rank>``) on a free localhost port, and its
-``wait`` waits for all of them under one time limit, killing every one on
-a timeout or a failure, so no group outlives its test.  A rank joins the group through
-``parallel/distributed.initialize`` (from the spec's ``env`` when it has
-one: the multi-host derivation, one rank per "host"), and runs each case
-of ``spec["cases"]`` through ``parallel/sharding.shard_train_step`` over
-``make_slice_mesh`` of its mesh; rank 0 saves the results
-to ``spec["out"]``.  This file imports no JAX: the test modules hold the
-results against the JAX package.
+tests/torch_ranks.py <spec> <rank>``), and its ``wait`` waits for all of
+them under one time limit, killing every one on a timeout or a failure, so
+no group outlives its test.  At most :data:`GROUPS_AT_ONCE` groups of
+the suite run at a time, whatever the test workers run side by side
+(:func:`_take_turn`), and a group's time limit counts from its turn.  A
+rank joins the group through ``parallel/distributed.initialize``: through
+a file in the test's directory (``file://``), or from the spec's ``env``
+(the multi-host derivation, one rank per "host"; rank 0 binds the
+coordinator's port when the group's turn comes and holds it open until
+its group joins, :func:`_take_turn`).  No port is picked free, closed and
+handed out: another process could bind it in between.
+Each rank runs each case of ``spec["cases"]`` through
+``parallel/sharding.shard_train_step`` over ``make_slice_mesh`` of its
+mesh; rank 0 saves the results to ``spec["out"]``.  This file imports no
+JAX: the test modules hold the results against the JAX package.
 
-A case: ``kind`` ("gpt", "moe", "resnet", "alexnet") and ``kwargs`` of
-the port's model (built on the CPU; "moe" adds ``experts``), its starting
+A case: ``kind`` ("gpt", "moe", "sp", "resnet", "alexnet") and ``kwargs``
+of the port's model (built on the CPU; "moe" adds ``experts``; "sp" is the
+LM attending through ``parallel/sequence.sp_attention_fn`` of the case's
+mesh, its engine named by ``sp_kind``, trained through
+``shard_train_step_sp`` on ``sp_batch_sharding``'s part), its starting
 ``state_dict``, the global ``batch``, ``input_key``, ``steps`` and
 ``grad_accum``; optionally ``mesh`` (a layout of the same ranks in place
 of the spec's), ``tp`` (shard through ``parallel/tensor.shard_train_step_tp``
@@ -36,11 +45,12 @@ same way.
 
 from __future__ import annotations
 
+import fcntl
 import os
 import signal
-import socket
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -49,24 +59,74 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+# Rank groups of the suite that may run at once, each holding one lock
+# file: every group's ranks share the machine's cores and memory with the
+# test workers.
+GROUPS_AT_ONCE = 2
+# How long a group may wait for its turn.
+TURN_TIMEOUT_S = 600.0
+# Rank 0's coordinator store, bound before its port is handed out.
+_held = []
+
+
+def _coordinator_port(world: int) -> str:
+    """A port that rank 0's process holds from now on: a c10d store
+    listening on a port the kernel chose, kept for the process's life.
+    ``init_process_group``'s own store on that port then shares the
+    listener (c10d's stores are multi-tenant within a process), so no
+    other process can bind the port between its choice and its use."""
+    store = torch.distributed.TCPStore("127.0.0.1", 0, world, True, multi_tenant=True,
+                                       wait_for_workers=False)
+    _held.append(store)
+    return str(store.port)
+
+
+def _take_turn(spec: dict, rank: int) -> str:
+    """Rank 0 takes one of the suite's GROUPS_AT_ONCE lock files (in the
+    temp dir the test workers share) and holds it until its process ends
+    (the kernel drops an flock with its holder); then, for a spec with
+    ``env``, it binds the multi-host derivation's coordinator port
+    (:func:`_coordinator_port`), and writes the port ("" without ``env``)
+    to ``spec["turn"]``.  Every rank returns it, the others once the file
+    is there."""
+    turn = spec["turn"]
+    if rank == 0:
+        locks = [os.path.join(tempfile.gettempdir(), f"torch_ranks.{i}.lock")
+                 for i in range(GROUPS_AT_ONCE)]
+        fds = [os.open(path, os.O_CREAT | os.O_RDWR, 0o600) for path in locks]
+        while not os.path.exists(turn):
+            for fd in fds:
+                try:
+                    fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                except BlockingIOError:
+                    continue
+                with open(turn + ".tmp", "w") as f:
+                    f.write(_coordinator_port(spec["world"]) if spec.get("env") else "")
+                os.replace(turn + ".tmp", turn)
+                break
+            else:
+                time.sleep(0.1)
+    while not os.path.exists(turn):
+        time.sleep(0.05)
+    with open(turn) as f:
+        return f.read()
 
 
 class Ranks:
-    """``world`` rank processes on ``spec`` (``init_method`` and ``out``
-    filled in here), started at once; :meth:`wait` returns rank 0's
-    results."""
+    """``world`` rank processes on ``spec`` (``init_method``, ``turn`` and
+    ``out`` filled in here), started at once; :meth:`wait` returns rank
+    0's results."""
 
     def __init__(self, spec: dict, world: int, tmp_dir, timeout: float = 170.0):
-        self.spec = dict(spec, world=world, init_method=f"tcp://127.0.0.1:{free_port()}",
+        self.spec = dict(spec, world=world,
+                         init_method=f"file://{os.path.join(tmp_dir, 'rendezvous')}",
+                         turn=os.path.join(tmp_dir, "turn"),
                          out=os.path.join(tmp_dir, "results.pt"))
         spec_path = os.path.join(tmp_dir, "spec.pt")
         torch.save(self.spec, spec_path)
         env = dict(os.environ, PYTHONPATH=REPO)
-        self.deadline = time.monotonic() + timeout
+        self.timeout = timeout
+        self.deadline = time.monotonic() + TURN_TIMEOUT_S + timeout
         self.procs, self.logs = [], []
         try:
             for rank in range(world):
@@ -86,8 +146,12 @@ class Ranks:
                 p.wait()
 
     def wait(self):
+        started = False
         try:
             while any(p.poll() is None for p in self.procs):
+                if not started and os.path.exists(self.spec["turn"]):
+                    started = True
+                    self.deadline = time.monotonic() + self.timeout
                 if time.monotonic() > self.deadline or any(
                         p.poll() not in (None, 0) for p in self.procs):
                     break
@@ -105,8 +169,8 @@ class Ranks:
         return torch.load(self.spec["out"], weights_only=False)
 
 
-def _model(kind: str, kwargs: dict):
-    if kind in ("gpt", "moe"):
+def _model(kind: str, kwargs: dict, attention_fn=None):
+    if kind in ("gpt", "moe", "sp"):
         from k8s_device_plugin_tpu_torch.models.transformer import GPTConfig, TransformerLM
         from k8s_device_plugin_tpu_torch.parallel.moe import moe_mlp_factory
 
@@ -114,7 +178,8 @@ def _model(kind: str, kwargs: dict):
         experts = kwargs.pop("experts", None)
         cfg = GPTConfig(**kwargs)
         factory = moe_mlp_factory(cfg, experts) if kind == "moe" else None
-        return TransformerLM(cfg, device="cpu", train=True, mlp_factory=factory)
+        return TransformerLM(cfg, device="cpu", train=True, mlp_factory=factory,
+                             attention_fn=attention_fn)
     if kind == "resnet":
         from k8s_device_plugin_tpu_torch.models.resnet import ResNet18Thin
 
@@ -147,19 +212,25 @@ def _gather_recorded(model):
 
 def _run_case(case: dict, mesh, rank: int, world: int) -> dict:
     from k8s_device_plugin_tpu_torch.models import checkpoint, train
-    from k8s_device_plugin_tpu_torch.parallel import sharding, tensor
+    from k8s_device_plugin_tpu_torch.parallel import sequence, sharding, tensor
 
-    model = _model(case["kind"], case["kwargs"])
+    sp = case["kind"] == "sp"
+    attention_fn = sequence.sp_attention_fn(mesh, kind=case["sp_kind"]) if sp else None
+    model = _model(case["kind"], case["kwargs"], attention_fn)
     model.load_state_dict(case["state_dict"])
     state = train.state_for(model, 0.1, 0.9)
     grad_accum = case.get("grad_accum", 1)
-    shard = tensor.shard_train_step_tp if case.get("tp") else sharding.shard_train_step
+    shard = (sequence.shard_train_step_sp if sp else
+             tensor.shard_train_step_tp if case.get("tp") else sharding.shard_train_step)
     step, state = shard(
         train.make_train_step(case.get("aux_loss_coeff", 0.0), grad_accum=grad_accum,
                               input_key=case["input_key"]), mesh, state)
     if case.get("restore"):
         state = checkpoint.CheckpointManager(case["restore"]).restore(state)
-    batch = sharding.shard_batch(case["batch"], *sharding.dp_coordinate(mesh), grad_accum)
+    if sp:
+        batch = sequence.sp_batch_sharding(case["batch"], mesh)
+    else:
+        batch = sharding.shard_batch(case["batch"], *sharding.dp_coordinate(mesh), grad_accum)
     losses = []
     for _ in range(case["steps"]):
         state, loss = step(state, batch)
@@ -172,7 +243,7 @@ def _run_case(case: dict, mesh, rank: int, world: int) -> dict:
     numels = [None] * world
     torch.distributed.all_gather_object(numels, local)
     return {"losses": losses, "state_dict": full, "local_numel": numels, "step": state.step,
-            "received": received}
+            "received": received, "sp_calls": dict(attention_fn.sp.calls) if sp else None}
 
 
 def _tp_engine(sp: dict, mesh, rng):
@@ -374,9 +445,10 @@ def main(spec_path: str, rank: int) -> None:
     torch.set_num_threads(1)  # the ranks share the test machine's cores
     spec = torch.load(spec_path, weights_only=False)
     world = spec["world"]
+    port = _take_turn(spec, rank)
     timeout = timedelta(seconds=120)
     if spec.get("env"):
-        env = dict(spec["env"], TPU_WORKER_ID=str(rank))
+        env = dict(spec["env"], TPU_WORKER_ID=str(rank), JAX_COORDINATOR_PORT=port)
         assert distributed.initialize(env, backend="gloo", timeout=timeout)
     else:
         assert distributed.initialize({}, local_rank=rank, local_ranks=world, backend="gloo",
