@@ -306,7 +306,27 @@ Phases, in order (any failure exits non-zero):
    two unsharded steps on the card, every exchange staged through host
    memory (gloo carries neither all-to-all nor send/recv on CUDA tensors;
    chosen by the group's backend and counted), Ulysses's ranks launching
-   kernels 2-4 as their FMA builds (its ranks start beside 13d's).
+   kernels 2-4 as their FMA builds (its ranks start beside 13d's);
+15. pipeline-parallel LM training (``parallel/pipeline_lm.py``,
+   ``pipeline.py``, ``pipeline_1f1b.py``): 15a ``PipelinedLM`` at pp 1 over
+   an NCCL world of one at phase 7's width (b8 s1024, bf16, n_micro 4),
+   GPipe then 1F1B, 2 warm-up and 4 timed steps each, between two
+   unsharded runs from the same weights (moved through ``convert``'s
+   pipelined tree and back): every step's loss and the final parameters
+   within TOL_DIST_BF16, kernels 2-4 launched exactly 8 layers x 4
+   microbatches a step (kernel 2 twice that under 1F1B: its forward unit
+   and its recompute) as their ``wgmma`` variants, no transfer, each run's
+   step ms, tokens/s and peak allocated memory, 1F1B's peak below
+   GPipe's, and one traced step's device time and busy share; 15b phase
+   8's full width cut to 4 layers (seq 256, batch 8) at pp 4 over four
+   gloo ranks sharing the card, float32, two steps of each schedule
+   within TOL_DIST_F32 of two unsharded steps on the card,
+   every transfer staged through host memory and counted, each rank
+   launching kernels 2-4 as their FMA builds once per layer and active
+   unit (its ranks start beside 13d's and 14b's); 15c ``benchmark.launch``
+   at ``--model gpt --tiny --pp 2 --pp-schedule 1f1b --n-micro 4`` on two
+   gloo ranks sharing the card: one ``gpt-pp`` record with the reference's
+   keys.
 
 Then it prints one ``kernels`` JSON line (a row per kernel variant, each
 with its design, HGMMA count, registers and spill bytes; every number in
@@ -319,7 +339,8 @@ errors and the tiny phase 6), one
 (phase 9), one ``serving_bench``, one ``decode_bench`` and one
 ``lora_train`` line (phase 10), one ``distributed`` line (phase 11), one
 ``tensor_parallel`` line (phase 12), one ``moe`` line (phase 13), one
-``sp`` line (phase 14), one ``phase_seconds`` line, and last
+``sp`` line (phase 14), one ``pipeline`` line (phase 15), one
+``phase_seconds`` line, and last
 the line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
@@ -4911,6 +4932,285 @@ def run_phase_14(torch, fa, tf, train, data, smi, mark, started_14b: dict) -> di
     return {"world_of_one": world_of_one, "dp_sp_tp": shared, "card": smi}
 
 
+# ---------------------------------------------------------------- phase 15
+
+# 15a: phase 7's LM (SP_CFG, b8 s1024, bf16 compute, float32 parameters) at
+# pp 1 over an NCCL world of one, PP_WARMUP + PP_TIMED steps a run.
+PP_MICRO, PP_WARMUP, PP_TIMED = 4, 2, 4
+PP_SCHEDULES = ("gpipe", "1f1b")
+# Kernel 2's launches a layer and microbatch in one step: 1F1B's forward
+# unit runs the stage without autograd and its backward unit again under it.
+PP_FORWARDS = {"gpipe": 1, "1f1b": 2}
+# 15b: phase 8's full width cut to 4 layers (seq 256, batch 8), float32, pp 4
+# over four gloo ranks sharing the card, two steps of each schedule.
+PP_CUT = dict(SP_CFG, num_layers=4, max_seq=256)
+PP_CUT_BATCH, PP_RANKS, PP_CUT_STEPS = 8, 4, 2
+# 15c: the CLI's pipelined path on two gloo ranks sharing the card, at the
+# tiny config (bf16: its transfers are staged bf16 tensors).
+PP_CLI_FLAGS = ["--model=gpt", "--tiny", "--pp=2", "--pp-schedule=1f1b", "--n-micro=4",
+                "--batch-size=8", "--seq-len=64", "--steps=2", "--warmup=1"]
+# The reference's gpt-pp record (k8s_device_plugin_tpu/models/benchmark.py
+# run_pipelined), plus the port's ``device``.
+GPT_PP_KEYS = {"model", "schedule", "chips", "pp", "n_micro", "global_batch", "throughput",
+               "unit", "step_time_ms", "final_loss", "device"}
+
+
+def pp_steps(torch, step, state, batch) -> tuple:
+    """PP_WARMUP then PP_TIMED steps from a fresh peak-memory count: every
+    step's loss, ms a step and tokens/s over the timed ones, the peak
+    allocated bytes and those allocated at the start; the final state dict
+    on the host; and the state."""
+    torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
+    losses = []
+    for _ in range(PP_WARMUP):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PP_TIMED):
+        state, loss = step(state, batch)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / PP_TIMED
+    run = {"losses": [l.item() for l in losses], "step_time_ms": step_s * 1e3,
+           "tokens_per_s": batch["input_ids"].numel() / step_s,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "memory_allocated_at_start": at_start}
+    return run, {k: v.detach().cpu() for k, v in state.model.state_dict().items()}, state
+
+
+def run_phase_15a(torch, fa, tf, train, data, smi) -> dict:
+    """15a: ``PipelinedLM`` at pp 1 over an NCCL world of one, GPipe then
+    1F1B, between two unsharded runs from the same weights (moved through
+    ``convert``'s pipelined tree and back) at phase 7's width: every
+    step's loss and the final parameters within TOL_DIST_BF16, kernels 2-4
+    launched exactly per layer and active unit on ``wgmma``, no transfer,
+    and 1F1B's peak memory below GPipe's; then one traced step of each run
+    (wall and device ms, busy share)."""
+    from k8s_device_plugin_tpu_torch import convert
+    from k8s_device_plugin_tpu_torch.parallel import distributed
+    from k8s_device_plugin_tpu_torch.parallel.pipeline_lm import PipelinedLM
+
+    cfg = tf.GPTConfig(**SP_CFG, dtype=torch.bfloat16)
+    params = tf.init_params(cfg, 15)
+    staged = convert.pipelined_flax_to_state_dict(convert.pipelined_state_dicts_to_flax([params]),
+                                                  stage=0)
+    if set(staged) != set(params) or not all(torch.equal(staged[k], params[k]) for k in params):
+        fail("15a: the LM's weights did not come back whole through the pipelined tree")
+    batch = data.synthetic_lm_batch(SP_BATCH, SP_SEQ, cfg.vocab_size,
+                                    generator=torch.Generator(device=DEVICE).manual_seed(15),
+                                    device=DEVICE)
+
+    def unsharded():
+        step = train.make_train_step()
+        run, got, state = pp_steps(torch, step, sp_fresh(torch, tf, train, cfg, params, DEVICE),
+                                   batch)
+        run["profiled_step"] = sp_profiled(torch, step, state, batch)
+        del state
+        torch.cuda.empty_cache()
+        return run, got
+
+    dense, want = unsharded()
+    steps = PP_WARMUP + PP_TIMED
+    runs = {}
+    distributed.join_local(DEVICE, 0, 1, distributed.local_init_method(), "nccl")
+    try:
+        mesh = distributed.make_slice_mesh({"pp": 1}, device_type=DEVICE)
+        for schedule in PP_SCHEDULES:
+            plm = PipelinedLM(cfg, mesh, PP_MICRO, device=DEVICE)
+            plm.load_state_dict(staged)
+            state = plm.create_train_state(0.1, 0.9)
+            step = plm.make_train_step(schedule)
+            fa.reset_launches()
+            run, got, state = pp_steps(torch, step, state, batch)
+            launches, by_design = flash_launches(fa)
+            run.update(launches=launches, launches_by_design=by_design, calls=dict(plm.pp.calls),
+                       loss_rel_err=max(_relative_errors(run["losses"], dense["losses"])),
+                       param_rel_err=_max_rel_err(torch, got, want),
+                       profiled_step=sp_profiled(torch, step, state, batch))
+            del plm, state, step
+            torch.cuda.empty_cache()
+            what = f"15a {schedule}"
+            if run["calls"]:
+                fail(f"{what}: a stage of one made {run['calls']}: no transfer was due")
+            if not (run["loss_rel_err"] <= TOL_DIST_BF16 and run["param_rel_err"] <= TOL_DIST_BF16):
+                fail(f"{what}: loss rel {run['loss_rel_err']}, params rel {run['param_rel_err']} "
+                     f"(tolerance {TOL_DIST_BF16})")
+            units = cfg.num_layers * PP_MICRO * steps
+            want_launches = {"forward": PP_FORWARDS[schedule] * units, "dq": units, "dkv": units}
+            for kernel, counts in by_design.items():
+                expect_designs(counts, "wgmma", want_launches[kernel], f"{what}'s {kernel} kernel")
+            runs[schedule] = run
+            log(f"phase 15a {schedule}: {run}")
+    finally:
+        torch.distributed.destroy_process_group()
+    again = unsharded()[0]
+    dense["step_time_ms_after"] = again["step_time_ms"]
+    if not runs["1f1b"]["max_memory_allocated"] < runs["gpipe"]["max_memory_allocated"]:
+        fail(f"15a: 1F1B's peak {runs['1f1b']['max_memory_allocated']} B is not below GPipe's "
+             f"{runs['gpipe']['max_memory_allocated']} B")
+    return {"config": f"{SP_CFG}, bf16 compute, float32 params, SGD 0.1/0.9, batch {SP_BATCH}, "
+                      f"seq {SP_SEQ}, n_micro {PP_MICRO}, {steps} steps ({PP_WARMUP} warm-up)",
+            "pp": 1, "backend": "nccl", "unsharded": dense, **runs,
+            "tolerance": TOL_DIST_BF16, "card": smi}
+
+
+def pp_cut(torch, tf, data, device):
+    """15b's config, weights and batch (float32, on ``device``)."""
+    cfg = tf.GPTConfig(**PP_CUT, dtype=torch.float32)
+    batch = data.synthetic_lm_batch(PP_CUT_BATCH, PP_CUT["max_seq"], cfg.vocab_size,
+                                    generator=torch.Generator().manual_seed(15), device=device)
+    return cfg, tf.init_params(cfg, 15), batch
+
+
+def _pp_rank(rank: int, world: int, init_method: str, out_path: str) -> None:
+    """A phase 15b rank: stage ``rank`` of the cut LM at pp 4, two steps of
+    each schedule in float32, gloo ranks sharing the card; rank 0 saves."""
+    import torch
+
+    from k8s_device_plugin_tpu_torch.models import data
+    from k8s_device_plugin_tpu_torch.models import transformer as tf
+    from k8s_device_plugin_tpu_torch.ops import flash_attention as fa
+    from k8s_device_plugin_tpu_torch.parallel import distributed
+    from k8s_device_plugin_tpu_torch.parallel.pipeline_lm import PipelinedLM
+    from k8s_device_plugin_tpu_torch.utils.device import fp32_reference_precision
+
+    fp32_reference_precision()
+    device = distributed.join_local(DEVICE, rank, world, init_method, "gloo")
+    results = {}
+    try:
+        mesh = distributed.make_slice_mesh({"pp": world}, device_type=DEVICE)
+        cfg, params, batch = pp_cut(torch, tf, data, device)
+        for schedule in PP_SCHEDULES:
+            plm = PipelinedLM(cfg, mesh, PP_MICRO, device=device)
+            plm.load_state_dict(params)
+            state, step = plm.create_train_state(0.1, 0.9), plm.make_train_step(schedule)
+            fa.reset_launches()
+            losses = []
+            for _ in range(PP_CUT_STEPS):
+                state, loss = step(state, batch)
+                losses.append(loss.item())
+            mine = {"stage": plm.stage, "launches_by_design": flash_launches(fa)[1],
+                    "calls": dict(plm.pp.calls),
+                    "state_dict": {k: v.detach().cpu() for k, v in plm.state_dict().items()}}
+            every = [None] * world
+            torch.distributed.all_gather_object(every, mine)
+            results[schedule] = {"losses": losses, "by_rank": every}
+            del plm, state, step
+        if rank == 0:
+            torch.save(results, out_path)
+        torch.distributed.barrier()
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def start_phase_15b() -> dict:
+    """Start 15b's four gloo ranks (beside 13d's and 14b's);
+    :func:`run_phase_15` waits for them."""
+    import multiprocessing
+    import pathlib
+
+    out_path = pathlib.Path(__file__).resolve().parent / "build" / "pp_ranks.pt"
+    rendezvous = out_path.with_suffix(".rendezvous")
+    out_path.parent.mkdir(exist_ok=True)
+    out_path.unlink(missing_ok=True)
+    rendezvous.unlink(missing_ok=True)
+    ctx = multiprocessing.get_context("spawn")
+    init = f"file://{rendezvous}"
+    procs = [ctx.Process(target=_pp_rank, args=(r, PP_RANKS, init, str(out_path)))
+             for r in range(PP_RANKS)]
+    for p in procs:
+        p.start()
+    return {"procs": procs, "out_path": out_path, "t0": time.perf_counter()}
+
+
+def run_phase_15b(torch, fa, tf, train, data, started: dict) -> dict:
+    """15b: pp 4 over four gloo ranks sharing the card, float32, GPipe and
+    1F1B: each schedule's two steps against two unsharded steps on the card
+    within TOL_DIST_F32 (relative), every transfer staged through host
+    memory, each rank launching kernels 2-4 as their FMA builds once per
+    layer and active unit.  Arithmetic, not a speed."""
+    procs, out_path, t0 = started["procs"], started["out_path"], started["t0"]
+    for p in procs:
+        p.join(600)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    if any(p.exitcode != 0 for p in procs):
+        fail(f"15b: the ranks exited with {[p.exitcode for p in procs]}")
+    runs = torch.load(out_path, weights_only=False)
+    cfg, params, batch = pp_cut(torch, tf, data, DEVICE)
+    step, state = train.make_train_step(), sp_fresh(torch, tf, train, cfg, params, DEVICE)
+    want_losses = []
+    for _ in range(PP_CUT_STEPS):
+        state, loss = step(state, batch)
+        want_losses.append(loss.item())
+    want = {k: v.detach().cpu() for k, v in state.model.state_dict().items()}
+    del state
+    layers = cfg.num_layers // PP_RANKS
+    out = {"ranks": PP_RANKS, "pp": PP_RANKS, "backend": "gloo", "wall_s": wall,
+           "config": f"{PP_CUT}, float32, batch {PP_CUT_BATCH}, n_micro {PP_MICRO}, "
+                     f"{PP_CUT_STEPS} steps", "tolerance": TOL_DIST_F32,
+           "times": "staged through host memory by gloo: not a speed", "schedules": {}}
+    for schedule, run in runs.items():
+        what = f"15b {schedule}"
+        got = {}
+        for mine in run["by_rank"]:
+            got.update(mine["state_dict"])
+        loss_err = max(_relative_errors(run["losses"], want_losses))
+        param_err = _max_rel_err(torch, got, want)
+        if not loss_err <= TOL_DIST_F32 or not param_err <= TOL_DIST_F32:
+            fail(f"{what}: loss rel {loss_err}, params rel {param_err} (tolerance {TOL_DIST_F32})")
+        units = layers * PP_MICRO * PP_CUT_STEPS
+        for rank, mine in enumerate(run["by_rank"]):
+            calls = mine["calls"]
+            if not calls.get("p2p") or calls.get("host_staged") != calls["p2p"]:
+                fail(f"{what} rank {rank}: {calls.get('p2p')} transfers, "
+                     f"{calls.get('host_staged')} staged through host memory: gloo stages "
+                     "every one")
+            want_launches = {"forward": PP_FORWARDS[schedule] * units, "dq": units, "dkv": units}
+            for kernel, counts in mine["launches_by_design"].items():
+                expect_designs(counts, "fma", want_launches[kernel], f"{what} rank {rank} {kernel}")
+        out["schedules"][schedule] = {
+            "losses": run["losses"], "loss_rel_err": loss_err, "param_rel_err": param_err,
+            "by_rank": [{k: v for k, v in mine.items() if k != "state_dict"}
+                        for mine in run["by_rank"]]}
+    out["unsharded_losses"] = want_losses
+    log(f"phase 15b: {out}")
+    return out
+
+
+def run_phase_15c(torch, bench) -> dict:
+    """15c: ``benchmark.launch`` at PP_CLI_FLAGS on two gloo ranks sharing
+    the card: one record with the reference's gpt-pp keys, finite loss."""
+    got = bench.launch(bench.parse_args(PP_CLI_FLAGS), backend="gloo", local_ranks=2)
+    record = got.record
+    if set(record) != GPT_PP_KEYS:
+        fail(f"15c: the gpt-pp record's keys are {sorted(record)}, not {sorted(GPT_PP_KEYS)}")
+    want = {"model": "gpt-pp", "schedule": "1f1b", "pp": 2, "n_micro": 4, "chips": 2,
+            "global_batch": 8, "device": torch.cuda.get_device_name(0)}
+    if {k: record[k] for k in want} != want or not math.isfinite(record["final_loss"]):
+        fail(f"15c: the gpt-pp record is {record}")
+    log(f"phase 15c: {record}")
+    return {"flags": PP_CLI_FLAGS, "backend": "gloo", "ranks_per_card": 2, "record": record,
+            "losses": got.losses, "times": "staged through host memory by gloo: not a speed"}
+
+
+def run_phase_15(torch, fa, tf, train, data, bench, smi, mark, started_15b: dict) -> dict:
+    """Phase 15: pipeline-parallel LM training (15b's ranks started by
+    :func:`start_phase_15b`); the pipeline line."""
+    world_of_one = run_phase_15a(torch, fa, tf, train, data, smi)
+    mark("15a_pp_world_of_one")
+    shared = run_phase_15b(torch, fa, tf, train, data, started_15b)
+    mark("15b_pp_ranks")
+    cli = run_phase_15c(torch, bench)
+    mark("15c_pp_cli")
+    return {"world_of_one": world_of_one, "pp4_shared_card": shared, "cli": cli, "card": smi}
+
+
 def main() -> None:
     import torch
 
@@ -5063,11 +5363,12 @@ def main() -> None:
         row["lora_train_launches"] = lora_train["bf16"]["launches"][name]
     for row, kernel in ((flash_fma, "forward"), (dq_fma, "dq"), (dkv_fma, "dkv")):
         row["lora_fp32_launches"] = lora_train["card_vs_cpu"]["launches_by_design"][kernel]["fma"]
-    started_13d, started_14b = {}, {}
+    started_13d, started_14b, started_15b = {}, {}, {}
 
     def after_11a():
         started_13d.update(start_phase_13d())
         started_14b.update(start_phase_14b())
+        started_15b.update(start_phase_15b())
 
     distributed, launches = run_phase_11(torch, fa, bench, smi, mark, after_11a)
     for row, name in ((flash, "flash_attention"), (dq, "flash_attention_bwd_dq"),
@@ -5100,6 +5401,16 @@ def main() -> None:
     for row, kernel in ((flash_fma, "forward"), (dq_fma, "dq"), (dkv_fma, "dkv")):
         row["sp_fp32_launches_by_rank"] = [r["launches_by_design"][kernel]["fma"]
                                            for r in ulysses_ranks["by_rank"]]
+    pp_run = run_phase_15(torch, fa, tf, train, data, bench, smi, mark, started_15b)
+    for row, name in ((flash, "flash_attention"), (dq, "flash_attention_bwd_dq"),
+                      (dkv, "flash_attention_bwd_dkv")):
+        for schedule in PP_SCHEDULES:
+            row[f"pp_{schedule}_launches"] = pp_run["world_of_one"][schedule]["launches"][name]
+    for row, kernel in ((flash_fma, "forward"), (dq_fma, "dq"), (dkv_fma, "dkv")):
+        for schedule in PP_SCHEDULES:
+            row[f"pp4_{schedule}_fp32_launches_by_rank"] = [
+                r["launches_by_design"][kernel]["fma"]
+                for r in pp_run["pp4_shared_card"]["schedules"][schedule]["by_rank"]]
 
     for row, name in ((paged["f"], "paged_attention"), (flash, "flash_attention"),
                       (dq, "flash_attention_bwd_dq"), (dkv, "flash_attention_bwd_dkv")):
@@ -5127,6 +5438,7 @@ def main() -> None:
     print(json.dumps({"tensor_parallel": tensor_parallel}), flush=True)
     print(json.dumps({"moe": moe_run}), flush=True)
     print(json.dumps({"sp": sp_run}), flush=True)
+    print(json.dumps({"pipeline": pp_run}), flush=True)
     print(json.dumps({"phase_seconds": phase_s, "total_s": time.perf_counter() - t0,
                       "card": smi}), flush=True)
     print(json.dumps({

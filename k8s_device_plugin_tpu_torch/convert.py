@@ -19,6 +19,11 @@ optax's SGD momentum ``trace`` (``opt_state[0].trace`` of ``optax.sgd(lr,
 momentum)``), which lands in ``torch.optim.SGD``'s
 ``state[p]["momentum_buffer"]``; without it SGD would restart the trace
 from the gradient.
+
+A ``PipelinedLM`` tree (``parallel/pipeline_lm.py``) maps to the unsharded
+LM's names, stage ``s``'s ``block_i`` to ``layer_{s*k+i}``
+(:func:`pipelined_flax_to_state_dict`), and back from the ranks' states
+(:func:`pipelined_state_dicts_to_flax`).
 """
 
 from __future__ import annotations
@@ -80,6 +85,63 @@ def state_dict_to_flax(state: Mapping) -> dict:
         node[leaf] = np.ascontiguousarray(
             (value.float() if value.is_floating_point() else value).numpy())
     return tree
+
+
+def _stage_of(name: str, n_stages: int, layers_per_stage: int) -> int:
+    """The pipeline stage that holds LM parameter ``name``: the embedding
+    the first, the final norm and head the last, ``layer_j`` stage ``j //
+    layers_per_stage``."""
+    top = name.split(".", 1)[0]
+    if top == "embed":
+        return 0
+    if top.startswith("layer_"):
+        return int(top[len("layer_"):]) // layers_per_stage
+    return n_stages - 1
+
+
+def pipelined_flax_to_state_dict(params: Mapping, stage: Optional[int] = None) -> dict:
+    """A ``PipelinedLM`` parameter tree (numpy leaves: ``embed``, ``stages``
+    with a leading stage dimension, ``head``) in ``TransformerLM``'s state
+    dict names: stage ``s``'s ``block_i`` becomes ``layer_{s*k+i}`` (``k``
+    blocks a stage), so the same weights load into the unsharded LM.  With
+    ``stage``, only what that stage's rank holds
+    (``parallel/pipeline_lm.PipelinedLM``)."""
+    blocks = params["stages"]
+    k = len(blocks)
+    n_stages = len(np.asarray(blocks["block_0"]["attn_norm"]["scale"]))
+    tree = {"embed": params["embed"]["embed"], **params["head"]}
+    for s in range(n_stages):
+        for i in range(k):
+            tree[f"layer_{s * k + i}"] = _map(lambda a: np.asarray(a)[s], blocks[f"block_{i}"])
+    flat = flax_to_state_dict(tree)
+    if stage is None:
+        return flat
+    return {name: v for name, v in flat.items() if _stage_of(name, n_stages, k) == stage}
+
+
+def pipelined_state_dicts_to_flax(states: list) -> dict:
+    """The inverse of :func:`pipelined_flax_to_state_dict`: every rank's
+    state dict, in stage order, gathered into the reference's
+    ``PipelinedLM`` tree of float32 numpy leaves (``len(states)`` stages)."""
+    merged = {}
+    for state in states:
+        merged.update(state)
+    tree = state_dict_to_flax(merged)
+    n_stages = len(states)
+    layers = sum(key.startswith("layer_") for key in tree)
+    k = layers // n_stages
+    stages = {f"block_{i}": _map(lambda *a: np.stack(a),
+                                 *[tree[f"layer_{s * k + i}"] for s in range(n_stages)])
+              for i in range(k)}
+    return {"embed": {"embed": tree["embed"]}, "stages": stages,
+            "head": {"final_norm": tree["final_norm"], "lm_head": tree["lm_head"]}}
+
+
+def _map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure."""
+    if isinstance(trees[0], Mapping):
+        return {key: _map(fn, *(t[key] for t in trees)) for key in trees[0]}
+    return fn(*trees)
 
 
 def load_flax_train_state(state, params: Mapping, batch_stats: Optional[Mapping] = None,

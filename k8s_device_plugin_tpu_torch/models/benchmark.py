@@ -39,12 +39,25 @@ or the ``JAX_*`` overrides: ``parallel/distributed.py``) numbers its ranks
 host-major.  ``--device cpu`` runs dp·mp gloo ranks (``--dp -1`` counting
 as 1).  The global batch must divide over the ``dp`` replicas (times
 ``--grad-accum``); the ``mp`` ranks of one take the same rows.  The record counts every rank in ``chips`` and prints
-once per host.  ``--pp`` is not ported (ROADMAP.md queue 1 item 7)::
+once per host::
 
     python -m k8s_device_plugin_tpu_torch.models.benchmark --model bert \
         --batch-size 64 --seq-len 384 --dp 2 --mp 4
     python -m k8s_device_plugin_tpu_torch.models.benchmark --model vit --tiny \
         --device cpu --dtype float32 --dp 2 --mp 2 --batch-size 4 --steps 2 --warmup 1
+
+``--pp N`` (N > 1, ``--model gpt``) trains the decoder LM through the
+pipelined path instead (:func:`run_pipelined`, ``parallel/pipeline_lm.py``):
+N ranks on one host, one stage each on its own card (``--device cpu``: N
+gloo ranks), with ``--pp-schedule gpipe|1f1b`` over ``--n-micro``
+microbatches a step; it prints the reference's ``gpt-pp`` record (plus
+``device``) once::
+
+    python -m k8s_device_plugin_tpu_torch.models.benchmark --model gpt --pp 8 \
+        --pp-schedule 1f1b --n-micro 16 --batch-size 64 --seq-len 1024
+    python -m k8s_device_plugin_tpu_torch.models.benchmark --model gpt --tiny \
+        --device cpu --dtype float32 --pp 2 --pp-schedule 1f1b --batch-size 8 \
+        --seq-len 32 --steps 2 --warmup 1
 
 The inference modes print the reference's records, key for key::
 
@@ -211,7 +224,14 @@ def parse_args(argv=None):
     p.add_argument("--warmup", type=_positive_int, default=5)
     p.add_argument("--dp", type=int, default=-1, help="data-parallel axis size (-1: all devices)")
     p.add_argument("--mp", type=int, default=1, help="param-sharding axis size")
-    p.add_argument("--pp", type=int, default=0, help="pipeline stages (not ported: 0 or 1)")
+    p.add_argument("--pp", type=int, default=0,
+                   help="pipeline stages (gpt only): run the decoder through the pipelined-LM "
+                   "path over a pp mesh axis instead of dp/mp")
+    p.add_argument("--pp-schedule", choices=["gpipe", "1f1b"], default="gpipe",
+                   help="pipeline schedule (with --pp): gpipe (autodiff backward) or 1f1b "
+                   "(interleaved, O(stages) activation memory)")
+    p.add_argument("--n-micro", type=_positive_int, default=4,
+                   help="microbatches per step in the pipelined path (with --pp)")
     p.add_argument("--stem", choices=["conv7", "space_to_depth"], default="conv7",
                    help="resnet50 stem: the 7x7/s2 conv or the space-to-depth packing")
     p.add_argument("--fused-xent", action="store_true",
@@ -261,11 +281,21 @@ def parse_args(argv=None):
     if args.model == "gpt-decode" and args.grad_accum > 1:
         p.error("--grad-accum applies to training; gpt-decode does not train (as in the "
                 "reference)")
+    if args.grad_accum > 1 and args.pp > 1:
+        p.error("--grad-accum applies to the standard train step only (the fused-xent and "
+                "pipelined steps manage their own microbatching, and gpt-decode does not "
+                "train)")
     if args.batch_size % args.grad_accum:
         p.error(f"--batch-size {args.batch_size} is not divisible by --grad-accum "
                 f"{args.grad_accum}")
-    if args.pp > 1:
-        p.error(f"--pp {args.pp}: the pipeline is not ported yet (ROADMAP.md queue 1 item 7)")
+    if args.fused_xent and args.pp > 1:
+        p.error("--fused-xent is not supported with --pp (the pipelined LM head runs inside "
+                "the 1F1B/GPipe objective); drop one of the flags")
+    if args.pp > 1 and args.model not in ("gpt", "gpt-decode", "serving"):
+        p.error("--pp requires --model gpt (the pipelined decoder)")
+    if args.pp > 1 and args.checkpoint_dir:
+        p.error("--checkpoint-dir is not supported with --pp (the pipelined path saves no "
+                "checkpoint, as in the reference); drop one of the flags")
     return args
 
 
@@ -419,9 +449,11 @@ class DistributedRun(NamedTuple):
 
 def local_rank_count(args) -> int:
     """Ranks on this host: one per visible card, or on ``--device cpu``
-    dp·mp (-1 counting as 1)."""
+    ``pp`` past 1, else dp·mp (-1 counting as 1)."""
     if resolve_device(args.device).type == "cuda":
         return torch.cuda.device_count()
+    if args.pp > 1:
+        return args.pp
     return max(args.dp, 1) * max(args.mp, 1)
 
 
@@ -430,10 +462,13 @@ def check_layout(args, local_ranks: int) -> int:
     ``--dp``/``--mp`` do not lay out the slice's ranks or the global batch
     does not split over the ``dp`` replicas (the ``mp`` ranks of one take
     the same rows, as the reference replicates the batch over ``mp``);
-    returns the world size."""
+    under ``--pp`` past 1, when its stages do not fit the devices or the
+    model (:func:`check_pipeline`).  Returns the world size."""
     from ..parallel import distributed
     from ..parallel.mesh import mesh_shape
 
+    if args.pp > 1:
+        return check_pipeline(args, local_ranks)
     try:
         config = distributed.process_group_from_env()
         world = (config.num_processes if config else 1) * local_ranks
@@ -448,6 +483,30 @@ def check_layout(args, local_ranks: int) -> int:
     return world
 
 
+def check_pipeline(args, local_ranks: int) -> int:
+    """The reference's refusals of ``--pp``: fewer devices than stages, and
+    layers the stages do not split; and a global batch ``--n-micro`` does
+    not split, before a rank raises it.  The stages run on one host's
+    devices.  Returns the device count."""
+    from ..parallel import distributed
+
+    try:
+        multi_host = distributed.process_group_from_env() is not None
+    except ValueError as e:
+        raise SystemExit(str(e))
+    if multi_host:
+        raise SystemExit(f"--pp {args.pp}: the pipelined path runs its stages on one host's "
+                         "devices; this pod is part of a multi-host slice")
+    if local_ranks < args.pp:
+        raise SystemExit(f"--pp {args.pp} but only {local_ranks} device(s)")
+    layers = gpt_config(args).num_layers
+    if layers % args.pp:
+        raise SystemExit(f"num_layers {layers} not divisible by --pp {args.pp}")
+    if args.batch_size % args.n_micro:
+        raise SystemExit(f"batch {args.batch_size} not divisible by n_micro={args.n_micro}")
+    return local_ranks
+
+
 def launch(args, *, backend: Optional[str] = None, local_ranks: Optional[int] = None,
            model_fn: Optional[Callable] = None, gather_params: bool = False) -> DistributedRun:
     """Train ``args`` on every local rank: in this process when there is
@@ -456,26 +515,31 @@ def launch(args, *, backend: Optional[str] = None, local_ranks: Optional[int] = 
     (default NCCL on cards, gloo on the CPU) and ``local_ranks`` (default
     :func:`local_rank_count`) let ranks share one card over gloo;
     ``model_fn(device=...)`` (picklable) stands in for the model
-    ``--model`` names.  Returns local rank 0's :class:`DistributedRun`."""
+    ``--model`` names.  Under ``--pp`` past 1 it runs ``pp`` ranks of
+    :func:`run_pipelined` instead (``model_fn`` unused).  Returns local
+    rank 0's :class:`DistributedRun`."""
     n = local_rank_count(args) if local_ranks is None else local_ranks
-    check_layout(args, n)
+    chips = check_layout(args, n)
+    if args.pp > 1:
+        n = args.pp  # one rank a stage, on devices 0..pp-1
     from ..parallel.distributed import local_init_method
 
     init_method = local_init_method()
     if n == 1:
-        return _rank_main(0, args, 1, backend, init_method, model_fn, gather_params, None, None)
+        return _rank_main(0, args, 1, backend, init_method, model_fn, gather_params, None, None,
+                          chips)
     import torch.multiprocessing as mp
 
     tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     with tempfile.TemporaryDirectory(prefix="ranks-") as out:
         mp.start_processes(_rank_main, nprocs=n, start_method="spawn", args=(
-            args, n, backend, init_method, model_fn, gather_params, out, tf32))
+            args, n, backend, init_method, model_fn, gather_params, out, tf32, chips))
         return DistributedRun(*torch.load(os.path.join(out, "rank0.pt"), weights_only=False))
 
 
 def _rank_main(local_rank: int, args, local_ranks: int, backend, init_method, model_fn,
-               gather_params: bool, out_dir: Optional[str],
-               tf32: Optional[tuple]) -> DistributedRun:
+               gather_params: bool, out_dir: Optional[str], tf32: Optional[tuple],
+               chips: int) -> DistributedRun:
     """One rank: join the group, build, shard, train, record; leaves the
     group at the end."""
     from ..parallel import distributed
@@ -492,6 +556,12 @@ def _rank_main(local_rank: int, args, local_ranks: int, backend, init_method, mo
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     device = distributed.join_local(args.device, local_rank, local_ranks, init_method, backend)
     try:
+        if args.pp > 1:
+            result = run_pipelined(args, device, chips, gather_params)
+            if out_dir is not None and local_rank == 0:
+                torch.save(tuple(result), os.path.join(out_dir, "rank0.pt"))
+            dist.barrier()
+            return result
         rank, world = dist.get_rank(), dist.get_world_size()
         mesh = distributed.make_slice_mesh({"dp": args.dp, "mp": args.mp},
                                            device_type=device.type)
@@ -514,6 +584,61 @@ def _rank_main(local_rank: int, args, local_ranks: int, backend, init_method, mo
         return result
     finally:
         dist.destroy_process_group()
+
+
+def run_pipelined(args, device: torch.device, chips: int,
+                  gather_params: bool = False) -> DistributedRun:
+    """One rank of the pipelined path (the reference's ``run_pipelined``):
+    the decoder LM at ``gpt_config`` over a ``pp`` mesh of every rank, this
+    rank its group rank's stage, seeded weights (``init_params(cfg, 0)``,
+    so any stage count trains the same LM) and one seeded synthetic batch
+    on every rank, SGD(0.1, momentum 0.9), ``--pp-schedule`` over
+    ``--n-micro`` microbatches, timed as the standard path.  The record is
+    the reference's ``gpt-pp`` record (plus ``device``); ``chips`` counts
+    the devices the run saw, as the reference's ``len(jax.devices())``."""
+    from ..parallel import distributed
+    from ..parallel.pipeline_lm import PipelinedLM
+    from ..parallel.sharding import local_state_bytes
+
+    dist = torch.distributed
+    mesh = distributed.make_slice_mesh({"pp": args.pp}, device_type=device.type)
+    if dist.get_rank() == 0:
+        log(f"mesh: {{'pp': {args.pp}}} over {dist.get_world_size()} rank(s), "
+            f"{dist.get_backend()}, schedule {args.pp_schedule}, {args.n_micro} microbatches")
+    cfg = gpt_config(args)
+    if args.seq_len > cfg.max_seq:
+        raise SystemExit(f"--seq-len {args.seq_len} exceeds the config's max_seq {cfg.max_seq}")
+    plm = PipelinedLM(cfg, mesh, n_micro=args.n_micro, device=device)
+    plm.init(0)
+    state = plm.create_train_state(0.1, 0.9)
+    batch = synthetic_lm_batch(args.batch_size, args.seq_len, cfg.vocab_size,
+                               generator=torch.Generator().manual_seed(0), device=device)
+    with tracing.trace(args.trace_dir):
+        state, losses, dt = timed_steps(plm.make_train_step(args.pp_schedule), state, batch,
+                                        args.warmup, args.steps)
+    record = {
+        "model": "gpt-pp",
+        "schedule": args.pp_schedule,
+        "chips": chips,
+        "pp": args.pp,
+        "n_micro": args.n_micro,
+        "global_batch": args.batch_size,
+        "throughput": round(args.batch_size * args.seq_len * args.steps / dt, 2),
+        "unit": "tokens/sec",
+        "step_time_ms": round(dt / args.steps * 1e3, 2),
+        "final_loss": losses[-1].item(),
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+    }
+    world = dist.get_world_size()
+    rank_bytes = [None] * world
+    dist.all_gather_object(rank_bytes, local_state_bytes(state))
+    full = None
+    if gather_params:
+        states = [None] * world if dist.get_rank() == 0 else None
+        dist.gather_object({k: v.detach().cpu() for k, v in plm.state_dict().items()}, states,
+                           dst=0)
+        full = {k: v for st in states for k, v in st.items()} if states else None
+    return DistributedRun(record, [float(x) for x in losses], full, rank_bytes)
 
 
 # ------------------------------------------------------------- inference modes

@@ -256,10 +256,11 @@ class TensorParallel:
         out = out.reshape(self.size, flat.shape[0], last).permute(1, 0, 2)
         return out.reshape(*lead, self.size * last)
 
-    def broadcast(self, x: torch.Tensor) -> torch.Tensor:
-        """Overwrite ``x`` with group rank 0's, in place."""
+    def broadcast(self, x: torch.Tensor, root: int = 0) -> torch.Tensor:
+        """Overwrite ``x`` with group rank ``root``'s, in place."""
         self.calls["broadcast"] += 1
-        torch.distributed.broadcast(x, self.src, group=self.group)
+        src = self.src if root == 0 else torch.distributed.get_global_rank(self.group, root)
+        torch.distributed.broadcast(x, src, group=self.group)
         return x
 
     # The sequence-parallel exchanges (``parallel/ring.py``, ``ulysses.py``).
@@ -306,18 +307,37 @@ class TensorParallel:
         """Every tensor of ``xs`` sent ``step`` ranks round the ring in
         one ``batch_isend_irecv`` (a ring of two ranks or more: c10d's
         point-to-point ops refuse a send to oneself)."""
-        dist = torch.distributed
         self.calls["ring_shift"] += 1
-        staged = self._staged(xs[0])
-        send = [(x.cpu() if staged else x).contiguous() for x in xs]
-        got = [torch.empty_like(x) for x in send]
-        dst = dist.get_global_rank(self.group, (self.rank + step) % self.size)
-        src = dist.get_global_rank(self.group, (self.rank - step) % self.size)
-        ops = [dist.P2POp(dist.isend, x, dst, self.group) for x in send]
-        ops += [dist.P2POp(dist.irecv, out, src, self.group) for out in got]
+        dst, src = (self.rank + step) % self.size, (self.rank - step) % self.size
+        return tuple(self._send_recv([(x, dst) for x in xs], [(x, src) for x in xs]))
+
+    def send_recv(self, sends: list, recvs: list) -> list:
+        """Point-to-point transfers in one ``batch_isend_irecv``: each
+        ``(tensor, group rank)`` of ``sends`` sent there, and for each
+        ``(like, group rank)`` of ``recvs`` a tensor shaped and typed as
+        ``like`` received from there, returned in order.  Nothing at all
+        when both are empty (c10d's point-to-point ops refuse a send to
+        oneself, so a group of one never calls this with a transfer)."""
+        if not sends and not recvs:
+            return []
+        self.calls["p2p"] += 1
+        return self._send_recv(sends, recvs)
+
+    def _send_recv(self, sends: list, recvs: list) -> list:
+        dist = torch.distributed
+        like = (sends or recvs)[0][0]
+        staged = self._staged(like)
+        ops, got = [], []
+        for x, peer in sends:
+            ops.append(dist.P2POp(dist.isend, (x.cpu() if staged else x).contiguous(),
+                                  dist.get_global_rank(self.group, peer), self.group))
+        for x, peer in recvs:
+            got.append(torch.empty(x.shape, dtype=x.dtype, device="cpu" if staged else x.device))
+            ops.append(dist.P2POp(dist.irecv, got[-1], dist.get_global_rank(self.group, peer),
+                                  self.group))
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-        return tuple(out.to(x.device) if staged else out for out, x in zip(got, xs))
+        return [out.to(like.device) if staged else out for out in got]
 
 
 class _Reduce(torch.autograd.Function):

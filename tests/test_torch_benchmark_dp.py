@@ -1,10 +1,13 @@
-"""The port's training CLI past one card: ``--dp``/``--mp`` on gloo ranks.
+"""The port's training CLI past one card: ``--dp``/``--mp``, and ``--pp``,
+on gloo ranks.
 
-``--device cpu`` runs dp·mp ranks (``--dp -1`` counting as 1), spawned by
-``models/benchmark.py`` as it spawns one per card; the record counts them
-in ``chips`` and prints once.  The refusals are the reference's mesh rules
-and its batch rule: a global batch the ``dp`` replicas do not split evenly
-(the ``mp`` ranks of one replica take the same rows).  Each run that
+``--device cpu`` runs dp·mp ranks (``--dp -1`` counting as 1), or ``pp``
+under ``--pp`` past 1, spawned by ``models/benchmark.py`` as it spawns one
+per card; the record counts them in ``chips`` and prints once.  The
+refusals are the reference's mesh rules and its batch rule: a global batch
+the ``dp`` replicas do not split evenly (the ``mp`` ranks of one replica
+take the same rows); under ``--pp``, the reference's pipeline refusals.
+Each run that
 spawns ranks (the CLI, and a script calling ``launch``) is a subprocess
 with its own time limit (150 s), killed with every rank it spawned when it
 passes it.
@@ -117,20 +120,82 @@ for name, value in state.model.state_dict().items():
 whole = sum(p.numel() * 4 * 2 for p in state.model.parameters())  # weights + momentum
 assert all(0.45 < b / whole < 0.6 for b in got.rank_bytes), got.rank_bytes
 print("LAUNCH_OK")
+tbench.main(["--model=gpt", "--tiny", "--device=cpu", "--dtype=float32", "--pp=2",
+             "--pp-schedule=1f1b", "--batch-size=8", "--seq-len=32", "--steps=1", "--warmup=1"])
 """
 
 
-def test_launch_from_python_equals_the_one_process_run():
+@pytest.fixture(scope="module")
+def launched():
+    """One subprocess: ``launch`` from Python at mp 2, then the CLI's
+    ``main`` at ``--pp 2 --pp-schedule 1f1b`` (two more gloo ranks)."""
+    return _run([sys.executable, "-c", LAUNCH_FROM_PYTHON])
+
+
+def test_launch_from_python_equals_the_one_process_run(launched):
     """``launch`` with a stand-in model (AlexNet cut to width 0.25, 128 px,
     10 classes: dropout draws the global mask's rows) on two gloo ranks at
     mp 2: every step's loss within 1e-5 relative and the gathered state
     within 1e-5 absolute of the one-process run (float32, 5 steps of SGD
     0.1; the ranks sum the gradient in another order), and each rank
     holding about half the parameter and momentum bytes."""
-    rc, out, err = _run([sys.executable, "-c", LAUNCH_FROM_PYTHON])
+    rc, out, err = launched
     assert rc == 0 and "LAUNCH_OK" in out, err[-3000:]
 
 
+def test_cli_trains_the_pipelined_lm_on_two_gloo_ranks(launched):
+    """``--pp 2 --pp-schedule 1f1b`` at ``GPTConfig.tiny()`` on the CPU: two
+    gloo ranks, one record with the reference's gpt-pp keys, printed once."""
+    rc, out, err = launched
+    assert rc == 0, err[-3000:]
+    records = [json.loads(line) for line in out.splitlines() if line.startswith("{")]
+    assert len(records) == 1, out
+    record = records[0]
+    assert set(record) == GPT_PP_KEYS
+    assert (record["model"], record["schedule"], record["pp"], record["n_micro"],
+            record["chips"], record["global_batch"], record["device"]) == (
+        "gpt-pp", "1f1b", 2, 4, 2, 8, "cpu")
+    assert record["unit"] == "tokens/sec" and record["throughput"] > 0
+    assert math.isfinite(record["final_loss"])
+    assert "mesh: {'pp': 2} over 2 rank(s), gloo, schedule 1f1b, 4 microbatches" in err
+
+
 def test_cpu_ranks_count_dp_times_mp():
-    for flags, want in ((["--dp=2", "--mp=2"], 4), (["--dp=-1", "--mp=2"], 2), ([], 1)):
+    for flags, want in ((["--dp=2", "--mp=2"], 4), (["--dp=-1", "--mp=2"], 2), ([], 1),
+                        (["--model=gpt", "--pp=2", "--dp=2", "--mp=2"], 2)):
         assert tbench.local_rank_count(tbench.parse_args([*CPU, *flags])) == want
+
+
+# The reference's gpt-pp record (k8s_device_plugin_tpu/models/benchmark.py
+# run_pipelined), plus the port's ``device``.
+GPT_PP_KEYS = {"model", "schedule", "chips", "pp", "n_micro", "global_batch", "throughput",
+               "unit", "step_time_ms", "final_loss", "device"}
+
+
+@pytest.mark.parametrize("flags, message", [
+    (["--model=gpt", "--tiny", "--pp=4"], "num_layers 2 not divisible by --pp 4"),
+    (["--model=gpt", "--tiny", "--pp=2", "--batch-size=6"], "batch 6 not divisible by n_micro=4"),
+    (["--model=gpt", "--tiny", "--pp=2", "--grad-accum=2"],
+     "--grad-accum applies to the standard train step only (the fused-xent and pipelined "
+     "steps manage their own microbatching, and gpt-decode does not train)"),
+    (["--model=gpt", "--tiny", "--pp=2", "--fused-xent"],
+     "--fused-xent is not supported with --pp (the pipelined LM head runs inside the "
+     "1F1B/GPipe objective); drop one of the flags"),
+    (["--model=bert", "--pp=2"], "--pp requires --model gpt (the pipelined decoder)"),
+    (["--model=gpt", "--tiny", "--pp=2", "--checkpoint-dir=ck"],
+     "--checkpoint-dir is not supported with --pp"),
+], ids=["layers", "n-micro", "grad-accum", "fused-xent", "model", "checkpoint"])
+def test_pipeline_refusals_are_the_reference_s(capsys, flags, message):
+    """The reference's refusals of --pp (and the port's of a batch the
+    microbatches do not split and of checkpoints, which the pipelined path
+    would not save), at four CPU ranks, before anything is built."""
+    with pytest.raises(SystemExit) as exc:
+        tbench.check_layout(tbench.parse_args([*CPU, *flags]), local_ranks=4)
+    assert message in str(exc.value) + capsys.readouterr().err
+
+
+def test_pipelined_path_keeps_the_standard_one_at_pp_0_and_1():
+    for pp in ("0", "1"):
+        args = tbench.parse_args([*CPU, "--model=gpt", "--tiny", f"--pp={pp}", "--dp=2",
+                                  "--batch-size=4"])
+        assert tbench.local_rank_count(args) == 2 and tbench.check_layout(args, 2) == 2

@@ -72,7 +72,8 @@ def test_every_port_module_imports_with_jax_blocked():
                  "models.http_server", "utils.racecheck", "utils.prefixbloom", "utils.ring",
                  "models.lora", "models.speculative", "models.engine_spec",
                  "models.checkpoint", "models.layers", "models.resnet", "models.alexnet",
-                 "models.vit", "models.bert", "models.input_pipeline", "utils.platform"):
+                 "models.vit", "models.bert", "models.input_pipeline", "utils.platform",
+                 "parallel.pipeline", "parallel.pipeline_1f1b", "parallel.pipeline_lm"):
         assert f"k8s_device_plugin_tpu_torch.{name}" in mods
     code = (
         "import sys\n"

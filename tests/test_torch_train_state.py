@@ -254,13 +254,17 @@ def test_benchmark_vit_defaults_to_256_pixels_and_bert_to_base():
 
 @pytest.mark.parametrize("flags", [["--dp=2"], ["--mp=2"], ["--pp=2"]])
 def test_benchmark_takes_parallel_flags_at_one_card_only(capsys, flags):
-    """On one card --dp/--mp past 1 fail the reference's mesh rule before
-    anything is built (tests/test_torch_benchmark_dp.py runs them over
-    several ranks); --pp is not ported."""
+    """On one card --dp/--mp past 1 fail the reference's mesh rule, and
+    --pp 2 its device count, before anything is built (--pp needs the
+    decoder: the reference's refusals;
+    tests/test_torch_benchmark_dp.py runs them over several ranks)."""
     if flags == ["--pp=2"]:
+        args = tbench.parse_args(["--model=gpt", *flags])
+        with pytest.raises(SystemExit, match=r"^--pp 2 but only 1 device\(s\)$"):
+            tbench.check_layout(args, local_ranks=1)
         with pytest.raises(SystemExit):
             tbench.parse_args(["--model=resnet50", *flags])
-        assert "ROADMAP.md queue 1 item 7" in capsys.readouterr().err
+        assert "--pp requires --model gpt (the pipelined decoder)" in capsys.readouterr().err
     else:
         args = tbench.parse_args(["--model=resnet50", *flags])
         with pytest.raises(SystemExit, match="do not cover 1 devices|1 devices not divisible by 2"):

@@ -41,6 +41,13 @@ stacked adapters, a speculative draft) and drive ``(prompt, n, adapter)``
 jobs (:func:`drive_jobs`), or run a prefill -> decode handoff
 (:func:`handoff_run`); the test process drives the unsharded engines the
 same way.
+
+A spec with ``pipeline`` runs its ``cases`` through the port's
+``parallel/pipeline.py``, ``pipeline_1f1b.py`` and ``pipeline_lm.py``
+(:func:`_pp_main`) over each case's mesh: the toy stages' forward, GPipe
+gradient and 1F1B gradients, ``PipelinedLM``'s forward and one train step
+of each schedule, and its layer-count error; rank 0 gets every rank's
+results.
 """
 
 from __future__ import annotations
@@ -437,6 +444,90 @@ def _tp_main(sp: dict, rank: int, world: int) -> dict:
     return results
 
 
+def _pp_stage_fn(kind: str):
+    """The toy stages of the JAX package's pipeline tests: "residual" (x +
+    tanh(x @ w + b)) and "tanh" (tanh(x @ w + b))."""
+    if kind == "residual":
+        return lambda p, x: x + torch.tanh(x @ p["w"] + p["b"])
+    return lambda p, x: torch.tanh(x @ p["w"] + p["b"])
+
+
+def _pp_head(p, y):
+    return y @ p["w"]
+
+
+def _pp_lm(case: dict, mesh) -> dict:
+    """``PipelinedLM`` on this rank: the forward both ways, then one train
+    step of the case's schedule from its weights, with the group's calls
+    in that step."""
+    from k8s_device_plugin_tpu_torch.models.transformer import GPTConfig
+    from k8s_device_plugin_tpu_torch.parallel.pipeline_lm import PipelinedLM
+
+    plm = PipelinedLM(GPTConfig(**case["cfg"]), mesh, case["n_micro"], device="cpu")
+    plm.load_state_dict(case["state_dict"])
+    ids = case["batch"]["input_ids"]
+    out = {"apply": plm.apply(ids), "apply_serial": plm.apply_serial(ids)}
+    plm.pp.calls.clear()
+    step = plm.make_train_step(case["schedule"])
+    _, loss = step(plm.create_train_state(0.1, 0.9), case["batch"])
+    return dict(out, loss=float(loss), state_dict=plm.state_dict(), calls=dict(plm.pp.calls))
+
+
+def _pp_case(case: dict, mesh) -> dict:
+    """One case of a ``pipeline`` spec on this rank."""
+    from k8s_device_plugin_tpu_torch.parallel import pipeline, pipeline_1f1b
+    from k8s_device_plugin_tpu_torch.parallel.pipeline_lm import PipelinedLM
+
+    op = case["op"]
+    if op == "lm":
+        return _pp_lm(case, mesh)
+    if op == "lm_error":
+        from k8s_device_plugin_tpu_torch.models.transformer import GPTConfig
+
+        try:
+            PipelinedLM(GPTConfig(**case["cfg"]), mesh, 2, device="cpu")
+        except ValueError as e:
+            return {"error": str(e)}
+        return {"error": None}
+    fn = _pp_stage_fn(case["stage"])
+    stacked, micro = case["stacked"], case["micro"]
+    if op == "apply":
+        return {"y": pipeline.pipeline_apply(fn, stacked, micro, mesh)}
+    if op == "loss_grad":
+        params = {k: v.clone().requires_grad_() for k, v in stacked.items()}
+        inputs = micro.clone().requires_grad_()
+        loss = pipeline.pipelined_loss_fn(fn, mesh)(params, inputs, case["targets"])
+        loss.backward()
+        return {"loss": float(loss), "grads": {k: v.grad for k, v in params.items()},
+                "d_micro": inputs.grad}
+    stats: dict = {}
+    if "head" in case:
+        loss, grads, head_grads, d_micro = pipeline_1f1b.pipeline_1f1b_train(
+            fn, stacked, micro, case["targets"], mesh, head_fn=_pp_head,
+            head_params=case["head"], stats=stats)
+        return {"loss": float(loss), "grads": grads, "head_grads": head_grads,
+                "d_micro": d_micro, "stats": stats}
+    loss, grads = pipeline_1f1b.pipeline_1f1b_grads(fn, stacked, micro, case["targets"], mesh,
+                                                    stats=stats)
+    return {"loss": float(loss), "grads": grads, "stats": stats}
+
+
+def _pp_main(sp: dict, rank: int, world: int) -> dict:
+    """Every case of a ``pipeline`` spec over its mesh; rank 0 gets, for
+    each, every rank's result with its mesh coordinates, by rank."""
+    from k8s_device_plugin_tpu_torch.parallel import distributed
+
+    results = {}
+    for case in sp["cases"]:
+        mesh = distributed.make_slice_mesh(case["mesh"], device_type="cpu")
+        out = dict(_pp_case(case, mesh),
+                   coords=dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())))
+        every = [None] * world
+        torch.distributed.all_gather_object(every, out)
+        results[case["name"]] = every
+    return results
+
+
 def main(spec_path: str, rank: int) -> None:
     from datetime import timedelta
 
@@ -455,8 +546,9 @@ def main(spec_path: str, rank: int) -> None:
                                       init_method=spec["init_method"], timeout=timeout)
     assert torch.distributed.get_world_size() == world and torch.distributed.get_rank() == rank
     try:
-        if spec.get("tp_serving"):
-            results = _tp_main(spec["tp_serving"], rank, world)
+        if spec.get("tp_serving") or spec.get("pipeline"):
+            results = (_tp_main(spec["tp_serving"], rank, world) if spec.get("tp_serving")
+                       else _pp_main(spec["pipeline"], rank, world))
             if rank == 0:
                 torch.save(results, spec["out"])
             torch.distributed.barrier()
