@@ -327,6 +327,27 @@ Phases, in order (any failure exits non-zero):
    at ``--model gpt --tiny --pp 2 --pp-schedule 1f1b --n-micro 4`` on two
    gloo ranks sharing the card: one ``gpt-pp`` record with the reference's
    keys.
+16. the GPU device plugin (``plugin/``, ``kubelet/``): 16a ``discover("/")``
+   through the probe library built from ``csrc/nvidia_probe.c`` against
+   nvidia-smi (minor, UUID and PCI address of each card; the minor from
+   ``nvidia-smi -q``) and ``torch.cuda.device_count()``, every card
+   Healthy, one health sweep timed; 16b the daemon
+   (``python -m k8s_device_plugin_tpu_torch.plugin.cli``) over gRPC against
+   the script's own Registration server, on a host tree under /tmp that
+   links the real dev, proc and sys: registration, ListAndWatch,
+   GetPreferredAllocation and Allocate of one card (its node, the shared
+   nodes, ``NVIDIA_VISIBLE_DEVICES`` and ``GPU_DEVICE_MINORS``), the
+   health override streamed Unhealthy within PLUGIN_FLIP_LIMIT_S and
+   Allocate aborting FAILED_PRECONDITION, Healthy again, SIGTERM exit 0
+   with the socket gone; 16c the pod: the port's HTTP server at the
+   deployment's flags started with exactly the granted env (and
+   ``CUDA_VISIBLE_DEVICES``, as the container runtime's view), two
+   requests, its chip-health feed on exactly the granted ``/dev/nvidiaN``,
+   kernel 1 launched once a layer a step, Allocate to first token timed;
+   16d the self-test's probe on the card equal to ``matmul_checksum`` for
+   three seeds, a ``selftest.probe`` corrupt failpoint quarantining the
+   card after ``fail_threshold`` sweeps and the next health sweep reading
+   it Unhealthy, a busy card skipped, one probe timed.
 
 Then it prints one ``kernels`` JSON line (a row per kernel variant, each
 with its design, HGMMA count, registers and spill bytes; every number in
@@ -339,8 +360,8 @@ errors and the tiny phase 6), one
 (phase 9), one ``serving_bench``, one ``decode_bench`` and one
 ``lora_train`` line (phase 10), one ``distributed`` line (phase 11), one
 ``tensor_parallel`` line (phase 12), one ``moe`` line (phase 13), one
-``sp`` line (phase 14), one ``pipeline`` line (phase 15), one
-``phase_seconds`` line, and last
+``sp`` line (phase 14), one ``pipeline`` line (phase 15), one ``plugin``
+line (phase 16), one ``phase_seconds`` line, and last
 the line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
@@ -5211,6 +5232,398 @@ def run_phase_15(torch, fa, tf, train, data, bench, smi, mark, started_15b: dict
     return {"world_of_one": world_of_one, "pp4_shared_card": shared, "cli": cli, "card": smi}
 
 
+# ------------------------------------------------------------- phase 16
+
+PLUGIN_PULSE_S = 0.25
+# The daemon's stream must show an override within this (a heartbeat
+# pulse, the sweep that reads it, and the gRPC delivery).
+PLUGIN_FLIP_LIMIT_S = 2 * PLUGIN_PULSE_S
+SELFTEST_SEEDS = (0, 1, 2)
+POD_PROMPT = [(29 * j + 7) % 32000 for j in range(64)]
+POD_NEW = 16
+
+
+def smi_cards() -> list[dict]:
+    """The cards as nvidia-smi lists them: index, PCI address (None where
+    the driver reports none), UUID and device-node minor.  The minor
+    comes from ``nvidia-smi -q``: ``--query-gpu`` has no minor_number
+    field on every driver."""
+    from k8s_device_plugin_tpu_torch.plugin.discovery import pci_address
+
+    rows = subprocess.run(
+        ["nvidia-smi", "--query-gpu=index,pci.bus_id,uuid", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
+    query = subprocess.run(["nvidia-smi", "-q"], capture_output=True, text=True, check=True,
+                           timeout=60).stdout
+    minors = [int(m) for m in re.findall(r"Minor Number\s*:\s*(\d+)", query)]
+    if len(minors) != len(rows):
+        fail(f"nvidia-smi lists {len(rows)} card(s) but {len(minors)} minor number(s)")
+    cards = []
+    for row, minor in zip(rows, minors):
+        index, bus, uuid = (x.strip() for x in row.split(","))
+        cards.append({"index": int(index), "minor": minor, "uuid": uuid,
+                      "pci": None if "N/A" in bus else pci_address(bus)})
+    return cards
+
+
+def plugin_root() -> str:
+    """A host tree for the daemon under a short /tmp path: the real dev,
+    proc and sys through symlinks, and its own run/gpu for the health
+    override files (so no file outside the tree is written)."""
+    import os
+    import tempfile
+
+    root = tempfile.mkdtemp(dir="/tmp", prefix="p16-")
+    for name in ("dev", "proc", "sys"):
+        os.symlink(f"/{name}", os.path.join(root, name))
+    os.makedirs(os.path.join(root, "run/gpu/health"))
+    return root
+
+
+def run_phase_16a(torch, smi) -> tuple:
+    """Discovery on the real host against nvidia-smi, through the probe
+    library built from the checkout's source, and one health sweep."""
+    import pathlib
+
+    from k8s_device_plugin_tpu_torch.plugin import discovery, health, native
+
+    t0 = time.perf_counter()
+    lib = pathlib.Path(native.build_probe_library())
+    build_s = time.perf_counter() - t0
+    if not lib.is_relative_to(pathlib.Path(__file__).resolve().parent / "build"):
+        fail(f"the probe library {lib} is not the checkout's build")
+    prober = native.load_prober(str(lib))
+    if native.shared_prober() is None:
+        fail("the daemon's shared prober did not load")
+    inv = discovery.discover("/", environ={}, prober=prober)
+    want = smi_cards()
+    got = [{"minor": c.index, "uuid": c.uuid, "pci": c.pci_address} for c in inv.cards]
+    if [(c["minor"], c["uuid"]) for c in got] != [(c["minor"], c["uuid"]) for c in want]:
+        fail(f"discover('/') found minors {[c['minor'] for c in got]}, nvidia-smi "
+             f"{[c['minor'] for c in want]} (or their UUIDs differ)")
+    for g, w in zip(got, want):
+        if w["pci"] is not None and g["pci"] != w["pci"]:
+            fail(f"card minor {g['minor']}: PCI address {g['pci']} against nvidia-smi's {w['pci']}")
+    if inv.card_count != torch.cuda.device_count():
+        fail(f"discover('/') found {inv.card_count} card(s), torch {torch.cuda.device_count()}")
+    checker = health.CardHealthChecker("/", prober=prober)
+    verdicts = checker.check_many(inv.cards)
+    if not all(verdicts.values()):
+        fail(f"a card reads Unhealthy: {verdicts}")
+    sweeps = 200
+    t0 = time.perf_counter()
+    for _ in range(sweeps):
+        checker.check_many(inv.cards)
+    sweep_ms = (time.perf_counter() - t0) / sweeps * 1e3
+    log(f"16a: {inv.card_count} card(s) from {inv.source}: {got}; a health sweep "
+        f"{sweep_ms:.4f} ms ({smi})")
+    return {"source": inv.source, "cards": got, "nvidia_smi": want,
+            "probe_library": str(lib.relative_to(pathlib.Path(__file__).resolve().parent)),
+            "probe_build_s": build_s, "health": verdicts,
+            "health_sweep_ms_per_card": sweep_ms / inv.card_count, "card": smi}, inv
+
+
+class SmokeKubelet:
+    """The kubelet's Registration service on ``<plugin_dir>/kubelet.sock``:
+    records each RegisterRequest; the script then dials the registered
+    plugin itself."""
+
+    def __init__(self, plugin_dir: str):
+        import threading
+
+        self.plugin_dir = plugin_dir
+        self.requests = []
+        self.registered = threading.Event()
+        self._server = None
+
+    def Register(self, request, context):  # noqa: N802 — the gRPC method name
+        from k8s_device_plugin_tpu_torch.kubelet.api import pb
+
+        self.requests.append(request)
+        self.registered.set()
+        return pb.Empty()
+
+    def start(self) -> None:
+        import os
+        from concurrent import futures
+
+        import grpc
+
+        from k8s_device_plugin_tpu_torch.kubelet.api import add_registration_servicer
+
+        self._server = grpc.server(futures.ThreadPoolExecutor(max_workers=4))
+        add_registration_servicer(self, self._server)
+        self._server.add_insecure_port(f"unix://{os.path.join(self.plugin_dir, 'kubelet.sock')}")
+        self._server.start()
+
+    def stop(self) -> None:
+        if self._server is not None:
+            self._server.stop(grace=None).wait()
+
+    def plugin_stub(self):
+        import os
+
+        import grpc
+
+        from k8s_device_plugin_tpu_torch.kubelet.api import DevicePluginStub
+
+        sock = os.path.join(self.plugin_dir, self.requests[-1].endpoint)
+        return DevicePluginStub(grpc.insecure_channel(f"unix://{sock}"))
+
+
+class DeviceStream:
+    """One ListAndWatch stream read on a thread: each update as a dict of
+    id -> health, stamped on arrival."""
+
+    def __init__(self, stub):
+        import queue
+        import threading
+
+        from k8s_device_plugin_tpu_torch.kubelet.api import pb
+
+        self.updates = queue.Queue()
+        self.call = stub.ListAndWatch(pb.Empty())
+        threading.Thread(target=self._pump, daemon=True).start()
+
+    def _pump(self):
+        import grpc
+
+        try:
+            for resp in self.call:
+                self.updates.put((time.perf_counter(), {d.ID: d.health for d in resp.devices}))
+        except grpc.RpcError:
+            pass
+        self.updates.put(None)
+
+    def until(self, pred, what: str, timeout: float = 30.0) -> tuple:
+        import queue
+
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                item = self.updates.get(timeout=max(deadline - time.monotonic(), 0.01))
+            except queue.Empty:
+                fail(f"16b: the ListAndWatch stream never showed {what}")
+            if item is None:
+                fail(f"16b: the ListAndWatch stream ended before {what}")
+            if pred(item[1]):
+                return item
+
+
+def run_phase_16b(inv, smi) -> tuple:
+    """The real daemon against the script's kubelet: registration,
+    ListAndWatch, GetPreferredAllocation and Allocate of one card, the
+    health override's flip and abort, recovery, SIGTERM."""
+    import os
+    import pathlib
+    import signal
+    import tempfile
+
+    import grpc
+
+    from k8s_device_plugin_tpu_torch.kubelet.api import pb
+
+    card = inv.cards[0]
+    root = plugin_root()
+    plugin_dir = tempfile.mkdtemp(dir="/tmp", prefix="p16k-")
+    kubelet = SmokeKubelet(plugin_dir)
+    kubelet.start()
+    out_dir = pathlib.Path(__file__).resolve().parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    log_path = out_dir / "plugin_daemon.log"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "k8s_device_plugin_tpu_torch.plugin.cli", "--root", root,
+         "--plugin-dir", plugin_dir, f"--pulse={PLUGIN_PULSE_S}", "--health-flap-threshold=1",
+         "--require-chips"],
+        stdout=subprocess.DEVNULL, stderr=open(log_path, "w"))
+    rec = {"pulse_s": PLUGIN_PULSE_S, "transport": "grpc", "card": smi}
+    try:
+        if not kubelet.registered.wait(60):
+            fail(f"16b: the daemon never registered: {log_path.read_text()[-3000:]}")
+        rec["registration_s"] = time.perf_counter() - t0
+        req = kubelet.requests[-1]
+        if (req.version, req.resource_name, req.endpoint) != (
+                "v1beta1", "nvidia.com/gpu", "nvidia.com_gpu.sock"):
+            fail(f"16b: registered {req}")
+        stub = kubelet.plugin_stub()
+        stream = DeviceStream(stub)
+        _, first = stream.until(lambda devs: True, "a device list")
+        ids = [c.k8s_id for c in inv.cards]
+        if first != {i: "Healthy" for i in ids}:
+            fail(f"16b: the first list is {first}, not {ids} Healthy")
+        pref = stub.GetPreferredAllocation(pb.PreferredAllocationRequest(container_requests=[
+            pb.ContainerPreferredAllocationRequest(available_deviceIDs=ids, allocation_size=1)]))
+        rec["preferred"] = list(pref.container_responses[0].deviceIDs)
+        if rec["preferred"] != [card.k8s_id]:
+            fail(f"16b: GetPreferredAllocation chose {rec['preferred']}")
+        request = pb.AllocateRequest(container_requests=[
+            pb.ContainerAllocateRequest(devicesIDs=[card.k8s_id])])
+        t = time.perf_counter()
+        resp = stub.Allocate(request)
+        allocated_at = time.perf_counter()
+        rec["allocate_ms"] = (allocated_at - t) * 1e3
+        [car] = resp.container_responses
+        granted = {"envs": dict(car.envs), "devices": [d.host_path for d in car.devices]}
+        rec["granted"] = granted
+        shared = [p for p in ("/dev/nvidiactl", "/dev/nvidia-uvm", "/dev/nvidia-uvm-tools")
+                  if os.path.exists(os.path.join(root, p.lstrip("/")))]
+        if granted["devices"] != [card.device_path, *shared]:
+            fail(f"16b: Allocate granted {granted['devices']}")
+        if (granted["envs"].get("NVIDIA_VISIBLE_DEVICES"), granted["envs"].get("GPU_DEVICE_MINORS")) != (
+                card.uuid, str(card.index)):
+            fail(f"16b: Allocate injected {granted['envs']}")
+        override = os.path.join(root, "run/gpu/health", f"nvidia{card.index}")
+        with open(override, "w") as f:
+            f.write("Unhealthy")
+        t = time.perf_counter()
+        seen, _ = stream.until(lambda devs: devs.get(card.k8s_id) == "Unhealthy", "Unhealthy")
+        rec["unhealthy_after_s"] = seen - t
+        if rec["unhealthy_after_s"] > PLUGIN_FLIP_LIMIT_S:
+            fail(f"16b: the override showed after {rec['unhealthy_after_s']:.3f} s, over "
+                 f"{PLUGIN_FLIP_LIMIT_S} s")
+        try:
+            stub.Allocate(request)
+            fail("16b: Allocate of an Unhealthy card answered")
+        except grpc.RpcError as e:
+            rec["unhealthy_abort"] = e.code().name
+        if rec["unhealthy_abort"] != "FAILED_PRECONDITION":
+            fail(f"16b: Allocate of an Unhealthy card aborted {rec['unhealthy_abort']}")
+        os.unlink(override)
+        t = time.perf_counter()
+        seen, _ = stream.until(lambda devs: devs.get(card.k8s_id) == "Healthy", "Healthy again")
+        rec["healthy_after_s"] = seen - t
+        socket = os.path.join(plugin_dir, req.endpoint)
+        proc.send_signal(signal.SIGTERM)
+        rec["exit"] = proc.wait(timeout=30)
+        if rec["exit"] != 0 or os.path.exists(socket):
+            fail(f"16b: SIGTERM: exit {rec['exit']}, socket left: {os.path.exists(socket)}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        kubelet.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(plugin_dir, ignore_errors=True)
+    log(f"16b: registered in {rec['registration_s']:.2f} s, Allocate {rec['allocate_ms']:.3f} ms, "
+        f"Unhealthy after {rec['unhealthy_after_s']:.3f} s ({smi})")
+    return rec, granted, allocated_at
+
+
+def run_phase_16c(granted: dict, allocated_at: float, smi) -> dict:
+    """The pod: the port's HTTP server at the deployment's flags, started
+    with exactly the granted env, serving two requests; its chip-health
+    feed watches the granted node and kernel 1 launches."""
+    import os
+    import pathlib
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("GPU_", "TPU_")) and k not in ("NVIDIA_VISIBLE_DEVICES",
+                                                               "CUDA_VISIBLE_DEVICES")}
+    env.update(granted["envs"])
+    # The NVIDIA container runtime mounts only the cards NVIDIA_VISIBLE_DEVICES
+    # names, so CUDA in the container numbers exactly those from 0; outside a
+    # container the same view is CUDA_VISIBLE_DEVICES set to their UUIDs.
+    env["CUDA_VISIBLE_DEVICES"] = granted["envs"]["NVIDIA_VISIBLE_DEVICES"]
+    log_path = pathlib.Path(__file__).resolve().parent / "chiprun_out" / "plugin_pod.log"
+    proc, port = start_server((*SERVE_FLAGS, snapshot_flag("plugin_pod")), log_path, env)
+    try:
+        up_s = time.perf_counter() - allocated_at
+        first = stream_request(port, {"prompt": POD_PROMPT, "max_new_tokens": POD_NEW})
+        if first["status"] != 200 or not first["stamps"]:
+            fail(f"16c: the pod's streamed request answered {first['status']}: {first['body']}")
+        status, body = http_call(port, "/generate", {"prompt": POD_PROMPT[:32],
+                                                     "max_new_tokens": POD_NEW})
+        if status != 200 or len(body["tokens"]) != POD_NEW:
+            fail(f"16c: the pod's unary request answered {status}: {body}")
+        status, state = http_call(port, "/debug/state")
+    except BaseException:
+        proc.kill()
+        raise
+    drain_s = stop_server(proc, log_path)
+    minors = granted["envs"]["GPU_DEVICE_MINORS"].split(",")
+    feed = state["fence"]["chip_health"]
+    watched = feed["device_paths"] if feed else None
+    if watched != [f"/dev/nvidia{m}" for m in minors]:
+        fail(f"16c: the pod's chip-health feed watches {watched}, not the granted "
+             f"/dev/nvidia{minors}")
+    dev = state["engine"]["device"]
+    launches = dev["paged_launches"]["f"]
+    if launches <= 0 or launches != dev["num_layers"] * dev["device_steps"]:
+        fail(f"16c: the pod launched kernel 1 {launches} times over {dev['device_steps']} "
+             f"steps of {dev['num_layers']} layers")
+    rec = {"allocate_to_serving_s": up_s,
+           "allocate_to_first_token_s": first["stamps"][0] - allocated_at,
+           "first_request_ttft_s": first["stamps"][0] - first["t_send"],
+           "chip_health_paths": watched, "paged_launches": launches,
+           "device_steps": dev["device_steps"], "drain_s": drain_s, "card": smi}
+    log(f"16c: Allocate -> first token {rec['allocate_to_first_token_s']:.2f} s, kernel 1 "
+        f"{launches} launches ({smi})")
+    return rec
+
+
+def run_phase_16d(inv, smi) -> dict:
+    """The idle-card self-test on the card: its checksum against the
+    reference's for three seeds, a corrupt failpoint's quarantine and the
+    health sweep after it, a busy card skipped, one probe timed."""
+    import os
+
+    from k8s_device_plugin_tpu_torch.plugin import health, selftest
+    from k8s_device_plugin_tpu_torch.utils import failpoints
+
+    card = inv.cards[0]
+    sums = {seed: selftest.card_checksum(card, seed) for seed in SELFTEST_SEEDS}
+    want = {seed: selftest.matmul_checksum(seed) for seed in SELFTEST_SEEDS}
+    if sums != want:
+        fail(f"16d: the card's checksums {sums} are not the reference's {want}")
+    t = time.perf_counter()
+    selftest.card_checksum(card, SELFTEST_SEEDS[0])
+    probe_ms = (time.perf_counter() - t) * 1e3
+    root = plugin_root()
+    try:
+        config = selftest.SelftestConfig(fail_threshold=2, seeds=SELFTEST_SEEDS)
+        sweeper = selftest.SelftestSweeper(lambda: inv.cards, lambda: set(), config=config,
+                                           root=root)
+        verdicts = [sweeper.poll_once()]
+        failpoints.arm_spec(f"{selftest.FAILPOINT_PROBE}.{card.k8s_id}=corrupt")
+        try:
+            verdicts += [sweeper.poll_once() for _ in range(config.fail_threshold)]
+        finally:
+            failpoints.disarm_all()
+        if [v[card.k8s_id] for v in verdicts] != ["pass"] + ["fail"] * config.fail_threshold:
+            fail(f"16d: the sweeps gave {verdicts}")
+        if not sweeper.snapshot()["chips"][card.k8s_id]["quarantined"]:
+            fail("16d: the corrupt card was not quarantined")
+        after = health.CardHealthChecker(root).check_many(inv.cards)
+        if after[card.k8s_id]:
+            fail(f"16d: the quarantined card still reads Healthy: {after}")
+        busy = selftest.SelftestSweeper(lambda: [card], lambda: {card.k8s_id},
+                                        config=config, root=root,
+                                        probe_fn=lambda c, s: fail("16d: a busy card was probed"))
+        skipped = busy.poll_once()
+        if skipped[card.k8s_id] != "skip_busy":
+            fail(f"16d: the busy card's sweep gave {skipped}")
+        os.unlink(health.override_path(root, card))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"16d: checksums equal for seeds {SELFTEST_SEEDS}; one probe {probe_ms:.3f} ms ({smi})")
+    return {"checksums": {str(k): v for k, v in sums.items()}, "probe_ms": probe_ms,
+            "verdicts": verdicts, "after_quarantine": after, "busy": skipped, "card": smi}
+
+
+def run_phase_16(torch, smi, mark) -> dict:
+    discovered, inv = run_phase_16a(torch, smi)
+    mark("16a_discovery")
+    daemon, granted, allocated_at = run_phase_16b(inv, smi)
+    mark("16b_daemon")
+    pod = run_phase_16c(granted, allocated_at, smi)
+    mark("16c_pod")
+    selftest_run = run_phase_16d(inv, smi)
+    mark("16d_selftest")
+    return {"discovery": discovered, "daemon": daemon, "pod": pod, "selftest": selftest_run,
+            "card": smi}
+
+
 def main() -> None:
     import torch
 
@@ -5412,6 +5825,9 @@ def main() -> None:
                 r["launches_by_design"][kernel]["fma"]
                 for r in pp_run["pp4_shared_card"]["schedules"][schedule]["by_rank"]]
 
+    plugin = run_phase_16(torch, smi, mark)
+    paged["f"]["plugin_pod_launches"] = plugin["pod"]["paged_launches"]
+
     for row, name in ((paged["f"], "paged_attention"), (flash, "flash_attention"),
                       (dq, "flash_attention_bwd_dq"), (dkv, "flash_attention_bwd_dkv")):
         for D, timed in by_width.items():
@@ -5439,6 +5855,7 @@ def main() -> None:
     print(json.dumps({"moe": moe_run}), flush=True)
     print(json.dumps({"sp": sp_run}), flush=True)
     print(json.dumps({"pipeline": pp_run}), flush=True)
+    print(json.dumps({"plugin": plugin}), flush=True)
     print(json.dumps({"phase_seconds": phase_s, "total_s": time.perf_counter() - t0,
                       "card": smi}), flush=True)
     print(json.dumps({

@@ -1,7 +1,9 @@
-"""PyTorch + CUDA port of the serving workload for NVIDIA Hopper.
+"""PyTorch + CUDA port of the serving workload for NVIDIA Hopper, and the
+device plugin that advertises the cards (``plugin/``, ``nvidia.com/gpu``).
 
 The JAX package ``k8s_device_plugin_tpu`` is the reference; this package
-mirrors its layout (``models/``, ``ops/``, ``utils/``) so every module has
+mirrors its layout (``models/``, ``ops/``, ``parallel/``, ``plugin/``,
+``kubelet/``, ``utils/``) so every module has
 an obvious counterpart, and it imports nothing of it: what it needs from
 the reference's jax-free modules it keeps as its own copy.
 

@@ -2,7 +2,8 @@
 
 The port's own copy of the reference's ``models/engine_watchdog.py`` (the port imports
 nothing of the JAX package); its behaviour, names and wire shapes are
-the reference's, held by tests/test_torch_admission.py.
+the reference's, held by tests/test_torch_admission.py, and
+:func:`visible_chip_paths` also reads the GPU device plugin's env.
 
 The stack can survive replica *loss* (router failover) and replica
 *overload* (admission shedding), but a replica that is merely *sick*
@@ -52,20 +53,24 @@ from typing import Callable, Optional
 
 
 def visible_chip_paths(environ=None, root: str = "/") -> list[str]:
-    """Device-node paths of the chips allocated to THIS pod, from the
-    ``TPU_VISIBLE_CHIPS`` env the plugin's Allocate response injects
-    (``"0,1"`` -> ``[/dev/accel0, /dev/accel1]``); empty off-cluster.
-    ``root`` is the injectable host-tree root the rest of the plugin
-    test surface uses."""
+    """Device-node paths of the chips allocated to THIS pod, from the env
+    the device plugin's Allocate response injects: the GPU plugin's
+    ``GPU_DEVICE_MINORS`` (``"0,1"`` -> ``[/dev/nvidia0, /dev/nvidia1]``),
+    else the TPU plugin's ``TPU_VISIBLE_CHIPS`` (``"0,1"`` ->
+    ``[/dev/accel0, /dev/accel1]``); empty off-cluster.  ``root`` is the
+    injectable host-tree root the rest of the plugin test surface uses."""
     environ = os.environ if environ is None else environ
-    text = environ.get("TPU_VISIBLE_CHIPS", "") or ""
+    for name, node in (("GPU_DEVICE_MINORS", "nvidia"), ("TPU_VISIBLE_CHIPS", "accel")):
+        text = environ.get(name, "") or ""
+        if text:
+            break
     out: list[str] = []
     for part in text.replace(",", " ").split():
         try:
             idx = int(part)
         except ValueError:
             return []
-        out.append(os.path.join(root, f"dev/accel{idx}"))
+        out.append(os.path.join(root, f"dev/{node}{idx}"))
     return out
 
 

@@ -2426,8 +2426,9 @@ def _serve(args, group) -> None:
             grace_deadline_s=args.watchdog_grace,
         )
     chip_feed = None
-    # Off a TPU node visible_chip_paths() is empty: no devfs feed is built
-    # (the GPU device nodes' feed waits for the GPU device plugin).
+    # The granted device nodes: /dev/nvidiaN from the GPU device plugin's
+    # GPU_DEVICE_MINORS (or /dev/accelN from the TPU plugin's env); none
+    # off-cluster, where no devfs feed is built.
     chip_paths = visible_chip_paths()
     if args.chip_health_url or chip_paths:
         chip_feed = ChipHealthFeed(

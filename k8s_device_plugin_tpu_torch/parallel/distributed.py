@@ -2,11 +2,13 @@
 process group.
 
 Counterpart of the reference's ``parallel/distributed.py``, with its env
-contract, precedence and error texts: the plugin injects
-``TPU_WORKER_HOSTNAMES`` and ``TPU_WORKER_ID``, and the explicit
-``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID`` and
-``JAX_COORDINATOR_PORT`` win over them (the names are kept, so one
-manifest, ``deploy/k8s-job-resnet50-2host.yaml``, drives either package).
+contract, precedence and error texts: the GPU device plugin injects
+``GPU_WORKER_HOSTNAMES`` and ``GPU_WORKER_ID`` (``plugin/envs.py``), the
+TPU plugin ``TPU_WORKER_HOSTNAMES`` and ``TPU_WORKER_ID``, read when no
+``GPU_WORKER_HOSTNAMES`` is set (so one manifest,
+``deploy/k8s-job-resnet50-2host.yaml``, drives either package); the
+explicit ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
+``JAX_PROCESS_ID`` and ``JAX_COORDINATOR_PORT`` win over both.
 
 The reference runs one process per host over every local chip; here each
 host runs one process per local card, so :func:`initialize` forms a group
@@ -34,6 +36,10 @@ log = logging.getLogger(__name__)
 # The reference's coordinator port (jax's convention); overridable via env.
 DEFAULT_COORDINATOR_PORT = 8476
 
+# The worker envs: the GPU device plugin's pair, else the TPU plugin's.
+WORKER_ENVS = (("GPU_WORKER_HOSTNAMES", "GPU_WORKER_ID"),
+               ("TPU_WORKER_HOSTNAMES", "TPU_WORKER_ID"))
+
 
 @dataclass(frozen=True)
 class ProcessGroupConfig:
@@ -52,10 +58,10 @@ def process_group_from_env(
     """Derive the slice's process group from the plugin-injected environment.
 
     Returns None when this pod is a single-host allocation (no
-    TPU_WORKER_HOSTNAMES, or a one-host list).  Explicit
-    JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID always win
-    over the TPU_* derivation, so operators can override without touching
-    the plugin.
+    GPU_WORKER_HOSTNAMES or TPU_WORKER_HOSTNAMES, or a one-host list).
+    Explicit JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID
+    always win over the GPU_* / TPU_* derivation, so operators can override
+    without touching the plugin.
     """
     environ = os.environ if environ is None else environ
     port = coordinator_port or int(
@@ -76,7 +82,7 @@ def process_group_from_env(
                     "not, and no multi-host TPU_WORKER_HOSTNAMES to infer from"
                 )
             num = len(hostnames)
-        pid_text = environ.get("JAX_PROCESS_ID", environ.get("TPU_WORKER_ID"))
+        pid_text = environ.get("JAX_PROCESS_ID", environ.get(_worker_id_name(environ)))
         if pid_text is None:
             if num > 1:
                 # Every worker would claim process 0 and group formation
@@ -102,15 +108,16 @@ def process_group_from_env(
     hostnames = _hostnames(environ)
     if len(hostnames) <= 1:
         return None
-    worker_id_text = environ.get("TPU_WORKER_ID", "0")
+    id_name = _worker_id_name(environ)
+    worker_id_text = environ.get(id_name, "0")
     try:
         worker_id = int(worker_id_text)
     except ValueError:
         # A malformed id must not silently become process 0.
-        raise ValueError(f"malformed TPU_WORKER_ID {worker_id_text!r}")
+        raise ValueError(f"malformed {id_name} {worker_id_text!r}")
     if not 0 <= worker_id < len(hostnames):
         raise ValueError(
-            f"TPU_WORKER_ID={worker_id} out of range for "
+            f"{id_name}={worker_id} out of range for "
             f"{len(hostnames)} worker hostnames"
         )
     return ProcessGroupConfig(
@@ -120,8 +127,19 @@ def process_group_from_env(
     )
 
 
+def _worker_envs(environ: Mapping[str, str]) -> tuple[str, str]:
+    """The (hostnames, worker id) env names this pod's plugin injected:
+    the GPU plugin's where GPU_WORKER_HOSTNAMES or GPU_WORKER_ID is set."""
+    gpu = WORKER_ENVS[0]
+    return gpu if any(name in environ for name in gpu) else WORKER_ENVS[1]
+
+
+def _worker_id_name(environ: Mapping[str, str]) -> str:
+    return _worker_envs(environ)[1]
+
+
 def _hostnames(environ: Mapping[str, str]) -> tuple[str, ...]:
-    text = environ.get("TPU_WORKER_HOSTNAMES", "")
+    text = environ.get(_worker_envs(environ)[0], "")
     return tuple(h.strip() for h in text.split(",") if h.strip())
 
 

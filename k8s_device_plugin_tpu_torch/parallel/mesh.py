@@ -3,9 +3,11 @@
 Counterpart of the reference's ``parallel/mesh.py``.  The reference lays
 ``jax.devices()`` out as a ``jax.sharding.Mesh``; here one process drives
 one card, so a mesh is a ``DeviceMesh`` over process ranks, and a "device"
-in the arguments below is a rank.  The axis rules, the plugin-injected env
+in the arguments below is a rank.  The axis rules, the TPU plugin's env
 (``TPU_VISIBLE_CHIPS``, ``TPU_CHIPS_PER_HOST_BOUNDS``) and the error texts
-are the reference's.
+are the reference's; the GPU device plugin's ``GPU_DEVICE_MINORS``
+(``plugin/envs.py``) names the granted cards where it is set, with no
+bounds (NVSwitch joins every card to every other, so no order is better).
 
 :func:`mesh_shape` and :func:`allocation_ranks` are the pure halves of
 :func:`make_mesh` and :func:`mesh_from_allocation`: they check and order
@@ -46,12 +48,23 @@ def chips_per_host_bounds(environ: Mapping[str, str] | None = None) -> tuple[int
         return None
 
 
+# The env naming the granted devices: the GPU device plugin's, else the
+# TPU plugin's.
+ALLOCATION_ENVS = ("GPU_DEVICE_MINORS", "TPU_VISIBLE_CHIPS")
+
+
+def allocation_env(environ: Mapping[str, str]) -> str:
+    """The name of the allocation env this pod got (the first of
+    ALLOCATION_ENVS that is set; the TPU plugin's when neither is)."""
+    return next((name for name in ALLOCATION_ENVS if environ.get(name)), ALLOCATION_ENVS[-1])
+
+
 def allocated_chip_indices(environ: Mapping[str, str] | None = None) -> list[int] | None:
-    """The host-local chip indices the plugin granted this container
-    (TPU_VISIBLE_CHIPS), or None off-cluster / unparsable, in the plugin's
-    sorted-index order."""
+    """The host-local device indices the plugin granted this container
+    (GPU_DEVICE_MINORS, else TPU_VISIBLE_CHIPS), or None off-cluster /
+    unparsable, in the plugin's sorted-index order."""
     environ = os.environ if environ is None else environ
-    text = environ.get("TPU_VISIBLE_CHIPS")
+    text = environ.get(allocation_env(environ))
     if not text:
         return None
     try:
@@ -154,10 +167,11 @@ def allocation_ranks(tp: int, *, environ: Mapping[str, str] | None = None,
             )
         return devices[:tp]
     if len(chips) != tp:
+        name = allocation_env(environ)
         raise ValueError(
             f"--tp {tp} does not match the allocation: the plugin injected "
-            f"{len(chips)} chip(s) (TPU_VISIBLE_CHIPS="
-            f"{environ.get('TPU_VISIBLE_CHIPS')!r}).  Request a pod with "
+            f"{len(chips)} chip(s) ({name}="
+            f"{environ.get(name)!r}).  Request a pod with "
             f"exactly {tp} chips or set --tp {len(chips)}."
         )
     devices = _host_ranks() if devices is None else list(devices)
@@ -167,7 +181,10 @@ def allocation_ranks(tp: int, *, environ: Mapping[str, str] | None = None,
             "rank(s) run on this host: start one rank per granted chip"
         )
     devices = devices[:tp]
-    bounds = chips_per_host_bounds(environ)
+    # Only the TPU plugin's grant has a mesh to walk; the GPU plugin's has
+    # none, whatever TPU bounds an image leaks into the env.
+    tpu = allocation_env(environ) == "TPU_VISIBLE_CHIPS"
+    bounds = chips_per_host_bounds(environ) if tpu else None
     if bounds is not None and math.prod(bounds) == tp:
         # Rank i drives the chip at local block index i (x fastest): reorder
         # along the snake walk so the tp ring rides adjacent links.

@@ -4,7 +4,8 @@ The port's own copy of the reference's ``utils/metrics.py`` (counters,
 gauges, summaries, histograms, the registry and the 0.0.4 text
 exposition), so a scrape of either engine reads alike and
 ``tools/metrics_lint.py`` holds both.  The stand-alone ``MetricsServer``
-is not copied: the port's HTTP server serves ``/metrics`` itself.
+serves the GPU device plugin's ``/metrics`` and ``/debug/*``; the port's
+HTTP server serves its own.
 
 Exposition format: https://prometheus.io/docs/instrumenting/exposition_formats/
 (text version 0.0.4) — `# HELP` / `# TYPE` headers, one `name{labels} value`
@@ -16,6 +17,7 @@ from __future__ import annotations
 import bisect
 import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Iterable, Mapping
 
 
@@ -384,3 +386,111 @@ def write_exposition(handler, registry: "MetricsRegistry") -> None:
     handler.send_header("Content-Length", str(len(body)))
     handler.end_headers()
     handler.wfile.write(body)
+
+
+class MetricsServer:
+    """Serves GET /metrics (exposition text) and GET /healthz on a daemon
+    thread.  Port 0 picks a free port (tests); `.port` reports it.
+
+    ``health`` is an optional callable consulted by /healthz: True (or no
+    callable) ⇒ 200 "ok", False ⇒ 503 — so a liveness probe reflects the
+    daemon's actual state, not just this HTTP thread's.
+
+    ``debug`` maps extra GET paths (e.g. ``/debug/devices``) to
+    callables returning a JSON-serializable snapshot — the plugin-side
+    introspection companion to the serving engine's ``/debug/state``.
+    A callable declaring at least one positional parameter receives the
+    parsed query dict (``{name: [values]}``; e.g. the span endpoint's
+    ``?rid=`` filter); a no-arg callable is called bare.  A snapshot
+    callable that raises answers 500 with the error, never kills the
+    metrics thread.
+    """
+
+    def __init__(
+        self,
+        registry: MetricsRegistry,
+        host: str = "0.0.0.0",
+        port: int = 9100,
+        health=None,
+        debug=None,
+    ):
+        import inspect as _inspect
+        import json as _json
+        import urllib.parse as _urlparse
+
+        registry_ref = registry
+        health_ref = health
+        debug_ref = dict(debug or {})
+        # Decided once at construction, not per request: which debug
+        # callables want the query dict (any positional parameter).
+        wants_query = set()
+        for _path, _fn in debug_ref.items():
+            try:
+                if _inspect.signature(_fn).parameters:
+                    wants_query.add(_path)
+            except (TypeError, ValueError):
+                pass  # builtins without signatures: call bare
+
+        class Handler(BaseHTTPRequestHandler):
+            def _json_reply(self, code: int, obj) -> None:
+                body = _json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):  # noqa: N802 — http.server API
+                path = self.path.split("?")[0]
+                if path in debug_ref:
+                    try:
+                        if path in wants_query:
+                            query = _urlparse.parse_qs(
+                                _urlparse.urlparse(self.path).query
+                            )
+                            snap = debug_ref[path](query)
+                        else:
+                            snap = debug_ref[path]()
+                    except Exception as e:  # snapshot bug must not kill scrapes
+                        self._json_reply(500, {"error": str(e)})
+                        return
+                    self._json_reply(200, snap)
+                elif path == "/metrics":
+                    write_exposition(self, registry_ref)
+                elif path == "/healthz":
+                    try:
+                        healthy = health_ref is None or bool(health_ref())
+                    except Exception:
+                        healthy = False
+                    body = b"ok\n" if healthy else b"unhealthy\n"
+                    self.send_response(200 if healthy else 503)
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                else:
+                    self.send_error(404)
+
+            def log_message(self, *args):  # quiet: scrapes are frequent
+                pass
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd.daemon_threads = True
+        self._thread: threading.Thread | None = None
+
+    @property
+    def port(self) -> int:
+        return self._httpd.server_address[1]
+
+    def start(self) -> None:
+        assert self._thread is None
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="gpu-plugin-metrics", daemon=True
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        if self._thread is not None:
+            self._httpd.shutdown()
+            self._thread.join(timeout=5)
+            self._thread = None
+        self._httpd.server_close()

@@ -9,8 +9,9 @@ the ``dp`` replicas do not split evenly (the ``mp`` ranks of one replica
 take the same rows); under ``--pp``, the reference's pipeline refusals.
 Each run that
 spawns ranks (the CLI, and a script calling ``launch``) is a subprocess
-with its own time limit (150 s), killed with every rank it spawned when it
-passes it.
+with its own time limit (150 s from the turn the suite gives it,
+``tests/torch_ranks.py`` ``group_turn``), killed with every rank it spawned
+when it passes it.
 """
 
 import json
@@ -23,23 +24,28 @@ import sys
 import pytest
 
 from k8s_device_plugin_tpu_torch.models import benchmark as tbench
+from tests import torch_ranks
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = ["--device=cpu", "--dtype=float32"]
 
 
 def _run(cmd):
-    """``cmd`` from the repo root, killed with every rank it spawned after
-    150 s; returns (returncode, stdout, stderr)."""
-    proc = subprocess.Popen(cmd, cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO),
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                            start_new_session=True)
-    try:
-        out, err = proc.communicate(timeout=150)
-    finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
+    """``cmd`` from the repo root once the suite gives its ranks a turn
+    (``torch_ranks.group_turn``: at most GROUPS_AT_ONCE rank groups at a
+    time), one torch thread a rank, killed with every rank it spawned 150 s
+    after its turn came; returns (returncode, stdout, stderr)."""
+    with torch_ranks.group_turn():
+        proc = subprocess.Popen(cmd, cwd=REPO,
+                                env=dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1"),
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                                start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=150)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
     return proc.returncode, out, err
 
 

@@ -423,11 +423,28 @@ def _wire(wire: bytes, logits: bytes, snap, handoff_mod) -> tuple:
     return header, keys, rows, handoff_mod.read_logits_section(io.BytesIO(logits))
 
 
+def _logits_header(section: bytes) -> dict:
+    """The logits section's JSON header (``encode_logits_section``) without
+    its ``crc32``: the checksum of float32 values that agree within ATOL
+    differs, and with it the length of its decimal text."""
+    import struct
+
+    from k8s_device_plugin_tpu_torch.models.engine_handoff import LOGITS_MAGIC
+
+    assert section[:len(LOGITS_MAGIC)] == LOGITS_MAGIC
+    (meta_len,) = struct.unpack("<I", section[len(LOGITS_MAGIC):len(LOGITS_MAGIC) + 4])
+    start = len(LOGITS_MAGIC) + 4
+    meta = json.loads(section[start:start + meta_len])
+    assert len(section) == start + meta_len + meta["nbytes"]
+    return {k: v for k, v in meta.items() if k != "crc32"}
+
+
 def test_tp2_handoff_wire_and_decode_are_the_unsharded_engines(tp_run):
     """The wire of the prefill role over two ranks is the unsharded
     engines' (the JAX package's and the port's) record for record: the same
-    layout (every kv head), fingerprint, keys and byte counts, rows and
-    logits within 1e-5; the JAX package's parser takes it."""
+    layout (every kv head), fingerprint, keys and byte counts, rows, the
+    logits section's dtype, shape and byte count, and its values within
+    ATOL; the JAX package's parser takes it."""
     from k8s_device_plugin_tpu.models import engine_handoff as jax_handoff
     from k8s_device_plugin_tpu_torch.models import engine_handoff as port_handoff
 
@@ -438,7 +455,8 @@ def test_tp2_handoff_wire_and_decode_are_the_unsharded_engines(tp_run):
                              (want["jax_wire"], jax_snap, jax_handoff)):
         theirs = _wire(*other, snap, mod)
         assert ours[0] == theirs[0] and ours[1] == theirs[1]
-        assert len(run["logits"]) == len(other[1])
+        assert _logits_header(run["logits"]) == _logits_header(other[1])
+        assert ours[3].shape == theirs[3].shape and ours[3].dtype == theirs[3].dtype
         for mine, them in zip(ours[2], theirs[2]):
             for layer, pools in them.items():
                 for pool, value in pools.items():

@@ -52,6 +52,7 @@ results.
 
 from __future__ import annotations
 
+import contextlib
 import fcntl
 import os
 import signal
@@ -88,6 +89,44 @@ def _coordinator_port(world: int) -> str:
     return str(store.port)
 
 
+def _lock_fds() -> list:
+    """Open (creating) the suite's GROUPS_AT_ONCE lock files in the temp
+    dir the test workers share."""
+    return [os.open(os.path.join(tempfile.gettempdir(), f"torch_ranks.{i}.lock"),
+                    os.O_CREAT | os.O_RDWR, 0o600) for i in range(GROUPS_AT_ONCE)]
+
+
+def _try_lock(fds: list) -> bool:
+    """Take one of ``fds``' flocks if one is free; the kernel drops it when
+    its fd closes or its holder exits."""
+    for fd in fds:
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except BlockingIOError:
+            continue
+        return True
+    return False
+
+
+@contextlib.contextmanager
+def group_turn(timeout: float = TURN_TIMEOUT_S):
+    """One of the suite's turns for a process that spawns its own ranks
+    (the benchmark CLI, ``launch`` from a script), held for the block: the
+    caller starts the process inside it and counts its time limit from
+    there.  Raises TimeoutError when no turn comes within ``timeout``."""
+    fds = _lock_fds()
+    try:
+        deadline = time.monotonic() + timeout
+        while not _try_lock(fds):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"no rank-group turn within {timeout:.0f} s")
+            time.sleep(0.1)
+        yield
+    finally:
+        for fd in fds:
+            os.close(fd)
+
+
 def _take_turn(spec: dict, rank: int) -> str:
     """Rank 0 takes one of the suite's GROUPS_AT_ONCE lock files (in the
     temp dir the test workers share) and holds it until its process ends
@@ -98,19 +137,12 @@ def _take_turn(spec: dict, rank: int) -> str:
     is there."""
     turn = spec["turn"]
     if rank == 0:
-        locks = [os.path.join(tempfile.gettempdir(), f"torch_ranks.{i}.lock")
-                 for i in range(GROUPS_AT_ONCE)]
-        fds = [os.open(path, os.O_CREAT | os.O_RDWR, 0o600) for path in locks]
+        fds = _lock_fds()
         while not os.path.exists(turn):
-            for fd in fds:
-                try:
-                    fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
-                except BlockingIOError:
-                    continue
+            if _try_lock(fds):
                 with open(turn + ".tmp", "w") as f:
                     f.write(_coordinator_port(spec["world"]) if spec.get("env") else "")
                 os.replace(turn + ".tmp", turn)
-                break
             else:
                 time.sleep(0.1)
     while not os.path.exists(turn):
