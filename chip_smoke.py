@@ -8,11 +8,15 @@ Phases, in order (any failure exits non-zero):
 
 1. print the card's name and power limit (nvidia-smi);
 2. build every CUDA kernel of the port from csrc/ (one nvcc each, in
-   parallel), and read each flash kernel's registers and spills (ptxas)
-   and HGMMA count (cuobjdump) at every head_dim it is built for: the
-   tensor-core (wgmma) variants (forward, dQ, dK/dV; built 64 and 128
-   wide, and padded at each for the head_dims between) must show HGMMA and
-   no spill, the FMA variants (built the same way) no HGMMA; and kernel 1's
+   parallel; the float32 flash forward's, about a minute where the others
+   take seconds, runs on beside kernel 1's checks of phases 3 and 3d and
+   the bf16 batch engine's phases 4 to 4d, and the flash checks of phases
+   2, 3, 3b and 3c run after those), and read each flash kernel's
+   registers and spills (ptxas) and HGMMA count (cuobjdump) at every
+   head_dim it is built for: the tensor-core (wgmma) variants (forward,
+   dQ, dK/dV; built 64 and 128 wide, and padded at each for the head_dims
+   between) must show HGMMA and no spill, the FMA variants (built the same
+   way) no HGMMA; and kernel 1's
    registers and spills in each of its twelve builds (float32 and bf16
    queries, three pool formats, 64 and 128 wide), none of which may spill;
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -193,11 +197,18 @@ Phases, in order (any failure exits non-zero):
    (TOL_F32 for float32 queries, TOL_BF16 for bf16 ones over bf16, int8 and
    int4 pools); the disagg tokens must match; restart and elastic must
    restore entries; the record's keys must be the reference's, null exactly
-   for ``tp`` and the router-side blocks; then kernel 1 is held against its
+   for ``tp``; the router-side blocks come from tiny replicas (GPTConfig.tiny(),
+   float32, page 4) on the card behind the port's router: affinity's KV
+   hits a request must exceed random's, no pass may drop a stream, the
+   canary must detect its injected corruption and fence, the postmortem
+   bundle must be found and classified ``watchdog_hang``, ``autoscale``
+   must equal the block computed again on the host, and the tiny
+   replicas' kernel 1 launches must equal their 2 layers x their device
+   steps (beside the engines'); then kernel 1 is held against its
    plain version at the engines' own geometry (4 rows, 12 pages a row, the
    tuned splits, lens 65..192, bf16) within TOL_BF16;
 10b. ``benchmark.py --model gpt-decode`` at full width (batch 128, prompt 64,
-   128 new), greedy and then sampled (0.8, top-k 50): kernel 2 must launch
+   128 new), greedy and then sampled (0.8, top-k 50; 32 new): kernel 2 must launch
    as its wgmma variant only, once per layer a generate call; every token in
    the vocabulary; a second generate under the same key must repeat it;
    then kernel 2 is held against its plain version at the bulk prefill's
@@ -348,6 +359,23 @@ Phases, in order (any failure exits non-zero):
    three seeds, a ``selftest.probe`` corrupt failpoint quarantining the
    card after ``fail_threshold`` sweeps and the next health sweep reading
    it Unhealthy, a busy card skipped, one probe timed.
+17. the router (``router/``) at full width: two port HTTP replicas of the
+   deployed model in this process (phase 4e's flags: vocab 32000, hidden
+   1024, 8 layers, 16/4 heads, intermediate 3072, bf16, page 16, 512
+   pages, 8 slots; the same weights), the port's router as a subprocess
+   with ``deploy/k8s-deploy-router-gpu.yaml``'s flags, and the port's
+   ``RouterTraffic`` (8 sessions of a 64-token prefix, suffix 1-16, 4-32
+   new tokens, 64 requests from 8 threads) under ``--policy=affinity`` and
+   then ``--policy=random``, the tiers cleared between: KV-tier hits a
+   request, TTFT p50/p99 through the router,
+   client tokens/s, no stream dropped, kernel 1 launched exactly 8 layers
+   x the replicas' device steps (the counters set to 0 just before each
+   pass), every routed greedy stream equal to the in-process engine's on
+   the same flags (or parting at a near-tie, as 4h); then 16 streams
+   through the affinity router with one replica stopped (fenced, which
+   cuts its streams, and shut down) mid-decode: none dropped, every one
+   complete, at least one failover, each stream's tokens before its cut
+   equal to the engine's.
 
 Then it prints one ``kernels`` JSON line (a row per kernel variant, each
 with its design, HGMMA count, registers and spill bytes; every number in
@@ -361,7 +389,8 @@ errors and the tiny phase 6), one
 ``lora_train`` line (phase 10), one ``distributed`` line (phase 11), one
 ``tensor_parallel`` line (phase 12), one ``moe`` line (phase 13), one
 ``sp`` line (phase 14), one ``pipeline`` line (phase 15), one ``plugin``
-line (phase 16), one ``phase_seconds`` line, and last
+line (phase 16), one ``router`` line (phase 17), one ``phase_seconds``
+line, and last
 the line
 ``{"ok": true, "device": {...}}``.
 Without a CUDA device it exits 1 and prints no result.
@@ -1066,23 +1095,29 @@ def start_server(flags, log_path, env) -> tuple:
          *SERVE_EXTRA],
         stdout=subprocess.DEVNULL, stderr=open(log_path, "w"), env=env,
     )
-    deadline, port = time.monotonic() + 600, None
+    return proc, await_http(proc, log_path, r"serving on :(\d+)", "HTTP server", 600)
+
+
+def await_http(proc, log_path, pattern: str, what: str, limit_s: float) -> int:
+    """The port a subprocess prints (``pattern``'s group 1 in its log) once
+    its /healthz answers 200; fails, killing it, if it exits or does not
+    come up within ``limit_s``."""
+    deadline, port = time.monotonic() + limit_s, None
     while time.monotonic() < deadline:
         if proc.poll() is not None:
-            fail(f"the HTTP server exited with {proc.returncode}: "
-                 f"{open(log_path).read()[-3000:]}")
+            fail(f"the {what} exited with {proc.returncode}: {open(log_path).read()[-3000:]}")
         if port is None:
-            m = re.search(r"serving on :(\d+)", open(log_path).read())
+            m = re.search(pattern, open(log_path).read())
             port = int(m.group(1)) if m else None
         if port is not None:
             try:
                 if http_call(port, "/healthz", timeout=5)[0] == 200:
-                    return proc, port
+                    return port
             except OSError:
                 pass
         time.sleep(0.2)
     proc.kill()
-    fail(f"the HTTP server did not come up: {open(log_path).read()[-3000:]}")
+    fail(f"the {what} did not come up: {open(log_path).read()[-3000:]}")
 
 
 def stop_server(proc, log_path) -> float:
@@ -1528,15 +1563,15 @@ def stream_latency(results) -> dict:
             "requests": len(results)}
 
 
-def exit_dump_events(dump_dir, kind: str) -> list:
-    """The ``kind`` events of the engine recorder in the flight dump a
-    server wrote at exit under ``dump_dir``."""
+def exit_dump_events(dump_dir, kind: str, recorder: str = "engine") -> list:
+    """The ``kind`` events of the ``recorder`` ring in the flight dump a
+    server (or the router) wrote at exit under ``dump_dir``."""
     import pathlib
 
     events = []
     for path in sorted(pathlib.Path(dump_dir).glob("tpu-flight-*-exit-*.json")):
         payload = json.loads(path.read_text())
-        events += [e for e in payload["recorders"]["engine"]["events"] if e["kind"] == kind]
+        events += [e for e in payload["recorders"][recorder]["events"] if e["kind"] == kind]
     return events
 
 
@@ -3364,9 +3399,12 @@ SERVING_KEYS = (
     "kernels", "overload", "restart", "elastic", "disagg", "router", "fabric", "slo", "canary",
     "autoscale", "postmortem", "trace", "spans_recorded", "profile",
 )
-# Printed null by the port on one card: tensor parallelism and the blocks
-# that drive the reference's router and controller daemons.
-SERVING_NULL = ("tp", "router", "fabric", "canary", "autoscale", "postmortem")
+# Printed null on one card: tensor parallelism (as the reference's on one
+# device).
+SERVING_NULL = ("tp",)
+# The router-side phases' tiny replicas (GPTConfig.tiny(): 2 layers) and
+# the device steps they report under ``extras["device_steps"]``.
+ROUTER_PHASES = ("router", "fabric", "canary", "postmortem")
 # The kernels phase's arms against the gather arm: float32 shapes by sum
 # order, bf16 queries (bf16, int8 and int4 pools) by bf16 rounding, as
 # phase 3 holds the kernel against its plain version in every format.
@@ -3417,6 +3455,37 @@ def check_engine_paged(torch, pa, tuning, cfg, slots: int, prompt_len: int,
             "max_abs_err": worst, "tolerance": TOL_BF16}
 
 
+def check_router_blocks(record) -> None:
+    """Phase 10a's router-side blocks, from tiny replicas on the card behind
+    the port's router: affinity's KV hits a request above random's, no
+    stream dropped in any pass, the injected corruption detected and
+    fenced, the injected watchdog fence captured and classified, and the
+    controller's simulation passing the serving gate's autoscale verdicts."""
+    router, fabric, canary = record["router"], record["fabric"], record["canary"]
+    postmortem = record["postmortem"]
+    if not router["affinity"]["hit_rate"] > router["random"]["hit_rate"]:
+        fail(f"10a router: affinity's KV hits a request do not exceed random's: {router}")
+    dropped = {"router": [router["affinity"]["dropped"], router["random"]["dropped"]],
+               "fabric": [fabric["fabric"]["dropped"], fabric["control"]["dropped"]],
+               "canary": [canary["dropped"]], "postmortem": [postmortem["dropped"]]}
+    if any(n for passes in dropped.values() for n in passes):
+        fail(f"10a: streams dropped through the router: {dropped}")
+    if not (canary["mismatch_detected"] and canary["fences"] >= 1):
+        fail(f"10a canary: the injected corruption was not detected and fenced: {canary}")
+    if not (postmortem["bundle_found"] and postmortem["root_cause"] == "watchdog_hang"):
+        fail(f"10a postmortem: the injected watchdog fence was not captured and classified "
+             f"watchdog_hang: {postmortem}")
+    # The serving gate's two autoscale verdicts (tools/bench_diff.py): the
+    # controller bills fewer replica-minutes than the static peak fleet
+    # and violates no SLO second.  The block is host-side simulation; the
+    # CPU tests hold it against the reference's value for value.
+    ctrl, static = record["autoscale"]["controller"], record["autoscale"]["static_peak"]
+    if not (ctrl["replica_minutes"] < static["replica_minutes"] and ctrl["slo_violations"] == 0
+            and ctrl["actions"] > 0):
+        fail(f"10a autoscale: REPLICA-MINUTES-REGRESSED or AUTOSCALE-SLO-VIOLATED, or no "
+             f"action: {record['autoscale']}")
+
+
 def run_serving_bench(torch, bench, pa, fa, tuning) -> dict:
     """Phase 10a: ``benchmark.py --model serving`` at the reference's
     defaults on the card (full-width ``gpt_config``, bf16, 4 slots, 16
@@ -3441,13 +3510,28 @@ def run_serving_bench(torch, bench, pa, fa, tuning) -> dict:
     kernels = extras["kernels"]
     steps = extras["device_steps"]
     layers = bench.gpt_config(args).num_layers
-    engine_launches = {fmt: n - kernels["launches"][fmt] for fmt, n in launches.items()}
+    tiny_layers = bench.GPTConfig.tiny().num_layers
+    # The count's change over each router-side phase (run_serving reads it
+    # around the phase, while the main engine is idle) is its tiny replicas'
+    # launches; what is left after the kernels phase is the engines'.
+    replica_launches = extras["paged_launches"]
+    engine_launches = {fmt: n - kernels["launches"][fmt]
+                       - sum(replica_launches[name][fmt] for name in ROUTER_PHASES)
+                       for fmt, n in launches.items()}
     # Once per layer on every dispatched step of both engines (the main one
-    # and the disagg phase's decode role), bf16 pools only.
+    # and the disagg phase's decode role) and of the router-side phases'
+    # tiny replicas (float32 pools, the same count): no int8 or int4 pool.
     want = layers * (steps["main"] + steps["disagg_decode"])
     if engine_launches != {"f": want, "int8": 0, "int4": 0}:
         fail(f"the serving engines launched the paged kernel {engine_launches} times over "
-             f"{steps} dispatched steps of {layers} layers, not {want} (bf16 pools)")
+             f"{steps} dispatched steps of {layers} layers, not {want}")
+    for name in ROUTER_PHASES:
+        want_tiny = tiny_layers * steps[name]
+        if replica_launches[name] != {"f": want_tiny, "int8": 0, "int4": 0} or want_tiny <= 0:
+            fail(f"10a {name}: the tiny replicas launched the paged kernel "
+                 f"{replica_launches[name]} times over {steps[name]} dispatched steps of "
+                 f"{tiny_layers} layers, not {want_tiny} (and more than 0)")
+    check_router_blocks(record)
     if extras["graphs"]["timed"] != extras["graphs"]["warmup"]:
         fail(f"the timed runs dispatched shapes the warm-up did not: {extras['graphs']}")
     done = [list(r.tokens) for r in run.done]
@@ -3479,14 +3563,21 @@ def run_serving_bench(torch, bench, pa, fa, tuning) -> dict:
                               args.prompt_len, args.decode_tokens)
     return {"record": record, "wall_s": wall, "paged_launches": launches,
             "engine_paged_launches": engine_launches["f"],
+            "router_replica_paged_launches": {name: replica_launches[name]["f"]
+                                              for name in ROUTER_PHASES},
             "kernels_phase_launches": kernels["launches"], "device_steps": steps,
             "arm_errors": arms, "engine_geometry_kernel": held}
+
+
+# Phase 10b's sampled run: the greedy run's batch and prompt, 32 new tokens
+# (the sampling path at full width; the depth cut for the script's time).
+SAMPLED_DECODE = (*SAMPLED, "--decode-tokens=32")
 
 
 def run_decode_bench(torch, tf, bench, fa, dp) -> dict:
     """Phase 10b: ``benchmark.py --model gpt-decode`` at full width and the
     reference's defaults (batch 128, prompt 64, 128 new), greedy, then
-    sampled at 0.8 and top-k 50.  Kernel 2 (the bulk prefill) must launch
+    sampled at 0.8 and top-k 50 over 32 new tokens.  Kernel 2 (the bulk prefill) must launch
     as its wgmma variant only, once per layer a generate call: run_decode
     makes two warm-up calls and measure_two_point's three.  Then one more
     generate under the profiler: device time a step against the record's
@@ -3496,7 +3587,7 @@ def run_decode_bench(torch, tf, bench, fa, dp) -> dict:
     from k8s_device_plugin_tpu_torch.utils import prng
 
     out, streams = {}, {}
-    for name, flags in (("greedy", ()), ("sampled", SAMPLED)):
+    for name, flags in (("greedy", ()), ("sampled", SAMPLED_DECODE)):
         args = bench.parse_args(["--model=gpt-decode", "--batch-size=128", f"--device={DEVICE}",
                                  *flags])
         cfg = bench.gpt_config(args)
@@ -3539,7 +3630,7 @@ def run_decode_bench(torch, tf, bench, fa, dp) -> dict:
                          "kernels": sum(row["calls"] for row in prof["top"]),
                          "top": prof["top"][:8]}}
         log(f"phase 10b gpt-decode {name}: {record}; flash launches {by_design}")
-    if torch.equal(streams["greedy"], streams["sampled"]):
+    if torch.equal(streams["greedy"][:, :streams["sampled"].shape[1]], streams["sampled"]):
         fail("the sampled gpt-decode run returned the greedy tokens")
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(12)
@@ -5624,6 +5715,246 @@ def run_phase_16(torch, smi, mark) -> dict:
             "card": smi}
 
 
+# ---------------------------------------------------------------- phase 17
+
+# deploy/k8s-deploy-router-gpu.yaml's router flags, but its replica list
+# (here the static pair of in-process replicas), its port (ephemeral) and
+# its dump directory (under build/); tests/test_torch_router.py holds the
+# two lists equal.
+ROUTER_FLAGS = (
+    "--prefix-block-tokens=16", "--prefix-blocks=4", "--poll-interval=1",
+    "--breaker-failures=3", "--breaker-open-s=5", "--retry-budget=32", "--hedge=1", "--slo=1",
+    "--postmortem=1", "--dump-budget-mb=256", "--drain-grace=10",
+)
+# The routed traffic (the port's RouterTraffic): 8 sessions, each a
+# 64-token prefix (4 KV pages, the affinity key) and a 1-16 token suffix,
+# 4-32 new tokens, 64 requests from 8 client threads.
+ROUTED = dict(sessions=8, prefix_len=64)
+ROUTED_RUN = dict(concurrency=8, suffix_len=(1, 16), max_new=(4, 32))
+ROUTED_REQUESTS = 64
+ROUTED_SEED = 31
+FAILOVER_REQUESTS, FAILOVER_NEW = 16, (24, 32)  # streams long enough to cut mid-decode
+
+
+def start_router(names, flags, log_path, dump_dir, env) -> tuple:
+    """The port's router (``python -m k8s_device_plugin_tpu_torch.router``)
+    as a subprocess over ``names``; (process, port) once a replica polled
+    reachable."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "k8s_device_plugin_tpu_torch.router",
+         f"--replicas={','.join(names)}", "--http-port=0", f"--dump-dir={dump_dir}", *flags],
+        stdout=subprocess.DEVNULL, stderr=open(log_path, "w"), env=env)
+    return proc, await_http(proc, log_path, r"routing on :(\d+)", "router", 120)
+
+
+def router_counters(port: int) -> dict:
+    """The router's failover, retry, hedge and placement counters off its
+    /metrics."""
+    status, text = http_call(port, "/metrics")
+    text = text.decode() if isinstance(text, bytes) else text
+    out = {}
+    for line in text.splitlines():
+        m = re.match(r"(tpu_router_(?:failovers|retries|hedges|placements)_total)"
+                     r"(\{[^}]*\})? ([0-9.e+-]+)$", line)
+        if m:
+            out[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def routed_pass(traffic_mod, port: int, engines, n: int, **run_kw) -> tuple:
+    """One replay of the routed traffic through the router at ``port``:
+    (report, the request list, the replicas' KV-tier hits over it)."""
+    traffic = traffic_mod.RouterTraffic("127.0.0.1", port, seed=ROUTED_SEED, vocab=32000,
+                                        **ROUTED)
+    hits0 = sum(e.kv_retained_hits + e.kv_host_hits for e in engines)
+    report = traffic.run(n, timeout_s=300.0, **run_kw)
+    hits = sum(e.kv_retained_hits + e.kv_host_hits for e in engines) - hits0
+    requests = traffic.build_requests(n, suffix_len=run_kw["suffix_len"],
+                                      max_new=run_kw["max_new"])
+    return report, requests, hits
+
+
+def routed_summary(report, hits: int, n: int) -> dict:
+    """One routed pass: KV-tier hits a request (retained and host pages
+    revived; a prefix page shared with a live request is not one), TTFT
+    quantiles through the router, client tokens/s."""
+    ttft = report.ttfts()
+    return {"requests": n, "completed": report.completed, "dropped": report.dropped,
+            "kv_hits": hits, "kv_hits_per_request": hits / n,
+            "ttft_ms": {"p50": quantile(ttft, 0.5) * 1e3, "p99": quantile(ttft, 0.99) * 1e3},
+            "tokens": report.tokens, "wall_s": report.duration_s,
+            "tokens_per_s": report.tokens / report.duration_s}
+
+
+def run_phase_17(torch, tf, http_server, pa, smi) -> dict:
+    """Phase 17: the port's router in front of two port HTTP replicas of
+    the deployed model on the card (in this process, the same weights, as
+    a Deployment's replicas), the routed traffic under affinity then
+    random placement, greedy streams held against the in-process engine,
+    kernel 1 counted, then one replica stopped while streams are in
+    flight."""
+    import os
+    import pathlib
+    import threading
+
+    from k8s_device_plugin_tpu_torch.models import traffic as traffic_mod
+    from k8s_device_plugin_tpu_torch.utils.metrics import MetricsRegistry
+
+    root = pathlib.Path(__file__).resolve().parent
+    out_dir = root / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(root))
+    args = http_server.parse_args([*SERVE_FLAGS, f"--device={DEVICE}"])
+    servers = []
+    for _ in range(2):
+        registry = MetricsRegistry()
+        eng = http_server.build_engine(args, registry=registry)
+        servers.append(http_server.EngineServer(eng, host="127.0.0.1", port=0,
+                                                registry=registry).start())
+    engines = [s.engine for s in servers]
+    names = [f"127.0.0.1:{s.port}" for s in servers]
+    report = {"card": smi, "replica_flags": list(SERVE_FLAGS), "router_flags": list(ROUTER_FLAGS)}
+    stopped = []
+    try:
+        # Each replica's first launches and CUDA graphs behind the timed
+        # traffic, one replica at a time.
+        warm = traffic_mod.RouterTraffic("127.0.0.1", 0, seed=ROUTED_SEED, vocab=32000, **ROUTED)
+        warm_jobs = [(p, n) for p, n, _, _ in warm.build_requests(2, suffix_len=(16, 16),
+                                                                  max_new=(32, 32))]
+        report["warm_up_s"] = [warm_up(s.port, warm_jobs) for s in servers]
+        passes = {}
+        for mode in ("affinity", "random"):
+            for eng in engines:
+                eng.kvcache_clear()
+            log_path = out_dir / f"router_{mode}.log"
+            dump_dir = root / "build" / "dumps" / f"router_{mode}"
+            shutil.rmtree(dump_dir, ignore_errors=True)
+            dump_dir.mkdir(parents=True)
+            proc, port = start_router(names, (*ROUTER_FLAGS, f"--policy={mode}"), log_path,
+                                      dump_dir, env)
+            try:
+                steps0 = [e.device_steps for e in engines]
+                torch.cuda.synchronize()
+                pa.reset_launches()
+                routed, requests, hits = routed_pass(traffic_mod, port, engines,
+                                                     ROUTED_REQUESTS, **ROUTED_RUN)
+                torch.cuda.synchronize()
+                launches = dict(pa.paged_attention.launches_by_format)
+                steps = [e.device_steps - s for e, s in zip(engines, steps0)]
+                counters = router_counters(port)
+            except BaseException:
+                proc.kill()
+                raise
+            stop_server(proc, log_path)
+            row = routed_summary(routed, hits, ROUTED_REQUESTS)
+            row.update(device_steps=steps, paged_launches=launches, router=counters)
+            want_launches = 8 * sum(steps)
+            if launches != {"f": want_launches, "int8": 0, "int4": 0} or want_launches <= 0:
+                fail(f"17 {mode}: kernel 1 launched {launches} over the replicas' {steps} "
+                     f"device steps of 8 layers, not {want_launches}")
+            if routed.dropped or routed.completed != ROUTED_REQUESTS:
+                fail(f"17 {mode}: {routed.dropped} streams dropped, {routed.completed} of "
+                     f"{ROUTED_REQUESTS} completed: {routed.as_dict()}")
+            passes[mode] = (row, routed, requests)
+            log(f"phase 17 {mode}: {row}")
+        report["affinity"], report["random"] = passes["affinity"][0], passes["random"][0]
+
+        # The failover: one replica stopped while streams are in flight
+        # through the affinity router.
+        dump_dir = root / "build" / "dumps" / "router_failover"
+        shutil.rmtree(dump_dir, ignore_errors=True)
+        dump_dir.mkdir(parents=True)
+        log_path = out_dir / "router_failover.log"
+        proc, port = start_router(names, (*ROUTER_FLAGS, "--policy=affinity"), log_path,
+                                  dump_dir, env)
+        try:
+            traffic = traffic_mod.RouterTraffic("127.0.0.1", port, seed=ROUTED_SEED + 1,
+                                                vocab=32000, **ROUTED)
+            run_kw = dict(concurrency=8, suffix_len=(1, 16), max_new=FAILOVER_NEW)
+            thread, holder = traffic.run_in_thread(FAILOVER_REQUESTS, timeout_s=300.0, **run_kw)
+            victim = servers[0]
+            deadline = time.monotonic() + 120
+            while not any(r is not None and len(r.tokens) >= 4 for r in victim.engine.slots):
+                if time.monotonic() > deadline:
+                    fail("17: no stream reached the first replica to stop it under")
+                time.sleep(0.01)
+            # The replica stops: its fence cuts the in-flight streams (the
+            # router resubmits each with the tokens it had), then it shuts down.
+            victim.begin_fence(reason="stopped", source="operator")
+            victim.stop()
+            stopped.append(victim)
+            thread.join(timeout=400)
+            if thread.is_alive() or holder[0] is None:
+                fail("17: the failover traffic did not resolve")
+            cut = holder[0]
+            failover_counters = router_counters(port)
+        except BaseException:
+            proc.kill()
+            raise
+        stop_server(proc, log_path)
+        failovers = exit_dump_events(dump_dir, "router.failover", recorder="router")
+        n_failovers = sum(v for k, v in failover_counters.items()
+                          if k.startswith("tpu_router_failovers_total"))
+        if cut.dropped or cut.completed != FAILOVER_REQUESTS or n_failovers < 1:
+            fail(f"17 failover: {cut.dropped} dropped, {cut.completed} of {FAILOVER_REQUESTS} "
+                 f"completed, {n_failovers} failovers: {cut.as_dict()}")
+        failover_requests = traffic.build_requests(FAILOVER_REQUESTS, suffix_len=(1, 16),
+                                                   max_new=FAILOVER_NEW)
+    finally:
+        for s in servers:
+            if s not in stopped:
+                s.stop()
+
+    # The in-process engine on the same flags and weights (no limiter: it
+    # takes each list at once): every routed greedy stream must be its
+    # stream (or part from it at a near-tie), a failed-over one too, whole:
+    # the surviving replica re-prefills the prompt and the tokens before the
+    # cut, so past the cut it may part from the engine only at a near-tie.
+    twin = http_server.build_engine(http_server.parse_args([*SERVE_FLAGS, f"--device={DEVICE}",
+                                                            "--overload=0"]))
+    held = {}
+    for mode in ("affinity", "random"):
+        _, routed, requests = passes[mode]
+        jobs = [(p, n) for p, n, _, _ in requests]
+        want = [list(r.tokens) for r in twin.run(jobs)]
+        by_rid = {o.rid: o for o in routed.outcomes}
+        got = [list(by_rid[f"traffic-{ROUTED_SEED}-{i}"].tokens) for i in range(len(jobs))]
+        held[mode] = hold_streams(torch, tf, twin.model, jobs, got, want, f"17 {mode}")
+    jobs = [(p, n) for p, n, _, _ in failover_requests]
+    want = [list(r.tokens) for r in twin.run(jobs)]
+    cut_at = {e["rid"]: e["emitted"] for e in failovers}
+    by_rid = {o.rid: o for o in cut.outcomes}
+    failed_over = []
+    for i, (job, tokens) in enumerate(zip(jobs, want)):
+        rid = f"traffic-{ROUTED_SEED + 1}-{i}"
+        got = list(by_rid[rid].tokens)
+        if len(got) != job[1]:
+            fail(f"17 failover: stream {i} returned {len(got)} of {job[1]} tokens")
+        row = hold_streams(torch, tf, twin.model, [job], [got], [tokens],
+                           f"17 failover stream {i}")
+        at = cut_at.get(rid)
+        row.update(stream=i, cut_at=at,
+                   checked_after_cut=None if at is None else max(0, row["checked"] - at))
+        failed_over.append(row)
+    del twin
+    torch.cuda.empty_cache()
+    report["greedy_held"] = held
+    report["failover"] = {"requests": FAILOVER_REQUESTS, "completed": cut.completed,
+                          "dropped": cut.dropped, "failovers": n_failovers,
+                          "failover_events": failovers, "router": failover_counters,
+                          "streams_cut": sum(1 for r in failed_over if r["cut_at"] is not None),
+                          "tokens_checked_after_cut": sum(r["checked_after_cut"] or 0
+                                                          for r in failed_over),
+                          "held": failed_over}
+    report["paged_launches"] = sum(report[m]["paged_launches"]["f"]
+                                   for m in ("affinity", "random"))
+    log(f"phase 17: KV-tier hits a request affinity "
+        f"{report['affinity']['kv_hits_per_request']:.2f} vs random "
+        f"{report['random']['kv_hits_per_request']:.2f}, {n_failovers} failovers, 0 dropped "
+        f"({smi})")
+    return report
+
+
 def main() -> None:
     import torch
 
@@ -5662,10 +5993,14 @@ def main() -> None:
         now = time.perf_counter()
         phase_s[phase], last[0] = now - last[0], now
 
-    _build.build_all()
-    log(f"kernels built in {time.perf_counter() - t0:.1f}s")
+    # The float32 flash forward (csrc/flash_attention.cu) takes about a minute of
+    # nvcc where the others take seconds: it builds on beside kernel 1's
+    # checks and phases 4-4c (bf16: kernel 1 and the wgmma builds only),
+    # and its first load waits for it.
+    _build.build_all(background=("flash_attention",))
+    log(f"kernels built in {time.perf_counter() - t0:.1f}s (the float32 flash forward "
+        f"builds on)")
     mark("build")
-    facts = build_facts(torch, fa, _build)
     paged_builds = paged_build_facts(_build)
 
     paged = {row["kv_format"]: row for row in check_paged(torch, pa, quant, tuning, dp)}
@@ -5675,16 +6010,10 @@ def main() -> None:
         # queries, 64 wide.
         row.update(design="fma", hgmma=paged_hgmma, **paged_builds[fmt]["bfloat16_64"],
                    builds=paged_builds[fmt])
-    flash, flash_fma = check_flash(torch, fa, facts)
-    bwd = check_flash_bwd(torch, fa, facts)
-    widths = check_widths(torch, pa, fa, quant, tuning)
     restored = check_restored_pages(torch, pa, quant, tf)
     for fmt, held in restored.items():
         paged[fmt]["restored_pages"] = held
-    by_width = {D: time_head_dim(torch, pa, fa, dp, tuning, D) for D in (80, 96, 128)}
-    mark("kernel_checks")
-    dq, dq_fma = bwd[("dq", "bfloat16")], bwd[("dq", "float32")]
-    dkv, dkv_fma = bwd[("dkv", "bfloat16")], bwd[("dkv", "float32")]
+    mark("paged_checks")
     summary, launches, sync_tokens = run_engine(torch, engine, pa, fa, SYNC_EAGER)
     paged["f"]["launches"] = launches["f"]
     mark("4_engine")
@@ -5699,6 +6028,17 @@ def main() -> None:
     mark("4b_quant")
     blocks = run_blocks(torch, engine, pa, fa, dp, sync_tokens)
     mark("4c_blocks")
+    t_wait = time.perf_counter()
+    _build.load("flash_attention")
+    log(f"the float32 flash forward's build: waited {time.perf_counter() - t_wait:.1f}s more")
+    facts = build_facts(torch, fa, _build)
+    flash, flash_fma = check_flash(torch, fa, facts)
+    bwd = check_flash_bwd(torch, fa, facts)
+    widths = check_widths(torch, pa, fa, quant, tuning)
+    by_width = {D: time_head_dim(torch, pa, fa, dp, tuning, D) for D in (80, 96, 128)}
+    mark("kernel_checks")
+    dq, dq_fma = bwd[("dq", "bfloat16")], bwd[("dq", "float32")]
+    dkv, dkv_fma = bwd[("dkv", "bfloat16")], bwd[("dkv", "float32")]
     from k8s_device_plugin_tpu_torch.models import http_server
 
     serve = run_serve(torch, tf, http_server, smi, blocks["greedy"])
@@ -5827,6 +6167,11 @@ def main() -> None:
 
     plugin = run_phase_16(torch, smi, mark)
     paged["f"]["plugin_pod_launches"] = plugin["pod"]["paged_launches"]
+    routed = run_phase_17(torch, tf, http_server, pa, smi)
+    mark("17_router")
+    paged["f"]["router_launches"] = routed["paged_launches"]
+    paged["f"]["serving_bench_router_replica_launches"] = \
+        serving_bench["router_replica_paged_launches"]
 
     for row, name in ((paged["f"], "paged_attention"), (flash, "flash_attention"),
                       (dq, "flash_attention_bwd_dq"), (dkv, "flash_attention_bwd_dkv")):
@@ -5856,6 +6201,7 @@ def main() -> None:
     print(json.dumps({"sp": sp_run}), flush=True)
     print(json.dumps({"pipeline": pp_run}), flush=True)
     print(json.dumps({"plugin": plugin}), flush=True)
+    print(json.dumps({"router": routed}), flush=True)
     print(json.dumps({"phase_seconds": phase_s, "total_s": time.perf_counter() - t0,
                       "card": smi}), flush=True)
     print(json.dumps({

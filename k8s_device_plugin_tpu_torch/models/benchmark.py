@@ -72,9 +72,11 @@ The inference modes print the reference's records, key for key::
 
 ``gpt-decode`` times ``greedy_generate`` (``sample_generate`` under
 ``--temperature``) two-point, as the reference; ``serving`` runs the
-engine's phases (``run_serving``) and prints ``tp`` and the router-side
-blocks null: those phases drive the reference's router and controller
-daemons, which this package does not import (ROADMAP.md).
+engine's phases (``run_serving``), then the router-side phases: tiny
+replicas on the same device behind the port's router (``router/``) and the
+fleet controller's simulation (``controller/``); ``tp`` prints null on one
+card, and ``--router-replicas 0`` (or 1) prints ``router``, ``fabric``,
+``canary`` and ``postmortem`` null, as the reference does.
 """
 
 from __future__ import annotations
@@ -252,9 +254,9 @@ def parse_args(argv=None):
                    "the engine's gather path and the kernel at one split, per shape and KV "
                    "format; --no-kernel skips it)")
     p.add_argument("--router-replicas", type=int, default=2,
-                   help="serving: replicas of the reference's ROUTER phase; the port runs no "
-                   "router-side phase (its blocks print null) and takes the flag for the "
-                   "reference's command lines")
+                   help="serving: replicas in the ROUTER phase (prefix-affinity vs "
+                   "random-placement control over K tiny real serving replicas behind the "
+                   "router daemon; 0/1 skips the phase)")
     p.add_argument("--temperature", type=float, default=None,
                    help="gpt-decode: sample with this temperature instead of greedy argmax")
     p.add_argument("--top-k", type=_positive_int, default=None,
@@ -715,11 +717,6 @@ def run_decode(args, params: Optional[dict] = None) -> tuple[dict, torch.Tensor]
         "ms_per_token": round(dt / steps * 1e3, 3),
     }
     return record, held["out"]
-
-
-# The reference's fleet-side blocks: they run its router/ and controller/
-# daemons, which this package does not import; the port prints them null.
-ROUTER_SIDE_BLOCKS = ("router", "fabric", "canary", "autoscale", "postmortem")
 
 
 class ServingRun(NamedTuple):
@@ -1320,6 +1317,568 @@ def _run_disagg_phase(eng, args, params: dict) -> tuple[dict, int]:
     return block, dec.device_steps
 
 
+# The router-side phases: tiny replicas behind the port's router/ and
+# controller/ (the reference's sizes, seeds and traffic).
+ROUTER_PAGE = 4  # one prefix block = one KV page of the tiny replicas
+
+
+def _tiny_replicas(args, seeds, **engine_kw) -> tuple[list, list]:
+    """(servers, engines): one started ``EngineServer`` (ephemeral port,
+    admin routes on) per seed, over ``GPTConfig.tiny()`` at max_seq 64, page
+    4, 64 pages, 4 slots on ``args.device``, weights ``init_params(cfg,
+    seed)``; ``engine_kw`` goes to every ``ServingEngine``."""
+    from ..utils.metrics import MetricsRegistry
+    from .engine import ServingEngine
+    from .engine_types import EngineMetrics
+    from .http_server import EngineServer
+    from .transformer import PagedConfig
+
+    device = resolve_device(args.device)
+    cfg = dataclasses.replace(GPTConfig.tiny(), max_seq=64)
+    paged = PagedConfig(ROUTER_PAGE, num_pages=64, max_pages_per_seq=16)
+    servers, engines = [], []
+    for seed in seeds:
+        registry = MetricsRegistry()
+        engine = ServingEngine(cfg, init_params(cfg, seed), paged, max_slots=4,
+                               metrics=EngineMetrics(registry), device=device, **engine_kw)
+        engines.append(engine)
+        servers.append(EngineServer(engine, host="127.0.0.1", port=0, registry=registry,
+                                    enable_admin=True).start())
+    return servers, engines
+
+
+def _post_replica(port: int, prompt, max_new: int) -> None:
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/generate",
+        data=json.dumps({"prompt": prompt, "max_new_tokens": max_new}).encode(), method="POST")
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        resp.read()
+
+
+def _warm_replicas(servers, prompt_len: int) -> None:
+    """One server at a time, bursts of 1 to 4 concurrent ``prompt_len``-token
+    requests: every (batch, prompt) shape the replay admits, and every
+    decode dispatch (a CUDA graph on the card) captured before any timed
+    pass."""
+    import threading
+
+    for server in servers:
+        for group in (1, 2, 3, 4):
+            threads = [threading.Thread(target=_post_replica,
+                                        args=(server.port, [7 + g] * prompt_len, 6))
+                       for g in range(group)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+
+
+def _ttft_p99_ms(router, snap):
+    return _ms(router.metrics.ttft_seconds.quantile(0.99, since=snap))
+
+
+def _run_router_phase(args) -> tuple[Optional[dict], int]:
+    """ROUTER phase: prefix-affinity routing against a random-placement
+    control over the same seeded multi-session traffic, K tiny replicas
+    behind the router.  The hit rate is the replicas' KV-tier hits
+    (retained + host arena) per routed request; TTFT p99 is the router's
+    own first-token histogram.  Both passes run over the same replicas
+    with the tiers cleared between, affinity first, so residual warmth
+    favours the control.  Returns the ``router`` block (None below 2
+    replicas) and the replicas' dispatched device steps."""
+    from ..router.server import RouterServer
+    from .traffic import RouterTraffic
+
+    n_replicas = args.router_replicas
+    if n_replicas < 2:
+        return None, 0
+    servers, engines = _tiny_replicas(args, range(n_replicas), kv_retain=True,
+                                      kv_host_cache_mb=16)
+    _warm_replicas(servers, 18)
+    names = [f"127.0.0.1:{s.port}" for s in servers]
+    # More sessions than replicas: random placement pays a cold prefix
+    # graft on every extra replica a session touches, affinity one.
+    sessions, prefix_len, n_requests = 8, 16, 32
+
+    def kv_hits():
+        return sum(e.kv_retained_hits + e.kv_host_hits for e in engines)
+
+    def measure(mode):
+        router = RouterServer(names, host="127.0.0.1", port=0, prefix_block_tokens=ROUTER_PAGE,
+                              prefix_max_blocks=prefix_len // ROUTER_PAGE, poll_interval_s=0.2,
+                              hedge=False, policy_mode=mode, seed=3).start()
+        try:
+            traffic = RouterTraffic("127.0.0.1", router.port, seed=17, sessions=sessions,
+                                    prefix_len=prefix_len, vocab=engines[0].cfg.vocab_size)
+            # A warm pass of the same seed (the same shapes), then every
+            # tier cleared so the measured pass starts cold.
+            traffic.run(n_requests, concurrency=4, suffix_len=(1, 4), max_new=(4, 8))
+            for engine in engines:
+                engine.kvcache_clear()
+            hits0, snap = kv_hits(), router.metrics.ttft_seconds.snapshot()
+            report = traffic.run(n_requests, concurrency=4, suffix_len=(1, 4), max_new=(4, 8))
+            placements = {key: router.metrics.placements.value(placement=key)
+                          for key in ("home", "overflow", "random", "failover")}
+            return {
+                "prefix_hits": kv_hits() - hits0,
+                "hit_rate": round((kv_hits() - hits0) / n_requests, 3),
+                "ttft_p99_ms": _ttft_p99_ms(router, snap),
+                "home_rate": round(placements["home"] / max(1, sum(placements.values())), 3),
+                "dropped": report.dropped,
+                "failovers": int(router.metrics.failovers.value()),
+                "retries": int(router.metrics.retries.value()),
+            }
+        finally:
+            router.stop()
+
+    try:
+        affinity = measure("affinity")
+        random_ctl = measure("random")
+    finally:
+        for server in servers:
+            server.stop()
+    block = {"replicas": n_replicas, "requests": n_requests, "sessions": sessions,
+             "affinity": affinity, "random": random_ctl}
+    log(f"perf-ledger row: | ROUTER prefix-affinity (K={n_replicas}, {sessions} sessions) | "
+        f"affinity {affinity['hit_rate']:.2f} KV hits/req, TTFT p99 {affinity['ttft_p99_ms']} ms "
+        f"(home rate {affinity['home_rate']:.2f}) vs random {random_ctl['hit_rate']:.2f} "
+        f"hits/req, {random_ctl['ttft_p99_ms']} ms | - | `benchmark.py --model serving` | "
+        "update on bench round |")
+    return block, sum(e.device_steps for e in engines)
+
+
+def _run_fabric_phase(args) -> tuple[Optional[dict], int]:
+    """FABRIC phase: the fleet KV fabric (``router/fabric.py``) against an
+    affinity-only control over the same seeded traffic, every session
+    opening with one shared system prompt, on at least 3 replicas with
+    identical weights (the handoff's fingerprint check refuses KV across
+    others).  With the fabric the shared prefix is prefilled once and the
+    other replicas pull it: fleet KV hits per request must beat the
+    control's, at no TTFT cost.  The fabric pass runs first; the control
+    waits the locator-settle time the fabric pass measured.  Returns the
+    ``fabric`` block (None below 2 router replicas) and the replicas'
+    dispatched device steps."""
+    from ..router.fabric import FabricConfig
+    from ..router.server import RouterServer
+    from .traffic import RouterTraffic
+
+    if args.router_replicas < 2:
+        return None, 0
+    # With three, affinity alone cannot keep the shared prompt hot on
+    # every replica, so the control pays the recompute the fabric avoids.
+    n_replicas = max(3, args.router_replicas)
+    servers, engines = _tiny_replicas(args, [0] * n_replicas, kv_retain=True,
+                                      kv_host_cache_mb=16)
+    _warm_replicas(servers, 36)
+    names = [f"127.0.0.1:{s.port}" for s in servers]
+    # A 16-token system prompt shared by every session and a 16-token
+    # unique tail: affinity homes sessions apart, the fabric dedups the head.
+    sessions, prefix_len, shared_len, n_requests = 8, 32, 16, 32
+
+    def kv_hits():
+        return sum(e.kv_retained_hits + e.kv_host_hits for e in engines)
+
+    def pulls():
+        return sum(e.handoff_fetches for e in engines)
+
+    def measure(use_fabric, settle_s):
+        router = RouterServer(names, host="127.0.0.1", port=0, prefix_block_tokens=ROUTER_PAGE,
+                              prefix_max_blocks=prefix_len // ROUTER_PAGE, poll_interval_s=0.2,
+                              hedge=False, policy_mode="affinity", seed=3, fabric=use_fabric,
+                              fabric_config=FabricConfig(default_page_size=ROUTER_PAGE)).start()
+        try:
+            traffic = RouterTraffic("127.0.0.1", router.port, seed=17, sessions=sessions,
+                                    prefix_len=prefix_len, shared_prefix_len=shared_len,
+                                    vocab=engines[0].cfg.vocab_size)
+            traffic.run(n_requests, concurrency=4, suffix_len=(1, 4), max_new=(4, 8))
+            for engine in engines:
+                engine.kvcache_clear()
+            # One owner of the shared prompt, placed through the router as
+            # production would; the locator then settles on the truth:
+            # exactly that owner advertises, the rest read empty.
+            t0 = time.monotonic()
+            _post_replica(router.port, traffic.prefixes[0][:shared_len], 4)
+            if use_fabric:
+                deadline = time.monotonic() + 10.0
+                while time.monotonic() < deadline:
+                    roots = router.fabric.advertised_roots()
+                    if sum(1 for v in roots.values() if v) == 1:
+                        break
+                    time.sleep(0.05)
+                settle_s = time.monotonic() - t0
+            else:
+                time.sleep(max(0.0, settle_s - (time.monotonic() - t0)))
+            hits0, pulls0 = kv_hits(), pulls()
+            snap = router.metrics.ttft_seconds.snapshot()
+            report = traffic.run(n_requests, concurrency=4, suffix_len=(1, 4), max_new=(4, 8))
+            return {
+                "fleet_hits": kv_hits() - hits0,
+                "hit_rate": round((kv_hits() - hits0) / n_requests, 3),
+                "ttft_p99_ms": _ttft_p99_ms(router, snap),
+                "cross_peer_pulls": pulls() - pulls0,
+                "dropped": report.dropped,
+            }, settle_s
+        finally:
+            router.stop()
+
+    try:
+        fabric_run, settle_s = measure(True, 0.0)
+        control, _ = measure(False, settle_s)
+    finally:
+        for server in servers:
+            server.stop()
+    block = {"replicas": n_replicas, "requests": n_requests, "sessions": sessions,
+             "shared_prefix_len": shared_len, "fabric": fabric_run, "control": control}
+    log(f"perf-ledger row: | FABRIC fleet KV (K={n_replicas}, {sessions} sessions, shared "
+        f"{shared_len}) | fabric {fabric_run['hit_rate']:.2f} KV hits/req, TTFT p99 "
+        f"{fabric_run['ttft_p99_ms']} ms, {fabric_run['cross_peer_pulls']} cross-peer pulls vs "
+        f"control {control['hit_rate']:.2f} hits/req, {control['ttft_p99_ms']} ms | - | "
+        "`benchmark.py --model serving` | update on bench round |")
+    return block, sum(e.device_steps for e in engines)
+
+
+def _client_pass(router_port: int, seed: int, vocab: int):
+    """(tokens/s, report): a warm pass of 8 requests, then 24 measured, over
+    4 sessions of a 16-token prefix (the canary and postmortem passes)."""
+    from .traffic import RouterTraffic
+
+    traffic = RouterTraffic("127.0.0.1", router_port, seed=seed, sessions=4, prefix_len=16,
+                            vocab=vocab)
+    traffic.run(8, concurrency=4, suffix_len=(1, 4), max_new=(4, 8))
+    report = traffic.run(24, concurrency=4, suffix_len=(1, 4), max_new=(4, 8))
+    return report.tokens / max(report.duration_s, 1e-9), report
+
+
+def _run_canary_phase(args) -> tuple[Optional[dict], int]:
+    """CANARY phase: the canary prober's (``router/prober.py``) overhead,
+    client tokens/s through the router with the prober at an aggressive
+    interval against it off (prober on first, so warmth favours the
+    control), and its detection self-check: the ``engine.readback=corrupt``
+    failpoint flips one token byte of every readback and the prober must
+    call the mismatch and fence.  Returns the ``canary`` block (None below
+    2 router replicas) and the replicas' dispatched device steps."""
+    from ..router.prober import CanaryConfig
+    from ..router.server import RouterServer
+    from ..utils import failpoints
+
+    if args.router_replicas < 2:
+        return None, 0
+    servers, engines = _tiny_replicas(args, (100, 101))
+    _warm_replicas(servers, 18)
+    for server in servers:
+        _post_replica(server.port, [11, 13, 17, 19], 4)  # the probe's own shape
+    names = [f"127.0.0.1:{s.port}" for s in servers]
+    canary_cfg = CanaryConfig(interval_s=0.25, probe_tokens=4, prompts=((11, 13, 17, 19),),
+                              k_mismatch=2, fence=True)
+
+    def start(canary_on):
+        return RouterServer(names, host="127.0.0.1", port=0, prefix_block_tokens=ROUTER_PAGE,
+                            prefix_max_blocks=4, poll_interval_s=0.2, hedge=False, seed=3,
+                            canary=canary_on, canary_config=canary_cfg).start()
+
+    try:
+        router_on = start(True)
+        try:
+            tps_on, report_on = _client_pass(router_on.port, 23, engines[0].cfg.vocab_size)
+            probes = sum(row["probes"]
+                         for row in router_on.prober.snapshot()["replicas"].values())
+            # Every readback corrupted: the still-running prober must call
+            # the mismatch and fence.
+            failpoints.arm_spec("engine.readback=corrupt")
+            mismatch_detected, fences = False, 0
+            try:
+                deadline = time.monotonic() + 15.0
+                while time.monotonic() < deadline:
+                    fences = router_on.prober.snapshot()["fences_fired"]
+                    if fences >= 1:
+                        mismatch_detected = True
+                        break
+                    time.sleep(0.1)
+            finally:
+                failpoints.disarm("engine.readback")
+        finally:
+            router_on.stop()
+        for server in servers:
+            server.unfence()
+        router_off = start(False)
+        try:
+            tps_off, report_off = _client_pass(router_off.port, 23, engines[0].cfg.vocab_size)
+        finally:
+            router_off.stop()
+    finally:
+        for server in servers:
+            server.stop()
+    overhead = max(0.0, 1.0 - tps_on / tps_off) if tps_off else None
+    block = {
+        "replicas": 2,
+        "interval_s": canary_cfg.interval_s,
+        "tokens_per_sec_canary": round(tps_on, 2),
+        "tokens_per_sec_control": round(tps_off, 2),
+        "overhead": round(overhead, 4) if overhead is not None else None,
+        "probes": probes,
+        "dropped": report_on.dropped + report_off.dropped,
+        "mismatch_detected": mismatch_detected,
+        "fences": fences,
+    }
+    log(f"perf-ledger row: | CANARY active probing (interval {canary_cfg.interval_s:.2f}s) | "
+        f"overhead {block['overhead']} ({tps_on:.2f} vs {tps_off:.2f} tokens/sec, {probes} "
+        f"probes); injected corruption {'detected+fenced' if mismatch_detected else 'MISSED'} "
+        f"({fences} fences) | - | `benchmark.py --model serving` | update on bench round |")
+    return block, sum(e.device_steps for e in engines)
+
+
+def _postmortem_tool():
+    """The repository's ``tools/postmortem.py`` (stdlib only), loaded by path
+    as the reference's phase loads it: the bundle's classifier."""
+    import importlib.util
+
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    spec = importlib.util.spec_from_file_location(
+        "postmortem_tool", os.path.join(root, "tools", "postmortem.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def _run_postmortem_phase(args) -> tuple[Optional[dict], int]:
+    """POSTMORTEM phase: the fleet postmortem collector's
+    (``router/postmortem.py``) overhead, client tokens/s through the router
+    with the collector armed against it off (armed first), and its
+    self-check: a watchdog-source fence incident on one replica must ride
+    the summary poll into one fleet bundle that ``tools/postmortem.py``
+    classifies ``watchdog_hang`` from disk.  Returns the ``postmortem``
+    block (None below 2 router replicas) and the replicas' dispatched
+    device steps."""
+    import shutil
+
+    from ..router.server import RouterServer
+
+    if args.router_replicas < 2:
+        return None, 0
+    pm_tool = _postmortem_tool()
+    servers, engines = _tiny_replicas(args, (200, 201))
+    _warm_replicas(servers, 18)
+    names = [f"127.0.0.1:{s.port}" for s in servers]
+    dump_dir = tempfile.mkdtemp(prefix="bench-postmortem-")
+
+    def start(postmortem_on):
+        return RouterServer(names, host="127.0.0.1", port=0, prefix_block_tokens=ROUTER_PAGE,
+                            prefix_max_blocks=4, poll_interval_s=0.2, hedge=False, seed=3,
+                            postmortem=postmortem_on, postmortem_dir=dump_dir).start()
+
+    try:
+        router_on = start(True)
+        try:
+            tps_on, report_on = _client_pass(router_on.port, 29, engines[0].cfg.vocab_size)
+            # What the hung-step watchdog emits on replica 0: the flight
+            # event and the discrete incident.
+            victim = servers[0].engine
+            victim.flight.record("engine.fenced", reason="hung_step", source="watchdog")
+            victim.anomaly.report("engine.fenced", reason="hung_step", source="watchdog")
+            bundle_found, root_cause = False, None
+            deadline = time.monotonic() + 20.0
+            while time.monotonic() < deadline:
+                if router_on.postmortem.captures >= 1:
+                    bundle_found = True
+                    break
+                time.sleep(0.1)
+            captures = router_on.postmortem.captures
+            if bundle_found:
+                loaded = pm_tool.load_bundle(router_on.postmortem.last_bundle)
+                timeline = pm_tool.build_timeline(loaded["components"])
+                root_cause = pm_tool.classify(timeline)["root_cause"]
+        finally:
+            router_on.stop()
+        router_off = start(False)
+        try:
+            tps_off, report_off = _client_pass(router_off.port, 29, engines[0].cfg.vocab_size)
+        finally:
+            router_off.stop()
+    finally:
+        for server in servers:
+            server.stop()
+        shutil.rmtree(dump_dir, ignore_errors=True)
+    overhead = max(0.0, 1.0 - tps_on / tps_off) if tps_off else None
+    rootcause_ok = root_cause == "watchdog_hang"
+    block = {
+        "replicas": 2,
+        "tokens_per_sec_postmortem": round(tps_on, 2),
+        "tokens_per_sec_control": round(tps_off, 2),
+        "overhead": round(overhead, 4) if overhead is not None else None,
+        "dropped": report_on.dropped + report_off.dropped,
+        "captures": captures,
+        "bundle_found": bundle_found,
+        "root_cause": root_cause,
+        "rootcause_ok": rootcause_ok,
+    }
+    log(f"perf-ledger row: | POSTMORTEM fleet capture | overhead {block['overhead']} "
+        f"({tps_on:.2f} vs {tps_off:.2f} tokens/sec); injected watchdog fence "
+        f"{'captured' if bundle_found else 'MISSED'} ({captures} bundles, classified "
+        f"{root_cause if rootcause_ok else f'WRONG ({root_cause})'}) | - | `benchmark.py "
+        "--model serving` | update on bench round |")
+    return block, sum(e.device_steps for e in engines)
+
+
+def _run_autoscale_phase(args) -> dict:
+    """AUTOSCALE phase: the fleet controller (``controller/``: the real
+    ``Reconciler`` and ``FleetSimActuator`` on a fake clock) against a
+    static fleet provisioned for the peak, over one deterministic
+    600-sim-second diurnal plus flash-crowd demand trace.  Replica-minutes
+    come from each fleet's accrual (serving and warming replicas billed);
+    TTFT is a fluid-queue model, a backlog drained at ``cap_rps`` a serving
+    replica plus an M/M/1 in-service wait, and a sim-second above
+    ``slo_ms`` is a violation.  No RNG, no wall time, no device: the block
+    is exactly reproducible (``tools/bench_diff.py`` gates
+    REPLICA-MINUTES-REGRESSED and AUTOSCALE-SLO-VIOLATED on it)."""
+    import math
+
+    from ..controller import ControllerConfig, FleetSimActuator, Reconciler
+    from ..router.migration import scale_recommendation
+
+    sim_seconds = 600
+    cap_rps = 40.0  # one replica's drain rate
+    base_ttft_ms = 60.0
+    slo_ms = 2500.0  # TTFT budget: base + queue wait
+    hot_wait_s, cold_wait_s = 0.2, 0.02
+    warm_lag_s = 3.0  # spawn -> serving (a peer-warmed join)
+
+    def demand(t: float) -> float:
+        """A 5-minute "day" between 15 and 75 rps, and a flash crowd on the
+        second peak: +80 rps ramping in over 30 s, 60 s held, ramping out."""
+        diurnal = 45.0 + 30.0 * math.sin(2 * math.pi * (t - 225.0) / 300.0)
+        if 300 <= t < 330:
+            flash = 80.0 * (t - 300) / 30.0
+        elif 330 <= t < 390:
+            flash = 80.0
+        elif 390 <= t < 420:
+            flash = 80.0 * (420 - t) / 30.0
+        else:
+            flash = 0.0
+        return max(0.0, diurnal + flash)
+
+    class _Sim:
+        """The fluid-queue fleet: the actuator's verbs change it, ``fleet()``
+        is the ``/debug/fleet`` view the controller polls."""
+
+        def __init__(self, n0: int):
+            self.n = n0
+            self.names = [f"sim-{i}" for i in range(n0)]
+            self.counter = n0
+            self.warming: list = []  # [ready_at, name]
+            self.queue = 0.0
+            self.t = 0.0
+            self.ttfts_ms: list = []
+            self.violations = 0
+            self.replica_seconds = 0.0
+            self.peak = n0
+
+        def spawn(self, role: str) -> str:
+            name = f"sim-{self.counter}"
+            self.counter += 1
+            self.warming.append([self.t + warm_lag_s, name])
+            return name
+
+        def reap(self, name: str) -> None:
+            if name in self.names:
+                self.names.remove(name)
+                self.n -= 1
+
+        def wait_s(self, d: float) -> float:
+            # rho held below 1: past saturation the backlog term carries
+            # the overload (the M/M/1 term would diverge over an empty queue).
+            rho = min(0.98, d / (self.n * cap_rps))
+            return self.queue / (self.n * cap_rps) + rho / (1.0 - rho) / cap_rps
+
+        def step(self) -> None:
+            for entry in [w for w in self.warming if w[0] <= self.t]:
+                self.warming.remove(entry)
+                self.names.append(entry[1])
+                self.n += 1
+            d = demand(self.t)
+            self.queue = max(0.0, self.queue + d - self.n * cap_rps)
+            ttft = base_ttft_ms + self.wait_s(d) * 1000.0
+            self.ttfts_ms.append(ttft)
+            self.violations += ttft > slo_ms
+            self.replica_seconds += self.n + len(self.warming)
+            self.peak = max(self.peak, self.n + len(self.warming))
+            self.t += 1.0
+
+        def fleet(self) -> dict:
+            wait = round(self.wait_s(demand(self.t)), 4)
+            per_q = int(self.queue / self.n)
+            row = {"role": "unified", "reachable": True, "draining": False, "fenced": False}
+            rows = {name: dict(row, pressure_s=wait, queue_depth=per_q, eligible=True)
+                    for name in self.names}
+            # Warming joiners: billed but ineligible, so they neither read
+            # as cold headroom nor get reaped.
+            for _, name in self.warming:
+                rows[name] = dict(row, pressure_s=0.0, queue_depth=0, eligible=False)
+            return {"replicas": rows,
+                    "recommendation": scale_recommendation(rows, hot_wait_s=hot_wait_s,
+                                                           cold_wait_s=cold_wait_s)}
+
+    static_n = max(math.ceil(demand(t) / cap_rps) for t in range(sim_seconds))
+    sim = _Sim(2)
+    actuator = FleetSimActuator(
+        spawn_fn=sim.spawn,
+        join_fn=lambda name, role: None,  # joins when warm_lag_s has passed
+        drain_fn=lambda name: None,  # a fluid pool: nothing in flight
+        reap_fn=sim.reap,
+        warm_fn=lambda name, donor: None,  # warm_lag_s is the transfer
+    )
+    rc = Reconciler(sim.fleet, actuator,
+                    config=ControllerConfig(interval_s=2.0, sustain_ticks=2, cooldown_s=10.0,
+                                            min_replicas=1, max_replicas=12,
+                                            hot_wait_s=hot_wait_s, cold_wait_s=cold_wait_s),
+                    now=lambda: sim.t)
+    for s in range(sim_seconds):
+        if s % 2 == 0:
+            rc.tick()
+        sim.step()
+    static = _Sim(static_n)
+    for _ in range(sim_seconds):
+        static.step()
+
+    def p99(xs: list) -> float:
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(len(xs) * 0.99))]
+
+    ctrl_minutes = round(sim.replica_seconds / 60.0, 2)
+    static_minutes = round(static.replica_seconds / 60.0, 2)
+    block = {
+        "sim_seconds": sim_seconds,
+        "slo_ms": slo_ms,
+        "controller": {
+            "replica_minutes": ctrl_minutes,
+            "ttft_p99_ms": round(p99(sim.ttfts_ms), 1),
+            "slo_violations": sim.violations,
+            "peak_replicas": sim.peak,
+            "scale_ups": rc.scale_ups,
+            "scale_downs": rc.scale_downs,
+            "role_flips": rc.role_flips,
+            "actions": rc.actions_executed,
+        },
+        "static_peak": {
+            "replicas": static_n,
+            "replica_minutes": static_minutes,
+            "ttft_p99_ms": round(p99(static.ttfts_ms), 1),
+            "slo_violations": static.violations,
+        },
+        "replica_minutes_saved": (round(1.0 - ctrl_minutes / static_minutes, 3)
+                                  if static_minutes else None),
+    }
+    log(f"perf-ledger row: | AUTOSCALE closed-loop controller ({sim_seconds}s diurnal+flash sim) "
+        f"| replica-minutes {ctrl_minutes:.1f} vs static-peak {static_minutes:.1f} "
+        f"({100.0 * (block['replica_minutes_saved'] or 0.0):.0f}% saved); ttft p99 "
+        f"{block['controller']['ttft_p99_ms']:.0f}ms vs {block['static_peak']['ttft_p99_ms']:.0f}ms "
+        f"(slo {slo_ms:.0f}ms, violations {sim.violations} vs {static.violations}); "
+        f"{rc.actions_executed} actions ({rc.scale_ups} up, {rc.scale_downs} down) | - | "
+        "`benchmark.py --model serving` | update on bench round |")
+    return block
+
+
 def _tp_phase_engine(cfg, params: Optional[dict], paged, slots: int, mesh=None, device=None):
     """The tensor-parallel phase's engine, one rank of it (every rank builds
     it from the same arguments; ``params`` None: ``init_params(cfg, 0)``)."""
@@ -1389,12 +1948,18 @@ def run_serving(args, params: Optional[dict] = None) -> ServingRun:
     the KV tiers (a serial repeated prefix with retain off, then on, and
     preemption churn over parked free pages); tracing off against on; then
     the tensor-parallel phase (``run_tp_phase``: null on one card, as the
-    reference's on one device), the kernels, overload, restart, elastic,
-    disagg and SLO phases.  The router-side blocks print null (see
-    ``ROUTER_SIDE_BLOCKS``).  ``params`` (a state dict) stands in for
-    ``init_params(cfg, 0)``.  On the card the engine replays each decode
+    reference's on one device), the kernels, overload, restart, elastic
+    and disagg phases, then the router-side phases (router, fabric, canary,
+    postmortem: tiny replicas on the same device behind the port's router,
+    null below 2 ``--router-replicas``) between the SLO phase and the
+    controller's autoscale simulation.  ``extras["device_steps"]`` holds
+    each phase's dispatched steps (the tiny replicas' summed a phase), and
+    ``extras["paged_launches"]`` the paged kernel's launches, by pool
+    format, that each router-side phase made.
+    ``params`` (a state dict) stands in for ``init_params(cfg, 0)``.  On the card the engine replays each decode
     dispatch as a CUDA graph; the warm-up runs every shape the timed runs
     dispatch."""
+    from ..ops import paged_attention as pa
     from ..utils.metrics import MetricsRegistry
     from ..utils.spans import SpanRecorder
     from .engine import ServingEngine
@@ -1419,7 +1984,8 @@ def run_serving(args, params: Optional[dict] = None) -> ServingRun:
     # and the decode dispatch the timed runs replay (its graph on the card).
     eng.run([(jobs[0][0], 2)])
     eng.run([(p, 2) for p, _ in jobs[: args.slots]])
-    extras = {"device_steps": {}, "graphs": {"warmup": sorted(map(str, eng._graphs))}}
+    extras = {"device_steps": {}, "paged_launches": {},
+              "graphs": {"warmup": sorted(map(str, eng._graphs))}}
 
     # Synchronous first: any warm-cache bias then works against overlap.
     eng._overlap_steps = 0
@@ -1529,9 +2095,23 @@ def run_serving(args, params: Optional[dict] = None) -> ServingRun:
     restart_block = _run_restart_phase(eng, args)
     elastic_block = _run_elastic_phase(eng, args)
     disagg_block, extras["device_steps"]["disagg_decode"] = _run_disagg_phase(eng, args, params)
+    steps, counted = extras["device_steps"], extras["paged_launches"]
+
+    def routed(name: str, phase: Callable) -> Optional[dict]:
+        # The main engine is idle while a router-side phase runs, so the
+        # count's change over the phase is its tiny replicas' launches.
+        before = dict(pa.paged_attention.launches_by_format)
+        block, steps[name] = phase(args)
+        counted[name] = {fmt: n - before[fmt]
+                         for fmt, n in pa.paged_attention.launches_by_format.items()}
+        return block
+
+    router_block = routed("router", _run_router_phase)
+    fabric_block = routed("fabric", _run_fabric_phase)
     slo_block = _run_slo_phase(eng, args)
-    log(f"router-side blocks {', '.join(ROUTER_SIDE_BLOCKS)}: null (they drive the reference's "
-        "router and controller daemons, which this package does not import)")
+    canary_block = routed("canary", _run_canary_phase)
+    autoscale_block = _run_autoscale_phase(args)
+    postmortem_block = routed("postmortem", _run_postmortem_phase)
     extras["device_steps"]["main"] = eng.device_steps
     record = {
         "model": "serving",
@@ -1575,9 +2155,12 @@ def run_serving(args, params: Optional[dict] = None) -> ServingRun:
         "restart": restart_block,
         "elastic": elastic_block,
         "disagg": disagg_block,
-        **dict.fromkeys(("router", "fabric"), None),
+        "router": router_block,
+        "fabric": fabric_block,
         "slo": slo_block,
-        **dict.fromkeys(("canary", "autoscale", "postmortem"), None),
+        "canary": canary_block,
+        "autoscale": autoscale_block,
+        "postmortem": postmortem_block,
         "trace": trace_block,
         "spans_recorded": len(spans.snapshot()) + spans.dropped,
         "profile": {

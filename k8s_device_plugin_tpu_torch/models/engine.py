@@ -575,15 +575,14 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
         graph, launches = entry
         graph.replay()
         self.graph_replays += 1
-        counts = pa.paged_attention.launches_by_format
         for fmt, n in launches.items():
-            counts[fmt] += n
+            pa.count_launches(fmt, n)
 
     def _capture(self, body) -> tuple:
         """Capture ``body`` as a CUDA graph.  Capture launches nothing, so
-        the launch counts the capture advanced are taken back and kept as
-        what each replay adds."""
-        before = dict(pa.paged_attention.launches_by_format)
+        the launches it counted are kept apart as what each replay adds.
+        The capture restricts this thread only: other engines of the
+        process (a router's replicas) go on stepping on theirs."""
         graph = torch.cuda.CUDAGraph()
         # No garbage collection inside the capture: freeing another graph
         # there (an engine dropped in a reference cycle) is not permitted
@@ -591,14 +590,12 @@ class ServingEngine(AdmissionMixin, PagingMixin, KVCacheMixin, HandoffMixin, Spe
         gc_on = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph):
+            with pa.capturing() as launches, \
+                    torch.cuda.graph(graph, capture_error_mode="thread_local"):
                 body()
         finally:
             if gc_on:
                 gc.enable()
-        counts = pa.paged_attention.launches_by_format
-        launches = {fmt: counts[fmt] - before[fmt] for fmt in before}
-        counts.update(before)
         return graph, launches
 
     # ----------------------------------------------- the overlapped pipeline

@@ -44,22 +44,16 @@ import torch
 from ..utils import failpoints
 from ..utils.prefixbloom import PrefixBloom
 from . import engine_snapshot as snap
-
-ROLES = ("unified", "prefill", "decode")
-# tpu_engine_role gauge values.
-ROLE_VALUES = {"unified": 0, "prefill": 1, "decode": 2}
-
-PREFILL_ROUTE = "/v1/prefill"
-# The /v1/prefill stream's optional trailing logits section.
-LOGITS_MAGIC = b"TPUHOLG1"
-# Router -> decode replica: the prefill replica to pull from ("host:port"),
-# or the LOCAL sentinel (run the prefill yourself).
-HANDOFF_SOURCE_HEADER = "X-Handoff-Source"
-HANDOFF_LOCAL = "local"
-# Decode replica -> caller on a 409: how many full prefix pages are missing.
-PREFILL_NEEDED_HEADER = "X-Prefill-Needed"
-# On a /v1/prefill request: stream resident pages only, never run a probe.
-FABRIC_RESIDENT_ONLY_HEADER = "X-Fabric-Resident-Only"
+from .handoff_wire import (  # noqa: F401  (the wire names, re-exported)
+    FABRIC_RESIDENT_ONLY_HEADER,
+    HANDOFF_LOCAL,
+    HANDOFF_SOURCE_HEADER,
+    LOGITS_MAGIC,
+    PREFILL_NEEDED_HEADER,
+    PREFILL_ROUTE,
+    ROLE_VALUES,
+    ROLES,
+)
 
 
 class HandoffTap:

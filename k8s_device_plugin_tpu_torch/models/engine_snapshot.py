@@ -45,6 +45,7 @@ from typing import Iterator, Mapping, Optional
 import torch
 
 from ..utils import failpoints
+from ..utils.ring import donor_for  # noqa: F401  (re-exported: the warm-up donor)
 
 MAGIC = b"TPUKVSN1"
 VERSION = 1
@@ -496,25 +497,6 @@ def fetch_peer_snapshot(engine, peer: str, timeout_s: float = 30.0) -> dict:
     if engine.flight is not None:
         engine.flight.record("engine.snapshot.fetched", **result)
     return result
-
-
-def donor_for(joiner: str, peers, vnodes: int = 64) -> Optional[str]:
-    """The warm-up donor: the peer owning the ring segments next to where
-    ``joiner`` lands on the router's consistent-hash ring (the same vnode
-    scheme and hash), i.e. the replica whose keys the joiner inherits
-    most of.  Deterministic; None when no other peer exists."""
-    from ..utils.ring import HashRing, _hash64
-
-    candidates = sorted({p for p in peers if p and p != joiner})
-    if not candidates:
-        return None
-    ring = HashRing(candidates, vnodes=vnodes)
-    counts: dict[str, int] = {}
-    for i in range(vnodes):
-        owner = ring.lookup(_hash64(f"{joiner}#{i}".encode()))
-        if owner is not None:
-            counts[owner] = counts.get(owner, 0) + 1
-    return max(sorted(counts), key=lambda n: counts[n])
 
 
 def fleet_members(router_url: str, timeout_s: float = 5.0) -> list[str]:

@@ -12,7 +12,8 @@ nvcc's output, ptxas's registers and spills per kernel included
 
 Nothing here runs at import.  A wrapper calls :func:`load` at its first
 launch; ``chip_smoke.py`` calls :func:`build_all` first so that every
-source compiles at once, one nvcc process each.
+source compiles at once, one nvcc process each, and lets the slowest build
+run on beside the checks that do not need it.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ SOURCES = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_pending: dict[str, tuple] = {}  # builds build_all left running
 _entries: dict[tuple[str, str], object] = {}
 
 
@@ -90,15 +92,21 @@ def _finish(name: str, started) -> None:
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
 
 
-def build_all(names=SOURCES) -> None:
-    """Compile every named source in parallel (one nvcc each)."""
+def build_all(names=SOURCES, background=()) -> None:
+    """Compile every named source in parallel (one nvcc each) and wait for
+    them, but those named in ``background``: their builds run on, and
+    :func:`load` finishes one when it is first needed."""
     started = {}
     try:
         for name in names:
             started[name] = _start(name)
     finally:
         for name, s in started.items():
-            _finish(name, s)
+            if name in background and s is not None:
+                with _lock:
+                    _pending[name] = s
+            else:
+                _finish(name, s)
 
 
 def ptxas_report(name: str) -> dict[str, dict]:
@@ -130,7 +138,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            _finish(name, _start(name))
+            _finish(name, _pending.pop(name, None) or _start(name))
             lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
         return lib
 

@@ -25,7 +25,9 @@ There is no fallback from one to the other.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -172,7 +174,7 @@ def _launch(q, pool_k, pool_v, table, lens, scale_k, scale_v, *, sm_scale, windo
         FORMATS.index(kv_format), int(q.dtype == torch.bfloat16), _stream(q.device),
     )
     _build.check(status, C_ENTRY[1])
-    paged_attention.launches_by_format[kv_format] += 1
+    count_launches(kv_format)
     return out
 
 
@@ -288,6 +290,37 @@ def paged_attention(
 def reset_launches() -> None:
     """Set the kernel's launch count of every pool format to 0."""
     paged_attention.launches_by_format = dict.fromkeys(FORMATS, 0)
+
+
+# Engines of one process (a router's replicas in one benchmark) step on
+# their own threads: the count's read-modify-write takes a lock, and a
+# capture's launches stay on the capturing thread.
+_count_lock = threading.Lock()
+_local = threading.local()
+
+
+def count_launches(kv_format: str, n: int = 1) -> None:
+    """Add ``n`` launches of ``kv_format`` (a CUDA graph replay adds what
+    its capture launched); inside :func:`capturing` on this thread, to the
+    capture's own count instead."""
+    held = getattr(_local, "capture", None)
+    if held is not None:
+        held[kv_format] += n
+        return
+    with _count_lock:
+        paged_attention.launches_by_format[kv_format] += n
+
+
+@contextlib.contextmanager
+def capturing():
+    """A CUDA graph capture on this thread: it launches nothing, so its
+    launches go to the yielded dict (by format), what each replay adds,
+    and not to the counts."""
+    _local.capture = dict.fromkeys(FORMATS, 0)
+    try:
+        yield _local.capture
+    finally:
+        _local.capture = None
 
 
 # Kernel launches by pool format since the last reset (the plain version

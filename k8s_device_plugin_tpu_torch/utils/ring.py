@@ -2,8 +2,11 @@
 
 The part of the reference's ``router/ring.py`` that the port needs: the
 stable 64-bit hash and the ketama ring with virtual nodes, copied (the
-port imports nothing of the JAX package) so ``engine_snapshot.donor_for``
-picks the donor the router's own ring would remap a joiner's keys from.
+port imports nothing of the JAX package), and ``donor_for``, the warm-up
+donor the router's own ring would remap a joiner's keys from (the
+reference's ``engine_snapshot.donor_for``, which the port's
+``engine_snapshot`` re-exports).  Free of torch, so the controller that
+picks donors loads without it.
 """
 
 from __future__ import annotations
@@ -53,3 +56,20 @@ class HashRing:
         if i == len(self._points):
             i = 0
         return self._owner[self._points[i]]
+
+
+def donor_for(joiner: str, peers, vnodes: int = 64) -> Optional[str]:
+    """The warm-up donor: the peer owning the ring segments next to where
+    ``joiner`` lands on the router's consistent-hash ring (the same vnode
+    scheme and hash), i.e. the replica whose keys the joiner inherits
+    most of.  Deterministic; None when no other peer exists."""
+    candidates = sorted({p for p in peers if p and p != joiner})
+    if not candidates:
+        return None
+    ring = HashRing(candidates, vnodes=vnodes)
+    counts: dict[str, int] = {}
+    for i in range(vnodes):
+        owner = ring.lookup(_hash64(f"{joiner}#{i}".encode()))
+        if owner is not None:
+            counts[owner] = counts.get(owner, 0) + 1
+    return max(sorted(counts), key=lambda n: counts[n])

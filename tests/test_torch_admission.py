@@ -19,6 +19,8 @@ the reference's the same inputs on a fake clock and requires the same
 snapshot, wall-clock stamps aside.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import collections
 import dataclasses
 import importlib

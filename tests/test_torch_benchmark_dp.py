@@ -14,6 +14,8 @@ with its own time limit (150 s from the turn the suite gives it,
 when it passes it.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import json
 import math
 import os

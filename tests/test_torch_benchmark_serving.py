@@ -7,10 +7,21 @@ at ``--tiny --router-replicas 0 --requests 8 --slots 4 --prompt-len 16
 --decode-tokens 48`` in float32, the port from the reference's own weights
 (``TransformerLM(cfg).init(PRNGKey(0), ...)``, as its ``run_serving``
 draws them) converted with ``convert.flax_to_state_dict``.  The records
-must have the same keys, block by block; the port prints null exactly for
-``tp`` and the router-side blocks; the counts that follow from the schedule
-alone (the KV-tier phase's hits and preemptions, the step profile's
-steps and occupancy, handoff entries, snapshot entries) must be equal.  Times are not compared.
+must have the same keys, block by block; at ``--router-replicas 0`` both
+print null exactly for ``tp``, ``router``, ``fabric``, ``canary`` and
+``postmortem``; the counts that follow from the schedule alone (the KV-tier
+phase's hits and preemptions, the step profile's steps and occupancy,
+handoff entries, snapshot entries) must be equal, and the ``autoscale``
+block (the controller's fleet simulation: no RNG, no wall time) equal value
+for value.  Times are not compared.
+
+The port's CLI runs once more (a module fixture) at the default
+``--router-replicas 2`` with a small engine part: its router, fabric,
+canary and postmortem blocks, from tiny replicas behind the port's router,
+must have the keys the reference's phases write (read from their source),
+drop no stream, and pass their self-checks (affinity's KV hits at least
+random's, the injected corruption detected and fenced, the injected
+watchdog fence captured and classified).
 
 Tolerances: greedy and sampled token ids are compared exactly.  Both sides
 run float32, where the frameworks' logits differ by sum order (~1e-6); each
@@ -21,8 +32,12 @@ agree within 2e-5 (float32 shapes) and 2e-2 (bf16 queries), the card's
 tolerances; on the CPU the kernel and single arms are the plain version.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
+import ast
 import contextlib
 import dataclasses
+import inspect
 import io
 import json
 import math
@@ -45,7 +60,9 @@ from tools import bench_diff
 SERVING = ["--model", "serving", "--tiny", "--router-replicas", "0", "--requests", "8",
            "--slots", "4", "--prompt-len", "16", "--decode-tokens", "48"]
 PORT_CPU = ["--device=cpu", "--dtype=float32"]
-NULL_BLOCKS = ("tp", "router", "fabric", "canary", "autoscale", "postmortem")
+NULL_BLOCKS = ("tp", "router", "fabric", "canary", "postmortem")  # at --router-replicas 0
+ROUTER_BLOCKS = {"router": jbench._run_router_phase, "fabric": jbench._run_fabric_phase,
+                 "canary": jbench._run_canary_phase, "postmortem": jbench._run_postmortem_phase}
 BLOCKS = ("overlap", "kvcache", "kernels", "overload", "restart", "elastic", "disagg", "slo",
           "trace", "profile")
 MARGIN = 1e-4
@@ -102,9 +119,12 @@ def test_serving_record_keys_equal_the_reference(jax_record, port_run):
     for shape, row in jax_record["kernels"]["shapes"].items():
         assert list(record["kernels"]["shapes"][shape]) == list(row), shape
     assert [k for k, v in record.items() if v is None] == list(NULL_BLOCKS)
-    # The reference prints its autoscale block even without replicas.
-    assert [k for k, v in jax_record.items() if v is None] == [
-        k for k in NULL_BLOCKS if k != "autoscale"]
+    assert [k for k, v in jax_record.items() if v is None] == list(NULL_BLOCKS)
+
+
+def test_serving_autoscale_block_equals_the_reference(jax_record, port_run):
+    assert port_run[1].record["autoscale"] == jax_record["autoscale"]
+    assert jax_record["autoscale"]["controller"]["slo_violations"] == 0
 
 
 def test_serving_schedule_counts_equal_the_reference(jax_record, port_run):
@@ -188,11 +208,9 @@ def test_kernels_phase_arms_agree(port_run):
 
 def test_bench_diff_reads_the_port_record(tmp_path, jax_record, port_run):
     """``tools/bench_diff.py`` fills from the port's record every field it
-    fills from the reference's, once the blocks the port prints null are
-    null in the reference's too."""
-    ref = dict(jax_record, autoscale=None)
+    fills from the reference's."""
     paths = []
-    for name, record in (("ref", ref), ("port", port_run[1].record)):
+    for name, record in (("ref", jax_record), ("port", port_run[1].record)):
         path = tmp_path / f"{name}.json"
         path.write_text(json.dumps({"n": 1, "rc": 0, "parsed": record}))
         paths.append(str(path))
@@ -202,15 +220,58 @@ def test_bench_diff_reads_the_port_record(tmp_path, jax_record, port_run):
     assert got["overlap_discards"] == port_run[1].record["overlap"]["discards"]
 
 
-def test_serving_cli_prints_one_record(capsys):
-    tbench.main(["--model", "serving", "--tiny", "--no-kernel", "--slots", "2",
-                 "--requests", "4", "--prompt-len", "16", "--decode-tokens", "8", *PORT_CPU])
-    lines = capsys.readouterr().out.strip().splitlines()
+@pytest.fixture(scope="module")
+def cli_lines():
+    """The port's CLI at the default ``--router-replicas`` (2), a small
+    engine part: its stdout lines."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tbench.main(["--model", "serving", "--tiny", "--no-kernel", "--slots", "2",
+                     "--requests", "4", "--prompt-len", "16", "--decode-tokens", "8", *PORT_CPU])
+    return out.getvalue().strip().splitlines()
+
+
+def test_serving_cli_prints_one_record(cli_lines):
+    lines = cli_lines
     assert len(lines) == 1
     record = json.loads(lines[0])
     assert record["model"] == "serving" and record["kernels"] is None
     assert record["disagg"] == {"skipped": "max_len 32 leaves no room for a long prompt"}
     assert record["requests"] == 4 and record["throughput"] > 0
+
+
+def _written_keys(fn) -> set:
+    """The string keys of the dict literals ``fn``'s source assigns to a
+    name (its ``block``, and the passes' ``out`` nested in it)."""
+    tree = ast.parse(inspect.getsource(fn).lstrip())
+    return {k.value for node in ast.walk(tree)
+            if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+            for k in node.value.keys if isinstance(k, ast.Constant)}
+
+
+def _flat_keys(block: dict) -> set:
+    return set(block) | {k for v in block.values() if isinstance(v, dict) for k in _flat_keys(v)}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTER_BLOCKS))
+def test_router_side_block_has_the_reference_keys(cli_lines, name):
+    block = json.loads(cli_lines[-1])[name]
+    assert isinstance(block, dict) and _flat_keys(block) == _written_keys(ROUTER_BLOCKS[name])
+
+
+def test_router_side_blocks_self_checks(cli_lines):
+    record = json.loads(cli_lines[-1])
+    assert [k for k, v in record.items() if v is None] == ["tp", "kernels"]  # --no-kernel
+    router, fabric = record["router"], record["fabric"]
+    for passes in ((router["affinity"], router["random"]), (fabric["fabric"], fabric["control"])):
+        assert all(p["dropped"] == 0 for p in passes)
+    assert record["canary"]["dropped"] == 0 and record["postmortem"]["dropped"] == 0
+    assert router["replicas"] == 2 and fabric["replicas"] == 3
+    assert router["affinity"]["hit_rate"] >= router["random"]["hit_rate"]
+    assert record["canary"]["mismatch_detected"] is True and record["canary"]["fences"] >= 1
+    assert record["postmortem"]["bundle_found"] is True
+    assert record["postmortem"]["root_cause"] == "watchdog_hang"
+    assert record["postmortem"]["rootcause_ok"] is True
 
 
 # ------------------------------------------------------------- gpt-decode

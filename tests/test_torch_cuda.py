@@ -18,6 +18,8 @@ the int8 x int8 -> int32 products are exact.  ``chip_smoke.py`` runs the
 same comparisons at full width.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import numpy as np
 import pytest
 import torch

@@ -18,6 +18,8 @@ two steps at ``dp 1 x mp 2`` on a batch of 3, which ``dp`` divides and
 replicates the batch over ``mp``.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 
 import numpy as np

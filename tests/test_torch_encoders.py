@@ -20,6 +20,8 @@ two SGD-momentum steps (lr 0.1): losses 1e-5 relative, every parameter
 1e-5 absolute.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 
 import jax

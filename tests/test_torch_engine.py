@@ -16,6 +16,8 @@ int8 KV pools) is held the same way, its margins taken on the port's own
 int8-cache decode.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import contextlib
 import dataclasses
 import json

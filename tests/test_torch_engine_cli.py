@@ -12,6 +12,8 @@ token counts.  Tokens themselves differ: each CLI draws its own random
 weights.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import ast
 import json
 import pathlib

@@ -19,6 +19,8 @@ at page 4; the JAX engine is the module's own, built as the
 session's ``shared_engine``.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 import io
 import json
@@ -52,16 +54,6 @@ def _port_cfg_state(jax_twin):
     cfg, params, _ = jax_twin
     pcfg = dataclasses.replace(port_tf.GPTConfig.tiny(), max_seq=cfg.max_seq)
     return pcfg, convert.flax_to_state_dict(jax.tree_util.tree_map(np.asarray, params))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny models here run as fast on one CPU thread as on all of
-    them, at half the CPU time: the suite's other workers keep the rest."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

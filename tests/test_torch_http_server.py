@@ -13,6 +13,8 @@ routes must answer alike.  The canary prober captures its oracle on the
 JAX replica and must get ``match`` on the port's.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 import importlib.util
 import json

@@ -7,6 +7,8 @@ The name check matches ``k8s_device_plugin_tpu`` and
 ``k8s_device_plugin_tpu_torch``.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import ast
 import os
 import pathlib
@@ -63,7 +65,7 @@ def test_every_port_module_imports_with_jax_blocked():
     """A fresh interpreter where importing jax, flax or the JAX package
     fails; every port module must still import."""
     mods = _port_modules()
-    assert len(mods) >= 65
+    assert len(mods) >= 100
     for name in ("ops.fused_xent", "ops.quant", "models.data", "models.train",
                  "models.benchmark", "utils.flight", "utils.failpoints", "utils.spans",
                  "utils.anomaly", "utils.slo", "utils.postmortem", "utils.tracing",
@@ -78,7 +80,12 @@ def test_every_port_module_imports_with_jax_blocked():
                  "kubelet.podresources_pb2", "utils.logging", "plugin.topology",
                  "plugin.native", "plugin.discovery", "plugin.envs", "plugin.health",
                  "plugin.server", "plugin.watcher", "plugin.manager", "plugin.resources",
-                 "plugin.attribution", "plugin.selftest", "plugin.cli", "workload_entry"):
+                 "plugin.attribution", "plugin.selftest", "plugin.cli", "workload_entry",
+                 "router", "router.__main__", "router.ring", "router.breaker", "router.policy",
+                 "router.disagg", "router.migration", "router.fabric", "router.prober",
+                 "router.postmortem", "router.server", "controller", "controller.__main__",
+                 "controller.actuators", "controller.reconciler", "controller.server",
+                 "models.traffic", "models.handoff_wire"):
         assert f"k8s_device_plugin_tpu_torch.{name}" in mods
     code = (
         "import sys\n"
@@ -98,6 +105,32 @@ def test_every_port_module_imports_with_jax_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_router_and_controller_import_with_torch_blocked():
+    """The router and the controller run beside the replicas with no card
+    and, like the reference's, load no torch: a fresh interpreter where
+    importing torch fails must import both, their CLIs and the donor walk
+    the controller's warm joins use."""
+    code = (
+        "import sys\n"
+        f"for name in {BANNED + ('torch',)!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import importlib\n"
+        "for mod in ('router', 'router.__main__', 'controller', 'controller.__main__',\n"
+        "            'controller.actuators', 'models.handoff_wire', 'utils.ring'):\n"
+        "    importlib.import_module('k8s_device_plugin_tpu_torch.' + mod)\n"
+        "from k8s_device_plugin_tpu_torch.utils.ring import donor_for\n"
+        "assert donor_for('c:1', ['a:1', 'b:1']) in ('a:1', 'b:1')\n"
+        "assert not [m for m in sys.modules if m.startswith('torch.')], 'torch loaded'\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
 
 
 def test_resolve_device():

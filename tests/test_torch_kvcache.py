@@ -14,6 +14,8 @@ one key.  Page rows must come back bit-identical from a host round trip,
 int8 pools with their scale pools included.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import collections
 import dataclasses
 
@@ -47,16 +49,6 @@ def counters(eng) -> dict:
              "kv_resumes_restored", "kv_resumes_recompute", "kv_resume_restored_tokens",
              "kv_resume_recomputed_tokens", "preemptions")
     return {n: getattr(eng, n) for n in names}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny models here run as fast on one CPU thread as on all of
-    them, at half the CPU time: the suite's other workers keep the rest."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,8 @@ handoffs carrying adapter roots both ways, and the HTTP server with
 port's torch.save directories for the port).
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 import json
 import os
@@ -52,14 +54,6 @@ LOGIT_TOL = 2e-4
 MARGIN = 1e-4
 RANK, N_ADAPTERS = 2, 2
 PAGED = dict(page_size=4, num_pages=40, max_pages_per_seq=12)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _np(tree):

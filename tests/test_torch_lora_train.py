@@ -18,6 +18,8 @@ from flipping a sign at these gradients.  optax's ``adamw`` decays weights
 by 1e-4 by default and torch's by 1e-2, so the port's is set to 1e-4.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 import functools
 

@@ -10,6 +10,8 @@ layer.  Greedy tokens are compared exactly, with an assertion that every
 emitted token's top-2 margin clears 1e-4, so a near-tie cannot flake.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 
 import jax

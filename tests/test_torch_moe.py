@@ -27,6 +27,8 @@ moved over by ``convert`` and numpy batches:
   as ``tests/test_tensor.py``; a flax MoE tree through ``convert`` and back.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 
 import jax

@@ -20,6 +20,8 @@ on the card's machine too (``chip_smoke.py`` runs the same comparisons at
 full width).
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import ctypes
 import shutil
 

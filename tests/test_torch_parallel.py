@@ -27,6 +27,8 @@ checkpoint resumed on the 4 ranks, each take step 2 to the uninterrupted
 run's state within the same tolerance.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 import re
 

@@ -31,6 +31,8 @@ parameter atol 1e-5 (``tests/test_torch_sequence.py``'s bounds).  The
 ranks sum in another order than XLA (~1e-7).  No tokens are compared.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 from datetime import timedelta
 

@@ -10,6 +10,8 @@ call passes ``environ`` explicitly (this machine's Python may inject
 ``TPU_*`` variables).
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import ctypes.util
 import json
 import logging

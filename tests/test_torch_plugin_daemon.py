@@ -16,6 +16,8 @@ directories under xdist can be that long.  The daemons get an explicit
 environment without ``TPU_*`` / ``GPU_*`` variables.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import os
 import queue
 import shutil

@@ -9,6 +9,8 @@ tests check that margin on their own inputs, so the comparisons cannot
 flake.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

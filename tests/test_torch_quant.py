@@ -10,6 +10,8 @@ multiplications); ``w8`` within 2e-5 (float32 products of 64..128 terms of
 magnitude ~1 summed in another order, ~1e-6).
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

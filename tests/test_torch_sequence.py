@@ -28,6 +28,8 @@ one the (1, 1) step against the unsharded one (Ulysses bit for bit) and
 each engine against the reference's at sp 1.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 import types
 

@@ -16,6 +16,8 @@ equal the JAX engine's.  GPTConfig.tiny() in float32 at page 4; the JAX
 engine is the module's own, built as the session's ``shared_engine``.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 import http.client
 import io
@@ -188,16 +190,6 @@ def test_donor_for_picks_the_reference_donor():
 
 
 # --------------------------------------------------- engine integration
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The tiny models here run as fast on one CPU thread as on all of
-    them, at half the CPU time: the suite's other workers keep the rest."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

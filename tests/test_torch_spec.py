@@ -21,6 +21,8 @@ validation, sampled slots, chunked prefill, logprobs refused, optimistic
 admission with preemption, int8 KV) and tests/test_speculative.py.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import contextlib
 import dataclasses
 import json
@@ -46,14 +48,6 @@ from k8s_device_plugin_tpu_torch.utils.metrics import MetricsRegistry
 from k8s_device_plugin_tpu_torch.utils.spans import SpanRecorder
 
 MARGIN = 1e-4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _np(tree):

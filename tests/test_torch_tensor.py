@@ -13,6 +13,8 @@ the unsharded ones exactly (an all-reduce or all-gather over one rank is
 the identity).  The two-rank runs are tests/test_torch_tp_serving.py's.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 
 import jax

@@ -40,6 +40,8 @@ and the benchmark's tensor-parallel phase over two gloo ranks, each in a
 subprocess killed after 150 s with every rank it spawned.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 import json
 import os

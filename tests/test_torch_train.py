@@ -15,6 +15,8 @@ by ~1e-6 relative; two steps of lr 0.1 carry that into the weights at
 op: the same chunked float32 math in another summation order.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import dataclasses
 import json
 

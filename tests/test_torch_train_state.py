@@ -12,6 +12,8 @@ statistic 1e-5 absolute (float32).  A resume inside the port is checked bit
 for bit: on the CPU the same steps from the same state give the same bits.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import json
 import threading
 import time

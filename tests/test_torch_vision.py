@@ -24,6 +24,8 @@ AlexNet's dropout masks are compared exactly: the port draws them with
 jax's threefry from flax's per-module keys.
 """
 
+from tests import torch_threads  # noqa: F401  (first: one torch CPU thread)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
