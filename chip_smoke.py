@@ -15,10 +15,14 @@ Phases, in order (any failure exits non-zero):
    registers and spills (ptxas) and HGMMA count (cuobjdump) at every
    head_dim it is built for: the tensor-core (wgmma) variants (forward,
    dQ, dK/dV; built 64 and 128 wide, and padded at each for the head_dims
-   between) must show HGMMA and no spill, the FMA variants (built the same
-   way) no HGMMA; and kernel 1's
-   registers and spills in each of its twelve builds (float32 and bf16
-   queries, three pool formats, 64 and 128 wide), none of which may spill;
+   between; the forward also 256 wide; and the wide kernel of each, which
+   takes every other head_dim past 128 in 64-column slabs) must show HGMMA
+   and no spill, the FMA variants (built the same way, with their wide
+   kernels) no HGMMA; and kernel 1's
+   registers and spills in each of its twenty-four builds (float32 and
+   bf16 queries, three pool formats, 64, 128 and 256 wide, and the
+   256-wide slabbed build for head_dims past 256), none of which may
+   spill;
 3. hold each kernel against its plain PyTorch version on the card at the
    serving slice's shapes (the paged kernel in each pool format: bf16/f32,
    int8 and int4 codes with float32 scale pools, and the int4 unpack on
@@ -38,11 +42,19 @@ Phases, in order (any failure exits non-zero):
    h16 hk4 s1024 d64, causal; bf16 and float32) hold them once more, then
    time them, the plain backward, and SDPA's backward (by profiler device
    time, with the kernels timed the same way beside it);
-3c. kernel 1 at head_dim 16, 32, 64, 80, 96 and 128 and every page size
-   (1 to 128) in every pool format, and kernels 2-4 at head_dim 16, 32, 80,
-   96 and 128 in both variants, against their plain versions; then kernels
-   1-4 timed at head_dim 80, 96 and 128 in bf16 (the kernel line's
-   ``head_dim_80``, ``head_dim_96`` and ``head_dim_128``);
+3c. kernel 1 at head_dim 4, 20, 100, 192, 256 and 384 and page sizes 12,
+   24 and 256, at kv groups 8, 48 and 71 (each head_dim and each page
+   meeting each group), in every pool format, with float32 and bf16
+   queries, 1 and the tuned splits, window none and 100; kernels 2-4 at
+   the same head_dims in both variants, s 128 and 200, causal, window 100
+   and non-causal, at a kv group of 8; each against its plain version,
+   each call checking the launch it counted; kernel 1 at page 1 over rows
+   of LONG_SPAN positions (the split's table staged beside the ring: 1
+   split, and 8 with window 1000), every format; then kernels 1-4 timed at
+   head_dim 128 and at Gemma-2B's attention shape (head_dim 256, 8 heads
+   on 1 kv head: ``head_dim_128`` and ``gemma_d256`` in the kernel line),
+   and kernel 1 at Falcon-7B's (head_dim 64, group 71, page 12:
+   ``group71_page12``);
 3d. kernel 1 on pages that came back from the host: a serving engine at
    the deployed widths (2 layers, bf16 pools and int8 pools with their
    scale pools) reads 255 pages through its KV-tier row reads and restores
@@ -53,7 +65,7 @@ Phases, in order (any failure exits non-zero):
    32000, hidden 1024, 8 layers, 16 heads / 4 kv heads, page 16, 512 pages,
    32 pages per sequence, 8 slots; 32 requests, prompt 128, 128 new
    tokens, greedy), decode block 1, synchronous and eager (``--overlap-steps
-   0 --cuda-graphs 0``; phases 4, 4b, 4d and 4h run the batch engine with
+   0 --cuda-graphs 0``; phases 4, 4b and 4d run the batch engine with
    ``--overload=0 --slo=0``, without the overload limiter and the SLO plane
    that its CLI turns on by default), with the launch counters set to 0 just before and
    read just after: the paged-decode kernel must have launched (float
@@ -104,17 +116,16 @@ Phases, in order (any failure exits non-zero):
    the router), and must return the greedy tokens phase 4f's warm (unified)
    server returned for them, with prefill skipped on the decode server
    (TTFT and ITL beside the unified server's, the bytes handed off);
-4h. speculation: the batch engine at ``--slots 2 --spec-gamma 2`` (the pod
-   manifest's latency variant), at ``--slots 1`` and at gamma 4, on 8
-   requests (prompt 128, half sharing a 64-token prefix; 128 new), against
-   the non-speculative engine at decode block 1 (and 16) at the same
-   slots: greedy tokens equal wherever the reference's top-2 margin
-   clears TOL_MARGIN_BF16, the paged kernel launched exactly 8 layers x
-   gamma x rounds (none in the verify pass), the ``kernel.fallback``
-   flight event with ``spec_verify`` recorded, graphed rounds equal to
-   eager ones greedy and sampled (0.8, top-k 50) on the first two
-   requests; then the HTTP server at the pod's flags with ``--slots 2
-   --spec-gamma 2``, whose tokens must equal its in-process twin's;
+4h. speculation: the HTTP server at the pod manifest's flags with its
+   latency variant ``--slots 2 --spec-gamma 2``, 8 requests (prompt 128,
+   half sharing a 64-token prefix; 128 new), whose greedy tokens must equal
+   its in-process twin's on the same flags, seed and order; the twin's
+   draft steps launch the paged kernel exactly 8 layers x gamma x rounds
+   (none in the verify pass, whose ``kernel.fallback`` flight event names
+   ``spec_verify``) and its rounds replay CUDA graphs (the batch engine's
+   speculation sweep, graphs against eager and the round costs were cut
+   to make room for phase 18; tests/test_torch_spec.py holds them against
+   the JAX engine);
 4i. multi-LoRA: the HTTP server at phase 4e's flags plus ``--adapters`` over
    four rank-8 adapter directories (the port's CheckpointManager, seeded,
    ``lora_b`` not zero), phase 4e's 32 requests with ``adapter`` cycling
@@ -238,16 +249,17 @@ Phases, in order (any failure exits non-zero):
    contiguous, so both step times are printed and the losses and state
    (BatchNorm statistics too) held within TOL_DIST_BF16;
 11b. two ranks sharing the card over gloo (spawned by ``benchmark.launch``
-   with ``backend="gloo", local_ranks=2``), float32: BERT cut to 2 layers
-   (seq 128, batch 8) at ``--dp 2 --mp 1`` and ``--dp 1 --mp 2``, AlexNet
-   at width 0.25 on 128 px, 10 classes (batch 16) at ``--dp 1 --mp 2``,
-   ResNet18Thin at 64 px, 10 classes (batch 16) at ``--dp 2 --mp 1`` (its
-   BatchNorm takes the global batch's moments across the two ranks):
+   with ``backend="gloo", local_ranks=2``, after phase 18c, beside 18d),
+   float32: BERT cut to 2 layers (seq 128, batch 8) at ``--dp 1 --mp 2``
+   and ResNet18Thin at 64 px, 10 classes (batch 16) at ``--dp 2 --mp 1``
+   (its BatchNorm takes the global batch's moments across the two ranks):
    each step's global loss within TOL_DIST_F32 relative and every final
    parameter and BatchNorm statistic within TOL_DIST_F32 of one rank's
-   unsharded run in this process (|a - b| / (1 + |b|)), and at mp 2 each rank holding at most 0.6
-   of the parameter and momentum bytes one rank holds.  Their times stage
-   through host memory and are not a speed.
+   unsharded run in this process (|a - b| / (1 + |b|)), and at mp 2 each
+   rank holding at most 0.6 of the parameter and momentum bytes one rank
+   holds.  Their times stage through host memory and are not a speed (the
+   AlexNet run and BERT at dp 2 were cut to make room for phase 18;
+   tests/test_torch_parallel.py holds those meshes on gloo CPU ranks);
 12a. tensor-parallel serving over an NCCL group of one: the batch engine at
    phase 4d's flags and traffic over a ``tp`` mesh of one
    (``models/engine_tp.launch(1)``, graphed) must return 4d's greedy tokens
@@ -300,7 +312,7 @@ Phases, in order (any failure exits non-zero):
    bit for bit with the unsharded step; 13d the same config over four gloo
    ranks sharing the card at (dp1, ep2, tp2) and (dp2, ep2, tp1), two steps
    each within TOL_DIST_F32 of two unsharded steps on the card (its ranks
-   start after 11a and run beside 11b's, whose steps are not timed);
+   start after 11a and run beside phase 12);
 14. sequence-parallel LM training (``parallel/sequence.py``, ``ring.py``,
    ``ulysses.py``): 14a ``shard_train_step_sp`` at (dp 1, sp 1) over an
    NCCL world of one at phase 7's width (b8 s1024, bf16): Ulysses, its
@@ -371,11 +383,29 @@ Phases, in order (any failure exits non-zero):
    client tokens/s, no stream dropped, kernel 1 launched exactly 8 layers
    x the replicas' device steps (the counters set to 0 just before each
    pass), every routed greedy stream equal to the in-process engine's on
-   the same flags (or parting at a near-tie, as 4h); then 16 streams
+   the same flags (or parting at a near-tie, by the margin rule); then 16 streams
    through the affinity router with one replica stopped (fenced, which
    cuts its streams, and shut down) mid-decode: none dropped, every one
    complete, at least one failover, each stream's tokens before its cut
    equal to the engine's.
+18. Gemma-2B's attention widths through the entry points: the port's HTTP
+   server with ``--hidden=2048 --heads=8 --kv-heads=1 --layers=18
+   --vocab=256000 --page-size=16`` (intermediate 3 x hidden, as the CLI
+   sets it; head_dim 256, a kv group of 8), 8 requests (prompt 128, 64 new,
+   greedy, streamed one at a time after the server's warm-up) whose tokens
+   must equal the in-process engine's on the same flags, seed and order,
+   kernel 1 launched once a layer a dispatched step;
+   ``greedy_generate`` at those widths cut to GEMMA_TRAIN_LAYERS layers
+   (8 prompts of 128, 16 new), whose bulk prefill launches kernel 2 at
+   head_dim 256 once a layer; three bf16 training steps on the same
+   weights (batch 4, seq 1024), kernels 2-4 launched once a layer a step
+   on ``wgmma``;
+   then at 2 layers, float32, at three shapes (A: those widths at page 16;
+   B: Falcon-7B's, hidden 4544, 71 heads on 1 kv head, vocab 65024, page
+   12; C: StarCoder's, hidden 6144, 48 heads on 1 kv head, vocab 49152,
+   page 24): the engine's greedy tokens on the kernel path equal to those
+   on the gather path (by the margin rule), and one training step on the
+   card within TOL_TRAIN of the CPU step (the ``gemma`` JSON line).
 
 Then it prints one ``kernels`` JSON line (a row per kernel variant, each
 with its design, HGMMA count, registers and spill bytes; every number in
@@ -384,12 +414,13 @@ it measured in this run, the bounds computed from its inputs), one
 errors and the tiny phase 6), one
 ``quant`` JSON line, one ``train`` JSON line, one ``serve`` JSON line
 (phase 4e), one ``warm_restart`` line (phases 4f, 4g and 3d), one
-``spec_lora`` line (phases 4h, 5b and 4i), one ``train_models`` line
+``spec_lora`` line (phases 5b and 4i), one ``train_models`` line
 (phase 9), one ``serving_bench``, one ``decode_bench`` and one
 ``lora_train`` line (phase 10), one ``distributed`` line (phase 11), one
 ``tensor_parallel`` line (phase 12), one ``moe`` line (phase 13), one
 ``sp`` line (phase 14), one ``pipeline`` line (phase 15), one ``plugin``
-line (phase 16), one ``router`` line (phase 17), one ``phase_seconds``
+line (phase 16), one ``router`` line (phase 17), one ``gemma`` line
+(phase 18), one ``phase_seconds``
 line, and last
 the line
 ``{"ok": true, "device": {...}}``.
@@ -687,7 +718,9 @@ FLASH_ROWS = {
 def build_facts(torch, fa, _build) -> dict:
     """Per flash kernel row, keyed as FLASH_ROWS: its name, source, design,
     and per build (``widths``: 64 and 128 wide, and padded at each,
-    "pad64" and "pad128", for the head_dims between) its registers, spill
+    "pad64" and "pad128", for the head_dims between; 256 wide for the bf16
+    forward; "wide", the kernel that takes every other head_dim past 128)
+    its registers, spill
     bytes (ptxas) and HGMMA count (cuobjdump); the row's own registers,
     spills and HGMMA are the head_dim 64 build's, the main paths'.  Fails if
     a wgmma build spills or has no HGMMA, or an FMA build has any."""
@@ -705,7 +738,17 @@ def build_facts(torch, fa, _build) -> dict:
                     "spill_bytes": regs["spill_stores"] + regs["spill_loads"],
                     "hgmma": hgmma.get(sym, 0),
                 }
-        built = {"64", "128", "pad64", "pad128"}
+        wide = function.replace("_kernel", "_wide_kernel")
+        for sym, regs in _build.ptxas_report(var.source).items():
+            if re.search(wide + r"E", sym):
+                widths["wide"] = {
+                    "registers": regs["registers"],
+                    "spill_bytes": regs["spill_stores"] + regs["spill_loads"],
+                    "hgmma": hgmma.get(sym, 0),
+                }
+        built = {"64", "128", "pad64", "pad128", "wide"}
+        if (kernel, dtype) == ("forward", "bfloat16"):
+            built.add("256")
         if set(widths) != built:
             fail(f"csrc/{var.source}.cu builds {function} at head_dim {sorted(widths)}, "
                  f"not {sorted(built)}")
@@ -733,19 +776,21 @@ PAGED_FORMATS = {"0": "f", "1": "int8", "2": "int4"}
 
 def paged_build_facts(_build) -> dict:
     """Kernel 1's registers and spill bytes (ptxas) per build, keyed by pool
-    format, then "<query type>_<width>" (float32 or bf16 queries, 64 and 128
-    wide: twelve builds).  Fails if one is missing or spills."""
+    format, then "<query type>_<width>" (float32 or bf16 queries, 64, 128
+    and 256 wide, and the 256-wide slabbed build "_wide": twenty-four
+    builds).  Fails if one is missing or spills."""
     facts = {fmt: {} for fmt in PAGED_FORMATS.values()}
     for sym, regs in _build.ptxas_report("paged_attention").items():
-        # paged_decode_kernel<T, FMT, D> in the mangled name.
-        m = re.search(r"paged_decode_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d+)E", sym)
+        # paged_decode_kernel<T, FMT, D, WIDE> in the mangled name.
+        m = re.search(r"paged_decode_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d+)ELb([01])E", sym)
         if m:
             dtype = "float32" if m.group(1) == "f" else "bfloat16"
-            facts[PAGED_FORMATS[m.group(2)]][f"{dtype}_{m.group(3)}"] = {
+            wide = "_wide" if m.group(4) == "1" else ""
+            facts[PAGED_FORMATS[m.group(2)]][f"{dtype}_{m.group(3)}{wide}"] = {
                 "registers": regs["registers"],
                 "spill_bytes": regs["spill_stores"] + regs["spill_loads"],
             }
-    want = {f"{t}_{w}" for t in ("float32", "bfloat16") for w in (64, 128)}
+    want = {f"{t}_{w}" for t in ("float32", "bfloat16") for w in (64, 128, 256, "256_wide")}
     log(f"paged_attention paged_decode_kernel builds: {facts}")
     for fmt, builds in facts.items():
         if set(builds) != want:
@@ -841,48 +886,84 @@ def check_flash(torch, fa, facts):
     return rows
 
 
-# Phase 3c's head_dims: the builds' own widths and a padded width of each
-# (80: Phi-2's head_dim; 96: Phi-3-mini's).
-PAGED_WIDTHS = (16, 32, 64, 80, 96, 128)
-FLASH_WIDTHS = (16, 32, 80, 96, 128)
+# Phase 3c's shapes, the ones kernels 1-4 once refused: head_dims that are
+# no multiple of 8 (4, 20, 100), past 128 (192, 384) and Gemma-2B's 256;
+# page sizes that are no power of two (12, 24) or past 128 (256); kv groups
+# of 8 (Gemma-2B), 48 (StarCoder) and 71 (Falcon-7B).
+SWEEP_HEAD_DIMS = (4, 20, 100, 192, 256, 384)
+SWEEP_PAGES = (12, 24, 256)
+SWEEP_GROUPS = (8, 48, 71)
+LONG_SPAN = 20000  # a row's positions at page 1: 20,000 table entries at one split
+
+
+def paged_shape_inputs(torch, gen, *, B, H, HK, D, ps, span, dtype=None):
+    """Kernel 1's inputs at one shape: bf16 (or ``dtype``) q [B, H, D], a
+    random table over a pool of whole rows of ``span`` positions, float
+    pools [pages, ps, HK, D] in float32 (quantized by the caller)."""
+    dev = torch.device(DEVICE)
+    mpp = -(-span // ps)
+    n_pool = B * mpp + 1
+    table = torch.randperm(n_pool - 1, generator=gen, device=dev)[: B * mpp] + 1
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype or torch.bfloat16)
+    k, v = (torch.randn((n_pool, ps, HK, D), generator=gen, device=dev) for _ in range(2))
+    return q, table.reshape(B, mpp).to(torch.int32), k, v
 
 
 def check_widths(torch, pa, fa, quant, tuning) -> dict:
-    """Phase 3c: kernel 1 at PAGED_WIDTHS and every page size it takes
-    (1 to 128), in every pool format (bf16 queries), and kernels 2-4 at
-    FLASH_WIDTHS in both variants, against their plain versions, each call
-    checking the launch it counted.  Returns the worst errors by kernel."""
+    """Phase 3c: kernel 1 at SWEEP_HEAD_DIMS x SWEEP_PAGES, each pair at one
+    of SWEEP_GROUPS in turn (so each head_dim and each page meets each
+    group), in every pool format, float32 and bf16 queries, and kernels
+    2-4 at SWEEP_HEAD_DIMS in both variants at a kv group of 8, against
+    their plain versions, each call checking the launch it counted.
+    Returns the worst errors by kernel."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(9)
-    B, H, HK, SPAN = 8, 16, 4, 256  # SPAN: the positions a row's table covers
-    lens = torch.tensor([1, 17, 100, 129, 200, 241, 255, 256], dtype=torch.int32, device=dev)
+    B, SPAN = 4, 256  # SPAN: the positions a row's table covers
+    lens = torch.tensor([1, 100, 241, 256], dtype=torch.int32, device=dev)
     worst = {}
-    for d in PAGED_WIDTHS:
-        for ps in pa.PAGE_SIZES:
-            mpp, n_pool = SPAN // ps, B * SPAN // ps + 1
-            table = torch.randperm(n_pool - 1, generator=gen, device=dev)[: B * mpp] + 1
-            table = table.reshape(B, mpp).to(torch.int32)
-            q = torch.randn((B, H, d), generator=gen, device=dev).to(torch.bfloat16)
-            k, v = (torch.randn((n_pool, ps, HK, d), generator=gen, device=dev) for _ in range(2))
-            tuned = tuning.pick_num_splits(mpp, tuning.device_generation(dev))
-            for kv_format in pa.FORMATS:
-                pools = quantized_pools(quant, kv_format, k, v, torch.bfloat16)
-                for splits in sorted({1, tuned}):
-                    for window in (None, 100):
-                        pa.reset_launches()
-                        err = hold_paged(torch, pa, q, pools, table, lens, window=window,
-                                         splits=splits, kv_format=kv_format)
-                        label = f"paged {kv_format} d={d} page={ps} splits={splits} window={window}"
-                        if pa.paged_attention.launches_by_format[kv_format] != 1:
-                            fail(f"{label}: launched {pa.paged_attention.launches_by_format}")
-                        if not err <= TOL_BF16:
-                            fail(f"{label}: max_abs_err {err} > {TOL_BF16}")
-                        key = f"paged_{kv_format}"
-                        worst[key] = max(worst.get(key, 0.0), err)
-    log(f"paged kernel at head_dim {PAGED_WIDTHS} x page {pa.PAGE_SIZES} x {pa.FORMATS}: "
-        f"worst {worst}")
-    B = 2
-    for d in FLASH_WIDTHS:
+    for i, d in enumerate(SWEEP_HEAD_DIMS):
+        for j, ps in enumerate(SWEEP_PAGES):
+            group = SWEEP_GROUPS[(i + j) % len(SWEEP_GROUPS)]
+            for dtype, tol in ((torch.bfloat16, TOL_BF16), (torch.float32, TOL_F32)):
+                q, table, k, v = paged_shape_inputs(torch, gen, B=B, H=group, HK=1, D=d, ps=ps,
+                                                    span=SPAN, dtype=dtype)
+                tuned = tuning.pick_num_splits(table.shape[1], tuning.device_generation(dev))
+                for kv_format in pa.FORMATS:
+                    pools = quantized_pools(quant, kv_format, k, v, dtype)
+                    for splits in sorted({1, tuned}):
+                        for window in (None, 100):
+                            pa.reset_launches()
+                            err = hold_paged(torch, pa, q, pools, table, lens, window=window,
+                                             splits=splits, kv_format=kv_format)
+                            label = (f"paged {kv_format} {dtype} d={d} page={ps} group={group} "
+                                     f"splits={splits} window={window}")
+                            if pa.paged_attention.launches_by_format[kv_format] != 1:
+                                fail(f"{label}: launched {pa.paged_attention.launches_by_format}")
+                            if not err <= tol:
+                                fail(f"{label}: max_abs_err {err} > {tol}")
+                            key = f"paged_{kv_format}_{str(dtype)[6:]}"
+                            worst[key] = max(worst.get(key, 0.0), err)
+    # A page of one position over a long row: at one split the table's
+    # LONG_SPAN entries are staged in shared memory beside the ring.
+    q, table, k, v = paged_shape_inputs(torch, gen, B=2, H=4, HK=1, D=64, ps=1, span=LONG_SPAN)
+    long_lens = torch.tensor([LONG_SPAN - 7, LONG_SPAN], dtype=torch.int32, device=dev)
+    for kv_format in pa.FORMATS:
+        pools = quantized_pools(quant, kv_format, k, v, torch.bfloat16)
+        for splits, window in ((1, None), (8, 1000)):
+            pa.reset_launches()
+            err = hold_paged(torch, pa, q, pools, table, long_lens, window=window, splits=splits,
+                             kv_format=kv_format)
+            label = f"paged {kv_format} page=1 span={LONG_SPAN} splits={splits} window={window}"
+            if pa.paged_attention.launches_by_format[kv_format] != 1:
+                fail(f"{label}: launched {pa.paged_attention.launches_by_format}")
+            if not err <= TOL_BF16:
+                fail(f"{label}: max_abs_err {err} > {TOL_BF16}")
+            key = f"paged_{kv_format}_long_table"
+            worst[key] = max(worst.get(key, 0.0), err)
+    log(f"paged kernel at head_dim {SWEEP_HEAD_DIMS} x page {SWEEP_PAGES} x group "
+        f"{SWEEP_GROUPS} x {pa.FORMATS}, and page 1 over {LONG_SPAN} positions: worst {worst}")
+    B, H, HK = 2, 8, 1
+    for d in SWEEP_HEAD_DIMS:
         for dtype_name, tol, tol_bwd in (("bfloat16", TOL_BF16, TOL_BWD_BF16),
                                          ("float32", TOL_F32, TOL_BWD_F32)):
             dtype = getattr(torch, dtype_name)
@@ -916,28 +997,38 @@ def check_widths(torch, pa, fa, quant, tuning) -> dict:
     return worst
 
 
-def time_head_dim(torch, pa, fa, dp, tuning, D: int) -> dict:
-    """Kernels 1-4 at head_dim D in bf16, timed as the head_dim 64 rows
-    are (kernel 1 at the decode shape, kernels 2-4 at b8 h16 hk4 s1024
-    causal), beside their bounds, plain versions and library calls; keyed
-    by kernel row name."""
-    B, H, HK = 8, 16, 4
-    out = {}
-    inputs = dp.decode_inputs("f", head_dim=D)
-    tuned = tuning.pick_num_splits(inputs["page_table"].shape[1], tuning.device_generation(DEVICE))
-    q, table, lens = inputs["q"], inputs["page_table"], inputs["lens"]
-    ms, _ = time_ms(lambda: pa.paged_attention(**inputs, num_splits=tuned))
+def time_paged(torch, pa, tuning, *, B, H, HK, D, ps, span=256, seed=12) -> dict:
+    """Kernel 1 in bf16 at one shape, timed as the decode-shape rows are
+    (graph replay, L2 warm), lens spread over the decode phase, beside its
+    bound and plain version."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    q, table, k, v = paged_shape_inputs(torch, gen, B=B, H=H, HK=HK, D=D, ps=ps, span=span)
+    pk, pv = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    lens = torch.tensor([span // 2 + 1 + (span // 2 - 1) * i // (B - 1) for i in range(B)],
+                        dtype=torch.int32, device=DEVICE)
+    tuned = tuning.pick_num_splits(table.shape[1], tuning.device_generation(DEVICE))
+    call = lambda: pa.paged_attention(q, pk, pv, table, lens, num_splits=tuned)  # noqa: E731
+    ms, _ = time_ms(call)
     plain_ms, _ = time_ms(lambda: pa.paged_attention_reference(
-        q.reshape(B, HK, H // HK, D), inputs["pool_k"], inputs["pool_v"], table, lens,
-        sm_scale=D ** -0.5, window=None, num_splits=tuned), iters=20)
+        q.reshape(B, HK, H // HK, D), pk, pv, table, lens, sm_scale=D ** -0.5, window=None,
+        num_splits=tuned), iters=20)
     live = lens.long().tolist()
-    ps = inputs["pool_k"].shape[1]
-    nbytes = 2 * B * H * D * 2 + sum(live) * HK * 2 * D * 2 + sum(-(-n // ps) for n in live) * 4
+    nbytes = (2 * B * H * D * 2 + sum(live) * HK * 2 * D * 2
+              + sum(-(-n // ps) for n in live) * 4 + B * 4)
     b_ms, b_by = bound(nbytes, sum(4 * H * n * D for n in live), BF16_FLOPS)
-    out["paged_attention"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                              "library_ms": None,
-                              "shape": f"B{B} H{H} Hk{HK} D{D} page{ps} splits{tuned} "
-                                       f"lens{live[0]}..{live[-1]} bf16"}
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None,
+            "shape": f"B{B} H{H} Hk{HK} D{D} page{ps} splits{tuned} "
+                     f"lens{live[0]}..{live[-1]} bf16"}
+
+
+def time_head_dim(torch, pa, fa, tuning, D: int, H: int = 16, HK: int = 4) -> dict:
+    """Kernels 1-4 at head_dim D, H heads on HK kv heads, in bf16, timed as
+    the head_dim 64 rows are (kernel 1 at batch 8 over pages of 16, kernels
+    2-4 at b8 s1024 causal), beside their bounds, plain versions and
+    library calls; keyed by kernel row name."""
+    B = 8
+    out = {"paged_attention": time_paged(torch, pa, tuning, B=B, H=H, HK=HK, D=D, ps=16)}
     S = 1024
     gen = torch.Generator(device=DEVICE).manual_seed(12)
     q, dout = (torch.randn((B, H, S, D), generator=gen, device=DEVICE).to(torch.bfloat16)
@@ -972,7 +1063,10 @@ def time_head_dim(torch, pa, fa, dp, tuning, D: int) -> dict:
             plain_ms, library_ms = plain_bwd, sdpa_bwd
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": library_ms, "shape": shape}
-    log(f"kernels 1-4 at head_dim {D}: {out}")
+        if name != "flash_attention":
+            out[name]["library_note"] = ("SDPA backward (profiler device time), one call "
+                                         "yields dq, dk and dv")
+    log(f"kernels 1-4 at head_dim {D}, {H}/{HK} heads: {out}")
     return out
 
 
@@ -1021,7 +1115,7 @@ def run_engine(torch, engine, pa, fa, flags=(), requests: int = 32):
     return summary, launches, [r.tokens for r in done]
 
 
-# Phases 4, 4b, 4d and 4h measure the batch engine without the overload
+# Phases 4, 4b and 4d measure the batch engine without the overload
 # limiter and the SLO plane (the CLI's defaults since it took the
 # reference's flags); 4e's in-process twin takes the server's flags.
 NO_LIMITER = ("--overload=0", "--slo=0")
@@ -1936,18 +2030,19 @@ def run_generate(torch, tf, pa, fa):
 
 
 def check_paths_agree(torch, tf, engine, cfg=None, page=(16, 512, 32), prompt_len=64,
-                      **quant_kw):
+                      params=None, **quant_kw):
     """Phases 6 and 6b: fp32, 2 layers, full width (``quant_kw`` sets the
     weight and KV formats), or ``cfg`` at the paged geometry ``page`` (6:
     GPTConfig.tiny(), head_dim 16, at page 4): kernel path == gather path
-    wherever the top-2 margin of the reference decode clears TOL_MARGIN."""
+    wherever the top-2 margin of the reference decode clears TOL_MARGIN.
+    ``params``: the weights (default ``init_params(cfg, seed=3)``)."""
     if cfg is None:
         cfg = tf.GPTConfig(
             vocab_size=32000, hidden_size=1024, num_layers=2, num_heads=16,
             intermediate_size=3072, max_seq=512, num_kv_heads=4, dtype=torch.float32,
             **quant_kw,
         )
-    params = tf.init_params(cfg, seed=3)
+    params = tf.init_params(cfg, seed=3) if params is None else params
     jobs = engine.synthetic_jobs(8, prompt_len, 16, cfg.vocab_size)
     streams = {}
     for use_kernel in (None, False):
@@ -2221,15 +2316,18 @@ def run_training(torch, fa, bench, smi):
     return summary, launches
 
 
-def check_train_parity(torch, fa, tf, train, data):
+def check_train_parity(torch, fa, tf, train, data, cfg=None, batch_shape=(2, 256), params=None):
     """Phase 8: one fp32 train step on the card (kernels) and on the CPU
-    (plain versions) from the same weights and batch."""
-    cfg = tf.GPTConfig(
-        vocab_size=32000, hidden_size=1024, num_layers=2, num_heads=16, num_kv_heads=4,
-        intermediate_size=2816, max_seq=256, dtype=torch.float32,
-    )
-    params = tf.init_params(cfg, seed=5)
-    batch = data.synthetic_lm_batch(2, 256, cfg.vocab_size,
+    (plain versions) from the same weights and batch (phase 18 passes its
+    ``cfg``, a smaller ``batch_shape`` and the weights its engine check
+    used: ``params``, default ``init_params(cfg, seed=5)``)."""
+    if cfg is None:
+        cfg = tf.GPTConfig(
+            vocab_size=32000, hidden_size=1024, num_layers=2, num_heads=16, num_kv_heads=4,
+            intermediate_size=2816, max_seq=256, dtype=torch.float32,
+        )
+    params = tf.init_params(cfg, seed=5) if params is None else params
+    batch = data.synthetic_lm_batch(*batch_shape, cfg.vocab_size,
                                     generator=torch.Generator().manual_seed(6), device="cpu")
     result = {}
     for device in (DEVICE, "cpu"):
@@ -2654,12 +2752,11 @@ DIST_FLAGS = ("--model=bert", "--batch-size=64", "--seq-len=384", "--steps=2", "
 # kernels are made contiguous, so it is timed against the unsharded one.
 RESNET_DIST_FLAGS = ("--model=resnet50", "--batch-size=128", "--image-size=224", "--steps=2",
                      "--warmup=1")
-# (dp, mp) of each 11b run: BERT at both; AlexNet at mp 2 alone, which
-# splits its batch (dropout rows) and shards its conv kernels (made
-# contiguous for FSDP); ResNet18Thin at dp 2 alone, whose BatchNorm takes
-# the global batch's moments across the ranks: each spawn costs about 20 s.
-SHARED_CARD_MESHES = {"bert": ((2, 1), (1, 2)), "alexnet": ((1, 2),),
-                      "resnet18thin": ((2, 1),)}
+# (dp, mp) of each 11b run: BERT at mp 2, whose ranks each hold about half
+# of one rank's parameter and momentum bytes; ResNet18Thin at dp 2, whose
+# BatchNorm takes the global batch's moments across the ranks.  Each spawn
+# costs about 20 s; both run beside phase 18d, which times nothing.
+SHARED_CARD_MESHES = {"bert": (1, 2), "resnet18thin": (2, 1)}
 # What gloo does not carry on CUDA tensors (PyTorch 2.11 on an H100):
 # DTensor's functional collectives segfault, so 11b gathers no DTensor
 # (``sharding.gather_full_state`` sends local shards through c10d) and saves
@@ -2718,14 +2815,10 @@ def _held(torch, what: str, run, want: dict, tol: float) -> dict:
 
 
 def run_phase_11(torch, fa, bench, smi, mark, after_11a=None) -> tuple[dict, dict]:
-    """Phases 11a and 11b; returns (the distributed line, 11a's launches).
-    ``after_11a`` runs between the two (what may share the card with 11b's
-    untimed ranks)."""
-    import functools
-
-    from k8s_device_plugin_tpu_torch.models.alexnet import AlexNet
-    from k8s_device_plugin_tpu_torch.models.bert import Bert, BertConfig
-    from k8s_device_plugin_tpu_torch.models.resnet import ResNet18Thin
+    """Phase 11a; returns (the distributed line, its launches).
+    ``after_11a`` runs after it (the gloo ranks of phases 13d-15b start
+    there)."""
+    from k8s_device_plugin_tpu_torch.models.bert import BertConfig
 
     args = bench.parse_args([*DIST_FLAGS, "--dp=1", "--mp=1", "--dtype=bfloat16",
                              f"--device={DEVICE}"])
@@ -2783,53 +2876,87 @@ def run_phase_11(torch, fa, bench, smi, mark, after_11a=None) -> tuple[dict, dic
     if after_11a is not None:
         after_11a()
 
-    shared = {}
+    line = {"world_of_one": world_of_one, "resnet50_world_of_one": resnet_world_of_one,
+            "card": smi}
+    return line, launches
+
+
+def start_phase_11b(torch, bench) -> dict:
+    """Phase 11b's one-rank runs in this process, float32, then its
+    two-rank runs (``benchmark.launch`` over gloo, two ranks sharing the
+    card) on a thread: they run beside what this process does until
+    :func:`run_phase_11b` joins them."""
+    import functools
+    import threading
+
+    from k8s_device_plugin_tpu_torch.models.bert import Bert, BertConfig
+    from k8s_device_plugin_tpu_torch.models.resnet import ResNet18Thin
+
     cut = {
         "bert": (["--model=bert", "--seq-len=128", "--batch-size=8"], functools.partial(
             Bert, BertConfig(num_layers=2, dtype=torch.float32))),
-        # 10 classes and batch 16: at 1000 classes and batch 8 SGD 0.1
-        # diverges within the 5 steps (loss 1e23 by the fifth).
-        "alexnet": (["--model=alexnet", "--image-size=128", "--batch-size=16"],
-                    functools.partial(AlexNet, num_classes=10, dtype=torch.float32, width=0.25,
-                                      image_size=128)),
-        # 10 classes, as AlexNet; float32 statistics.
+        # 10 classes, float32 statistics.
         "resnet18thin": (["--model=resnet50", "--image-size=64", "--batch-size=16"],
                          functools.partial(ResNet18Thin, num_classes=10, dtype=torch.float32,
                                            norm_dtype=torch.float32, seed=3)),
     }
+    jobs = {}
     for model, (flags, model_fn) in cut.items():
         base = [*flags, "--steps=1", "--warmup=1", "--dtype=float32", f"--device={DEVICE}"]
         one = _unsharded(torch, bench, bench.parse_args([*base, "--dp=1", "--mp=1"]),
                          model_fn(device=torch.device(DEVICE)))
-        rows = {}
-        for dp_, mp_ in SHARED_CARD_MESHES[model]:
-            t0 = time.perf_counter()
-            run = bench.launch(bench.parse_args([*base, f"--dp={dp_}", f"--mp={mp_}"]),
-                               backend="gloo", local_ranks=2, model_fn=model_fn,
-                               gather_params=True)
-            share = max(run.rank_bytes) / one["state_bytes"]
-            if mp_ == 2 and share > 0.6:
-                fail(f"{model} at mp 2 holds {share:.3f} of one rank's parameter and momentum "
-                     "bytes a rank, not about half")
-            rows[f"dp{dp_}_mp{mp_}"] = {
+        jobs[model] = (base, model_fn, one)
+    started = {"jobs": jobs, "runs": {}, "errors": []}
+
+    def spawn():
+        try:
+            for model, (base, model_fn, _) in jobs.items():
+                dp_, mp_ = SHARED_CARD_MESHES[model]
+                t0 = time.perf_counter()
+                run = bench.launch(bench.parse_args([*base, f"--dp={dp_}", f"--mp={mp_}"]),
+                                   backend="gloo", local_ranks=2, model_fn=model_fn,
+                                   gather_params=True)
+                started["runs"][model] = (run, time.perf_counter() - t0)
+        except BaseException as e:  # reported by run_phase_11b
+            started["errors"].append(e)
+
+    started["thread"] = threading.Thread(target=spawn, name="phase-11b", daemon=True)
+    started["thread"].start()
+    return started
+
+
+def run_phase_11b(torch, started: dict, smi) -> dict:
+    """Phase 11b: wait for :func:`start_phase_11b`'s ranks, then hold
+    each two-rank run against its one-rank run (TOL_DIST_F32) and, at mp 2,
+    each rank's share of one rank's parameter and momentum bytes."""
+    t0 = time.perf_counter()
+    started["thread"].join()
+    waited = time.perf_counter() - t0
+    if started["errors"]:
+        fail(f"phase 11b's ranks failed: {started['errors'][0]!r}")
+    shared = {}
+    for model, (base, _, one) in started["jobs"].items():
+        dp_, mp_ = SHARED_CARD_MESHES[model]
+        run, wall = started["runs"][model]
+        share = max(run.rank_bytes) / one["state_bytes"]
+        if mp_ == 2 and share > 0.6:
+            fail(f"{model} at mp 2 holds {share:.3f} of one rank's parameter and momentum "
+                 "bytes a rank, not about half")
+        shared[model] = {
+            "flags": base, "unsharded_step_ms": one["step_time_ms"],
+            "one_rank_bytes": one["state_bytes"],
+            f"dp{dp_}_mp{mp_}": {
                 "held": _held(torch, f"11b {model} dp{dp_} mp{mp_}", run, one, TOL_DIST_F32),
                 "rank_bytes": run.rank_bytes, "share_of_one_rank_bytes": share,
-                "staged_step_ms": run.record["step_time_ms"],
-                "launch_wall_s": time.perf_counter() - t0,
-            }
-        shared[model] = {"flags": base, "unsharded_step_ms": one["step_time_ms"],
-                         "one_rank_bytes": one["state_bytes"], **rows}
+                "staged_step_ms": run.record["step_time_ms"], "launch_wall_s": wall,
+            },
+        }
         log(f"phase 11b {model}: {shared[model]}")
-    mark("11b_shared_card")
-    line = {"world_of_one": world_of_one, "resnet50_world_of_one": resnet_world_of_one,
-            "shared_card": {"backend": "gloo", "world": 2, "ranks_per_card": 2,
-                            "meshes": {k: [{"dp": d, "mp": m} for d, m in v]
-                                       for k, v in SHARED_CARD_MESHES.items()},
-                            "gloo_not_carried": list(GLOO_NOT_CARRIED),
-                            "times": "staged through host memory by gloo: not a speed",
-                            **shared},
-            "card": smi}
-    return line, launches
+    return {"backend": "gloo", "world": 2, "ranks_per_card": 2,
+            "meshes": {k: {"dp": d, "mp": m} for k, (d, m) in SHARED_CARD_MESHES.items()},
+            "gloo_not_carried": list(GLOO_NOT_CARRIED),
+            "times": "staged through host memory by gloo, beside phase 18d: not a speed",
+            "joined_after_s": waited, "card": smi, **shared}
 
 
 # ------------------------------------------------- phases 4h, 5b and 4i
@@ -2892,171 +3019,51 @@ def hold_streams(torch, tf, model, jobs, got, want, what: str,
     return {"checked": checked, "near_ties": ties, "tolerance": tol}
 
 
-def spec_engine_run(torch, engine, pa, flags) -> tuple:
-    """One batch-engine run at the deployed widths on phase 4h's traffic
-    with ``flags``; the launch counters are set to 0 just before it.
-    Returns (summary, tokens, engine)."""
-    args = engine.parse_args([
-        "--hidden=1024", "--layers=8", "--heads=16", "--kv-heads=4", "--vocab=32000",
-        "--page-size=16", "--num-pages=512", "--max-pages-per-seq=32",
-        f"--requests={SPEC_JOBS}", "--prompt-len=128", "--max-new=128", f"--device={DEVICE}",
-        *NO_LIMITER, *flags,
-    ])
-    eng = engine.build_engine(args)
-    pa.reset_launches()
-    summary, done = engine.benchmark(args, eng)
-    torch.cuda.synchronize()
-    summary["paged_launches"] = dict(pa.paged_attention.launches_by_format)
-    summary["flags"] = list(flags)
-    if len(done) != SPEC_JOBS or any(len(r.tokens) != 128 for r in done):
-        fail(f"the engine {list(flags)} did not return {SPEC_JOBS} requests of 128 tokens")
-    if any(not 0 <= t < 32000 for r in done for t in r.tokens):
-        fail(f"the engine {list(flags)} emitted a token id outside the vocabulary")
-    ttft = [r.first_token_at - r.submitted_at for r in done]
-    itl = [(r.finished_at - r.first_token_at) / (len(r.tokens) - 1) for r in done]
-    summary["ttft_exact_ms"] = {"p50": quantile(ttft, 0.5) * 1e3, "p99": quantile(ttft, 0.99) * 1e3}
-    summary["itl_request_mean_ms"] = {"p50": quantile(itl, 0.5) * 1e3,
-                                      "p99": quantile(itl, 0.99) * 1e3}
-    log(f"phase 4h engine {list(flags)}: {summary}")
-    return summary, [r.tokens for r in done], eng
 
 
-def spec_row(summary) -> dict:
-    keep = ("value", "spec_gamma", "spec_acceptance", "spec_rounds", "device_steps",
-            "graph_replays", "ttft_exact_ms", "itl_request_mean_ms", "paged_launches", "flags")
-    return {k: summary[k] for k in keep}
 
 
-def graphs_vs_eager(torch, eng, jobs) -> dict:
-    """``jobs`` through a spec engine whose rounds are captured, first
-    replayed as graphs and then eager, greedy and sampled under one key:
-    the tokens must be equal and valid."""
-    from k8s_device_plugin_tpu_torch.utils import prng
-
-    out = {}
-    for name, kw in (("greedy", {}), ("sampled", dict(temperature=0.8, top_k=50))):
-        streams = {}
-        for graphs in (True, False):
-            eng.cuda_graphs = graphs
-            eng._rng = prng.PRNGKey(0).to(eng.device)
-            replays, t0 = eng.graph_replays, time.perf_counter()
-            done = eng.run(jobs, **kw)
-            torch.cuda.synchronize()
-            streams[graphs] = [r.tokens for r in done]
-            if (eng.graph_replays > replays) is not graphs:
-                fail(f"spec {name} rounds with graphs={graphs} replayed "
-                     f"{eng.graph_replays - replays} graphs")
-            out[f"{name}_{'graphed' if graphs else 'eager'}_tokens_per_s"] = (
-                sum(map(len, streams[graphs])) / (time.perf_counter() - t0))
-        if streams[True] != streams[False]:
-            fail(f"spec {name} rounds differ graphed against eager at "
-                 f"{first_difference(streams[True], streams[False])}")
-        if any(len(t) != n or not all(0 <= x < 32000 for x in t)
-               for t, (_, n) in zip(streams[True], jobs)):
-            fail(f"spec {name} rounds returned invalid tokens")
-    eng.cuda_graphs = True
-    log(f"phase 4h graphs against eager: {out}")
-    return out
 
 
-def round_costs(torch, eng) -> dict:
-    """Device time (profiler) of a round's pieces on an idle spec engine at
-    its slots, every row at position 192 (idle rows read and write scratch
-    page 0): one w8 draft step, one bf16 target step for comparison, the
-    (gamma+1)-token verify pass, and a whole greedy round."""
-    from k8s_device_plugin_tpu_torch.models import engine_sampling
-
-    gamma, slots = eng._spec_gamma, eng.max_slots
-    tok = torch.zeros((slots, 1), dtype=torch.long, device=DEVICE)
-    pos = torch.full((slots, 1), 192, dtype=torch.long, device=DEVICE)
-    block = torch.zeros((slots, gamma + 1), dtype=torch.long, device=DEVICE)
-    block_pos = pos + torch.arange(gamma + 1, device=DEVICE)[None, :]
-    eng.cache.page_table = engine_sampling._derived_tables(eng._chain, pos + gamma,
-                                                           eng.paged.page_size)
-    eng._bufs["tokens"].zero_()
-    eng._bufs["positions"].fill_(192)
-    with torch.no_grad():
-        out = {
-            "draft_step_w8": profiled_ms(torch, lambda: eng.draft_model(tok, pos, cache=eng.cache),
-                                         "w8 draft step", iters=5, warmup=2),
-            "target_step_bf16": profiled_ms(torch, lambda: eng.model(tok, pos, cache=eng.cache),
-                                            "bf16 target step", iters=5, warmup=2),
-            "verify_pass": profiled_ms(torch, lambda: eng.model(block, block_pos, cache=eng.cache),
-                                       "verify pass", iters=5, warmup=2),
-            "round": profiled_ms(torch, lambda: eng._spec_body(False), "greedy round", iters=5,
-                                 warmup=2, whole=False),
-        }
-    eng._repair_seq_lens()
-    log(f"phase 4h round pieces (device ms, {slots} slots, gamma {gamma}): {out}")
-    return out
 
 
-def run_speculation(torch, tf, engine, http_server, pa) -> dict:
-    """Phase 4h: the batch engine at --slots 2 --spec-gamma 2 (the pod
-    manifest's latency variant), at --slots 1 and at gamma 4, against the
-    non-speculative engine at decode block 1 (and 16) at the same slots;
-    graphed against eager, greedy and sampled; then the HTTP server at the
-    pod's flags with --slots 2 --spec-gamma 2 against its in-process twin.
-    Graphs against eager run on the main engine over the first two
-    requests (eager rounds cost a launch per kernel)."""
+
+
+def run_speculation(torch, http_server, pa) -> dict:
+    """Phase 4h: the HTTP server at the pod's flags with --slots 2
+    --spec-gamma 2 against its in-process twin: equal greedy tokens.  The
+    twin's draft steps launch kernel 1 exactly layers x gamma x rounds (the
+    launch counters set to 0 just before its run), its verify pass none
+    (the ``kernel.fallback`` flight event names ``spec_verify``), and its
+    rounds replay CUDA graphs."""
     import os
     import pathlib
 
     from k8s_device_plugin_tpu_torch.models.engine import synthetic_jobs
 
     jobs = synthetic_jobs(SPEC_JOBS, 128, 128, 32000)
-    report = {}
-    for slots in (2, 1):
-        ref, ref_tokens, ref_eng = spec_engine_run(torch, engine, pa,
-                                                   (f"--slots={slots}", "--decode-block=1"))
-        report[f"block1_slots{slots}"] = spec_row(ref)
-        block16, _, eng = spec_engine_run(torch, engine, pa, (f"--slots={slots}",
-                                                              "--decode-block=16"))
-        report[f"block16_slots{slots}"] = spec_row(block16)
-        del eng
-        gammas = (2, 4) if slots == 2 else (2,)
-        for gamma in gammas:
-            flags = (f"--slots={slots}", f"--spec-gamma={gamma}")
-            run, tokens, eng = spec_engine_run(torch, engine, pa, flags)
-            launches = run["paged_launches"]
-            # The draft's single-token steps run the paged kernel, the verify
-            # pass the gathered pages: exactly layers x gamma per round.
-            if launches["f"] != 8 * gamma * eng.spec_rounds or launches["int8"] or \
-                    launches["int4"]:
-                fail(f"spec {flags}: {launches} paged launches over {eng.spec_rounds} rounds "
-                     f"of gamma {gamma}, not 8 x gamma x rounds")
-            if not eng.flight.window(kinds=["kernel.fallback"]) or eng.flight.window(
-                    kinds=["kernel.fallback"])[0]["reason"] != "spec_verify":
-                fail(f"spec {flags}: no kernel.fallback flight event with reason spec_verify")
-            if eng.graph_replays <= 0:
-                fail(f"spec {flags}: the rounds never replayed a CUDA graph")
-            row = spec_row(run)
-            row["vs_block1"] = hold_streams(torch, tf, ref_eng.model, jobs, tokens, ref_tokens,
-                                            f"spec {flags} against block 1")
-            report[f"spec_gamma{gamma}_slots{slots}"] = row
-            if slots == 2 and gamma == 2:
-                main_launches, main_eng = launches["f"], eng
-            del eng
-        del ref_eng
-        torch.cuda.empty_cache()
-    # Graphed rounds against eager ones, greedy and sampled (temperature
-    # 0.8, top-k 50, one key), on the main engine: the first two requests
-    # again, with graphs and then without.
-    report["graphs_vs_eager"] = graphs_vs_eager(torch, main_eng, jobs[:2])
-    report["round_device_ms"] = round_costs(torch, main_eng)
-    del main_eng
-    torch.cuda.empty_cache()
-
-    # Over HTTP at the pod's flags: tokens equal the in-process twin's.
     root = pathlib.Path(__file__).resolve().parent
     env = dict(os.environ, PYTHONPATH=str(root))
     args = http_server.parse_args([*POD_SPEC_FLAGS, f"--device={DEVICE}"])
     twin = http_server.build_engine(args)
     twin.run([(p, 32) for p, _ in jobs[:2]])
+    rounds0 = twin.spec_rounds
+    pa.reset_launches()
     t0 = time.perf_counter()
     done = twin.run(jobs)
     torch.cuda.synchronize()
     inproc = engine_latency(done, time.perf_counter() - t0)
+    launches = dict(pa.paged_attention.launches_by_format)
+    rounds = twin.spec_rounds - rounds0
+    if launches["f"] != args.layers * args.spec_gamma * rounds or launches["int8"] or \
+            launches["int4"] or rounds <= 0:
+        fail(f"the spec twin launched kernel 1 {launches} times over {rounds} rounds of gamma "
+             f"{args.spec_gamma}, not {args.layers} layers x gamma x rounds")
+    fallback = twin.flight.window(kinds=["kernel.fallback"])
+    if not fallback or fallback[0]["reason"] != "spec_verify":
+        fail("the spec twin recorded no kernel.fallback flight event with reason spec_verify")
+    if twin.graph_replays <= 0:
+        fail("the spec twin's rounds never replayed a CUDA graph")
     want = [r.tokens for r in done]
     del twin, done
     torch.cuda.empty_cache()
@@ -3067,12 +3074,12 @@ def run_speculation(torch, tf, engine, http_server, pa) -> dict:
     if got != want:
         fail(f"spec HTTP tokens differ from the in-process engine's at "
              f"{first_difference(got, want)}")
-    spec_state = served["summary"]
-    report["http"] = {"flags": list(POD_SPEC_FLAGS), "client": served["client"],
-                      "in_process": inproc, "device": served["device"],
-                      "profile": served["traffic_profile"], "drain_s": served["drain_s"],
-                      "summary": spec_state}
-    report["main_path_launches"] = main_launches
+    report = {"flags": list(POD_SPEC_FLAGS), "requests": SPEC_JOBS,
+              "tokens_equal_in_process": True, "client": served["client"],
+              "in_process": inproc, "device": served["device"],
+              "profile": served["traffic_profile"], "drain_s": served["drain_s"],
+              "summary": served["summary"], "twin_rounds": rounds,
+              "main_path_launches": launches["f"]}
     log(f"phase 4h: {report}")
     return report
 
@@ -4674,7 +4681,7 @@ def _moe_rank(rank: int, world: int, init_method: str, out_path: str) -> None:
 
 def start_phase_13d() -> dict:
     """Start 13d's four gloo ranks (they share the card with what runs
-    meanwhile: 11b's untimed ranks); :func:`run_phase_13d` waits for them."""
+    meanwhile: phase 12); :func:`run_phase_13d` waits for them."""
     import multiprocessing
     import pathlib
 
@@ -4961,7 +4968,7 @@ def _sp_rank(rank: int, world: int, init_method: str, out_path: str) -> None:
 
 
 def start_phase_14b() -> dict:
-    """Start 14b's four gloo ranks (beside 11b's untimed ranks and 13d's);
+    """Start 14b's four gloo ranks (beside phase 12 and 13d's ranks);
     :func:`run_phase_14` waits for them."""
     import multiprocessing
     import pathlib
@@ -5872,11 +5879,15 @@ def run_phase_17(torch, tf, http_server, pa, smi) -> dict:
                                                 vocab=32000, **ROUTED)
             run_kw = dict(concurrency=8, suffix_len=(1, 16), max_new=FAILOVER_NEW)
             thread, holder = traffic.run_in_thread(FAILOVER_REQUESTS, timeout_s=300.0, **run_kw)
-            victim = servers[0]
-            deadline = time.monotonic() + 120
-            while not any(r is not None and len(r.tokens) >= 4 for r in victim.engine.slots):
-                if time.monotonic() > deadline:
-                    fail("17: no stream reached the first replica to stop it under")
+            # The victim is the first replica seen decoding a stream: the
+            # affinity ring (over the replicas' ephemeral ports) may place
+            # every session of this seed on one of them.
+            deadline, victim = time.monotonic() + 120, None
+            while victim is None:
+                victim = next((s for s in servers if any(
+                    r is not None and len(r.tokens) >= 4 for r in s.engine.slots)), None)
+                if victim is None and time.monotonic() > deadline:
+                    fail("17: no stream reached a replica to stop it under")
                 time.sleep(0.01)
             # The replica stops: its fence cuts the in-flight streams (the
             # router resubmits each with the tokens it had), then it shuts down.
@@ -5953,6 +5964,202 @@ def run_phase_17(torch, tf, http_server, pa, smi) -> dict:
         f"{report['random']['kv_hits_per_request']:.2f}, {n_failovers} failovers, 0 dropped "
         f"({smi})")
     return report
+
+
+# ---------------------------------------------------------------- phase 18
+
+# Gemma-2B's attention widths (hidden 2048, 8 heads on 1 kv head: head_dim
+# 256, a kv group of 8) on the repo's own GPTConfig, as the serving CLIs
+# take them (intermediate 3 x hidden); no Gemma-only feature.
+GEMMA_FLAGS = ("--hidden=2048", "--heads=8", "--kv-heads=1", "--layers=18", "--vocab=256000",
+               "--page-size=16")
+# The server's pool: 8 slots of prompt 128 + 64 new tokens (12 pages each).
+GEMMA_SERVE = (*GEMMA_FLAGS, "--num-pages=160", "--max-pages-per-seq=16", "--slots=8",
+               "--decode-block=16", "--overload=0", "--slo=0")
+GEMMA_JOBS = (8, 128, 64)  # requests, prompt, new tokens (greedy)
+# Of 18: the depth of the bf16 training steps and of greedy_generate, cut
+# to fit the time (their weights, one CPU init, serve both).
+GEMMA_TRAIN_LAYERS = 4
+GEMMA_TRAIN = (4, 1024, 3)  # batch, seq, steps
+# The 2-layer float32 checks: (name, hidden, heads, kv heads, vocab, page).
+GEMMA_CHECKS = (
+    ("A_gemma_2b", 2048, 8, 1, 256000, 16),
+    ("B_falcon_7b", 4544, 71, 1, 65024, 12),
+    ("C_starcoder", 6144, 48, 1, 49152, 24),
+)
+
+
+def gemma_config(tf, torch, hidden, heads, kv_heads, vocab, layers, dtype, max_seq=256):
+    return tf.GPTConfig(vocab_size=vocab, hidden_size=hidden, num_layers=layers,
+                        num_heads=heads, num_kv_heads=kv_heads, intermediate_size=3 * hidden,
+                        max_seq=max_seq, dtype=dtype)
+
+
+def run_gemma_serve(torch, http_server, pa, smi) -> dict:
+    """18a: the HTTP server at GEMMA_SERVE against its in-process twin,
+    GEMMA_JOBS streamed one at a time."""
+    import os
+    import pathlib
+
+    from k8s_device_plugin_tpu_torch.models.engine import synthetic_jobs
+
+    root = pathlib.Path(__file__).resolve().parent
+    (root / "chiprun_out").mkdir(exist_ok=True)
+    log_path = root / "chiprun_out" / "serve_gemma.log"
+    env = dict(os.environ, PYTHONPATH=str(root))
+    n, prompt, new = GEMMA_JOBS
+    jobs = synthetic_jobs(n, prompt, new, 256000)
+    args = http_server.parse_args([*GEMMA_SERVE, f"--device={DEVICE}"])
+    eng = http_server.build_engine(args)
+    # One request at a time on both sides, the server's warm-up first
+    # (warm_up: the first two prompts for 32 tokens): each prefill and
+    # decode then runs at batch 1 with the same cached pages on both, so
+    # the streams compare bit for bit (at 256000 random logits a greedy
+    # step's top two sit close, and another batch shape parts them).
+    for p, _ in jobs[:2]:
+        eng.run([(p, 32)])
+    steps0 = eng.device_steps
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    done = [r for job in jobs for r in eng.run([job])]
+    torch.cuda.synchronize()
+    twin_s = time.perf_counter() - t0
+    twin_launches = pa.paged_attention.launches_by_format["f"]
+    twin_steps = eng.device_steps - steps0
+    if twin_launches != args.layers * twin_steps or twin_launches <= 0:
+        fail(f"the Gemma-width engine launched kernel 1 {twin_launches} times over "
+             f"{twin_steps} steps of {args.layers} layers")
+    want = [r.tokens for r in done]
+    del eng, done
+    torch.cuda.empty_cache()
+    proc, port = start_server(GEMMA_SERVE, log_path, env)
+    try:
+        cold_s = warm_up(port, jobs)
+        t0 = time.perf_counter()
+        results = http_sequential(port, jobs)
+        wall = time.perf_counter() - t0
+        state = http_call(port, "/debug/state")[1]
+    except BaseException:
+        proc.kill()
+        raise
+    drain_s = stop_server(proc, log_path)
+    got = [r["tokens"] for r in results]
+    if got != want:
+        fail(f"the Gemma-width server's greedy tokens differ from its in-process twin's at "
+             f"{first_difference(got, want)}")
+    dev = state["engine"]["device"]
+    launches = dev["paged_launches"]["f"]
+    if launches != dev["num_layers"] * dev["device_steps"] or launches <= 0:
+        fail(f"the Gemma-width server counted {launches} kernel 1 launches over "
+             f"{dev['device_steps']} steps of {dev['num_layers']} layers")
+    out = {"flags": list(GEMMA_SERVE), "requests": n, "prompt": prompt, "new": new,
+           "tokens_equal_in_process": True, "client": stream_latency(results),
+           "client_wall_s": wall,
+           "cold_warm_up_s": cold_s, "drain_s": drain_s, "server_kernel1_launches": launches,
+           "server_device_steps": dev["device_steps"], "twin_kernel1_launches": twin_launches,
+           "twin_s": twin_s, "card": smi}
+    log(f"phase 18a: {out}")
+    return out
+
+
+def run_gemma_generate(torch, tf, fa, cfg, params) -> dict:
+    """18b: greedy_generate at Gemma-2B's widths (``cfg``: GEMMA_TRAIN_LAYERS
+    layers): its bulk prefill launches kernel 2 at head_dim 256 once a
+    layer."""
+    prompt = torch.randint(0, cfg.vocab_size, (8, 128), generator=torch.Generator().manual_seed(2))
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    out = tf.greedy_generate(cfg, params, prompt, 16, device=DEVICE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = fa.flash_attention.launches
+    expect_designs(fa.flash_attention.launches_by_design, "wgmma", cfg.num_layers,
+                   "greedy_generate's bf16 prefill at Gemma-2B's widths")
+    if tuple(out.shape) != (8, 144) or not torch.equal(out[:, :128].cpu(), prompt):
+        fail(f"greedy_generate returned {tuple(out.shape)} or altered the prompt")
+    if int(out.min()) < 0 or int(out.max()) >= cfg.vocab_size:
+        fail("greedy_generate emitted a token id outside the vocabulary")
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "kernel2_launches": launches, "wall_s": dt,
+            "shape": list(out.shape)}
+
+
+def run_gemma_training(torch, tf, fa, train, data, cfg, params) -> dict:
+    """18c: bf16 training steps at Gemma-2B's widths, cut to
+    GEMMA_TRAIN_LAYERS layers (``cfg``): kernels 2-4 once a layer a step,
+    on wgmma."""
+    batch_n, seq, steps = GEMMA_TRAIN
+    state = train.create_train_state(cfg, params, 0.1, 0.9, device=DEVICE)
+    batch = data.synthetic_lm_batch(batch_n, seq, cfg.vocab_size,
+                                    generator=torch.Generator().manual_seed(7), device=DEVICE)
+    step = train.make_train_step()
+    state, loss = step(state, batch)  # warm
+    torch.cuda.synchronize()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, batch)
+        losses.append(loss.item())
+    dt = time.perf_counter() - t0
+    launches, by_design = flash_launches(fa)
+    n = cfg.num_layers * steps
+    for kernel, counts in by_design.items():
+        expect_designs(counts, "wgmma", n, f"the Gemma-width bf16 training's {kernel} kernel")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"Gemma-width training loss not finite: {losses}")
+    del state
+    torch.cuda.empty_cache()
+    return {"layers": cfg.num_layers, "batch": batch_n, "seq": seq, "steps": steps,
+            "losses": losses, "step_time_ms": dt / steps * 1e3,
+            "tokens_per_s": batch_n * seq * steps / dt, "launches": launches,
+            "launches_by_design": by_design}
+
+
+def run_phase_18(torch, tf, fa, pa, engine, http_server, train, data, smi, mark,
+                 before_18d=None) -> dict:
+    """Phase 18: Gemma-2B's attention widths through the server,
+    greedy_generate and training, then the 2-layer float32 checks at
+    GEMMA_CHECKS (kernel path against gather path, card step against CPU
+    step).  ``before_18d`` runs just before those checks (phase 11b's
+    ranks start there: 18d times nothing)."""
+    serve = run_gemma_serve(torch, http_server, pa, smi)
+    mark("18a_gemma_serve")
+    cfg = gemma_config(tf, torch, 2048, 8, 1, 256000, GEMMA_TRAIN_LAYERS, torch.bfloat16,
+                       max_seq=GEMMA_TRAIN[1])
+    params = tf.init_params(cfg, seed=4)
+    generate = run_gemma_generate(torch, tf, fa, cfg, params)
+    log(f"phase 18b: {generate}")
+    trained = run_gemma_training(torch, tf, fa, train, data, cfg, params)
+    log(f"phase 18c: {trained}")
+    del params
+    mark("18bc_gemma_generate_train")
+    if before_18d is not None:
+        before_18d()
+    checks = {}
+    for name, hidden, heads, kv_heads, vocab, ps in GEMMA_CHECKS:
+        cfg = gemma_config(tf, torch, hidden, heads, kv_heads, vocab, 2, torch.float32)
+        mpp = -(-(64 + 16) // ps) + 1
+        # One CPU init a shape (about 5-9 s at these vocabularies) serves
+        # both checks: each engine and train state loads its own copy.
+        params = tf.init_params(cfg, seed=3)
+        pa.reset_launches()
+        agree = check_paths_agree(torch, tf, engine, cfg=cfg, page=(ps, 8 * mpp + 1, mpp),
+                                  prompt_len=64, params=params)
+        agree["kernel1_launches"] = pa.paged_attention.launches_by_format["f"]
+        if agree["kernel1_launches"] <= 0:
+            fail(f"{name}: the kernel path never launched kernel 1")
+        parity = check_train_parity(torch, fa, tf, train, data, cfg=cfg, batch_shape=(1, 128),
+                                    params=params)
+        del params
+        checks[name] = {"hidden": hidden, "heads": heads, "kv_heads": kv_heads,
+                        "head_dim": cfg.head_dim, "group": heads // kv_heads, "vocab": vocab,
+                        "page": ps, "paths_agree": agree, "card_vs_cpu": parity}
+        log(f"phase 18d {name}: {checks[name]}")
+        torch.cuda.empty_cache()
+    mark("18d_gemma_checks")
+    return {"serve": serve, "generate": generate, "train": trained, "checks": checks,
+            "train_cut": f"{GEMMA_TRAIN_LAYERS} of 18 layers (18b and 18c)", "card": smi}
 
 
 def main() -> None:
@@ -6035,7 +6242,10 @@ def main() -> None:
     flash, flash_fma = check_flash(torch, fa, facts)
     bwd = check_flash_bwd(torch, fa, facts)
     widths = check_widths(torch, pa, fa, quant, tuning)
-    by_width = {D: time_head_dim(torch, pa, fa, dp, tuning, D) for D in (80, 96, 128)}
+    by_width = {"head_dim_128": time_head_dim(torch, pa, fa, tuning, 128),
+                "gemma_d256": time_head_dim(torch, pa, fa, tuning, 256, H=8, HK=1)}
+    group71 = time_paged(torch, pa, tuning, B=8, H=71, HK=1, D=64, ps=12)
+    log(f"kernel 1 at head_dim 64, group 71, page 12: {group71}")
     mark("kernel_checks")
     dq, dq_fma = bwd[("dq", "bfloat16")], bwd[("dq", "float32")]
     dkv, dkv_fma = bwd[("dkv", "bfloat16")], bwd[("dkv", "float32")]
@@ -6048,7 +6258,7 @@ def main() -> None:
     mark("4f_warm_restart")
     split_roles = run_split_roles(smi, long_jobs(9), reference)
     mark("4g_split_roles")
-    speculation = run_speculation(torch, tf, engine, http_server, pa)
+    speculation = run_speculation(torch, http_server, pa)
     mark("4h_speculation")
     multi_lora = run_multi_lora(torch, tf, http_server, serve)
     mark("4i_multi_lora")
@@ -6068,8 +6278,8 @@ def main() -> None:
     dense_spec = run_dense_spec(torch, tf, fa, pa, quant)
     mark("5b_dense_spec")
     flash["dense_spec_launches"] = dense_spec["flash_launches"]
-    paged["f"]["spec_launches"] = speculation["main_path_launches"]
     paged["f"]["multi_lora_launches"] = multi_lora["device"]["paged_launches"]["f"]
+    paged["f"]["spec_launches"] = speculation["main_path_launches"]
     check_paths_agree(torch, tf, engine)
     agree_tiny = check_paths_agree(torch, tf, engine, cfg=tf.GPTConfig.tiny(), page=(4, 64, 16),
                                    prompt_len=16)
@@ -6169,14 +6379,28 @@ def main() -> None:
     paged["f"]["plugin_pod_launches"] = plugin["pod"]["paged_launches"]
     routed = run_phase_17(torch, tf, http_server, pa, smi)
     mark("17_router")
+    started_11b = {}
+    gemma = run_phase_18(torch, tf, fa, pa, engine, http_server, train, data, smi, mark,
+                         lambda: started_11b.update(start_phase_11b(torch, bench)))
+    distributed["shared_card"] = run_phase_11b(torch, started_11b, smi)
+    mark("11b_shared_card")
+    paged["f"]["gemma_server_launches"] = gemma["serve"]["server_kernel1_launches"]
+    flash["gemma_generate_launches"] = gemma["generate"]["kernel2_launches"]
+    for row, name in ((flash, "flash_attention"), (dq, "flash_attention_bwd_dq"),
+                      (dkv, "flash_attention_bwd_dkv")):
+        row["gemma_train_launches"] = gemma["train"]["launches"][name]
+    for row, kernel in ((flash_fma, "forward"), (dq_fma, "dq"), (dkv_fma, "dkv")):
+        row["gemma_fp32_launches"] = {name: check["card_vs_cpu"]["launches_by_design"][kernel]["fma"]
+                                      for name, check in gemma["checks"].items()}
     paged["f"]["router_launches"] = routed["paged_launches"]
     paged["f"]["serving_bench_router_replica_launches"] = \
         serving_bench["router_replica_paged_launches"]
 
     for row, name in ((paged["f"], "paged_attention"), (flash, "flash_attention"),
                       (dq, "flash_attention_bwd_dq"), (dkv, "flash_attention_bwd_dkv")):
-        for D, timed in by_width.items():
-            row[f"head_dim_{D}"] = timed[name]
+        for key, timed in by_width.items():
+            row[key] = timed[name]
+    paged["f"]["group71_page12"] = group71
     kernels = [paged["f"], paged["int8"], paged["int4"], flash, flash_fma, dq, dq_fma, dkv,
                dkv_fma]
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -6202,6 +6426,7 @@ def main() -> None:
     print(json.dumps({"pipeline": pp_run}), flush=True)
     print(json.dumps({"plugin": plugin}), flush=True)
     print(json.dumps({"router": routed}), flush=True)
+    print(json.dumps({"gemma": gemma}), flush=True)
     print(json.dumps({"phase_seconds": phase_s, "total_s": time.perf_counter() - t0,
                       "card": smi}), flush=True)
     print(json.dumps({

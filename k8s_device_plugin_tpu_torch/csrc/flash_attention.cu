@@ -39,7 +39,12 @@
 //     threads as broadcasts (every thread reads the same column), four
 //     floats per load;
 //   - online softmax per 16-column chunk, exact: a row that has seen
-//     nothing keeps m = -inf and contributes 0, never NaN.
+//     nothing keeps m = -inf and contributes 0, never NaN;
+//   - any head_dim d above 128 (d a multiple of 8; the wrapper pads any
+//     other head_dim to one, and the builds take the rest) runs the wide
+//     kernel below: a block per (b*h, q tile, 64-column slab of the
+//     output), scores over the whole head_dim in 32-value pieces of Q and
+//     K staged in shared memory, so its registers do not grow with d.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -191,6 +196,119 @@ __global__ void __launch_bounds__(BQ) flash_fwd_kernel(
   lse[(size_t)bh * seq_q + row] = l_run > 0.f ? m_run + logf(l_safe) : -INFINITY;
 }
 
+// The wide kernel: any head_dim d (a multiple of 4) above 128.  Grid
+// (b*h, q tile, 64-column slab of O), one thread per query row.  For each
+// tile of WB kv columns, the scores accumulate over 32-value pieces of the
+// head_dim (the q tile's piece, padded against bank conflicts, and the kv
+// tile's, both staged in shared memory), then the tile takes one
+// online-softmax update and O's slab accumulates P.V over the kv tile's
+// slab of V.  Each slab recomputes the scores: the price of taking any
+// width.
+constexpr int WB = 16;  // kv columns per step
+constexpr int WP = 32;  // head_dim values per piece of the scores
+constexpr int WS = 64;  // output columns per block
+
+__global__ void __launch_bounds__(BQ) flash_fwd_wide_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ out, float* __restrict__ lse, int heads, int kv_heads, int seq_q,
+    int seq_kv, int d, int causal, int window, float sm_scale) {
+  __shared__ float qs[BQ][WP + 1];
+  __shared__ float ks[WB][WP];
+  __shared__ float vs[WB][WS];
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, q0 = blockIdx.y * BQ, col0 = blockIdx.z * WS;
+  const int group = heads / kv_heads;
+  const int kvh = (bh / heads) * kv_heads + (bh % heads) / group;
+  const int row = q0 + tid;
+  const float* qbase = q + ((size_t)bh * seq_q + q0) * d;
+  const float* kbase = k + (size_t)kvh * seq_kv * d;
+  const float* vbase = v + (size_t)kvh * seq_kv * d;
+
+  float acc[WS];
+#pragma unroll
+  for (int c = 0; c < WS; ++c) acc[c] = 0.f;
+  float m_run = -INFINITY, l_run = 0.f;
+  const int n_kv = (seq_kv + WB - 1) / WB;
+  int kv_lo = 0, kv_hi = n_kv;
+  if (causal) {
+    kv_hi = min(n_kv, (q0 + BQ - 1) / WB + 1);
+    if (window > 0) kv_lo = max(q0 - (window - 1), 0) / WB;
+  }
+  for (int ki = kv_lo; ki < kv_hi; ++ki) {
+    const int c0 = ki * WB;
+    float sc[WB];
+#pragma unroll
+    for (int j = 0; j < WB; ++j) sc[j] = 0.f;
+    for (int p0 = 0; p0 < d; p0 += WP) {
+      __syncthreads();  // every thread is done with the previous piece
+      for (int idx = tid; idx < BQ * WP; idx += BQ) {
+        const int r = idx / WP, c = idx % WP;
+        qs[r][c] = q0 + r < seq_q && p0 + c < d ? qbase[(size_t)r * d + p0 + c] : 0.f;
+      }
+      for (int idx = tid; idx < WB * WP; idx += BQ) {
+        const int r = idx / WP, c = idx % WP;
+        ks[r][c] = c0 + r < seq_kv && p0 + c < d ? kbase[(size_t)(c0 + r) * d + p0 + c] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 8
+      for (int e = 0; e < WP; ++e) {
+        const float x = qs[tid][e];
+#pragma unroll
+        for (int j = 0; j < WB; ++j) sc[j] = fmaf(x, ks[j][e], sc[j]);
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < WB * WS; idx += BQ) {
+      const int r = idx / WS, c = idx % WS;
+      vs[r][c] = c0 + r < seq_kv && col0 + c < d ? vbase[(size_t)(c0 + r) * d + col0 + c] : 0.f;
+    }
+    __syncthreads();
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < WB; ++j) {
+      const int col = c0 + j;
+      const bool ok = col < seq_kv && (!causal || (row >= col && (window <= 0 || row - col < window)));
+      sc[j] = ok ? sc[j] * sm_scale : -INFINITY;
+      mx = fmaxf(mx, sc[j]);
+    }
+    const float m_new = fmaxf(m_run, mx);
+    const bool seen = m_new > -INFINITY;
+    const float alpha = seen ? expf(m_run - m_new) : 0.f;
+#pragma unroll
+    for (int c = 0; c < WS; ++c) acc[c] *= alpha;
+    float psum = 0.f;
+#pragma unroll
+    for (int j = 0; j < WB; ++j) {
+      const float p = seen ? expf(sc[j] - m_new) : 0.f;
+      psum += p;
+#pragma unroll
+      for (int c = 0; c < WS; ++c) acc[c] = fmaf(p, vs[j][c], acc[c]);
+    }
+    l_run = alpha * l_run + psum;
+    m_run = m_new;
+  }
+
+  if (row >= seq_q) return;
+  const float l_safe = l_run == 0.f ? 1.f : l_run;  // fully masked row -> 0
+  float* orow = out + ((size_t)bh * seq_q + row) * d;
+#pragma unroll
+  for (int c = 0; c < WS; ++c) {
+    if (col0 + c < d) orow[col0 + c] = acc[c] / l_safe;
+  }
+  if (blockIdx.z == 0) lse[(size_t)bh * seq_q + row] = l_run > 0.f ? m_run + logf(l_safe) : -INFINITY;
+}
+
+int launch_wide(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
+                int heads, int kv_heads, int seq_q, int seq_kv, int d, int causal, int window,
+                float sm_scale, cudaStream_t stream) {
+  const dim3 grid(batch * heads, (seq_q + BQ - 1) / BQ, (d + WS - 1) / WS);
+  flash_fwd_wide_kernel<<<grid, BQ, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(lse), heads, kv_heads, seq_q, seq_kv, d,
+      causal, window, sm_scale);
+  return (int)cudaGetLastError();
+}
+
 template <int D, bool PAD>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
            int heads, int kv_heads, int seq_q, int seq_kv, int d, int causal, int window,
@@ -206,19 +324,24 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
 }  // namespace
 
 // head_dim 64 or 128 in its own instantiation; any other multiple of 8 up
-// to 128 in the next wider of the two builds, padded.
+// to 128 in the next wider of the two builds, padded; above 128 the wide
+// kernel.
 extern "C" int flash_attention_fwd_fma(const void* q, const void* k, const void* v, void* out,
                                        void* lse, int batch, int heads, int kv_heads, int seq_q,
                                        int seq_kv, int head_dim, int causal, int window,
                                        float sm_scale, void* stream) {
   if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0 ||
-      head_dim < 8 || head_dim > 128 || head_dim % 8) {
+      head_dim < 8 || head_dim % 8) {
     return (int)cudaErrorInvalidValue;
   }
   const auto s = static_cast<cudaStream_t>(stream);
 #define BUILD(D_, PAD_)                                                                  \
   launch<D_, PAD_>(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, head_dim, causal, \
                    window, sm_scale, s)
+  if (head_dim > 128) {
+    return launch_wide(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, head_dim,
+                       causal, window, sm_scale, s);
+  }
   switch (head_dim) {
     case 64: return BUILD(64, false);
     case 128: return BUILD(128, false);

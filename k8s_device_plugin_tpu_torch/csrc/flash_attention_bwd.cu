@@ -37,6 +37,11 @@
 //     load as zeros past d and only the real columns are written); at 128 a
 //     block takes 32 rows and streams 32-row tiles, so both staged tiles
 //     stay within 48 KB of static shared memory;
+//   - any head_dim d above 128 (d a multiple of 8; the wrapper pads any
+//     other head_dim to one) runs the wide kernels below: a block per
+//     (b*h or b*hk, tile, 64-column slab of the gradient), one thread a
+//     row, S and dP accumulated over 32-value pieces of the head_dim
+//     staged in shared memory, so their registers do not grow with d;
 //   - register pressure: a row's head_dim is split over PARTS = 4 threads,
 //     each holding d / 4 elements of its operands and its float32
 //     accumulators (at d 64, dQ: q, dO, dq = 48 floats; dK/dV: k, v, dk,
@@ -333,6 +338,196 @@ __global__ void __launch_bounds__((D > 64 ? 32 : 64) * PARTS) flash_bwd_dkv_kern
   }
 }
 
+// ------------------------------------------------------------------ wide
+
+// The wide kernels: any head_dim d (a multiple of 4) above 128, one thread
+// per row of a 64-row tile and a 64-column slab of the gradient a block
+// (grid axis z).  S and dP accumulate over 32-value pieces of the head_dim
+// (the tile's own rows padded against bank conflicts, the streamed WB rows
+// read as broadcasts), then the streamed rows' slabs (K for dQ; Q and dO
+// for dK/dV) take the step's dS and P.  Each slab recomputes S and dP: the
+// price of taking any width.
+constexpr int WR = 64;  // rows a block (one thread each)
+constexpr int WB = 16;  // streamed rows per step
+constexpr int WP = 32;  // head_dim values per piece of S and dP
+constexpr int WS = 64;  // gradient columns a block
+
+// rows x cols of a row-major matrix (row stride ld) from (r0, c0) into a
+// shared tile of row stride `stride`, zero past n_rows or n_cols.
+__device__ __forceinline__ void stage(float* tile, int stride, int rows, int cols,
+                                      const float* __restrict__ src, int ld, int r0, int c0,
+                                      int n_rows, int n_cols) {
+  for (int idx = threadIdx.x; idx < rows * cols; idx += blockDim.x) {
+    const int r = idx / cols, c = idx % cols;
+    tile[r * stride + c] =
+        r0 + r < n_rows && c0 + c < n_cols ? src[(size_t)(r0 + r) * ld + c0 + c] : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(WR) flash_bwd_dq_wide_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ out, const float* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ dq, float* __restrict__ delta, int heads, int kv_heads, int seq_q,
+    int seq_kv, int d, int causal, int window, float sm_scale) {
+  __shared__ float qs[WR][WP + 1], dos[WR][WP + 1];
+  __shared__ float ks[WB][WP], vs[WB][WP], kslab[WB][WS];
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, q0 = blockIdx.y * WR, col0 = blockIdx.z * WS;
+  const int group = heads / kv_heads;
+  const int kvh = (bh / heads) * kv_heads + (bh % heads) / group;
+  const int row = q0 + tid;
+  const float* qb = q + (size_t)bh * seq_q * d;
+  const float* dob = dout + (size_t)bh * seq_q * d;
+  const float* kb = k + (size_t)kvh * seq_kv * d;
+  const float* vb = v + (size_t)kvh * seq_kv * d;
+
+  // D = rowsum(dO o O) over the whole head_dim; the slab-0 block writes it.
+  float dl = 0.f;
+  if (row < seq_q) {
+    const float* o_row = out + ((size_t)bh * seq_q + row) * d;
+    for (int e = 0; e < d; ++e) dl = fmaf(dob[(size_t)row * d + e], o_row[e], dl);
+    if (blockIdx.z == 0) delta[(size_t)bh * seq_q + row] = dl;
+  }
+  const float l = row < seq_q ? lse[(size_t)bh * seq_q + row] : -INFINITY;
+  const bool finite = l > -INFINITY;
+
+  float acc[WS];
+#pragma unroll
+  for (int c = 0; c < WS; ++c) acc[c] = 0.f;
+  const int n_kv = (seq_kv + WB - 1) / WB;
+  int kv_lo = 0, kv_hi = n_kv;
+  if (causal) {
+    kv_hi = min(n_kv, (q0 + WR - 1) / WB + 1);
+    if (window > 0) kv_lo = max(q0 - (window - 1), 0) / WB;
+  }
+  for (int ki = kv_lo; ki < kv_hi; ++ki) {
+    const int c0 = ki * WB;
+    float s[WB], dp[WB];
+#pragma unroll
+    for (int j = 0; j < WB; ++j) s[j] = dp[j] = 0.f;
+    for (int p0 = 0; p0 < d; p0 += WP) {
+      __syncthreads();
+      stage(&qs[0][0], WP + 1, WR, WP, qb, d, q0, p0, seq_q, d);
+      stage(&dos[0][0], WP + 1, WR, WP, dob, d, q0, p0, seq_q, d);
+      stage(&ks[0][0], WP, WB, WP, kb, d, c0, p0, seq_kv, d);
+      stage(&vs[0][0], WP, WB, WP, vb, d, c0, p0, seq_kv, d);
+      __syncthreads();
+#pragma unroll 4
+      for (int e = 0; e < WP; ++e) {
+        const float x = qs[tid][e], y = dos[tid][e];
+#pragma unroll
+        for (int j = 0; j < WB; ++j) {
+          s[j] = fmaf(x, ks[j][e], s[j]);
+          dp[j] = fmaf(y, vs[j][e], dp[j]);
+        }
+      }
+    }
+    __syncthreads();
+    stage(&kslab[0][0], WS, WB, WS, kb, d, c0, col0, seq_kv, d);
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < WB; ++j) {
+      const int col = c0 + j;
+      const bool ok = finite && col < seq_kv && in_band(row, col, causal, window);
+      const float p = ok ? expf(s[j] * sm_scale - l) : 0.f;
+      const float ds = p * (dp[j] - dl) * sm_scale;
+#pragma unroll
+      for (int c = 0; c < WS; ++c) acc[c] = fmaf(ds, kslab[j][c], acc[c]);
+    }
+  }
+  if (row >= seq_q) return;
+  float* dq_row = dq + ((size_t)bh * seq_q + row) * d;
+#pragma unroll
+  for (int c = 0; c < WS; ++c) {
+    if (col0 + c < d) dq_row[col0 + c] = acc[c];
+  }
+}
+
+__global__ void __launch_bounds__(WR) flash_bwd_dkv_wide_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, int heads,
+    int kv_heads, int seq_q, int seq_kv, int d, int causal, int window, float sm_scale) {
+  __shared__ float ks[WR][WP + 1], vs[WR][WP + 1];
+  __shared__ float qs[WB][WP], dos[WB][WP], qslab[WB][WS], doslab[WB][WS];
+  __shared__ float lse_t[WB], dl_t[WB];
+  const int tid = threadIdx.x;
+  const int b2 = blockIdx.x, kv0 = blockIdx.y * WR, col0 = blockIdx.z * WS;
+  const int group = heads / kv_heads;
+  const int col = kv0 + tid;  // this thread's kv row
+  const float* kb = k + (size_t)b2 * seq_kv * d;
+  const float* vb = v + (size_t)b2 * seq_kv * d;
+
+  float dk_acc[WS], dv_acc[WS];
+#pragma unroll
+  for (int c = 0; c < WS; ++c) dk_acc[c] = dv_acc[c] = 0.f;
+  const int n_q = (seq_q + WB - 1) / WB;
+  int q_lo = 0, q_hi = n_q;
+  if (causal) {
+    q_lo = min(kv0 / WB, n_q);  // the first q tile whose last row reaches kv0
+    if (window > 0) q_hi = min(n_q, (kv0 + WR - 1 + window - 1) / WB + 1);
+  }
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = (b2 / kv_heads) * heads + (b2 % kv_heads) * group + hh;
+    const float* qb = q + (size_t)h * seq_q * d;
+    const float* dob = dout + (size_t)h * seq_q * d;
+    for (int qt = q_lo; qt < q_hi; ++qt) {
+      const int r0 = qt * WB;
+      float s[WB], dp[WB];
+#pragma unroll
+      for (int j = 0; j < WB; ++j) s[j] = dp[j] = 0.f;
+      for (int p0 = 0; p0 < d; p0 += WP) {
+        __syncthreads();
+        stage(&ks[0][0], WP + 1, WR, WP, kb, d, kv0, p0, seq_kv, d);
+        stage(&vs[0][0], WP + 1, WR, WP, vb, d, kv0, p0, seq_kv, d);
+        stage(&qs[0][0], WP, WB, WP, qb, d, r0, p0, seq_q, d);
+        stage(&dos[0][0], WP, WB, WP, dob, d, r0, p0, seq_q, d);
+        __syncthreads();
+#pragma unroll 4
+        for (int e = 0; e < WP; ++e) {
+          const float x = ks[tid][e], y = vs[tid][e];
+#pragma unroll
+          for (int j = 0; j < WB; ++j) {
+            s[j] = fmaf(x, qs[j][e], s[j]);
+            dp[j] = fmaf(y, dos[j][e], dp[j]);
+          }
+        }
+      }
+      __syncthreads();
+      stage(&qslab[0][0], WS, WB, WS, qb, d, r0, col0, seq_q, d);
+      stage(&doslab[0][0], WS, WB, WS, dob, d, r0, col0, seq_q, d);
+      if (tid < WB) {
+        const bool ok = r0 + tid < seq_q;
+        lse_t[tid] = ok ? lse[(size_t)h * seq_q + r0 + tid] : -INFINITY;
+        dl_t[tid] = ok ? delta[(size_t)h * seq_q + r0 + tid] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < WB; ++j) {
+        const int row = r0 + j;
+        const float l = lse_t[j];
+        const bool ok = l > -INFINITY && row < seq_q && in_band(row, col, causal, window);
+        const float p = ok ? expf(s[j] * sm_scale - l) : 0.f;
+        const float ds = p * (dp[j] - dl_t[j]) * sm_scale;
+#pragma unroll
+        for (int c = 0; c < WS; ++c) {
+          dv_acc[c] = fmaf(p, doslab[j][c], dv_acc[c]);
+          dk_acc[c] = fmaf(ds, qslab[j][c], dk_acc[c]);
+        }
+      }
+    }
+  }
+  if (col >= seq_kv) return;
+  const size_t off = ((size_t)b2 * seq_kv + col) * d;
+#pragma unroll
+  for (int c = 0; c < WS; ++c) {
+    if (col0 + c < d) {
+      dk[off + col0 + c] = dk_acc[c];
+      dv[off + col0 + c] = dv_acc[c];
+    }
+  }
+}
+
 bool bad_shape(int batch, int heads, int kv_heads, int seq_q, int seq_kv) {
   return batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0;
 }
@@ -369,11 +564,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout, co
 
 }  // namespace
 
-// Both entries take head_dim 64 or 128 in its own instantiation, and any
-// other multiple of 8 up to 128 in the next wider of the two builds,
-// padded.
+// Both entries take head_dim 64 or 128 in its own instantiation, any other
+// multiple of 8 up to 128 in the next wider of the two builds, padded, and
+// any multiple of 8 above 128 in the wide kernels.
 #define FMA_BWD_SWITCH(CALL)                                                   \
-  if (head_dim < 8 || head_dim > 128 || head_dim % 8) return (int)cudaErrorInvalidValue; \
   switch (head_dim) {                                                          \
     case 64: return CALL<64, false>(FMA_BWD_ARGS);                             \
     case 128: return CALL<128, false>(FMA_BWD_ARGS);                           \
@@ -386,7 +580,18 @@ extern "C" int flash_attention_bwd_dq_fma(const void* q, const void* k, const vo
                                           void* dq, void* delta, int batch, int heads,
                                           int kv_heads, int seq_q, int seq_kv, int head_dim,
                                           int causal, int window, float sm_scale, void* stream) {
-  if (bad_shape(batch, heads, kv_heads, seq_q, seq_kv)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(batch, heads, kv_heads, seq_q, seq_kv) || head_dim < 8 || head_dim % 8) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (head_dim > 128) {
+    const dim3 grid(batch * heads, (seq_q + WR - 1) / WR, (head_dim + WS - 1) / WS);
+    flash_bwd_dq_wide_kernel<<<grid, WR, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(out), static_cast<const float*>(dout),
+        static_cast<const float*>(lse), static_cast<float*>(dq), static_cast<float*>(delta),
+        heads, kv_heads, seq_q, seq_kv, head_dim, causal, window, sm_scale);
+    return (int)cudaGetLastError();
+  }
 #define FMA_BWD_ARGS                                                                        \
   q, k, v, out, dout, lse, dq, delta, batch, heads, kv_heads, seq_q, seq_kv, head_dim, causal, \
       window, sm_scale, static_cast<cudaStream_t>(stream)
@@ -400,7 +605,18 @@ extern "C" int flash_attention_bwd_dkv_fma(const void* q, const void* k, const v
                                            int kv_heads, int seq_q, int seq_kv, int head_dim,
                                            int causal, int window, float sm_scale,
                                            void* stream) {
-  if (bad_shape(batch, heads, kv_heads, seq_q, seq_kv)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(batch, heads, kv_heads, seq_q, seq_kv) || head_dim < 8 || head_dim % 8) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (head_dim > 128) {
+    const dim3 grid(batch * kv_heads, (seq_kv + WR - 1) / WR, (head_dim + WS - 1) / WS);
+    flash_bwd_dkv_wide_kernel<<<grid, WR, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv),
+        heads, kv_heads, seq_q, seq_kv, head_dim, causal, window, sm_scale);
+    return (int)cudaGetLastError();
+  }
 #define FMA_BWD_ARGS                                                                         \
   q, k, v, dout, lse, delta, dk, dv, batch, heads, kv_heads, seq_q, seq_kv, head_dim, causal, \
       window, sm_scale, static_cast<cudaStream_t>(stream)

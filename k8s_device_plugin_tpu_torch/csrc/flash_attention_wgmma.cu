@@ -7,10 +7,16 @@
 // operands.  q [b, h, s_q, d], k/v [b, hk, s_kv, d] bf16 with hk dividing
 // h (GQA: q head i reads kv head i / (h / hk)) -> out [b, h, s_q, d] bf16
 // and the per-row log-sum-exp [b, h, s_q] float32 (-inf, with out 0, for a
-// row that sees no column).  d is any multiple of 8 from 8 to 128: the
-// kernel is built 64 and 128 wide (D), and any other d runs in the next
-// wider build, padded: it zero-fills the columns past d
-// (hopper_wgmma.cuh); the full-width builds carry d as a constant.
+// row that sees no column).  d is any multiple of 8 (the wrapper pads any
+// other head_dim to one): the kernel is built 64, 128 and 256 wide (D), any
+// d below 128 runs in the next wider of the 64- and 128-wide builds,
+// padded: it zero-fills the columns past d (hopper_wgmma.cuh); the
+// full-width builds carry d as a constant.  Every other d (between 128 and
+// 256, and above 256) runs the wide kernel below: one warpgroup a block
+// and a 64-column slab of O each (grid axis z), S computed over the whole
+// head_dim in 64-column pieces of Q and K streamed through the ring, so no
+// head_dim needs more shared memory or registers than d 64 does; each slab
+// recomputes S, the price of taking any width.
 //
 // Bound on the card: operations.  Causal attention does 4 x d flops per
 // (row, col) pair over bytes that grow only with s, past Hopper's ~295
@@ -73,10 +79,11 @@ __device__ __forceinline__ bool live(int row, int col, int seq_kv, int causal, i
 }
 
 // Registers cap the blocks an SM holds: the full-width builds are held to
-// 128 a thread (no spill), four blocks of 128 threads at D = 64 and two of
-// 256 at D = 128; the padded build would spill under that cap.
+// 128 a thread (no spill), four blocks of 128 threads at D = 64, two of
+// 256 at D = 128 and one of 512 at D = 256 (160 KB of shared memory); the
+// padded build would spill under that cap.
 template <int D, bool PAD>
-__global__ void __launch_bounds__(128 * (D / 64), PAD ? 1 : 256 / D)
+__global__ void __launch_bounds__(128 * (D / 64), PAD || D > 128 ? 1 : 256 / D)
     flash_fwd_wgmma_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     bf16* __restrict__ out, float* __restrict__ lse, int heads, int kv_heads, int seq_q,
@@ -226,6 +233,173 @@ __global__ void __launch_bounds__(128 * (D / 64), PAD ? 1 : 256 / D)
   }
 }
 
+// The wide kernel: any head_dim d (a multiple of 8), a block of one
+// warpgroup per (b*h, q tile, 64-column slab of O).  For each live kv tile,
+// S = Q.K^T accumulates over the d / 64 pieces of the head_dim, each a
+// (Q piece, K piece) pair of 64 x 64 tiles streamed through a two-stage
+// cp.async ring (piece i + 1 in flight while piece i multiplies); the
+// tile's slab of V comes with its first piece, into a ring of its own.
+// After the last piece the online softmax and O += P.V run as in the
+// full-width kernel.  Shared memory: 2 x (Q, K) + 2 x V = 48 KB and the
+// slack.
+constexpr int WIDE_STAGES = 2;
+constexpr int WIDE_SMEM = TILE64_BYTES * 3 * WIDE_STAGES + SWIZZLE_ATOM_BYTES;
+
+__global__ void __launch_bounds__(128, 1) flash_fwd_wgmma_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    bf16* __restrict__ out, float* __restrict__ lse, int heads, int kv_heads, int seq_q,
+    int seq_kv, int d, int causal, int window, float scale_log2) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  const auto s_q = [&](int st) { return base + TILE64_BYTES * (2 * st); };
+  const auto s_k = [&](int st) { return base + TILE64_BYTES * (2 * st + 1); };
+  const auto s_v = [&](int st) { return base + TILE64_BYTES * (2 * WIDE_STAGES + st); };
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, qi = gridDim.y - 1 - blockIdx.y, col0 = blockIdx.z * 64;
+  const int group = heads / kv_heads;
+  const int kvh = (bh / heads) * kv_heads + (bh % heads) / group;
+  const int q0 = qi * BQ;
+  const bf16* qbase = q + ((size_t)bh * seq_q + q0) * d;
+  const bf16* kbase = k + (size_t)kvh * seq_kv * d;
+  const bf16* vbase = v + (size_t)kvh * seq_kv * d;
+  const int pieces = (d + 63) / 64;
+
+  const int n_kv = (seq_kv + BK - 1) / BK;
+  int kv_lo = 0, kv_hi = n_kv;
+  if (causal) {
+    kv_hi = min(n_kv, (q0 + BQ - 1) / BK + 1);
+    if (window > 0) kv_lo = max(q0 - (window - 1), 0) / BK;
+  }
+  const int items = max(kv_hi - kv_lo, 0) * pieces;  // (kv tile, piece) steps
+
+  const auto issue = [&](int i) {
+    const int t = i / pieces, c = i % pieces, st = i % WIDE_STAGES;
+    const int ki = kv_lo + t, rows = seq_kv - ki * BK;
+    load_tile_sw128_ld<BQ, 64, 128>(s_q(st), qbase + c * 64, d, seq_q - q0, d - c * 64, tid);
+    load_tile_sw128_ld<BK, 64, 128>(s_k(st), kbase + (size_t)ki * BK * d + c * 64, d, rows,
+                                    d - c * 64, tid);
+    if (c == 0) {
+      load_tile_sw128_ld<BK, 64, 128>(s_v(t % WIDE_STAGES), vbase + (size_t)ki * BK * d + col0,
+                                      d, rows, d - col0, tid);
+    }
+  };
+  if (items > 0) issue(0);
+  cp_async_commit();
+
+  float o[32], s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = s[i] = 0.f;
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+
+  for (int i = 0; i < items; ++i) {
+    const int t = i / pieces, c = i % pieces, st = i % WIDE_STAGES, ki = kv_lo + t;
+    if (i + 1 < items) issue(i + 1);
+    cp_async_commit();  // an empty group on the last step keeps the count
+    cp_async_wait<1>();  // everything but the newest group has landed
+    fence_async_proxy();
+    __syncthreads();
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_ss(s, desc_k_major(s_q(st), kk), desc_k_major(s_k(st), kk), c + kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+
+    if (c == pieces - 1) {  // S is whole: softmax and P.V
+      const int col_kv = ki * BK;
+      const bool masked = col_kv + BK > seq_kv ||
+                          (causal && (col_kv + BK - 1 > q0 ||
+                                      (window > 0 && q0 + BQ - 1 - col_kv >= window)));
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        float x = s[e] * scale_log2;
+        if (masked &&
+            !live(q0 + acc_row(tid, e), col_kv + acc_col(tid, e), seq_kv, causal, window)) {
+          x = -INFINITY;
+        }
+        s[e] = x;
+        mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], x);
+      }
+      float alpha[2], m_use[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_run[r], quad_max(mx[r]));
+        const bool seen = m_new > -INFINITY;
+        alpha[r] = seen ? exp2f(m_run[r] - m_new) : 0.f;
+        m_use[r] = seen ? m_new : 0.f;
+        m_run[r] = m_new;
+      }
+      float psum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const int r = (e >> 1) & 1;
+        const float p = exp2f(s[e] - m_use[r]);
+        s[e] = p;
+        psum[r] += p;
+        o[e] *= alpha[r];
+      }
+      l_run[0] = alpha[0] * l_run[0] + psum[0];
+      l_run[1] = alpha[1] * l_run[1] + psum[1];
+
+      uint32_t a[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) a_frag(s, kk, a[kk]);
+      wgmma_fence();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        wgmma_rs(o, a[kk], desc_mn_major(s_v(t % WIDE_STAGES), kk), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+    __syncthreads();  // the stages are free for the copies two steps on
+  }
+  cp_async_wait<0>();
+
+  const float ln2 = 0.6931471805599453f;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + acc_row(tid, 2 * r);
+    const float l = quad_sum(l_run[r]);
+    if (row >= seq_q) continue;
+    const float inv = l > 0.f ? 1.f / l : 0.f;  // a fully masked row writes 0
+    bf16* orow = out + ((size_t)bh * seq_q + row) * d;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int e = 4 * j + 2 * r;
+      const int col = col0 + acc_col(tid, e);  // even; d is a multiple of 8
+      if (col < d) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+            __floats2bfloat162_rn(o[e] * inv, o[e + 1] * inv);
+      }
+    }
+    if (blockIdx.z == 0 && (tid & 3) == 0) {
+      lse[(size_t)bh * seq_q + row] = l > 0.f ? m_run[r] * ln2 + logf(l) : -INFINITY;
+    }
+  }
+}
+
+int launch_wide(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
+                int heads, int kv_heads, int seq_q, int seq_kv, int d, int causal, int window,
+                float sm_scale, cudaStream_t stream) {
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_fwd_wgmma_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  const dim3 grid(batch * heads, (seq_q + BQ - 1) / BQ, (d + 63) / 64);
+  flash_fwd_wgmma_wide_kernel<<<grid, 128, WIDE_SMEM, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), static_cast<float*>(lse), heads, kv_heads, seq_q, seq_kv, d,
+      causal, window, sm_scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
 template <int D, bool PAD>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int batch,
            int heads, int kv_heads, int seq_q, int seq_kv, int d, int causal, int window,
@@ -248,24 +422,26 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
 
 }  // namespace
 
-// head_dim a multiple of 8 from 8 to 128 (the padded builds take all but 64
-// and 128).
+// head_dim any multiple of 8: 64, 128 and 256 in their own builds, the
+// rest below 128 in the next wider build, padded, and every other in the
+// wide kernel.
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k, const void* v, void* out,
                                          void* lse, int batch, int heads, int kv_heads,
                                          int seq_q, int seq_kv, int head_dim, int causal,
                                          int window, float sm_scale, void* stream) {
-  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0) {
+  if (batch <= 0 || kv_heads <= 0 || heads % kv_heads != 0 || seq_q <= 0 || seq_kv <= 0 ||
+      head_dim < 8 || head_dim % 8) {
     return (int)cudaErrorInvalidValue;
   }
   const auto s = static_cast<cudaStream_t>(stream);
-  // Any multiple of 8 from 8 to 128: 64 and 128 run their own builds,
-  // the rest the next wider one, zero-filled past the real head_dim.
-  if (head_dim < 8 || head_dim > 128 || head_dim % 8) return (int)cudaErrorInvalidValue;
 #define BUILD(D_, PAD_) \
   launch<D_, PAD_>(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, head_dim, causal, window, \
       sm_scale, s)
   if (head_dim == 64) return BUILD(64, false);
   if (head_dim == 128) return BUILD(128, false);
-  return head_dim < 64 ? BUILD(64, true) : BUILD(128, true);
+  if (head_dim == 256) return BUILD(256, false);
+  if (head_dim < 128) return head_dim < 64 ? BUILD(64, true) : BUILD(128, true);
+  return launch_wide(q, k, v, out, lse, batch, heads, kv_heads, seq_q, seq_kv, head_dim, causal,
+                     window, sm_scale, s);
 #undef BUILD
 }

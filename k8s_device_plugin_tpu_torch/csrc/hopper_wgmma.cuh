@@ -95,15 +95,18 @@ __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, bool va
                : "memory");
 }
 
-// Copy ROWS rows of a bf16 matrix with d_real columns (row stride d_real,
-// starting at src) into the D / 64 swizzled slabs of the tile at `tile`,
-// spread over THREADS threads with 16 bytes each per step; rows at or past
-// `valid_rows` and columns at or past d_real (a multiple of 8) are
-// zero-filled.  Neighbouring threads take neighbouring 16-byte chunks of a
-// row, so the reads coalesce.
+// Copy ROWS rows of D columns of a bf16 matrix (row stride ld, starting at
+// src) into the D / 64 swizzled slabs of the tile at `tile`, spread over
+// THREADS threads with 16 bytes each per step; rows at or past `valid_rows`
+// and columns at or past `valid_cols` (a multiple of 8) are zero-filled.
+// Neighbouring threads take neighbouring 16-byte chunks of a row, so the
+// reads coalesce.  A piece of a wider row (the wide kernels' 64-column
+// pieces of a head_dim past the builds) is src at the piece's first column
+// with ld the whole row.
 template <int ROWS, int D, int THREADS>
-__device__ __forceinline__ void load_tile_sw128(uint32_t tile, const __nv_bfloat16* src,
-                                                int valid_rows, int d_real, int tid) {
+__device__ __forceinline__ void load_tile_sw128_ld(uint32_t tile, const __nv_bfloat16* src,
+                                                   int ld, int valid_rows, int valid_cols,
+                                                   int tid) {
   constexpr int CPR = D / 8;  // 16-byte chunks a row
   static_assert(D % 64 == 0 && (ROWS * CPR) % THREADS == 0, "whole chunks per thread");
 #pragma unroll
@@ -111,10 +114,18 @@ __device__ __forceinline__ void load_tile_sw128(uint32_t tile, const __nv_bfloat
     const int idx = tid + i * THREADS;
     const int r = idx / CPR, cc = idx % CPR;  // row, chunk of the row
     const int slab = cc >> 3, c = cc & 7;
-    const bool ok = r < valid_rows && cc * 8 < d_real;
+    const bool ok = r < valid_rows && cc * 8 < valid_cols;
     cp_async16(tile + slab * ROWS * ROW_BYTES + r * ROW_BYTES + ((c ^ (r & 7)) << 4),
-               src + (ok ? r * d_real + cc * 8 : 0), ok);
+               src + (ok ? (size_t)r * ld + cc * 8 : 0), ok);
   }
+}
+
+// The whole rows of a matrix with d_real columns (a multiple of 8), its row
+// stride.
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void load_tile_sw128(uint32_t tile, const __nv_bfloat16* src,
+                                                int valid_rows, int d_real, int tid) {
+  load_tile_sw128_ld<ROWS, D, THREADS>(tile, src, d_real, valid_rows, d_real, tid);
 }
 
 // ------------------------------------------------------------------ wgmma

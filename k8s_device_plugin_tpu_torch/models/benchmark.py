@@ -48,10 +48,11 @@ once per host::
 
 ``--pp N`` (N > 1, ``--model gpt``) trains the decoder LM through the
 pipelined path instead (:func:`run_pipelined`, ``parallel/pipeline_lm.py``):
-N ranks on one host, one stage each on its own card (``--device cpu``: N
-gloo ranks), with ``--pp-schedule gpipe|1f1b`` over ``--n-micro``
+N ranks, one stage each on its own card (``--device cpu``: gloo ranks),
+over every host of the slice (N / hosts stages on each host, ranked
+host-major as above), with ``--pp-schedule gpipe|1f1b`` over ``--n-micro``
 microbatches a step; it prints the reference's ``gpt-pp`` record (plus
-``device``) once::
+``device``) once per host::
 
     python -m k8s_device_plugin_tpu_torch.models.benchmark --model gpt --pp 8 \
         --pp-schedule 1f1b --n-micro 16 --batch-size 64 --seq-len 1024
@@ -451,12 +452,25 @@ class DistributedRun(NamedTuple):
 
 def local_rank_count(args) -> int:
     """Ranks on this host: one per visible card, or on ``--device cpu``
-    ``pp`` past 1, else dp·mp (-1 counting as 1)."""
+    this host's share of ``pp`` past 1 (its stages), else dp·mp (-1
+    counting as 1)."""
     if resolve_device(args.device).type == "cuda":
         return torch.cuda.device_count()
     if args.pp > 1:
-        return args.pp
+        return max(args.pp // slice_hosts(), 1)
     return max(args.dp, 1) * max(args.mp, 1)
+
+
+def slice_hosts() -> int:
+    """Hosts of this pod's slice (``process_group_from_env``: 1 for a
+    single-host allocation); exits on an environment it cannot read."""
+    from ..parallel import distributed
+
+    try:
+        config = distributed.process_group_from_env()
+    except ValueError as e:
+        raise SystemExit(str(e))
+    return config.num_processes if config else 1
 
 
 def check_layout(args, local_ranks: int) -> int:
@@ -488,25 +502,22 @@ def check_layout(args, local_ranks: int) -> int:
 def check_pipeline(args, local_ranks: int) -> int:
     """The reference's refusals of ``--pp``: fewer devices than stages, and
     layers the stages do not split; and a global batch ``--n-micro`` does
-    not split, before a rank raises it.  The stages run on one host's
-    devices.  Returns the device count."""
-    from ..parallel import distributed
-
-    try:
-        multi_host = distributed.process_group_from_env() is not None
-    except ValueError as e:
-        raise SystemExit(str(e))
-    if multi_host:
-        raise SystemExit(f"--pp {args.pp}: the pipelined path runs its stages on one host's "
-                         "devices; this pod is part of a multi-host slice")
-    if local_ranks < args.pp:
-        raise SystemExit(f"--pp {args.pp} but only {local_ranks} device(s)")
+    not split, before a rank raises it.  The stages run over every host of
+    the slice (the reference's ``jax.devices()``), ``pp / hosts`` on each
+    host's devices, ranked host-major, so ``pp`` must split evenly over
+    the hosts.  Returns the device count of the slice."""
+    hosts = slice_hosts()
+    if args.pp % hosts:
+        raise SystemExit(f"--pp {args.pp} does not split over the slice's {hosts} hosts "
+                         "(each host runs pp / hosts stages)")
+    if local_ranks * hosts < args.pp:
+        raise SystemExit(f"--pp {args.pp} but only {local_ranks * hosts} device(s)")
     layers = gpt_config(args).num_layers
     if layers % args.pp:
         raise SystemExit(f"num_layers {layers} not divisible by --pp {args.pp}")
     if args.batch_size % args.n_micro:
         raise SystemExit(f"batch {args.batch_size} not divisible by n_micro={args.n_micro}")
-    return local_ranks
+    return local_ranks * hosts
 
 
 def launch(args, *, backend: Optional[str] = None, local_ranks: Optional[int] = None,
@@ -517,13 +528,15 @@ def launch(args, *, backend: Optional[str] = None, local_ranks: Optional[int] = 
     (default NCCL on cards, gloo on the CPU) and ``local_ranks`` (default
     :func:`local_rank_count`) let ranks share one card over gloo;
     ``model_fn(device=...)`` (picklable) stands in for the model
-    ``--model`` names.  Under ``--pp`` past 1 it runs ``pp`` ranks of
-    :func:`run_pipelined` instead (``model_fn`` unused).  Returns local
-    rank 0's :class:`DistributedRun`."""
+    ``--model`` names.  Under ``--pp`` past 1 it runs this host's ``pp /
+    hosts`` ranks of :func:`run_pipelined` instead (``model_fn`` unused;
+    on a multi-host slice every host runs its own stages, global ranks
+    host-major from the slice's env).  Returns local rank 0's
+    :class:`DistributedRun`."""
     n = local_rank_count(args) if local_ranks is None else local_ranks
     chips = check_layout(args, n)
     if args.pp > 1:
-        n = args.pp  # one rank a stage, on devices 0..pp-1
+        n = args.pp // slice_hosts()  # one rank a stage, on devices 0..n-1
     from ..parallel.distributed import local_init_method
 
     init_method = local_init_method()

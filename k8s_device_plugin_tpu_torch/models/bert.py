@@ -13,8 +13,8 @@ Attention takes the reference's route: with no ``attention_mask`` and a
 sequence that tiles by ``min(128, seq)``, the flash kernels, non-causal with
 one kv head per head (kernel 2 forward, kernels 3 and 4 backward; BERT-base
 at seq 384); otherwise the plain masked product-softmax-product
-(``layers.dot_product_attention``).  On the card a head_dim the kernels do
-not take is refused when the model is built.  A sequence longer than
+(``layers.dot_product_attention``).  On the card the kernels take any
+head_dim.  A sequence longer than
 ``max_position`` is refused, where a gather would silently clamp.
 """
 
@@ -26,7 +26,6 @@ from typing import Any
 import torch
 from torch import nn
 
-from ..ops.flash_attention import check_head_dim
 from ..utils.device import resolve_device
 from .layers import Dense, Embed, LayerNorm, dot_product_attention, gelu, init_from_seed
 from .vit import flash_route
@@ -107,8 +106,6 @@ class Bert(nn.Module):
         super().__init__()
         cfg = self.config = config
         self.device = dev = resolve_device(device)
-        if dev.type == "cuda":
-            check_head_dim(cfg.head_dim)
         self.Embed_0 = Embed(cfg.vocab_size, cfg.hidden_size, cfg.dtype, dev)
         self.Embed_1 = Embed(cfg.max_position, cfg.hidden_size, cfg.dtype, dev)
         self.LayerNorm_0 = LayerNorm(cfg.hidden_size, dev)

@@ -88,8 +88,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.flash_attention import check_head_dim, flash_attention
-from ..ops.paged_attention import check_shape as check_paged_shape
+from ..ops.flash_attention import flash_attention
 from ..ops.paged_attention import paged_attention
 from ..ops.quant import (
     Int8DenseGeneral,
@@ -213,19 +212,6 @@ def tp_local(cfg: GPTConfig, tp=None) -> tuple:
     layout = lm_layout(cfg, tp.size, tp.axis)
     split = (layout["attn"], layout["attn"], layout["mlp"], layout["vocab"])
     return tuple(n // tp.size if cut else n for n, cut in zip(full, split))
-
-
-def check_card_shapes(cfg: GPTConfig) -> None:
-    """On the card every attention runs a CUDA kernel, and there is no
-    other route: the flash kernels (full forward, bulk prefill, training)
-    take a head_dim of ``flash_attention.HEAD_DIMS``, and a paged config
-    with the kernel on needs a head_dim, page size and kv group the paged
-    kernel takes (``paged_attention.check_shape``).  Raises ValueError,
-    naming what is taken, at construction rather than at the first
-    launch."""
-    check_head_dim(cfg.head_dim)
-    if cfg.paged is not None and cfg.paged.kernel_enabled(cfg.quant_kv):
-        check_paged_shape(cfg.head_dim, cfg.paged.page_size, cfg.num_heads // cfg.kv_heads)
 
 
 # ------------------------------------------------------------------ caches
@@ -656,8 +642,6 @@ class TransformerLM(nn.Module):
             raise ValueError("tensor-parallel training takes plain weights: no quant, no LoRA")
         self.config = config
         self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            check_card_shapes(config)
         self.train_mode = train
         self.tp = tp
         self.mlp_factory = mlp_factory

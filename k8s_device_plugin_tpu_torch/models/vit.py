@@ -13,8 +13,8 @@ of 128 (ViT-B/16 at 256 px: 256 tokens), the flash kernels, non-causal with
 one kv head per head (kernel 2 forward, kernels 3 and 4 backward, through
 ``ops/flash_attention.py``); otherwise the plain product-softmax-product of
 ``nn.dot_product_attention`` (``layers.dot_product_attention``).  On the
-card the flash route is the CUDA kernels and nothing else, so a head_dim
-they do not take is refused when the model is built.
+card the flash route is the CUDA kernels and nothing else, at any
+head_dim.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ from typing import Any
 import torch
 from torch import nn
 
-from ..ops.flash_attention import check_head_dim, flash_attention
+from ..ops.flash_attention import flash_attention
 from ..utils.device import resolve_device
 from .layers import Conv, Dense, LayerNorm, dot_product_attention, gelu, init_from_seed
 
@@ -107,8 +107,6 @@ class ViT(nn.Module):
         cfg = self.config = config
         self.num_classes = cfg.num_classes
         self.device = dev = resolve_device(device)
-        if dev.type == "cuda" and cfg.num_tokens % 128 == 0:
-            check_head_dim(cfg.head_dim)
         self.patch_embed = Conv(3, cfg.hidden_size, cfg.patch_size, cfg.patch_size, "VALID",
                                 dtype=cfg.dtype, device=dev)
         self.pos_embed = nn.Parameter(torch.empty(1, cfg.num_tokens, cfg.hidden_size, device=dev))

@@ -234,28 +234,31 @@ def flash_attention_backward_reference(q, k, v, out, lse, dout, *, causal, sm_sc
     return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-# The head dims every kernel takes, in both variants: any multiple of 8 from
-# 8 to 128.  The FMA kernels are built at 16, 32, 64 and 128, the wgmma
-# kernels at 64 and 128; any other head_dim runs in the next wider of the
-# 64- and 128-wide builds, its columns past head_dim zero-filled.
-HEAD_DIMS = tuple(range(8, 129, 8))
+# The head dims the kernels take: any.  The C entries take any multiple of
+# 8 (the 64-, 128- and, for the bf16 forward, 256-wide builds, padded
+# between them, and the wide kernels above 128 that cut the output into
+# 64-column slabs); any other head_dim is zero-padded here to the next
+# multiple of 8 (a copy of each operand per call, stated in PERF.md): zero
+# columns add nothing to S or dP, their outputs are zeros, and only the
+# real columns are returned.
+def _pad8(*tensors):
+    """Each tensor with its last dim zero-padded to a multiple of 8 (the
+    tensor itself when it already is one)."""
+    pad = -tensors[0].shape[-1] % 8
+    if not pad:
+        return tensors
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in tensors)
 
 
-def check_head_dim(head_dim: int) -> None:
-    """Raise ValueError, naming what is taken, for a head_dim the CUDA
-    kernels do not take."""
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(
-            f"the CUDA flash kernels take a head_dim that is a multiple of 8 from 8 to 128, "
-            f"got {head_dim}"
-        )
+def _unpad(t, head_dim):
+    return t if t.shape[-1] == head_dim else t[..., :head_dim].contiguous()
 
 
 def _check_kernel_inputs(kernel, **tensors) -> Variant:
     """The CUDA kernels take contiguous tensors of one type on one device,
-    a head_dim of :data:`HEAD_DIMS`, rows aligned for 16-byte loads;
-    returns the variant of ``kernel`` that their type launches
-    (:func:`variant`, which raises for a type no kernel takes)."""
+    rows aligned for 16-byte loads; returns the variant of ``kernel`` that
+    their type launches (:func:`variant`, which raises for a type no
+    kernel takes)."""
     ref = next(iter(tensors.values()))
     for name, t in tensors.items():
         if t.device != ref.device or t.dtype != ref.dtype:
@@ -264,9 +267,7 @@ def _check_kernel_inputs(kernel, **tensors) -> Variant:
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")
-    var = variant(kernel, ref.dtype)
-    check_head_dim(ref.shape[-1])
-    return var
+    return variant(kernel, ref.dtype)
 
 
 def _check_row_stats(q, **tensors):
@@ -293,13 +294,15 @@ def _stream(q) -> int:
 def _launch(q, k, v, *, causal, sm_scale, window):
     """Kernel 2 on CUDA tensors: returns (out, lse)."""
     var = _check_kernel_inputs("forward", q=q, k=k, v=v)
+    head_dim = q.shape[-1]
+    q, k, v = _pad8(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _call(var, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
           *_shape_args(q, k, causal, sm_scale, window), _stream(q))
     flash_attention.launches += 1
     flash_attention.launches_by_design[var.design] += 1
-    return out, lse
+    return _unpad(out, head_dim), lse
 
 
 def launch_dq(q, k, v, out, lse, dout, *, causal, sm_scale, window):
@@ -307,6 +310,8 @@ def launch_dq(q, k, v, out, lse, dout, *, causal, sm_scale, window):
     float32 is D = rowsum(dO o O), which kernel 4 reads."""
     var = _check_kernel_inputs("dq", q=q, k=k, v=v, out=out, dout=dout)
     _check_row_stats(q, lse=lse)
+    head_dim = q.shape[-1]
+    q, k, v, out, dout = _pad8(q, k, v, out, dout)
     dq = torch.empty_like(q)
     delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     _call(var, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
@@ -314,7 +319,7 @@ def launch_dq(q, k, v, out, lse, dout, *, causal, sm_scale, window):
           *_shape_args(q, k, causal, sm_scale, window), _stream(q))
     flash_backward.dq_launches += 1
     flash_backward.dq_launches_by_design[var.design] += 1
-    return dq, delta
+    return _unpad(dq, head_dim), delta
 
 
 def launch_dkv(q, k, v, lse, delta, dout, *, causal, sm_scale, window):
@@ -322,13 +327,15 @@ def launch_dkv(q, k, v, lse, delta, dout, *, causal, sm_scale, window):
     stream, whose ``delta`` it reads): returns (dk, dv)."""
     var = _check_kernel_inputs("dkv", q=q, k=k, v=v, dout=dout)
     _check_row_stats(q, lse=lse, delta=delta)
+    head_dim = q.shape[-1]
+    q, k, v, dout = _pad8(q, k, v, dout)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _call(var, q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
           delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
           *_shape_args(q, k, causal, sm_scale, window), _stream(q))
     flash_backward.dkv_launches += 1
     flash_backward.dkv_launches_by_design[var.design] += 1
-    return dk, dv
+    return _unpad(dk, head_dim), _unpad(dv, head_dim)
 
 
 def _check_args(q, k, causal, window):

@@ -112,29 +112,6 @@ def paged_attention_reference(q4, pool_k, pool_v, table, lens, *, sm_scale, wind
     return _combine_splits(acc, m[..., 0], l, q4.dtype)
 
 
-# What the CUDA kernel takes: it is built 64 and 128 wide, and any multiple
-# of 8 from 8 to 128 runs in the next of them with zero-filled rows; any
-# power-of-two page size from 1 to 128; a kv group of at most 32 query
-# heads (a warp each).
-HEAD_DIMS = tuple(range(8, 129, 8))
-PAGE_SIZES = tuple(1 << i for i in range(8))
-MAX_GROUP = 32
-
-
-def check_shape(head_dim: int, page_size: int, group: int) -> None:
-    """Raise ValueError, naming what is taken, for a head_dim, page size or
-    kv group the CUDA kernel does not take."""
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"the CUDA paged kernel takes a head_dim that is a multiple of 8 "
-                         f"from 8 to 128, got {head_dim}")
-    if page_size not in PAGE_SIZES:
-        raise ValueError(f"the CUDA paged kernel takes a power-of-two page_size from 1 to 128, "
-                         f"got {page_size}")
-    if group > MAX_GROUP:
-        raise ValueError(f"the CUDA paged kernel takes a kv group of at most {MAX_GROUP} "
-                         f"query heads, got {group}")
-
-
 def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -163,7 +140,6 @@ def _launch(q, pool_k, pool_v, table, lens, scale_k, scale_v, *, sm_scale, windo
             raise ValueError(f"{name} must start on a 16-byte boundary (the kernel's row loads)")
     if table.dtype != torch.int32 or lens.dtype != torch.int32:
         raise ValueError("page_table and lens must be int32")
-    check_shape(head_dim, page_size, heads // kv_heads)
     out = torch.empty_like(q)
     ptrs = (None, None) if kv_format == "f" else (scale_k.data_ptr(), scale_v.data_ptr())
     status = _build.entry(*C_ENTRY)(

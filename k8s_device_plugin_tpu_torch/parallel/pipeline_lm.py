@@ -36,7 +36,6 @@ from ..models.transformer import (
     Embed,
     GPTConfig,
     RMSNorm,
-    check_card_shapes,
     init_params,
 )
 from ..utils.device import resolve_device
@@ -124,8 +123,6 @@ class PipelinedLM:
                              f"{axis}={self.n_stages} stages")
         self.layers_per_stage = config.num_layers // self.n_stages
         self.first, self.last = self.stage == 0, self.stage == self.n_stages - 1
-        if self.device.type == "cuda":
-            check_card_shapes(config)
         dev = self.device
         self._embed = _Embedder(config, dev) if self.first else None
         self._stage = DecoderStage(config, self.layers_per_stage, self.stage, dev)

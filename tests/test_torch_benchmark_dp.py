@@ -130,6 +130,29 @@ assert all(0.45 < b / whole < 0.6 for b in got.rank_bytes), got.rank_bytes
 print("LAUNCH_OK")
 tbench.main(["--model=gpt", "--tiny", "--device=cpu", "--dtype=float32", "--pp=2",
              "--pp-schedule=1f1b", "--batch-size=8", "--seq-len=32", "--steps=1", "--warmup=1"])
+# --pp 2 over a two-"host" slice on localhost (one stage a host, ranks from
+# GPU_WORKER_HOSTNAMES/GPU_WORKER_ID) against the one-host run's losses.
+import json, os, subprocess, sys
+from k8s_device_plugin_tpu_torch.parallel.distributed import local_init_method
+
+pp_flags = ["--model=gpt", "--tiny", "--device=cpu", "--dtype=float32", "--pp=2",
+            "--pp-schedule=gpipe", "--batch-size=8", "--seq-len=32", "--steps=2", "--warmup=1"]
+one_host = tbench.launch(tbench.parse_args(pp_flags)).losses
+port = local_init_method().rsplit(":", 1)[1]
+host = ("import json, sys; from k8s_device_plugin_tpu_torch.models import benchmark as b; "
+        "a = b.parse_args(sys.argv[1:]); r = b.launch(a); "
+        "print('HOST', json.dumps([b.local_rank_count(a), r.record['chips'], r.losses]))")
+hosts = [subprocess.Popen([sys.executable, "-c", host, *pp_flags], stdout=subprocess.PIPE,
+                          text=True, env=dict(os.environ, GPU_WORKER_HOSTNAMES="127.0.0.1,127.0.0.1",
+                                              GPU_WORKER_ID=str(i), JAX_COORDINATOR_PORT=port))
+         for i in range(2)]
+for proc in hosts:
+    out, _ = proc.communicate(timeout=100)
+    assert proc.returncode == 0, out
+    stages, chips, losses = json.loads(out.split("HOST ", 1)[1])
+    assert (stages, chips, len(losses)) == (1, 2, len(one_host)), (stages, chips, losses)
+    np.testing.assert_allclose(losses, one_host, rtol=1e-6)
+print("TWO_HOSTS_OK", one_host)
 """
 
 
@@ -166,6 +189,17 @@ def test_cli_trains_the_pipelined_lm_on_two_gloo_ranks(launched):
     assert record["unit"] == "tokens/sec" and record["throughput"] > 0
     assert math.isfinite(record["final_loss"])
     assert "mesh: {'pp': 2} over 2 rank(s), gloo, schedule 1f1b, 4 microbatches" in err
+
+
+def test_pipelined_path_spans_a_two_host_slice(launched):
+    """``--pp 2`` over a two-"host" slice (two processes on localhost, each
+    running one gloo stage, global ranks from ``GPU_WORKER_HOSTNAMES`` and
+    ``GPU_WORKER_ID``): each host's losses equal the one-host ``--pp 2``
+    run's within 1e-6 relative (the same stages on the same seeded batch,
+    only the transport differs), and the record counts both hosts'
+    devices."""
+    rc, out, err = launched
+    assert rc == 0 and "TWO_HOSTS_OK" in out, err[-3000:]
 
 
 def test_cpu_ranks_count_dp_times_mp():

@@ -368,11 +368,13 @@ def _flash_case(dev, seed, *, d, dtype, s=200, heads=4, group=2, batch=1):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", list(range(8, 129, 8)))
+@pytest.mark.parametrize("d", list(range(8, 129, 8)) + [1, 4, 20, 100, 136, 192, 256, 384])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16-wgmma", "f32-fma"])
 def test_cuda_flash_kernels_at_every_head_dim(dev, d, dtype):
     """Kernels 2, 3 and 4 at every multiple of 8 from 8 to 128 (the padded
-    builds at all but 16, 32, 64 and 128 for FMA, 64 and 128 for wgmma)
+    builds at all but 16, 32, 64 and 128 for FMA, 64 and 128 for wgmma),
+    at head_dims that are no multiple of 8 (zero-padded by the wrapper), at
+    256 (the bf16 forward's own build) and past 128 (the wide kernels)
     against their plain versions, causal, window 40 and non-causal, one
     launch of the dtype's variant each; forward tolerances as above, the
     backward's relative to max |plain|."""
@@ -400,18 +402,24 @@ def test_cuda_flash_kernels_at_every_head_dim(dev, d, dtype):
             assert err.item() <= bwd_tol, (causal, window)
 
 
+# int4 packs two values a byte: an even head_dim, as the reference's.
+_PAGED_D_FMT = [(d, fmt) for d in list(range(8, 129, 8)) + [3, 4, 20, 100, 192, 256, 384]
+                for fmt in ("f", "int8", "int4") if fmt != "int4" or d % 2 == 0]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ps", [1, 2, 4, 8, 64, 128])
-@pytest.mark.parametrize("d", list(range(8, 129, 8)))
-@pytest.mark.parametrize("fmt", ["f", "int8", "int4"])
+@pytest.mark.parametrize("ps", [1, 2, 4, 8, 12, 24, 64, 128, 256])
+@pytest.mark.parametrize("d, fmt", _PAGED_D_FMT)
 @pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 2e-2), (torch.float32, 2e-5)],
                          ids=["bf16", "f32"])
 def test_cuda_paged_kernel_at_every_head_dim_and_page_size(dev, ps, d, fmt, dtype, tol):
     """Kernel 1 at every multiple of 8 from 8 to 128 (int4 rows of 4, 12,
-    20, ... bytes copied in 4- and 8-byte pieces) and page sizes 1, 2, 4,
-    8, 64 and 128, in every pool format, against its plain version: lens 0, 1, page
-    edges and a full table, 1 and 4 splits, windows none and 7; one launch
-    counted per call."""
+    20, ... bytes copied in 4- and 8-byte pieces), at head_dims that are no
+    multiple of 8 (rows of an odd number of bytes copied by plain loads),
+    at 256 and past it (256-wide slabs), and at page sizes that are no power
+    of two or pass 128, in every pool format (int4 at even head_dims),
+    against its plain version: lens 0, 1, page edges and a full table, 1 and
+    4 splits, windows none and 7; one launch counted per call."""
     rs = np.random.RandomState(ps * 1000 + d)
     batch, heads, kv_heads = 6, 8, 2
     mpp = max(2, 96 // ps)  # 96 positions a row (128 at page 64)
@@ -479,18 +487,32 @@ def test_cuda_block16_graphs_equal_eager(dev, sampled):
 
 
 @pytest.mark.cuda
-def test_cuda_engine_refuses_other_head_dims_at_construction(dev):
-    """head_dim 256 is outside what the kernels take: the engine refuses
-    when it is built on the card, naming the set."""
+@pytest.mark.parametrize("head_dim, page_size, heads, kv_heads",
+                         [(256, 16, 8, 1), (20, 12, 4, 2), (64, 24, 48, 1), (384, 4, 2, 1)],
+                         ids=["d256-group8", "d20-page12", "group48-page24", "d384"])
+def test_cuda_engine_builds_other_head_dims(dev, head_dim, page_size, heads, kv_heads):
+    """Shapes past what the kernels once took build on the card, and the
+    engine's greedy tokens on the kernel path (kernel 1 each decode step,
+    kernel 2 in the bulk prefill) equal those on the gather path, float32."""
     import dataclasses
 
     from k8s_device_plugin_tpu_torch.models import engine as engine_mod
     from k8s_device_plugin_tpu_torch.models import transformer as tf
 
-    cfg = dataclasses.replace(tf.GPTConfig.tiny(), hidden_size=1024, num_heads=4)
-    with pytest.raises(ValueError, match=r"multiple of 8 from 8 to 128, got 256"):
-        engine_mod.ServingEngine(cfg, tf.init_params(cfg, seed=0), tf.PagedConfig(4, 64, 16),
-                                 device=dev)
+    cfg = dataclasses.replace(tf.GPTConfig.tiny(), hidden_size=heads * head_dim,
+                              num_heads=heads, num_kv_heads=kv_heads, max_seq=256)
+    params = tf.init_params(cfg, seed=0)
+    rs = np.random.RandomState(head_dim)
+    jobs = [(rs.randint(1, 512, size=n).tolist(), 8) for n in (128, 37)]
+    streams = {}
+    for use_kernel in (None, False):
+        pa.reset_launches()
+        eng = engine_mod.ServingEngine(cfg, params, tf.PagedConfig(page_size, 64, 256 // page_size,
+                                                                   use_kernel=use_kernel),
+                                       max_slots=2, device=dev)
+        streams[use_kernel] = [r.tokens for r in eng.run(jobs)]
+        assert (pa.paged_attention.launches_by_format["f"] > 0) is (use_kernel is None)
+    assert streams[None] == streams[False]
 
 
 @pytest.mark.cuda
@@ -563,13 +585,14 @@ def _image_batch(n, size, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["resnet", "alexnet", "vit"])
+@pytest.mark.parametrize("name", ["resnet", "alexnet", "vit", "vit-d256"])
 def test_cuda_image_model_step_equals_the_cpu_step(dev, name):
     """One float32 train step (TF32 off) of each image model, card against
     CPU from the same weights, batch and dropout keys: loss and every
     parameter and statistic within 1e-4 (cuDNN's sum order over a conv's
     k*k*C terms, through BatchNorm's 1/std).  ViT at 256 tokens runs the
-    FMA variants of kernels 2-4, 2 layers x 1 step each."""
+    FMA variants of kernels 2-4, 2 layers x 1 step each; at head_dim 256
+    (two heads of 512), their wide kernels."""
     from k8s_device_plugin_tpu_torch.models import alexnet, resnet, train, vit
     from k8s_device_plugin_tpu_torch.utils.device import fp32_reference_precision
 
@@ -583,6 +606,11 @@ def test_cuda_image_model_step_equals_the_cpu_step(dev, name):
         "vit": (lambda d: vit.ViT(vit.ViTConfig(image_size=64, patch_size=4, num_classes=10,
                                                 hidden_size=128, num_layers=2, num_heads=2,
                                                 intermediate_size=256, dtype=f32), device=d), 64),
+        "vit-d256": (lambda d: vit.ViT(vit.ViTConfig(image_size=64, patch_size=4,
+                                                     num_classes=10, hidden_size=512,
+                                                     num_layers=2, num_heads=2,
+                                                     intermediate_size=256, dtype=f32),
+                                       device=d), 64),
     }
     make, size = makers[name]
     batch = _image_batch(8, size)
@@ -596,7 +624,7 @@ def test_cuda_image_model_step_equals_the_cpu_step(dev, name):
         _, loss = train.make_train_step(input_key="images")(
             state, {k: v.to(device) for k, v in batch.items()})
         if device.type == "cuda":
-            n = 2 if name == "vit" else 0
+            n = 2 if name.startswith("vit") else 0
             assert fa.flash_attention.launches_by_design == {"wgmma": 0, "fma": n}
             assert fa.flash_backward.dq_launches_by_design == {"wgmma": 0, "fma": n}
             assert fa.flash_backward.dkv_launches_by_design == {"wgmma": 0, "fma": n}
@@ -628,8 +656,15 @@ def test_cuda_bert_bf16_step_runs_kernels_2_to_4_non_causal(dev):
     with torch.no_grad():
         model(ids, attention_mask=torch.ones_like(ids))
     assert fa.flash_attention.launches == 0
-    with pytest.raises(ValueError, match="head_dim"):
-        bert.Bert(bert.BertConfig(hidden_size=100, num_heads=2, num_layers=1), device=dev)
+    # head_dim 50, no multiple of 8: the wrapper pads it, the same kernels run.
+    cfg = bert.BertConfig(vocab_size=512, hidden_size=100, num_layers=1, num_heads=2,
+                          intermediate_size=256, max_position=256)
+    model = bert.Bert(cfg, device=dev)
+    fa.reset_launches()
+    _, loss = train.make_train_step()(train.state_for(model), {"input_ids": ids, "labels": ids})
+    assert torch.isfinite(loss)
+    assert fa.flash_attention.launches_by_design == {"wgmma": 1, "fma": 0}
+    assert fa.flash_backward.dkv_launches_by_design == {"wgmma": 1, "fma": 0}
 
 
 @pytest.mark.cuda

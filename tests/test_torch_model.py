@@ -372,50 +372,112 @@ def _shaped(head_dim, page_size=None, heads=4, kv_heads=2):
                                num_heads=heads, num_kv_heads=kv_heads, paged=paged)
 
 
+def _builds_on_card(monkeypatch, cfg):
+    """Building ``cfg`` on "cuda" passes every check of the model and
+    reaches its first allocation on the card.  Without a card that
+    allocation is torch's own error, which names CUDA (never a
+    ValueError); with one, the model builds."""
+    monkeypatch.setattr(ttf, "resolve_device", lambda device=None: torch.device("cuda"))
+    if torch.cuda.is_available():
+        ttf.TransformerLM(cfg)
+    else:
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            ttf.TransformerLM(cfg)
+    monkeypatch.undo()
+
+
+def _dense_decode(q, pool_k, pool_v, table, lens):
+    """Single-token attention over each row's first ``lens`` positions,
+    its pages gathered and laid end to end: the paged kernel's function
+    without pages or splits, float64."""
+    batch, heads, head_dim = q.shape
+    kv_heads = pool_k.shape[2]
+    out = torch.empty(q.shape, dtype=torch.float64)
+    for b in range(batch):
+        n = int(lens[b])
+        k = pool_k[table[b].long()].reshape(-1, kv_heads, head_dim)[:n].double()
+        v = pool_v[table[b].long()].reshape(-1, kv_heads, head_dim)[:n].double()
+        for h in range(heads):
+            hk = h // (heads // kv_heads)
+            p = torch.softmax(k[:, hk] @ q[b, h].double() * head_dim ** -0.5, dim=0)
+            out[b, h] = p @ v[:, hk]
+    return out
+
+
 @pytest.mark.parametrize("page_size", [1, 2, 4, 8, 16, 32, 64, 128])
 @pytest.mark.parametrize("head_dim", list(range(8, 129, 8)))
-def test_card_takes_every_head_dim_and_page_size(head_dim, page_size):
-    """The shapes the card's kernels take: any head_dim that is a multiple
-    of 8 from 8 to 128 (flash and paged kernels), every power-of-two page
-    size from 1 to 128."""
-    ttf.check_card_shapes(_shaped(head_dim, page_size))
+def test_card_takes_every_head_dim_and_page_size(monkeypatch, head_dim, page_size):
+    """The shapes the card's kernels took before they took every shape:
+    each still builds on the card, and at each the paged kernel's plain
+    version (what the wrapper runs for CPU tensors, at the tuned split
+    count) equals dense attention over the rows' pages within 1e-5."""
+    from k8s_device_plugin_tpu_torch.ops.paged_attention import paged_attention
+
+    _builds_on_card(monkeypatch, _shaped(head_dim, page_size))
+    gen = torch.Generator().manual_seed(head_dim * 1000 + page_size)
+    batch, heads, kv_heads, mpp = 2, 4, 2, 4
+    q = torch.randn((batch, heads, head_dim), generator=gen)
+    pool_k, pool_v = (torch.randn((batch * mpp + 1, page_size, kv_heads, head_dim),
+                                  generator=gen) for _ in range(2))
+    table = (torch.randperm(batch * mpp, generator=gen) + 1).reshape(batch, mpp).int()
+    lens = torch.tensor([1, page_size * mpp - page_size // 2], dtype=torch.int32)
+    got = paged_attention(q, pool_k, pool_v, table, lens)
+    want = _dense_decode(q, pool_k, pool_v, table, lens)
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=0, atol=1e-5)
 
 
-D_SET = r"head_dim that is a multiple of 8 from 8 to 128"
-PAGE_SET = r"power-of-two page_size from 1 to 128"
+# (head_dim, page size, heads, kv heads): the shapes the card's kernels
+# refused until they took every shape the reference takes.
+OTHER_SHAPES = {
+    "d4": (4, 4, 4, 2),
+    "d20": (20, 4, 4, 2),
+    "d136": (136, 4, 4, 2),
+    "d256": (256, 4, 4, 2),
+    "page12": (64, 12, 4, 2),
+    "page256": (64, 256, 4, 2),
+    "group64": (16, 4, 64, 1),
+    "d384": (384, 4, 2, 1),
+    "group48": (8, 12, 48, 1),
+}
 
 
-@pytest.mark.parametrize(
-    "cfg, match",
-    [
-        (_shaped(4), rf"{D_SET}, got 4"),
-        (_shaped(20), rf"{D_SET}, got 20"),
-        (_shaped(136), rf"{D_SET}, got 136"),
-        (_shaped(256), rf"{D_SET}, got 256"),
-        (_shaped(64, 12), rf"{PAGE_SET}, got 12"),
-        (_shaped(64, 256), rf"{PAGE_SET}, got 256"),
-        (_shaped(16, 16, heads=64, kv_heads=1), "kv group of at most 32"),
-    ],
-    ids=["d4", "d20", "d136", "d256", "page12", "page256", "group64"],
-)
-def test_card_refuses_other_shapes_at_construction(monkeypatch, cfg, match):
-    """Outside the set the model (and so the engine) refuses on the card
-    when it is built, before anything is allocated there; the CPU runs
-    the plain versions at any shape."""
-    with pytest.raises(ValueError, match=match):
-        ttf.check_card_shapes(cfg)
-    monkeypatch.setattr(ttf, "resolve_device", lambda device=None: torch.device("cuda"))
-    with pytest.raises(ValueError, match=match):
-        ttf.TransformerLM(cfg)
-    monkeypatch.undo()
-    ttf.TransformerLM(cfg, device="cpu")
+@pytest.mark.parametrize("shape", OTHER_SHAPES.values(), ids=OTHER_SHAPES.keys())
+def test_card_builds_other_shapes_at_construction(monkeypatch, shape):
+    """head_dims that are no multiple of 8 or pass 128, page sizes that are
+    no power of two or pass 128, and kv groups past 32 build on the card
+    (the reference refuses none of them), and their plain path serves the
+    JAX engine's greedy tokens: both engines run float32 on weights from
+    flax's init through ``convert.py``, two prompts, page table and split
+    math as the kernels'."""
+    from k8s_device_plugin_tpu.models.engine import ServingEngine as JaxEngine
+    from k8s_device_plugin_tpu_torch.models.engine import ServingEngine
+
+    head_dim, page_size, heads, kv_heads = shape
+    _builds_on_card(monkeypatch, _shaped(head_dim, page_size, heads=heads, kv_heads=kv_heads))
+    kw = dict(hidden_size=heads * head_dim, num_heads=heads, num_kv_heads=kv_heads,
+              intermediate_size=128, max_seq=64)
+    jcfg = dataclasses.replace(jtf.GPTConfig.tiny(), **kw)
+    tcfg = dataclasses.replace(ttf.GPTConfig.tiny(), **kw)
+    params = jtf.TransformerLM(jcfg).init(jax.random.PRNGKey(2), jnp.zeros((1, 8), jnp.int32))
+    params = jax.tree_util.tree_map(np.asarray, params["params"])
+    per_seq = -(-64 // page_size)
+    geo = dict(page_size=page_size, num_pages=2 * per_seq + 1, max_pages_per_seq=per_seq,
+               kernel_num_splits=2)
+    jobs = [(_ids(1, 11, seed=head_dim + page_size)[0].tolist(), 6),
+            (_ids(1, 7, seed=heads)[0].tolist(), 5)]
+    want = JaxEngine(jcfg, params, jtf.PagedConfig(**geo, use_kernel=True), max_slots=2).run(jobs)
+    got = ServingEngine(tcfg, convert.flax_to_state_dict(params), ttf.PagedConfig(**geo),
+                        max_slots=2, device="cpu").run(jobs)
+    assert [r.tokens for r in got] == [r.tokens for r in want]
+    assert [len(r.tokens) for r in got] == [n for _, n in jobs]
 
 
-def test_gather_engine_needs_no_paged_shape():
-    """With the paged kernel off (use_kernel=False) only the flash kernels'
-    head dims bind: the gathered view runs at any page size."""
+def test_gather_engine_needs_no_paged_shape(monkeypatch):
+    """With the paged kernel off (use_kernel=False) the gathered view runs
+    at any page size, on the card as on the CPU."""
     cfg = dataclasses.replace(_shaped(64), paged=ttf.PagedConfig(12, 8, 4, use_kernel=False))
-    ttf.check_card_shapes(cfg)
+    _builds_on_card(monkeypatch, cfg)
+    ttf.TransformerLM(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("fmt", ["f32", "int8", "int4"])

@@ -383,12 +383,15 @@ def test_kernel_inputs_are_checked_before_a_launch():
     for kernel in fa.VARIANTS:
         with pytest.raises(ValueError, match="float32"):
             fa._check_kernel_inputs(kernel, q=q.half())
-    for head_dim in fa.HEAD_DIMS:
-        q_d = torch.zeros(1, 2, 8, head_dim)
+    # Every head_dim is taken: the multiples of 8 as they are, any other
+    # zero-padded to the next (and cut back after the launch).
+    for head_dim in (1, 4, 8, 20, 44, 64, 100, 128, 136, 192, 256, 384):
+        q_d = torch.ones(1, 2, 8, head_dim)
         assert fa._check_kernel_inputs("forward", q=q_d) == fa.variant("forward", torch.float32)
-    for head_dim in (4, 44, 136, 256):
-        with pytest.raises(ValueError, match=rf"multiple of 8 from 8 to 128, got {head_dim}"):
-            fa._check_kernel_inputs("forward", q=torch.zeros(1, 2, 8, head_dim))
+        (padded,) = fa._pad8(q_d)
+        assert padded.shape[-1] == -(-head_dim // 8) * 8 and padded.is_contiguous()
+        assert torch.equal(padded[..., :head_dim], q_d) and not padded[..., head_dim:].any()
+        assert torch.equal(fa._unpad(padded, head_dim), q_d)
     # A wrapper refuses a type no kernel takes before it builds anything.
     with pytest.raises(ValueError, match="float32"):
         fa._launch(q.half(), q.half(), q.half(), causal=True, sm_scale=0.125, window=None)
@@ -585,15 +588,20 @@ def test_nonzero_launch_status_raises():
 
 @pytest.mark.parametrize("fmt", ["f", "int8", "int4"])
 @pytest.mark.parametrize(
-    "head_dim, ps, mpp", [(80, 8, 4), (96, 8, 4), (64, 1, 24), (64, 128, 2)],
-    ids=["d80", "d96", "page1", "page128"],
+    "head_dim, ps, mpp, heads, kv_heads",
+    [(80, 8, 4, 8, 2), (96, 8, 4, 8, 2), (64, 1, 24, 8, 2), (64, 128, 2, 8, 2),
+     (20, 8, 4, 8, 2), (256, 8, 3, 8, 1), (64, 12, 3, 8, 2), (32, 8, 3, 48, 1)],
+    ids=["d80", "d96", "page1", "page128", "d20", "d256-group8", "page12", "group48"],
 )
-def test_paged_plain_matches_jax_at_new_widths_and_pages(fmt, head_dim, ps, mpp):
+def test_paged_plain_matches_jax_at_new_widths_and_pages(fmt, head_dim, ps, mpp, heads,
+                                                         kv_heads):
     """Kernel 1's plain version at head_dim 80 and 96 (Phi-2's and
-    Phi-3-mini's) and at page sizes 1 and 128, in every pool format,
-    against the reference's kernel run in the Pallas interpreter and its
-    XLA lane, 1 and 2 splits."""
-    kw = dict(head_dim=head_dim, ps=ps, mpp=mpp, n_pool=3 * mpp + 2)
+    Phi-3-mini's), 20 (no multiple of 8) and 256 (Gemma-2B's, one kv head
+    for 8), at page sizes 1, 12 and 128, and at a kv group of 48
+    (StarCoder's), in every pool format, against the reference's kernel run
+    in the Pallas interpreter and its XLA lane, 1 and 2 splits."""
+    kw = dict(head_dim=head_dim, ps=ps, mpp=mpp, n_pool=3 * mpp + 2, heads=heads,
+              kv_heads=kv_heads)
     if fmt == "f":
         inputs = _paged_inputs(30 + head_dim + ps, **kw)
     else:
@@ -610,10 +618,11 @@ def test_paged_plain_matches_jax_at_new_widths_and_pages(fmt, head_dim, ps, mpp)
                                        err_msg=f"S={splits} {jax_kw}")
 
 
-@pytest.mark.parametrize("head_dim", [80, 96])
+@pytest.mark.parametrize("head_dim", [80, 96, 20, 256, 384])
 @pytest.mark.parametrize("causal, window", CASES, ids=CASE_IDS)
 def test_flash_plain_matches_interpreted_pallas_at_new_widths(causal, window, head_dim):
-    """Kernels 2, 3 and 4's plain versions at head_dim 80 and 96 against
+    """Kernels 2, 3 and 4's plain versions at head_dim 80 and 96, 20 (no
+    multiple of 8), 256 (Gemma-2B's) and 384 (past every build) against
     the reference's forward and backward kernels in the Pallas
     interpreter (lse, output and dq/dk/dv of sum(out^2))."""
     q, k, v = _flash_inputs(40 + head_dim, h=4, hk=2, s=128, d=head_dim)
