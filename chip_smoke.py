@@ -70,11 +70,11 @@ Phases, in order (any failure exits non-zero):
    that its CLI turns on by default), with the launch counters set to 0 just before and
    read just after: the paged-decode kernel must have launched (float
    pools) once per layer on every dispatched step;
-4b. the same engine run with the deployed pod's ``--quant=w8``, then with
-   ``--quant=w8 --quant-kv``, then with ``--quant=w8a8 --quant-kv``, on the
-   first 8 requests: each must return 8 x 128 in-vocab tokens, and the
-   ``--quant-kv`` runs must have launched the paged kernel's int8 branch on
-   every decode step;
+4b. the same engine run with ``--quant=w8 --quant-kv``, then with
+   ``--quant=w8a8 --quant-kv``, on the first 16 requests: each must return
+   16 x 128 in-vocab tokens and must have launched the paged kernel's int8
+   branch on every decode step (the deployed pod's plain ``--quant=w8``
+   runs as the pod itself, at its 32 requests, in 16e);
 4d. the same engine at ``--decode-block 16 --overlap-steps 1`` with its
    dispatches replayed as CUDA graphs: the greedy tokens must equal phase
    4's exactly, the paged kernel counted once per layer on every
@@ -367,6 +367,18 @@ Phases, in order (any failure exits non-zero):
    ``CUDA_VISIBLE_DEVICES``, as the container runtime's view), two
    requests, its chip-health feed on exactly the granted ``/dev/nvidiaN``,
    kernel 1 launched once a layer a step, Allocate to first token timed;
+   16e the single-card pods as deployed: the command and args of
+   ``deploy/k8s-pod-example-gpu.yaml`` (AlexNet, 30 steps) and of
+   ``deploy/k8s-pod-serve-gpt-gpu.yaml`` (the batch engine at ``--quant=w8``,
+   32 requests x 128 new tokens), read from the manifests at run time, each
+   a subprocess under the env 16c's pod gets: each must exit 0 and print
+   one JSON record of its run on the card (AlexNet: one chip, every step
+   run, throughput > 0, its final loss recorded, not required finite: at
+   the pod's SGD 0.1 it leaves the finite range within the run's 50 steps,
+   as the reference's own run does, PERF.md section 7; the engine: 32 x 128
+   tokens, which it checks are in the vocabulary, value > 0, kernel 1's
+   float-pool branch launched once a layer on every dispatched step and its
+   quantized branches never), each run's wall time logged;
    16d the self-test's probe on the card equal to ``matmul_checksum`` for
    three seeds, a ``selftest.probe`` corrupt failpoint quarantining the
    card after ``fail_threshold`` sweeps and the next health sweep reading
@@ -1135,9 +1147,10 @@ def first_difference(a, b) -> str:
 
 # ------------------------------------------------------------- phase 4e
 
-# The deployment's serving flags (deploy/k8s-deploy-serve-http.yaml), nothing
-# cut; vocab is the CLI's default 32000.  ``--snapshot-dir`` is the one
-# path each run sets itself (snapshot_flag).
+# The GPU deployment's serving flags (deploy/k8s-deploy-serve-http-gpu.yaml),
+# nothing cut; vocab is the CLI's default 32000.  ``--snapshot-dir`` and
+# ``--http-port`` are what each run sets itself (snapshot_flag, SERVE_EXTRA);
+# tests/test_torch_deploy.py holds the rest equal to the manifest's.
 SERVE_FLAGS = (
     "--hidden=1024", "--layers=8", "--heads=16", "--kv-heads=4", "--page-size=16",
     "--num-pages=512", "--max-pages-per-seq=32", "--slots=8", "--decode-block=16",
@@ -1145,6 +1158,7 @@ SERVE_FLAGS = (
     "--kv-host-cache-mb=512", "--overload=1", "--overload-target-wait=0.5",
     "--overload-max-queue=512", "--slo=1", "--watchdog=1", "--watchdog-min-deadline=5",
     "--watchdog-grace=120", "--snapshot-interval=60", "--dump-budget-mb=256",
+    "--compilation-cache-dir=/var/cache/xla",
 )
 # What the serving phases add to them: an ephemeral port, and a flight ring
 # big enough that no preemption event of the run is dropped.
@@ -5608,12 +5622,10 @@ def run_phase_16b(inv, smi) -> tuple:
     return rec, granted, allocated_at
 
 
-def run_phase_16c(granted: dict, allocated_at: float, smi) -> dict:
-    """The pod: the port's HTTP server at the deployment's flags, started
-    with exactly the granted env, serving two requests; its chip-health
-    feed watches the granted node and kernel 1 launches."""
+def pod_env(granted: dict) -> dict:
+    """A pod's environment: this one's without any card or worker variable,
+    plus exactly what Allocate ``granted``."""
     import os
-    import pathlib
 
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("GPU_", "TPU_")) and k not in ("NVIDIA_VISIBLE_DEVICES",
@@ -5623,6 +5635,16 @@ def run_phase_16c(granted: dict, allocated_at: float, smi) -> dict:
     # names, so CUDA in the container numbers exactly those from 0; outside a
     # container the same view is CUDA_VISIBLE_DEVICES set to their UUIDs.
     env["CUDA_VISIBLE_DEVICES"] = granted["envs"]["NVIDIA_VISIBLE_DEVICES"]
+    return env
+
+
+def run_phase_16c(granted: dict, allocated_at: float, smi) -> dict:
+    """The pod: the port's HTTP server at the deployment's flags, started
+    with exactly the granted env, serving two requests; its chip-health
+    feed watches the granted node and kernel 1 launches."""
+    import pathlib
+
+    env = pod_env(granted)
     log_path = pathlib.Path(__file__).resolve().parent / "chiprun_out" / "plugin_pod.log"
     proc, port = start_server((*SERVE_FLAGS, snapshot_flag("plugin_pod")), log_path, env)
     try:
@@ -5657,6 +5679,98 @@ def run_phase_16c(granted: dict, allocated_at: float, smi) -> dict:
            "device_steps": dev["device_steps"], "drain_s": drain_s, "card": smi}
     log(f"16c: Allocate -> first token {rec['allocate_to_first_token_s']:.2f} s, kernel 1 "
         f"{launches} launches ({smi})")
+    return rec
+
+
+# The single-card pods 16e runs as deployed: their manifests' command and
+# args, read at run time (tests/test_torch_deploy.py holds the script to
+# the manifests).
+POD_MANIFESTS = ("k8s-pod-example-gpu.yaml", "k8s-pod-serve-gpt-gpu.yaml")
+
+
+def manifest_container(name: str) -> dict:
+    """``command``, ``args`` and the ``nvidia.com/gpu`` limit of the one
+    container of the single-card pod manifest ``deploy/<name>``."""
+    import pathlib
+
+    import yaml
+
+    with open(pathlib.Path(__file__).resolve().parent / "deploy" / name) as f:
+        [pod] = [doc for doc in yaml.safe_load_all(f) if doc and doc["kind"] == "Pod"]
+    [container] = pod["spec"]["containers"]
+    limits = container.get("resources", {}).get("limits", {})
+    return {"command": container["command"], "args": container["args"],
+            "cards": int(limits.get("nvidia.com/gpu", 0))}
+
+
+def run_pod(name: str, env: dict, log_path) -> tuple:
+    """The pod ``name``'s container command as a subprocess of this
+    checkout (its ``python`` this interpreter) under ``env``; returns
+    (container, the one JSON record it printed, wall seconds).  Fails
+    unless it exits 0 with exactly one record."""
+    import pathlib
+
+    container = manifest_container(name)
+    if container["cards"] != 1:
+        fail(f"16e: {name} asks for {container['cards']} cards, not one")
+    cmd = [sys.executable if c == "python" else c for c in container["command"]]
+    t0 = time.perf_counter()
+    with open(log_path, "w") as err:
+        proc = subprocess.run([*cmd, *container["args"]], env=env, stdout=subprocess.PIPE,
+                              stderr=err, text=True, timeout=300,
+                              cwd=pathlib.Path(__file__).resolve().parent)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"16e: {name} exited {proc.returncode}: {open(log_path).read()[-3000:]}")
+    records = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+    if len(records) != 1:
+        fail(f"16e: {name} printed {len(records)} JSON records: {proc.stdout[-2000:]}")
+    return container, records[0], wall
+
+
+def run_phase_16e(torch, bench, engine, granted: dict, smi) -> dict:
+    """The single-card pods as deployed (POD_MANIFESTS), each under the env
+    16c's pod gets: AlexNet's training benchmark and the w8 batch engine,
+    each on the card."""
+    import pathlib
+
+    env = pod_env(granted)
+    out_dir = pathlib.Path(__file__).resolve().parent / "chiprun_out"
+    card_name = torch.cuda.get_device_name(0)
+    rec = {"card": smi}
+    train_pod, serve_pod = POD_MANIFESTS
+    container, record, wall = run_pod(train_pod, env, out_dir / "pod_alexnet.log")
+    args = bench.parse_args(container["args"])
+    if (record["model"], record["chips"], record["device"]) != (args.model, 1, card_name) \
+            or record["final_step"] != 4 * args.warmup + args.steps \
+            or not record["throughput"] > 0:
+        fail(f"16e: {train_pod} ran {record}, not {args.model} on one {card_name} for "
+             f"{4 * args.warmup + args.steps} steps")
+    # Recorded, not required: at the pod's SGD 0.1 (no normalisation, one
+    # fixed batch) the loss leaves the finite range within its 50 steps, on
+    # the card and in the reference's own float32 run on the CPU alike
+    # (PERF.md section 7, tools/train_loss_curve.py --reference).
+    finite = record["final_loss"] is not None and math.isfinite(record["final_loss"])
+    rec["alexnet"] = {"manifest": train_pod, "args": container["args"], "wall_s": wall,
+                      "final_loss_finite": finite, "record": record}
+    log(f"16e: {train_pod} in {wall:.1f} s: {record} ({smi})")
+    container, record, wall = run_pod(serve_pod, env, out_dir / "pod_serve_gpt.log")
+    args = engine.parse_args(container["args"])
+    if (record["requests"], record["tokens"], record["quant"], record["device"]) != (
+            args.requests, args.requests * args.max_new, args.quant, card_name) \
+            or not record["value"] > 0:
+        fail(f"16e: {serve_pod} ran {record}, not {args.requests} x {args.max_new} tokens at "
+             f"--quant={args.quant} on one {card_name}")
+    # The pod's process counted from 0: kernel 1's float-pool branch once a
+    # layer on every dispatched step, the quantized branches never.
+    launches = record["paged_launches"]
+    if not record["kernel"] or launches["f"] != args.layers * record["device_steps"] \
+            or launches["f"] <= 0 or launches["int8"] or launches["int4"]:
+        fail(f"16e: {serve_pod} launched kernel 1 as {launches} over {record['device_steps']} "
+             f"dispatched steps of {args.layers} layers (kernel {record['kernel']})")
+    rec["serve_gpt"] = {"manifest": serve_pod, "args": container["args"], "wall_s": wall,
+                        "record": record}
+    log(f"16e: {serve_pod} in {wall:.1f} s: {record} ({smi})")
     return rec
 
 
@@ -5709,17 +5823,19 @@ def run_phase_16d(inv, smi) -> dict:
             "verdicts": verdicts, "after_quarantine": after, "busy": skipped, "card": smi}
 
 
-def run_phase_16(torch, smi, mark) -> dict:
+def run_phase_16(torch, bench, engine, smi, mark) -> dict:
     discovered, inv = run_phase_16a(torch, smi)
     mark("16a_discovery")
     daemon, granted, allocated_at = run_phase_16b(inv, smi)
     mark("16b_daemon")
     pod = run_phase_16c(granted, allocated_at, smi)
     mark("16c_pod")
+    pods = run_phase_16e(torch, bench, engine, granted, smi)
+    mark("16e_pods")
     selftest_run = run_phase_16d(inv, smi)
     mark("16d_selftest")
-    return {"discovery": discovered, "daemon": daemon, "pod": pod, "selftest": selftest_run,
-            "card": smi}
+    return {"discovery": discovered, "daemon": daemon, "pod": pod, "pods": pods,
+            "selftest": selftest_run, "card": smi}
 
 
 # ---------------------------------------------------------------- phase 17
@@ -6225,7 +6341,8 @@ def main() -> None:
     paged["f"]["launches"] = launches["f"]
     mark("4_engine")
     quant_runs = []
-    for flags in (["--quant=w8"], ["--quant=w8", "--quant-kv"], ["--quant=w8a8", "--quant-kv"]):
+    # The pod's plain --quant=w8 runs in 16e (k8s-pod-serve-gpt-gpu.yaml).
+    for flags in (["--quant=w8", "--quant-kv"], ["--quant=w8a8", "--quant-kv"]):
         # Two slot waves (32 requests until phases 4h, 4i and 5b needed
         # the time): pages freed under int8 scales are admitted again.
         q_summary, launches, _ = run_engine(torch, engine, pa, fa, (*SYNC_EAGER, *flags),
@@ -6263,8 +6380,8 @@ def main() -> None:
     multi_lora = run_multi_lora(torch, tf, http_server, serve)
     mark("4i_multi_lora")
     paged["f"]["block16_launches"] = blocks["paged_launches"]
-    paged["int8"]["launches"] = quant_runs[1]["paged_launches"]["int8"]
-    paged["int8"]["w8a8_launches"] = quant_runs[2]["paged_launches"]["int8"]
+    paged["int8"]["launches"] = quant_runs[0]["paged_launches"]["int8"]
+    paged["int8"]["w8a8_launches"] = quant_runs[1]["paged_launches"]["int8"]
     sweep = dp.sweep_formats(iters=100)
     log(f"format sweep (kernel benchmark): {sweep}")
     for row in sweep["rows"]:
@@ -6375,7 +6492,7 @@ def main() -> None:
                 r["launches_by_design"][kernel]["fma"]
                 for r in pp_run["pp4_shared_card"]["schedules"][schedule]["by_rank"]]
 
-    plugin = run_phase_16(torch, smi, mark)
+    plugin = run_phase_16(torch, bench, engine, smi, mark)
     paged["f"]["plugin_pod_launches"] = plugin["pod"]["paged_launches"]
     routed = run_phase_17(torch, tf, http_server, pa, smi)
     mark("17_router")

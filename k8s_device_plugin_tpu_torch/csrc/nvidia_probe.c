@@ -7,11 +7,12 @@
  * Python object churn and the errno classification lives in one place.
  *
  * It also reads the driver's own device list through NVML
- * (libnvidia-ml.so.1, opened with dlopen at call time, so the library links
+ * (libnvidia-ml.so.1, opened with dlopen at first use, so the library links
  * against nothing and loads on a host without the driver).  Discovery uses
  * it where the driver publishes no /proc/driver/nvidia/gpus entries, as in
  * a sandboxed container runtime that shows the device nodes of every card
- * but lets the container open only its own.
+ * but lets the container open only its own.  The NVML session stays open
+ * from its first successful use to the process's end (below).
  *
  * Pure C; built at first use by plugin/native.py with the host's C compiler
  * and loaded with ctypes.  plugin/health.py and plugin/discovery.py keep the
@@ -26,6 +27,7 @@
 #include <dlfcn.h>
 #include <errno.h>
 #include <fcntl.h>
+#include <pthread.h>
 #include <string.h>
 #include <sys/stat.h>
 #include <sys/types.h>
@@ -118,7 +120,7 @@ int gpu_scan_nvidia_minors(const char *dev_dir, int *out, int cap) {
   return n;
 }
 
-/* ---- NVML, opened at call time --------------------------------------- */
+/* ---- NVML, one session a process ------------------------------------ */
 
 typedef int nvml_return_t; /* nvmlReturn_t; 0 is NVML_SUCCESS */
 typedef void *nvml_device_t;
@@ -140,6 +142,64 @@ typedef struct {
 #define GPU_NVML_INIT_FAILED -3
 #define GPU_NVML_QUERY_FAILED -4
 
+/* The session: the library and its entry points once nvmlInit_v2 has
+ * succeeded, NULL lib before.  Discovery lists the cards on every health
+ * pulse; opening and closing the session (dlopen, nvmlInit_v2,
+ * nvmlShutdown, dlclose) in every listing made one take 27 ms at the median
+ * on a sandboxed H100 host and now and then over a second, which held the
+ * pulse's health sweep past the next pulse.  So the session opens once and
+ * stays open; a query that fails closes it, and the next call opens it
+ * again (a driver that was reloaded meanwhile).  ctypes calls run without
+ * the GIL from any thread: the lock serialises them. */
+static pthread_mutex_t nvml_lock = PTHREAD_MUTEX_INITIALIZER;
+static struct {
+  void *lib;
+  nvml_return_t (*shutdown)(void);
+  nvml_return_t (*count_fn)(unsigned int *);
+  nvml_return_t (*handle_fn)(unsigned int, nvml_device_t *);
+  nvml_return_t (*minor_fn)(nvml_device_t, unsigned int *);
+  nvml_return_t (*uuid_fn)(nvml_device_t, char *, unsigned int);
+  nvml_return_t (*pci_fn)(nvml_device_t, nvml_pci_info_t *);
+} nvml;
+
+/* Open the session unless it is open; 0 or a GPU_NVML_* error. */
+static int nvml_open(int *nvml_status) {
+  if (nvml.lib != NULL) return 0;
+  void *lib = dlopen("libnvidia-ml.so.1", RTLD_NOW | RTLD_LOCAL);
+  if (lib == NULL) return GPU_NVML_NO_LIBRARY;
+  nvml_return_t (*init)(void) = (nvml_return_t(*)(void))dlsym(lib, "nvmlInit_v2");
+  nvml.shutdown = (nvml_return_t(*)(void))dlsym(lib, "nvmlShutdown");
+  nvml.count_fn =
+      (nvml_return_t(*)(unsigned int *))dlsym(lib, "nvmlDeviceGetCount_v2");
+  nvml.handle_fn = (nvml_return_t(*)(unsigned int, nvml_device_t *))dlsym(
+      lib, "nvmlDeviceGetHandleByIndex_v2");
+  nvml.minor_fn = (nvml_return_t(*)(nvml_device_t, unsigned int *))dlsym(
+      lib, "nvmlDeviceGetMinorNumber");
+  nvml.uuid_fn = (nvml_return_t(*)(nvml_device_t, char *, unsigned int))dlsym(
+      lib, "nvmlDeviceGetUUID");
+  nvml.pci_fn = (nvml_return_t(*)(nvml_device_t, nvml_pci_info_t *))dlsym(
+      lib, "nvmlDeviceGetPciInfo_v3");
+  if (!init || !nvml.shutdown || !nvml.count_fn || !nvml.handle_fn ||
+      !nvml.minor_fn || !nvml.uuid_fn || !nvml.pci_fn) {
+    dlclose(lib);
+    return GPU_NVML_NO_SYMBOL;
+  }
+  nvml_return_t rc = init();
+  if (rc != 0) {
+    *nvml_status = rc;
+    dlclose(lib);
+    return GPU_NVML_INIT_FAILED;
+  }
+  nvml.lib = lib;
+  return 0;
+}
+
+static void nvml_close(void) {
+  nvml.shutdown();
+  dlclose(nvml.lib);
+  nvml.lib = NULL;
+}
+
 /* The driver's cards as NVML lists them, in NVML index order: for each,
  * its device-node minor, UUID ("GPU-..."), PCI bus id ("00000000:18:00.0")
  * and PCI ids (pci_ids[i] holds device id << 16 | vendor id, as NVML packs
@@ -151,39 +211,14 @@ typedef struct {
 int gpu_nvml_devices(int *minors, char *uuids, char *bus_ids,
                      unsigned int *pci_ids, int cap, int *nvml_status) {
   *nvml_status = 0;
-  void *lib = dlopen("libnvidia-ml.so.1", RTLD_NOW | RTLD_LOCAL);
-  if (lib == NULL) return GPU_NVML_NO_LIBRARY;
-  nvml_return_t (*init)(void) = (nvml_return_t(*)(void))dlsym(lib, "nvmlInit_v2");
-  nvml_return_t (*shutdown)(void) =
-      (nvml_return_t(*)(void))dlsym(lib, "nvmlShutdown");
-  nvml_return_t (*count_fn)(unsigned int *) =
-      (nvml_return_t(*)(unsigned int *))dlsym(lib, "nvmlDeviceGetCount_v2");
-  nvml_return_t (*handle_fn)(unsigned int, nvml_device_t *) =
-      (nvml_return_t(*)(unsigned int, nvml_device_t *))dlsym(
-          lib, "nvmlDeviceGetHandleByIndex_v2");
-  nvml_return_t (*minor_fn)(nvml_device_t, unsigned int *) =
-      (nvml_return_t(*)(nvml_device_t, unsigned int *))dlsym(
-          lib, "nvmlDeviceGetMinorNumber");
-  nvml_return_t (*uuid_fn)(nvml_device_t, char *, unsigned int) =
-      (nvml_return_t(*)(nvml_device_t, char *, unsigned int))dlsym(
-          lib, "nvmlDeviceGetUUID");
-  nvml_return_t (*pci_fn)(nvml_device_t, nvml_pci_info_t *) =
-      (nvml_return_t(*)(nvml_device_t, nvml_pci_info_t *))dlsym(
-          lib, "nvmlDeviceGetPciInfo_v3");
-  if (!init || !shutdown || !count_fn || !handle_fn || !minor_fn ||
-      !uuid_fn || !pci_fn) {
-    dlclose(lib);
-    return GPU_NVML_NO_SYMBOL;
-  }
-  nvml_return_t rc = init();
-  if (rc != 0) {
-    *nvml_status = rc;
-    dlclose(lib);
-    return GPU_NVML_INIT_FAILED;
+  pthread_mutex_lock(&nvml_lock);
+  int result = nvml_open(nvml_status);
+  if (result != 0) {
+    pthread_mutex_unlock(&nvml_lock);
+    return result;
   }
   unsigned int count = 0;
-  int result = 0;
-  rc = count_fn(&count);
+  nvml_return_t rc = nvml.count_fn(&count);
   if (rc != 0) {
     result = GPU_NVML_QUERY_FAILED;
   } else {
@@ -196,8 +231,9 @@ int gpu_nvml_devices(int *minors, char *uuids, char *bus_ids,
       char *uuid = uuids + (size_t)i * GPU_UUID_LEN;
       char *bus = bus_ids + (size_t)i * GPU_BUS_ID_LEN;
       uuid[0] = '\0';
-      if ((rc = handle_fn(i, &dev)) != 0 || (rc = minor_fn(dev, &minor)) != 0 ||
-          (rc = uuid_fn(dev, uuid, GPU_UUID_LEN)) != 0) {
+      if ((rc = nvml.handle_fn(i, &dev)) != 0 ||
+          (rc = nvml.minor_fn(dev, &minor)) != 0 ||
+          (rc = nvml.uuid_fn(dev, uuid, GPU_UUID_LEN)) != 0) {
         result = GPU_NVML_QUERY_FAILED;
         break;
       }
@@ -208,16 +244,18 @@ int gpu_nvml_devices(int *minors, char *uuids, char *bus_ids,
        * zero ids, and the card is still listed. */
       bus[0] = '\0';
       pci_ids[i] = 0;
-      if (pci_fn(dev, &pci) == 0) {
+      if (nvml.pci_fn(dev, &pci) == 0) {
         memcpy(bus, pci.bus_id, GPU_BUS_ID_LEN);
         bus[GPU_BUS_ID_LEN - 1] = '\0';
         pci_ids[i] = pci.pci_device_id;
       }
     }
   }
-  if (result == GPU_NVML_QUERY_FAILED) *nvml_status = rc;
-  shutdown();
-  dlclose(lib);
+  if (result == GPU_NVML_QUERY_FAILED) {
+    *nvml_status = rc;
+    nvml_close();
+  }
+  pthread_mutex_unlock(&nvml_lock);
   return result;
 }
 

@@ -52,7 +52,9 @@ N ranks, one stage each on its own card (``--device cpu``: gloo ranks),
 over every host of the slice (N / hosts stages on each host, ranked
 host-major as above), with ``--pp-schedule gpipe|1f1b`` over ``--n-micro``
 microbatches a step; it prints the reference's ``gpt-pp`` record (plus
-``device``) once per host::
+``device``) once per host.  As in the reference, the pipelined path saves
+no checkpoint: it takes ``--checkpoint-dir`` and says so on stderr, as it
+says of ``--compilation-cache-dir`` (XLA's cache) on any path::
 
     python -m k8s_device_plugin_tpu_torch.models.benchmark --model gpt --pp 8 \
         --pp-schedule 1f1b --n-micro 16 --batch-size 64 --seq-len 1024
@@ -273,6 +275,10 @@ def parse_args(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="restore the newest checkpoint under --checkpoint-dir first; --steps is "
                    "then the absolute target step")
+    p.add_argument("--compilation-cache-dir",
+                   default=os.environ.get("TPU_COMPILATION_CACHE_DIR", ""),
+                   help="XLA's persistent compilation cache: accepted and unused here "
+                   "(the CUDA kernels build once per checkout under build/)")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16",
                    help="compute type (parameters and BatchNorm statistics stay float32)")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
@@ -296,9 +302,6 @@ def parse_args(argv=None):
                 "the 1F1B/GPipe objective); drop one of the flags")
     if args.pp > 1 and args.model not in ("gpt", "gpt-decode", "serving"):
         p.error("--pp requires --model gpt (the pipelined decoder)")
-    if args.pp > 1 and args.checkpoint_dir:
-        p.error("--checkpoint-dir is not supported with --pp (the pipelined path saves no "
-                "checkpoint, as in the reference); drop one of the flags")
     return args
 
 
@@ -2192,6 +2195,13 @@ def run_serving(args, params: Optional[dict] = None) -> ServingRun:
 
 def main(argv=None) -> None:
     args = parse_args(argv)
+    # Flags the run takes, as the reference does, and does not act on.
+    if args.compilation_cache_dir:
+        print(f"--compilation-cache-dir {args.compilation_cache_dir}: XLA's cache; the PyTorch "
+              "port does not use it", file=sys.stderr)
+    if args.pp > 1 and args.checkpoint_dir:
+        print(f"--checkpoint-dir {args.checkpoint_dir}: the pipelined path (--pp) saves no "
+              "checkpoint, as in the reference", file=sys.stderr)
     if args.model == "gpt-decode":
         record = run_decode(args)[0]
     elif args.model == "serving":

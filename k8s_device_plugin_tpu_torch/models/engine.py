@@ -1229,7 +1229,10 @@ def benchmark(args, eng: Optional["ServingEngine"] = None) -> tuple[dict, list[R
     summary (the reference's JSON keys
     plus ``decode_block``, ``cuda_graphs``, ``state_rebuilds``,
     ``graph_replays``, ``device_steps``, ``spec_rounds``, ``admission``,
-    ``preemptions`` and ``device``; the counts cover the warmup too) and the timed run's finished requests."""
+    ``preemptions``, ``paged_launches`` (kernel 1's launches by pool format
+    in this process) and ``device``; the counts cover the warmup too) and
+    the timed run's finished requests.
+    Raises RuntimeError if a token is outside the vocabulary."""
     eng = build_engine(args) if eng is None else eng
     device = eng.device
     sample_kw = dict(temperature=args.temperature, top_k=args.top_k, top_p=args.top_p)
@@ -1249,6 +1252,10 @@ def benchmark(args, eng: Optional["ServingEngine"] = None) -> tuple[dict, list[R
     done = eng.run(jobs, **sample_kw)
     dt = time.perf_counter() - t0
     tokens = sum(len(r.tokens) for r in done)
+    # The record carries counts only, so a pod's exit code is what says its
+    # tokens were real ones.
+    if any(not 0 <= t < args.vocab for r in done for t in r.tokens):
+        raise RuntimeError("the engine emitted a token id outside the vocabulary")
     summary = {
         "metric": "engine_decode_tokens_per_sec",
         "value": round(tokens / dt, 2),
@@ -1275,6 +1282,7 @@ def benchmark(args, eng: Optional["ServingEngine"] = None) -> tuple[dict, list[R
         "state_rebuilds": eng.state_rebuilds,
         "graph_replays": eng.graph_replays,
         "device_steps": eng.device_steps,
+        "paged_launches": dict(pa.paged_attention.launches_by_format),
         "admission": args.admission,
         "preemptions": eng.preemptions,
         "kv_retain": bool(args.kv_retain),

@@ -7,11 +7,19 @@ costs a fixed few syscalls per card; the same library reads the driver's
 card list through NVML where the driver publishes no
 ``/proc/driver/nvidia/gpus`` entries (``plugin/discovery.py``).
 
-The library builds at first use with the host's C compiler into
-``build/gpu_probe/<hash>/libnvidia_probe.so`` under the repository root
-(``build/`` is in ``.gitignore``), the hash covering the source and the
-flags, as ``ops/_build.py`` builds the kernels.  A daemon on a host
-without a compiler takes the Python
+Search order for the shared object (:func:`load_prober`):
+
+1. an explicit ``lib_path``;
+2. ``GPU_PROBE_LIB`` (a path), where that file exists: the container image
+   (``deploy/Dockerfile.gpu``) builds the library at image-build time, as
+   the JAX package's image does for ``TPU_PROBE_LIB``;
+3. the checkout's build, made at first use with the host's C compiler into
+   ``build/gpu_probe/<hash>/libnvidia_probe.so`` under the repository root
+   (``build/`` is in ``.gitignore``), the hash covering the source and the
+   flags, as ``ops/_build.py`` builds the kernels.
+
+A named library that fails to load is logged and passed over.  A daemon
+that can neither load one nor build one (no compiler) takes the Python
 sequences in ``plugin/health.py`` and ``plugin/discovery.py``, which stay
 the behavioural reference: :func:`shared_prober` returns None there,
 while :func:`build_probe_library` raises.
@@ -49,7 +57,7 @@ _BUS_ID_LEN = 32
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "nvidia_probe.c"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "gpu_probe"
-CFLAGS = ("-O2", "-Wall", "-Wextra", "-std=c11", "-fPIC", "-shared")
+CFLAGS = ("-O2", "-Wall", "-Wextra", "-std=c11", "-fPIC", "-shared", "-pthread")
 LIBS = ("-ldl",)
 
 
@@ -182,9 +190,24 @@ def build_probe_library(source: Path = SOURCE, cc: str | None = None) -> str:
 
 
 def load_prober(lib_path: str | None = None) -> NativeProber:
-    """Load the library at ``lib_path``, else the one built from the
-    checkout's source (building it now if needed)."""
-    path = lib_path or build_probe_library()
+    """Load the library at ``lib_path``, else the one ``GPU_PROBE_LIB``
+    names, else the one built from the checkout's source (building it now
+    if needed); a named library that is missing or fails to load is
+    logged and passed over."""
+    named = (("lib_path", lib_path), ("GPU_PROBE_LIB", os.environ.get("GPU_PROBE_LIB")))
+    for name, path in named:
+        if not path:
+            continue
+        if not os.path.exists(path):
+            log.warning("%s names %s, which does not exist", name, path)
+            continue
+        try:
+            return NativeProber(ctypes.CDLL(path), path)
+        # AttributeError: the library loaded but lacks a symbol (a stale or
+        # foreign build); OSError: it did not load, or its ABI differs.
+        except (OSError, AttributeError) as e:
+            log.warning("failed to load the native prober %s: %s", path, e)
+    path = build_probe_library()
     return NativeProber(ctypes.CDLL(path), path)
 
 

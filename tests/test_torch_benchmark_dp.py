@@ -224,16 +224,32 @@ GPT_PP_KEYS = {"model", "schedule", "chips", "pp", "n_micro", "global_batch", "t
      "--fused-xent is not supported with --pp (the pipelined LM head runs inside the "
      "1F1B/GPipe objective); drop one of the flags"),
     (["--model=bert", "--pp=2"], "--pp requires --model gpt (the pipelined decoder)"),
-    (["--model=gpt", "--tiny", "--pp=2", "--checkpoint-dir=ck"],
-     "--checkpoint-dir is not supported with --pp"),
-], ids=["layers", "n-micro", "grad-accum", "fused-xent", "model", "checkpoint"])
+], ids=["layers", "n-micro", "grad-accum", "fused-xent", "model"])
 def test_pipeline_refusals_are_the_reference_s(capsys, flags, message):
     """The reference's refusals of --pp (and the port's of a batch the
-    microbatches do not split and of checkpoints, which the pipelined path
-    would not save), at four CPU ranks, before anything is built."""
+    microbatches do not split), at four CPU ranks, before anything is
+    built."""
     with pytest.raises(SystemExit) as exc:
         tbench.check_layout(tbench.parse_args([*CPU, *flags]), local_ranks=4)
     assert message in str(exc.value) + capsys.readouterr().err
+
+
+def test_pipeline_takes_a_checkpoint_dir_and_says_it_saves_none(monkeypatch, capsys):
+    """The reference takes --checkpoint-dir beside --pp and saves nothing on
+    the pipelined path: the port takes the pair, passes its layout checks
+    and says so on stderr before it launches the stages."""
+    flags = [*CPU, "--model=gpt", "--tiny", "--pp=2", "--batch-size=8", "--checkpoint-dir=ck"]
+    args = tbench.parse_args(flags)
+    assert (args.pp, args.checkpoint_dir) == (2, "ck")
+    assert tbench.check_layout(args, local_ranks=2) == 2
+    launched = []
+    monkeypatch.setattr(tbench, "launch", lambda args: launched.append(args)
+                        or tbench.DistributedRun({"model": "gpt-pp"}, [], None, []))
+    tbench.main(flags)
+    out, err = capsys.readouterr()
+    assert [a.checkpoint_dir for a in launched] == ["ck"] and '"gpt-pp"' in out
+    assert "--checkpoint-dir ck: the pipelined path (--pp) saves no checkpoint, as in the " \
+        "reference" in err
 
 
 def test_pipelined_path_keeps_the_standard_one_at_pp_0_and_1():

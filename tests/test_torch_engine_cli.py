@@ -30,7 +30,8 @@ PORT_ONLY_FLAGS = {"--dtype", "--seed", "--device", "--cuda-graphs"}
 REFERENCE_ONLY_FLAGS: set = set()
 # Keys the port's JSON line adds to the reference's.
 PORT_ONLY_KEYS = {"decode_block", "cuda_graphs", "state_rebuilds", "graph_replays",
-                  "device_steps", "spec_rounds", "admission", "preemptions", "device"}
+                  "device_steps", "paged_launches", "spec_rounds", "admission", "preemptions",
+                  "device"}
 OVERLOAD_FLAGS = ("--overload", "--overload-target-wait", "--overload-max-queue", "--slo",
                   "--slo-ttft-target", "--slo-itl-target")
 TINY = ["--hidden=32", "--layers=1", "--heads=4", "--kv-heads=2", "--vocab=128",

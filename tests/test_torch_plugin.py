@@ -217,6 +217,83 @@ def test_nvml_reads_nothing_without_the_driver_library(prober):
     assert prober.nvml_devices() is None
 
 
+# A stand-in libnvidia-ml.so.1: two cards (minors 4 and 5, no PCI
+# information), each nvmlInit_v2 and nvmlShutdown logged as I and S to
+# $FAKE_NVML_LOG, and the count query failing on its $FAKE_NVML_FAIL_AT-th
+# call.
+FAKE_NVML = r"""
+#include <stdint.h>
+#include <stdio.h>
+#include <stdlib.h>
+
+static void note(const char *what) {
+  FILE *f = fopen(getenv("FAKE_NVML_LOG"), "a");
+  fputs(what, f);
+  fclose(f);
+}
+int nvmlInit_v2(void) { note("I"); return 0; }
+int nvmlShutdown(void) { note("S"); return 0; }
+int nvmlDeviceGetCount_v2(unsigned int *n) {
+  static int calls = 0;
+  if (++calls == atoi(getenv("FAKE_NVML_FAIL_AT"))) return 999;
+  *n = 2;
+  return 0;
+}
+int nvmlDeviceGetHandleByIndex_v2(unsigned int i, void **dev) {
+  *dev = (void *)(uintptr_t)(i + 1);
+  return 0;
+}
+int nvmlDeviceGetMinorNumber(void *dev, unsigned int *minor) {
+  *minor = 3 + (unsigned int)(uintptr_t)dev;
+  return 0;
+}
+int nvmlDeviceGetUUID(void *dev, char *uuid, unsigned int len) {
+  snprintf(uuid, len, "GPU-fake-%u", (unsigned int)(uintptr_t)dev);
+  return 0;
+}
+int nvmlDeviceGetPciInfo_v3(void *dev, void *pci) { (void)dev; (void)pci; return 3; }
+"""
+
+NVML_CALLS = """
+import json
+from k8s_device_plugin_tpu_torch.plugin import native
+prober = native.load_prober()
+print(json.dumps([prober.nvml_devices() for _ in range(5)]))
+"""
+
+
+def test_nvml_stays_initialised_across_discoveries(tmp_path):
+    """Discovery lists the cards through NVML on every health pulse, so the
+    probe library opens one NVML session and keeps it: nvmlInit_v2 once
+    over many listings, never nvmlShutdown, until a query fails, which
+    closes the session for the next listing to open again."""
+    import shutil
+    import subprocess
+    import sys
+
+    if shutil.which("cc") is None:
+        pytest.skip("no C compiler on this host: nothing builds the libraries")
+    native.build_probe_library()
+    src = tmp_path / "fake_nvml.c"
+    src.write_text(FAKE_NVML)
+    subprocess.run(["cc", "-shared", "-fPIC", "-o", str(tmp_path / "libnvidia-ml.so.1"),
+                    str(src)], check=True, capture_output=True)
+    log = tmp_path / "nvml.log"
+    log.write_text("")
+    env = dict(os.environ, LD_LIBRARY_PATH=str(tmp_path), FAKE_NVML_LOG=str(log),
+               FAKE_NVML_FAIL_AT="3", PYTHONPATH=str(ROOT))
+    env.pop("GPU_PROBE_LIB", None)
+    proc = subprocess.run([sys.executable, "-c", NVML_CALLS], env=env, capture_output=True,
+                          text=True, timeout=60, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr
+    listings = json.loads(proc.stdout)
+    cards = [{"index": i, "minor": 4 + i, "uuid": f"GPU-fake-{i + 1}", "bus_id": None,
+              "vendor_id": None, "device_id": None} for i in range(2)]
+    assert listings == [cards, cards, None, cards, cards]
+    assert "NVML device list unavailable: an NVML query failed (NVML status 999)" in proc.stderr
+    assert log.read_text() == "ISI"
+
+
 def test_worker_metadata_files_win_over_env(tmp_path):
     root = make_fake_gpu_host(tmp_path, n_cards=2, worker_id=1, worker_hostnames="h0,h1")
     env = {"GPU_WORKER_ID": "5", "GPU_WORKER_HOSTNAMES": "x,y,z"}
